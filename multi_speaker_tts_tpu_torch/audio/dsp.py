@@ -1,0 +1,166 @@
+"""Batched DSP in PyTorch: the port of ``multi_speaker_tts_tpu.audio.dsp``.
+
+Same functions and the same numerics contract as the JAX module
+(normalized log-mel within 1e-4 of the numpy oracle). The fused mel
+front-end kernel lives in :mod:`..ops.mel_kernel`; :func:`melspectrogram_auto`
+sends CUDA tensors there and keeps CPU tensors on the kernel's plain
+version.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from multi_speaker_tts_tpu_torch.audio.mel_filterbank import mel_filterbank
+
+_AMP_FLOOR = 1e-5
+
+
+@dataclass(frozen=True)
+class DSPConfig:
+    """Static DSP parameters derived from hp.Sound."""
+
+    sample_rate: int
+    n_fft: int
+    hop: int
+    n_mels: int
+    f_min: float
+    f_max: float | None
+    preemphasis: float
+    min_level_db: float
+    ref_level_db: float
+    power: float
+    griffin_lim_iter: int
+    griffin_lim_momentum: float = 0.0
+
+    @classmethod
+    def from_hp(cls, hp) -> "DSPConfig":
+        return cls(
+            sample_rate=hp.Sound.Sample_Rate,
+            n_fft=hp.Sound.Frame_Length,
+            hop=hp.Sound.Frame_Shift,
+            n_mels=hp.Sound.Mel_Dim,
+            f_min=float(hp.Sound.Mel_F_Min),
+            f_max=hp.Sound.get("Mel_F_Max"),
+            preemphasis=float(hp.Sound.Preemphasis),
+            min_level_db=float(hp.Sound.Min_Level_DB),
+            ref_level_db=float(hp.Sound.Ref_Level_DB),
+            power=float(hp.Sound.Power),
+            griffin_lim_iter=int(hp.Sound.Griffin_Lim_Iter),
+            griffin_lim_momentum=float(hp.Sound.get("Griffin_Lim_Momentum", 0.0)),
+        )
+
+    @functools.cached_property
+    def mel_basis(self) -> np.ndarray:
+        """(n_mels, n_fft//2 + 1), float32."""
+        return mel_filterbank(
+            self.sample_rate, self.n_fft, self.n_mels, self.f_min, self.f_max
+        )
+
+    def num_frames(self, num_samples: int) -> int:
+        return 1 + num_samples // self.hop
+
+
+def hann_window(win_length: int) -> np.ndarray:
+    """Periodic Hann window computed in float64 and cast to f32 (edge values
+    are ~1e-9, where f32 trig error would be a ~1e-2 relative error)."""
+    n = np.arange(win_length, dtype=np.float64)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float32)
+
+
+def preemphasis(wav: torch.Tensor, coef: float) -> torch.Tensor:
+    """FIR y[n] = x[n] - coef*x[n-1] over the last axis."""
+    shifted = F.pad(wav[..., :-1], (1, 0))
+    return wav - coef * shifted
+
+
+def _iir_first_order(x: torch.Tensor, a: float, block: int) -> torch.Tensor:
+    """y[n] = x[n] + a*y[n-1] along the last axis, exactly, in blocks: a
+    lower-triangular (block x block) product gives the in-block prefixes,
+    the block carries obey the same recurrence with coefficient a**block
+    (solved recursively), and each block adds a**(n+1) times the carry
+    entering it."""
+    L = x.shape[-1]
+    if L <= block:
+        idx = torch.arange(L, device=x.device)
+        expo = (idx[:, None] - idx[None, :]).clamp(min=0).to(torch.float64)
+        tri = torch.where(idx[:, None] >= idx[None, :], a ** expo, 0.0)
+        return x @ tri.T.to(x.dtype)
+    nb = -(-L // block)
+    xb = F.pad(x, (0, nb * block - L)).reshape(*x.shape[:-1], nb, block)
+    p = _iir_first_order(xb, a, block)  # in-block prefixes, zero carry-in
+    ends = _iir_first_order(p[..., -1], a ** block, block)
+    prev = F.pad(ends[..., :-1], (1, 0))
+    decay = torch.tensor(
+        a ** (np.arange(block, dtype=np.float64) + 1.0), dtype=x.dtype,
+        device=x.device,
+    )
+    y = p + prev[..., None] * decay
+    return y.reshape(*x.shape[:-1], nb * block)[..., :L]
+
+
+def inv_preemphasis(wav: torch.Tensor, coef: float, block: int = 256) -> torch.Tensor:
+    """IIR y[n] = x[n] + coef*y[n-1] (inverse of :func:`preemphasis`)."""
+    if coef == 0.0:
+        return wav
+    return _iir_first_order(wav, coef, block)
+
+
+def reflect_pad(wav: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """Reflect padding of the last axis for any number of leading dims."""
+    lead = wav.shape[:-1]
+    out = F.pad(wav.reshape(-1, 1, wav.shape[-1]), (left, right), mode="reflect")
+    return out.reshape(*lead, out.shape[-1])
+
+
+def frame_signal(wav: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Centered (reflect-padded) framing: (..., L) -> (..., T, n_fft)."""
+    padded = reflect_pad(wav, n_fft // 2, n_fft // 2)
+    n_frames = 1 + wav.shape[-1] // hop
+    return padded.unfold(-1, n_fft, hop)[..., :n_frames, :]
+
+
+def stft_magnitude(wav: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """|STFT|: (..., L) -> (..., T, n_fft//2+1)."""
+    frames = frame_signal(wav, n_fft, hop)
+    win = torch.from_numpy(hann_window(n_fft)).to(frames.device)
+    return torch.fft.rfft(frames * win, dim=-1).abs()
+
+
+def amp_to_db(x: torch.Tensor) -> torch.Tensor:
+    return 20.0 * torch.log10(torch.clamp(x, min=_AMP_FLOOR))
+
+
+def db_to_amp(x: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, x * 0.05)
+
+
+def normalize(S_db: torch.Tensor, min_level_db: float) -> torch.Tensor:
+    return torch.clamp((S_db - min_level_db) / (-min_level_db), 0.0, 1.0)
+
+
+def denormalize(S_norm: torch.Tensor, min_level_db: float) -> torch.Tensor:
+    return torch.clamp(S_norm, 0.0, 1.0) * (-min_level_db) + min_level_db
+
+
+def melspectrogram(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """Normalized log-mel via the FFT: (..., L) -> (..., T, n_mels)."""
+    y = preemphasis(wav, cfg.preemphasis)
+    D = stft_magnitude(y, cfg.n_fft, cfg.hop)
+    basis = torch.from_numpy(cfg.mel_basis).to(D.device)
+    M = D @ basis.T
+    return normalize(amp_to_db(M) - cfg.ref_level_db, cfg.min_level_db)
+
+
+def melspectrogram_auto(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """The enrollment front-end: (B, L) -> (B, 1 + L/hop, n_mels) through
+    the fused front-end (its kernel for CUDA tensors, its plain version
+    for CPU tensors)."""
+    from multi_speaker_tts_tpu_torch.ops.mel_kernel import melspectrogram_fused
+
+    return melspectrogram_fused(wav, cfg)

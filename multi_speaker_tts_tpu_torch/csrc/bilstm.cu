@@ -1,0 +1,32 @@
+// Text-encoder BiLSTM recurrence: both directions in one persistent launch.
+//
+// Replaces multi_speaker_tts_tpu/ops/birnn_pallas.py::_bilstm_fwd_impl
+// (kernel body _bilstm_fwd_kernel, reached through bilstm_pallas). As on
+// the TPU, the input projections x . W_ih + b of both directions are
+// hoisted out as two large matmuls by the caller; the kernel runs only the
+// recurrence: step s advances the forward direction at natural time s and
+// the backward direction at T-1-s, both stored in natural time. The blocks
+// of each direction keep their slice of W_hh (256 x 1024 bf16 per
+// direction at production width, 512 KB) resident in shared memory
+// (lstm_persistent.cuh). Bound on an H100: S steps of grid-barrier and L2
+// latency; bytes (~1 MB of weights plus the gates) and FLOPs are tiny.
+#include "lstm_persistent.cuh"
+
+MSTTS_EXPORT int mstts_bilstm_fwd(const void* gxf, const void* gxb, const void* whf,
+                                  const void* whb, void* ysf, void* ysb, void* bar,
+                                  int T, int B, int H, void* stream) {
+  mstts::LstmArgs a = {};
+  a.T = T;
+  a.B = B;
+  a.Bs = B;
+  a.D = 0;
+  a.H = H;
+  a.gx[0] = static_cast<const __nv_bfloat16*>(gxf);
+  a.gx[1] = static_cast<const __nv_bfloat16*>(gxb);
+  a.w[0] = static_cast<const __nv_bfloat16*>(whf);
+  a.w[1] = static_cast<const __nv_bfloat16*>(whb);
+  a.ys[0] = static_cast<__nv_bfloat16*>(ysf);
+  a.ys[1] = static_cast<__nv_bfloat16*>(ysb);
+  a.bar = static_cast<unsigned int*>(bar);
+  return mstts::lstm_run(a, 2, static_cast<cudaStream_t>(stream));
+}

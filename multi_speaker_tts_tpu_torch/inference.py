@@ -1,0 +1,244 @@
+"""Zero-shot synthesis API (port of ``multi_speaker_tts_tpu.inference``).
+
+``Synthesizer.from_compact(path)`` -> ``enroll(wavs)`` -> ``synthesize(texts,
+embedding)`` -> waveforms, on a CUDA device by default:
+
+- enroll: wav -> wrap-pad to a pow2 bucket -> fused mel front-end kernel ->
+  GE2E windows -> persistent LSTM kernel -> mean of the window embeddings;
+- synthesize: text -> tokens in pow2 batch and 16-multiple token buckets ->
+  text encoder (BiLSTM kernel) -> early-exit AR decode -> masked postnet ->
+  mel-only magnitudes (filterbank pseudo-inverse) at a pow2 bucket of the
+  longest decoded length -> staged Griffin-Lim kernel -> inverse
+  preemphasis -> optional 16-bit PCM.
+
+The buckets are part of the result (Griffin-Lim phase couples into the
+padding), so they follow the JAX package exactly. The stages carry
+``torch.profiler.record_function`` spans (``enroll.mel``, ``enroll.ge2e``,
+``synth.encoder``, ``synth.decode``, ``synth.postnet``, ``synth.vocode``)
+that a profiler run reads; without a profiler they cost about a microsecond
+each.
+"""
+
+from __future__ import annotations
+
+import functools
+import pathlib
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from multi_speaker_tts_tpu_torch import text as text_frontend
+from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
+from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
+from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
+from multi_speaker_tts_tpu_torch.ops import stft_matmul
+from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
+from multi_speaker_tts_tpu_torch.text import PAD_ID
+from multi_speaker_tts_tpu_torch.weights import load_into, params_from_jax
+
+
+def _round_up(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def _decode_bucket(estimate: int, max_step: int, floor: int = 64) -> int:
+    """Smallest pow2-style bucket >= estimate, in [floor, max_step]."""
+    bucket = floor
+    while bucket < min(estimate, max_step):
+        bucket *= 2
+    return min(bucket, max_step)
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA, and CUDA must be there; only an explicit
+    ``"cpu"`` runs on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_pinv(cfg, device: torch.device) -> torch.Tensor:
+    """The filterbank's pseudo-inverse (n_fft//2 + 1, n_mels) on ``device``."""
+    return torch.from_numpy(np.linalg.pinv(np.asarray(cfg.mel_basis))).to(device)
+
+
+def _gl_magnitude(mel_post: torch.Tensor, cfg) -> torch.Tensor:
+    """Mel-only models: normalized mel -> linear magnitude through the
+    filterbank pseudo-inverse (the JAX package's mel-only branch)."""
+    basis = _mel_pinv(cfg, mel_post.device)
+    S_db = dsp.denormalize(mel_post, cfg.min_level_db)
+    return torch.clamp(dsp.db_to_amp(S_db + cfg.ref_level_db) @ basis.T, min=0.0)
+
+
+def pcm16(wav: torch.Tensor) -> torch.Tensor:
+    """Float waveform -> 16-bit PCM, clipped at full scale."""
+    return torch.clamp(torch.round(wav * 32767.0), -32768.0, 32767.0).to(torch.int16)
+
+
+def _gl_vocode(mel_post: torch.Tensor, cfg, as_pcm16: bool) -> torch.Tensor:
+    mag = _gl_magnitude(mel_post, cfg)
+    length = cfg.hop * (mag.shape[-2] - 1)
+    wav = stft_matmul.griffin_lim_auto(
+        mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter, length,
+        momentum=cfg.griffin_lim_momentum,
+    )
+    wav = dsp.inv_preemphasis(wav, cfg.preemphasis)
+    return pcm16(wav) if as_pcm16 else wav
+
+
+class Synthesizer:
+    """Text -> waveform with zero-shot speaker cloning, on one device."""
+
+    def __init__(self, hp, params, batch_stats, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        self.hp = hp
+        self.compute_dtype = compute_dtype_of(hp)
+        self.dsp_cfg = dsp.DSPConfig.from_hp(hp)
+        if hp.Speaker_Embedding.get("Type") not in ("GE2E", None):
+            raise NotImplementedError("the torch port has the GE2E speaker encoder only")
+        state = params_from_jax(params, batch_stats, hp)
+        self.ge2e = None
+        if hp.Speaker_Embedding.get("Type") == "GE2E":
+            self.ge2e = GE2E.from_hp(hp, self.compute_dtype)
+            load_into(self.ge2e, state, "ge2e.")
+            self.ge2e.to(self.device)
+        self.tacotron = Tacotron(hp, self.compute_dtype)
+        load_into(self.tacotron, state, "tacotron.")
+        self.tacotron.to(self.device)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.enroll_bucket_floor = 1 << 13
+        self.last_decode_bucket: int | None = None
+
+    @classmethod
+    def from_compact(cls, path: str, hp=None, **kwargs) -> "Synthesizer":
+        """Load an ``export_compact`` checkpoint; hp from its ``meta["hp"]``
+        unless given."""
+        params, batch_stats, meta = load_compact(path)
+        if hp is None:
+            if "hp" not in meta:
+                raise ValueError(f"{path} carries no hp; pass one explicitly")
+            hp = Recursive_Parse(meta["hp"])
+        return cls(hp, params, batch_stats, **kwargs)
+
+    # -- enroll --------------------------------------------------------------
+    @torch.no_grad()
+    def enroll(self, wavs) -> np.ndarray:
+        """Reference wav(s) -> one unit-norm speaker embedding (E,): each wav
+        is wrap-padded to a pow2 bucket (floored so one full GE2E window of
+        signal exists), embedded over the windows inside its real frames,
+        and the per-wav embeddings are averaged and renormalized."""
+        if self.ge2e is None:
+            raise ValueError("model has no GE2E speaker encoder")
+        spk = self.hp.Speaker_Embedding.GE2E
+        win_len, win_shift = spk.Window_Length, spk.Window_Shift
+        hop = self.dsp_cfg.hop
+        embs = []
+        for wav in wavs if isinstance(wavs, (list, tuple)) else [wavs]:
+            if isinstance(wav, (str, pathlib.Path)):
+                wav, _ = wav_io.load_wav(wav, target_sr=self.hp.Sound.Sample_Rate)
+            wav = np.asarray(wav, np.float32)
+            true_frames = 1 + len(wav) // hop
+            floor_pow = max(
+                int(np.ceil(np.log2(max((win_len - 1) * hop, 2)))),
+                int(np.ceil(np.log2(max(self.enroll_bucket_floor, 2)))),
+            )
+            L = 1 << max(int(np.ceil(np.log2(max(len(wav), 2)))), floor_pow)
+            wav = np.pad(wav, (0, L - len(wav)), mode="wrap")
+            w = torch.from_numpy(wav).to(self.device)[None]
+            with record_function("enroll.mel"):
+                mel = dsp.melspectrogram_auto(w, self.dsp_cfg)
+            with record_function("enroll.ge2e"):
+                embs.append(self.ge2e.embed_utterance(
+                    mel, win_len, win_shift,
+                    torch.tensor([true_frames], device=self.device),
+                )[0])
+        mean = torch.stack(embs).mean(dim=0)
+        mean = mean / torch.clamp(torch.linalg.vector_norm(mean), min=1e-6)
+        return mean.cpu().numpy()
+
+    # -- synthesize ------------------------------------------------------------
+    def _prenet_masks(self, batch: int):
+        """Always-on prenet dropout: keep masks from the synthesizer's
+        generator, one (batch, size) bool mask per prenet layer per step."""
+        keep = 1.0 - float(self.hp.Decoder.Prenet.Dropout_Rate)
+        sizes = list(self.hp.Decoder.Prenet.Sizes)
+
+        def draw(t: int):
+            return [
+                torch.rand((batch, s), generator=self.generator, device=self.device) < keep
+                for s in sizes
+            ]
+
+        return draw
+
+    def _prepare(self, texts, speaker_embedding, max_steps):
+        """Tokens in a pow2 batch bucket (PAD rows inactive) and a
+        16-multiple token bucket; the decode bucket from the longest text."""
+        hp = self.hp
+        sequences = [text_frontend.encode_text(t, hp) for t in texts]
+        B = len(sequences)
+        Bp = 1 << max(0, (B - 1).bit_length())
+        longest = max(len(s) for s in sequences)
+        if max_steps is None:
+            per_token = int(hp.Decoder.get("Max_Frames_Per_Token", 12))
+            max_steps = _decode_bucket(longest * per_token, hp.Decoder.Max_Step)
+        S = _round_up(longest, 16)
+        tokens = np.full((Bp, S), PAD_ID, np.int64)
+        lengths = np.ones((Bp,), np.int64)
+        for i, s in enumerate(sequences):
+            tokens[i, :len(s)] = s
+            lengths[i] = len(s)
+        spk = None
+        if self.tacotron.speaker_embedding_size:
+            if speaker_embedding is None:
+                raise ValueError("model is speaker-conditioned: pass an embedding")
+            spk = np.asarray(speaker_embedding, np.float32)
+            if spk.ndim == 1:
+                spk = np.tile(spk[None], (Bp, 1))
+            elif spk.shape[0] < Bp:  # pad rows reuse the first embedding
+                spk = np.concatenate([spk, np.tile(spk[:1], (Bp - spk.shape[0], 1))])
+            spk = torch.from_numpy(spk).to(self.device)
+        active = np.zeros((Bp,), bool)
+        active[:B] = True
+        dev = self.device
+        return (B, max_steps, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(lengths).to(dev), spk, torch.from_numpy(active).to(dev))
+
+    @torch.no_grad()
+    def synthesize(self, texts: list[str], speaker_embedding=None,
+                   max_steps: int | None = None, pcm16: bool = False) -> list[dict]:
+        """Texts -> [{wav, mel, alignment, mel_length}] (split vocode: the
+        decode runs first, then Griffin-Lim at a pow2 bucket of the batch's
+        longest decoded length)."""
+        B, max_steps, tokens, lengths, spk, active = self._prepare(
+            texts, speaker_embedding, max_steps)
+        self.last_decode_bucket = max_steps
+        out = self.tacotron.infer(
+            tokens, lengths, spk, max_steps, float(self.hp.Decoder.Stop_Threshold),
+            active, self._prenet_masks(tokens.shape[0]),
+        )
+        mel_lengths = out["mel_lengths"].cpu().numpy()
+        r = int(self.hp.Decoder.get("N_Frames_Per_Step", 1))
+        Tb = _decode_bucket(max(int(mel_lengths.max()), r), max_steps)
+        steps = max(-(-Tb // r), 1)
+        mel_post = out["mel_post"][:, :Tb]
+        with record_function("synth.vocode"):
+            wav = _gl_vocode(mel_post, self.dsp_cfg, pcm16).cpu().numpy()
+        mel_np = mel_post.cpu().numpy()
+        aligns = out["alignments"][:, :steps].cpu().numpy()
+        hop = self.dsp_cfg.hop
+        results = []
+        for i in range(B):
+            T = int(mel_lengths[i])
+            results.append({
+                "mel": mel_np[i, :T],
+                "alignment": aligns[i, :max(-(-T // r), 1)],
+                "mel_length": T,
+                "wav": wav[i, :max(T - 1, 1) * hop],
+            })
+        return results

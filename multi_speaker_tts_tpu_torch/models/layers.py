@@ -1,0 +1,117 @@
+"""Building blocks shared by the GE2E encoder and the synthesizer.
+
+Port of ``multi_speaker_tts_tpu.models.layers``. Weights keep the JAX
+layouts (Dense kernels (in, out), LSTM (D, 4H) / (H, 4H), location-conv
+(K, 2, C)) except the Conv_0 kernels of :class:`ConvBNBlock`, which are
+stored in torch's (out, in, K) order for ``conv1d``; ``weights.py`` maps a
+checkpoint onto these names. Inference only: parameters carry no grad.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multi_speaker_tts_tpu_torch.ops.birnn_kernel import bilstm
+from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
+from multi_speaker_tts_tpu_torch.ops.numerics import rounded
+
+_BN_EPS = 1e-5  # flax BatchNorm default
+
+
+def weight(*shape: int) -> nn.Parameter:
+    """An inference weight; its values come from a checkpoint."""
+    return nn.Parameter(torch.empty(*shape), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """y = x @ kernel (+ bias), kernel (in, out), in f32."""
+
+    def __init__(self, d_in: int, d_out: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = weight(d_in, d_out)
+        self.bias = weight(d_out) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class LSTMWeights(nn.Module):
+    """One LSTM layer's weights: w_ih (D, 4H), w_hh (H, 4H), b (4H,)."""
+
+    def __init__(self, d_in: int, hidden: int):
+        super().__init__()
+        self.w_ih = weight(d_in, 4 * hidden)
+        self.w_hh = weight(hidden, 4 * hidden)
+        self.b = weight(4 * hidden)
+
+    @property
+    def params(self) -> LSTMParams:
+        return LSTMParams(self.w_ih, self.w_hh, self.b)
+
+
+class BiLSTM(nn.Module):
+    """(B, T, D) -> (B, T, 2 * (hidden_size // 2)), f32 output."""
+
+    def __init__(self, d_in: int, hidden_size: int):
+        super().__init__()
+        self.forward_dir = LSTMWeights(d_in, hidden_size // 2)
+        self.backward_dir = LSTMWeights(d_in, hidden_size // 2)
+
+    def forward(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+        return bilstm(self.forward_dir.params, self.backward_dir.params, x,
+                      compute_dtype)
+
+
+class ConvBNBlock(nn.Module):
+    """SAME Conv1d + eval BatchNorm + activation, in the compute dtype.
+
+    Mirrors flax's mixed precision: input, kernel and bias rounded to the
+    compute dtype, the conv output and the bias sum rounded back, the
+    BatchNorm in f32 on that (statistics f32) and rounded again, the
+    activation rounded. Returns f32 tensors holding compute-dtype values.
+    Dropout is the identity at inference."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int,
+                 activation: str = "relu"):
+        super().__init__()
+        self.weight = weight(c_out, c_in, kernel_size)  # torch conv1d layout
+        self.bias = weight(c_out)
+        self.bn_scale = weight(c_out)
+        self.bn_bias = weight(c_out)
+        self.register_buffer("bn_mean", torch.empty(c_out))
+        self.register_buffer("bn_var", torch.empty(c_out))
+        if activation not in ("relu", "tanh", "none"):
+            raise ValueError(f"unknown activation {activation!r}")
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+        K = self.weight.shape[-1]
+        lo = (K - 1) // 2  # XLA SAME padding: (K-1)//2 left, K//2 right
+        xk = F.pad(rounded(x, compute_dtype).transpose(1, 2), (lo, K - 1 - lo))
+        y = F.conv1d(xk, rounded(self.weight, compute_dtype)).transpose(1, 2)
+        y = rounded(rounded(y, compute_dtype) + rounded(self.bias, compute_dtype),
+                    compute_dtype)
+        mul = torch.rsqrt(self.bn_var + _BN_EPS) * self.bn_scale
+        y = rounded((y - self.bn_mean) * mul + self.bn_bias, compute_dtype)
+        if self.activation == "relu":
+            y = torch.relu(y)
+        elif self.activation == "tanh":
+            y = rounded(torch.tanh(y), compute_dtype)
+        return y
+
+
+def prenet_apply(ws, x: torch.Tensor, dropout_rate: float, keep_masks=None):
+    """Dense -> ReLU -> always-on dropout per layer. ``keep_masks`` holds one
+    bool (B, size) mask per layer (drawn by the caller, so tests can inject
+    the JAX package's own draws); kept units are scaled by 1/keep_prob."""
+    keep_prob = 1.0 - dropout_rate
+    if dropout_rate > 0.0 and keep_masks is None:
+        raise ValueError("prenet dropout is on: pass keep masks")
+    for i, (kernel, bias) in enumerate(ws):
+        x = torch.relu(x @ kernel + bias)
+        if dropout_rate > 0.0:
+            x = torch.where(keep_masks[i], x / keep_prob, torch.zeros_like(x))
+    return x

@@ -1,0 +1,207 @@
+"""Tacotron-style synthesizer, inference path (port of
+``multi_speaker_tts_tpu.models.tacotron``).
+
+Text encoder (embedding -> conv/BN/ReLU stack -> BiLSTM), SV2TTS speaker
+concatenation onto the memory, the stop-aware early-exit AR decoder
+(:mod:`..ops.decoder_scan`), and the masked postnet. Mel-only models only:
+a checkpoint whose hparams enable ``Linear_Head`` is refused (the CBHG and
+Conv linear heads are not ported yet).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.profiler import record_function
+
+from multi_speaker_tts_tpu_torch.models.layers import (
+    BiLSTM,
+    ConvBNBlock,
+    Dense,
+    LSTMWeights,
+    prenet_apply,
+    weight,
+)
+from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+from multi_speaker_tts_tpu_torch.text import vocab_size as text_vocab_size
+
+
+class TextEncoder(nn.Module):
+    def __init__(self, vocab: int, embedding_size: int, conv_stacks: int,
+                 conv_channels: int, conv_kernel_size: int, lstm_size: int):
+        super().__init__()
+        self.embedding = weight(vocab, embedding_size)
+        self.convs = nn.ModuleList(
+            ConvBNBlock(embedding_size if i == 0 else conv_channels,
+                        conv_channels, conv_kernel_size, "relu")
+            for i in range(conv_stacks)
+        )
+        self.bilstm = BiLSTM(conv_channels, lstm_size)
+
+    def forward(self, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
+        x = F.embedding(tokens, self.embedding)
+        for conv in self.convs:
+            x = conv(x, compute_dtype)
+        return self.bilstm(x.float(), compute_dtype)
+
+
+class AttentionWeights(nn.Module):
+    def __init__(self, query_size: int, attention_size: int, conv_channels: int,
+                 conv_kernel: int):
+        super().__init__()
+        self.wq = weight(query_size, attention_size)
+        self.conv_kernel = weight(conv_kernel, 2, conv_channels)
+        self.wloc = weight(conv_channels, attention_size)
+        self.v = weight(attention_size, 1)
+
+    @property
+    def params(self) -> dscan.AttentionParams:
+        return dscan.AttentionParams(self.wq, self.conv_kernel, self.wloc, self.v)
+
+
+class Decoder(nn.Module):
+    def __init__(self, mel_dim: int, memory_size: int, prenet_sizes,
+                 prenet_dropout: float, attention_size: int,
+                 attention_conv_channels: int, attention_conv_kernel: int,
+                 lstm_size: int, lstm_stacks: int, n_frames_per_step: int,
+                 early_exit_chunk: int = 16):
+        super().__init__()
+        self.mel_dim = mel_dim
+        self.r = n_frames_per_step
+        self.prenet_dropout = float(prenet_dropout)
+        self.early_exit_chunk = early_exit_chunk
+        self.memory_layer = Dense(memory_size, attention_size, use_bias=False)
+        sizes = [mel_dim, *prenet_sizes]
+        self.prenet = nn.ModuleList(Dense(a, b) for a, b in zip(sizes, sizes[1:]))
+        self.lstm = nn.ModuleList(
+            LSTMWeights((sizes[-1] if i == 0 else lstm_size) + memory_size, lstm_size)
+            for i in range(lstm_stacks)
+        )
+        self.attention = AttentionWeights(lstm_size, attention_size,
+                                          attention_conv_channels,
+                                          attention_conv_kernel)
+        x_dim = lstm_size + memory_size
+        self.frame_proj = Dense(x_dim, mel_dim * n_frames_per_step)
+        self.stop_proj = Dense(x_dim, 1)
+
+    def params(self) -> dscan.DecoderParams:
+        return dscan.DecoderParams(
+            lstm=tuple(m.params for m in self.lstm),
+            attention=self.attention.params,
+            frame_proj=(self.frame_proj.kernel, self.frame_proj.bias),
+            stop_proj=(self.stop_proj.kernel, self.stop_proj.bias),
+        )
+
+    def infer(self, memory, mask, max_steps: int, stop_threshold: float,
+              stopped_init, prenet_masks, compute_dtype):
+        """AR decode -> (mel (B, n_steps*r, mel), stop logits (B, n_steps),
+        aligns (B, n_steps, S), decoded steps (B,))."""
+        B = memory.shape[0]
+        n_steps = max_steps // self.r
+        keys = self.memory_layer(memory.float())
+        ws = [(d.kernel, d.bias) for d in self.prenet]
+        rate = self.prenet_dropout
+
+        def prenet_fn(frame, t):
+            return prenet_apply(ws, frame, rate, prenet_masks(t) if rate > 0.0 else None)
+
+        frames, stops, aligns, lengths = dscan.decoder_ar_early_exit(
+            self.params(), keys, memory.float(), mask, n_steps, stop_threshold,
+            prenet_fn, self.mel_dim, compute_dtype, stopped_init=stopped_init,
+            chunk=self.early_exit_chunk,
+        )
+        mel = frames.transpose(0, 1).reshape(B, n_steps * self.r, self.mel_dim)
+        return mel, stops.transpose(0, 1), aligns.transpose(0, 1), lengths
+
+
+class Postnet(nn.Module):
+    """Conv(tanh) stack whose output is a residual on the mel."""
+
+    def __init__(self, mel_dim: int, conv_stacks: int, conv_channels: int,
+                 conv_kernel_size: int):
+        super().__init__()
+        chans = [mel_dim] + [conv_channels] * (conv_stacks - 1) + [mel_dim]
+        self.convs = nn.ModuleList(
+            ConvBNBlock(a, b, conv_kernel_size,
+                        "none" if i == conv_stacks - 1 else "tanh")
+            for i, (a, b) in enumerate(zip(chans, chans[1:]))
+        )
+
+    def forward(self, mel: torch.Tensor, compute_dtype) -> torch.Tensor:
+        x = mel
+        for conv in self.convs:
+            x = conv(x, compute_dtype)
+        return x.float()
+
+
+class Tacotron(nn.Module):
+    def __init__(self, hp, compute_dtype=torch.float32):
+        super().__init__()
+        lh = hp.get("Linear_Head")
+        if lh is not None and lh.Use:
+            raise NotImplementedError(
+                "the torch port serves mel-only models so far: set Linear_Head.Use: false"
+            )
+        self.compute_dtype = compute_dtype
+        self.mel_dim = hp.Sound.Mel_Dim
+        self.speaker_embedding_size = (
+            hp.Speaker_Embedding.Embedding_Size
+            if hp.Speaker_Embedding.get("Type") else 0
+        )
+        enc = hp.Encoder
+        self.encoder = TextEncoder(
+            text_vocab_size(hp), enc.Embedding_Size, enc.Conv.Stacks,
+            enc.Conv.Channels, enc.Conv.Kernel_Size, enc.LSTM_Size,
+        )
+        dec = hp.Decoder
+        self.decoder = Decoder(
+            self.mel_dim, enc.LSTM_Size + self.speaker_embedding_size,
+            tuple(dec.Prenet.Sizes), dec.Prenet.Dropout_Rate,
+            dec.Attention.Size, dec.Attention.Conv.Channels,
+            dec.Attention.Conv.Kernel_Size, dec.LSTM.Sizes, dec.LSTM.Stacks,
+            dec.get("N_Frames_Per_Step", 1), dec.get("Early_Exit_Chunk", 16),
+        )
+        post = hp.Postnet.Conv
+        self.postnet = Postnet(self.mel_dim, post.Stacks, post.Channels,
+                               post.Kernel_Size)
+
+    def build_memory(self, tokens, token_lengths, speaker_embedding):
+        enc = self.encoder(tokens, self.compute_dtype)
+        if self.speaker_embedding_size:
+            if speaker_embedding is None:
+                raise ValueError("model is speaker-conditioned: pass an embedding")
+            spk = speaker_embedding[:, None, :].float().expand(
+                *enc.shape[:2], self.speaker_embedding_size)
+            enc = torch.cat([enc, spk], dim=-1)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        mask = (pos[None, :] < token_lengths[:, None]).float()
+        return enc, mask
+
+    @torch.no_grad()
+    def infer(self, tokens, token_lengths, speaker_embedding, max_steps: int,
+              stop_threshold: float, active_rows=None, prenet_masks=None) -> dict:
+        """Early-exit AR decode + masked postnet. PAD rows (``active_rows``
+        False) start stopped; frames past each decoded length are zeroed
+        before the postnet."""
+        with record_function("synth.encoder"):
+            memory, mask = self.build_memory(tokens, token_lengths, speaker_embedding)
+        stopped_init = None if active_rows is None else ~active_rows.to(torch.bool)
+        with record_function("synth.decode"):
+            mel_pre, stops, aligns, lengths_steps = self.decoder.infer(
+                memory, mask, max_steps, stop_threshold, stopped_init, prenet_masks,
+                self.compute_dtype,
+            )
+        mel_lengths = lengths_steps * self.decoder.r
+        frame_idx = torch.arange(mel_pre.shape[1], device=mel_pre.device)
+        frame_mask = (frame_idx[None, :] < mel_lengths[:, None]).float()[..., None]
+        mel_pre = mel_pre * frame_mask
+        with record_function("synth.postnet"):
+            mel_post = mel_pre + self.postnet(mel_pre, self.compute_dtype)
+        return {
+            "mel_pre": mel_pre,
+            "mel_post": mel_post * frame_mask,
+            "stop_logits": stops,
+            "alignments": aligns,
+            "mel_lengths": mel_lengths,
+        }

@@ -1,0 +1,142 @@
+"""Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). Libraries land in ``_kernels_build/`` beside the
+package, named by a hash of the source, the shared header and the flags,
+so an edited source rebuilds and an unchanged one is reused.
+
+Every exported entry point returns a ``cudaError_t`` (0 = success) that
+it read with ``cudaGetLastError`` right after its launches; :meth:`Kernel.call`
+raises on anything else. Nothing here runs at import time: the CPU tests
+import every module of the port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+from torch.utils.weak import WeakIdKeyDictionary
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_kernels_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_HEADERS = ("common.cuh", "lstm_persistent.cuh")
+
+P = ctypes.c_void_p  # every pointer and the stream
+I = ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(source: str) -> pathlib.Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in (source, *_HEADERS):
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"{pathlib.Path(source).stem}-{h.hexdigest()[:12]}.so"
+
+
+def build(sources) -> dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together. Returns ``{source: ptxas report}`` for what was compiled."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in sources:
+        out = _target(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[src] = (out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    reports = {}
+    for src, (out, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        os.replace(tmp, out)
+        reports[src] = log
+    return reports
+
+
+class Kernel:
+    """One ``csrc`` source: its lazily built library and a launch count.
+
+    ``launches`` counts calls of the kernel's entry points that reached
+    the card; the plain versions never touch it.
+    """
+
+    def __init__(self, name: str, source: str, functions: dict):
+        self.name = name
+        self.source = source
+        self.functions = functions  # entry point -> ctypes argtypes
+        self.launches = 0
+        self._lib = None
+
+    def lib(self):
+        if self._lib is None:
+            build([self.source])
+            lib = ctypes.CDLL(str(_target(self.source)))
+            for fn, argtypes in self.functions.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.mstts_error_string.argtypes = [ctypes.c_int]
+            lib.mstts_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def call(self, fn: str, *args) -> None:
+        lib = self.lib()
+        err = getattr(lib, fn)(*args)
+        if err != 0:
+            msg = lib.mstts_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: {fn} failed: {msg} ({err})")
+        self.launches += 1
+
+
+_PACKED = WeakIdKeyDictionary()
+
+
+def packed(make, *weights):
+    """``make(*weights)``, built once and reused: a kernel's constant operand
+    layout (transposed, concatenated, cast) is rebuilt only when one of the
+    weight tensors gets new storage or is changed in place."""
+    stamp = tuple((w.data_ptr(), w.device, w._version) for w in weights)
+    per_make = _PACKED.setdefault(weights[0], {})
+    hit = per_make.get(make)
+    if hit is None or hit[0] != stamp:
+        hit = per_make[make] = (stamp, make(*weights))
+    return hit[1]
+
+
+def stream_ptr(tensor) -> int:
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def require_cuda(tensor, dtype, name: str) -> None:
+    """Wrapper-side checks before a pointer goes to a kernel."""
+    if not tensor.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if tensor.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,188 @@
+"""Autoregressive Tacotron decode (port of the AR part of
+``multi_speaker_tts_tpu.ops.decoder_scan``).
+
+One decoder frame (:func:`decoder_cell_step`): attention LSTM over
+[prenet(prev), context] with fused [W_ih; W_hh] gates, location-sensitive
+attention (SAME 31-tap conv over [w_prev, cum_prev], f32 energies, -1e9
+mask), context, decoder LSTM stack, then the frame / stop projections. The
+loop is a Python loop; the decode runs no kernel of its own in this port
+(the JAX package's decode kernel is only taken under its int8/bf16 Pallas
+serving modes).
+
+The prenet runs through the caller's ``prenet_fn(frame, t)`` (t = global
+step), as the JAX module takes ``prenet_apply_fn``: its always-on dropout
+draws its keep masks per step, so tests can feed the JAX package's own
+draws and production draws from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from multi_speaker_tts_tpu_torch.ops.lstm import cell
+from multi_speaker_tts_tpu_torch.ops.numerics import rounded
+
+
+class AttentionParams(NamedTuple):
+    wq: torch.Tensor  # (H, A) query projection
+    conv_kernel: torch.Tensor  # (K, 2, C) location conv
+    wloc: torch.Tensor  # (C, A) location projection
+    v: torch.Tensor  # (A, 1) energy projection
+
+
+class DecoderParams(NamedTuple):
+    lstm: tuple  # LSTMParams per layer; layer 0 is the attention RNN
+    attention: AttentionParams
+    frame_proj: tuple  # (kernel (X, mel*r), bias)
+    stop_proj: tuple  # (kernel (X, 1), bias)
+
+
+class DecoderCarry(NamedTuple):
+    h: tuple  # per-layer hidden states (B, H), f32
+    c: tuple  # per-layer cell states (B, H), f32
+    weights: torch.Tensor  # (B, S) previous attention weights
+    cum_weights: torch.Tensor  # (B, S) cumulative attention weights
+    context: torch.Tensor  # (B, D_mem) previous context
+
+
+def initial_carry(batch: int, memory: torch.Tensor, n_layers: int,
+                  hidden: int) -> DecoderCarry:
+    """Zero states; attention pinned to the first memory position."""
+    S = memory.shape[1]
+    w0 = memory.new_zeros((batch, S), dtype=torch.float32)
+    w0[:, 0] = 1.0
+    zeros = lambda: memory.new_zeros((batch, hidden), dtype=torch.float32)  # noqa: E731
+    return DecoderCarry(
+        h=tuple(zeros() for _ in range(n_layers)),
+        c=tuple(zeros() for _ in range(n_layers)),
+        weights=w0,
+        cum_weights=w0.clone(),
+        context=memory.new_zeros((batch, memory.shape[-1]), dtype=torch.float32),
+    )
+
+
+def fused_weights(lstm: tuple, compute_dtype) -> tuple:
+    """Per-layer [W_ih; W_hh] (D+H, 4H), rounded to the compute dtype once."""
+    return tuple(
+        rounded(torch.cat([q.w_ih, q.w_hh], dim=0), compute_dtype) for q in lstm
+    )
+
+
+def _gates(w_cat: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+           h: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Pre-activation gates (B, 4H) f32 from one [x, h] @ W product."""
+    return rounded(torch.cat([x, h], dim=-1), compute_dtype) @ w_cat + b
+
+
+def location_conv(loc_in: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """SAME 1-D cross-correlation (B, S, Cin) x (K, Cin, C) -> (B, S, C), as
+    one f32 matmul over the unfolded windows."""
+    B, S, Cin = loc_in.shape
+    K, _, C = kernel.shape
+    lo = (K - 1) // 2
+    xp = F.pad(loc_in, (0, 0, lo, K - 1 - lo))
+    win = xp.unfold(1, K, 1).reshape(B, S, Cin * K)  # index c * K + d
+    return win @ kernel.permute(1, 0, 2).reshape(Cin * K, C)
+
+
+def attention_block(h0, w_prev, cum_prev, keys, ap: AttentionParams, mask):
+    """One location-sensitive attention step -> (weights, cumulative)."""
+    q = h0.float() @ ap.wq
+    loc = location_conv(torch.stack([w_prev, cum_prev], dim=-1), ap.conv_kernel) @ ap.wloc
+    energies = (torch.tanh(q[:, None, :] + keys + loc) @ ap.v)[..., 0]
+    energies = torch.where(mask > 0, energies, torch.full_like(energies, -1e9))
+    w = torch.softmax(energies, dim=-1)
+    return w, cum_prev + w
+
+
+def decoder_cell_step(p: DecoderParams, fused: tuple, carry: DecoderCarry,
+                      pre_t, keys, memory, mask, compute_dtype):
+    """One decoder frame -> (carry', x_t = [h_last, context], w_t)."""
+    hs, cs = list(carry.h), list(carry.c)
+    attn_in = torch.cat([pre_t, carry.context], dim=-1)
+    hs[0], cs[0] = cell(_gates(fused[0], p.lstm[0].b, attn_in, hs[0], compute_dtype), cs[0])
+    w, cum = attention_block(hs[0], carry.weights, carry.cum_weights, keys,
+                             p.attention, mask)
+    context = torch.bmm(w[:, None, :], memory.float())[:, 0]
+    x = torch.cat([hs[0], context], dim=-1)
+    for i in range(1, len(p.lstm)):
+        hs[i], cs[i] = cell(_gates(fused[i], p.lstm[i].b, x, hs[i], compute_dtype), cs[i])
+        x = torch.cat([hs[i], context], dim=-1)
+    return DecoderCarry(tuple(hs), tuple(cs), w, cum, context), x, w
+
+
+def _project(p: DecoderParams, x: torch.Tensor):
+    frames = x @ p.frame_proj[0] + p.frame_proj[1]
+    stop = (x @ p.stop_proj[0] + p.stop_proj[1])[..., 0]
+    return frames, stop
+
+
+def decoder_ar_segment(p: DecoderParams, fused: tuple, keys, memory, mask,
+                       carry: DecoderCarry, prev, t0: int, stopped, lengths,
+                       n_steps_seg: int, stop_threshold: float,
+                       prenet_fn: Callable, mel_dim: int, compute_dtype):
+    """``n_steps_seg`` AR steps from explicit state. Per step the decoded
+    length grows for rows not yet stopped, THEN the stop flag updates (the
+    JAX order). Returns (carry, prev, stopped, lengths, frames (K, B,
+    mel*r), stop_logits (K, B), aligns (K, B, S))."""
+    f_k, s_k, w_k = [], [], []
+    for i in range(n_steps_seg):
+        pre_t = prenet_fn(prev, t0 + i)
+        carry, x, w = decoder_cell_step(p, fused, carry, pre_t, keys, memory,
+                                        mask, compute_dtype)
+        frames, stop_logit = _project(p, x)
+        lengths = lengths + (~stopped).to(lengths.dtype)
+        stopped = stopped | (torch.sigmoid(stop_logit.float()) > stop_threshold)
+        prev = frames[..., -mel_dim:]
+        f_k.append(frames)
+        s_k.append(stop_logit)
+        w_k.append(w)
+    return (carry, prev, stopped, lengths,
+            torch.stack(f_k), torch.stack(s_k), torch.stack(w_k))
+
+
+def chunk_size(n_steps: int, chunk: int) -> int:
+    """Largest divisor of n_steps that is <= chunk (1 at worst)."""
+    return max((k for k in range(1, min(chunk, n_steps) + 1) if n_steps % k == 0),
+               default=1)
+
+
+def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
+                          stop_threshold: float, prenet_fn: Callable,
+                          mel_dim: int,
+                          compute_dtype=torch.float32,
+                          stopped_init: torch.Tensor | None = None,
+                          chunk: int = 16):
+    """AR decode in chunks of K steps until every row stopped (or n_steps).
+
+    Rows in ``stopped_init`` start stopped (batch-bucket PAD rows) and
+    decode length 0. The stop check is one host read per chunk. Steps
+    never run keep zero frames/aligns and stop logits of -1e4. Returns
+    (frames (n_steps, B, mel*r), stops (n_steps, B), aligns (n_steps, B,
+    S), lengths_steps (B,))."""
+    B, S = mask.shape
+    H = p.lstm[0].hidden_size
+    carry = initial_carry(B, memory, len(p.lstm), H)
+    prev = memory.new_zeros((B, mel_dim), dtype=torch.float32)
+    frame_dim = p.frame_proj[0].shape[-1]
+    frames = memory.new_zeros((n_steps, B, frame_dim), dtype=torch.float32)
+    stops = memory.new_full((n_steps, B), -1e4, dtype=torch.float32)
+    aligns = memory.new_zeros((n_steps, B, S), dtype=torch.float32)
+    stopped = (torch.zeros(B, dtype=torch.bool, device=memory.device)
+               if stopped_init is None else stopped_init.to(torch.bool).clone())
+    lengths = torch.zeros(B, dtype=torch.int32, device=memory.device)
+    fused = fused_weights(p.lstm, compute_dtype)
+    K = chunk_size(n_steps, chunk)
+    t = 0
+    while t < n_steps and not bool(stopped.all()):
+        carry, prev, stopped, lengths, f_k, s_k, w_k = decoder_ar_segment(
+            p, fused, keys, memory, mask, carry, prev, t, stopped, lengths, K,
+            stop_threshold, prenet_fn, mel_dim, compute_dtype,
+        )
+        frames[t:t + K], stops[t:t + K], aligns[t:t + K] = f_k, s_k, w_k
+        t += K
+    return frames, stops, aligns, lengths
+

@@ -1,0 +1,248 @@
+"""Staged (8-leaf) Griffin-Lim at n_fft = 1024 on a Hopper kernel.
+
+Replaces ``multi_speaker_tts_tpu/ops/griffin_lim_staged.py::griffin_lim_staged``
+(kernel body ``_gl_staged_kernel``). Same fixed-point map: with n = 128 j + m
+and k = 8 t + c the 1024-point DFT of a frame is an exact 8-point butterfly
+across its eight 128-sample blocks followed by per-class (128 x 128) leaf
+products; only classes 0-4 are stored (the others are conjugate mirrors),
+zero-phase initialisation, window-square OLA normalisation over the
+uncropped signal rows, ``mag * rsqrt(|X|^2 + 1e-12)`` projection and a
+centred crop. In the bf16 compute mode the leaf products take bf16
+operands with f32 accumulation and the target magnitudes are stored bf16.
+
+The TPU kernel keeps the (T, 640) spectra of an utterance resident in VMEM
+for all iterations. An SM has 227 KB of shared memory, so the Hopper
+design (``csrc/griffin_lim.cu``) keeps the spectra and the synthesised
+frames in device memory (L2-resident at these sizes) and runs each
+iteration as two frame-tiled launches: inverse leaf products + inverse
+butterfly + synthesis window, then overlap-add + re-framing + analysis
+window + forward butterfly + forward leaf products + projection.
+
+:func:`griffin_lim_staged_plain` is the same iteration in plain torch.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from multi_speaker_tts_tpu_torch.ops import _build
+from multi_speaker_tts_tpu_torch.ops.numerics import rounded
+from multi_speaker_tts_tpu_torch.ops.stft_matmul import _hann
+
+KERNEL = _build.Kernel("griffin_lim_staged", "griffin_lim.cu", {
+    "mstts_gl_staged": [_build.P] * 9 + [_build.I] * 4 + [_build.P],
+})
+
+N_FFT = 1024
+S = 8  # leaves
+L = 128  # leaf length
+KEPT = (0, 1, 2, 3, 4)  # stored classes; 5..7 are conjugate mirrors
+G = len(KEPT) * L  # 640 stored spectral lanes
+R2 = float(np.sqrt(2.0) / 2.0)
+
+
+@functools.lru_cache(maxsize=1)
+def _staged_operands_f64():
+    """Leaf matrices per kept class, window blocks and the lane -> bin map.
+
+    Forward leaf c: M_c[m, t] = exp(-2 pi i m (8t + c) / N), the DFT
+    matrix's columns k = 8t + c. Inverse leaf: conj(M_c).T / 128, with the
+    mirrored classes' 2x pre-folded; the combine's 1/8 sits in the
+    synthesis window, so the whole inverse carries 1/N."""
+    m = np.arange(L, dtype=np.float64)[:, None]
+    fwd, inv = [], []
+    for c in KEPT:
+        k = (8 * np.arange(L, dtype=np.float64) + c)[None, :]
+        ang = -2.0 * np.pi * m * k / N_FFT
+        Mr, Mi = np.cos(ang), np.sin(ang)
+        fwd.append((Mr, Mi))
+        two = 2.0 if c in (1, 2, 3) else 1.0
+        inv.append((two * Mr.T / L, -two * Mi.T / L))
+    win = _hann(N_FFT).astype(np.float64)
+    win_blocks = win.reshape(S, L).astype(np.float32)
+    syn_blocks = (win.reshape(S, L) / S).astype(np.float32)
+    perm = np.zeros((G,), np.int64)
+    for g, c in enumerate(KEPT):
+        k = 8 * np.arange(L) + c
+        perm[g * L:(g + 1) * L] = np.where(k <= N_FFT // 2, k, N_FFT - k)
+    return fwd, inv, win_blocks, syn_blocks, perm
+
+
+@functools.lru_cache(maxsize=8)
+def _operands(device: torch.device, compute_dtype: torch.dtype):
+    """Device tensors: leaf matrices rounded to the compute dtype (held
+    f32), windows, permutation, and the kernel's stacked bf16 matrices
+    (class, [fwd_re, fwd_im, inv_re, inv_im], 256, 128) with
+    fwd_re = [Mr; -Mi], fwd_im = [Mi; Mr], inv_re = [IMr; -IMi],
+    inv_im = [IMi; IMr], so each complex product is one real one over
+    the stacked [re | im] operand."""
+    fwd, inv, win_blocks, syn_blocks, perm = _staged_operands_f64()
+
+    def t(a):
+        return rounded(torch.from_numpy(a).to(device), compute_dtype)
+
+    fwd_t = [(t(a), t(b)) for a, b in fwd]
+    inv_t = [(t(a), t(b)) for a, b in inv]
+    stacked = torch.stack([
+        torch.stack([
+            torch.cat([fr, -fi]), torch.cat([fi, fr]),
+            torch.cat([ir, -ii]), torch.cat([ii, ir]),
+        ])
+        for (fr, fi), (ir, ii) in zip(fwd_t, inv_t)
+    ]).to(torch.bfloat16).contiguous()
+    return {
+        "fwd": fwd_t,
+        "inv": inv_t,
+        "win": torch.from_numpy(win_blocks).to(device),
+        "syn": torch.from_numpy(syn_blocks).to(device),
+        "perm": torch.from_numpy(perm).to(device),
+        "stacked": stacked,
+    }
+
+
+@functools.lru_cache(maxsize=16)
+def _wsum_rows(hop: int, T: int, device: torch.device) -> torch.Tensor:
+    """Inverse window-square OLA normalizer over (T + k - 1, hop) rows."""
+    k = N_FFT // hop
+    wsq = (_hann(N_FFT).astype(np.float64) ** 2).reshape(k, hop)
+    acc = np.zeros((T + k - 1, hop), np.float64)
+    for i in range(k):
+        acc[i:i + T] += wsq[i]
+    return torch.from_numpy((1.0 / np.maximum(acc, 1e-11)).astype(np.float32)).to(device)
+
+
+def _combine_forward(b):
+    """8 real blocks -> z_c (re, im) for c in KEPT by the exact 8-point
+    butterfly; z_0 and z_4 are real (im None)."""
+    s = [b[j] + b[j + 4] for j in range(4)]
+    d = [b[j] - b[j + 4] for j in range(4)]
+    u0, u1 = s[0] + s[2], s[1] + s[3]
+    v0, v1 = s[0] - s[2], s[1] - s[3]
+    p = (d[1] - d[3]) * R2
+    q = (d[1] + d[3]) * R2
+    return [
+        (u0 + u1, None),
+        (d[0] + p, -q - d[2]),
+        (v0, -v1),
+        (d[0] - p, -q + d[2]),
+        (u0 - u1, None),
+    ]
+
+
+def _combine_inverse(us):
+    """u_c for c in KEPT -> 8 real frame blocks (scale-free butterfly)."""
+    u0, u4 = us[0][0], us[4][0]
+    Ur1, Ui1 = us[1]
+    Ur2, Ui2 = us[2]
+    Ur3, Ui3 = us[3]
+    P, Q = u0 + u4, u0 - u4
+    E = [P + Ur2, Q - Ui2, P - Ur2, Q + Ui2]
+    g1, h1 = (Ur1 - Ui1) * R2, (Ur1 + Ui1) * R2
+    g3, h3 = (Ur3 - Ui3) * R2, (Ur3 + Ui3) * R2
+    O = [Ur1 + Ur3, g1 - h3, Ui3 - Ui1, g3 - h1]
+    return [E[0] + O[0], E[1] + O[1], E[2] + O[2], E[3] + O[3],
+            E[0] - O[0], E[1] - O[1], E[2] - O[2], E[3] - O[3]]
+
+
+def griffin_lim_staged_plain(mag_staged: torch.Tensor, hop: int, n_iter: int,
+                             compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """(B, T, 640) magnitudes in staged order -> (B, hop * (T - 1))."""
+    B, T, _ = mag_staged.shape
+    k = N_FFT // hop
+    per_row = hop // L
+    ops = _operands(mag_staged.device, compute_dtype)
+    wsum = _wsum_rows(hop, T, mag_staged.device)
+
+    def istft_rows(re, im):
+        us = []
+        for g, c in enumerate(KEPT):
+            IMr, IMi = ops["inv"][g]
+            Yr = rounded(re[..., g * L:(g + 1) * L], compute_dtype)
+            Yi = rounded(im[..., g * L:(g + 1) * L], compute_dtype)
+            ur = Yr @ IMr - Yi @ IMi
+            us.append((ur, None if c in (0, 4) else Yr @ IMi + Yi @ IMr))
+        blocks = _combine_inverse(us)
+        frames = torch.cat([blocks[j] * ops["syn"][j] for j in range(S)], dim=-1)
+        rows = frames.new_zeros((B, T + k - 1, hop))
+        for i in range(k):
+            rows[:, i:i + T] += frames[..., i * hop:(i + 1) * hop]
+        return rows * wsum
+
+    def stft_of(rows):
+        blocks = []
+        for i in range(k):
+            rows_i = rows[:, i:i + T]
+            for p in range(per_row):
+                blocks.append(rows_i[..., p * L:(p + 1) * L] * ops["win"][i * per_row + p])
+        res, ims = [], []
+        for (Mr, Mi), (zr, zi) in zip(ops["fwd"], _combine_forward(blocks)):
+            zrc = rounded(zr, compute_dtype)
+            yr, yi = zrc @ Mr, zrc @ Mi
+            if zi is not None:
+                zic = rounded(zi, compute_dtype)
+                yr, yi = yr - zic @ Mi, yi + zic @ Mr
+            res.append(yr)
+            ims.append(yi)
+        return torch.cat(res, dim=-1), torch.cat(ims, dim=-1)
+
+    mag = mag_staged.float()
+    re, im = mag, torch.zeros_like(mag)
+    for _ in range(n_iter):
+        re2, im2 = stft_of(istft_rows(re, im))
+        scale = mag * torch.rsqrt(re2 * re2 + im2 * im2 + 1e-12)
+        re, im = re2 * scale, im2 * scale
+    rows = istft_rows(re, im)
+    return rows[:, k // 2:k // 2 + T - 1].reshape(B, (T - 1) * hop)
+
+
+def griffin_lim_staged_kernel(mag_staged: torch.Tensor, hop: int,
+                              n_iter: int) -> torch.Tensor:
+    """Launch ``csrc/griffin_lim.cu`` on CUDA bf16 staged magnitudes."""
+    _build.require_cuda(mag_staged, torch.bfloat16, "mag_staged")
+    B, T, lanes = mag_staged.shape
+    if lanes != G or T < 2:
+        raise ValueError(f"staged magnitudes must be (B, T >= 2, {G})")
+    dev = mag_staged.device
+    ops = _operands(dev, torch.bfloat16)
+    wsum = _wsum_rows(hop, T, dev)
+    re = mag_staged.float().contiguous()
+    im = torch.zeros_like(re)
+    frames = torch.empty((B, T, N_FFT), dtype=torch.float32, device=dev)
+    out = torch.empty((B, (T - 1) * hop), dtype=torch.float32, device=dev)
+    KERNEL.call(
+        "mstts_gl_staged", mag_staged.data_ptr(), ops["stacked"].data_ptr(),
+        ops["win"].data_ptr(), ops["syn"].data_ptr(), wsum.data_ptr(),
+        re.data_ptr(), im.data_ptr(), frames.data_ptr(), out.data_ptr(),
+        B, T, hop, n_iter, _build.stream_ptr(mag_staged),
+    )
+    return out
+
+
+def staged_magnitudes(magnitude: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """(B, T, 513) -> (B, T, 640) in staged lane order, stored in the
+    compute dtype (bf16 in production)."""
+    perm = _operands(magnitude.device, compute_dtype)["perm"]
+    return magnitude.to(compute_dtype).index_select(-1, perm).contiguous()
+
+
+def griffin_lim_staged(magnitude: torch.Tensor, n_fft: int, hop: int,
+                       n_iter: int, compute_dtype=torch.bfloat16,
+                       momentum: float = 0.0) -> torch.Tensor:
+    """Batched staged Griffin-Lim: (B, T, 513) -> (B, hop * (T - 1)). The
+    kernel for a CUDA tensor (bf16 compute), the plain version for a CPU
+    tensor."""
+    if n_fft != N_FFT or n_fft % hop or hop % L or (n_fft // hop) % 2:
+        raise NotImplementedError(
+            f"staged Griffin-Lim needs n_fft=1024 and a 128-multiple hop "
+            f"with an even n_fft/hop (got n_fft={n_fft}, hop={hop})")
+    if momentum > 0.0:
+        raise NotImplementedError("momentum Griffin-Lim is not ported yet")
+    mag_staged = staged_magnitudes(magnitude, compute_dtype)
+    if mag_staged.is_cuda:
+        if compute_dtype != torch.bfloat16:
+            raise NotImplementedError("the Griffin-Lim kernel computes in bf16 only")
+        return griffin_lim_staged_kernel(mag_staged, hop, n_iter)
+    return griffin_lim_staged_plain(mag_staged, hop, n_iter, compute_dtype)

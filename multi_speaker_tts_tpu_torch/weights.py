@@ -1,0 +1,124 @@
+"""Carry the JAX package's parameter trees over to the port's modules.
+
+:func:`params_from_jax` takes ``(params, batch_stats)`` as numpy trees (what
+``checkpoints.load_compact`` returns) and produces the port's state: one
+flat ``{"ge2e.*" | "tacotron.*": array}`` dict whose keys are the
+``state_dict`` keys of :class:`models.ge2e.GE2E` (prefix ``ge2e.``) and
+:class:`models.tacotron.Tacotron` (prefix ``tacotron.``).
+
+Layouts stay the JAX ones (Dense kernels (in, out), LSTM gates i, f, g, o
+in (D, 4H) / (H, 4H), the location conv (K, 2, C)), except the encoder and
+postnet Conv_0 kernels, which go (K, in, out) -> torch's (out, in, K).
+Every tensor the port's modules use is mapped exactly once; the subtrees this
+configuration does not use are named in :func:`unused_subtrees` and
+skipped; any other unmapped or doubly mapped tensor raises.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _conv(k: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(k, (2, 1, 0)))
+
+
+def _same(x: np.ndarray) -> np.ndarray:
+    return x
+
+
+# (tree, JAX path regex, port key template, transform)
+_RULES = [
+    ("params", r"ge2e/lstm_(\d+)/(w_ih|w_hh|b)", r"ge2e.lstm.\1.\2", _same),
+    ("params", r"ge2e/projection/(kernel|bias)", r"ge2e.projection.\1", _same),
+    ("params", r"tacotron/encoder/embedding/embedding", "tacotron.encoder.embedding", _same),
+    ("params", r"tacotron/encoder/bilstm/(forward|backward)/(w_ih|w_hh|b)",
+     r"tacotron.encoder.bilstm.\1_dir.\2", _same),
+    ("params", r"tacotron/decoder/memory_layer/kernel", "tacotron.decoder.memory_layer.kernel", _same),
+    ("params", r"tacotron/decoder/prenet/dense_(\d+)/(kernel|bias)",
+     r"tacotron.decoder.prenet.\1.\2", _same),
+    ("params", r"tacotron/decoder/(frame_proj|stop_proj)/(kernel|bias)",
+     r"tacotron.decoder.\1.\2", _same),
+    ("params", r"tacotron/decoder/cell/lstm_(\d+)/(w_ih|w_hh|b)",
+     r"tacotron.decoder.lstm.\1.\2", _same),
+    ("params", r"tacotron/decoder/cell/attention/query_layer/kernel",
+     "tacotron.decoder.attention.wq", _same),
+    ("params", r"tacotron/decoder/cell/attention/location_conv/kernel",
+     "tacotron.decoder.attention.conv_kernel", _same),
+    ("params", r"tacotron/decoder/cell/attention/location_layer/kernel",
+     "tacotron.decoder.attention.wloc", _same),
+    ("params", r"tacotron/decoder/cell/attention/v/kernel", "tacotron.decoder.attention.v", _same),
+]
+for _stack in ("encoder", "postnet"):
+    _RULES += [
+        ("params", rf"tacotron/{_stack}/conv_(\d+)/Conv_0/kernel",
+         rf"tacotron.{_stack}.convs.\1.weight", _conv),
+        ("params", rf"tacotron/{_stack}/conv_(\d+)/Conv_0/bias",
+         rf"tacotron.{_stack}.convs.\1.bias", _same),
+        ("params", rf"tacotron/{_stack}/conv_(\d+)/BatchNorm_0/(scale|bias)",
+         rf"tacotron.{_stack}.convs.\1.bn_\2", _same),
+        ("batch_stats", rf"tacotron/{_stack}/conv_(\d+)/BatchNorm_0/(mean|var)",
+         rf"tacotron.{_stack}.convs.\1.bn_\2", _same),
+    ]
+
+
+def unused_subtrees(hp) -> set[str]:
+    """JAX subtrees a mel-only configuration carries but does not run."""
+    lh = hp.get("Linear_Head")
+    return set() if lh is not None and lh.Use else {"tacotron/linear_head"}
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, path + "/"))
+        else:
+            out[path] = np.asarray(value)
+    return out
+
+
+def params_from_jax(params: dict, batch_stats: dict, hp) -> dict[str, np.ndarray]:
+    """JAX (params, batch_stats) numpy trees -> the port's flat state."""
+    skip = unused_subtrees(hp)
+    state: dict[str, np.ndarray] = {}
+    sources: dict[str, str] = {}
+    for tree_name, tree in (("params", params), ("batch_stats", batch_stats)):
+        for path, value in _flatten(tree).items():
+            if any(path == s or path.startswith(s + "/") for s in skip):
+                continue
+            hits = [
+                (re.sub(pattern, template, path), fn)
+                for tree_of, pattern, template, fn in _RULES
+                if tree_of == tree_name and re.fullmatch(pattern, path)
+            ]
+            if len(hits) != 1:
+                raise ValueError(
+                    f"{tree_name}/{path}: {len(hits)} mapping rules match "
+                    "(expected exactly one)"
+                )
+            key, fn = hits[0]
+            if key in state:
+                raise ValueError(f"{key} mapped twice: {sources[key]} and {tree_name}/{path}")
+            state[key] = np.asarray(fn(value), np.float32)
+            sources[key] = f"{tree_name}/{path}"
+    return state
+
+
+def load_into(module, state: dict[str, np.ndarray], prefix: str) -> None:
+    """Copy ``prefix``-ed entries of ``state`` into ``module`` (strict: every
+    parameter and buffer filled, nothing left over, shapes equal)."""
+    own = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+    expected = module.state_dict()
+    missing = sorted(set(expected) - set(own))
+    extra = sorted(set(own) - set(expected))
+    if missing or extra:
+        raise ValueError(f"{prefix}: missing {missing[:5]}, unexpected {extra[:5]}")
+    for key, value in own.items():
+        if tuple(expected[key].shape) != value.shape:
+            raise ValueError(f"{prefix}{key}: shape {value.shape} != {tuple(expected[key].shape)}")
+    module.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in own.items()})
