@@ -3,18 +3,27 @@
 
     python3 chip_smoke.py
 
-1. Builds the four hand-written kernels of ``multi_speaker_tts_tpu_torch``
-   from ``csrc/`` (one ``nvcc`` per source, all started together).
-2. Main path: ``Synthesizer.from_compact("demo/serving_ckpt_full.msgpack")``
-   with ``Linear_Head.Use: false`` (the mel-only configuration at full
-   width) on ``cuda``; enrolls the three ``demo/enroll_*.wav`` and
-   synthesizes four texts in one batch as 16-bit PCM. The launch counters
-   are zeroed just before and read just after; every kernel must have
-   launched. The wavs must be finite int16 and every mel length > 0, and
-   the enrollment embedding must agree with the port's plain CPU path.
-   The same enroll + synthesize (same dropout draws) then runs under
-   ``torch.profiler``: its device busy time over the unprofiled pass's
-   wall time gives the device's idle share.
+1. Builds the six hand-written kernel sources of
+   ``multi_speaker_tts_tpu_torch`` from ``csrc/`` (one ``nvcc`` per source,
+   all started together).
+2. Main path: ``demo/serving_ckpt_full.msgpack`` as it is (CBHG linear head
+   on) on ``cuda``: enroll the three ``demo/enroll_*.wav`` and synthesize
+   four texts in one batch as 16-bit PCM, three times: (a) the default
+   decode (a Python loop of steps), (b) ``quantize="bf16_pallas"`` and (c)
+   ``quantize="int8_pallas"`` (the K-step decode kernel). Each pass is
+   warmed up at its shapes, then run with the dropout generator reseeded to
+   0 and the launch counters zeroed just before and read just after. After
+   (a) the mel, GE2E LSTM, BiLSTM, BiGRU and Griffin-Lim kernels must each
+   have launched; after (b) and (c) the decode kernel must have launched
+   and the plain decode step must not have run. The wavs must be finite
+   int16, every mel length > 0, and the enrollment embedding must agree
+   with the port's plain CPU path. Each pass is then repeated (same
+   dropout draws) under ``torch.profiler``: its device busy time over the
+   unprofiled pass's wall time gives the device's idle share.
+   Whole-utterance agreement: (a) against (b), and (c) against the port's
+   plain ``quantize="int8"`` decode on the card, under one seed.
+   The mel-only configuration (``Linear_Head.Use: false``, vocoding through
+   the filterbank pseudo-inverse) stays driven by one short request.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -27,11 +36,13 @@
    the last line.
 
 TF32 is switched off for matmuls and cuDNN (``allow_tf32 = False``), so
-every f32 product in the plain versions runs in full f32.
+every f32 product of the main path and of the plain versions runs in full
+f32.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import pathlib
@@ -49,11 +60,13 @@ TEXTS = [
     "zero shot speaker cloning on one card.",
     "griffin lim turns the mel back into sound.",
 ]
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 CUDA-core
-# and bf16 tensor-core FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 CUDA-core,
+# bf16 and int8 tensor-core operations/s, and the SM boost clock.
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+SM_CLOCK_HZ = 1.98e9
 
 
 def _fail(msg: str) -> None:
@@ -78,12 +91,13 @@ def _time_ms(fn, warmup: int, reps: int) -> float:
 
 
 def _record(module, name: str, store: list) -> None:
-    """Wrap ``module.name`` so every call's arguments are kept."""
+    """Wrap ``module.name`` so every call's arguments and result are kept."""
     original = getattr(module, name)
 
     def recorded(*args, **kwargs):
-        store.append((args, kwargs))
-        return original(*args, **kwargs)
+        result = original(*args, **kwargs)
+        store.append((args, kwargs, result))
+        return result
 
     setattr(module, name, recorded)
     recorded.original = original
@@ -94,7 +108,11 @@ def _bound_ms(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _profile(synth, wavs) -> tuple[float, list[int]]:
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _profile(label: str, synth, wavs) -> tuple[float, list[int]]:
     """One enroll + synthesize under torch.profiler: device busy time (the
     union of CUDA kernel and copy intervals), its share of the profiled
     wall time, the host time of the port's stage spans, and the kernels by
@@ -130,12 +148,12 @@ def _profile(synth, wavs) -> tuple[float, list[int]]:
         end = max(end, b)
     busy_ms = busy_us / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile (under the profiler): wall {wall_ms:.1f} ms, device busy "
+    print(f"[{label}] profile (under the profiler): wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(intervals)} device ops")
-    print("profile stage spans (host ms): "
+    print(f"[{label}] profile stage spans (host ms): "
           + json.dumps({k: round(v, 2) for k, v in sorted(spans.items())}))
-    print("profile top device ops (ms): "
+    print(f"[{label}] profile top device ops (ms): "
           + json.dumps([[k[:70], round(v, 3)] for k, v in top]))
     return busy_ms, [item["mel_length"] for item in out]
 
@@ -158,19 +176,23 @@ def main() -> int:
     from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
     from multi_speaker_tts_tpu_torch.inference import Synthesizer
     from multi_speaker_tts_tpu_torch.ops import (
-        _build, birnn_kernel, griffin_lim_staged, lstm_kernel, mel_kernel,
+        _build, birnn_kernel, decode_kernel, decoder_scan, griffin_lim_staged, lstm_kernel,
+        mel_kernel,
     )
 
     kernels = {
         "mel_frontend": mel_kernel.KERNEL,
         "ge2e_lstm_layer": lstm_kernel.KERNEL,
         "text_encoder_bilstm": birnn_kernel.KERNEL,
+        "cbhg_bigru": birnn_kernel.GRU_KERNEL,
         "griffin_lim_staged": griffin_lim_staged.KERNEL,
+        "decode_segment_bf16": decode_kernel.KERNELS["bf16"],
+        "decode_segment_int8": decode_kernel.KERNELS["int8"],
     }
 
     # 1. Build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build([k.source for k in kernels.values()])
+    reports = _build.build(dict.fromkeys(k.source for k in kernels.values()))
     print(f"build: {len(reports)} sources compiled in {time.perf_counter() - t0:.1f} s")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -179,105 +201,240 @@ def main() -> int:
 
     # 2. Main path -----------------------------------------------------------
     params, batch_stats, meta = load_compact(CKPT)
-    hp = Recursive_Parse(meta["hp"]).replace(Linear_Head={"Use": False})
-    synth = Synthesizer(hp, params, batch_stats, seed=0)  # device None -> cuda
+    hp = Recursive_Parse(meta["hp"])  # the checkpoint as it is: CBHG head on
     wavs = [wav_io.load_wav(p, target_sr=hp.Sound.Sample_Rate)[0] for p in ENROLL]
 
-    recorded = {name: [] for name in kernels}
+    recorded = {name: [] for name in (*kernels, "segment", "early_exit")}
     _record(mel_kernel, "melspectrogram_kernel", recorded["mel_frontend"])
     _record(lstm_kernel, "lstm_seq_layer_kernel", recorded["ge2e_lstm_layer"])
     _record(birnn_kernel, "bilstm_recurrence_kernel", recorded["text_encoder_bilstm"])
+    _record(birnn_kernel, "bigru_recurrence_kernel", recorded["cbhg_bigru"])
     _record(griffin_lim_staged, "griffin_lim_staged_kernel", recorded["griffin_lim_staged"])
-
-    # Warm-up pass at the counted pass's shapes (loads the libraries, packs
-    # the weights, picks the cuBLAS kernels, grows the allocator's pool),
-    # then the counted pass.
-    synth.synthesize(TEXTS, synth.enroll(wavs), pcm16=True)
-    for store in recorded.values():
-        store.clear()
-    for k in kernels.values():
-        k.launches = 0
-    synth.generator.manual_seed(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    emb = synth.enroll(wavs)
-    torch.cuda.synchronize()
-    t_enroll = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = synth.synthesize(TEXTS, emb, pcm16=True)
-    torch.cuda.synchronize()
-    t_synth = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    print(f"main path launches: {launches}")
+    # One wrapper serves both decode modes; a pass runs one of them.
+    _record(decode_kernel, "decode_segment_kernel", recorded["decode_segment_bf16"])
+    recorded["decode_segment_int8"] = recorded["decode_segment_bf16"]
+    _record(decode_kernel, "decoder_ar_segment_kernel", recorded["segment"])
+    _record(decoder_scan, "decoder_ar_early_exit", recorded["early_exit"])
+    # The plain decode: steps of the Python loop, and the kernel's plain version.
+    plain_calls = {"decoder_cell_step": [], "decode_segment_plain": []}
+    _record(decoder_scan, "decoder_cell_step", plain_calls["decoder_cell_step"])
+    _record(decode_kernel, "decode_segment_plain", plain_calls["decode_segment_plain"])
 
     failures = []
-    for name, n in launches.items():
-        if n == 0:
-            failures.append(f"kernel {name} was not launched on the main path")
-    audio_s = 0.0
-    for i, item in enumerate(out):
-        wav = item["wav"]
-        if wav.dtype.name != "int16" or wav.ndim != 1 or wav.size == 0:
-            failures.append(f"utterance {i}: wav {wav.dtype} {wav.shape}")
-        if item["mel_length"] <= 0:
-            failures.append(f"utterance {i}: mel_length {item['mel_length']}")
-        if not (abs(wav.astype("int64")).max() > 0):
-            failures.append(f"utterance {i}: silent wav")
-        audio_s += wav.size / hp.Sound.Sample_Rate
-    mel_lengths = [item["mel_length"] for item in out]
-    print(f"enroll: {len(wavs)} wavs in {t_enroll * 1e3:.1f} ms; synthesize: "
-          f"{len(TEXTS)} texts, mel_lengths {mel_lengths}, decode bucket "
-          f"{synth.last_decode_bucket}, {audio_s:.2f} s of audio in "
-          f"{t_synth * 1e3:.1f} ms = {audio_s / t_synth:.2f}x real time")
+
+    def run_pass(label: str, synth, texts, emb=None, **kw):
+        """Warm up at the pass's shapes (loads the libraries, packs the
+        weights, picks the cuBLAS kernels, grows the allocator's pool), then
+        the counted pass: counts and records zeroed just before, read just
+        after."""
+        synth.synthesize(texts, synth.enroll(wavs) if emb is None else emb, pcm16=True, **kw)
+        for store in (*recorded.values(), *plain_calls.values()):
+            store.clear()
+        for k in kernels.values():
+            k.launches = 0
+        synth.generator.manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_enroll = 0.0
+        if emb is None:
+            emb = synth.enroll(wavs)
+            torch.cuda.synchronize()
+            t_enroll = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = synth.synthesize(texts, emb, pcm16=True, **kw)
+        torch.cuda.synchronize()
+        t_synth = time.perf_counter() - t0
+        res = {
+            "label": label, "emb": emb, "out": out, "t_enroll": t_enroll, "t_synth": t_synth,
+            "launches": {name: k.launches for name, k in kernels.items()},
+            "plain_steps": {name: len(store) for name, store in plain_calls.items()},
+            "recorded": {name: list(store) for name, store in recorded.items()},
+            "mel_lengths": [item["mel_length"] for item in out],
+            "bucket": synth.last_decode_bucket,
+        }
+        audio_s = 0.0
+        for i, item in enumerate(out):
+            wav = item["wav"]
+            if wav.dtype.name != "int16" or wav.ndim != 1 or wav.size == 0:
+                failures.append(f"[{label}] utterance {i}: wav {wav.dtype} {wav.shape}")
+            if item["mel_length"] <= 0:
+                failures.append(f"[{label}] utterance {i}: mel_length {item['mel_length']}")
+            if not (abs(wav.astype("int64")).max() > 0):
+                failures.append(f"[{label}] utterance {i}: silent wav")
+            audio_s += wav.size / hp.Sound.Sample_Rate
+        print(f"[{label}] launches {res['launches']}; plain decode calls {res['plain_steps']}")
+        print(f"[{label}] enroll: {len(wavs)} wavs in {t_enroll * 1e3:.1f} ms; synthesize: "
+              f"{len(texts)} texts, mel_lengths {res['mel_lengths']}, decode bucket "
+              f"{res['bucket']}, {audio_s:.2f} s of audio in {t_synth * 1e3:.1f} ms = "
+              f"{audio_s / t_synth:.2f}x real time")
+        return res
+
+    def profile_pass(res, synth):
+        """The same enroll + synthesize again (same dropout draws) under the
+        profiler; the idle share of the unprofiled pass is its wall time
+        less this device busy time."""
+        synth.generator.manual_seed(0)
+        busy_ms, lengths = _profile(res["label"], synth, wavs)
+        wall_ms = (res["t_enroll"] + res["t_synth"]) * 1e3
+        print(f"[{res['label']}] device idle, unprofiled pass: busy {busy_ms:.1f} ms (profiled "
+              f"repeat, mel_lengths {lengths}) of {wall_ms:.1f} ms wall = "
+              f"{100 * (1 - busy_ms / wall_ms):.1f}% idle")
+        if lengths != res["mel_lengths"]:
+            print(f"  (the profiled repeat decoded {lengths}, the unprofiled pass "
+                  f"{res['mel_lengths']}: the idle share above is approximate)")
+
+    always = ("mel_frontend", "ge2e_lstm_layer", "text_encoder_bilstm", "cbhg_bigru",
+              "griffin_lim_staged")
+    passes = {}
+    for label, quantize, decode in (("a default", None, None),
+                                    ("b bf16_pallas", "bf16_pallas", "decode_segment_bf16"),
+                                    ("c int8_pallas", "int8_pallas", "decode_segment_int8")):
+        synth = Synthesizer(hp, params, batch_stats, seed=0, quantize=quantize)  # -> cuda
+        res = passes[label[0]] = run_pass(label, synth, TEXTS)
+        for name in (*always, *([decode] if decode else [])):
+            if res["launches"][name] == 0:
+                failures.append(f"[{label}] kernel {name} was not launched on the main path")
+        if decode is None:
+            if res["plain_steps"]["decoder_cell_step"] == 0:
+                failures.append(f"[{label}] the default decode ran no plain step")
+        else:
+            chunks = len(res["recorded"]["segment"])
+            if res["launches"][decode] != chunks:
+                failures.append(f"[{label}] {res['launches'][decode]} decode launches for "
+                                f"{chunks} chunks")
+            if any(res["plain_steps"].values()):
+                failures.append(f"[{label}] the plain decode ran under a kernel mode: "
+                                f"{res['plain_steps']}")
+        if "linear" not in res["out"][0]:
+            failures.append(f"[{label}] no linear spectrogram from the CBHG head")
+        profile_pass(res, synth)
+        del synth
+    pa, pb, pc = passes["a"], passes["b"], passes["c"]
+    emb = pa["emb"]
 
     # The same enrollment through the port's plain path on the CPU.
-    cpu = Synthesizer(hp, params, batch_stats, device="cpu")
-    emb_cpu = cpu.enroll(wavs)
+    emb_cpu = Synthesizer(hp, params, batch_stats, device="cpu").enroll(wavs)
     cos = float((emb * emb_cpu).sum())
     print(f"enroll embedding: card vs plain CPU cosine {cos:.6f}")
     if not math.isfinite(cos) or cos < 0.999:
         failures.append(f"card embedding disagrees with the plain CPU path: cos {cos}")
 
-    # Where the time goes: the same enroll + synthesize again (same dropout
-    # draws) under the profiler (spans from the port's record_function
-    # labels; device time summed over CUDA kernels). The idle share of the
-    # unprofiled pass is its wall time less this device busy time.
-    synth.generator.manual_seed(0)
-    busy_ms, prof_lengths = _profile(synth, wavs)
-    wall_ms = (t_enroll + t_synth) * 1e3
-    print(f"device idle, unprofiled pass: busy {busy_ms:.1f} ms (profiled repeat, mel_lengths "
-          f"{prof_lengths}) of {wall_ms:.1f} ms wall = {100 * (1 - busy_ms / wall_ms):.1f}% idle")
-    if prof_lengths != mel_lengths:
-        print(f"  (the profiled repeat decoded {prof_lengths}, the unprofiled pass "
-              f"{mel_lengths}: the idle share above is approximate)")
+    # Whole-utterance agreement under one seed. (a) and (b) both compute bf16
+    # gates (in another summation order, through 50 steps of feedback with
+    # dropout): lengths may move, by at most one chunk.
+    def frames_of(res):
+        return res["recorded"]["early_exit"][0][2][0]  # (n_steps, B, mel * r)
+
+    K_main = decoder_scan.chunk_size(pa["bucket"] // int(hp.Decoder.N_Frames_Per_Step),
+                                     int(hp.Decoder.get("Early_Exit_Chunk", 16)))
+    r = int(hp.Decoder.N_Frames_Per_Step)
+    n_ab = min(min(pa["mel_lengths"]), min(pb["mel_lengths"])) // r
+    err_ab = (frames_of(pa)[:n_ab] - frames_of(pb)[:n_ab]).abs().max().item()
+    err_ab_first = (frames_of(pa)[:K_main] - frames_of(pb)[:K_main]).abs().max().item()
+    print(f"(a) default vs (b) bf16_pallas: mel_lengths {pa['mel_lengths']} vs "
+          f"{pb['mel_lengths']}; decoder frames max abs {err_ab_first:.3e} over the first "
+          f"chunk ({K_main} steps), {err_ab:.3e} over the first {n_ab} steps")
+    if any(abs(x - y) > K_main * r for x, y in zip(pa["mel_lengths"], pb["mel_lengths"])):
+        failures.append("(a) vs (b): mel lengths differ by more than one chunk")
+    # (c) against the port's plain weight-only int8 decode (exact integer
+    # sums on both sides, so only the f32 parts differ).
+    synth = Synthesizer(hp, params, batch_stats, seed=0, quantize="int8")
+    pd = run_pass("d int8 plain", synth, TEXTS, emb=emb)
+    del synth
+    err_cd = (frames_of(pc)[:K_main] - frames_of(pd)[:K_main]).abs().max().item()
+    print(f"(c) int8_pallas vs (d) plain int8: mel_lengths {pc['mel_lengths']} vs "
+          f"{pd['mel_lengths']}; decoder frames of the first chunk max abs {err_cd:.3e} "
+          "(tolerance 1.0e-02)")
+    if pc["mel_lengths"] != pd["mel_lengths"]:
+        failures.append("(c) vs plain int8: mel lengths differ")
+    if not err_cd <= 1e-2:
+        failures.append(f"(c) vs plain int8: first-chunk frames differ by {err_cd}")
+
+    # The mel-only configuration: no head, the filterbank pseudo-inverse.
+    synth = Synthesizer(hp.replace(Linear_Head={"Use": False}), params, batch_stats, seed=0)
+    pm = run_pass("mel-only", synth, TEXTS[:1], emb=emb)
+    del synth
+    if "linear" in pm["out"][0] or pm["launches"]["cbhg_bigru"]:
+        failures.append("[mel-only] the linear head ran")
+    for name in ("text_encoder_bilstm", "griffin_lim_staged"):
+        if pm["launches"][name] == 0:
+            failures.append(f"[mel-only] kernel {name} was not launched")
+
+    # The fixed-length decode under the kernel modes: every step of the
+    # bucket goes through the kernel, none through the plain loop.
+    for quantize, decode in (("bf16_pallas", "decode_segment_bf16"),
+                             ("int8_pallas", "decode_segment_int8")):
+        synth = Synthesizer(hp, params, batch_stats, seed=0, quantize=quantize)
+        pf = run_pass(f"fixed-length {quantize}", synth, TEXTS[:1], emb=emb, early_exit=False)
+        del synth
+        steps = pf["bucket"] // r
+        want = steps // decoder_scan.chunk_size(steps, int(hp.Decoder.get("Early_Exit_Chunk", 16)))
+        if pf["launches"][decode] != want:
+            failures.append(f"[fixed-length {quantize}] {pf['launches'][decode]} decode "
+                            f"launches for {want} chunks")
+        if any(pf["plain_steps"].values()):
+            failures.append(f"[fixed-length {quantize}] the plain decode ran: "
+                            f"{pf['plain_steps']}")
 
     # 3. Kernel phase --------------------------------------------------------
     rows = []
+    launches = dict(pa["launches"],
+                    decode_segment_bf16=pb["launches"]["decode_segment_bf16"],
+                    decode_segment_int8=pc["launches"]["decode_segment_int8"])
+    rec = dict(pa["recorded"], decode_segment_bf16=pb["recorded"]["decode_segment_bf16"],
+               decode_segment_int8=pc["recorded"]["decode_segment_int8"])
 
     def check(name, replaces, source, kernel_fn, plain_fn, err_fn, tol,
-              bound, library_fn=None, warmup=3, reps=20, also=()):
+              bound, library_fn=None, warmup=3, reps=20, also=(), extra=None):
         """Error over the timed inputs and the ``also`` (kernel_fn,
-        plain_fn) pairs of other main-path shapes; times at the first."""
+        plain_fn[, err_fn]) cases of other shapes; times at the first.
+        ``err_fn`` gives one number or {label: number}, ``tol`` likewise;
+        the first label is the row's ``max_abs_err``. ``library_fn`` maps a
+        label to a call; ``library_ms`` is the fastest of them."""
         errs = []
-        for k_fn, p_fn in ((kernel_fn, plain_fn), *also):
+        for k_fn, p_fn, *e_fn in ((kernel_fn, plain_fn), *also):
             got, ref = k_fn(), p_fn()
             torch.cuda.synchronize()
-            errs.append(float(err_fn(got, ref)))
-        err = max(errs)
-        ok = all(math.isfinite(e) for e in errs) and err <= tol
-        print(f"{name}: max_abs_err {err:.3e} over {len(errs)} shape(s) "
-              f"{[f'{e:.3e}' for e in errs]} (tolerance {tol:.1e}) {'ok' if ok else 'FAILED'}")
+            e = (e_fn[0] if e_fn else err_fn)(got, ref)
+            errs.append({k: float(v) for k, v in e.items()} if isinstance(e, dict)
+                        else {"max_abs": float(e)})
+        tols = tol if isinstance(tol, dict) else {"max_abs": tol}
+        worst = {k: max(e[k] for e in errs) for k in tols}
+        ok = all(math.isfinite(v) and v <= tols[k] for k, v in worst.items())
+        lead = next(iter(tols))
+        print(f"{name}: {'ok' if ok else 'FAILED'}; worst of {len(errs)} shape(s) "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()})
+              + f", tolerance {json.dumps(tols)}; per shape "
+              + json.dumps([{k: float(f"{v:.2e}") for k, v in e.items()} for e in errs]))
         if not ok:
-            failures.append(f"{name}: error {err} > {tol}")
+            failures.append(f"{name}: error {worst} > {tols}")
         bound_ms, bound_by = bound
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "tolerance": tol,
+            "launches": launches[name], "max_abs_err": worst[lead], "tolerance": tols[lead],
             "ms": _time_ms(kernel_fn, warmup, reps),
             "plain_ms": _time_ms(plain_fn, 1, max(1, reps // 4)),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None if library_fn is None else _time_ms(library_fn, warmup, reps),
-        })
+            "library_ms": None,
+        }
+        if library_fn is not None:
+            row["library_ms_each"] = {k: _time_ms(fn, warmup, reps)
+                                      for k, fn in library_fn.items()}
+            row["library_ms"] = min(row["library_ms_each"].values())
+        row.update(extra or {})
+        if len(tols) > 1:
+            row["errors"], row["tolerances"] = worst, tols
+        rows.append(row)
+
+    def cudnn_calls(lib, x):
+        """The cuDNN yardstick of a recurrence: the bf16 module on the bf16
+        input (the kernel's types; PyTorch does not flatten bf16 RNN weights,
+        so cuDNN compacts them on every call) and its fp16 copy on the fp16
+        input (same operand width, weights flattened once)."""
+        lib16 = copy.deepcopy(lib).half()
+        lib16.flatten_parameters()
+        x16 = x.half()
+        return {"bf16": lambda: lib(x), "fp16": lambda: lib16(x16)}
 
     def max_abs(a, b):
         if isinstance(a, tuple):
@@ -285,7 +442,7 @@ def main() -> int:
         return (a.float() - b.float()).abs().max().item()
 
     # Mel front-end: (1, L + n_fft) padded signal -> (1, T, 80), f32.
-    (y_pad, T, cfg), _ = recorded["mel_frontend"][0]
+    (y_pad, T, cfg), _, _ = rec["mel_frontend"][0]
     B, Lp = y_pad.shape
     F_bins = cfg.n_fft // 2 + 1
     check(
@@ -301,8 +458,8 @@ def main() -> int:
 
     # GE2E LSTM layer, timed at the 768-wide layers' shape (layer 1 of the
     # stack); its error also covers layer 0's (D = mel bins) shape.
-    (p, x_tm), _ = next(r for r in recorded["ge2e_lstm_layer"] if r[0][1].shape[-1] != 80)
-    (p0, x0), _ = next(r for r in recorded["ge2e_lstm_layer"] if r[0][1].shape[-1] == 80)
+    (p, x_tm), _, _ = next(c for c in rec["ge2e_lstm_layer"] if c[0][1].shape[-1] != 80)
+    (p0, x0), _, _ = next(c for c in rec["ge2e_lstm_layer"] if c[0][1].shape[-1] == 80)
     Tl, Bl, Dl = x_tm.shape
     Hl = p.hidden_size
     lstm_lib = torch.nn.LSTM(Dl, Hl).to(device=x_tm.device, dtype=torch.bfloat16)
@@ -320,13 +477,13 @@ def main() -> int:
         max_abs, 5e-3,
         _bound_ms(2 * (Tl * Bl * Dl + 4 * Hl * (Dl + Hl) + Tl * Bl * Hl) + 4 * (4 * Hl + 2 * Bl * Hl),
                   2 * Tl * Bl * 4 * Hl * (Dl + Hl), BF16_FLOPS),
-        library_fn=lambda: lstm_lib(x_tm),
+        library_fn=cudnn_calls(lstm_lib, x_tm),
         also=[(lambda: lstm_kernel.lstm_seq_layer_kernel.original(p0, x0),
                lambda: lstm_kernel.lstm_seq_layer_plain(p0, x0, torch.bfloat16))],
     )
 
     # Text-encoder BiLSTM recurrence on the hoisted gates.
-    (gxf, gxb, whf, whb), _ = recorded["text_encoder_bilstm"][0]
+    (gxf, gxb, whf, whb), _, _ = rec["text_encoder_bilstm"][0]
     Sb, Bb, H4 = gxf.shape
     Hb = H4 // 4
     bi_lib = torch.nn.LSTM(2 * H4, Hb, bidirectional=True).to(device=gxf.device,
@@ -351,11 +508,46 @@ def main() -> int:
         max_abs, 5e-3,
         _bound_ms(2 * (2 * Sb * Bb * H4 + 2 * H4 * Hb + 2 * Sb * Bb * Hb),
                   2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
-        library_fn=lambda: bi_lib(gx_cat),
+        library_fn=cudnn_calls(bi_lib, gx_cat),
+    )
+
+    # CBHG BiGRU recurrence on the hoisted input gates, over the whole decode
+    # bucket. The library yardstick is a bidirectional nn.GRU fed identity
+    # input weights (its input is the hoisted gates).
+    (ggf, ggb, gru_f, gru_b), _, _ = rec["cbhg_bigru"][0]
+    Tg, Bg, H3 = ggf.shape
+    Hg = H3 // 3
+    gru_lib = torch.nn.GRU(2 * H3, Hg, bidirectional=True).to(device=ggf.device,
+                                                             dtype=torch.bfloat16)
+    eye = torch.eye(H3, device=ggf.device)
+    zero = torch.zeros_like(eye)
+    with torch.no_grad():
+        gru_lib.weight_ih_l0.copy_(torch.cat([eye, zero], dim=1))
+        gru_lib.weight_ih_l0_reverse.copy_(torch.cat([zero, eye], dim=1))
+        gru_lib.weight_hh_l0.copy_(gru_f.w_hh.t())
+        gru_lib.weight_hh_l0_reverse.copy_(gru_b.w_hh.t())
+        gru_lib.bias_hh_l0.copy_(gru_f.b_hh)
+        gru_lib.bias_hh_l0_reverse.copy_(gru_b.b_hh)
+        gru_lib.bias_ih_l0.zero_()
+        gru_lib.bias_ih_l0_reverse.zero_()
+    gru_lib.flatten_parameters()
+    gg_cat = torch.cat([ggf, ggb], dim=-1)
+    check(
+        "cbhg_bigru", "multi_speaker_tts_tpu/ops/birnn_pallas.py:450",
+        "multi_speaker_tts_tpu_torch/csrc/bigru.cu",
+        lambda: birnn_kernel.bigru_recurrence_kernel.original(ggf, ggb, gru_f, gru_b),
+        lambda: birnn_kernel.bigru_recurrence_plain(ggf, ggb, gru_f, gru_b, torch.bfloat16),
+        max_abs, 5e-3,
+        _bound_ms(2 * (2 * Tg * Bg * H3 + 2 * Hg * H3 + 2 * Tg * Bg * Hg) + 4 * 2 * H3,
+                  2 * 2 * Tg * Bg * Hg * H3, BF16_FLOPS),
+        library_fn=cudnn_calls(gru_lib, gg_cat),
+        # Beside the bytes bound: T dependent steps, each at least a chain of
+        # H / 4 dependent f32 FMAs (4 cycles each) at the SM boost clock.
+        extra={"shape": [Tg, Bg, H3], "sequential_floor_ms": Tg * Hg / SM_CLOCK_HZ * 1e3},
     )
 
     # Staged Griffin-Lim: (B, T, 640) bf16 magnitudes -> (B, hop * (T - 1)).
-    (mag_staged, hop, n_iter), _ = recorded["griffin_lim_staged"][0]
+    (mag_staged, hop, n_iter), _, _ = rec["griffin_lim_staged"][0]
     Bg, Tg, G = mag_staged.shape
 
     def rel_err(a, b):
@@ -371,10 +563,95 @@ def main() -> int:
         _bound_ms(2 * Bg * Tg * G + 4 * Bg * (Tg - 1) * hop + 2 * 5 * 4 * 256 * 128,
                   (n_iter + 0.5) * Bg * Tg * 32 * 2 * 128 * 128, BF16_FLOPS),
         warmup=1, reps=5,
+        extra={"error_metric": "max |kernel - plain| / max |plain|"},
     )
-    for row in rows:
-        if row["name"] == "griffin_lim_staged":
-            row["error_metric"] = "max |kernel - plain| / max |plain|"
+
+    # Decode segment, both modes: the first chunk and a mid-stream chunk of
+    # the pass that ran the mode (its own carry, frame and dropout masks),
+    # and K = 16 at batch 8 from the zero state (the chunk of a 256-step
+    # bucket). Frames and stop logits 1e-2, alignments 1e-3, and the same
+    # stopped / lengths after the chunk: f32 sums in another order flip a
+    # few int8 / bf16 operand roundings, which the feedback compounds.
+    threshold = float(hp.Decoder.Stop_Threshold)
+
+    def decode_err(stopped, lengths):
+        def err(got, ref):
+            s_got = decode_kernel.advance_stops(got[3], stopped, lengths, threshold)
+            s_ref = decode_kernel.advance_stops(ref[3], stopped, lengths, threshold)
+            same = all(torch.equal(x, y) for x, y in zip(s_got, s_ref))
+            return {"frames": max_abs(got[2], ref[2]), "aligns": max_abs(got[4], ref[4]),
+                    "stop_logits": max_abs(got[3], ref[3]), "prev": max_abs(got[1], ref[1]),
+                    "state": max_abs(tuple(got[0].h + got[0].c), tuple(ref[0].h + ref[0].c)),
+                    "stopped_lengths_differ": 0.0 if same else 1.0}
+        return err
+
+    decode_tol = {"frames": 1e-2, "aligns": 1e-3, "stop_logits": 1e-2, "prev": 1e-2,
+                  "state": 1e-2, "stopped_lengths_differ": 0.0}
+    for mode, res in (("bf16", pb), ("int8", pc)):
+        name = f"decode_segment_{mode}"
+        calls, segs = rec[name], res["recorded"]["segment"]
+        pairs = []
+        for i in (0, len(calls) // 2):
+            args = calls[i][0]
+            stopped, lengths = segs[i][0][7], segs[i][0][8]
+            pairs.append((args, decode_err(stopped, lengths)))
+        args0 = pairs[0][0]
+        bundle, keys, memory, mask = args0[:4]
+        Kd, mel_dim = args0[8], args0[9]
+        Bd, Sd, _ = keys.shape
+        Dd, Hd = memory.shape[-1], args0[4].h[0].shape[-1]
+        P1, P2 = bundle["wp1"].shape[0], bundle["wp2"].shape[0]
+        # K = 16, B = 8: the batch twice over, fresh masks from a seed.
+        g = torch.Generator(keys.device).manual_seed(16)
+        keys8, memory8, mask8 = keys.repeat(2, 1, 1), memory.repeat(2, 1, 1), mask.repeat(2, 1)
+        masks8 = [(torch.rand((16, 2 * Bd, P), generator=g, device=keys.device) < 0.5).float() / 0.5
+                  for P in (P1, P2)]
+        args8 = (bundle, keys8, memory8, mask8,
+                 decoder_scan.initial_carry(2 * Bd, memory8, 2, Hd),
+                 torch.zeros(2 * Bd, mel_dim, device=keys.device), *masks8, 16, mel_dim, r)
+        zeros8 = torch.zeros(2 * Bd, dtype=torch.bool, device=keys.device)
+        pairs.append((args8, decode_err(zeros8, zeros8.to(torch.int32))))
+
+        def kernel_fn(a):
+            return lambda: decode_kernel.decode_segment_kernel.original(*a)
+
+        def plain_fn(a):
+            return lambda: decode_kernel.decode_segment_plain.original(*a)
+
+        weights = _nbytes(bundle["w0"], bundle["w1"])
+        # int8 keeps both layers' rows in shared memory for the launch; bf16
+        # keeps layer 0's (where they fit, as at this width) and re-reads
+        # layer 1's every step.
+        resident = mode == "int8"
+        reread = 0 if resident else _nbytes(bundle["w1"])
+        rest = (_nbytes(*(v for k, v in bundle.items() if k not in ("quantized", "w0", "w1")))
+                + _nbytes(keys, memory, mask, args0[6], args0[7], args0[5],
+                          *args0[4].h, *args0[4].c, args0[4].weights, args0[4].cum_weights,
+                          args0[4].context))
+        outputs = 4 * (Kd * Bd * (mel_dim * r + 1) + Kd * Bd * Sd + 4 * Bd * Hd + 2 * Bd * Sd
+                       + Bd * Dd + Bd * mel_dim)
+        flops = Kd * 2 * Bd * 4 * Hd * ((P2 + Dd + Hd) + (2 * Hd + Dd))
+        check(
+            name, "multi_speaker_tts_tpu/ops/decode_pallas.py:337",
+            "multi_speaker_tts_tpu_torch/csrc/decode.cu",
+            kernel_fn(args0), plain_fn(args0), pairs[0][1], decode_tol,
+            _bound_ms(weights + rest + outputs, flops, INT8_OPS if resident else BF16_FLOPS),
+            reps=10, also=[(kernel_fn(a), plain_fn(a), e) for a, e in pairs[1:]],
+            extra={
+                "K": Kd, "B": Bd, "S": Sd, "chunks_on_main_path": len(calls),
+                "weight_bytes": weights,
+                "weights": ("read once per launch, then resident in shared memory" if resident
+                            else "layer 0 resident in shared memory, layer 1 re-read every "
+                                 "step through L2"),
+                # Beside bound_ms (every input once): the floor of this design,
+                # which reads what it re-reads once per step.
+                "reread_bytes_per_step": reread,
+                "design_bound_ms": (weights + (Kd - 1) * reread) / HBM_BPS * 1e3,
+            },
+        )
+        row = rows[-1]
+        print(f"  {name}: {row['ms']:.3f} ms for K = {Kd} steps = {1e3 * row['ms'] / Kd:.1f} us "
+              f"per step; plain {row['plain_ms']:.2f} ms")
 
     # 4. Report --------------------------------------------------------------
     print(json.dumps({"kernels": rows}))

@@ -38,23 +38,21 @@ __device__ __forceinline__ unsigned int mstts_ld_acquire(const unsigned int* p) 
 }
 
 // Grid-wide barrier for a cooperative launch (every block co-resident).
-// bar[0] counts arrivals and is back at 0 after each barrier; bar[1] is a
-// generation number the last arrival advances. The wrapper zeroes both
-// before the first launch. Writes made before the barrier by any thread of
-// any block are visible to every thread after it (__syncthreads, then a
-// device-scope fence by the arriving thread, as cooperative_groups does).
-__device__ __forceinline__ void mstts_grid_barrier(unsigned int* bar) {
+// *count only grows: a block adds one per barrier and waits until every
+// arrival of that barrier is in. ``epoch`` is the kernel's running total of
+// expected arrivals: one variable per kernel, starting at 0, and every block
+// runs the same sequence of barriers. The wrapper zeroes the counter before
+// each launch. Writes made before the barrier by any thread of any block
+// are visible to every thread after it (__syncthreads, then a device-scope
+// fence by the arriving thread, as cooperative_groups does). One fence, one
+// atomic and the polling loads: no generation word to read first or reset.
+__device__ __forceinline__ void mstts_grid_barrier(unsigned int* count, unsigned int& epoch) {
   __syncthreads();
+  epoch += gridDim.x * gridDim.y * gridDim.z;
   if (threadIdx.x == 0) {
-    const unsigned int gen = mstts_ld_acquire(bar + 1);
     __threadfence();
-    const unsigned int arrived = atomicAdd(bar, 1u);
-    if (arrived == gridDim.x * gridDim.y * gridDim.z - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (mstts_ld_acquire(bar + 1) == gen) __nanosleep(20);
+    atomicAdd(count, 1u);
+    while (mstts_ld_acquire(count) < epoch) {
     }
     __threadfence();
   }

@@ -42,7 +42,8 @@ struct LstmArgs {
   __nv_bfloat16* ys[2];        // (T, Bs, H), natural time for both directions
   float* h_last;               // (Bs, H) direction 0 final h, or null
   float* c_last;               // (Bs, H) direction 0 final c, or null
-  unsigned int* bar;           // 2 zeroed words for the grid barrier
+  unsigned int* bar;           // the grid barrier's arrival counter, zeroed by the wrapper
+  unsigned int epoch0;         // arrivals counted by this call's earlier launches
 };
 
 __host__ __device__ inline size_t lstm_smem_bytes(int U, int K, int B) {
@@ -75,6 +76,7 @@ __global__ void __launch_bounds__(kLstmThreads) lstm_persistent_kernel(LstmArgs 
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nwarp = kLstmThreads / 32;
+  unsigned int epoch = a.epoch0;  // of the grid barrier
   for (int s = 0; s < a.T; ++s) {
     const int t = dir == 0 ? s : a.T - 1 - s;   // natural time of this step
     const int tp = dir == 0 ? t - 1 : t + 1;    // natural time of h_{prev}
@@ -132,7 +134,7 @@ __global__ void __launch_bounds__(kLstmThreads) lstm_persistent_kernel(LstmArgs 
         a.c_last[(size_t)b * a.H + u0 + u] = c;
       }
     }
-    if (s + 1 < a.T) mstts_grid_barrier(a.bar);
+    if (s + 1 < a.T) mstts_grid_barrier(a.bar, epoch);
   }
 }
 
@@ -160,6 +162,7 @@ inline int lstm_run(LstmArgs a, int ndir, cudaStream_t stream) {
   for (int b0 = 0; b0 < a.Bs; b0 += rows) {
     LstmArgs c = a;
     c.B = std::min(rows, a.Bs - b0);
+    c.epoch0 = (unsigned int)(b0 / rows) * grid.x * (unsigned int)(a.T - 1);
     if (c.x) c.x += (size_t)b0 * a.D;
     for (int d = 0; d < ndir; ++d) {
       if (c.gx[d]) c.gx[d] += (size_t)b0 * 4 * a.H;

@@ -6,15 +6,19 @@ embedding)`` -> waveforms, on a CUDA device by default:
 - enroll: wav -> wrap-pad to a pow2 bucket -> fused mel front-end kernel ->
   GE2E windows -> persistent LSTM kernel -> mean of the window embeddings;
 - synthesize: text -> tokens in pow2 batch and 16-multiple token buckets ->
-  text encoder (BiLSTM kernel) -> early-exit AR decode -> masked postnet ->
-  mel-only magnitudes (filterbank pseudo-inverse) at a pow2 bucket of the
-  longest decoded length -> staged Griffin-Lim kernel -> inverse
+  text encoder (BiLSTM kernel) -> early-exit AR decode (a Python loop of
+  steps, or under ``quantize="int8_pallas" | "bf16_pallas"`` the K-step
+  decode kernel) -> masked postnet -> linear head over the whole decode
+  bucket (CBHG with the BiGRU kernel, or the Conv stack; mel-only models
+  use the filterbank pseudo-inverse instead) -> magnitudes at a pow2 bucket
+  of the longest decoded length -> staged Griffin-Lim kernel -> inverse
   preemphasis -> optional 16-bit PCM.
 
 The buckets are part of the result (Griffin-Lim phase couples into the
 padding), so they follow the JAX package exactly. The stages carry
 ``torch.profiler.record_function`` spans (``enroll.mel``, ``enroll.ge2e``,
-``synth.encoder``, ``synth.decode``, ``synth.postnet``, ``synth.vocode``)
+``synth.encoder``, ``synth.decode``, ``synth.postnet``, ``synth.linear``,
+``synth.vocode``)
 that a profiler run reads; without a profiler they cost about a microsecond
 each.
 """
@@ -67,12 +71,15 @@ def _mel_pinv(cfg, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.linalg.pinv(np.asarray(cfg.mel_basis))).to(device)
 
 
-def _gl_magnitude(mel_post: torch.Tensor, cfg) -> torch.Tensor:
-    """Mel-only models: normalized mel -> linear magnitude through the
-    filterbank pseudo-inverse (the JAX package's mel-only branch)."""
-    basis = _mel_pinv(cfg, mel_post.device)
-    S_db = dsp.denormalize(mel_post, cfg.min_level_db)
-    return torch.clamp(dsp.db_to_amp(S_db + cfg.ref_level_db) @ basis.T, min=0.0)
+def _gl_magnitude(linear: torch.Tensor | None, mel_post: torch.Tensor, cfg) -> torch.Tensor:
+    """Normalized linear spectrogram (or, for mel-only models, the mel
+    through the filterbank pseudo-inverse) -> linear magnitude for
+    Griffin-Lim."""
+    if linear is None:
+        basis = _mel_pinv(cfg, mel_post.device)
+        S_db = dsp.denormalize(mel_post, cfg.min_level_db)
+        return torch.clamp(dsp.db_to_amp(S_db + cfg.ref_level_db) @ basis.T, min=0.0)
+    return dsp.db_to_amp(dsp.denormalize(linear, cfg.min_level_db) + cfg.ref_level_db)
 
 
 def pcm16(wav: torch.Tensor) -> torch.Tensor:
@@ -80,8 +87,8 @@ def pcm16(wav: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(wav * 32767.0), -32768.0, 32767.0).to(torch.int16)
 
 
-def _gl_vocode(mel_post: torch.Tensor, cfg, as_pcm16: bool) -> torch.Tensor:
-    mag = _gl_magnitude(mel_post, cfg)
+def _gl_vocode(linear, mel_post: torch.Tensor, cfg, as_pcm16: bool) -> torch.Tensor:
+    mag = _gl_magnitude(linear, mel_post, cfg)
     length = cfg.hop * (mag.shape[-2] - 1)
     wav = stft_matmul.griffin_lim_auto(
         mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter, length,
@@ -91,10 +98,28 @@ def _gl_vocode(mel_post: torch.Tensor, cfg, as_pcm16: bool) -> torch.Tensor:
     return pcm16(wav) if as_pcm16 else wav
 
 
-class Synthesizer:
-    """Text -> waveform with zero-shot speaker cloning, on one device."""
+# ``Synthesizer(quantize=...)`` -> the ``hp.Decoder`` keys it switches on.
+_QUANTIZE_MODES = {
+    "int8": {"Quantize_Int8": True},  # weight-only int8 gates, plain loop
+    "int8_pallas": {"Pallas_Decode": True},  # decode kernel, int8 gates
+    "bf16_pallas": {"Pallas_Decode": "bf16"},  # decode kernel, bf16 gates
+}
 
-    def __init__(self, hp, params, batch_stats, seed: int = 0, device=None):
+
+class Synthesizer:
+    """Text -> waveform with zero-shot speaker cloning, on one device.
+
+    ``quantize`` picks the AR decode: None (the checkpoint's own
+    ``Decoder.Quantize_Int8`` / ``Decoder.Pallas_Decode``, by default the
+    plain loop in the compute dtype), ``"int8"``, ``"int8_pallas"`` or
+    ``"bf16_pallas"``."""
+
+    def __init__(self, hp, params, batch_stats, seed: int = 0, device=None,
+                 quantize: str | None = None):
+        if quantize is not None:
+            if quantize not in _QUANTIZE_MODES:
+                raise ValueError(f"unknown quantize mode {quantize!r}")
+            hp = hp.replace(Decoder=_QUANTIZE_MODES[quantize])
         self.device = resolve_device(device)
         self.hp = hp
         self.compute_dtype = compute_dtype_of(hp)
@@ -211,34 +236,42 @@ class Synthesizer:
 
     @torch.no_grad()
     def synthesize(self, texts: list[str], speaker_embedding=None,
-                   max_steps: int | None = None, pcm16: bool = False) -> list[dict]:
-        """Texts -> [{wav, mel, alignment, mel_length}] (split vocode: the
-        decode runs first, then Griffin-Lim at a pow2 bucket of the batch's
-        longest decoded length)."""
+                   max_steps: int | None = None, pcm16: bool = False,
+                   early_exit: bool = True, return_linear: bool = True) -> list[dict]:
+        """Texts -> [{wav, mel, linear, alignment, mel_length}] (split
+        vocode: the decode runs first, then Griffin-Lim at a pow2 bucket of
+        the batch's longest decoded length). ``linear`` is there for models
+        with a linear head unless ``return_linear=False``; ``early_exit=False``
+        runs the fixed-length decode."""
         B, max_steps, tokens, lengths, spk, active = self._prepare(
             texts, speaker_embedding, max_steps)
         self.last_decode_bucket = max_steps
         out = self.tacotron.infer(
             tokens, lengths, spk, max_steps, float(self.hp.Decoder.Stop_Threshold),
-            active, self._prenet_masks(tokens.shape[0]),
+            active, self._prenet_masks(tokens.shape[0]), early_exit,
         )
         mel_lengths = out["mel_lengths"].cpu().numpy()
         r = int(self.hp.Decoder.get("N_Frames_Per_Step", 1))
         Tb = _decode_bucket(max(int(mel_lengths.max()), r), max_steps)
         steps = max(-(-Tb // r), 1)
         mel_post = out["mel_post"][:, :Tb]
+        linear = out["linear"][:, :Tb] if "linear" in out else None
         with record_function("synth.vocode"):
-            wav = _gl_vocode(mel_post, self.dsp_cfg, pcm16).cpu().numpy()
+            wav = _gl_vocode(linear, mel_post, self.dsp_cfg, pcm16).cpu().numpy()
         mel_np = mel_post.cpu().numpy()
+        linear_np = linear.cpu().numpy() if return_linear and linear is not None else None
         aligns = out["alignments"][:, :steps].cpu().numpy()
         hop = self.dsp_cfg.hop
         results = []
         for i in range(B):
             T = int(mel_lengths[i])
-            results.append({
+            item = {
                 "mel": mel_np[i, :T],
                 "alignment": aligns[i, :max(-(-T // r), 1)],
                 "mel_length": T,
                 "wav": wav[i, :max(T - 1, 1) * hop],
-            })
+            }
+            if linear_np is not None:
+                item["linear"] = linear_np[i, :T]
+            results.append(item)
         return results

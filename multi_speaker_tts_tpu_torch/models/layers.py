@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multi_speaker_tts_tpu_torch.ops.birnn_kernel import bilstm
+from multi_speaker_tts_tpu_torch.ops.birnn_kernel import bigru, bilstm
+from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
 from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 
@@ -63,6 +64,47 @@ class BiLSTM(nn.Module):
     def forward(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
         return bilstm(self.forward_dir.params, self.backward_dir.params, x,
                       compute_dtype)
+
+
+class GRUWeights(nn.Module):
+    """One GRU layer's weights: w_ih (D, 3H), w_hh (H, 3H), b_ih, b_hh (3H,)."""
+
+    def __init__(self, d_in: int, hidden: int):
+        super().__init__()
+        self.w_ih = weight(d_in, 3 * hidden)
+        self.w_hh = weight(hidden, 3 * hidden)
+        self.b_ih = weight(3 * hidden)
+        self.b_hh = weight(3 * hidden)
+
+    @property
+    def params(self) -> GRUParams:
+        return GRUParams(self.w_ih, self.w_hh, self.b_ih, self.b_hh)
+
+
+class BiGRU(nn.Module):
+    """(B, T, D) -> (B, T, 2 * (hidden_size // 2)), f32 output."""
+
+    def __init__(self, d_in: int, hidden_size: int):
+        super().__init__()
+        self.forward_dir = GRUWeights(d_in, hidden_size // 2)
+        self.backward_dir = GRUWeights(d_in, hidden_size // 2)
+
+    def forward(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+        return bigru(self.forward_dir.params, self.backward_dir.params, x,
+                     compute_dtype)
+
+
+class Highway(nn.Module):
+    """out = relu(H(x)) * sigmoid(T(x)) + x * (1 - sigmoid(T(x))), in f32."""
+
+    def __init__(self, size: int):
+        super().__init__()
+        self.H = Dense(size, size)
+        self.T = Dense(size, size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = torch.sigmoid(self.T(x))
+        return torch.relu(self.H(x)) * t + x * (1.0 - t)
 
 
 class ConvBNBlock(nn.Module):

@@ -3,9 +3,10 @@
 
 Text encoder (embedding -> conv/BN/ReLU stack -> BiLSTM), SV2TTS speaker
 concatenation onto the memory, the stop-aware early-exit AR decoder
-(:mod:`..ops.decoder_scan`), and the masked postnet. Mel-only models only:
-a checkpoint whose hparams enable ``Linear_Head`` is refused (the CBHG and
-Conv linear heads are not ported yet).
+(:mod:`..ops.decoder_scan`; under ``Decoder.Pallas_Decode`` its chunk body
+is the K-step kernel of :mod:`..ops.decode_kernel`), the masked postnet, and
+the mel -> linear head (``Linear_Head``: the CBHG of :mod:`.cbhg` or the
+Conv stack :class:`LinearHead`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.layers import (
     BiLSTM,
     ConvBNBlock,
@@ -23,7 +25,9 @@ from multi_speaker_tts_tpu_torch.models.layers import (
     prenet_apply,
     weight,
 )
+from multi_speaker_tts_tpu_torch.ops import decode_kernel
 from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 from multi_speaker_tts_tpu_torch.text import vocab_size as text_vocab_size
 
 
@@ -65,12 +69,18 @@ class Decoder(nn.Module):
                  prenet_dropout: float, attention_size: int,
                  attention_conv_channels: int, attention_conv_kernel: int,
                  lstm_size: int, lstm_stacks: int, n_frames_per_step: int,
-                 early_exit_chunk: int = 16):
+                 early_exit_chunk: int = 16, quantize_int8: bool = False,
+                 pallas_decode: bool | str = False):
         super().__init__()
         self.mel_dim = mel_dim
         self.r = n_frames_per_step
         self.prenet_dropout = float(prenet_dropout)
         self.early_exit_chunk = early_exit_chunk
+        # Serving knobs of the AR loop (``Decoder.Quantize_Int8`` /
+        # ``Decoder.Pallas_Decode``): weight-only int8 gates in the plain
+        # loop; the K-step decode kernel, True / "int8" or "bf16".
+        self.quantize_int8 = bool(quantize_int8)
+        self.pallas_decode = pallas_decode
         self.memory_layer = Dense(memory_size, attention_size, use_bias=False)
         sizes = [mel_dim, *prenet_sizes]
         self.prenet = nn.ModuleList(Dense(a, b) for a, b in zip(sizes, sizes[1:]))
@@ -94,23 +104,48 @@ class Decoder(nn.Module):
         )
 
     def infer(self, memory, mask, max_steps: int, stop_threshold: float,
-              stopped_init, prenet_masks, compute_dtype):
+              stopped_init, prenet_masks, compute_dtype, early_exit: bool = True):
         """AR decode -> (mel (B, n_steps*r, mel), stop logits (B, n_steps),
-        aligns (B, n_steps, S), decoded steps (B,))."""
+        aligns (B, n_steps, S), decoded steps (B,) or None). The early-exit
+        loop knows each row's decoded steps; the fixed-length scan
+        (``early_exit=False``) returns None and the caller derives them from
+        the stop logits."""
         B = memory.shape[0]
         n_steps = max_steps // self.r
         keys = self.memory_layer(memory.float())
         ws = [(d.kernel, d.bias) for d in self.prenet]
         rate = self.prenet_dropout
+        p = self.params()
 
         def prenet_fn(frame, t):
             return prenet_apply(ws, frame, rate, prenet_masks(t) if rate > 0.0 else None)
 
-        frames, stops, aligns, lengths = dscan.decoder_ar_early_exit(
-            self.params(), keys, memory.float(), mask, n_steps, stop_threshold,
-            prenet_fn, self.mel_dim, compute_dtype, stopped_init=stopped_init,
-            chunk=self.early_exit_chunk,
-        )
+        fused = dscan.quantize_fused(p) if self.quantize_int8 else None
+        segment_fn = None
+        if self.pallas_decode:
+            # On the card the kernel launches or raises; there is no quiet
+            # fall-back to the plain loop for shapes it does not take.
+            bundle = decode_kernel.prepare_bundle(
+                p, ws, quantize=self.pallas_decode != "bf16")
+
+            def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K, th):
+                return decode_kernel.decoder_ar_segment_kernel(
+                    bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K,
+                    th, prenet_masks, self.mel_dim, self.r, rate)
+
+        if early_exit:
+            frames, stops, aligns, lengths = dscan.decoder_ar_early_exit(
+                p, keys, memory.float(), mask, n_steps, stop_threshold,
+                prenet_fn, self.mel_dim, compute_dtype, stopped_init=stopped_init,
+                chunk=self.early_exit_chunk, fused=fused, segment_fn=segment_fn,
+            )
+        else:
+            lengths = None
+            frames, stops, aligns = dscan.decoder_ar_scan(
+                p, keys, memory.float(), mask, n_steps, prenet_fn, self.mel_dim,
+                compute_dtype, fused=fused, segment_fn=segment_fn,
+                chunk=self.early_exit_chunk,
+            )
         mel = frames.transpose(0, 1).reshape(B, n_steps * self.r, self.mel_dim)
         return mel, stops.transpose(0, 1), aligns.transpose(0, 1), lengths
 
@@ -135,14 +170,49 @@ class Postnet(nn.Module):
         return x.float()
 
 
+class LinearHead(nn.Module):
+    """Mel -> linear spectrogram by a Conv(relu) stack and a projection that
+    runs in the compute dtype (the ``Linear_Head.Type: Conv`` variant)."""
+
+    def __init__(self, mel_dim: int, spect_dim: int, conv_stacks: int = 2,
+                 conv_channels: int = 512, conv_kernel_size: int = 5):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            ConvBNBlock(mel_dim if i == 0 else conv_channels, conv_channels,
+                        conv_kernel_size, "relu")
+            for i in range(conv_stacks)
+        )
+        self.projection = Dense(conv_channels, spect_dim)
+
+    def forward(self, mel: torch.Tensor, compute_dtype) -> torch.Tensor:
+        x = mel
+        for conv in self.convs:
+            x = conv(x, compute_dtype)
+        y = rounded(x, compute_dtype) @ rounded(self.projection.kernel, compute_dtype)
+        return rounded(rounded(y, compute_dtype)
+                       + rounded(self.projection.bias, compute_dtype), compute_dtype)
+
+
+def linear_head_from_hp(hp):
+    """The head ``hp.Linear_Head`` asks for, or None for a mel-only model."""
+    lh = hp.get("Linear_Head")
+    if lh is None or not lh.Use:
+        return None
+    mel_dim, spect_dim = hp.Sound.Mel_Dim, hp.Sound.Spectrogram_Dim
+    if lh.get("Type", "Conv") == "CBHG":
+        cb = lh.CBHG
+        return CBHGHead(
+            mel_dim, spect_dim, gru_size=cb.GRU_Size, bank_k=cb.Bank_K,
+            bank_channels=cb.Bank_Channels, projection_channels=cb.Projection_Channels,
+            highway_layers=cb.Highway.Layers, highway_size=cb.Highway.Size,
+        )
+    return LinearHead(mel_dim, spect_dim, lh.Conv.Stacks, lh.Conv.Channels,
+                      lh.Conv.Kernel_Size)
+
+
 class Tacotron(nn.Module):
     def __init__(self, hp, compute_dtype=torch.float32):
         super().__init__()
-        lh = hp.get("Linear_Head")
-        if lh is not None and lh.Use:
-            raise NotImplementedError(
-                "the torch port serves mel-only models so far: set Linear_Head.Use: false"
-            )
         self.compute_dtype = compute_dtype
         self.mel_dim = hp.Sound.Mel_Dim
         self.speaker_embedding_size = (
@@ -161,10 +231,12 @@ class Tacotron(nn.Module):
             dec.Attention.Size, dec.Attention.Conv.Channels,
             dec.Attention.Conv.Kernel_Size, dec.LSTM.Sizes, dec.LSTM.Stacks,
             dec.get("N_Frames_Per_Step", 1), dec.get("Early_Exit_Chunk", 16),
+            dec.get("Quantize_Int8", False), dec.get("Pallas_Decode", False),
         )
         post = hp.Postnet.Conv
         self.postnet = Postnet(self.mel_dim, post.Stacks, post.Channels,
                                post.Kernel_Size)
+        self.linear_head = linear_head_from_hp(hp)
 
     def build_memory(self, tokens, token_lengths, speaker_embedding):
         enc = self.encoder(tokens, self.compute_dtype)
@@ -180,28 +252,42 @@ class Tacotron(nn.Module):
 
     @torch.no_grad()
     def infer(self, tokens, token_lengths, speaker_embedding, max_steps: int,
-              stop_threshold: float, active_rows=None, prenet_masks=None) -> dict:
-        """Early-exit AR decode + masked postnet. PAD rows (``active_rows``
-        False) start stopped; frames past each decoded length are zeroed
-        before the postnet."""
+              stop_threshold: float, active_rows=None, prenet_masks=None,
+              early_exit: bool = True) -> dict:
+        """AR decode + masked postnet (+ linear head). ``early_exit`` runs
+        the stop-aware chunked loop; False the fixed-length scan, with each
+        row's length taken from its first stop logit over the threshold. PAD
+        rows (``active_rows`` False) start stopped; frames past each decoded
+        length are zeroed before the postnet. The linear head sees the
+        postnet's output over the whole decode bucket (not re-masked) and
+        its result is masked afterwards."""
         with record_function("synth.encoder"):
             memory, mask = self.build_memory(tokens, token_lengths, speaker_embedding)
         stopped_init = None if active_rows is None else ~active_rows.to(torch.bool)
         with record_function("synth.decode"):
             mel_pre, stops, aligns, lengths_steps = self.decoder.infer(
                 memory, mask, max_steps, stop_threshold, stopped_init, prenet_masks,
-                self.compute_dtype,
+                self.compute_dtype, early_exit,
             )
+        if lengths_steps is None:
+            flags = torch.sigmoid(stops.float()) > stop_threshold  # (B, n_steps)
+            first = torch.argmax(flags.to(torch.int32), dim=1) + 1
+            lengths_steps = torch.where(flags.any(dim=1), first,
+                                        torch.full_like(first, stops.shape[1])).to(torch.int32)
         mel_lengths = lengths_steps * self.decoder.r
         frame_idx = torch.arange(mel_pre.shape[1], device=mel_pre.device)
         frame_mask = (frame_idx[None, :] < mel_lengths[:, None]).float()[..., None]
         mel_pre = mel_pre * frame_mask
         with record_function("synth.postnet"):
             mel_post = mel_pre + self.postnet(mel_pre, self.compute_dtype)
-        return {
+        out = {
             "mel_pre": mel_pre,
             "mel_post": mel_post * frame_mask,
             "stop_logits": stops,
             "alignments": aligns,
             "mel_lengths": mel_lengths,
         }
+        if self.linear_head is not None:
+            with record_function("synth.linear"):
+                out["linear"] = self.linear_head(mel_post, self.compute_dtype) * frame_mask
+        return out

@@ -1,0 +1,284 @@
+"""K autoregressive decode steps in one kernel launch.
+
+Replaces ``multi_speaker_tts_tpu/ops/decode_pallas.py::decode_segment_pallas``
+(kernel body ``_kernel``, called through ``decoder_ar_segment_pallas``, weights
+``prepare_bundle``), the chunk body of the early-exit decode under
+``Synthesizer(quantize="int8_pallas" | "bf16_pallas")``. One call runs K
+steps with no host work between them: prenet with the caller's dropout
+scale masks, layer-0 gates from [prenet, context, h0], cell 0,
+location-sensitive attention, context, layer-1 gates from [h0, context,
+h1], cell 1, the fused frame + stop projection, and the frame feedback.
+The two gate products are int8 (per-row activation and per-column weight
+scales, exact s32 accumulation) or bf16 (f32 accumulation); everything else
+is f32. The stopped / lengths bookkeeping stays outside, vectorised over
+the chunk's stop logits (:func:`decoder_ar_segment_kernel`).
+
+On a CUDA tensor :func:`decode_segment` launches ``csrc/decode.cu`` (one
+persistent cooperative launch; int8 weights resident in shared memory for
+the segment, in bf16 mode layer 0's too and layer 1's re-read every step;
+see the source's header) or
+raises; on a CPU tensor it runs :func:`decode_segment_plain`, the same
+arithmetic in plain torch. The dropout masks are drawn by the wrapper from
+the caller's ``prenet_masks(t)`` in the plain loop's order, so the plain
+decode, the int8 plain decode and the kernel decode follow one trajectory
+under one seed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable
+
+import torch
+
+from multi_speaker_tts_tpu_torch.ops import _build
+from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+from multi_speaker_tts_tpu_torch.ops.decoder_scan import DecoderCarry, DecoderParams, quantize_w
+from multi_speaker_tts_tpu_torch.ops.lstm import cell
+from multi_speaker_tts_tpu_torch.ops.numerics import rounded
+
+_FUNCTIONS = {"mstts_decode_segment": [_build.P, _build.P, _build.P]}
+# One source, one launch count per mode.
+KERNELS = {
+    "int8": _build.Kernel("decode_segment_int8", "decode.cu", _FUNCTIONS),
+    "bf16": _build.Kernel("decode_segment_bf16", "decode.cu", _FUNCTIONS),
+}
+MAX_S = 256  # memory positions (the JAX package's gate)
+# The limits of csrc/decode.cu, whose own check is the last guard.
+_WIDTH = 16  # H, memory width and last prenet width in 16-element pieces
+_MAX_A = 512  # attention width: one thread per unit (kThreads)
+_MAX_K = 4096  # depth of a gate product, [x, context, h]: what a block stages (kMaxK)
+
+
+def _shape_reason(H: int, D: int, prenet_sizes, S: int, A: int, mel_dim: int,
+                  conv_c: int) -> str | None:
+    """The one shape gate of the kernel: why it does not take these widths,
+    or None."""
+    P1, P2 = prenet_sizes
+    if H % _WIDTH or D % _WIDTH or P2 % _WIDTH:
+        return (f"needs H, memory and prenet widths in multiples of {_WIDTH}: "
+                f"{H}, {D}, {P2}")
+    if S > MAX_S:
+        return f"needs at most {MAX_S} memory positions, got {S}"
+    if A > _MAX_A:
+        return f"needs an attention width of at most {_MAX_A}, got {A}"
+    if max(2 * H, P2 + H) + D > _MAX_K:
+        return f"needs gate products at most {_MAX_K} deep"
+    if P1 % 4 or mel_dim % 4 or A % 4 or conv_c % 4:
+        return ("needs the first prenet, mel, attention and location-conv widths in "
+                f"multiples of 4: {P1}, {mel_dim}, {A}, {conv_c}")
+    return None
+
+
+def unsupported_reason(p: DecoderParams, prenet_sizes, memory_dim: int, S: int,
+                       mel_dim: int) -> str | None:
+    """Why the kernel does not take this decoder, or None if it does."""
+    if len(p.lstm) != 2 or len(prenet_sizes) != 2:
+        return (f"needs the 2-layer decoder and prenet, got {len(p.lstm)} and "
+                f"{len(prenet_sizes)} layers")
+    H = p.lstm[0].hidden_size
+    if p.lstm[1].hidden_size != H:
+        return "needs equal LSTM sizes"
+    return _shape_reason(H, memory_dim, prenet_sizes, S, p.attention.wq.shape[1],
+                         mel_dim, p.attention.wloc.shape[0])
+
+
+def supported(p: DecoderParams, prenet_sizes, memory_dim: int, S: int,
+              mel_dim: int) -> bool:
+    return unsupported_reason(p, prenet_sizes, memory_dim, S, mel_dim) is None
+
+
+def _bundle(quantize: bool, ws) -> dict:
+    (w_ih0, w_hh0, b0, w_ih1, w_hh1, b1, wq, ck, wloc, v,
+     frame_w, frame_b, stop_w, stop_b, wp1, bp1, wp2, bp2) = ws
+    out = {"quantized": quantize}
+    for i, (w_ih, w_hh, b) in enumerate(((w_ih0, w_hh0, b0), (w_ih1, w_hh1, b1))):
+        cat = torch.cat([w_ih, w_hh], dim=0).float()
+        if quantize:
+            wq8, scale = quantize_w(cat)
+            out[f"w{i}"] = wq8.t().contiguous()  # (4H, K) rows per gate column
+            out[f"s{i}"] = scale.contiguous()
+        else:
+            out[f"w{i}"] = cat.t().contiguous().to(torch.bfloat16)
+            out[f"s{i}"] = torch.ones_like(b, dtype=torch.float32)
+        out[f"b{i}"] = b.float().contiguous()
+    # Fused frame + stop projection, f32: rows = mel*r frame outputs, then stop.
+    out["wproj"] = torch.cat([frame_w, stop_w], dim=1).float().t().contiguous()
+    out["bproj"] = torch.cat([frame_b, stop_b]).float().contiguous()
+    out["wp1"], out["bp1"] = wp1.float().t().contiguous(), bp1.float().contiguous()
+    out["wp2"], out["bp2"] = wp2.float().t().contiguous(), bp2.float().contiguous()
+    out["wq"] = wq.float().contiguous()
+    out["ck"] = ck.float().contiguous()
+    out["wloc"] = wloc.float().contiguous()
+    out["v"] = v.float().reshape(-1).contiguous()
+    return out
+
+
+def _bundle_int8(*ws) -> dict:
+    return _bundle(True, ws)
+
+
+def _bundle_bf16(*ws) -> dict:
+    return _bundle(False, ws)
+
+
+def prepare_bundle(p: DecoderParams, prenet_ws, quantize: bool = True) -> dict:
+    """Every per-step weight in the kernel's layout: the fused [W_ih; W_hh]
+    of both layers as (4H, K) rows (int8 with per-column scales, or bf16),
+    the fused f32 frame + stop projection, the prenet and the attention
+    weights. Built once per weight state (``_build.packed``), never per call.
+    ``prenet_ws``: [(w1 (mel, P1), b1), (w2 (P1, P2), b2)]."""
+    if len(p.lstm) != 2 or len(prenet_ws) != 2:
+        raise ValueError("the decode segment needs a 2-layer decoder and a 2-layer prenet")
+    if p.lstm[0].hidden_size != p.lstm[1].hidden_size:
+        raise ValueError("the decode segment needs equal LSTM sizes")
+    ap = p.attention
+    ws = (*p.lstm[0], *p.lstm[1], ap.wq, ap.conv_kernel, ap.wloc, ap.v,
+          *p.frame_proj, *p.stop_proj, *prenet_ws[0], *prenet_ws[1])
+    return _build.packed(_bundle_int8 if quantize else _bundle_bf16, *ws)
+
+
+def _segment_gates(bundle: dict, i: int, xh: torch.Tensor) -> torch.Tensor:
+    w, s, b = bundle[f"w{i}"], bundle[f"s{i}"], bundle[f"b{i}"]
+    if bundle["quantized"]:
+        xq, amax = dscan.quantize_rows(xh)
+        return dscan.int8_product(xq, w.t()) * (amax * s[None, :]) + b
+    return rounded(xh, torch.bfloat16) @ w.float().t() + b
+
+
+def decode_segment_plain(bundle: dict, keys, memory, mask, carry: DecoderCarry,
+                         prev, m1, m2, K: int, mel_dim: int, r: int):
+    """The kernel's arithmetic in plain torch. ``m1`` / ``m2``: (K, B, P)
+    dropout scale masks (keep / keep_prob) or None. Returns (carry', prev',
+    frames (K, B, mel*r), stops (K, B), aligns (K, B, S))."""
+    ap = dscan.AttentionParams(bundle["wq"], bundle["ck"], bundle["wloc"],
+                               bundle["v"][:, None])
+    (h0, h1), (c0, c1) = carry.h, carry.c
+    w, cum, ctx = carry.weights, carry.cum_weights, carry.context
+    memory = memory.float()
+    ys, aligns = [], []
+    for k in range(K):
+        a = torch.relu(prev @ bundle["wp1"].t() + bundle["bp1"])
+        if m1 is not None:
+            a = a * m1[k]
+        a = torch.relu(a @ bundle["wp2"].t() + bundle["bp2"])
+        if m2 is not None:
+            a = a * m2[k]
+        h0, c0 = cell(_segment_gates(bundle, 0, torch.cat([a, ctx, h0], dim=-1)), c0)
+        w, cum = dscan.attention_block(h0, w, cum, keys, ap, mask)
+        ctx = torch.bmm(w[:, None, :], memory)[:, 0]
+        h1, c1 = cell(_segment_gates(bundle, 1, torch.cat([h0, ctx, h1], dim=-1)), c1)
+        y = torch.cat([h1, ctx], dim=-1) @ bundle["wproj"].t() + bundle["bproj"]
+        prev = y[:, mel_dim * (r - 1):mel_dim * r]
+        ys.append(y)
+        aligns.append(w)
+    ys = torch.stack(ys)
+    carry = DecoderCarry((h0, h1), (c0, c1), w, cum, ctx)
+    return carry, prev, ys[..., :mel_dim * r], ys[..., mel_dim * r], torch.stack(aligns)
+
+
+# Pointer table of csrc/decode.cu (enum Ptr), in order.
+_WEIGHT_KEYS = ("w0", "w1", "s0", "b0", "s1", "b1", "wproj", "bproj", "wp1", "bp1",
+                "wp2", "bp2", "wq", "ck", "wloc", "v")
+
+
+def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
+                          prev, m1, m2, K: int, mel_dim: int, r: int):
+    """Launch ``csrc/decode.cu`` on CUDA f32 state. Same returns as
+    :func:`decode_segment_plain`."""
+    B, S, A = keys.shape
+    D = memory.shape[-1]
+    H = carry.h[0].shape[-1]
+    P1, P2 = bundle["wp1"].shape[0], bundle["wp2"].shape[0]
+    conv_k, _, conv_c = bundle["ck"].shape
+    n_out = mel_dim * r + 1
+    reason = _shape_reason(H, D, (P1, P2), S, A, mel_dim, conv_c)
+    if reason is not None:
+        raise ValueError(f"decode kernel {reason}")
+    if bundle["wproj"].shape != (n_out, H + D) or bundle["wp1"].shape[1] != mel_dim:
+        raise ValueError("decode kernel: bundle and mel_dim / r disagree")
+
+    def f32(t):
+        t = t.contiguous()
+        _build.require_cuda(t, torch.float32, "decode segment input")
+        return t if t.data_ptr() % 16 == 0 else t.clone()  # the kernel loads 16 bytes at a time
+
+    keys, memory, mask = f32(keys), f32(memory), f32(mask)
+    state = [f32(t) for t in (carry.h[0], carry.c[0], carry.h[1], carry.c[1],
+                              carry.weights, carry.cum_weights, carry.context, prev)]
+    if m1 is not None:
+        m1, m2 = f32(m1), f32(m2)
+        if m1.shape != (K, B, P1) or m2.shape != (K, B, P2):
+            raise ValueError("decode kernel: dropout masks must be (K, B, P1) and (K, B, P2)")
+    dev = keys.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = [K * B * n_out, K * B * S, B * H, B * H, B * H, B * H, B * S, B * S, B * D,
+             B * mel_dim,  # the outputs, then the scratch (see mstts_decode_segment)
+             4 * B * H + B * (D + P1 + P2) + n_sm * B * A]
+    # One allocation, every piece 16-byte aligned.
+    padded = [-(-n // 4) * 4 for n in sizes]
+    flat = torch.empty(sum(padded), dtype=torch.float32, device=dev)
+    (ys, aligns, h0, c0, h1, c1, w, cum, ctx, prev_out, scratch) = (
+        piece[:n] for piece, n in zip(flat.split(padded), sizes))
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptrs = [bundle[k].data_ptr() for k in _WEIGHT_KEYS]
+    ptrs += [keys.data_ptr(), memory.data_ptr(), mask.data_ptr(),
+             0 if m1 is None else m1.data_ptr(), 0 if m2 is None else m2.data_ptr()]
+    ptrs += [t.data_ptr() for t in state]
+    ptrs += [t.data_ptr() for t in (ys, aligns, h0, c0, h1, c1, w, cum, ctx, prev_out,
+                                    scratch, bar)]
+    dims = [K, B, S, A, D, H, P1, P2, mel_dim, r, conv_k, conv_c, int(bundle["quantized"])]
+    KERNELS["int8" if bundle["quantized"] else "bf16"].call(
+        "mstts_decode_segment", (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(dims))(*dims), _build.stream_ptr(keys),
+    )
+    ys = ys.view(K, B, n_out)
+    carry = DecoderCarry((h0.view(B, H), h1.view(B, H)), (c0.view(B, H), c1.view(B, H)),
+                         w.view(B, S), cum.view(B, S), ctx.view(B, D))
+    return (carry, prev_out.view(B, mel_dim), ys[..., :mel_dim * r], ys[..., mel_dim * r],
+            aligns.view(K, B, S))
+
+
+def decode_segment(bundle: dict, keys, memory, mask, carry: DecoderCarry, prev,
+                   m1, m2, K: int, mel_dim: int, r: int):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = decode_segment_kernel if keys.is_cuda else decode_segment_plain
+    return fn(bundle, keys, memory, mask, carry, prev, m1, m2, K, mel_dim, r)
+
+
+def scale_masks(prenet_masks: Callable, t0: int, K: int, keep_prob: float):
+    """The keep masks of steps t0 .. t0+K-1, drawn from ``prenet_masks(t)``
+    in the plain loop's order (per step: layer 1, then layer 2), as two
+    (K, B, P) f32 scale masks keep / keep_prob. (For keep_prob = 0.5 the
+    scaled product equals the plain loop's x / keep_prob bit for bit.)"""
+    drawn = [prenet_masks(t0 + i) for i in range(K)]
+    m1, m2 = (torch.stack([d[layer] for d in drawn]).float() / keep_prob
+              for layer in range(2))
+    return m1, m2
+
+
+def advance_stops(stop_logits, stopped, lengths, stop_threshold: float):
+    """The plain loop's per-step bookkeeping (lengths += ~stopped, THEN
+    stopped |= flag), vectorised over a segment's (K, B) stop logits: step t
+    counts iff no flag was raised before t (exclusive prefix). Returns
+    (stopped', lengths')."""
+    flags = torch.sigmoid(stop_logits.float()) > stop_threshold
+    before = stopped[None] | ((torch.cumsum(flags, dim=0) - flags.to(torch.int64)) > 0)
+    return (stopped | flags.any(dim=0),
+            lengths + (~before).sum(dim=0).to(lengths.dtype))
+
+
+def decoder_ar_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
+                              prev, t0: int, stopped, lengths, n_steps_seg: int,
+                              stop_threshold: float, prenet_masks: Callable | None,
+                              mel_dim: int, r: int, prenet_dropout: float):
+    """Drop-in chunk body for ``decoder_scan.decoder_ar_early_exit``: the
+    same return tuple as ``decoder_ar_segment``, with the stopped / lengths
+    bookkeeping applied, vectorised, to the segment's per-step stop logits."""
+    m1 = m2 = None
+    if prenet_dropout > 0.0:
+        m1, m2 = scale_masks(prenet_masks, t0, n_steps_seg, 1.0 - prenet_dropout)
+    carry, prev, f_k, s_k, w_k = decode_segment(
+        bundle, keys, memory, mask, carry, prev, m1, m2, n_steps_seg, mel_dim, r)
+    stopped, lengths = advance_stops(s_k, stopped, lengths, stop_threshold)
+    return carry, prev, stopped, lengths, f_k, s_k, w_k

@@ -5,9 +5,11 @@ One decoder frame (:func:`decoder_cell_step`): attention LSTM over
 [prenet(prev), context] with fused [W_ih; W_hh] gates, location-sensitive
 attention (SAME 31-tap conv over [w_prev, cum_prev], f32 energies, -1e9
 mask), context, decoder LSTM stack, then the frame / stop projections. The
-loop is a Python loop; the decode runs no kernel of its own in this port
-(the JAX package's decode kernel is only taken under its int8/bf16 Pallas
-serving modes).
+loop here is a Python loop: the default decode and the weight-only int8
+reference (:func:`quantize_fused`, the int8 arm of :func:`_gates`). The
+K-step kernel of the ``*_pallas`` serving modes lives in
+:mod:`.decode_kernel` and enters :func:`decoder_ar_early_exit` as its
+``segment_fn``.
 
 The prenet runs through the caller's ``prenet_fn(frame, t)`` (t = global
 step), as the JAX module takes ``prenet_apply_fn``: its always-on dropout
@@ -22,6 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from multi_speaker_tts_tpu_torch.ops import _build
 from multi_speaker_tts_tpu_torch.ops.lstm import cell
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 
@@ -71,10 +74,54 @@ def fused_weights(lstm: tuple, compute_dtype) -> tuple:
     )
 
 
-def _gates(w_cat: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-           h: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """Pre-activation gates (B, 4H) f32 from one [x, h] @ W product."""
-    return rounded(torch.cat([x, h], dim=-1), compute_dtype) @ w_cat + b
+def quantize_w(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8: (int8 (D, N), scale f32 (N,)) with
+    column c = round(W[:, c] / s_c), s_c = max|W[:, c]| / 127 (at least
+    1e-12), rounding half to even."""
+    w = w.float()
+    scale = torch.clamp(w.abs().amax(dim=0) / 127.0, min=1e-12)
+    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+
+
+def _quantize_cat(w_ih: torch.Tensor, w_hh: torch.Tensor):
+    return quantize_w(torch.cat([w_ih, w_hh], dim=0))
+
+
+def quantize_fused(p: DecoderParams) -> tuple:
+    """Per-layer [W_ih; W_hh] as (int8 weights (D+H, 4H), f32 scale (4H,))
+    for the weight-only int8 decode; quantized once per weight state."""
+    return tuple(_build.packed(_quantize_cat, q.w_ih, q.w_hh) for q in p.lstm)
+
+
+def quantize_rows(xh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric per-row activation quantization: (integer-valued
+    f32 in [-127, 127], amax (B, 1)) with amax = max(max|x|, 1e-8) / 127."""
+    amax = torch.clamp(xh.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    return torch.clamp(torch.round(xh / amax), -127, 127), amax
+
+
+def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """xq (B, K) integer-valued @ wq (K, N) int8 -> (B, N) f32, exact as an
+    s32 accumulation: sums reach 2816 * 127^2 > 2^24, so an f32 matmul would
+    round. int32 on the CPU; f64 on the card (no integer matmul there)."""
+    if xq.is_cuda:
+        return (xq.double() @ wq.double()).float()
+    return (xq.to(torch.int32) @ wq.to(torch.int32)).float()
+
+
+def _gates(w_cat, b: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+           compute_dtype) -> torch.Tensor:
+    """Pre-activation gates (B, 4H) f32 from one [x, h] @ W product.
+    ``w_cat`` is the (D+H, 4H) compute-dtype matrix or a
+    :func:`quantize_fused` (int8, scale) pair; the quantized arm quantizes
+    the activation row and dequantizes the exact integer sum with the
+    product of the two scales."""
+    xh = torch.cat([x, h], dim=-1)
+    if isinstance(w_cat, tuple):
+        wq, wscale = w_cat
+        xq, amax = quantize_rows(xh.float())
+        return int8_product(xq, wq) * (amax * wscale[None, :]) + b
+    return rounded(xh, compute_dtype) @ w_cat + b
 
 
 def location_conv(loc_in: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -144,6 +191,38 @@ def decoder_ar_segment(p: DecoderParams, fused: tuple, keys, memory, mask,
             torch.stack(f_k), torch.stack(s_k), torch.stack(w_k))
 
 
+def decoder_ar_scan(p: DecoderParams, keys, memory, mask, n_steps: int,
+                    prenet_fn: Callable, mel_dim: int,
+                    compute_dtype=torch.float32, fused: tuple | None = None,
+                    segment_fn: Callable | None = None, chunk: int = 16):
+    """Fixed-length AR decode (constant work; the caller derives lengths
+    from the stop logits). ``segment_fn`` (see :func:`decoder_ar_early_exit`)
+    runs the steps in chunks of K through that chunk body, with no stop
+    check between them. Returns (frames (n_steps, B, mel*r), stops
+    (n_steps, B), aligns (n_steps, B, S))."""
+    B = mask.shape[0]
+    carry = initial_carry(B, memory, len(p.lstm), p.lstm[0].hidden_size)
+    prev = memory.new_zeros((B, mel_dim), dtype=torch.float32)
+    stopped = torch.zeros(B, dtype=torch.bool, device=memory.device)
+    lengths = torch.zeros(B, dtype=torch.int32, device=memory.device)
+    if segment_fn is not None:
+        K = chunk_size(n_steps, chunk)
+        parts = []
+        for t in range(0, n_steps, K):
+            carry, prev, stopped, lengths, *fsw = segment_fn(
+                keys, memory, mask, carry, prev, t, stopped, lengths, K, 0.5)
+            parts.append(fsw)
+        frames, stops, aligns = (torch.cat(x) for x in zip(*parts))
+        return frames, stops, aligns
+    if fused is None:
+        fused = fused_weights(p.lstm, compute_dtype)
+    *_, frames, stops, aligns = decoder_ar_segment(
+        p, fused, keys, memory, mask, carry, prev, 0, stopped, lengths, n_steps,
+        0.5, prenet_fn, mel_dim, compute_dtype,
+    )
+    return frames, stops, aligns
+
+
 def chunk_size(n_steps: int, chunk: int) -> int:
     """Largest divisor of n_steps that is <= chunk (1 at worst)."""
     return max((k for k in range(1, min(chunk, n_steps) + 1) if n_steps % k == 0),
@@ -155,8 +234,16 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
                           mel_dim: int,
                           compute_dtype=torch.float32,
                           stopped_init: torch.Tensor | None = None,
-                          chunk: int = 16):
+                          chunk: int = 16, fused: tuple | None = None,
+                          segment_fn: Callable | None = None):
     """AR decode in chunks of K steps until every row stopped (or n_steps).
+
+    ``fused`` replaces the compute-dtype fused weights (e.g.
+    :func:`quantize_fused` for the int8 decode). ``segment_fn``, when given,
+    replaces :func:`decoder_ar_segment` as the chunk body: ``(keys, memory,
+    mask, carry, prev, t0, stopped, lengths, K, stop_threshold) -> (carry,
+    prev, stopped, lengths, frames, stops, aligns)``
+    (:func:`..decode_kernel.decoder_ar_segment_kernel` is one).
 
     Rows in ``stopped_init`` start stopped (batch-bucket PAD rows) and
     decode length 0. The stop check is one host read per chunk. Steps
@@ -174,14 +261,19 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
     stopped = (torch.zeros(B, dtype=torch.bool, device=memory.device)
                if stopped_init is None else stopped_init.to(torch.bool).clone())
     lengths = torch.zeros(B, dtype=torch.int32, device=memory.device)
-    fused = fused_weights(p.lstm, compute_dtype)
+    if fused is None and segment_fn is None:
+        fused = fused_weights(p.lstm, compute_dtype)
     K = chunk_size(n_steps, chunk)
     t = 0
     while t < n_steps and not bool(stopped.all()):
-        carry, prev, stopped, lengths, f_k, s_k, w_k = decoder_ar_segment(
-            p, fused, keys, memory, mask, carry, prev, t, stopped, lengths, K,
-            stop_threshold, prenet_fn, mel_dim, compute_dtype,
-        )
+        if segment_fn is not None:
+            carry, prev, stopped, lengths, f_k, s_k, w_k = segment_fn(
+                keys, memory, mask, carry, prev, t, stopped, lengths, K, stop_threshold)
+        else:
+            carry, prev, stopped, lengths, f_k, s_k, w_k = decoder_ar_segment(
+                p, fused, keys, memory, mask, carry, prev, t, stopped, lengths, K,
+                stop_threshold, prenet_fn, mel_dim, compute_dtype,
+            )
         frames[t:t + K], stops[t:t + K], aligns[t:t + K] = f_k, s_k, w_k
         t += K
     return frames, stops, aligns, lengths

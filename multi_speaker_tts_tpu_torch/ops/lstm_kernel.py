@@ -48,7 +48,7 @@ def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor):
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     h_T = torch.empty((B, H), dtype=torch.float32, device=dev)
     c_T = torch.empty_like(h_T)
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
     KERNEL.call(
         "mstts_lstm_layer_fwd", x_tm.data_ptr(), w.data_ptr(), b.data_ptr(),
         ys.data_ptr(), h_T.data_ptr(), c_T.data_ptr(), bar.data_ptr(),

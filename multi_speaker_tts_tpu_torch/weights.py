@@ -9,7 +9,8 @@ flat ``{"ge2e.*" | "tacotron.*": array}`` dict whose keys are the
 Layouts stay the JAX ones (Dense kernels (in, out), LSTM gates i, f, g, o
 in (D, 4H) / (H, 4H), the location conv (K, 2, C)), except the encoder and
 postnet Conv_0 kernels, which go (K, in, out) -> torch's (out, in, K).
-Every tensor the port's modules use is mapped exactly once; the subtrees this
+Every tensor the port's modules use is mapped exactly once, the linear head
+(Conv or CBHG) included when ``Linear_Head.Use`` is on; the subtrees a
 configuration does not use are named in :func:`unused_subtrees` and
 skipped; any other unmapped or doubly mapped tensor raises.
 """
@@ -52,21 +53,40 @@ _RULES = [
      "tacotron.decoder.attention.wloc", _same),
     ("params", r"tacotron/decoder/cell/attention/v/kernel", "tacotron.decoder.attention.v", _same),
 ]
-for _stack in ("encoder", "postnet"):
-    _RULES += [
-        ("params", rf"tacotron/{_stack}/conv_(\d+)/Conv_0/kernel",
-         rf"tacotron.{_stack}.convs.\1.weight", _conv),
-        ("params", rf"tacotron/{_stack}/conv_(\d+)/Conv_0/bias",
-         rf"tacotron.{_stack}.convs.\1.bias", _same),
-        ("params", rf"tacotron/{_stack}/conv_(\d+)/BatchNorm_0/(scale|bias)",
-         rf"tacotron.{_stack}.convs.\1.bn_\2", _same),
-        ("batch_stats", rf"tacotron/{_stack}/conv_(\d+)/BatchNorm_0/(mean|var)",
-         rf"tacotron.{_stack}.convs.\1.bn_\2", _same),
+
+
+def _conv_block_rules(jax_block: str, port_block: str) -> list:
+    """Rules of one family of ``ConvBNBlock``s (regex of the JAX scope ->
+    template of the port's module path)."""
+    return [
+        ("params", rf"{jax_block}/Conv_0/kernel", rf"{port_block}.weight", _conv),
+        ("params", rf"{jax_block}/Conv_0/bias", rf"{port_block}.bias", _same),
+        ("params", rf"{jax_block}/BatchNorm_0/(scale|bias)", rf"{port_block}.bn_\2", _same),
+        ("batch_stats", rf"{jax_block}/BatchNorm_0/(mean|var)", rf"{port_block}.bn_\2", _same),
     ]
 
 
+_HEAD, _PORT_HEAD = "tacotron/linear_head", "tacotron.linear_head"
+for _stack in ("encoder", "postnet"):
+    _RULES += _conv_block_rules(rf"tacotron/{_stack}/conv_(\d+)", rf"tacotron.{_stack}.convs.\1")
+# Linear head, Conv variant (conv_i, projection) and CBHG variant.
+_RULES += _conv_block_rules(rf"{_HEAD}/conv_(\d+)", rf"{_PORT_HEAD}.convs.\1")
+_RULES += _conv_block_rules(rf"{_HEAD}/cbhg/bank_(\d+)", rf"{_PORT_HEAD}.cbhg.bank.\1")
+_RULES += _conv_block_rules(rf"{_HEAD}/cbhg/proj_(\d+)", rf"{_PORT_HEAD}.cbhg.proj_\1")
+_RULES += [
+    ("params", rf"{_HEAD}/projection/(kernel|bias)", rf"{_PORT_HEAD}.projection.\1", _same),
+    ("params", rf"{_HEAD}/cbhg/pre_highway/(kernel|bias)",
+     rf"{_PORT_HEAD}.cbhg.pre_highway.\1", _same),
+    ("params", rf"{_HEAD}/cbhg/highway_(\d+)/(H|T)/(kernel|bias)",
+     rf"{_PORT_HEAD}.cbhg.highways.\1.\2.\3", _same),
+    ("params", rf"{_HEAD}/cbhg/gru/(forward|backward)/(w_ih|w_hh|b_ih|b_hh)",
+     rf"{_PORT_HEAD}.cbhg.gru.\1_dir.\2", _same),
+]
+
+
 def unused_subtrees(hp) -> set[str]:
-    """JAX subtrees a mel-only configuration carries but does not run."""
+    """JAX subtrees this configuration carries but does not run: the linear
+    head of a checkpoint served mel-only (``Linear_Head.Use: false``)."""
     lh = hp.get("Linear_Head")
     return set() if lh is not None and lh.Use else {"tacotron/linear_head"}
 

@@ -14,6 +14,10 @@ import torch
 
 from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch would otherwise start a thread per core in each of them.
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -91,6 +95,146 @@ def test_griffin_lim_kernel(dev, B, T):
     # bf16 leaf operands: last-bit differences of the f32 sums flip operand
     # roundings; 8 iterations keep that within 2% of the peak.
     assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+
+
+def test_bigru_kernel(dev):
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+    rng = np.random.default_rng(2)
+
+    def gru(D, H):
+        return GRUParams(*(torch.from_numpy((rng.normal(size=s) * 0.1).astype(np.float32)).to(dev)
+                           for s in ((D, 3 * H), (H, 3 * H), (3 * H,), (3 * H,))))
+
+    for B, T, H in ((4, 400, 128), (3, 24, 64)):
+        pf, pb = gru(128, H), gru(128, H)
+        x = torch.from_numpy(rng.normal(size=(B, T, 128)).astype(np.float32)).to(dev)
+        gxf, gxb = birnn_kernel.bigru_hoist(pf, pb, x, torch.bfloat16)
+        before = birnn_kernel.GRU_KERNEL.launches
+        ysf, ysb = birnn_kernel.bigru_recurrence(gxf, gxb, pf, pb, torch.bfloat16)
+        assert birnn_kernel.GRU_KERNEL.launches == before + 1
+        rf, rb = birnn_kernel.bigru_recurrence_plain(gxf, gxb, pf, pb, torch.bfloat16)
+        # bf16 operands and outputs, f32 sums in another order.
+        assert (ysf.float() - rf.float()).abs().max().item() <= 5e-3
+        assert (ysb.float() - rb.float()).abs().max().item() <= 5e-3
+    with pytest.raises(NotImplementedError):
+        birnn_kernel.bigru_recurrence(gxf.float(), gxb.float(), pf, pb, torch.float32)
+
+
+def _decoder(rng, dev, H, D, P, A, mel, r, conv_k=31, conv_c=32, scale=0.02):
+    # Weights at a trained model's scale: with larger random weights the AR
+    # feedback is chaotic and amplifies f32 summation-order noise a million-fold
+    # within ten steps (measured), which says nothing about the kernel.
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    def w(*shape, s=scale):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+
+    p = dscan.DecoderParams(
+        lstm=(LSTMParams(w(P + D, 4 * H), w(H, 4 * H), w(4 * H)),
+              LSTMParams(w(H + D, 4 * H), w(H, 4 * H), w(4 * H))),
+        attention=dscan.AttentionParams(w(H, A), w(conv_k, 2, conv_c, s=0.3),
+                                        w(conv_c, A, s=0.3), w(A, 1, s=0.3)),
+        frame_proj=(w(H + D, mel * r), w(mel * r)),
+        stop_proj=(w(H + D, 1), w(1)),
+    )
+    prenet = [(w(mel, P, s=0.2), w(P)), (w(P, P, s=0.2), w(P))]
+    return p, prenet
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("shape", ["full", "small"])
+def test_decode_segment_kernel(dev, quantize, shape, monkeypatch):
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    B, S, A, D, H, P, mel, r, K = ((4, 48, 128, 768, 1024, 256, 80, 2, 10) if shape == "full"
+                                   else (3, 24, 64, 128, 128, 128, 16, 2, 8))
+    rng = np.random.default_rng(5)
+    p, prenet = _decoder(rng, dev, H, D, P, A, mel, r)
+    bundle = dk.prepare_bundle(p, prenet, quantize=quantize)
+    assert dk.prepare_bundle(p, prenet, quantize=quantize) is bundle  # packed once
+    t = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).to(dev)  # noqa: E731
+    keys, memory = t(B, S, A), t(B, S, D)
+    lens = torch.tensor([S, S - 5, 7, S][:B], device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).float()
+    keep = [torch.from_numpy(rng.random((K, B, P)) < 0.5).to(dev).float() / 0.5 for _ in range(2)]
+    carry = dscan.initial_carry(B, memory, 2, H)
+    prev = torch.zeros(B, mel, device=dev)
+    kernel = dk.KERNELS["int8" if quantize else "bf16"]
+    for _ in range(2):  # from the zero state, then from the kernel's own carry
+        before = kernel.launches
+        got = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = dk.decode_segment_plain(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        # f32 sums in another order flip a few int8 / bf16 operand roundings,
+        # which the feedback compounds over K steps (frames and stops 1e-2,
+        # aligns 1e-3: the decode_pallas_int8_vs_xla_int8 gate).
+        assert (got[2] - want[2]).abs().max().item() <= 1e-2
+        assert (got[3] - want[3]).abs().max().item() <= 1e-2
+        assert (got[4] - want[4]).abs().max().item() <= 1e-3
+        assert (got[1] - want[1]).abs().max().item() <= 1e-2
+        for a, b in zip((*got[0].h, *got[0].c, got[0].weights, got[0].cum_weights,
+                         got[0].context),
+                        (*want[0].h, *want[0].c, want[0].weights, want[0].cum_weights,
+                         want[0].context)):
+            assert a.shape == b.shape and (a - b).abs().max().item() <= 1e-2
+        carry, prev = got[0], got[1]
+
+    # On the card the dispatcher never takes the plain version.
+    def boom(*a, **k):
+        raise AssertionError("plain decode ran on a CUDA tensor")
+
+    monkeypatch.setattr(dk, "decode_segment_plain", boom)
+    dk.decode_segment(bundle, keys, memory, mask, carry, prev, None, None, K, mel, r)
+    torch.cuda.synchronize()
+
+
+def test_decode_kernel_raises_on_unsupported_shapes(dev):
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    rng = np.random.default_rng(6)
+    p, prenet = _decoder(rng, dev, 128, 136, 128, 64, 16, 2)  # memory width off the grid
+    bundle = dk.prepare_bundle(p, prenet)
+    memory = torch.zeros(2, 24, 136, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        dk.decode_segment(bundle, torch.zeros(2, 24, 64, device=dev), memory,
+                          torch.ones(2, 24, device=dev), dscan.initial_carry(2, memory, 2, 128),
+                          torch.zeros(2, 16, device=dev), None, None, 4, 16, 2)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("quantize", [None, "int8_pallas", "bf16_pallas"])
+def test_full_checkpoint_as_it_is_on_the_card(dev, quantize, early_exit, monkeypatch):
+    """The shipped checkpoint with its CBHG head; under ``*_pallas`` the
+    plain decode step never runs, in the early-exit loop or in the
+    fixed-length decode."""
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    synth = Synthesizer.from_compact(str(ROOT / "demo" / "serving_ckpt_full.msgpack"),
+                                     quantize=quantize)
+    if quantize is not None:
+        def boom(*a, **k):
+            raise AssertionError("the plain decode ran under a kernel mode")
+
+        monkeypatch.setattr(dscan, "decoder_cell_step", boom)
+        monkeypatch.setattr(dk, "decode_segment_plain", boom)
+    emb = synth.enroll([str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
+    before = birnn_kernel.GRU_KERNEL.launches
+    launched = {m: k.launches for m, k in dk.KERNELS.items()}
+    out = synth.synthesize(["hello world.", "a b c"], emb, pcm16=True, early_exit=early_exit)
+    assert birnn_kernel.GRU_KERNEL.launches == before + 1
+    for mode, kernel in dk.KERNELS.items():
+        assert (kernel.launches > launched[mode]) == (quantize == f"{mode}_pallas")
+    for item in out:
+        assert item["wav"].dtype == np.int16 and item["mel_length"] > 0
+        assert item["linear"].shape == (item["mel_length"], 513)
+        assert np.isfinite(item["linear"]).all()
 
 
 def test_synthesizer_on_the_card(dev):

@@ -22,6 +22,10 @@ from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
 from multi_speaker_tts_tpu_torch.weights import load_into, params_from_jax
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch would otherwise start a thread per core in each of them.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_STEPS, R, MEL = 48, 2, 80
 # f32 on both sides; equal keep masks. Frames differ by summation order

@@ -13,6 +13,10 @@ from multi_speaker_tts_tpu.ops.mel_kernel import melspectrogram_pallas
 from multi_speaker_tts_tpu_torch.audio import dsp
 from multi_speaker_tts_tpu_torch.ops import mel_kernel
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch would otherwise start a thread per core in each of them.
+torch.set_num_threads(1)
+
 # The JAX package's own front-end budget (README "Mel parity <= 1e-4").
 MEL_TOL = 1e-4
 

@@ -15,6 +15,10 @@ from multi_speaker_tts_tpu.ops.griffin_lim_staged import (
 from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as staged
 from multi_speaker_tts_tpu_torch.ops import stft_matmul
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch would otherwise start a thread per core in each of them.
+torch.set_num_threads(1)
+
 N_FFT, HOP = 1024, 256
 
 

@@ -19,6 +19,10 @@ from multi_speaker_tts_tpu_torch.inference import Synthesizer, resolve_device
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch would otherwise start a thread per core in each of them.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "multi_speaker_tts_tpu_torch"
 CKPTS = ["demo/serving_ckpt.msgpack", "demo/serving_ckpt_full.msgpack"]
@@ -120,9 +124,42 @@ def test_msgpack_reader_scalar_types():
 
 
 @pytest.mark.parametrize("path", CKPTS)
+def test_checkpoint_with_its_linear_head_maps_every_tensor_once(path):
+    """The checkpoints as they are (Conv head in the small one, CBHG in the
+    full one): every tensor of both trees lands in the state exactly once,
+    and the state fills ``Tacotron`` and ``GE2E`` strictly."""
+    params, batch_stats, meta = jax_load_compact(ROOT / path)
+    hp = Recursive_Parse(meta["hp"])
+    assert hp.Linear_Head.Use and weights.unused_subtrees(hp) == set()
+    state = weights.params_from_jax(params, batch_stats, hp)
+    n_leaves = sum(1 for _ in _leaves(params)) + sum(1 for _ in _leaves(batch_stats))
+    assert len(state) == n_leaves
+    taco = Tacotron(hp)
+    weights.load_into(taco, state, "tacotron.")  # strict: nothing missing, nothing left over
+    head = params["tacotron"]["linear_head"]
+    if hp.Linear_Head.Type == "CBHG":
+        np.testing.assert_array_equal(
+            taco.linear_head.cbhg.gru.backward_dir.b_hh.numpy(),
+            head["cbhg"]["gru"]["backward"]["b_hh"])
+        np.testing.assert_array_equal(
+            taco.linear_head.cbhg.bank[7].weight.numpy(),
+            np.transpose(head["cbhg"]["bank_7"]["Conv_0"]["kernel"], (2, 1, 0)))
+        np.testing.assert_array_equal(
+            taco.linear_head.cbhg.highways[3].T.bias.numpy(),
+            head["cbhg"]["highway_3"]["T"]["bias"])
+        assert taco.linear_head.cbhg.bank[1].bn_var.shape == (128,)
+    else:
+        np.testing.assert_array_equal(taco.linear_head.projection.kernel.numpy(),
+                                      head["projection"]["kernel"])
+    ge2e = GE2E.from_hp(hp, torch.float32)
+    weights.load_into(ge2e, state, "ge2e.")
+
+
+@pytest.mark.parametrize("path", CKPTS)
 def test_checkpoint_maps_every_used_tensor_once(path):
     params, batch_stats, meta = jax_load_compact(ROOT / path)
     hp = Recursive_Parse(meta["hp"]).replace(Linear_Head={"Use": False})
+    assert weights.unused_subtrees(hp) == {"tacotron/linear_head"}
     state = weights.params_from_jax(params, batch_stats, hp)
     with torch.device("meta"):
         ge2e = GE2E.from_hp(hp, torch.float32)
@@ -153,12 +190,18 @@ def test_mapping_refuses_unknown_and_linear_head_configs():
     extra = dict(params, ge2e=dict(params["ge2e"], stray={"kernel": np.zeros(3)}))
     with pytest.raises(ValueError, match="ge2e/stray/kernel"):
         weights.params_from_jax(extra, batch_stats, hp)
-    # With the linear head in the config its subtree is no longer skipped,
-    # and the port (mel-only so far) has no rule for it.
-    with pytest.raises(ValueError, match="linear_head"):
-        weights.params_from_jax(params, batch_stats, Recursive_Parse(meta["hp"]))
-    with pytest.raises(NotImplementedError, match="mel-only"):
-        Tacotron(Recursive_Parse(meta["hp"]))
+    # With the linear head in the config its subtree is no longer skipped: a
+    # tensor there that no rule knows is refused too, and a head the
+    # hparams do not describe (CBHG asked, Conv stored) does not load.
+    head = params["tacotron"]["linear_head"]
+    stray = dict(params, tacotron=dict(params["tacotron"],
+                                       linear_head=dict(head, extra={"kernel": np.zeros(3)})))
+    with pytest.raises(ValueError, match="linear_head/extra/kernel"):
+        weights.params_from_jax(stray, batch_stats, Recursive_Parse(meta["hp"]))
+    cbhg_hp = Recursive_Parse(meta["hp"]).replace(Linear_Head={"Type": "CBHG"})
+    state = weights.params_from_jax(params, batch_stats, cbhg_hp)
+    with pytest.raises(ValueError, match="missing"):
+        weights.load_into(Tacotron(cbhg_hp), state, "tacotron.")
 
 
 def test_hparams_copy_matches_the_jax_package():
@@ -184,15 +227,29 @@ def test_text_frontend_copy_matches_the_jax_package():
 
 def test_cpu_wrappers_never_count_launches():
     from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
     from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
 
     rng = np.random.default_rng(0)
     p = LSTMParams(*(torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.1)
                      for s in ((8, 32), (8, 32), (32,))))
-    before = (lstm_kernel.KERNEL.launches, birnn_kernel.KERNEL.launches)
+    g = GRUParams(*(torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.1)
+                    for s in ((8, 24), (8, 24), (24,), (24,))))
+    kernels = (lstm_kernel.KERNEL, birnn_kernel.KERNEL, birnn_kernel.GRU_KERNEL)
+    before = [k.launches for k in kernels]
     lstm_kernel.lstm_stack_seq([p], torch.randn(2, 5, 8))
     birnn_kernel.bilstm(p, p, torch.randn(2, 5, 8))
-    assert (lstm_kernel.KERNEL.launches, birnn_kernel.KERNEL.launches) == before
+    birnn_kernel.bigru(g, g, torch.randn(2, 5, 8))
+    assert [k.launches for k in kernels] == before
+
+
+def test_new_kernel_sources_carry_their_provenance():
+    """Each hand-written source names the TPU function it replaces."""
+    for source, replaces in (("bigru.cu", "birnn_pallas.py::_bigru_fwd_impl"),
+                             ("decode.cu", "decode_pallas.py::decode_segment_pallas")):
+        text = (PORT / "csrc" / source).read_text()
+        assert replaces in text and "MSTTS_EXPORT" in text
+        assert "cudaGetLastError" in (PORT / "csrc" / "common.cuh").read_text()
 
 
 def test_packed_weight_layout_is_built_once_per_weight_state():

@@ -13,6 +13,10 @@ from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
 from multi_speaker_tts_tpu_torch.ops import lstm as lstm_ops
 from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch would otherwise start a thread per core in each of them.
+torch.set_num_threads(1)
+
 # KERNEL_PARITY.json's lstm_stack_pallas_vs_wavefront / bilstm_pallas_vs_fused
 # gates: bf16 operands, f32 accumulation, outputs stored bf16; only the
 # order of the f32 sums differs.

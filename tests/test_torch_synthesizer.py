@@ -1,7 +1,10 @@
 """End to end: the port's ``Synthesizer(device="cpu")`` against the JAX
-``Synthesizer`` on the committed small checkpoint, mel-only
-(``Linear_Head.Use: false``), f32 (``Use_Mixed_Precision: false``) and with
-prenet dropout 0 on both sides, so the comparison is deterministic."""
+``Synthesizer`` on the committed small checkpoint, f32
+(``Use_Mixed_Precision: false``) and with prenet dropout 0 on both sides, so
+the comparison is deterministic: first mel-only (``Linear_Head.Use:
+false``, the pseudo-inverse vocoder branch), then the checkpoint as it is
+(Conv linear head on, the linear branch), plain and with ``quantize="int8"``
+on both sides."""
 
 import pathlib
 
@@ -16,6 +19,10 @@ from multi_speaker_tts_tpu.inference import Synthesizer as JaxSynthesizer
 from multi_speaker_tts_tpu.train.checkpoints import load_compact
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
 from multi_speaker_tts_tpu_torch.inference import Synthesizer
+
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch would otherwise start a thread per core in each of them.
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CKPT = ROOT / "demo" / "serving_ckpt.msgpack"
@@ -118,3 +125,62 @@ def test_synthesize_pcm16(pair, embeddings, outputs):
     # utterance agree to ~6e-5 (measured), so <= 5 counts leaves room for
     # 1e-4 of float difference plus one count of rounding.
     assert np.abs(got[0]["wav"].astype(int) - want[0]["wav"].astype(int)).max() <= 5
+
+
+# -- the checkpoint as it is: Conv linear head on ------------------------------
+HEAD_OVERRIDES = {k: v for k, v in OVERRIDES.items() if k != "Linear_Head"}
+LINEAR_TOL = 1e-4  # f32 on both sides, as the mel
+# int8 gates on both sides: equal integer sums, so steps differ by f32
+# summation order until a last-bit difference flips an activation rounding;
+# over the 10-33 decoded steps that stays within the K-step bound of the
+# decode-segment tests (measured: mel 3.2e-4, linear 7.8e-5).
+INT8_MEL_TOL = 3e-3
+
+
+@pytest.fixture(scope="module", params=[None, "int8"], ids=["plain", "int8"])
+def head_outputs(request, embeddings):
+    params, batch_stats, meta = load_compact(CKPT)
+    jax_synth = JaxSynthesizer(JaxRecursiveParse(meta["hp"]).replace(**HEAD_OVERRIDES),
+                               params, batch_stats, quantize=request.param)
+    port = Synthesizer(Recursive_Parse(meta["hp"]).replace(**HEAD_OVERRIDES),
+                       params, batch_stats, device="cpu", quantize=request.param)
+    assert port.tacotron.decoder.quantize_int8 == (request.param == "int8")
+    emb = embeddings[0]
+    return (request.param, jax_synth.synthesize(TEXTS, emb, pcm16=False),
+            port.synthesize(TEXTS, emb, pcm16=False))
+
+
+def test_synthesize_with_the_linear_head_matches(head_outputs):
+    mode, want, got = head_outputs
+    assert [o["mel_length"] for o in got] == [o["mel_length"] for o in want]
+    mel_tol, lin_tol = (MEL_TOL, LINEAR_TOL) if mode is None else (INT8_MEL_TOL, INT8_MEL_TOL)
+    for w, g in zip(want, got):
+        assert g["mel"].shape == w["mel"].shape
+        assert np.abs(g["mel"] - w["mel"]).max() <= mel_tol
+        assert g["linear"].shape == w["linear"].shape == (w["mel_length"], 513)
+        assert np.abs(g["linear"] - w["linear"]).max() <= lin_tol
+
+
+def test_synthesize_wav_through_the_linear_branch_matches(head_outputs):
+    mode, want, got = head_outputs
+    # The int8 decodes' mels differ by up to INT8_MEL_TOL; Griffin-Lim's 60
+    # iterations carry that to 1.2% of the waveform's peak (measured).
+    rel = WAV_REL_TOL if mode is None else 5e-2
+    for w, g in zip(want, got):
+        assert g["wav"].shape == w["wav"].shape and g["wav"].dtype == np.float32
+        assert np.abs(g["wav"] - w["wav"]).max() <= rel * np.abs(w["wav"]).max()
+
+
+def test_return_linear_false_and_unknown_quantize(pair, embeddings):
+    params, batch_stats, meta = load_compact(CKPT)
+    hp = Recursive_Parse(meta["hp"]).replace(**HEAD_OVERRIDES)
+    port = Synthesizer(hp, params, batch_stats, device="cpu")
+    out = port.synthesize(TEXTS[:1], embeddings[0], return_linear=False)
+    assert "linear" not in out[0] and out[0]["wav"].size > 0
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        Synthesizer(hp, params, batch_stats, device="cpu", quantize="int4")
+    for mode, key, value in (("int8_pallas", "Pallas_Decode", True),
+                             ("bf16_pallas", "Pallas_Decode", "bf16"),
+                             ("int8", "Quantize_Int8", True)):
+        synth = Synthesizer(hp, params, batch_stats, device="cpu", quantize=mode)
+        assert synth.hp.Decoder.get(key) == value
