@@ -54,6 +54,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 CKPT = ROOT / "demo" / "serving_ckpt_full.msgpack"
 ENROLL = [ROOT / "demo" / f for f in
           ("enroll_spk0_utt0.wav", "enroll_spk0_utt1.wav", "enroll_spk5_utt0.wav")]
+# The five demo wavs, cycled into the train phase's batch.
+TRAIN_WAVS = ENROLL + [ROOT / "demo" / f for f in ("clone_spk0.wav", "clone_spk5.wav")]
+TRAIN_BATCH, TRAIN_STEPS = 32, 5
 TEXTS = [
     "hello world, this is a test of the port.",
     "the quick brown fox jumps over the lazy dog.",
@@ -112,13 +115,12 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _profile(label: str, synth, wavs) -> tuple[float, list[int]]:
-    """One enroll + synthesize under torch.profiler: device busy time (the
-    union of CUDA kernel and copy intervals), its share of the profiled
-    wall time, the host time of the port's stage spans, and the kernels by
-    device time. A first, empty profile takes the profiler's start-up cost.
-    Returns the busy ms and the mel lengths (the caller reseeds the
-    dropout generator so this pass repeats the unprofiled one's work)."""
+def _profile(label: str, fn):
+    """``fn()`` under torch.profiler: device busy time (the union of CUDA
+    kernel and copy intervals), its share of the profiled wall time, the
+    host time of the port's stage spans, and the kernels by device time. A
+    first, empty profile takes the profiler's start-up cost. Returns the
+    busy ms and what ``fn`` returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,8 +131,7 @@ def _profile(label: str, synth, wavs) -> tuple[float, list[int]]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        emb = synth.enroll(wavs)
-        out = synth.synthesize(TEXTS, emb, pcm16=True)
+        out = fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     stages = ("enroll.", "synth.")
@@ -151,11 +152,38 @@ def _profile(label: str, synth, wavs) -> tuple[float, list[int]]:
     print(f"[{label}] profile (under the profiler): wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(intervals)} device ops")
-    print(f"[{label}] profile stage spans (host ms): "
-          + json.dumps({k: round(v, 2) for k, v in sorted(spans.items())}))
+    if spans:
+        print(f"[{label}] profile stage spans (host ms): "
+              + json.dumps({k: round(v, 2) for k, v in sorted(spans.items())}))
     print(f"[{label}] profile top device ops (ms): "
           + json.dumps([[k[:70], round(v, 3)] for k, v in top]))
-    return busy_ms, [item["mel_length"] for item in out]
+    return busy_ms, out
+
+
+def _train_batch(hp, n: int, seed: int) -> dict:
+    """A batch of ``n`` in the ``collate_tts`` layout at the checkpoint's own
+    buckets: the five demo wavs cycled, mel and linear targets from the
+    port's front-end (``dsp.melspectrogram`` / ``dsp.spectrogram``, on the
+    CPU), tokens from ``TEXTS``, reference crops drawn from a seeded numpy
+    generator."""
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
+    from multi_speaker_tts_tpu_torch.data.collate import collate_tts
+    from multi_speaker_tts_tpu_torch.text import encode_text
+
+    cfg = dsp.DSPConfig.from_hp(hp)
+    feats = []
+    for path in TRAIN_WAVS:
+        wav = torch.from_numpy(wav_io.load_wav(path, target_sr=hp.Sound.Sample_Rate)[0])
+        feats.append((dsp.melspectrogram(wav, cfg).numpy(), dsp.spectrogram(wav, cfg).numpy()))
+    pats = [{"Tokens": encode_text(TEXTS[i % len(TEXTS)], hp), "Mel": feats[i % 5][0],
+             "Spect": feats[i % 5][1], "Speaker_ID": i % 5} for i in range(n)]
+    buckets = hp.Train.Batch_Bucketing
+    return collate_tts(pats, buckets.Token_Buckets[0], buckets.Mel_Buckets[0], hp.Sound.Mel_Dim,
+                       int(hp.Decoder.N_Frames_Per_Step), hp.Speaker_Embedding.GE2E.Window_Length,
+                       np.random.default_rng(seed), hp.Sound.Spectrogram_Dim)
 
 
 def main() -> int:
@@ -188,6 +216,14 @@ def main() -> int:
         "griffin_lim_staged": griffin_lim_staged.KERNEL,
         "decode_segment_bf16": decode_kernel.KERNELS["bf16"],
         "decode_segment_int8": decode_kernel.KERNELS["int8"],
+        # The train phase's: the residual modes of the three recurrences and
+        # their backward kernels.
+        "ge2e_lstm_layer_residuals": lstm_kernel.RES_KERNEL,
+        "ge2e_lstm_bwd": lstm_kernel.BWD_KERNEL,
+        "text_encoder_bilstm_residuals": birnn_kernel.RES_KERNEL,
+        "text_encoder_bilstm_bwd": birnn_kernel.BWD_KERNEL,
+        "cbhg_bigru_residuals": birnn_kernel.GRU_RES_KERNEL,
+        "cbhg_bigru_bwd": birnn_kernel.GRU_BWD_KERNEL,
     }
 
     # 1. Build ---------------------------------------------------------------
@@ -219,6 +255,17 @@ def main() -> int:
     plain_calls = {"decoder_cell_step": [], "decode_segment_plain": []}
     _record(decoder_scan, "decoder_cell_step", plain_calls["decoder_cell_step"])
     _record(decode_kernel, "decode_segment_plain", plain_calls["decode_segment_plain"])
+    # The train phase: the backward wrappers, and the plain backwards, which
+    # must not run on the card. The forward wrappers above serve both modes
+    # (``save_residuals`` among their arguments).
+    _record(lstm_kernel, "lstm_seq_layer_bwd_kernel", recorded["ge2e_lstm_bwd"])
+    _record(birnn_kernel, "bilstm_bwd_kernel", recorded["text_encoder_bilstm_bwd"])
+    _record(birnn_kernel, "bigru_bwd_kernel", recorded["cbhg_bigru_bwd"])
+    plain_bwd = {name: [] for name in ("lstm_seq_layer_bwd_plain", "bilstm_bwd_plain",
+                                       "bigru_bwd_plain")}
+    _record(lstm_kernel, "lstm_seq_layer_bwd_plain", plain_bwd["lstm_seq_layer_bwd_plain"])
+    _record(birnn_kernel, "bilstm_bwd_plain", plain_bwd["bilstm_bwd_plain"])
+    _record(birnn_kernel, "bigru_bwd_plain", plain_bwd["bigru_bwd_plain"])
 
     failures = []
 
@@ -274,7 +321,9 @@ def main() -> int:
         profiler; the idle share of the unprofiled pass is its wall time
         less this device busy time."""
         synth.generator.manual_seed(0)
-        busy_ms, lengths = _profile(res["label"], synth, wavs)
+        busy_ms, out = _profile(res["label"], lambda: synth.synthesize(
+            TEXTS, synth.enroll(wavs), pcm16=True))
+        lengths = [item["mel_length"] for item in out]
         wall_ms = (res["t_enroll"] + res["t_synth"]) * 1e3
         print(f"[{res['label']}] device idle, unprofiled pass: busy {busy_ms:.1f} ms (profiled "
               f"repeat, mel_lengths {lengths}) of {wall_ms:.1f} ms wall = "
@@ -376,6 +425,125 @@ def main() -> int:
             failures.append(f"[fixed-length {quantize}] the plain decode ran: "
                             f"{pf['plain_steps']}")
 
+    # 2b. Train phase --------------------------------------------------------
+    # The checkpoint with the YAML default Speaker_Embedding.GE2E.Freeze:
+    # false, so gradients reach the GE2E encoder: teacher-forced steps on a
+    # batch of 32 at the checkpoint's buckets.
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    train_names = ("ge2e_lstm_layer_residuals", "ge2e_lstm_bwd", "text_encoder_bilstm_residuals",
+                   "text_encoder_bilstm_bwd", "cbhg_bigru_residuals", "cbhg_bigru_bwd")
+    per_step = {"ge2e_lstm_layer_residuals": 3, "ge2e_lstm_bwd": 3,
+                "text_encoder_bilstm_residuals": 1, "text_encoder_bilstm_bwd": 1,
+                "cbhg_bigru_residuals": 1, "cbhg_bigru_bwd": 1, "ge2e_lstm_layer": 0,
+                "text_encoder_bilstm": 0, "cbhg_bigru": 0}
+    hp_train = hp.replace(Speaker_Embedding={"GE2E": {"Freeze": False}})
+    batch = _train_batch(hp, TRAIN_BATCH, seed=0)
+    frames = int(batch["mel_lengths"].sum())
+    print(f"[train] batch {TRAIN_BATCH}: tokens {batch['tokens'].shape}, mels "
+          f"{batch['mels'].shape}, refs {batch['ref_mels'].shape}, spects "
+          f"{batch['spects'].shape}, {frames} mel frames")
+    trainer = Trainer(hp_train, params, batch_stats, seed=0)  # -> cuda
+    recurrent = [(n, t) for n, t in zip(trainer.param_names, trainer.params)
+                 if "lstm" in n or "gru" in n]
+    t0 = time.perf_counter()
+    trainer.train_step(batch)  # warm-up: libraries, packed weights, cuBLAS choices
+    torch.cuda.synchronize()
+    print(f"[train] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms")
+    for store in (*recorded.values(), *plain_bwd.values()):
+        store.clear()
+    for k in kernels.values():
+        k.launches = 0
+    step_ms, train_metrics = [], []
+    for i in range(TRAIN_STEPS):
+        counts = {name: k.launches for name, k in kernels.items()}
+        before = [t.detach().clone() for _, t in recurrent]
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = trainer.train_step(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        train_metrics.append(m)
+        delta = {name: kernels[name].launches - counts[name] for name in per_step}
+        if delta != per_step:
+            failures.append(f"[train] step {i}: launches {delta}, want {per_step}")
+        if m["skipped_nonfinite"] or not all(math.isfinite(v) for v in m.values()):
+            failures.append(f"[train] step {i}: metrics {m}")
+        still = [n for (n, t), b in zip(recurrent, before) if torch.equal(t.detach(), b)]
+        if len(still) == len(recurrent):
+            failures.append(f"[train] step {i}: no recurrent weight changed")
+        elif still:
+            print(f"[train] step {i}: unchanged by this step's update (under an f32 ulp at "
+                  f"this learning rate): {still}")
+    train_launches = {name: kernels[name].launches for name in train_names}
+    train_rec = {name: list(recorded[name]) for name in
+                 ("ge2e_lstm_layer", "ge2e_lstm_bwd", "text_encoder_bilstm",
+                  "text_encoder_bilstm_bwd", "cbhg_bigru", "cbhg_bigru_bwd")}
+    if any(plain_bwd.values()):
+        failures.append(f"[train] a plain backward ran on the card: "
+                        f"{ {k: len(v) for k, v in plain_bwd.items()} }")
+    ms = sum(step_ms) / len(step_ms)
+    print(f"[train] {TRAIN_STEPS} steps (CUDA events): "
+          + json.dumps([round(x, 2) for x in step_ms]) + f" ms; mean {ms:.2f} ms a step, "
+          f"{frames / (ms / 1e3):.0f} mel frames/s")
+    print("[train] metrics: " + json.dumps([{k: round(v, 5) for k, v in m.items()}
+                                              for m in train_metrics]))
+    print(f"[train] launches over the {TRAIN_STEPS} steps: {train_launches}; plain backward "
+          f"calls {({k: len(v) for k, v in plain_bwd.items()})}")
+    busy_ms, _ = _profile("train step", lambda: trainer.train_step(batch))
+    print(f"[train] device idle, one step: busy {busy_ms:.1f} ms (profiled step) of {ms:.1f} "
+          f"ms (unprofiled mean) = {100 * (1 - busy_ms / ms):.1f}% idle")
+    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del trainer
+
+    # Freeze: true (the checkpoint as it is): the encoder runs without a
+    # graph, the LSTM backward never launches and its weights stay bit-equal.
+    trainer = Trainer(hp, params, batch_stats, seed=0)
+    ge2e_before = [t.detach().clone() for t in trainer.ge2e.parameters()]
+    counts = {name: k.launches for name, k in kernels.items()}
+    m = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    delta = {name: kernels[name].launches - counts[name] for name in per_step}
+    frozen_ok = all(torch.equal(a, t.detach()) for a, t in zip(ge2e_before,
+                                                               trainer.ge2e.parameters()))
+    print(f"[train] Freeze: true: launches {delta}; GE2E bit-equal after the step: {frozen_ok}; "
+          f"total {m['total']:.5f}, skipped {m['skipped_nonfinite']}")
+    if delta["ge2e_lstm_bwd"] or delta["ge2e_lstm_layer_residuals"] or not frozen_ok:
+        failures.append(f"[train] Freeze: true: launches {delta}, GE2E unchanged {frozen_ok}")
+    if delta["ge2e_lstm_layer"] != 3 or m["skipped_nonfinite"]:
+        failures.append(f"[train] Freeze: true: {delta}, {m}")
+    del trainer
+
+    # Whole step, card against the port's plain path on the CPU: every
+    # dropout rate 0, the same weights, the first 8 rows of the batch (gated)
+    # and all 32 (printed only). At 32 the gradient norm is dominated by two
+    # rows (the same wav and text, two reference crops) whose speaker-
+    # embedding gradient is ill-conditioned in bf16: it moves by several
+    # times with the rounding, on either device, so that comparison measures
+    # the conditioning, not the port (PERF.md, section 6).
+    no_dropout = dict(Decoder={"Prenet": {"Dropout_Rate": 0.0}},
+                      Encoder={"Conv": {"Dropout_Rate": 0.0}},
+                      Postnet={"Conv": {"Dropout_Rate": 0.0}},
+                      Linear_Head={"Conv": {"Dropout_Rate": 0.0}})
+    hp0 = hp_train.replace(**no_dropout)
+    for rows, gated in ((8, True), (TRAIN_BATCH, False)):
+        part = {k: v[:rows] for k, v in batch.items()}
+        on_card = Trainer(hp0, params, batch_stats, seed=0).train_step(part)
+        t0 = time.perf_counter()
+        on_cpu = Trainer(hp0, params, batch_stats, device="cpu", seed=0).train_step(part)
+        t_cpu = time.perf_counter() - t0
+        errs = {k: abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-12)
+                for k in on_cpu if k != "skipped_nonfinite"}
+        print(f"[train] whole step, card vs plain CPU (B = {rows}, dropout 0; CPU step "
+              f"{t_cpu:.1f} s; {'gated' if gated else 'printed, not gated'}): grad_norm "
+              f"{on_card['grad_norm']:.4f} vs {on_cpu['grad_norm']:.4f}; relative errors "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()})
+              + "; tolerance 1e-2 each loss, 2e-2 grad_norm")
+        for k, v in errs.items():
+            if gated and not v <= (2e-2 if k == "grad_norm" else 1e-2):
+                failures.append(f"[train] whole step {k}: card {on_card[k]} vs CPU {on_cpu[k]}")
+
     # 3. Kernel phase --------------------------------------------------------
     rows = []
     launches = dict(pa["launches"],
@@ -458,8 +626,8 @@ def main() -> int:
 
     # GE2E LSTM layer, timed at the 768-wide layers' shape (layer 1 of the
     # stack); its error also covers layer 0's (D = mel bins) shape.
-    (p, x_tm), _, _ = next(c for c in rec["ge2e_lstm_layer"] if c[0][1].shape[-1] != 80)
-    (p0, x0), _, _ = next(c for c in rec["ge2e_lstm_layer"] if c[0][1].shape[-1] == 80)
+    (p, x_tm, *_), _, _ = next(c for c in rec["ge2e_lstm_layer"] if c[0][1].shape[-1] != 80)
+    (p0, x0, *_), _, _ = next(c for c in rec["ge2e_lstm_layer"] if c[0][1].shape[-1] == 80)
     Tl, Bl, Dl = x_tm.shape
     Hl = p.hidden_size
     lstm_lib = torch.nn.LSTM(Dl, Hl).to(device=x_tm.device, dtype=torch.bfloat16)
@@ -483,7 +651,7 @@ def main() -> int:
     )
 
     # Text-encoder BiLSTM recurrence on the hoisted gates.
-    (gxf, gxb, whf, whb), _, _ = rec["text_encoder_bilstm"][0]
+    (gxf, gxb, whf, whb, *_), _, _ = rec["text_encoder_bilstm"][0]
     Sb, Bb, H4 = gxf.shape
     Hb = H4 // 4
     bi_lib = torch.nn.LSTM(2 * H4, Hb, bidirectional=True).to(device=gxf.device,
@@ -514,7 +682,7 @@ def main() -> int:
     # CBHG BiGRU recurrence on the hoisted input gates, over the whole decode
     # bucket. The library yardstick is a bidirectional nn.GRU fed identity
     # input weights (its input is the hoisted gates).
-    (ggf, ggb, gru_f, gru_b), _, _ = rec["cbhg_bigru"][0]
+    (ggf, ggb, gru_f, gru_b, *_), _, _ = rec["cbhg_bigru"][0]
     Tg, Bg, H3 = ggf.shape
     Hg = H3 // 3
     gru_lib = torch.nn.GRU(2 * H3, Hg, bidirectional=True).to(device=ggf.device,
@@ -652,6 +820,176 @@ def main() -> int:
         row = rows[-1]
         print(f"  {name}: {row['ms']:.3f} ms for K = {Kd} steps = {1e3 * row['ms'] / Kd:.1f} us "
               f"per step; plain {row['plain_ms']:.2f} ms")
+
+    # Train phase kernels, on the inputs the last timed train step gave them:
+    # the residual modes (every output against the plain version's, as a
+    # share of its peak) and the backward kernels (dG, or dGx and dGh, within
+    # 1e-2 of the plain version's peak). Library yardsticks: cuDNN's training
+    # forward (it keeps its own reserve for the backward) and cuDNN's RNN
+    # backward through torch.autograd.grad (data and weight gradients).
+    launches.update(train_launches)
+    n_fwd = 3  # GE2E layers a step
+
+    def rel_peak(got, ref):
+        if isinstance(got, (tuple, list)):
+            return max(rel_peak(a, b) for a, b in zip(got, ref))
+        return ((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max().clamp(min=1e-9)).item()
+
+    def cudnn_backward(lib, x, grad_out, grad_h=None):
+        """``torch.autograd.grad`` of one forward of ``lib`` (bf16) and of its
+        fp16 copy, w.r.t. the input and the weights, graph retained."""
+        calls = {}
+        lib16 = copy.deepcopy(lib).half()
+        lib16.flatten_parameters()
+        for label, mod, dt in (("bf16", lib, torch.bfloat16), ("fp16", lib16, torch.float16)):
+            inp = x.detach().to(dt).requires_grad_(True)
+            out, hn = mod(inp)
+            hn = hn[0] if isinstance(hn, tuple) else hn
+            outs, grads = [out], [grad_out.to(dt)]
+            if grad_h is not None:
+                outs.append(hn)
+                grads.append(grad_h.to(dt)[None])
+            wts = list(mod.parameters())
+            calls[label] = (lambda o=outs, g=grads, i=inp, w=wts:
+                            torch.autograd.grad(o, [i, *w], g, retain_graph=True))
+        return calls
+
+    def res_calls(store, flag_at):
+        return [c for c in store if len(c[0]) > flag_at and c[0][flag_at]]
+
+    # GE2E layer, residual mode: timed at a 768-wide layer, layer 0 checked too.
+    lres = res_calls(train_rec["ge2e_lstm_layer"], 2)[-n_fwd:]
+    (p1, x1, _), _, _ = next(c for c in lres if c[0][1].shape[-1] != 80)
+    (p0r, x0r, _), _, _ = next(c for c in lres if c[0][1].shape[-1] == 80)
+    Tl, Bl, Dl = x1.shape
+    Hl = p1.hidden_size
+    check(
+        "ge2e_lstm_layer_residuals", "multi_speaker_tts_tpu/ops/lstm_pallas.py:108",
+        "multi_speaker_tts_tpu_torch/csrc/lstm.cu",
+        lambda: lstm_kernel.lstm_seq_layer_kernel.original(p1, x1, True),
+        lambda: lstm_kernel.lstm_seq_layer_plain(p1, x1, torch.bfloat16, True),
+        rel_peak, 1e-2,
+        _bound_ms(2 * (Tl * Bl * Dl + 4 * Hl * (Dl + Hl) + Tl * Bl * Hl + Tl * Bl * 5 * Hl)
+                  + 4 * (4 * Hl + 2 * Bl * Hl),
+                  2 * Tl * Bl * 4 * Hl * (Dl + Hl), BF16_FLOPS),
+        library_fn=cudnn_calls(lstm_lib, x1),
+        also=[(lambda: lstm_kernel.lstm_seq_layer_kernel.original(p0r, x0r, True),
+               lambda: lstm_kernel.lstm_seq_layer_plain(p0r, x0r, torch.bfloat16, True))],
+        extra={"mode": "save_residuals=True (train step)", "shape": [Tl, Bl, Dl, Hl],
+               "error_metric": "max |kernel - plain| / max |plain|, worst output"},
+    )
+
+    # GE2E layer backward: the last step's three calls (layer 2 with the
+    # h_T cotangent, layers 1 and 0 with per-step cotangents); timed at
+    # layer 1.
+    lb = train_rec["ge2e_lstm_bwd"][-n_fwd:]
+    (w_hh1, g1, c1, dh1, dys1), _, _ = lb[1]
+    Tb_, Bb_, H4b = g1.shape
+    Hb_ = H4b // 4
+    lstm_bwd_lib = torch.nn.LSTM(H4b, Hb_).to(device=g1.device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lstm_bwd_lib.weight_ih_l0.copy_(torch.eye(H4b, device=g1.device))
+        lstm_bwd_lib.weight_hh_l0.copy_(w_hh1.t())
+        lstm_bwd_lib.bias_ih_l0.zero_()
+        lstm_bwd_lib.bias_hh_l0.zero_()
+    lstm_bwd_lib.flatten_parameters()
+
+    def lstm_bwd_bytes(g, c, dh, dys):
+        return (_nbytes(g, c) + 2 * g.shape[-1] * c.shape[-1] + _nbytes(g)
+                + (0 if dh is None else _nbytes(dh)) + (0 if dys is None else _nbytes(dys)))
+
+    check(
+        "ge2e_lstm_bwd", "multi_speaker_tts_tpu/ops/lstm_pallas.py:227",
+        "multi_speaker_tts_tpu_torch/csrc/lstm_bwd.cu",
+        lambda: lstm_kernel.lstm_seq_layer_bwd_kernel.original(w_hh1, g1, c1, dh1, dys1),
+        lambda: lstm_kernel.lstm_seq_layer_bwd_plain.original(w_hh1, g1, c1, dh1, dys1),
+        rel_peak, 1e-2,
+        _bound_ms(lstm_bwd_bytes(g1, c1, dh1, dys1), 2 * Tb_ * Bb_ * H4b * Hb_, BF16_FLOPS),
+        library_fn=cudnn_backward(lstm_bwd_lib, g1, dys1 if dys1 is not None
+                                  else torch.zeros(Tb_, Bb_, Hb_, device=g1.device),
+                                  torch.zeros(Bb_, Hb_, device=g1.device) if dh1 is None else dh1),
+        also=[(lambda a=a: lstm_kernel.lstm_seq_layer_bwd_kernel.original(*a),
+               lambda a=a: lstm_kernel.lstm_seq_layer_bwd_plain.original(*a))
+              for a in (lb[0][0], lb[2][0])],
+        extra={"shape": [Tb_, Bb_, H4b], "launches_per_step": 3,
+               "error_metric": "max |dG - plain dG| / max |plain dG|",
+               "library": "cuDNN LSTM backward (identity input weights; data and weight "
+                          "gradients), the faster of bf16 and fp16"},
+    )
+
+    # BiLSTM, residual mode and backward.
+    bres = res_calls(train_rec["text_encoder_bilstm"], 4)[-1]
+    (bgf, bgb, bwf, bwb, _), _, _ = bres
+    Sb, Bb, H4 = bgf.shape
+    Hb = H4 // 4
+    check(
+        "text_encoder_bilstm_residuals", "multi_speaker_tts_tpu/ops/birnn_pallas.py:161",
+        "multi_speaker_tts_tpu_torch/csrc/bilstm.cu",
+        lambda: birnn_kernel.bilstm_recurrence_kernel.original(bgf, bgb, bwf, bwb, True),
+        lambda: birnn_kernel.bilstm_recurrence_plain(bgf, bgb, bwf, bwb, torch.bfloat16, True),
+        rel_peak, 1e-2,
+        _bound_ms(2 * (2 * Sb * Bb * H4 + 2 * H4 * Hb + 2 * Sb * Bb * Hb + 2 * Sb * Bb * 5 * Hb),
+                  2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
+        library_fn=cudnn_calls(bi_lib, torch.cat([bgf, bgb], dim=-1)),
+        extra={"mode": "save_residuals=True (train step)", "shape": [Sb, Bb, H4],
+               "error_metric": "max |kernel - plain| / max |plain|, worst output"},
+    )
+    bargs = train_rec["text_encoder_bilstm_bwd"][-1][0]
+    gf_, cf_, gb_, cb_, _, _, dyf_, dyb_ = bargs
+    check(
+        "text_encoder_bilstm_bwd", "multi_speaker_tts_tpu/ops/birnn_pallas.py:255",
+        "multi_speaker_tts_tpu_torch/csrc/bilstm_bwd.cu",
+        lambda: birnn_kernel.bilstm_bwd_kernel.original(*bargs),
+        lambda: birnn_kernel.bilstm_bwd_plain.original(*bargs),
+        rel_peak, 1e-2,
+        _bound_ms(_nbytes(gf_, cf_, gb_, cb_, dyf_, dyb_, gf_, gb_) + 2 * 2 * H4 * Hb,
+                  2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
+        library_fn=cudnn_backward(bi_lib, torch.cat([gf_, gb_], dim=-1),
+                                  torch.cat([dyf_, dyb_], dim=-1)),
+        extra={"shape": [Sb, Bb, H4], "launches_per_step": 1,
+               "error_metric": "max |dG - plain dG| / max |plain dG|, both directions",
+               "library": "cuDNN bidirectional LSTM backward (identity input weights; data "
+                          "and weight gradients), the faster of bf16 and fp16"},
+    )
+
+    # BiGRU, residual mode and backward, over the mel bucket.
+    gres = res_calls(train_rec["cbhg_bigru"], 4)[-1]
+    (tgf, tgb, tpf, tpb, _), _, _ = gres
+    Tg, Bg, H3 = tgf.shape
+    Hg = H3 // 3
+    check(
+        "cbhg_bigru_residuals", "multi_speaker_tts_tpu/ops/birnn_pallas.py:450",
+        "multi_speaker_tts_tpu_torch/csrc/bigru.cu",
+        lambda: birnn_kernel.bigru_recurrence_kernel.original(tgf, tgb, tpf, tpb, True),
+        lambda: birnn_kernel.bigru_recurrence_plain(tgf, tgb, tpf, tpb, torch.bfloat16, True),
+        rel_peak, 1e-2,
+        _bound_ms(2 * (2 * Tg * Bg * H3 + 2 * Hg * H3 + 2 * Tg * Bg * Hg
+                       + 2 * Tg * Bg * (H3 + Hg)) + 4 * 2 * H3,
+                  2 * 2 * Tg * Bg * Hg * H3, BF16_FLOPS),
+        library_fn=cudnn_calls(gru_lib, torch.cat([tgf, tgb], dim=-1)),
+        extra={"mode": "save_residuals=True (train step)", "shape": [Tg, Bg, H3],
+               "error_metric": "max |kernel - plain| / max |plain|, worst output"},
+    )
+    gargs = train_rec["cbhg_bigru_bwd"][-1][0]
+    gxf_, ghf_, hpf_, gxb_, ghb_, hpb_, _, _, gdyf, gdyb = gargs
+    check(
+        "cbhg_bigru_bwd", "multi_speaker_tts_tpu/ops/birnn_pallas.py:529",
+        "multi_speaker_tts_tpu_torch/csrc/bigru_bwd.cu",
+        lambda: birnn_kernel.bigru_bwd_kernel.original(*gargs),
+        lambda: birnn_kernel.bigru_bwd_plain.original(*gargs),
+        rel_peak, 1e-2,
+        _bound_ms(_nbytes(gxf_, ghf_, hpf_, gxb_, ghb_, hpb_, gdyf, gdyb)
+                  + 2 * 2 * H3 * Hg + 4 * _nbytes(gxf_),
+                  2 * 2 * Tg * Bg * H3 * Hg, BF16_FLOPS),
+        library_fn=cudnn_backward(gru_lib, torch.cat([gxf_, gxb_], dim=-1),
+                                  torch.cat([gdyf, gdyb], dim=-1)),
+        extra={"shape": [Tg, Bg, H3], "launches_per_step": 1,
+               "error_metric": "max |dGx, dGh - plain| / max |plain|, both directions",
+               "library": "cuDNN bidirectional GRU backward (identity input weights; data "
+                          "and weight gradients), the faster of bf16 and fp16",
+               "sequential_floor_ms": Tg * Hg / 3 / SM_CLOCK_HZ * 1e3},
+    )
 
     # 4. Report --------------------------------------------------------------
     print(json.dumps({"kernels": rows}))

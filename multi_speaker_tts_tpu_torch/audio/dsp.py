@@ -148,6 +148,14 @@ def denormalize(S_norm: torch.Tensor, min_level_db: float) -> torch.Tensor:
     return torch.clamp(S_norm, 0.0, 1.0) * (-min_level_db) + min_level_db
 
 
+def spectrogram(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """Normalized linear spectrogram: (..., L) -> (..., T, n_fft//2+1), the
+    linear head's training target."""
+    y = preemphasis(wav, cfg.preemphasis)
+    D = stft_magnitude(y, cfg.n_fft, cfg.hop)
+    return normalize(amp_to_db(D) - cfg.ref_level_db, cfg.min_level_db)
+
+
 def melspectrogram(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
     """Normalized log-mel via the FFT: (..., L) -> (..., T, n_mels)."""
     y = preemphasis(wav, cfg.preemphasis)

@@ -24,6 +24,11 @@
 // Bound on an H100: T dependent steps of one 128-deep dot product plus two
 // block barriers each; the bytes (gates, 2 x 96 KB of weights, outputs) and
 // FLOPs are tiny, and only 2 * B of the 132 SMs work.
+//
+// ghf / hpf / ghb / hpb non-null selects the residual mode of
+// _bigru_fwd_impl(save_residuals=True): per direction gh = bf16(h).W_hh +
+// b_hh (T, B, 3H) and h_{t-1} (T, B, H), bf16, in natural time, for the
+// reverse kernel (bigru_bwd.cu).
 #include "common.cuh"
 
 namespace {
@@ -33,6 +38,8 @@ bigru_kernel(const __nv_bfloat16* __restrict__ gxf, const __nv_bfloat16* __restr
              const __nv_bfloat16* __restrict__ whf, const __nv_bfloat16* __restrict__ whb,
              const float* __restrict__ bhf, const float* __restrict__ bhb,
              __nv_bfloat16* __restrict__ ysf, __nv_bfloat16* __restrict__ ysb,
+             __nv_bfloat16* __restrict__ ghf, __nv_bfloat16* __restrict__ hpf,
+             __nv_bfloat16* __restrict__ ghb, __nv_bfloat16* __restrict__ hpb,
              int T, int B, int H) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H3 = 3 * H;
@@ -41,6 +48,8 @@ bigru_kernel(const __nv_bfloat16* __restrict__ gxf, const __nv_bfloat16* __restr
   const __nv_bfloat16* gx = dir == 0 ? gxf : gxb;
   const __nv_bfloat16* w = dir == 0 ? whf : whb;
   __nv_bfloat16* ys = dir == 0 ? ysf : ysb;
+  __nv_bfloat16* gh_res = dir == 0 ? ghf : ghb;  // null outside the residual mode
+  __nv_bfloat16* hp_res = dir == 0 ? hpf : hpb;
 
   __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [H][3H]
   float* hb_s = reinterpret_cast<float*>(w_s + (size_t)H * H3);     // [H] bf16(h), as f32
@@ -76,13 +85,16 @@ bigru_kernel(const __nv_bfloat16* __restrict__ gxf, const __nv_bfloat16* __restr
       a3 = fmaf(hv.w, __bfloat162float(wc[(size_t)(k + 3) * H3]), a3);
     }
     const float gh = (a0 + a1) + (a2 + a3) + bias;
+    if (gh_res != nullptr) gh_res[((size_t)t * B + b) * H3 + j] = __float2bfloat16(gh);
     if (j < 2 * H) g_s[j] = mstts_sigmoid(gxv + gh);
     __syncthreads();
     if (j >= 2 * H) {
       const int u = j - 2 * H;
       const float r = g_s[u], z = g_s[H + u];
       const float n = tanhf(gxv + r * gh);
-      const float h = (1.0f - z) * n + z * h_s[u];
+      const float h_prev = h_s[u];
+      const float h = (1.0f - z) * n + z * h_prev;
+      if (hp_res != nullptr) hp_res[((size_t)t * B + b) * H + u] = __float2bfloat16(h_prev);
       const __nv_bfloat16 hb = __float2bfloat16(h);
       h_s[u] = h;
       hb_s[u] = __bfloat162float(hb);
@@ -96,19 +108,24 @@ bigru_kernel(const __nv_bfloat16* __restrict__ gxf, const __nv_bfloat16* __restr
 
 MSTTS_EXPORT int mstts_bigru_fwd(const void* gxf, const void* gxb, const void* whf,
                                  const void* whb, const void* bhf, const void* bhb,
-                                 void* ysf, void* ysb, int T, int B, int H, void* stream) {
+                                 void* ysf, void* ysb, void* ghf, void* hpf, void* ghb,
+                                 void* hpb, int T, int B, int H, void* stream) {
   int dev = 0, max_smem = 0;
   MSTTS_CHECK(cudaGetDevice(&dev));
   MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)H * 3 * H + sizeof(float) * 4 * (size_t)H;
   if (H % 8 != 0 || 3 * H > 1024 || T < 1 || B < 1 || smem > (size_t)max_smem)
     return (int)cudaErrorInvalidValue;
+  const bool any = ghf || hpf || ghb || hpb, all = ghf && hpf && ghb && hpb;
+  if (any && !all) return (int)cudaErrorInvalidValue;
   MSTTS_CHECK(cudaFuncSetAttribute(bigru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem));
   bigru_kernel<<<2 * B, 3 * H, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(gxf), static_cast<const __nv_bfloat16*>(gxb),
       static_cast<const __nv_bfloat16*>(whf), static_cast<const __nv_bfloat16*>(whb),
       static_cast<const float*>(bhf), static_cast<const float*>(bhb),
-      static_cast<__nv_bfloat16*>(ysf), static_cast<__nv_bfloat16*>(ysb), T, B, H);
+      static_cast<__nv_bfloat16*>(ysf), static_cast<__nv_bfloat16*>(ysb),
+      static_cast<__nv_bfloat16*>(ghf), static_cast<__nv_bfloat16*>(hpf),
+      static_cast<__nv_bfloat16*>(ghb), static_cast<__nv_bfloat16*>(hpb), T, B, H);
   MSTTS_RETURN_LAUNCH_ERROR();
 }

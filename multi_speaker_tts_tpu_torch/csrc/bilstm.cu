@@ -10,11 +10,17 @@
 // direction at production width, 512 KB) resident in shared memory
 // (lstm_persistent.cuh). Bound on an H100: S steps of grid-barrier and L2
 // latency; bytes (~1 MB of weights plus the gates) and FLOPs are tiny.
+//
+// gf / cf / gb / cb non-null selects the residual mode of
+// _bilstm_fwd_impl(save_residuals=True): per direction the pre-activation
+// gates (T, B, 4H) and c_{t-1} (T, B, H), bf16, in natural time, for the
+// reverse kernel (bilstm_bwd.cu).
 #include "lstm_persistent.cuh"
 
 MSTTS_EXPORT int mstts_bilstm_fwd(const void* gxf, const void* gxb, const void* whf,
-                                  const void* whb, void* ysf, void* ysb, void* bar,
-                                  int T, int B, int H, void* stream) {
+                                  const void* whb, void* ysf, void* ysb, void* gf, void* cf,
+                                  void* gb, void* cb, void* bar, int T, int B, int H,
+                                  void* stream) {
   mstts::LstmArgs a = {};
   a.T = T;
   a.B = B;
@@ -27,6 +33,12 @@ MSTTS_EXPORT int mstts_bilstm_fwd(const void* gxf, const void* gxb, const void* 
   a.w[1] = static_cast<const __nv_bfloat16*>(whb);
   a.ys[0] = static_cast<__nv_bfloat16*>(ysf);
   a.ys[1] = static_cast<__nv_bfloat16*>(ysb);
+  a.g_res[0] = static_cast<__nv_bfloat16*>(gf);
+  a.c_res[0] = static_cast<__nv_bfloat16*>(cf);
+  a.g_res[1] = static_cast<__nv_bfloat16*>(gb);
+  a.c_res[1] = static_cast<__nv_bfloat16*>(cb);
+  const bool any = gf || cf || gb || cb, all = gf && cf && gb && cb;
+  if (any && !all) return (int)cudaErrorInvalidValue;
   a.bar = static_cast<unsigned int*>(bar);
   return mstts::lstm_run(a, 2, static_cast<cudaStream_t>(stream));
 }

@@ -17,6 +17,11 @@
 // cell update writes h_t, and a grid barrier publishes h_t to every block.
 // Bounded on an H100 by the per-step barrier and L2 latency, not by bytes
 // or FLOPs: the weights are read from device memory once per launch.
+//
+// Residual mode (training): with g_res / c_res set, each step also stores
+// the f32 pre-activation gates rounded to bf16 and c_{t-1} rounded to bf16,
+// in natural time, which is what the TPU kernels store with
+// save_residuals=True and what the reverse kernel (lstm_bwd.cuh) reads.
 #pragma once
 
 #include <algorithm>
@@ -42,6 +47,8 @@ struct LstmArgs {
   __nv_bfloat16* ys[2];        // (T, Bs, H), natural time for both directions
   float* h_last;               // (Bs, H) direction 0 final h, or null
   float* c_last;               // (Bs, H) direction 0 final c, or null
+  __nv_bfloat16* g_res[2];     // (T, Bs, 4H) pre-activation gates, or null
+  __nv_bfloat16* c_res[2];     // (T, Bs, H) cell state before the step, or null
   unsigned int* bar;           // the grid barrier's arrival counter, zeroed by the wrapper
   unsigned int epoch0;         // arrivals counted by this call's earlier launches
 };
@@ -125,10 +132,18 @@ __global__ void __launch_bounds__(kLstmThreads) lstm_persistent_kernel(LstmArgs 
       const float fg = mstts_sigmoid(gb[U + u]);
       const float gg = tanhf(gb[2 * U + u]);
       const float og = mstts_sigmoid(gb[3 * U + u]);
-      const float c = fg * c_s[b * a.U + u] + ig * gg;
+      const float c_prev = c_s[b * a.U + u];
+      const float c = fg * c_prev + ig * gg;
       const float h = og * tanhf(c);
       c_s[b * a.U + u] = c;
-      a.ys[dir][((size_t)t * a.Bs + b) * a.H + u0 + u] = __float2bfloat16(h);
+      const size_t row = (size_t)t * a.Bs + b;
+      a.ys[dir][row * a.H + u0 + u] = __float2bfloat16(h);
+      if (a.g_res[dir] != nullptr) {
+        __nv_bfloat16* gr = a.g_res[dir] + row * 4 * a.H + u0 + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gr[(size_t)g * a.H] = __float2bfloat16(gb[g * U + u]);
+        a.c_res[dir][row * a.H + u0 + u] = __float2bfloat16(c_prev);
+      }
       if (s == a.T - 1 && dir == 0 && a.h_last != nullptr) {
         a.h_last[(size_t)b * a.H + u0 + u] = h;
         a.c_last[(size_t)b * a.H + u0 + u] = c;
@@ -167,6 +182,10 @@ inline int lstm_run(LstmArgs a, int ndir, cudaStream_t stream) {
     for (int d = 0; d < ndir; ++d) {
       if (c.gx[d]) c.gx[d] += (size_t)b0 * 4 * a.H;
       c.ys[d] += (size_t)b0 * a.H;
+      if (c.g_res[d]) {
+        c.g_res[d] += (size_t)b0 * 4 * a.H;
+        c.c_res[d] += (size_t)b0 * a.H;
+      }
     }
     if (c.h_last) {
       c.h_last += (size_t)b0 * a.H;

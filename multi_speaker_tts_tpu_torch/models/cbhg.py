@@ -6,7 +6,10 @@ two conv projections (k = 3; relu, then none) -> residual -> highway stack
 -> bidirectional GRU. The convolutions run in the compute dtype
 (:class:`..layers.ConvBNBlock`); the residual, ``pre_highway``, the
 highways and :class:`CBHGHead`'s output projection are f32; the BiGRU gets
-the compute dtype and, on a CUDA tensor, runs ``csrc/bigru.cu``.
+the compute dtype and, on a CUDA tensor, runs ``csrc/bigru.cu`` (and, under
+autograd, ``csrc/bigru_bwd.cu`` in the backward). ``train`` switches the
+BatchNorms to batch statistics; the CBHG's convolutions have no dropout,
+as in the JAX module.
 
 Padding follows XLA's SAME: (k-1)//2 left and k//2 right for the even bank
 kernels, and the pool pads one frame of -inf on the right only, so
@@ -38,11 +41,11 @@ class CBHG(nn.Module):
         self.highways = nn.ModuleList(Highway(highway_size) for _ in range(highway_layers))
         self.gru = BiGRU(highway_size, gru_size)
 
-    def forward(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-        y = torch.cat([conv(x, compute_dtype) for conv in self.bank], dim=-1)
+    def forward(self, x: torch.Tensor, compute_dtype, train: bool = False) -> torch.Tensor:
+        y = torch.cat([conv(x, compute_dtype, train) for conv in self.bank], dim=-1)
         y = F.max_pool1d(F.pad(y.transpose(1, 2), (0, 1), value=float("-inf")),
                          kernel_size=2, stride=1).transpose(1, 2)
-        y = self.proj_1(self.proj_0(y, compute_dtype), compute_dtype)
+        y = self.proj_1(self.proj_0(y, compute_dtype, train), compute_dtype, train)
         y = y.float() + x
         if self.pre_highway is not None:
             y = self.pre_highway(y)
@@ -59,5 +62,8 @@ class CBHGHead(nn.Module):
         self.cbhg = CBHG(mel_dim, gru_size=gru_size, **cbhg)
         self.projection = Dense(2 * (gru_size // 2), spect_dim)
 
-    def forward(self, mel: torch.Tensor, compute_dtype) -> torch.Tensor:
-        return self.projection(self.cbhg(mel, compute_dtype))
+    def forward(self, mel: torch.Tensor, compute_dtype, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` is taken as the other heads take it, and unused:
+        no dropout here."""
+        return self.projection(self.cbhg(mel, compute_dtype, train))

@@ -4,7 +4,8 @@ Port of ``multi_speaker_tts_tpu.models.layers``. Weights keep the JAX
 layouts (Dense kernels (in, out), LSTM (D, 4H) / (H, 4H), location-conv
 (K, 2, C)) except the Conv_0 kernels of :class:`ConvBNBlock`, which are
 stored in torch's (out, in, K) order for ``conv1d``; ``weights.py`` maps a
-checkpoint onto these names. Inference only: parameters carry no grad.
+checkpoint onto these names. Parameters are trainable; the serving entry
+points run under ``torch.no_grad()``, so they build no autograd graph.
 """
 
 from __future__ import annotations
@@ -19,11 +20,24 @@ from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 
 _BN_EPS = 1e-5  # flax BatchNorm default
+_BN_MOMENTUM = 0.9  # the JAX package's ConvBNBlock
 
 
 def weight(*shape: int) -> nn.Parameter:
-    """An inference weight; its values come from a checkpoint."""
-    return nn.Parameter(torch.empty(*shape), requires_grad=False)
+    """A trainable weight; its values come from a checkpoint."""
+    return nn.Parameter(torch.empty(*shape))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            compute_dtype=torch.float32) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate,
+    kept units scaled by 1 / keep_prob (in the compute dtype); rate 0 is the
+    identity. The keep mask is drawn from ``generator``."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return rounded(torch.where(keep, x / keep_prob, torch.zeros_like(x)), compute_dtype)
 
 
 class Dense(nn.Module):
@@ -108,17 +122,24 @@ class Highway(nn.Module):
 
 
 class ConvBNBlock(nn.Module):
-    """SAME Conv1d + eval BatchNorm + activation, in the compute dtype.
+    """SAME Conv1d + BatchNorm + activation + dropout, in the compute dtype.
 
     Mirrors flax's mixed precision: input, kernel and bias rounded to the
     compute dtype, the conv output and the bias sum rounded back, the
     BatchNorm in f32 on that (statistics f32) and rounded again, the
     activation rounded. Returns f32 tensors holding compute-dtype values.
-    Dropout is the identity at inference."""
+
+    ``train=False``: the running statistics, no dropout. ``train=True``
+    (flax ``BatchNorm(use_running_average=False, momentum=0.9)``): the
+    batch's mean and biased variance over (B, T) in f32 (E[y^2] - E[y]^2,
+    clipped at 0), differentiated through; the running mean and variance
+    move in place to 0.9 * running + 0.1 * batch; then dropout at
+    ``dropout_rate`` with masks from the caller's generator."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = float(dropout_rate)
         self.weight = weight(c_out, c_in, kernel_size)  # torch conv1d layout
         self.bias = weight(c_out)
         self.bn_scale = weight(c_out)
@@ -129,26 +150,39 @@ class ConvBNBlock(nn.Module):
             raise ValueError(f"unknown activation {activation!r}")
         self.activation = activation
 
-    def forward(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         K = self.weight.shape[-1]
         lo = (K - 1) // 2  # XLA SAME padding: (K-1)//2 left, K//2 right
         xk = F.pad(rounded(x, compute_dtype).transpose(1, 2), (lo, K - 1 - lo))
         y = F.conv1d(xk, rounded(self.weight, compute_dtype)).transpose(1, 2)
         y = rounded(rounded(y, compute_dtype) + rounded(self.bias, compute_dtype),
                     compute_dtype)
-        mul = torch.rsqrt(self.bn_var + _BN_EPS) * self.bn_scale
-        y = rounded((y - self.bn_mean) * mul + self.bn_bias, compute_dtype)
+        if train:
+            mean = y.mean(dim=(0, 1))
+            var = torch.clamp((y * y).mean(dim=(0, 1)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.bn_mean.copy_(_BN_MOMENTUM * self.bn_mean + (1.0 - _BN_MOMENTUM) * mean)
+                self.bn_var.copy_(_BN_MOMENTUM * self.bn_var + (1.0 - _BN_MOMENTUM) * var)
+        else:
+            mean, var = self.bn_mean, self.bn_var
+        mul = torch.rsqrt(var + _BN_EPS) * self.bn_scale
+        y = rounded((y - mean) * mul + self.bn_bias, compute_dtype)
         if self.activation == "relu":
             y = torch.relu(y)
         elif self.activation == "tanh":
             y = rounded(torch.tanh(y), compute_dtype)
+        if train:
+            y = dropout(y, self.dropout_rate, generator, compute_dtype)
         return y
 
 
 def prenet_apply(ws, x: torch.Tensor, dropout_rate: float, keep_masks=None):
     """Dense -> ReLU -> always-on dropout per layer. ``keep_masks`` holds one
-    bool (B, size) mask per layer (drawn by the caller, so tests can inject
-    the JAX package's own draws); kept units are scaled by 1/keep_prob."""
+    bool mask per layer, shaped as that layer's output ((B, size) a decode
+    step, (B, n_steps, size) the teacher-forced sequence), drawn by the
+    caller so tests can inject the JAX package's own draws; kept units are
+    scaled by 1/keep_prob."""
     keep_prob = 1.0 - dropout_rate
     if dropout_rate > 0.0 and keep_masks is None:
         raise ValueError("prenet dropout is on: pass keep masks")

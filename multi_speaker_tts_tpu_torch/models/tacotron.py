@@ -1,12 +1,21 @@
-"""Tacotron-style synthesizer, inference path (port of
-``multi_speaker_tts_tpu.models.tacotron``).
+"""Tacotron-style synthesizer (port of ``multi_speaker_tts_tpu.models.tacotron``).
 
 Text encoder (embedding -> conv/BN/ReLU stack -> BiLSTM), SV2TTS speaker
-concatenation onto the memory, the stop-aware early-exit AR decoder
-(:mod:`..ops.decoder_scan`; under ``Decoder.Pallas_Decode`` its chunk body
-is the K-step kernel of :mod:`..ops.decode_kernel`), the masked postnet, and
-the mel -> linear head (``Linear_Head``: the CBHG of :mod:`.cbhg` or the
-Conv stack :class:`LinearHead`).
+concatenation onto the memory, the decoder, the postnet, and the mel ->
+linear head (``Linear_Head``: the CBHG of :mod:`.cbhg` or the Conv stack
+:class:`LinearHead`).
+
+Two paths share one parameter set, as in the JAX module:
+- :meth:`Tacotron.infer`, serving under ``torch.no_grad()``: the stop-aware
+  early-exit AR decoder (:mod:`..ops.decoder_scan`; under
+  ``Decoder.Pallas_Decode`` its chunk body is the K-step kernel of
+  :mod:`..ops.decode_kernel`), the masked postnet, the head;
+- :meth:`Tacotron.forward`, the teacher-forced pass of training and
+  evaluation: the prenet once over the shifted teacher frames, the
+  teacher-forced scan (:func:`..ops.decoder_scan.decoder_tf_scan`), the
+  frame and stop projections hoisted after it, the postnet and the head;
+  ``train=True`` switches the BatchNorms to batch statistics and the conv
+  dropouts on (their masks and the prenet's from the caller's generator).
 """
 
 from __future__ import annotations
@@ -33,20 +42,22 @@ from multi_speaker_tts_tpu_torch.text import vocab_size as text_vocab_size
 
 class TextEncoder(nn.Module):
     def __init__(self, vocab: int, embedding_size: int, conv_stacks: int,
-                 conv_channels: int, conv_kernel_size: int, lstm_size: int):
+                 conv_channels: int, conv_kernel_size: int, lstm_size: int,
+                 conv_dropout: float = 0.0):
         super().__init__()
         self.embedding = weight(vocab, embedding_size)
         self.convs = nn.ModuleList(
             ConvBNBlock(embedding_size if i == 0 else conv_channels,
-                        conv_channels, conv_kernel_size, "relu")
+                        conv_channels, conv_kernel_size, "relu", conv_dropout)
             for i in range(conv_stacks)
         )
         self.bilstm = BiLSTM(conv_channels, lstm_size)
 
-    def forward(self, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, compute_dtype, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = F.embedding(tokens, self.embedding)
         for conv in self.convs:
-            x = conv(x, compute_dtype)
+            x = conv(x, compute_dtype, train, generator)
         return self.bilstm(x.float(), compute_dtype)
 
 
@@ -149,24 +160,50 @@ class Decoder(nn.Module):
         mel = frames.transpose(0, 1).reshape(B, n_steps * self.r, self.mel_dim)
         return mel, stops.transpose(0, 1), aligns.transpose(0, 1), lengths
 
+    def teacher_forced(self, memory, mask, mels, keep_masks, compute_dtype):
+        """Teacher-forced decode over (B, T, mel) targets, T a multiple of r
+        -> (mel (B, T, mel), stop logits (B, T/r), aligns (B, T/r, S)).
+        Step t reads the last frame of group t-1 (a zero GO frame first);
+        the prenet runs once over the whole sequence (``keep_masks``: one
+        (B, T/r, size) bool mask per layer, or None when its dropout is 0);
+        the frame and stop projections run once after the scan, in the
+        compute dtype with f32 sums."""
+        B, T, _ = mels.shape
+        if T % self.r:
+            raise ValueError(f"mel length {T} is not a multiple of r = {self.r}")
+        group_last = mels[:, self.r - 1::self.r, :]
+        inputs = torch.cat([mels.new_zeros((B, 1, self.mel_dim)), group_last[:, :-1]], dim=1)
+        ws = [(d.kernel, d.bias) for d in self.prenet]
+        pre_seq = prenet_apply(ws, inputs.float(), self.prenet_dropout, keep_masks)
+        keys = self.memory_layer(memory.float())
+        p = self.params()
+        xs, aligns = dscan.decoder_tf_scan(p, pre_seq.transpose(0, 1), keys, memory.float(),
+                                           mask, compute_dtype)
+        xr = rounded(xs, compute_dtype)
+        frames = xr @ rounded(p.frame_proj[0], compute_dtype) + p.frame_proj[1]
+        stops = (xr @ rounded(p.stop_proj[0], compute_dtype) + p.stop_proj[1])[..., 0]
+        mel = frames.transpose(0, 1).reshape(B, T, self.mel_dim)
+        return mel, stops.transpose(0, 1), aligns.transpose(0, 1)
+
 
 class Postnet(nn.Module):
     """Conv(tanh) stack whose output is a residual on the mel."""
 
     def __init__(self, mel_dim: int, conv_stacks: int, conv_channels: int,
-                 conv_kernel_size: int):
+                 conv_kernel_size: int, dropout_rate: float = 0.0):
         super().__init__()
         chans = [mel_dim] + [conv_channels] * (conv_stacks - 1) + [mel_dim]
         self.convs = nn.ModuleList(
             ConvBNBlock(a, b, conv_kernel_size,
-                        "none" if i == conv_stacks - 1 else "tanh")
+                        "none" if i == conv_stacks - 1 else "tanh", dropout_rate)
             for i, (a, b) in enumerate(zip(chans, chans[1:]))
         )
 
-    def forward(self, mel: torch.Tensor, compute_dtype) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, compute_dtype, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = mel
         for conv in self.convs:
-            x = conv(x, compute_dtype)
+            x = conv(x, compute_dtype, train, generator)
         return x.float()
 
 
@@ -175,19 +212,21 @@ class LinearHead(nn.Module):
     runs in the compute dtype (the ``Linear_Head.Type: Conv`` variant)."""
 
     def __init__(self, mel_dim: int, spect_dim: int, conv_stacks: int = 2,
-                 conv_channels: int = 512, conv_kernel_size: int = 5):
+                 conv_channels: int = 512, conv_kernel_size: int = 5,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.convs = nn.ModuleList(
             ConvBNBlock(mel_dim if i == 0 else conv_channels, conv_channels,
-                        conv_kernel_size, "relu")
+                        conv_kernel_size, "relu", dropout_rate)
             for i in range(conv_stacks)
         )
         self.projection = Dense(conv_channels, spect_dim)
 
-    def forward(self, mel: torch.Tensor, compute_dtype) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, compute_dtype, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = mel
         for conv in self.convs:
-            x = conv(x, compute_dtype)
+            x = conv(x, compute_dtype, train, generator)
         y = rounded(x, compute_dtype) @ rounded(self.projection.kernel, compute_dtype)
         return rounded(rounded(y, compute_dtype)
                        + rounded(self.projection.bias, compute_dtype), compute_dtype)
@@ -207,7 +246,7 @@ def linear_head_from_hp(hp):
             highway_layers=cb.Highway.Layers, highway_size=cb.Highway.Size,
         )
     return LinearHead(mel_dim, spect_dim, lh.Conv.Stacks, lh.Conv.Channels,
-                      lh.Conv.Kernel_Size)
+                      lh.Conv.Kernel_Size, lh.Conv.get("Dropout_Rate", 0.0))
 
 
 class Tacotron(nn.Module):
@@ -223,6 +262,7 @@ class Tacotron(nn.Module):
         self.encoder = TextEncoder(
             text_vocab_size(hp), enc.Embedding_Size, enc.Conv.Stacks,
             enc.Conv.Channels, enc.Conv.Kernel_Size, enc.LSTM_Size,
+            enc.Conv.get("Dropout_Rate", 0.0),
         )
         dec = hp.Decoder
         self.decoder = Decoder(
@@ -235,11 +275,12 @@ class Tacotron(nn.Module):
         )
         post = hp.Postnet.Conv
         self.postnet = Postnet(self.mel_dim, post.Stacks, post.Channels,
-                               post.Kernel_Size)
+                               post.Kernel_Size, post.get("Dropout_Rate", 0.0))
         self.linear_head = linear_head_from_hp(hp)
 
-    def build_memory(self, tokens, token_lengths, speaker_embedding):
-        enc = self.encoder(tokens, self.compute_dtype)
+    def build_memory(self, tokens, token_lengths, speaker_embedding, train: bool = False,
+                     generator: torch.Generator | None = None):
+        enc = self.encoder(tokens, self.compute_dtype, train, generator)
         if self.speaker_embedding_size:
             if speaker_embedding is None:
                 raise ValueError("model is speaker-conditioned: pass an embedding")
@@ -249,6 +290,34 @@ class Tacotron(nn.Module):
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         mask = (pos[None, :] < token_lengths[:, None]).float()
         return enc, mask
+
+    def forward(self, tokens, token_lengths, mels, speaker_embedding=None,
+                train: bool = False, generator: torch.Generator | None = None,
+                prenet_masks=None) -> dict:
+        """Teacher-forced pass (training and evaluation) -> mel_pre,
+        mel_post, stop_logits, alignments (and linear with a head). The
+        prenet's dropout is always on; its masks are ``prenet_masks`` (one
+        (B, T/r, size) bool tensor per layer) or drawn from ``generator``.
+        ``train`` switches the BatchNorms to batch statistics (updating the
+        running ones) and the conv dropouts on."""
+        memory, mask = self.build_memory(tokens, token_lengths, speaker_embedding, train,
+                                         generator)
+        dec = self.decoder
+        if prenet_masks is None and dec.prenet_dropout > 0.0:
+            shape = (mels.shape[0], mels.shape[1] // dec.r)
+            prenet_masks = [
+                torch.rand((*shape, d.kernel.shape[1]), generator=generator,
+                           device=mels.device) < 1.0 - dec.prenet_dropout
+                for d in dec.prenet
+            ]
+        mel_pre, stops, aligns = dec.teacher_forced(memory, mask, mels, prenet_masks,
+                                                    self.compute_dtype)
+        mel_post = mel_pre + self.postnet(mel_pre, self.compute_dtype, train, generator)
+        out = {"mel_pre": mel_pre, "mel_post": mel_post, "stop_logits": stops,
+               "alignments": aligns}
+        if self.linear_head is not None:
+            out["linear"] = self.linear_head(mel_post, self.compute_dtype, train, generator)
+        return out
 
     @torch.no_grad()
     def infer(self, tokens, token_lengths, speaker_embedding, max_steps: int,

@@ -21,6 +21,7 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_HEADERS = ("common.cuh", "lstm_persistent.cuh")
+_HEADERS = ("common.cuh", "lstm_persistent.cuh", "lstm_bwd.cuh")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
@@ -117,18 +118,18 @@ _PACKED = WeakIdKeyDictionary()
 def packed(make, *weights):
     """``make(*weights)``, built once and reused: a kernel's constant operand
     layout (transposed, concatenated, cast) is rebuilt only when one of the
-    weight tensors gets new storage or is changed in place."""
+    weight tensors gets new storage or is changed in place (an optimizer's
+    in-place update bumps ``_version``). ``make`` sees the weights detached:
+    a layout is an operand of a kernel, never part of an autograd graph."""
     stamp = tuple((w.data_ptr(), w.device, w._version) for w in weights)
     per_make = _PACKED.setdefault(weights[0], {})
     hit = per_make.get(make)
     if hit is None or hit[0] != stamp:
-        hit = per_make[make] = (stamp, make(*weights))
+        hit = per_make[make] = (stamp, make(*(w.detach() for w in weights)))
     return hit[1]
 
 
 def stream_ptr(tensor) -> int:
-    import torch
-
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 

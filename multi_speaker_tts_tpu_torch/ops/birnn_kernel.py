@@ -1,5 +1,5 @@
-"""The bidirectional recurrences on Hopper kernels: the text encoder's
-BiLSTM and the CBHG head's BiGRU.
+"""The bidirectional recurrences on Hopper kernels, with their backwards:
+the text encoder's BiLSTM and the CBHG head's BiGRU.
 
 BiLSTM: replaces ``multi_speaker_tts_tpu/ops/birnn_pallas.py::_bilstm_fwd_impl``
 (kernel body ``_bilstm_fwd_kernel``, reached through ``bilstm_pallas``).
@@ -7,9 +7,12 @@ As in the JAX package, the input projections x . W_ih + b of both
 directions are hoisted out as two whole-sequence matmuls (stored in the
 compute dtype); the kernel (``csrc/bilstm.cu``) runs only the recurrence,
 the forward direction at natural time s and the backward one at T-1-s in
-the same step, f32 carries, outputs in the compute dtype.
-
-:func:`bilstm_recurrence_plain` is the same recurrence in plain torch.
+the same step, f32 carries, outputs in the compute dtype. Its residual mode
+(counted as :data:`RES_KERNEL`) also stores each direction's
+pre-activation gates and c_{t-1}. The backward
+(``birnn_pallas.py::_bilstm_vjp_bwd``, kernel body ``_bilstm_bwd_kernel``)
+is ``csrc/bilstm_bwd.cu``: both directions' reverse recurrences in one
+launch, emitting dGf and dGb.
 
 BiGRU: replaces ``birnn_pallas.py::_bigru_fwd_impl`` (kernel body
 ``_bigru_fwd_kernel``, reached through ``bigru_pallas``). The input gates
@@ -17,7 +20,17 @@ x . W_ih + b_ih of both directions are hoisted the same way; the kernel
 (``csrc/bigru.cu``) runs gh = bf16(h) . W_hh + b_hh and the r, z, n cell
 with an f32 carry, one block per (direction, batch row) with that
 direction's W_hh resident in shared memory, so it needs no grid barrier.
-:func:`bigru_recurrence_plain` is the same recurrence in plain torch.
+Its residual mode (:data:`GRU_RES_KERNEL`) stores gh and h_{t-1}. The
+backward (``birnn_pallas.py::_bigru_vjp_bwd``, kernel body
+``_bigru_bwd_kernel``) is ``csrc/bigru_bwd.cu``, emitting dGx and dGh per
+direction.
+
+Under autograd the layers run through :class:`_BiLSTM` and :class:`_BiGRU`
+(ports of ``_bilstm_custom`` and ``_bigru_custom``): the hoist, the
+recurrence in its residual mode, and in the backward the reverse kernel
+plus whole-sequence products for dW_ih, dW_hh, the biases and dx. The
+``*_plain`` functions are the same recurrences in plain torch: the CPU
+path and the card's yardstick.
 """
 
 from __future__ import annotations
@@ -27,14 +40,33 @@ import torch
 from multi_speaker_tts_tpu_torch.ops import _build
 from multi_speaker_tts_tpu_torch.ops import gru as gru_ops
 from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
-from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams, input_gates, recurrence
+from multi_speaker_tts_tpu_torch.ops.lstm import (
+    LSTMParams,
+    input_gates,
+    recurrence,
+    recurrence_bwd,
+)
+from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
 
-KERNEL = _build.Kernel("bilstm", "bilstm.cu", {
-    "mstts_bilstm_fwd": [_build.P] * 7 + [_build.I] * 3 + [_build.P],
+_BILSTM = {"mstts_bilstm_fwd": [_build.P] * 11 + [_build.I] * 3 + [_build.P]}
+KERNEL = _build.Kernel("bilstm", "bilstm.cu", _BILSTM)
+RES_KERNEL = _build.Kernel("bilstm_residuals", "bilstm.cu", _BILSTM)
+BWD_KERNEL = _build.Kernel("bilstm_bwd", "bilstm_bwd.cu", {
+    "mstts_bilstm_bwd": [_build.P] * 11 + [_build.I] * 3 + [_build.P],
 })
-GRU_KERNEL = _build.Kernel("bigru", "bigru.cu", {
-    "mstts_bigru_fwd": [_build.P] * 8 + [_build.I] * 3 + [_build.P],
+_BIGRU = {"mstts_bigru_fwd": [_build.P] * 12 + [_build.I] * 3 + [_build.P]}
+GRU_KERNEL = _build.Kernel("bigru", "bigru.cu", _BIGRU)
+GRU_RES_KERNEL = _build.Kernel("bigru_residuals", "bigru.cu", _BIGRU)
+GRU_BWD_KERNEL = _build.Kernel("bigru_bwd", "bigru_bwd.cu", {
+    "mstts_bigru_bwd": [_build.P] * 14 + [_build.I] * 3 + [_build.P],
 })
+
+
+def _bf16_empty(device, *shapes):
+    return tuple(torch.empty(s, dtype=torch.bfloat16, device=device) for s in shapes)
+
+
+# -- BiLSTM -----------------------------------------------------------------
 
 
 def bilstm_hoist(fwd: LSTMParams, bwd: LSTMParams, x: torch.Tensor,
@@ -47,19 +79,29 @@ def bilstm_hoist(fwd: LSTMParams, bwd: LSTMParams, x: torch.Tensor,
     )
 
 
-def bilstm_recurrence_plain(gxf, gxb, w_hh_f, w_hh_b, compute_dtype=torch.bfloat16):
+def bilstm_recurrence_plain(gxf, gxb, w_hh_f, w_hh_b, compute_dtype=torch.bfloat16,
+                            save_residuals: bool = False):
     """(T, B, 4H) gates per direction -> (ysf, ysb) (T, B, H) in the
-    compute dtype, both in natural time."""
-    ysf, _, _ = recurrence(gxf, w_hh_f, compute_dtype)
-    ysb, _, _ = recurrence(gxb, w_hh_b, compute_dtype, reverse=True)
-    return ysf.to(compute_dtype), ysb.to(compute_dtype)
+    compute dtype, both in natural time[, then gf, cf, gb, cb: each
+    direction's pre-activation gates and c_{t-1}, compute dtype]."""
+    outs = []
+    for gx, w, reverse in ((gxf, w_hh_f, False), (gxb, w_hh_b, True)):
+        out = recurrence(gx, w, compute_dtype, reverse, save_residuals)
+        outs.append((out[0], *out[3:]))
+    ys = tuple(o[0].to(compute_dtype) for o in outs)
+    res = tuple(r.to(compute_dtype) for o in outs for r in o[1:])
+    return (*ys, *res)
 
 
 def _transposed_bf16(w_hh: torch.Tensor) -> torch.Tensor:
     return w_hh.t().contiguous().to(torch.bfloat16)
 
 
-def bilstm_recurrence_kernel(gxf, gxb, w_hh_f, w_hh_b):
+def _bf16(w: torch.Tensor) -> torch.Tensor:
+    return w.contiguous().to(torch.bfloat16)
+
+
+def bilstm_recurrence_kernel(gxf, gxb, w_hh_f, w_hh_b, save_residuals: bool = False):
     """Launch ``csrc/bilstm.cu`` on CUDA bf16 hoisted gates."""
     for name, g in (("gxf", gxf), ("gxb", gxb)):
         _build.require_cuda(g, torch.bfloat16, name)
@@ -69,33 +111,135 @@ def bilstm_recurrence_kernel(gxf, gxb, w_hh_f, w_hh_b):
         raise ValueError(f"BiLSTM kernel needs equal gates, H % 8 == 0: {H}")
     whf = _build.packed(_transposed_bf16, w_hh_f)
     whb = _build.packed(_transposed_bf16, w_hh_b)
-    ysf = torch.empty((T, B, H), dtype=torch.bfloat16, device=gxf.device)
-    ysb = torch.empty_like(ysf)
+    ysf, ysb = _bf16_empty(gxf.device, (T, B, H), (T, B, H))
+    res = ()
+    if save_residuals:
+        res = _bf16_empty(gxf.device, (T, B, H4), (T, B, H), (T, B, H4), (T, B, H))
+    res_ptrs = [r.data_ptr() for r in res] or [None] * 4
     bar = torch.zeros(1, dtype=torch.int32, device=gxf.device)
-    KERNEL.call(
+    (RES_KERNEL if save_residuals else KERNEL).call(
         "mstts_bilstm_fwd", gxf.data_ptr(), gxb.data_ptr(), whf.data_ptr(),
-        whb.data_ptr(), ysf.data_ptr(), ysb.data_ptr(), bar.data_ptr(),
+        whb.data_ptr(), ysf.data_ptr(), ysb.data_ptr(), *res_ptrs, bar.data_ptr(),
         T, B, H, _build.stream_ptr(gxf),
     )
-    return ysf, ysb
+    return (ysf, ysb, *res)
 
 
-def bilstm_recurrence(gxf, gxb, w_hh_f, w_hh_b, compute_dtype=torch.bfloat16):
+def bilstm_recurrence(gxf, gxb, w_hh_f, w_hh_b, compute_dtype=torch.bfloat16,
+                      save_residuals: bool = False):
     """The kernel for CUDA tensors (bf16 compute only), the plain version
     for CPU tensors."""
     if gxf.is_cuda:
         if compute_dtype != torch.bfloat16:
             raise NotImplementedError("the BiLSTM kernel computes in bf16 only")
-        return bilstm_recurrence_kernel(gxf, gxb, w_hh_f, w_hh_b)
-    return bilstm_recurrence_plain(gxf, gxb, w_hh_f, w_hh_b, compute_dtype)
+        return bilstm_recurrence_kernel(gxf, gxb, w_hh_f, w_hh_b, save_residuals)
+    return bilstm_recurrence_plain(gxf, gxb, w_hh_f, w_hh_b, compute_dtype, save_residuals)
+
+
+def bilstm_bwd_plain(gf, cf, gb, cb, w_hh_f, w_hh_b, dyf, dyb,
+                     compute_dtype=torch.bfloat16):
+    """Both directions' reverse passes, step by step as the TPU kernel runs
+    them: (dGf, dGb) (T, B, 4H) in the compute dtype. The forward direction
+    walks time in reverse, the backward direction natural time."""
+    return (recurrence_bwd(w_hh_f, gf, cf, None, dyf, compute_dtype),
+            recurrence_bwd(w_hh_b, gb, cb, None, dyb, compute_dtype, natural_time=True))
+
+
+def bilstm_bwd_kernel(gf, cf, gb, cb, w_hh_f, w_hh_b, dyf, dyb):
+    """Launch ``csrc/bilstm_bwd.cu`` on CUDA bf16 residuals and f32 output
+    cotangents (T, B, H) per direction."""
+    T, B, H4 = gf.shape
+    H = H4 // 4
+    for name, t, dtype, shape in (("gf", gf, torch.bfloat16, (T, B, H4)),
+                                  ("gb", gb, torch.bfloat16, (T, B, H4)),
+                                  ("cf", cf, torch.bfloat16, (T, B, H)),
+                                  ("cb", cb, torch.bfloat16, (T, B, H)),
+                                  ("dyf", dyf, torch.float32, (T, B, H)),
+                                  ("dyb", dyb, torch.float32, (T, B, H))):
+        _build.require_cuda(t, dtype, name)
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if H % 8 or w_hh_f.shape != (H, H4) or w_hh_b.shape != (H, H4):
+        raise ValueError(f"BiLSTM backward kernel needs (H, 4H) weights, H % 8 == 0: {H}")
+    whf, whb = _build.packed(_bf16, w_hh_f), _build.packed(_bf16, w_hh_b)
+    dGf, dGb = torch.empty_like(gf), torch.empty_like(gb)
+    bar = torch.zeros(1, dtype=torch.int32, device=gf.device)
+    BWD_KERNEL.call(
+        "mstts_bilstm_bwd", gf.data_ptr(), cf.data_ptr(), gb.data_ptr(), cb.data_ptr(),
+        whf.data_ptr(), whb.data_ptr(), dyf.data_ptr(), dyb.data_ptr(), dGf.data_ptr(),
+        dGb.data_ptr(), bar.data_ptr(), T, B, H, _build.stream_ptr(gf),
+    )
+    return dGf, dGb
+
+
+def bilstm_bwd(gf, cf, gb, cb, w_hh_f, w_hh_b, dyf, dyb, compute_dtype=torch.bfloat16):
+    """The backward kernel for CUDA tensors (bf16 compute only), the plain
+    version for CPU tensors."""
+    if gf.is_cuda:
+        if compute_dtype != torch.bfloat16:
+            raise NotImplementedError("the BiLSTM backward kernel computes in bf16 only")
+        return bilstm_bwd_kernel(gf, cf, gb, cb, w_hh_f, w_hh_b, dyf, dyb)
+    return bilstm_bwd_plain(gf, cf, gb, cb, w_hh_f, w_hh_b, dyf, dyb, compute_dtype)
+
+
+def _shifted(ys: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """h_{prev} per step in natural time: ys[t-1] for a forward direction,
+    ys[t+1] for a backward one (it consumed time descending); zero at the
+    first step either way."""
+    zero = torch.zeros_like(ys[:1])
+    return torch.cat([ys[1:], zero]) if reverse else torch.cat([zero, ys[:-1]])
+
+
+def _split_cotangent(dy_out: torch.Tensor):
+    """(B, T, 2H) output cotangent -> contiguous f32 (T, B, H) per direction."""
+    dy = dy_out.transpose(0, 1).float()
+    H = dy.shape[-1] // 2
+    return dy[..., :H].contiguous(), dy[..., H:].contiguous()
+
+
+class _BiLSTM(torch.autograd.Function):
+    """Hoist + BiLSTM recurrence with the reverse kernel as its backward
+    (``_bilstm_custom``)."""
+
+    @staticmethod
+    def forward(ctx, compute_dtype, x, *weights):
+        fwd, bwd = LSTMParams(*weights[:3]), LSTMParams(*weights[3:])
+        gxf, gxb = bilstm_hoist(fwd, bwd, x, compute_dtype)
+        ysf, ysb, *res = bilstm_recurrence(gxf, gxb, fwd.w_hh, bwd.w_hh, compute_dtype,
+                                           save_residuals=True)
+        ctx.save_for_backward(x, *weights, ysf, ysb, *res)
+        ctx.compute_dtype = compute_dtype
+        return torch.cat([ysf, ysb], dim=-1).float().transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, dy_out):
+        cd = ctx.compute_dtype
+        x, *rest = ctx.saved_tensors
+        fwd, bwd = LSTMParams(*rest[:3]), LSTMParams(*rest[3:6])
+        ysf, ysb, gf, cf, gb, cb = rest[6:]
+        dGf, dGb = bilstm_bwd(gf, cf, gb, cb, fwd.w_hh, bwd.w_hh,
+                              *_split_cotangent(dy_out), cd)
+        x_tm = rounded(x.transpose(0, 1), cd)
+        grads = []
+        for dG, ys, reverse in ((dGf, ysf, False), (dGb, ysb, True)):
+            grads += [seq_gemm(x_tm, dG), seq_gemm(_shifted(ys, reverse), dG),
+                      dG.float().sum(dim=(0, 1))]
+        dx = dGf.float() @ rounded(fwd.w_ih, cd).t() + dGb.float() @ rounded(bwd.w_ih, cd).t()
+        return (None, dx.transpose(0, 1).to(x.dtype), *grads)
 
 
 def bilstm(fwd: LSTMParams, bwd: LSTMParams, x: torch.Tensor,
            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """(B, T, D) -> (B, T, 2H) f32, both directions concatenated."""
+    """(B, T, D) -> (B, T, 2H) f32, both directions concatenated. Under
+    autograd through :class:`_BiLSTM`, otherwise the inference kernel."""
+    if needs_grad(x, *fwd, *bwd):
+        return _BiLSTM.apply(compute_dtype, x, *fwd, *bwd)
     gxf, gxb = bilstm_hoist(fwd, bwd, x, compute_dtype)
     ysf, ysb = bilstm_recurrence(gxf, gxb, fwd.w_hh, bwd.w_hh, compute_dtype)
     return torch.cat([ysf, ysb], dim=-1).float().transpose(0, 1)
+
+
+# -- BiGRU ------------------------------------------------------------------
 
 
 def bigru_hoist(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
@@ -109,12 +253,17 @@ def bigru_hoist(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
 
 
 def bigru_recurrence_plain(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
-                           compute_dtype=torch.bfloat16):
+                           compute_dtype=torch.bfloat16, save_residuals: bool = False):
     """(T, B, 3H) input gates per direction -> (ysf, ysb) (T, B, H) in the
-    compute dtype, both in natural time."""
-    ysf = gru_ops.recurrence(fwd, gxf, compute_dtype)
-    ysb = gru_ops.recurrence(bwd, gxb, compute_dtype, reverse=True)
-    return ysf.to(compute_dtype), ysb.to(compute_dtype)
+    compute dtype, both in natural time[, then ghf, hpf, ghb, hpb: each
+    direction's recurrent gates and h_{t-1}, compute dtype]."""
+    outs = []
+    for gx, p, reverse in ((gxf, fwd, False), (gxb, bwd, True)):
+        out = gru_ops.recurrence(p, gx, compute_dtype, reverse, save_residuals)
+        outs.append(out if save_residuals else (out,))
+    ys = tuple(o[0].to(compute_dtype) for o in outs)
+    res = tuple(r.to(compute_dtype) for o in outs for r in o[1:])
+    return (*ys, *res)
 
 
 def _gru_layout(w_hh: torch.Tensor, b_hh: torch.Tensor):
@@ -122,7 +271,8 @@ def _gru_layout(w_hh: torch.Tensor, b_hh: torch.Tensor):
     return w_hh.contiguous().to(torch.bfloat16), b_hh.float().contiguous()
 
 
-def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams):
+def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
+                            save_residuals: bool = False):
     """Launch ``csrc/bigru.cu`` on CUDA bf16 hoisted input gates."""
     for name, g in (("gxf", gxf), ("gxb", gxb)):
         _build.require_cuda(g, torch.bfloat16, name)
@@ -136,30 +286,118 @@ def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams):
         raise ValueError(f"BiGRU kernel needs H % 8 == 0 and H <= 192: {H}")
     whf, bhf = _build.packed(_gru_layout, fwd.w_hh, fwd.b_hh)
     whb, bhb = _build.packed(_gru_layout, bwd.w_hh, bwd.b_hh)
-    ysf = torch.empty((T, B, H), dtype=torch.bfloat16, device=gxf.device)
-    ysb = torch.empty_like(ysf)
-    GRU_KERNEL.call(
+    ysf, ysb = _bf16_empty(gxf.device, (T, B, H), (T, B, H))
+    res = ()
+    if save_residuals:
+        res = _bf16_empty(gxf.device, (T, B, H3), (T, B, H), (T, B, H3), (T, B, H))
+    res_ptrs = [r.data_ptr() for r in res] or [None] * 4
+    (GRU_RES_KERNEL if save_residuals else GRU_KERNEL).call(
         "mstts_bigru_fwd", gxf.data_ptr(), gxb.data_ptr(), whf.data_ptr(),
         whb.data_ptr(), bhf.data_ptr(), bhb.data_ptr(), ysf.data_ptr(),
-        ysb.data_ptr(), T, B, H, _build.stream_ptr(gxf),
+        ysb.data_ptr(), *res_ptrs, T, B, H, _build.stream_ptr(gxf),
     )
-    return ysf, ysb
+    return (ysf, ysb, *res)
 
 
 def bigru_recurrence(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
-                     compute_dtype=torch.bfloat16):
+                     compute_dtype=torch.bfloat16, save_residuals: bool = False):
     """The kernel for CUDA tensors (bf16 compute only), the plain version
     for CPU tensors."""
     if gxf.is_cuda:
         if compute_dtype != torch.bfloat16:
             raise NotImplementedError("the BiGRU kernel computes in bf16 only")
-        return bigru_recurrence_kernel(gxf, gxb, fwd, bwd)
-    return bigru_recurrence_plain(gxf, gxb, fwd, bwd, compute_dtype)
+        return bigru_recurrence_kernel(gxf, gxb, fwd, bwd, save_residuals)
+    return bigru_recurrence_plain(gxf, gxb, fwd, bwd, compute_dtype, save_residuals)
+
+
+def bigru_bwd_plain(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb,
+                    compute_dtype=torch.bfloat16):
+    """Both directions' reverse passes, step by step as the TPU kernel runs
+    them: (dGxf, dGhf, dGxb, dGhb) (T, B, 3H) in the compute dtype."""
+    return (*gru_ops.recurrence_bwd(w_hh_f, gxf, ghf, hpf, dyf, compute_dtype),
+            *gru_ops.recurrence_bwd(w_hh_b, gxb, ghb, hpb, dyb, compute_dtype,
+                                    natural_time=True))
+
+
+def bigru_bwd_kernel(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb):
+    """Launch ``csrc/bigru_bwd.cu`` on CUDA bf16 residuals and f32 output
+    cotangents (T, B, H) per direction."""
+    T, B, H3 = gxf.shape
+    H = H3 // 3
+    for name, t, dtype, shape in (("gxf", gxf, torch.bfloat16, (T, B, H3)),
+                                  ("ghf", ghf, torch.bfloat16, (T, B, H3)),
+                                  ("gxb", gxb, torch.bfloat16, (T, B, H3)),
+                                  ("ghb", ghb, torch.bfloat16, (T, B, H3)),
+                                  ("hpf", hpf, torch.bfloat16, (T, B, H)),
+                                  ("hpb", hpb, torch.bfloat16, (T, B, H)),
+                                  ("dyf", dyf, torch.float32, (T, B, H)),
+                                  ("dyb", dyb, torch.float32, (T, B, H))):
+        _build.require_cuda(t, dtype, name)
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if H % 8 or H3 > 1024 or w_hh_f.shape != (H, H3) or w_hh_b.shape != (H, H3):
+        raise ValueError(f"BiGRU backward kernel needs (H, 3H) weights, H % 8 == 0, "
+                         f"H <= 341: {H}")
+    wtf = _build.packed(_transposed_bf16, w_hh_f)
+    wtb = _build.packed(_transposed_bf16, w_hh_b)
+    outs = _bf16_empty(gxf.device, *[(T, B, H3)] * 4)
+    GRU_BWD_KERNEL.call(
+        "mstts_bigru_bwd", gxf.data_ptr(), ghf.data_ptr(), hpf.data_ptr(), gxb.data_ptr(),
+        ghb.data_ptr(), hpb.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), dyf.data_ptr(),
+        dyb.data_ptr(), *(o.data_ptr() for o in outs), T, B, H, _build.stream_ptr(gxf),
+    )
+    return outs
+
+
+def bigru_bwd(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb,
+              compute_dtype=torch.bfloat16):
+    """The backward kernel for CUDA tensors (bf16 compute only), the plain
+    version for CPU tensors."""
+    if gxf.is_cuda:
+        if compute_dtype != torch.bfloat16:
+            raise NotImplementedError("the BiGRU backward kernel computes in bf16 only")
+        return bigru_bwd_kernel(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb)
+    return bigru_bwd_plain(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb,
+                           compute_dtype)
+
+
+class _BiGRU(torch.autograd.Function):
+    """Hoist + BiGRU recurrence with the reverse kernel as its backward
+    (``_bigru_custom``), separate db_ih and db_hh."""
+
+    @staticmethod
+    def forward(ctx, compute_dtype, x, *weights):
+        fwd, bwd = GRUParams(*weights[:4]), GRUParams(*weights[4:])
+        gxf, gxb = bigru_hoist(fwd, bwd, x, compute_dtype)
+        ysf, ysb, ghf, hpf, ghb, hpb = bigru_recurrence(gxf, gxb, fwd, bwd, compute_dtype,
+                                                        save_residuals=True)
+        ctx.save_for_backward(x, *weights, gxf, ghf, hpf, gxb, ghb, hpb)
+        ctx.compute_dtype = compute_dtype
+        return torch.cat([ysf, ysb], dim=-1).float().transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, dy_out):
+        cd = ctx.compute_dtype
+        x, *rest = ctx.saved_tensors
+        fwd, bwd = GRUParams(*rest[:4]), GRUParams(*rest[4:8])
+        gxf, ghf, hpf, gxb, ghb, hpb = rest[8:]
+        dGxf, dGhf, dGxb, dGhb = bigru_bwd(gxf, ghf, hpf, gxb, ghb, hpb, fwd.w_hh, bwd.w_hh,
+                                           *_split_cotangent(dy_out), cd)
+        x_tm = rounded(x.transpose(0, 1), cd)
+        grads = []
+        for dGx, dGh, hp in ((dGxf, dGhf, hpf), (dGxb, dGhb, hpb)):
+            grads += [seq_gemm(x_tm, dGx), seq_gemm(hp, dGh),
+                      dGx.float().sum(dim=(0, 1)), dGh.float().sum(dim=(0, 1))]
+        dx = dGxf.float() @ rounded(fwd.w_ih, cd).t() + dGxb.float() @ rounded(bwd.w_ih, cd).t()
+        return (None, dx.transpose(0, 1).to(x.dtype), *grads)
 
 
 def bigru(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """(B, T, D) -> (B, T, 2H) f32, both directions concatenated."""
+    """(B, T, D) -> (B, T, 2H) f32, both directions concatenated. Under
+    autograd through :class:`_BiGRU`, otherwise the inference kernel."""
+    if needs_grad(x, *fwd, *bwd):
+        return _BiGRU.apply(compute_dtype, x, *fwd, *bwd)
     gxf, gxb = bigru_hoist(fwd, bwd, x, compute_dtype)
     ysf, ysb = bigru_recurrence(gxf, gxb, fwd, bwd, compute_dtype)
     return torch.cat([ysf, ysb], dim=-1).float().transpose(0, 1)

@@ -1,5 +1,5 @@
-"""Autoregressive Tacotron decode (port of the AR part of
-``multi_speaker_tts_tpu.ops.decoder_scan``).
+"""Tacotron decoder frame loops (port of ``multi_speaker_tts_tpu.ops.decoder_scan``):
+the autoregressive decode and the teacher-forced scan.
 
 One decoder frame (:func:`decoder_cell_step`): attention LSTM over
 [prenet(prev), context] with fused [W_ih; W_hh] gates, location-sensitive
@@ -15,6 +15,12 @@ The prenet runs through the caller's ``prenet_fn(frame, t)`` (t = global
 step), as the JAX module takes ``prenet_apply_fn``: its always-on dropout
 draws its keep masks per step, so tests can feed the JAX package's own
 draws and production draws from a ``torch.Generator``.
+
+The teacher-forced scan of training (:func:`decoder_tf_scan`, the port of
+``decoder_tf_scan_ref``) runs the same cell over prenet-ed teacher frames
+and is differentiated by autograd; the JAX package's hand-written backward
+of that scan (``decoder_tf_scan``'s custom VJP: emitted gate gradients,
+deferred weight-gradient GEMMs) is no Pallas kernel and is not ported yet.
 """
 
 from __future__ import annotations
@@ -159,6 +165,24 @@ def decoder_cell_step(p: DecoderParams, fused: tuple, carry: DecoderCarry,
         hs[i], cs[i] = cell(_gates(fused[i], p.lstm[i].b, x, hs[i], compute_dtype), cs[i])
         x = torch.cat([hs[i], context], dim=-1)
     return DecoderCarry(tuple(hs), tuple(cs), w, cum, context), x, w
+
+
+def decoder_tf_scan(p: DecoderParams, pre_seq, keys, memory, mask,
+                    compute_dtype=torch.float32):
+    """Teacher-forced scan over prenet-ed frames (T, B, P) -> (xs (T, B,
+    H + D_mem) = [h_last, context] per step, attention weights (T, B, S)).
+    A Python loop of :func:`decoder_cell_step` from the zero carry,
+    differentiable by autograd."""
+    B = memory.shape[0]
+    carry = initial_carry(B, memory, len(p.lstm), p.lstm[0].hidden_size)
+    fused = fused_weights(p.lstm, compute_dtype)
+    xs, ws = [], []
+    for t in range(pre_seq.shape[0]):
+        carry, x, w = decoder_cell_step(p, fused, carry, pre_seq[t], keys, memory, mask,
+                                        compute_dtype)
+        xs.append(x)
+        ws.append(w)
+    return torch.stack(xs), torch.stack(ws)
 
 
 def _project(p: DecoderParams, x: torch.Tensor):

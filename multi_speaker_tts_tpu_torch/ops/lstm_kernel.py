@@ -1,13 +1,25 @@
-"""GE2E LSTM stack on a persistent Hopper kernel (one launch per layer).
+"""GE2E LSTM stack on persistent Hopper kernels (one launch per layer and
+pass), with its backward.
 
-Replaces ``multi_speaker_tts_tpu/ops/lstm_pallas.py::lstm_seq_layer_fwd``
+Forward: replaces ``multi_speaker_tts_tpu/ops/lstm_pallas.py::lstm_seq_layer_fwd``
 (kernel body ``_fwd_kernel``) and the stack loop ``lstm_stack_seq_pallas``.
 The kernel (``csrc/lstm.cu``) fuses the input projection into the step as
 the TPU kernel does: gates = [x_t, h_{t-1}] . [W_ih; W_hh] + b with bf16
-operands and f32 accumulation, f32 cell state, outputs stored bf16.
+operands and f32 accumulation, f32 cell state, outputs stored bf16. Its
+residual mode (``save_residuals=True``, counted as :data:`RES_KERNEL`)
+also stores the pre-activation gates and c_{t-1} in bf16.
 
-:func:`lstm_seq_layer_plain` is the same layer in plain torch: the CPU
-path (in any compute dtype) and the card's yardstick.
+Backward: replaces ``lstm_pallas.py::lstm_seq_layer_bwd`` (kernel body
+``_bwd_kernel``). The kernel (``csrc/lstm_bwd.cu``) runs the reverse
+recurrence from the residuals and emits dG (T, B, 4H) bf16; the stack's
+``torch.autograd.Function`` (:class:`_LSTMStack`, the port of
+``_stack_custom`` / ``_stack_fwd`` / ``_stack_bwd``) turns dG into dW_ih,
+dW_hh, db and the lower layer's output cotangent with whole-sequence
+matrix products, as the JAX package does outside its kernels.
+
+:func:`lstm_seq_layer_plain` and :func:`lstm_seq_layer_bwd_plain` are the
+same layer in plain torch: the CPU path (in any compute dtype) and the
+card's yardstick.
 """
 
 from __future__ import annotations
@@ -15,19 +27,33 @@ from __future__ import annotations
 import torch
 
 from multi_speaker_tts_tpu_torch.ops import _build
-from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams, input_gates, recurrence
+from multi_speaker_tts_tpu_torch.ops.lstm import (
+    LSTMParams,
+    cell,
+    input_gates,
+    recurrence,
+    recurrence_bwd,
+)
+from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
 
-KERNEL = _build.Kernel("ge2e_lstm", "lstm.cu", {
-    "mstts_lstm_layer_fwd": [_build.P] * 7 + [_build.I] * 4 + [_build.P],
+_FWD = {"mstts_lstm_layer_fwd": [_build.P] * 9 + [_build.I] * 4 + [_build.P]}
+KERNEL = _build.Kernel("ge2e_lstm", "lstm.cu", _FWD)
+RES_KERNEL = _build.Kernel("ge2e_lstm_residuals", "lstm.cu", _FWD)
+BWD_KERNEL = _build.Kernel("ge2e_lstm_bwd", "lstm_bwd.cu", {
+    "mstts_lstm_layer_bwd": [_build.P] * 7 + [_build.I] * 3 + [_build.P],
 })
 
 
 def lstm_seq_layer_plain(p: LSTMParams, x_tm: torch.Tensor,
-                         compute_dtype=torch.bfloat16):
+                         compute_dtype=torch.bfloat16, save_residuals: bool = False):
     """One layer over time-major (T, B, D): (ys (T, B, H) in the compute
-    dtype, h_T (B, H) f32, c_T (B, H) f32)."""
-    ys, h, c = recurrence(input_gates(p, x_tm, compute_dtype), p.w_hh, compute_dtype)
-    return ys.to(compute_dtype), h, c
+    dtype, h_T (B, H) f32, c_T (B, H) f32[, gates (T, B, 4H), c_prev
+    (T, B, H) in the compute dtype])."""
+    out = recurrence(input_gates(p, x_tm, compute_dtype), p.w_hh, compute_dtype,
+                     save_residuals=save_residuals)
+    ys, h, c = out[:3]
+    res = tuple(r.to(compute_dtype) for r in out[3:])
+    return (ys.to(compute_dtype), h, c, *res)
 
 
 def _kernel_layout(w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor):
@@ -36,7 +62,11 @@ def _kernel_layout(w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor):
             b.float().contiguous())
 
 
-def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor):
+def _bf16(w: torch.Tensor) -> torch.Tensor:
+    return w.contiguous().to(torch.bfloat16)
+
+
+def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor, save_residuals: bool = False):
     """Launch ``csrc/lstm.cu`` on a CUDA bf16 (T, B, D) input."""
     _build.require_cuda(x_tm, torch.bfloat16, "x_tm")
     T, B, D = x_tm.shape
@@ -48,29 +78,139 @@ def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor):
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     h_T = torch.empty((B, H), dtype=torch.float32, device=dev)
     c_T = torch.empty_like(h_T)
+    res = ()
+    if save_residuals:
+        res = (torch.empty((T, B, 4 * H), dtype=torch.bfloat16, device=dev),
+               torch.empty((T, B, H), dtype=torch.bfloat16, device=dev))
+    res_ptrs = [r.data_ptr() for r in res] or [None, None]
     bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    KERNEL.call(
+    (RES_KERNEL if save_residuals else KERNEL).call(
         "mstts_lstm_layer_fwd", x_tm.data_ptr(), w.data_ptr(), b.data_ptr(),
-        ys.data_ptr(), h_T.data_ptr(), c_T.data_ptr(), bar.data_ptr(),
+        ys.data_ptr(), h_T.data_ptr(), c_T.data_ptr(), *res_ptrs, bar.data_ptr(),
         T, B, D, H, _build.stream_ptr(x_tm),
     )
-    return ys, h_T, c_T
+    return (ys, h_T, c_T, *res)
 
 
 def lstm_seq_layer_fwd(p: LSTMParams, x_tm: torch.Tensor,
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, save_residuals: bool = False):
     """The kernel for a CUDA tensor (bf16 compute only), the plain version
     for a CPU tensor."""
     if x_tm.is_cuda:
         if compute_dtype != torch.bfloat16:
             raise NotImplementedError("the LSTM kernel computes in bf16 only")
-        return lstm_seq_layer_kernel(p, x_tm.to(torch.bfloat16).contiguous())
-    return lstm_seq_layer_plain(p, x_tm, compute_dtype)
+        return lstm_seq_layer_kernel(p, x_tm.to(torch.bfloat16).contiguous(), save_residuals)
+    return lstm_seq_layer_plain(p, x_tm, compute_dtype, save_residuals)
+
+
+def lstm_seq_layer_bwd_plain(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: torch.Tensor,
+                             d_hT: torch.Tensor | None, d_ys: torch.Tensor | None,
+                             compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The reverse pass of one layer, step by step as the TPU kernel runs
+    it: dG (T, B, 4H) in the compute dtype."""
+    return recurrence_bwd(w_hh, gates, c_prev, d_hT, d_ys, compute_dtype)
+
+
+def lstm_seq_layer_bwd_kernel(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: torch.Tensor,
+                              d_hT: torch.Tensor | None, d_ys: torch.Tensor | None):
+    """Launch ``csrc/lstm_bwd.cu`` on CUDA bf16 residuals and f32
+    cotangents (either may be None: zero)."""
+    _build.require_cuda(gates, torch.bfloat16, "gates")
+    _build.require_cuda(c_prev, torch.bfloat16, "c_prev")
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    if w_hh.shape != (H, H4) or c_prev.shape != (T, B, H) or H % 8:
+        raise ValueError(f"LSTM backward kernel needs (T, B, 4H) gates, H % 8 == 0: H={H}")
+    for name, t, shape in (("d_hT", d_hT, (B, H)), ("d_ys", d_ys, (T, B, H))):
+        if t is not None:
+            _build.require_cuda(t, torch.float32, name)
+            if t.shape != shape:
+                raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    w = _build.packed(_bf16, w_hh)
+    dG = torch.empty_like(gates)
+    bar = torch.zeros(1, dtype=torch.int32, device=gates.device)
+    BWD_KERNEL.call(
+        "mstts_lstm_layer_bwd", gates.data_ptr(), c_prev.data_ptr(), w.data_ptr(),
+        None if d_hT is None else d_hT.data_ptr(), None if d_ys is None else d_ys.data_ptr(),
+        dG.data_ptr(), bar.data_ptr(), T, B, H, _build.stream_ptr(gates),
+    )
+    return dG
+
+
+def lstm_seq_layer_bwd(w_hh, gates, c_prev, d_hT, d_ys, compute_dtype=torch.bfloat16):
+    """The backward kernel for CUDA tensors (bf16 compute only), the plain
+    version for CPU tensors."""
+    if gates.is_cuda:
+        if compute_dtype != torch.bfloat16:
+            raise NotImplementedError("the LSTM backward kernel computes in bf16 only")
+        return lstm_seq_layer_bwd_kernel(w_hh, gates, c_prev, d_hT, d_ys)
+    return lstm_seq_layer_bwd_plain(w_hh, gates, c_prev, d_hT, d_ys, compute_dtype)
+
+
+def _rebuild_h(gates: torch.Tensor, c_prev: torch.Tensor) -> torch.Tensor:
+    """The layer's outputs h_t (f32) from its residuals."""
+    return cell(gates.float(), c_prev.float())[0]
+
+
+class _LSTMStack(torch.autograd.Function):
+    """The stack with the reverse kernels as its backward (``_stack_custom``).
+
+    Saves each layer's input (the compute-dtype sequence it read) and its
+    residuals. The backward walks the layers top down: the last layer gets
+    the h_T cotangent, the others a zero one at their own width; the last
+    layer's h sequence is rebuilt from its residuals (the others' is the
+    next layer's saved input); dW_ih = x^T dG, dW_hh = h_prev^T dG,
+    db = sum dG and the lower layer's output cotangent dG . W_ih^T are
+    whole-sequence products with f32 sums."""
+
+    @staticmethod
+    def forward(ctx, compute_dtype, x, *weights):
+        layers = [LSTMParams(*weights[i:i + 3]) for i in range(0, len(weights), 3)]
+        ys = x.transpose(0, 1).to(compute_dtype).contiguous()
+        inputs, residuals = [], []
+        h_T = None
+        for p in layers:
+            inputs.append(ys)
+            ys, h_T, _, gates, c_prev = lstm_seq_layer_fwd(p, ys, compute_dtype,
+                                                           save_residuals=True)
+            residuals += [gates, c_prev]
+        ctx.save_for_backward(*weights, *inputs, *residuals)
+        ctx.compute_dtype, ctx.n_layers, ctx.x_dtype = compute_dtype, len(layers), x.dtype
+        ctx.set_materialize_grads(False)
+        return ys.transpose(0, 1).float(), h_T
+
+    @staticmethod
+    def backward(ctx, d_ys_out, d_hT):
+        cd, n = ctx.compute_dtype, ctx.n_layers
+        saved = ctx.saved_tensors
+        layers = [LSTMParams(*saved[3 * i:3 * i + 3]) for i in range(n)]
+        inputs = saved[3 * n:4 * n]
+        residuals = saved[4 * n:]
+        d_ys = None if d_ys_out is None else d_ys_out.transpose(0, 1).float().contiguous()
+        grads = [None] * (3 * n)
+        for li in range(n - 1, -1, -1):
+            p = layers[li]
+            gates, c_prev = residuals[2 * li], residuals[2 * li + 1]
+            last = li == n - 1
+            dh = d_hT.float().contiguous() if last and d_hT is not None else None
+            dG = lstm_seq_layer_bwd(p.w_hh, gates, c_prev, dh, d_ys, cd)
+            h_seq = _rebuild_h(gates, c_prev).to(cd) if last else inputs[li + 1]
+            h_prev = torch.cat([torch.zeros_like(h_seq[:1]), h_seq[:-1]])
+            grads[3 * li:3 * li + 3] = (seq_gemm(inputs[li], dG), seq_gemm(h_prev, dG),
+                                        dG.float().sum(dim=(0, 1)))
+            d_ys = (dG.float() @ rounded(p.w_ih, cd).t()).contiguous()
+        return (None, d_ys.transpose(0, 1).to(ctx.x_dtype), *grads)
 
 
 def lstm_stack_seq(layers, x: torch.Tensor, compute_dtype=torch.bfloat16):
     """Stacked layers, layer by layer over (B, T, D): (last layer's outputs
-    (B, T, H) f32, its final hidden state (B, H) f32)."""
+    (B, T, H) f32, its final hidden state (B, H) f32). Under autograd (a
+    weight or ``x`` needs a gradient) the residual mode and the backward
+    kernels run through :class:`_LSTMStack`; otherwise the inference
+    kernel, which stores no residuals."""
+    weights = [t for p in layers for t in p]
+    if needs_grad(x, *weights):
+        return _LSTMStack.apply(compute_dtype, x, *weights)
     ys = x.transpose(0, 1).to(compute_dtype).contiguous()
     h_T = None
     for p in layers:

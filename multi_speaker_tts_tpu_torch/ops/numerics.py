@@ -20,5 +20,17 @@ def rounded(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return x.to(compute_dtype).float()
 
 
+def seq_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over (t, b) of a^T b for (T, B, M) x (T, B, N) -> (M, N) f32: a
+    deferred whole-sequence weight gradient, compute-dtype operands summed
+    in f32 (the JAX package's ``dot_general(..., preferred_element_type=f32)``)."""
+    return a.reshape(-1, a.shape[-1]).float().t() @ b.reshape(-1, b.shape[-1]).float()
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will want gradients through these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def compute_dtype_of(hp) -> torch.dtype:
     return torch.bfloat16 if hp.Train.Use_Mixed_Precision else torch.float32

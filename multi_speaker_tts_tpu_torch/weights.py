@@ -13,6 +13,8 @@ Every tensor the port's modules use is mapped exactly once, the linear head
 (Conv or CBHG) included when ``Linear_Head.Use`` is on; the subtrees a
 configuration does not use are named in :func:`unused_subtrees` and
 skipped; any other unmapped or doubly mapped tensor raises.
+:func:`params_to_jax` is the inverse: the port's state back to the JAX
+trees, by the same rules read the other way.
 """
 
 from __future__ import annotations
@@ -127,6 +129,57 @@ def params_from_jax(params: dict, batch_stats: dict, hp) -> dict[str, np.ndarray
             state[key] = np.asarray(fn(value), np.float32)
             sources[key] = f"{tree_name}/{path}"
     return state
+
+
+_GROUP = re.compile(r"\([^()]*\)")
+
+
+def _inverse_rule(pattern: str, template: str) -> tuple[str, str]:
+    """(regex of port keys, template of JAX paths) of one rule: the k-th
+    group of the JAX pattern is the k-th ``\\k`` of the port template (each
+    rule uses its groups once, in order)."""
+    groups = _GROUP.findall(pattern)
+    pieces = re.split(r"\\(\d)", template)
+    regex = "".join(re.escape(x) if i % 2 == 0 else groups[int(x) - 1]
+                    for i, x in enumerate(pieces))
+    count = iter(range(1, len(groups) + 1))
+    return regex, _GROUP.sub(lambda m: f"\\{next(count)}", pattern)
+
+
+_INVERSE = [(tree, *_inverse_rule(pattern, template), fn)
+            for tree, pattern, template, fn in _RULES]
+
+
+def params_to_jax(state: dict, hp) -> tuple[dict, dict]:
+    """The port's flat state (numpy arrays or tensors) -> JAX (params,
+    batch_stats) numpy trees: the inverse of :func:`params_from_jax` (conv
+    kernels back to (K, in, out)). Every key must match exactly one rule."""
+    del hp  # the keys say everything; kept for symmetry with params_from_jax
+    trees: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        hits = [(tree, re.sub(regex, template, key), fn)
+                for tree, regex, template, fn in _INVERSE if re.fullmatch(regex, key)]
+        if len(hits) != 1:
+            raise ValueError(f"{key}: {len(hits)} mapping rules match (expected exactly one)")
+        tree, path, fn = hits[0]
+        node = trees[tree]
+        *scopes, leaf = path.split("/")
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        if leaf in node:
+            raise ValueError(f"{tree}/{path} mapped twice")
+        arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else value
+        node[leaf] = np.asarray(fn(np.asarray(arr, np.float32)))
+    return trees["params"], trees["batch_stats"]
+
+
+def module_state(**modules) -> dict[str, np.ndarray]:
+    """``{prefix.key: array}`` from modules by prefix (``ge2e=...``,
+    ``tacotron=...``): the flat state :func:`params_to_jax` reads. The
+    arrays are copies: a later in-place update does not reach them."""
+    return {f"{prefix}.{k}": v.detach().cpu().numpy().copy()
+            for prefix, module in modules.items() if module is not None
+            for k, v in module.state_dict().items()}
 
 
 def load_into(module, state: dict[str, np.ndarray], prefix: str) -> None:

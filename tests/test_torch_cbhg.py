@@ -254,5 +254,5 @@ def test_tacotron_infer_with_cbhg_head_matches(tiny_hp):
     if want_len.min() < 16:
         # The trap, made visible: the head on the masked mel differs inside.
         i, n = int(want_len.argmin()), int(want_len.min())
-        masked = port.linear_head(got["mel_post"], torch.float32).numpy()
+        masked = port.linear_head(got["mel_post"], torch.float32).detach().numpy()
         assert np.abs(masked[i, :n] - lin_want[i, :n]).max() > 10 * F32_TOL

@@ -251,3 +251,148 @@ def test_synthesizer_on_the_card(dev):
     for item in out:
         assert item["wav"].dtype == np.int16 and item["mel_length"] > 0
         assert np.isfinite(item["mel"]).all()
+
+
+def _rel_peak(got, want) -> float:
+    """max |got - want| over max |want|."""
+    err = (got.float() - want.float()).abs().max()
+    return (err / want.float().abs().max().clamp(min=1e-9)).item()
+
+
+@pytest.mark.parametrize("B, D, H", [(32, 80, 768), (32, 768, 768), (5, 128, 128)])
+def test_lstm_residual_mode_and_backward_kernel(dev, B, D, H):
+    from multi_speaker_tts_tpu_torch.ops import lstm_kernel
+
+    rng = np.random.default_rng(B + D)
+    p = _lstm(rng, D, H, dev)
+    x = torch.from_numpy(rng.normal(size=(24, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    got = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
+    want = lstm_kernel.lstm_seq_layer_plain(p, x, torch.bfloat16, save_residuals=True)
+    # The residual mode changes no output of the inference mode.
+    assert torch.equal(got[0], lstm_kernel.lstm_seq_layer_kernel(p, x)[0])
+    for a, b in zip(got, want):  # ys, h_T, c_T, gates, c_prev
+        assert a.shape == b.shape and _rel_peak(a, b) <= 1e-2
+    gates, c_prev = got[3], got[4]
+    d_hT = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(dev)
+    d_ys = torch.from_numpy(rng.normal(size=(24, B, H)).astype(np.float32)).to(dev)
+    for dh, dys in ((d_hT, None), (None, d_ys), (d_hT, d_ys)):
+        before = lstm_kernel.BWD_KERNEL.launches
+        dG = lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates, c_prev, dh, dys)
+        torch.cuda.synchronize()
+        assert lstm_kernel.BWD_KERNEL.launches == before + 1
+        ref = lstm_kernel.lstm_seq_layer_bwd_plain(p.w_hh, gates, c_prev, dh, dys)
+        # bf16 dG from the same residuals; f32 sums in another order.
+        assert dG.dtype == torch.bfloat16 and _rel_peak(dG, ref) <= 1e-2
+
+
+def test_bilstm_residual_mode_and_backward_kernel(dev):
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel
+
+    rng = np.random.default_rng(3)
+    pf, pb = _lstm(rng, 512, 256, dev), _lstm(rng, 512, 256, dev)
+    x = torch.from_numpy(rng.normal(size=(32, 64, 512)).astype(np.float32)).to(dev)
+    gxf, gxb = birnn_kernel.bilstm_hoist(pf, pb, x, torch.bfloat16)
+    got = birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh, pb.w_hh, save_residuals=True)
+    want = birnn_kernel.bilstm_recurrence_plain(gxf, gxb, pf.w_hh, pb.w_hh, torch.bfloat16,
+                                                save_residuals=True)
+    for a, b in zip(got, want):  # ysf, ysb, gf, cf, gb, cb
+        assert a.shape == b.shape and _rel_peak(a, b) <= 1e-2
+    dyf, dyb = (torch.from_numpy(rng.normal(size=(64, 32, 256)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    args = (*got[2:], pf.w_hh, pb.w_hh, dyf, dyb)
+    before = birnn_kernel.BWD_KERNEL.launches
+    dG = birnn_kernel.bilstm_bwd(*args)
+    torch.cuda.synchronize()
+    assert birnn_kernel.BWD_KERNEL.launches == before + 1
+    for a, b in zip(dG, birnn_kernel.bilstm_bwd_plain(*args)):
+        assert _rel_peak(a, b) <= 1e-2
+
+
+def test_bigru_residual_mode_and_backward_kernel(dev):
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+    rng = np.random.default_rng(4)
+
+    def gru(D, H):
+        return GRUParams(*(torch.from_numpy((rng.normal(size=s) * 0.1).astype(np.float32)).to(dev)
+                           for s in ((D, 3 * H), (H, 3 * H), (3 * H,), (3 * H,))))
+
+    for B, T, H in ((32, 132, 128), (3, 24, 64)):
+        pf, pb = gru(128, H), gru(128, H)
+        x = torch.from_numpy(rng.normal(size=(B, T, 128)).astype(np.float32)).to(dev)
+        gxf, gxb = birnn_kernel.bigru_hoist(pf, pb, x, torch.bfloat16)
+        got = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, save_residuals=True)
+        want = birnn_kernel.bigru_recurrence_plain(gxf, gxb, pf, pb, torch.bfloat16,
+                                                   save_residuals=True)
+        assert torch.equal(got[0], birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb)[0])
+        for a, b in zip(got, want):  # ysf, ysb, ghf, hpf, ghb, hpb
+            assert a.shape == b.shape and _rel_peak(a, b) <= 1e-2
+        dyf, dyb = (torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
+                    for _ in range(2))
+        ysf, ysb, ghf, hpf, ghb, hpb = got
+        args = (gxf, ghf, hpf, gxb, ghb, hpb, pf.w_hh, pb.w_hh, dyf, dyb)
+        before = birnn_kernel.GRU_BWD_KERNEL.launches
+        dG = birnn_kernel.bigru_bwd(*args)
+        torch.cuda.synchronize()
+        assert birnn_kernel.GRU_BWD_KERNEL.launches == before + 1
+        for a, b in zip(dG, birnn_kernel.bigru_bwd_plain(*args)):  # dGx, dGh per direction
+            assert _rel_peak(a, b) <= 1e-2
+
+
+def _train_batch(hp, B, seed=0):
+    from multi_speaker_tts_tpu_torch.data.collate import collate_tts
+    from multi_speaker_tts_tpu_torch.text import vocab_size
+
+    rng = np.random.default_rng(seed)
+    M, F = hp.Sound.Mel_Dim, hp.Sound.Spectrogram_Dim
+    pats = [{"Tokens": rng.integers(1, vocab_size(hp), size=40 - i),
+             "Mel": rng.random((120 - 4 * i, M)), "Spect": rng.random((120 - 4 * i, F))}
+            for i in range(B)]
+    return collate_tts(pats, 64, 132, M, hp.Decoder.N_Frames_Per_Step,
+                       hp.Speaker_Embedding.GE2E.Window_Length, rng, F)
+
+
+def test_train_step_full_width_on_the_card(dev, monkeypatch):
+    """The full checkpoint with GE2E trainable: one step launches each
+    backward kernel (the LSTM's once a layer) and the residual modes, runs
+    no plain backward, stays finite and moves the weights; an f32
+    checkpoint raises."""
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    params, batch_stats, meta = load_compact(ROOT / "demo" / "serving_ckpt_full.msgpack")
+    # No warmup, so the first step's learning rate (1e-3) moves every
+    # recurrent tensor by more than an f32 ulp.
+    hp = Recursive_Parse(meta["hp"]).replace(Speaker_Embedding={"GE2E": {"Freeze": False}},
+                                             Train={"Learning_Rate": {"Warmup_Step": 1}})
+    trainer = Trainer(hp, params, batch_stats)
+    batch = _train_batch(hp, 4)
+
+    def boom(*a, **k):
+        raise AssertionError("a plain backward ran on the card")
+
+    for mod, name in ((lstm_kernel, "lstm_seq_layer_bwd_plain"),
+                      (birnn_kernel, "bilstm_bwd_plain"), (birnn_kernel, "bigru_bwd_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    kernels = {"lstm_bwd": lstm_kernel.BWD_KERNEL, "lstm_res": lstm_kernel.RES_KERNEL,
+               "bilstm_bwd": birnn_kernel.BWD_KERNEL, "bilstm_res": birnn_kernel.RES_KERNEL,
+               "bigru_bwd": birnn_kernel.GRU_BWD_KERNEL, "bigru_res": birnn_kernel.GRU_RES_KERNEL}
+    before = {k: v.launches for k, v in kernels.items()}
+    w0 = [p.detach().clone() for p in trainer.params]
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launched = {k: v.launches - before[k] for k, v in kernels.items()}
+    assert launched == {"lstm_bwd": 3, "lstm_res": 3, "bilstm_bwd": 1, "bilstm_res": 1,
+                        "bigru_bwd": 1, "bigru_res": 1}
+    assert metrics["skipped_nonfinite"] == 0.0
+    assert all(np.isfinite(v) for v in metrics.values())
+    still = [n for n, a, p in zip(trainer.param_names, w0, trainer.params)
+             if ("lstm" in n or "gru" in n) and torch.equal(a, p.detach())]
+    assert not still, still
+
+    f32 = hp.replace(Train={"Use_Mixed_Precision": False})
+    with pytest.raises(NotImplementedError):
+        Trainer(f32, params, batch_stats).train_step(batch)

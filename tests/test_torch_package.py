@@ -139,17 +139,17 @@ def test_checkpoint_with_its_linear_head_maps_every_tensor_once(path):
     head = params["tacotron"]["linear_head"]
     if hp.Linear_Head.Type == "CBHG":
         np.testing.assert_array_equal(
-            taco.linear_head.cbhg.gru.backward_dir.b_hh.numpy(),
+            taco.linear_head.cbhg.gru.backward_dir.b_hh.detach().numpy(),
             head["cbhg"]["gru"]["backward"]["b_hh"])
         np.testing.assert_array_equal(
-            taco.linear_head.cbhg.bank[7].weight.numpy(),
+            taco.linear_head.cbhg.bank[7].weight.detach().numpy(),
             np.transpose(head["cbhg"]["bank_7"]["Conv_0"]["kernel"], (2, 1, 0)))
         np.testing.assert_array_equal(
-            taco.linear_head.cbhg.highways[3].T.bias.numpy(),
+            taco.linear_head.cbhg.highways[3].T.bias.detach().numpy(),
             head["cbhg"]["highway_3"]["T"]["bias"])
         assert taco.linear_head.cbhg.bank[1].bn_var.shape == (128,)
     else:
-        np.testing.assert_array_equal(taco.linear_head.projection.kernel.numpy(),
+        np.testing.assert_array_equal(taco.linear_head.projection.kernel.detach().numpy(),
                                       head["projection"]["kernel"])
     ge2e = GE2E.from_hp(hp, torch.float32)
     weights.load_into(ge2e, state, "ge2e.")
@@ -246,7 +246,10 @@ def test_cpu_wrappers_never_count_launches():
 def test_new_kernel_sources_carry_their_provenance():
     """Each hand-written source names the TPU function it replaces."""
     for source, replaces in (("bigru.cu", "birnn_pallas.py::_bigru_fwd_impl"),
-                             ("decode.cu", "decode_pallas.py::decode_segment_pallas")):
+                             ("decode.cu", "decode_pallas.py::decode_segment_pallas"),
+                             ("lstm_bwd.cu", "lstm_pallas.py::lstm_seq_layer_bwd"),
+                             ("bilstm_bwd.cu", "birnn_pallas.py::_bilstm_vjp_bwd"),
+                             ("bigru_bwd.cu", "birnn_pallas.py::_bigru_vjp_bwd")):
         text = (PORT / "csrc" / source).read_text()
         assert replaces in text and "MSTTS_EXPORT" in text
         assert "cudaGetLastError" in (PORT / "csrc" / "common.cuh").read_text()
