@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the six hand-written kernel sources of
+1. Builds the ten hand-written kernel sources of
    ``multi_speaker_tts_tpu_torch`` from ``csrc/`` (one ``nvcc`` per source,
    all started together).
 2. Main path: ``demo/serving_ckpt_full.msgpack`` as it is (CBHG linear head
@@ -24,6 +24,16 @@
    plain ``quantize="int8"`` decode on the card, under one seed.
    The mel-only configuration (``Linear_Head.Use: false``, vocoding through
    the filterbank pseudo-inverse) stays driven by one short request.
+   Vocoder passes: (e) the checkpoint as it is with
+   ``Sound.Griffin_Lim_Momentum: 0.99`` (the staged kernel's momentum mode
+   must launch); (f) the same request with ``GL_DENSE_KERNEL=1``, plain and
+   with momentum (the dense kernel must launch, the staged one must not;
+   the spectral convergence of the wavs within 5% of pass (a)'s, and
+   better with momentum than without). Streaming (g): the mel-only
+   configuration streamed with ``segment_steps=16`` under the default
+   decode and ``int8_pallas``: the staged kernel vocodes every window at
+   T = 47, the decode kernel runs the int8 segments, the chunks are finite
+   int16 and the streamed mel equals ``synthesize``'s under one seed.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -45,6 +55,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -134,7 +145,7 @@ def _profile(label: str, fn):
         out = fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    stages = ("enroll.", "synth.")
+    stages = ("enroll.", "synth.", "stream.")
     spans, intervals, by_kernel = {}, [], {}
     for e in prof.events():
         if e.name.startswith(stages):
@@ -187,6 +198,8 @@ def _train_batch(hp, n: int, seed: int) -> dict:
 
 
 def main() -> int:
+    import numpy as np
+
     if not (ROOT / "multi_speaker_tts_tpu_torch").is_dir() or not CKPT.exists():
         _fail(f"run from a checkout of the repository ({ROOT} lacks the port)")
     import torch
@@ -203,9 +216,10 @@ def main() -> int:
     from multi_speaker_tts_tpu_torch.checkpoints import load_compact
     from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
     from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.audio import dsp
     from multi_speaker_tts_tpu_torch.ops import (
-        _build, birnn_kernel, decode_kernel, decoder_scan, griffin_lim_staged, lstm_kernel,
-        mel_kernel,
+        _build, birnn_kernel, decode_kernel, decoder_scan, griffin_lim_kernel,
+        griffin_lim_staged, lstm_kernel, mel_kernel, stft_matmul,
     )
 
     kernels = {
@@ -214,6 +228,8 @@ def main() -> int:
         "text_encoder_bilstm": birnn_kernel.KERNEL,
         "cbhg_bigru": birnn_kernel.GRU_KERNEL,
         "griffin_lim_staged": griffin_lim_staged.KERNEL,
+        "griffin_lim_staged_momentum": griffin_lim_staged.MOM_KERNEL,
+        "griffin_lim_dense": griffin_lim_kernel.KERNEL,
         "decode_segment_bf16": decode_kernel.KERNELS["bf16"],
         "decode_segment_int8": decode_kernel.KERNELS["int8"],
         # The train phase's: the residual modes of the three recurrences and
@@ -240,12 +256,16 @@ def main() -> int:
     hp = Recursive_Parse(meta["hp"])  # the checkpoint as it is: CBHG head on
     wavs = [wav_io.load_wav(p, target_sr=hp.Sound.Sample_Rate)[0] for p in ENROLL]
 
-    recorded = {name: [] for name in (*kernels, "segment", "early_exit")}
+    recorded = {name: [] for name in (*kernels, "segment", "early_exit", "gl_auto")}
     _record(mel_kernel, "melspectrogram_kernel", recorded["mel_frontend"])
     _record(lstm_kernel, "lstm_seq_layer_kernel", recorded["ge2e_lstm_layer"])
     _record(birnn_kernel, "bilstm_recurrence_kernel", recorded["text_encoder_bilstm"])
     _record(birnn_kernel, "bigru_recurrence_kernel", recorded["cbhg_bigru"])
+    # One wrapper serves both modes of the staged kernel.
     _record(griffin_lim_staged, "griffin_lim_staged_kernel", recorded["griffin_lim_staged"])
+    recorded["griffin_lim_staged_momentum"] = recorded["griffin_lim_staged"]
+    _record(griffin_lim_kernel, "griffin_lim_dense_kernel", recorded["griffin_lim_dense"])
+    _record(stft_matmul, "griffin_lim_auto", recorded["gl_auto"])
     # One wrapper serves both decode modes; a pass runs one of them.
     _record(decode_kernel, "decode_segment_kernel", recorded["decode_segment_bf16"])
     recorded["decode_segment_int8"] = recorded["decode_segment_bf16"]
@@ -425,6 +445,123 @@ def main() -> int:
             failures.append(f"[fixed-length {quantize}] the plain decode ran: "
                             f"{pf['plain_steps']}")
 
+    # Vocoder passes. (e): momentum Griffin-Lim, the staged kernel's momentum
+    # mode. (f): the dense kernel (GL_DENSE_KERNEL set inside this block and
+    # restored), plain and with momentum. Spectral convergence of each pass's
+    # Griffin-Lim output: || |STFT(y)| - target || / || target || over the
+    # vocoded frames, the target being the magnitude the vocoder was given.
+    def sc_of(wav, mag, n_fft, hop):
+        rec = dsp.stft(wav, n_fft, hop).abs()[..., :mag.shape[-2], :]
+        return (torch.linalg.vector_norm(rec - mag) / torch.linalg.vector_norm(mag)).item()
+
+    def convergence(res):
+        (mag, n_fft, hop, *_), _, wav = res["recorded"]["gl_auto"][0]
+        return sc_of(wav, mag, n_fft, hop)
+
+    hp_mom = hp.replace(Sound={"Griffin_Lim_Momentum": 0.99})
+    synth = Synthesizer(hp_mom, params, batch_stats, seed=0)
+    pe = run_pass("e momentum", synth, TEXTS, emb=emb)
+    del synth
+    if pe["launches"]["griffin_lim_staged_momentum"] == 0 or pe["launches"]["griffin_lim_staged"]:
+        failures.append(f"[e momentum] staged launches {pe['launches']['griffin_lim_staged']} "
+                        f"plain / {pe['launches']['griffin_lim_staged_momentum']} momentum")
+    dense_passes = {}
+    saved_env = os.environ.get("GL_DENSE_KERNEL")
+    os.environ["GL_DENSE_KERNEL"] = "1"
+    try:
+        for label, hp_f in (("f dense", hp), ("f dense momentum", hp_mom)):
+            synth = Synthesizer(hp_f, params, batch_stats, seed=0)
+            res = dense_passes[label] = run_pass(label, synth, TEXTS, emb=emb)
+            del synth
+            staged_n = (res["launches"]["griffin_lim_staged"]
+                        + res["launches"]["griffin_lim_staged_momentum"])
+            if res["launches"]["griffin_lim_dense"] == 0 or staged_n:
+                failures.append(f"[{label}] dense launches {res['launches']['griffin_lim_dense']}, "
+                                f"staged launches {staged_n}")
+    finally:
+        if saved_env is None:
+            os.environ.pop("GL_DENSE_KERNEL", None)
+        else:
+            os.environ["GL_DENSE_KERNEL"] = saved_env
+    pf_plain, pf_mom = dense_passes["f dense"], dense_passes["f dense momentum"]
+    sc = {"a staged": convergence(pa), "e staged momentum": convergence(pe),
+          "f dense": convergence(pf_plain), "f dense momentum": convergence(pf_mom)}
+    gap = abs(sc["f dense"] - sc["a staged"]) / sc["a staged"]
+    print(f"spectral convergence at {hp.Sound.Griffin_Lim_Iter} iterations: "
+          + json.dumps({k: float(f"{v:.5f}") for k, v in sc.items()})
+          + f"; dense vs staged relative gap {gap:.4f} (tolerance 0.05); momentum "
+          f"{'better' if sc['f dense momentum'] < sc['f dense'] else 'NOT better'} than plain "
+          f"(dense), {'better' if sc['e staged momentum'] < sc['a staged'] else 'NOT better'} "
+          "(staged, printed only)")
+    if not gap <= 0.05:
+        failures.append(f"dense vs staged spectral convergence gap {gap} > 0.05")
+    if not sc["f dense momentum"] < sc["f dense"]:
+        failures.append(f"momentum did not converge tighter on the dense kernel: {sc}")
+
+    # (g) Streaming: the mel-only configuration (the CBHG head cannot stream),
+    # segment_steps = 16, default decode and int8_pallas. Warm-up stream,
+    # then the counted one (counts zeroed just before), then synthesize
+    # under the same seed for the mel.
+    hp_stream = hp.replace(Linear_Head={"Use": False})
+    stream_res = {}
+    for label, quantize, decode in (("g stream", None, None),
+                                    ("g stream int8_pallas", "int8_pallas", "decode_segment_int8")):
+        synth = Synthesizer(hp_stream, params, batch_stats, seed=0, quantize=quantize)
+        list(synth.stream(TEXTS, emb, segment_steps=16, pcm16=True))
+        for store in (*recorded.values(), *plain_calls.values()):
+            store.clear()
+        for k in kernels.values():
+            k.launches = 0
+        synth.generator.manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks, t_first = [], None
+        for c in synth.stream(TEXTS, emb, segment_steps=16, pcm16=True, return_mel=True):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            chunks.append(c)
+        t_all = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+        gl_T = sorted({c[0][0].shape[1] for c in recorded["griffin_lim_staged"]})
+        n_plain = {name: len(v) for name, v in plain_calls.items()}
+        synth.generator.manual_seed(0)
+        ref = synth.synthesize(TEXTS, emb)
+        mel = np.concatenate([c["mel_chunk"] for c in chunks], axis=1)
+        lens = [int(x) for x in chunks[-1]["mel_lengths"]]
+        ref_lens = [item["mel_length"] for item in ref]
+        mel_err = max(float(np.abs(mel[b, :T] - item["mel"]).max()) if T else 0.0
+                      for b, (T, item) in enumerate(zip(lens, ref)))
+        audio_s = sum(max(T - 1, 1) * hp.Sound.Frame_Shift for T in lens) / hp.Sound.Sample_Rate
+        print(f"[{label}] {len(chunks)} chunks of {chunks[0]['wav_chunk'].shape}; mel_lengths "
+              f"{lens} (synthesize {ref_lens}); launches {counts}; plain decode calls {n_plain}; "
+              f"staged Griffin-Lim at T = {gl_T}; streamed mel vs synthesize max abs "
+              f"{mel_err:.3e} (tolerance 1e-4); first chunk after {t_first * 1e3:.1f} ms, "
+              f"whole stream {t_all * 1e3:.1f} ms for {audio_s:.2f} s of audio = "
+              f"{audio_s / t_all:.2f}x real time")
+        stream_res[label] = {"launches": counts, "t_first": t_first, "t_all": t_all,
+                             "audio_s": audio_s, "gl_T": gl_T, "mel_err": mel_err}
+        if counts["griffin_lim_staged"] != len(chunks) or gl_T != [47]:
+            failures.append(f"[{label}] staged launches {counts['griffin_lim_staged']} for "
+                            f"{len(chunks)} windows at T = {gl_T} (want 47)")
+        if decode and (counts[decode] == 0 or any(n_plain.values())):
+            failures.append(f"[{label}] decode launches {counts[decode]}, plain {n_plain}")
+        if lens != ref_lens:
+            failures.append(f"[{label}] streamed mel_lengths {lens} != synthesize {ref_lens}")
+        if not mel_err <= 1e-4:
+            failures.append(f"[{label}] streamed mel differs from synthesize by {mel_err}")
+        for c in chunks:
+            w = c["wav_chunk"]
+            if w.dtype != np.int16 or w.shape != (len(TEXTS), 16 * r * hp.Sound.Frame_Shift):
+                failures.append(f"[{label}] chunk {w.dtype} {w.shape}")
+                break
+        if label == "g stream":
+            synth.generator.manual_seed(0)
+            busy_ms, _ = _profile(label, lambda: list(synth.stream(TEXTS, emb, segment_steps=16,
+                                                                   pcm16=True)))
+            print(f"[{label}] device idle, unprofiled stream: busy {busy_ms:.1f} ms (profiled "
+                  f"repeat) of {t_all * 1e3:.1f} ms = {100 * (1 - busy_ms / (t_all * 1e3)):.1f}% idle")
+        del synth
+
     # 2b. Train phase --------------------------------------------------------
     # The checkpoint with the YAML default Speaker_Embedding.GE2E.Freeze:
     # false, so gradients reach the GE2E encoder: teacher-forced steps on a
@@ -548,7 +685,10 @@ def main() -> int:
     rows = []
     launches = dict(pa["launches"],
                     decode_segment_bf16=pb["launches"]["decode_segment_bf16"],
-                    decode_segment_int8=pc["launches"]["decode_segment_int8"])
+                    decode_segment_int8=pc["launches"]["decode_segment_int8"],
+                    griffin_lim_staged_momentum=pe["launches"]["griffin_lim_staged_momentum"],
+                    griffin_lim_dense=(pf_plain["launches"]["griffin_lim_dense"]
+                                       + pf_mom["launches"]["griffin_lim_dense"]))
     rec = dict(pa["recorded"], decode_segment_bf16=pb["recorded"]["decode_segment_bf16"],
                decode_segment_int8=pc["recorded"]["decode_segment_int8"])
 
@@ -715,7 +855,7 @@ def main() -> int:
     )
 
     # Staged Griffin-Lim: (B, T, 640) bf16 magnitudes -> (B, hop * (T - 1)).
-    (mag_staged, hop, n_iter), _, _ = rec["griffin_lim_staged"][0]
+    (mag_staged, hop, n_iter, _), _, _ = rec["griffin_lim_staged"][0]
     Bg, Tg, G = mag_staged.shape
 
     def rel_err(a, b):
@@ -731,7 +871,114 @@ def main() -> int:
         _bound_ms(2 * Bg * Tg * G + 4 * Bg * (Tg - 1) * hop + 2 * 5 * 4 * 256 * 128,
                   (n_iter + 0.5) * Bg * Tg * 32 * 2 * 128 * 128, BF16_FLOPS),
         warmup=1, reps=5,
-        extra={"error_metric": "max |kernel - plain| / max |plain|"},
+        extra={"error_metric": "max |kernel - plain| / max |plain|",
+               "launches_stream": stream_res["g stream"]["launches"]["griffin_lim_staged"]},
+    )
+
+    # The momentum mode and the dense kernel. The bf16 iteration is chaotic: a
+    # flipped operand rounding grows with the iterations. So each case also
+    # runs the plain version against itself on its input moved by 1e-6
+    # (relative, seeded noise): ``probe_recorded_iterations``. The kernel is
+    # held to its plain version at 4 iterations (2e-2 of the peak), at the
+    # recorded iterations to max(2e-2, GL_PROBE_MULTIPLE x the probe's
+    # reading), and by the relative gap of spectral convergence there (the
+    # JAX package's 5% gate). Timed at the recorded iterations.
+    GL_PROBE_MULTIPLE = 4.0
+    g_probe = torch.Generator("cuda").manual_seed(11)
+
+    def nudged(x):
+        """``x`` moved by 1e-6 of itself, elementwise (seeded)."""
+        noise = torch.randn(x.shape, generator=g_probe, device=x.device)
+        return x * (1.0 + 1e-6 * noise)
+
+    gl_tol = {"rel_4_iterations": 2e-2, "sc_gap": 5e-2, "rel_recorded_over_its_limit": 1.0}
+
+    def gl_err(mag, n_fft, hop, short_kernel, short_plain, probe_plain):
+        def err(got, ref):
+            k4, p4 = short_kernel(), short_plain()
+            sc_k, sc_p = sc_of(got, mag, n_fft, hop), sc_of(ref, mag, n_fft, hop)
+            rel, probe = rel_err(got, ref), rel_err(probe_plain(), ref)
+            limit = max(2e-2, GL_PROBE_MULTIPLE * probe)
+            return {"rel_4_iterations": rel_err(k4, p4), "sc_gap": abs(sc_k - sc_p) / sc_p,
+                    "rel_recorded_over_its_limit": rel / limit,
+                    "rel_recorded_iterations": rel, "probe_recorded_iterations": probe}
+        return err
+
+    gl_extra = {"error_metric": "max |kernel - plain| / max |plain| at 4 iterations; sc_gap: "
+                                "relative gap of spectral convergence at the recorded "
+                                "iterations; rel_recorded_over_its_limit: the same error at the "
+                                "recorded iterations over max(2e-2, "
+                                f"{GL_PROBE_MULTIPLE} x the plain version's own error on its "
+                                "input moved by 1e-6)"}
+
+    # Staged momentum mode, on pass (e)'s inputs: two bf16 previous-projection
+    # buffers read and written once an iteration besides the plain mode's work.
+    (mag_e, hop_e, n_iter_e, mom_e), _, _ = pe["recorded"]["griffin_lim_staged"][0]
+    mag_e_full = pe["recorded"]["gl_auto"][0][0][0]
+    Be, Te, _ = mag_e.shape
+
+    def staged_mom(n, mag=mag_e):
+        return (lambda: griffin_lim_staged.griffin_lim_staged_kernel.original(mag, hop_e, n,
+                                                                              mom_e),
+                lambda: griffin_lim_staged.griffin_lim_staged_plain(mag, hop_e, n,
+                                                                    torch.bfloat16, mom_e))
+
+    # The probe moves the f32 magnitudes the vocoder was given, before their
+    # bf16 rounding into the staged layout.
+    mag_e_nudged = griffin_lim_staged.staged_magnitudes(nudged(mag_e_full), torch.bfloat16)
+    check(
+        "griffin_lim_staged_momentum", "multi_speaker_tts_tpu/ops/griffin_lim_staged.py:254",
+        "multi_speaker_tts_tpu_torch/csrc/griffin_lim.cu",
+        *staged_mom(n_iter_e), gl_err(mag_e_full, 1024, hop_e, *staged_mom(4),
+                                      staged_mom(n_iter_e, mag_e_nudged)[1]), gl_tol,
+        _bound_ms(2 * Be * Te * G + 4 * Be * (Te - 1) * hop_e + 2 * 5 * 4 * 256 * 128,
+                  (n_iter_e + 0.5) * Be * Te * 32 * 2 * 128 * 128, BF16_FLOPS),
+        warmup=1, reps=5,
+        extra=dict(gl_extra, momentum=mom_e, shape=[Be, Te, n_iter_e],
+                   mode="momentum (TPU branch griffin_lim_staged.py:222-241)"),
+    )
+
+    # Dense Griffin-Lim: pass (f)'s inputs (B, T, Fp) f32 + Nyquist, timed
+    # there; also pass (f)'s momentum call and seeded speech-like magnitudes
+    # (harmonics with seeded pitch and noise) at n_fft 512 / hop 128 and
+    # n_fft 2048 / hop 256, at the same B, T and iterations.
+    def full_mag(mag_p, mag_ny, n_fft):
+        return torch.cat([mag_p[..., :n_fft // 2], mag_ny], dim=-1)
+
+    def dense_case(args):
+        def pair(n, mags=args[:2]):
+            a = (*mags, *args[2:4], n, args[5])
+            return (lambda: griffin_lim_kernel.griffin_lim_dense_kernel.original(*a),
+                    lambda: griffin_lim_kernel.griffin_lim_dense_plain(*a[:5], torch.bfloat16,
+                                                                       a[5]))
+        return (*pair(args[4]), gl_err(full_mag(args[0], args[1], args[2]), args[2], args[3],
+                                       *pair(4), pair(args[4], [nudged(m) for m in args[:2]])[1]))
+
+    dense_args = pf_plain["recorded"]["griffin_lim_dense"][0][0]
+    mp, mny, n_fft_d, hop_d, n_iter_d, _ = dense_args
+    Bd_, Td_, Fp_d = mp.shape
+    g_dense = torch.Generator("cuda").manual_seed(7)
+    also_dense = [dense_case(pf_mom["recorded"]["griffin_lim_dense"][0][0])]
+    for n_fft_x, hop_x in ((512, 128), (2048, 256)):
+        t = torch.arange(hop_x * (Td_ - 1), device="cuda") / hp.Sound.Sample_Rate
+        f0 = 100 + 150 * torch.rand((Bd_, 1), generator=g_dense, device="cuda")
+        phase = 2 * math.pi * f0 * t
+        sig = sum(torch.sin(k * phase) / k for k in range(1, 16)) * (1 + 0.5 * torch.sin(6 * t))
+        sig = sig + 0.05 * torch.randn(sig.shape, generator=g_dense, device="cuda")
+        mag_x = dsp.stft(sig, n_fft_x, hop_x).abs()
+        also_dense.append(dense_case((*griffin_lim_kernel.split_magnitude(mag_x, n_fft_x),
+                                      n_fft_x, hop_x, n_iter_d, 0.0)))
+    check(
+        "griffin_lim_dense", "multi_speaker_tts_tpu/ops/griffin_lim_kernel.py:210",
+        "multi_speaker_tts_tpu_torch/csrc/griffin_lim_dense.cu",
+        *dense_case(dense_args), gl_tol,
+        _bound_ms(4 * Bd_ * Td_ * (Fp_d + 1) + 2 * 2 * 2 * n_fft_d * Fp_d
+                  + 4 * Bd_ * (Td_ - 1) * hop_d,
+                  (2 * n_iter_d + 1) * Bd_ * Td_ * 2 * (2 * Fp_d) * n_fft_d, BF16_FLOPS),
+        warmup=1, reps=5, also=also_dense,
+        extra=dict(gl_extra, shape=[Bd_, Td_, n_fft_d, hop_d, n_iter_d],
+                   also="momentum 0.99 (pass f); n_fft 512 / hop 128 and 2048 / hop 256, "
+                        "seeded speech-like magnitudes"),
     )
 
     # Decode segment, both modes: the first chunk and a mid-stream chunk of

@@ -4,7 +4,9 @@ Same functions and the same numerics contract as the JAX module
 (normalized log-mel within 1e-4 of the numpy oracle). The fused mel
 front-end kernel lives in :mod:`..ops.mel_kernel`; :func:`melspectrogram_auto`
 sends CUDA tensors there and keeps CPU tensors on the kernel's plain
-version.
+version. :func:`griffin_lim` is the FFT route of the vocoder (``torch.fft``,
+as the JAX module uses ``jnp.fft`` outside any kernel): what a
+configuration whose hop does not divide n_fft vocodes with.
 """
 
 from __future__ import annotations
@@ -125,11 +127,33 @@ def frame_signal(wav: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return padded.unfold(-1, n_fft, hop)[..., :n_frames, :]
 
 
-def stft_magnitude(wav: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """|STFT|: (..., L) -> (..., T, n_fft//2+1)."""
+def stft(wav: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Complex STFT: (..., L) -> (..., T, n_fft//2+1)."""
     frames = frame_signal(wav, n_fft, hop)
     win = torch.from_numpy(hann_window(n_fft)).to(frames.device)
-    return torch.fft.rfft(frames * win, dim=-1).abs()
+    return torch.fft.rfft(frames * win, dim=-1)
+
+
+def stft_magnitude(wav: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """|STFT|: (..., L) -> (..., T, n_fft//2+1)."""
+    return stft(wav, n_fft, hop).abs()
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop: int, length: int) -> torch.Tensor:
+    """Inverse STFT by windowed overlap-add, window-square normalized, with
+    the centred crop: (..., T, F) -> (..., length)."""
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1)
+    win = torch.from_numpy(hann_window(n_fft)).to(frames.device)
+    T = frames.shape[-2]
+    out_len = n_fft + hop * (T - 1)
+    idx = (torch.arange(T, device=frames.device)[:, None] * hop
+           + torch.arange(n_fft, device=frames.device)[None, :]).reshape(-1)
+    flat = (frames * win).reshape(*frames.shape[:-2], -1)
+    out = flat.new_zeros((*frames.shape[:-2], out_len)).index_add_(-1, idx, flat)
+    wsq = win.new_zeros(out_len).index_add_(0, idx, (win * win).repeat(T))
+    out = out / torch.clamp(wsq, min=1e-11)
+    start = min(n_fft // 2, out_len - length)  # XLA's dynamic_slice clamps the start
+    return out[..., start:start + length]
 
 
 def amp_to_db(x: torch.Tensor) -> torch.Tensor:
@@ -163,6 +187,51 @@ def melspectrogram(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
     basis = torch.from_numpy(cfg.mel_basis).to(D.device)
     M = D @ basis.T
     return normalize(amp_to_db(M) - cfg.ref_level_db, cfg.min_level_db)
+
+
+_DISPATCH_LOGGED: set = set()
+
+
+def log_dispatch(op: str, chosen: str, why: str) -> None:
+    """One ``[dispatch]`` line per (op, route) per process, as the JAX
+    package prints it."""
+    if (op, chosen) not in _DISPATCH_LOGGED:
+        _DISPATCH_LOGGED.add((op, chosen))
+        print(f"[dispatch] {op} -> {chosen} ({why})")
+
+
+def griffin_lim(magnitude: torch.Tensor, n_fft: int, hop: int, n_iter: int,
+                length: int, momentum: float = 0.0) -> torch.Tensor:
+    """Griffin-Lim through the FFT: (..., T, F) magnitude -> (..., length).
+    Zero initial phase; ``momentum`` > 0 is the accelerated ("fast")
+    variant of Perraudin et al. 2013 (the projected spectrum extrapolated
+    against the previous projection)."""
+    mag = magnitude.float()
+    T = mag.shape[-2]
+    y = istft(mag.to(torch.complex64), n_fft, hop, length)
+    if momentum > 0.0:
+        beta = momentum / (1.0 + momentum)
+        tprev = torch.zeros_like(mag, dtype=torch.complex64)
+        for _ in range(n_iter):
+            D = stft(y, n_fft, hop)[..., :T, :]
+            E = D - beta * tprev
+            y = istft(mag * (E / torch.clamp(E.abs(), min=1e-11)), n_fft, hop, length)
+            tprev = D
+        return y
+    for _ in range(n_iter):
+        D = stft(y, n_fft, hop)[..., :T, :]
+        y = istft(mag * (D / torch.clamp(D.abs(), min=1e-11)), n_fft, hop, length)
+    return y
+
+
+def inv_spectrogram(S_norm: torch.Tensor, cfg: DSPConfig, length: int | None = None) -> torch.Tensor:
+    """Normalized linear spectrogram -> waveform by the FFT Griffin-Lim."""
+    if length is None:
+        length = cfg.hop * (S_norm.shape[-2] - 1)
+    mag = db_to_amp(denormalize(S_norm, cfg.min_level_db) + cfg.ref_level_db)
+    wav = griffin_lim(mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter, length,
+                      momentum=cfg.griffin_lim_momentum)
+    return inv_preemphasis(wav, cfg.preemphasis)
 
 
 def melspectrogram_auto(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:

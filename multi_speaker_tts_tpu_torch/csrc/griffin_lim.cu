@@ -8,6 +8,15 @@
 // OLA normalisation over the uncropped rows, mag * rsqrt(|X|^2 + 1e-12)
 // projection, centred crop.
 //
+// Momentum mode (the TPU kernel's body_m; pre / pim non-null): the
+// accelerated iteration extrapolates each fresh spectrum X against the
+// previous one P before the projection, X - beta P with beta = m / (1 + m),
+// and stores X as the next P. P lives in two bf16 (B, T, 640) buffers, as
+// the TPU kernel keeps its previous-projection carries in the magnitudes'
+// dtype: the forward launch reads P and writes X in the same pass, one
+// element per thread. The plain mode is a separate instantiation of the
+// forward kernel and computes exactly what it computed before.
+//
 // Redesign for Hopper: the TPU kernel keeps an utterance's (T, 640) complex
 // spectra resident in VMEM for all iterations (~2 MB at T = 400); an SM
 // has 227 KB of shared memory. Here the spectra (re, im f32), the
@@ -128,11 +137,13 @@ gl_inverse_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+template <bool kMomentum>
 __global__ void __launch_bounds__(kThreads)
 gl_forward_kernel(const float* __restrict__ frames, const float* __restrict__ wsum,
                   const float* __restrict__ win, const bf16* __restrict__ mats,
                   const bf16* __restrict__ mag, float* __restrict__ re,
-                  float* __restrict__ im, int T, int hop) {
+                  float* __restrict__ im, bf16* __restrict__ pre, bf16* __restrict__ pim,
+                  float beta, int T, int hop) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* A = reinterpret_cast<bf16*>(smem);              // [5][kF][kLdA]
   float* X = reinterpret_cast<float*>(smem + kSmemA);   // [10][kF][kLdP]
@@ -204,9 +215,16 @@ gl_forward_kernel(const float* __restrict__ frames, const float* __restrict__ ws
     const int f = i / kG, lane = i - f * kG;
     if (t0 + f >= T) continue;
     const int g = lane / kL, m = lane - g * kL;
-    const float r = X[(2 * g) * kPlane + f * kLdP + m];
-    const float q = X[(2 * g + 1) * kPlane + f * kLdP + m];
+    float r = X[(2 * g) * kPlane + f * kLdP + m];
+    float q = X[(2 * g + 1) * kPlane + f * kLdP + m];
     const size_t o = ((size_t)b * T + t0 + f) * kG + lane;
+    if constexpr (kMomentum) {
+      const float pr = __bfloat162float(pre[o]), pq = __bfloat162float(pim[o]);
+      pre[o] = __float2bfloat16(r);
+      pim[o] = __float2bfloat16(q);
+      r -= beta * pr;
+      q -= beta * pq;
+    }
     const float sc = __bfloat162float(mag[o]) * rsqrtf(r * r + q * q + 1e-12f);
     re[o] = r * sc;
     im[o] = q * sc;
@@ -232,19 +250,27 @@ __global__ void gl_output_kernel(const float* __restrict__ frames,
 
 }  // namespace
 
+// pre / pim: null for the plain iteration, else the two zeroed bf16
+// (B, T, 640) previous-projection buffers of the momentum mode.
 MSTTS_EXPORT int mstts_gl_staged(const void* mag, const void* mats, const void* win,
                                  const void* syn, const void* wsum, void* re, void* im,
-                                 void* frames, void* out, int B, int T, int hop, int n_iter,
-                                 void* stream) {
-  if (hop <= 0 || kN % hop || hop % kL || (kN / hop) % 2 || T < 2 || n_iter < 0)
+                                 void* frames, void* out, void* pre, void* pim, int B, int T,
+                                 int hop, int n_iter, float beta, void* stream) {
+  if (hop <= 0 || kN % hop || hop % kL || (kN / hop) % 2 || T < 2 || n_iter < 0 ||
+      (pre == nullptr) != (pim == nullptr))
     return (int)cudaErrorInvalidValue;
+  const bool momentum = pre != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   MSTTS_CHECK(cudaFuncSetAttribute(gl_inverse_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)kSmemInverse));
-  MSTTS_CHECK(cudaFuncSetAttribute(gl_forward_kernel,
+  MSTTS_CHECK(cudaFuncSetAttribute(gl_forward_kernel<false>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)kSmemForward));
+  MSTTS_CHECK(cudaFuncSetAttribute(gl_forward_kernel<true>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kSmemForward));
+  auto* forward = momentum ? gl_forward_kernel<true> : gl_forward_kernel<false>;
   const dim3 grid((T + kF - 1) / kF, B);
   const float* re_c = static_cast<const float*>(re);
   const float* im_c = static_cast<const float*>(im);
@@ -252,11 +278,11 @@ MSTTS_EXPORT int mstts_gl_staged(const void* mag, const void* mats, const void* 
     gl_inverse_kernel<<<grid, kThreads, kSmemInverse, st>>>(
         re_c, im_c, static_cast<const bf16*>(mats), static_cast<const float*>(syn),
         static_cast<float*>(frames), T);
-    gl_forward_kernel<<<grid, kThreads, kSmemForward, st>>>(
+    forward<<<grid, kThreads, kSmemForward, st>>>(
         static_cast<const float*>(frames), static_cast<const float*>(wsum),
         static_cast<const float*>(win), static_cast<const bf16*>(mats),
-        static_cast<const bf16*>(mag), static_cast<float*>(re), static_cast<float*>(im), T,
-        hop);
+        static_cast<const bf16*>(mag), static_cast<float*>(re), static_cast<float*>(im),
+        static_cast<bf16*>(pre), static_cast<bf16*>(pim), beta, T, hop);
     if (it == 0) MSTTS_CHECK(cudaPeekAtLastError());
   }
   gl_inverse_kernel<<<grid, kThreads, kSmemInverse, st>>>(

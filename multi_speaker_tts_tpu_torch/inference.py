@@ -11,14 +11,20 @@ embedding)`` -> waveforms, on a CUDA device by default:
   decode kernel) -> masked postnet -> linear head over the whole decode
   bucket (CBHG with the BiGRU kernel, or the Conv stack; mel-only models
   use the filterbank pseudo-inverse instead) -> magnitudes at a pow2 bucket
-  of the longest decoded length -> staged Griffin-Lim kernel -> inverse
-  preemphasis -> optional 16-bit PCM.
+  of the longest decoded length (or the whole decode bucket with
+  ``split_vocode=False``) -> Griffin-Lim (the staged or the dense kernel by
+  the JAX package's route; the FFT route when the hop does not divide
+  n_fft) -> inverse preemphasis -> optional 16-bit PCM;
+- stream: the same decode in segments of K steps, each block of frames
+  emitted one segment later through the postnet / Conv head on a window
+  with exact halos and windowed Griffin-Lim, crossfaded into the previous
+  window's tail: constant time to the first chunk.
 
 The buckets are part of the result (Griffin-Lim phase couples into the
 padding), so they follow the JAX package exactly. The stages carry
 ``torch.profiler.record_function`` spans (``enroll.mel``, ``enroll.ge2e``,
 ``synth.encoder``, ``synth.decode``, ``synth.postnet``, ``synth.linear``,
-``synth.vocode``)
+``synth.vocode``; ``stream.decode``, ``stream.emit``, ``stream.vocode``)
 that a profiler run reads; without a profiler they cost about a microsecond
 each.
 """
@@ -36,6 +42,7 @@ from multi_speaker_tts_tpu_torch import text as text_frontend
 from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
 from multi_speaker_tts_tpu_torch.checkpoints import load_compact
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import stft_matmul
@@ -87,13 +94,17 @@ def pcm16(wav: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(wav * 32767.0), -32768.0, 32767.0).to(torch.int16)
 
 
+_pcm16 = pcm16  # for methods whose ``pcm16`` argument hides the function
+
+
 def _gl_vocode(linear, mel_post: torch.Tensor, cfg, as_pcm16: bool) -> torch.Tensor:
+    """Magnitudes -> Griffin-Lim -> inverse preemphasis (-> PCM): the
+    kernel / GEMM route when the hop divides n_fft, else the FFT route."""
     mag = _gl_magnitude(linear, mel_post, cfg)
     length = cfg.hop * (mag.shape[-2] - 1)
-    wav = stft_matmul.griffin_lim_auto(
-        mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter, length,
-        momentum=cfg.griffin_lim_momentum,
-    )
+    gl = stft_matmul.griffin_lim_auto if cfg.n_fft % cfg.hop == 0 else dsp.griffin_lim
+    wav = gl(mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter, length,
+             momentum=cfg.griffin_lim_momentum)
     wav = dsp.inv_preemphasis(wav, cfg.preemphasis)
     return pcm16(wav) if as_pcm16 else wav
 
@@ -237,10 +248,14 @@ class Synthesizer:
     @torch.no_grad()
     def synthesize(self, texts: list[str], speaker_embedding=None,
                    max_steps: int | None = None, pcm16: bool = False,
-                   early_exit: bool = True, return_linear: bool = True) -> list[dict]:
-        """Texts -> [{wav, mel, linear, alignment, mel_length}] (split
-        vocode: the decode runs first, then Griffin-Lim at a pow2 bucket of
-        the batch's longest decoded length). ``linear`` is there for models
+                   early_exit: bool = True, return_linear: bool = True,
+                   vocode: bool = True, split_vocode: bool = True) -> list[dict]:
+        """Texts -> [{wav, mel, linear, alignment, mel_length}]. With
+        ``split_vocode`` (the default) Griffin-Lim runs at a pow2 bucket of
+        the batch's longest decoded length; ``split_vocode=False`` vocodes
+        the whole decode bucket, as the JAX package's fused program does
+        (the wavs differ by Griffin-Lim's phase coupling into the padding).
+        ``vocode=False`` returns no wav. ``linear`` is there for models
         with a linear head unless ``return_linear=False``; ``early_exit=False``
         runs the fixed-length decode."""
         B, max_steps, tokens, lengths, spk, active = self._prepare(
@@ -256,8 +271,12 @@ class Synthesizer:
         steps = max(-(-Tb // r), 1)
         mel_post = out["mel_post"][:, :Tb]
         linear = out["linear"][:, :Tb] if "linear" in out else None
-        with record_function("synth.vocode"):
-            wav = _gl_vocode(linear, mel_post, self.dsp_cfg, pcm16).cpu().numpy()
+        wav = None
+        if vocode:
+            lin_v, mel_v = ((linear, mel_post) if split_vocode
+                            else (out.get("linear"), out["mel_post"]))
+            with record_function("synth.vocode"):
+                wav = _gl_vocode(lin_v, mel_v, self.dsp_cfg, pcm16).cpu().numpy()
         mel_np = mel_post.cpu().numpy()
         linear_np = linear.cpu().numpy() if return_linear and linear is not None else None
         aligns = out["alignments"][:, :steps].cpu().numpy()
@@ -269,9 +288,144 @@ class Synthesizer:
                 "mel": mel_np[i, :T],
                 "alignment": aligns[i, :max(-(-T // r), 1)],
                 "mel_length": T,
-                "wav": wav[i, :max(T - 1, 1) * hop],
             }
+            if wav is not None:
+                item["wav"] = wav[i, :max(T - 1, 1) * hop]
             if linear_np is not None:
                 item["linear"] = linear_np[i, :T]
             results.append(item)
         return results
+
+    # -- streaming synthesis ----------------------------------------------------
+    @torch.no_grad()
+    def stream(self, texts: list[str], speaker_embedding=None, max_steps: int | None = None,
+               segment_steps: int = 16, gl_context: int = 12, pcm16: bool = False,
+               return_mel: bool = False, gl_warm_start: bool = False):
+        """Streaming synthesis: yields waveform chunks as decoding goes on.
+
+        The decode runs in segments of ``segment_steps`` AR steps; each
+        block of E = segment_steps * r frames is emitted one segment later,
+        when the postnet and the Conv head see its whole receptive field on
+        a window with explicit halos (PAD_L = G + Q + P frames left, PAD_R =
+        Gr + Q + P right, G = ``gl_context``, Q / P the head's and the
+        postnet's conv halos, Gr = n_fft/hop - 1) and a boundary mask: the
+        emitted mel equals the batched ``synthesize`` mel under the same
+        prenet masks. Griffin-Lim runs on the Wf = G + E + Gr frames around
+        the block (frames outside a row's decoded length forced to the
+        silence floor), and a raised-linear crossfade over Gr - 1 frames
+        joins it to the previous window's tail: the one approximation
+        against batch vocoding. ``gl_warm_start`` starts each window's
+        Griffin-Lim from the previous window's converged audio over the
+        overlap (``griffin_lim_matmul(init_head=...)``, the GEMM route).
+
+        Yields {"wav_chunk": (B, E*hop) f32 (int16 with ``pcm16``),
+        "frame_offset", "mel_lengths": (B,) decoded frames so far, "done"}
+        and with ``return_mel`` the block's "mel_chunk" (B, E, mel). A CBHG
+        head raises ``NotImplementedError`` (its bidirectional GRU needs the
+        whole sequence); a segment shorter than the right halo raises
+        ``ValueError``."""
+        hp = self.hp
+        r = int(hp.Decoder.get("N_Frames_Per_Step", 1))
+        taco = self.tacotron
+        if isinstance(taco.linear_head, CBHGHead):
+            raise NotImplementedError(
+                "streaming requires a causal-window linear head: the CBHG head's "
+                "bidirectional GRU needs the full sequence (use Linear_Head.Type: Conv, "
+                "or a mel-only model)")
+        cfg = self.dsp_cfg
+        K, G = segment_steps, gl_context
+        E = K * r
+        # Conv halos: each conv of kernel size k reaches k // 2 frames aside.
+        P, Q = (0 if m is None else sum(c.weight.shape[-1] // 2 for c in m.convs)
+                for m in (taco.postnet, taco.linear_head))
+        Gr = cfg.n_fft // cfg.hop - 1
+        if E < Gr + Q + P:
+            raise ValueError(
+                f"segment too short for exact streaming: {K} steps = {E} frames < "
+                f"right-context need {Gr + Q + P} (postnet {P} + linear {Q} + vocoder "
+                f"{Gr} frames); raise segment_steps")
+        B, max_steps, tokens, lengths, spk, active = self._prepare(
+            texts, speaker_embedding, max_steps)
+        Bp = tokens.shape[0]
+        cap_steps = max(max_steps // r, 1)
+        self.last_decode_bucket = max_steps
+        n_segs = _round_up(max(cap_steps, K), K) // K
+        bucket_frames = n_segs * E
+        PAD_L, PAD_R = G + Q + P, Gr + Q + P
+        Wmel, Wf = PAD_L + E + PAD_R, G + E + Gr
+        xf = max(Gr - 1, 0) * cfg.hop
+        stop_threshold = float(hp.Decoder.Stop_Threshold)
+        dev = self.device
+        floor = dsp.db_to_amp(dsp.denormalize(torch.zeros((), device=dev), cfg.min_level_db)
+                              + cfg.ref_level_db)
+        ramp = torch.arange(xf, device=dev, dtype=torch.float32)[None, :] / max(xf, 1)
+
+        prenet_masks = self._prenet_masks(Bp)
+        st = taco.infer_stream_init(tokens, lengths, spk, active)
+        buf = torch.zeros((Bp, PAD_L + bucket_frames + PAD_R, taco.mel_dim), device=dev)
+        tails = {"x": torch.zeros((Bp, xf), device=dev),
+                 "w": torch.zeros((Bp, max(G + Gr - 1, 0) * cfg.hop), device=dev)}
+
+        def decode_segment():
+            nonlocal st
+            with record_function("stream.decode"):
+                t0 = st["t0"]
+                mel_seg, _, st = taco.infer_stream_segment(st, K, stop_threshold,
+                                                           prenet_masks, cap_steps)
+                buf[:, PAD_L + t0 * r:PAD_L + t0 * r + E] = mel_seg
+
+        def emit(a: int) -> dict:
+            """Frames [a, a + E): postnet and head on the exact-halo window
+            (buffer index = frame + PAD_L), windowed Griffin-Lim, crossfade."""
+            with record_function("stream.emit"):
+                win = buf[:, a:a + Wmel]
+                widx = (a - PAD_L) + torch.arange(Wmel, device=dev)
+                bm = ((widx >= 0) & (widx < bucket_frames)).float()[None].expand(Bp, Wmel)
+                mel_post_w, lin_w = taco.stream_postnet_linear(win, bm)
+                mag = _gl_magnitude(lin_w, mel_post_w, cfg)[:, Q + P:Q + P + Wf]
+                fidx = (a - G) + torch.arange(Wf, device=dev)
+                valid = (fidx[None, :] >= 0) & (fidx[None, :] < (st["lengths"] * r)[:, None])
+                mag = torch.where(valid[..., None], mag, floor)
+            with record_function("stream.vocode"):
+                if gl_warm_start:
+                    gl_win = stft_matmul.griffin_lim_matmul(
+                        mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter,
+                        cfg.hop * (Wf - 1), momentum=cfg.griffin_lim_momentum,
+                        init_head=tails["w"], init_head_gate=a > 0)
+                    tails["w"] = gl_win[:, E * cfg.hop:E * cfg.hop + tails["w"].shape[-1]]
+                else:
+                    gl_win = stft_matmul.griffin_lim_auto(
+                        mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter,
+                        cfg.hop * (Wf - 1), momentum=cfg.griffin_lim_momentum)
+                wav_win = dsp.inv_preemphasis(gl_win, cfg.preemphasis)
+                chunk = wav_win[:, G * cfg.hop:(G + E) * cfg.hop]
+                if xf > 0:
+                    head = chunk[:, :xf]
+                    if a > 0:  # the first block has no predecessor
+                        head = (1.0 - ramp) * tails["x"] + ramp * head
+                    chunk = torch.cat([head, chunk[:, xf:]], dim=-1)
+                tails["x"] = wav_win[:, (G + E) * cfg.hop:(G + E) * cfg.hop + xf]
+                if pcm16:
+                    chunk = _pcm16(chunk)
+                item = {"wav_chunk": chunk[:B].cpu().numpy(),
+                        "mel_lengths": (st["lengths"][:B] * r).cpu().numpy()}
+                if return_mel:
+                    bidx = a + torch.arange(E, device=dev)
+                    bvalid = (bidx[None, :] < (st["lengths"] * r)[:, None]).float()
+                    block = mel_post_w[:, PAD_L:PAD_L + E] * bvalid[..., None]
+                    item["mel_chunk"] = block[:B].cpu().numpy()
+                return item
+
+        decode_segment()
+        for i in range(1, n_segs):
+            a = st["t0"] * r - E  # the previous segment's block
+            decode_segment()
+            item = emit(a)
+            item.update(frame_offset=(i - 1) * E, done=False)
+            yield item
+            if bool(st["stopped"].all()):
+                break
+        a = st["t0"] * r - E  # the final decoded block
+        item = emit(a)
+        item.update(frame_offset=a, done=True)
+        yield item

@@ -15,7 +15,12 @@ Two paths share one parameter set, as in the JAX module:
   teacher-forced scan (:func:`..ops.decoder_scan.decoder_tf_scan`), the
   frame and stop projections hoisted after it, the postnet and the head;
   ``train=True`` switches the BatchNorms to batch statistics and the conv
-  dropouts on (their masks and the prenet's from the caller's generator).
+  dropouts on (their masks and the prenet's from the caller's generator);
+- streaming (:meth:`Tacotron.infer_stream_init`,
+  :meth:`Tacotron.infer_stream_segment`, :meth:`Tacotron.stream_postnet_linear`):
+  the decoder's segment mode runs K AR steps from explicit state, and the
+  postnet and Conv head run on windows with a boundary mask, so that the
+  emitted frames equal the batched ones.
 """
 
 from __future__ import annotations
@@ -114,15 +119,11 @@ class Decoder(nn.Module):
             stop_proj=(self.stop_proj.kernel, self.stop_proj.bias),
         )
 
-    def infer(self, memory, mask, max_steps: int, stop_threshold: float,
-              stopped_init, prenet_masks, compute_dtype, early_exit: bool = True):
-        """AR decode -> (mel (B, n_steps*r, mel), stop logits (B, n_steps),
-        aligns (B, n_steps, S), decoded steps (B,) or None). The early-exit
-        loop knows each row's decoded steps; the fixed-length scan
-        (``early_exit=False``) returns None and the caller derives them from
-        the stop logits."""
-        B = memory.shape[0]
-        n_steps = max_steps // self.r
+    def _ar_setup(self, memory, prenet_masks, compute_dtype):
+        """What every AR mode shares: the parameters, the memory keys, the
+        prenet at global step t (its keep masks from ``prenet_masks(t)``),
+        the int8 weights of ``Quantize_Int8`` and, under ``Pallas_Decode``,
+        the decode kernel's K-step chunk body."""
         keys = self.memory_layer(memory.float())
         ws = [(d.kernel, d.bias) for d in self.prenet]
         rate = self.prenet_dropout
@@ -143,7 +144,21 @@ class Decoder(nn.Module):
                 return decode_kernel.decoder_ar_segment_kernel(
                     bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K,
                     th, prenet_masks, self.mel_dim, self.r, rate)
+        elif fused is None:
+            fused = dscan.fused_weights(p.lstm, compute_dtype)
+        return p, keys, prenet_fn, fused, segment_fn
 
+    def infer(self, memory, mask, max_steps: int, stop_threshold: float,
+              stopped_init, prenet_masks, compute_dtype, early_exit: bool = True):
+        """AR decode -> (mel (B, n_steps*r, mel), stop logits (B, n_steps),
+        aligns (B, n_steps, S), decoded steps (B,) or None). The early-exit
+        loop knows each row's decoded steps; the fixed-length scan
+        (``early_exit=False``) returns None and the caller derives them from
+        the stop logits."""
+        B = memory.shape[0]
+        n_steps = max_steps // self.r
+        p, keys, prenet_fn, fused, segment_fn = self._ar_setup(memory, prenet_masks,
+                                                               compute_dtype)
         if early_exit:
             frames, stops, aligns, lengths = dscan.decoder_ar_early_exit(
                 p, keys, memory.float(), mask, n_steps, stop_threshold,
@@ -159,6 +174,36 @@ class Decoder(nn.Module):
             )
         mel = frames.transpose(0, 1).reshape(B, n_steps * self.r, self.mel_dim)
         return mel, stops.transpose(0, 1), aligns.transpose(0, 1), lengths
+
+    def segment(self, memory, mask, state, n_steps: int, stop_threshold: float,
+                prenet_masks, compute_dtype):
+        """The streaming mode. ``state == "init"`` -> the zero decode state
+        (carry, prev frame). A state dict {carry, prev, t0, stopped,
+        lengths} -> ``n_steps`` AR steps from it (the decode kernel's chunk
+        under ``Pallas_Decode``, else :func:`..ops.decoder_scan.decoder_ar_segment`),
+        the prenet masks drawn at the global step t0 + i: (mel (B,
+        n_steps*r, mel), stop logits (B, n_steps), aligns (B, n_steps, S),
+        {carry, prev, stopped, lengths})."""
+        B = memory.shape[0]
+        if isinstance(state, str):
+            if state != "init":
+                raise ValueError(f"unknown segment state {state!r}")
+            carry = dscan.initial_carry(B, memory.float(), len(self.lstm),
+                                        self.lstm[0].w_hh.shape[0])
+            return carry, memory.new_zeros((B, self.mel_dim), dtype=torch.float32)
+        p, keys, prenet_fn, fused, segment_fn = self._ar_setup(memory, prenet_masks,
+                                                               compute_dtype)
+        args = (keys, memory.float(), mask, state["carry"], state["prev"], state["t0"],
+                state["stopped"], state["lengths"])
+        if segment_fn is not None:
+            out = segment_fn(*args, n_steps, stop_threshold)
+        else:
+            out = dscan.decoder_ar_segment(p, fused, *args, n_steps, stop_threshold,
+                                           prenet_fn, self.mel_dim, compute_dtype)
+        carry, prev, stopped, lengths, f_k, s_k, w_k = out
+        mel = f_k.transpose(0, 1).reshape(B, n_steps * self.r, self.mel_dim)
+        return mel, s_k.transpose(0, 1), w_k.transpose(0, 1), {
+            "carry": carry, "prev": prev, "stopped": stopped, "lengths": lengths}
 
     def teacher_forced(self, memory, mask, mels, keep_masks, compute_dtype):
         """Teacher-forced decode over (B, T, mel) targets, T a multiple of r
@@ -200,9 +245,15 @@ class Postnet(nn.Module):
         )
 
     def forward(self, mel: torch.Tensor, compute_dtype, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                boundary_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``boundary_mask`` (B, T): 1 inside the sequence array, 0 where a
+        streaming window reaches past it (where the batched convs see SAME
+        padding zeros); applied before every conv, as in the JAX module."""
         x = mel
         for conv in self.convs:
+            if boundary_mask is not None:
+                x = x * boundary_mask[..., None]
             x = conv(x, compute_dtype, train, generator)
         return x.float()
 
@@ -223,9 +274,13 @@ class LinearHead(nn.Module):
         self.projection = Dense(conv_channels, spect_dim)
 
     def forward(self, mel: torch.Tensor, compute_dtype, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                boundary_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``boundary_mask``: as :meth:`Postnet.forward`, before each conv."""
         x = mel
         for conv in self.convs:
+            if boundary_mask is not None:
+                x = x * boundary_mask[..., None]
             x = conv(x, compute_dtype, train, generator)
         y = rounded(x, compute_dtype) @ rounded(self.projection.kernel, compute_dtype)
         return rounded(rounded(y, compute_dtype)
@@ -360,3 +415,58 @@ class Tacotron(nn.Module):
             with record_function("synth.linear"):
                 out["linear"] = self.linear_head(mel_post, self.compute_dtype) * frame_mask
         return out
+
+    # -- streaming synthesis ---------------------------------------------------
+    @torch.no_grad()
+    def infer_stream_init(self, tokens, token_lengths, speaker_embedding,
+                          active_rows=None) -> dict:
+        """Streaming decode state: encoder memory and the zero decoder state;
+        PAD rows (``active_rows`` False) start stopped, as in :meth:`infer`."""
+        memory, mask = self.build_memory(tokens, token_lengths, speaker_embedding)
+        carry, prev = self.decoder.segment(memory, mask, "init", 0, 0.0, None,
+                                           self.compute_dtype)
+        B = tokens.shape[0]
+        stopped = (torch.zeros(B, dtype=torch.bool, device=tokens.device)
+                   if active_rows is None else ~active_rows.to(torch.bool))
+        return {"memory": memory, "mask": mask, "carry": carry, "prev": prev, "t0": 0,
+                "stopped": stopped,
+                "lengths": torch.zeros(B, dtype=torch.int32, device=tokens.device)}
+
+    @torch.no_grad()
+    def infer_stream_segment(self, state: dict, n_steps_seg: int, stop_threshold: float,
+                             prenet_masks=None, max_decode_steps: int | None = None):
+        """One segment of ``n_steps_seg`` AR steps from ``state`` -> (mel
+        (B, n_steps_seg*r, mel) masked by decoded length as :meth:`infer`
+        masks before the postnet, aligns, new state). The prenet masks come
+        from ``prenet_masks(t)`` at the global step, so a streamed decode
+        repeats the batched one. ``max_decode_steps`` caps the decoded
+        lengths at the caller's budget (the streaming bucket rounds up to
+        whole segments)."""
+        mel_seg, _, aligns, upd = self.decoder.segment(
+            state["memory"], state["mask"], state, n_steps_seg, stop_threshold,
+            prenet_masks, self.compute_dtype)
+        t0 = state["t0"]
+        if max_decode_steps is not None:
+            upd["lengths"] = torch.clamp(upd["lengths"], max=max_decode_steps)
+            if t0 + n_steps_seg >= max_decode_steps:
+                upd["stopped"] = torch.ones_like(upd["stopped"])
+        step_idx = t0 + torch.arange(n_steps_seg, device=mel_seg.device)
+        valid = (step_idx[None, :] < upd["lengths"][:, None]).float()
+        mel_seg = mel_seg * valid.repeat_interleave(self.decoder.r, dim=1)[..., None]
+        return mel_seg, aligns, dict(state, **upd, t0=t0 + n_steps_seg)
+
+    @torch.no_grad()
+    def stream_postnet_linear(self, mel_window: torch.Tensor,
+                              boundary_mask: torch.Tensor | None = None):
+        """Postnet and Conv head over a window of mel frames with explicit
+        halos and the boundary mask -> (mel_post window, linear window or
+        None); the window's centre frames equal :meth:`infer`'s."""
+        if isinstance(self.linear_head, CBHGHead):
+            raise NotImplementedError("the CBHG head's bidirectional GRU needs the whole "
+                                      "sequence: it cannot run on a window")
+        mel_post = mel_window + self.postnet(mel_window, self.compute_dtype,
+                                             boundary_mask=boundary_mask)
+        linear = None
+        if self.linear_head is not None:
+            linear = self.linear_head(mel_post, self.compute_dtype, boundary_mask=boundary_mask)
+        return mel_post, linear

@@ -34,6 +34,7 @@ _HEADERS = ("common.cuh", "lstm_persistent.cuh", "lstm_bwd.cuh")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
+F = ctypes.c_float
 
 
 def _nvcc() -> str:

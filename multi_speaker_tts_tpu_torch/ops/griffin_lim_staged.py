@@ -9,6 +9,11 @@ zero-phase initialisation, window-square OLA normalisation over the
 uncropped signal rows, ``mag * rsqrt(|X|^2 + 1e-12)`` projection and a
 centred crop. In the bf16 compute mode the leaf products take bf16
 operands with f32 accumulation and the target magnitudes are stored bf16.
+With ``momentum`` > 0 (the accelerated iteration, the TPU kernel's branch
+``body_m``) each projection first extrapolates the fresh spectrum against
+the previous one, beta = m / (1 + m); the previous spectra are stored in
+the compute dtype (bf16 in production) and read back as f32. That mode is
+counted as :data:`MOM_KERNEL`.
 
 The TPU kernel keeps the (T, 640) spectra of an utterance resident in VMEM
 for all iterations. An SM has 227 KB of shared memory, so the Hopper
@@ -32,9 +37,9 @@ from multi_speaker_tts_tpu_torch.ops import _build
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 from multi_speaker_tts_tpu_torch.ops.stft_matmul import _hann
 
-KERNEL = _build.Kernel("griffin_lim_staged", "griffin_lim.cu", {
-    "mstts_gl_staged": [_build.P] * 9 + [_build.I] * 4 + [_build.P],
-})
+_FUNCTIONS = {"mstts_gl_staged": [_build.P] * 11 + [_build.I] * 4 + [_build.F, _build.P]}
+KERNEL = _build.Kernel("griffin_lim_staged", "griffin_lim.cu", _FUNCTIONS)
+MOM_KERNEL = _build.Kernel("griffin_lim_staged_momentum", "griffin_lim.cu", _FUNCTIONS)
 
 N_FFT = 1024
 S = 8  # leaves
@@ -148,7 +153,8 @@ def _combine_inverse(us):
 
 
 def griffin_lim_staged_plain(mag_staged: torch.Tensor, hop: int, n_iter: int,
-                             compute_dtype=torch.bfloat16) -> torch.Tensor:
+                             compute_dtype=torch.bfloat16,
+                             momentum: float = 0.0) -> torch.Tensor:
     """(B, T, 640) magnitudes in staged order -> (B, hop * (T - 1))."""
     B, T, _ = mag_staged.shape
     k = N_FFT // hop
@@ -190,17 +196,25 @@ def griffin_lim_staged_plain(mag_staged: torch.Tensor, hop: int, n_iter: int,
 
     mag = mag_staged.float()
     re, im = mag, torch.zeros_like(mag)
+    beta = momentum / (1.0 + momentum)
+    pre = pim = torch.zeros_like(mag)
     for _ in range(n_iter):
         re2, im2 = stft_of(istft_rows(re, im))
+        if momentum > 0.0:
+            # Previous projections stored like the magnitudes, read as f32.
+            re2, im2, pre, pim = (re2 - beta * pre, im2 - beta * pim,
+                                  rounded(re2, mag_staged.dtype), rounded(im2, mag_staged.dtype))
         scale = mag * torch.rsqrt(re2 * re2 + im2 * im2 + 1e-12)
         re, im = re2 * scale, im2 * scale
     rows = istft_rows(re, im)
     return rows[:, k // 2:k // 2 + T - 1].reshape(B, (T - 1) * hop)
 
 
-def griffin_lim_staged_kernel(mag_staged: torch.Tensor, hop: int,
-                              n_iter: int) -> torch.Tensor:
-    """Launch ``csrc/griffin_lim.cu`` on CUDA bf16 staged magnitudes."""
+def griffin_lim_staged_kernel(mag_staged: torch.Tensor, hop: int, n_iter: int,
+                              momentum: float = 0.0) -> torch.Tensor:
+    """Launch ``csrc/griffin_lim.cu`` on CUDA bf16 staged magnitudes; with
+    ``momentum`` > 0 its momentum mode, with two bf16 previous-projection
+    buffers."""
     _build.require_cuda(mag_staged, torch.bfloat16, "mag_staged")
     B, T, lanes = mag_staged.shape
     if lanes != G or T < 2:
@@ -212,11 +226,16 @@ def griffin_lim_staged_kernel(mag_staged: torch.Tensor, hop: int,
     im = torch.zeros_like(re)
     frames = torch.empty((B, T, N_FFT), dtype=torch.float32, device=dev)
     out = torch.empty((B, (T - 1) * hop), dtype=torch.float32, device=dev)
-    KERNEL.call(
+    pre = pim = None
+    if momentum > 0.0:
+        pre = torch.zeros_like(mag_staged)
+        pim = torch.zeros_like(mag_staged)
+    (MOM_KERNEL if momentum > 0.0 else KERNEL).call(
         "mstts_gl_staged", mag_staged.data_ptr(), ops["stacked"].data_ptr(),
         ops["win"].data_ptr(), ops["syn"].data_ptr(), wsum.data_ptr(),
         re.data_ptr(), im.data_ptr(), frames.data_ptr(), out.data_ptr(),
-        B, T, hop, n_iter, _build.stream_ptr(mag_staged),
+        0 if pre is None else pre.data_ptr(), 0 if pim is None else pim.data_ptr(),
+        B, T, hop, n_iter, momentum / (1.0 + momentum), _build.stream_ptr(mag_staged),
     )
     return out
 
@@ -233,16 +252,14 @@ def griffin_lim_staged(magnitude: torch.Tensor, n_fft: int, hop: int,
                        momentum: float = 0.0) -> torch.Tensor:
     """Batched staged Griffin-Lim: (B, T, 513) -> (B, hop * (T - 1)). The
     kernel for a CUDA tensor (bf16 compute), the plain version for a CPU
-    tensor."""
+    tensor; ``momentum`` > 0 runs the accelerated iteration."""
     if n_fft != N_FFT or n_fft % hop or hop % L or (n_fft // hop) % 2:
         raise NotImplementedError(
             f"staged Griffin-Lim needs n_fft=1024 and a 128-multiple hop "
             f"with an even n_fft/hop (got n_fft={n_fft}, hop={hop})")
-    if momentum > 0.0:
-        raise NotImplementedError("momentum Griffin-Lim is not ported yet")
     mag_staged = staged_magnitudes(magnitude, compute_dtype)
     if mag_staged.is_cuda:
         if compute_dtype != torch.bfloat16:
             raise NotImplementedError("the Griffin-Lim kernel computes in bf16 only")
-        return griffin_lim_staged_kernel(mag_staged, hop, n_iter)
-    return griffin_lim_staged_plain(mag_staged, hop, n_iter, compute_dtype)
+        return griffin_lim_staged_kernel(mag_staged, hop, n_iter, momentum)
+    return griffin_lim_staged_plain(mag_staged, hop, n_iter, compute_dtype, momentum)

@@ -3,22 +3,26 @@
 The rDFT of a frame is a matmul against windowed cos/sin matrices and
 framing / overlap-add are k = n_fft/hop shifted views, as in the JAX
 module. :func:`griffin_lim_matmul` is the plain f32 reference iteration
-(zero initial phase, reflect-padded re-framing), the path the JAX package
-takes off the TPU. :func:`griffin_lim_auto` is the vocoder's device
-dispatch: CUDA tensors go to the staged Griffin-Lim kernel
-(:mod:`.griffin_lim_staged`) in batch chunks that keep its working set
-inside the card's L2; CPU tensors take :func:`griffin_lim_matmul`, as the
-JAX package does on the CPU.
+(zero initial phase, reflect-padded re-framing, optional warm start), the
+path the JAX package takes off the TPU. :func:`griffin_lim_auto` is the
+vocoder's device dispatch, by the JAX package's rule (:func:`gl_route`):
+an eligible CUDA tensor goes to the staged kernel
+(:mod:`.griffin_lim_staged`, n_fft = 1024) or the dense kernel
+(:mod:`.griffin_lim_kernel`, other sizes or ``GL_DENSE_KERNEL`` set), in
+batch chunks that keep the kernel's working set inside the card's L2; any
+other tensor takes :func:`griffin_lim_matmul` (the GEMM route; on the CPU
+that is what the JAX package runs too).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
-from multi_speaker_tts_tpu_torch.audio.dsp import reflect_pad
+from multi_speaker_tts_tpu_torch.audio.dsp import log_dispatch, reflect_pad
 
 
 @functools.lru_cache(maxsize=8)
@@ -98,11 +102,18 @@ def overlap_add(frames: torch.Tensor, n_fft: int, hop: int,
 
 
 def griffin_lim_matmul(magnitude: torch.Tensor, n_fft: int, hop: int,
-                       n_iter: int, length: int,
-                       momentum: float = 0.0) -> torch.Tensor:
+                       n_iter: int, length: int, momentum: float = 0.0,
+                       init_head: torch.Tensor | None = None,
+                       init_head_gate=None) -> torch.Tensor:
     """Griffin-Lim with every transform an f32 matmul: (..., T, F) ->
     (..., length). Zero initial phase; ``momentum`` > 0 is the accelerated
-    variant of Perraudin et al. 2013."""
+    variant of Perraudin et al. 2013.
+
+    ``init_head`` (..., L) warm-starts the iteration: the first L samples
+    of the initial waveform are the caller's (the previous streaming
+    window's converged audio over the overlap) instead of the zero-phase
+    inverse; ``init_head_gate`` (0 / 1, a bool, float or tensor) blends it
+    in, so the first window can keep the zero-phase start."""
     mag = magnitude.float()
     T = mag.shape[-2]
     win = _tensor(_hann(n_fft), mag)
@@ -117,6 +128,13 @@ def griffin_lim_matmul(magnitude: torch.Tensor, n_fft: int, hop: int,
         return frames @ Wr, frames @ Wi
 
     y = istft_from(mag, torch.zeros_like(mag))
+    if init_head is not None:
+        L = init_head.shape[-1]
+        head = init_head.float()
+        if init_head_gate is not None:
+            g = torch.as_tensor(init_head_gate, dtype=torch.float32, device=y.device)
+            head = g * head + (1.0 - g) * y[..., :L]
+        y = torch.cat([head, y[..., L:]], dim=-1)
     if momentum > 0.0:
         beta = momentum / (1.0 + momentum)
         pre, pim = torch.zeros_like(mag), torch.zeros_like(mag)
@@ -133,35 +151,80 @@ def griffin_lim_matmul(magnitude: torch.Tensor, n_fft: int, hop: int,
     return y
 
 
-# Bytes of one staged-kernel call's working set: inside the H100's 50 MB L2.
+# Bytes of one kernel call's working set: inside the H100's 50 MB L2.
 GL_L2_BUDGET_BYTES = 40 << 20
 
 
-def gl_max_batch(T: int) -> int:
-    """Rows per staged-kernel call: its per-iteration working set (f32
-    re/im spectra 2 x 640, f32 frames 1024, bf16 magnitudes 640 per frame)
-    stays within :data:`GL_L2_BUDGET_BYTES`."""
-    per_row = T * (2 * 640 * 4 + 1024 * 4 + 640 * 2)
-    return max(1, GL_L2_BUDGET_BYTES // per_row)
+def gl_route(ndim: int, n_fft: int, hop: int, T: int, length: int, on_card: bool) -> str:
+    """The JAX package's Griffin-Lim dispatch (``stft_matmul.griffin_lim_auto``)
+    as a pure function: ``"staged"`` or ``"dense"`` for a tensor on the
+    card that a kernel takes (batched 3-D magnitudes, hop | n_fft with an
+    even n_fft / hop, a 128-multiple hop, the default length hop * (T - 1));
+    the staged kernel at n_fft = 1024 unless ``GL_DENSE_KERNEL`` is set, the
+    dense kernel otherwise (which raises for an n_fft wider than it takes);
+    ``"gemm"`` (:func:`griffin_lim_matmul`) for everything else."""
+    eligible = (
+        on_card
+        and ndim == 3
+        and n_fft % hop == 0
+        and (n_fft // hop) % 2 == 0
+        and hop % 128 == 0
+        and length == hop * (T - 1)
+    )
+    if not eligible:
+        return "gemm"
+    if n_fft == 1024 and not os.environ.get("GL_DENSE_KERNEL"):
+        return "staged"
+    return "dense"
+
+
+def gl_max_batch(T: int, n_fft: int = 1024, momentum: float = 0.0,
+                 kernel: str = "staged") -> int:
+    """Rows per kernel call, so that the call's working set stays within
+    :data:`GL_L2_BUDGET_BYTES`. Per frame of a row:
+    - staged: f32 re / im spectra 2 x 640, f32 frames 1024, bf16 target
+      magnitudes 640; under momentum two bf16 previous projections of 640;
+    - dense: f32 re / im of Fp = n_fft/2 bins, the f32 Nyquist term, f32
+      frames of n_fft, f32 magnitudes of Fp + 1; under momentum three f32
+      carries (re, im, Nyquist). Its bf16 DFT matrices (8 n_fft Fp bytes,
+      4 MB at n_fft 1024)
+      come off the budget first."""
+    if kernel == "staged":
+        per_frame = 2 * 640 * 4 + 1024 * 4 + 640 * 2
+        if momentum > 0.0:
+            per_frame += 2 * 640 * 2
+        budget = GL_L2_BUDGET_BYTES
+    else:
+        Fp = n_fft // 2
+        per_frame = 2 * Fp * 4 + 4 + n_fft * 4 + (Fp + 1) * 4
+        if momentum > 0.0:
+            per_frame += 2 * Fp * 4 + 4
+        budget = GL_L2_BUDGET_BYTES - 2 * 2 * n_fft * Fp * 2
+    return max(1, budget // (T * per_frame))
 
 
 def griffin_lim_auto(magnitude: torch.Tensor, n_fft: int, hop: int,
                      n_iter: int, length: int,
                      momentum: float = 0.0) -> torch.Tensor:
-    """The vocoder: (B, T, F) -> (B, length). CUDA: the staged kernel in
-    chunks of :func:`gl_max_batch` rows (it raises on what it does not
-    take: n_fft != 1024, momentum, a length other than hop * (T - 1)).
-    CPU: :func:`griffin_lim_matmul`."""
-    if not magnitude.is_cuda:
+    """The vocoder: (..., T, F) -> (..., length), routed by :func:`gl_route`.
+    A kernel route runs in chunks of :func:`gl_max_batch` rows; the GEMM
+    route on the card prints one ``[dispatch]`` line, as the JAX package
+    does on a TPU."""
+    T = magnitude.shape[-2]
+    route = gl_route(magnitude.ndim, n_fft, hop, T, length, magnitude.is_cuda)
+    if route == "gemm":
+        if magnitude.is_cuda:
+            log_dispatch("griffin_lim", "gemm", f"T={T}, n_fft={n_fft}, hop={hop}, "
+                                                f"ndim={magnitude.ndim}")
         return griffin_lim_matmul(magnitude, n_fft, hop, n_iter, length, momentum)
-    from multi_speaker_tts_tpu_torch.ops.griffin_lim_staged import griffin_lim_staged
-
-    B, T, _ = magnitude.shape
-    if length != hop * (T - 1):
-        raise NotImplementedError("the staged kernel returns hop * (T - 1) samples")
-    chunk = gl_max_batch(T)
+    if route == "staged":
+        from multi_speaker_tts_tpu_torch.ops.griffin_lim_staged import griffin_lim_staged as fn
+    else:
+        from multi_speaker_tts_tpu_torch.ops.griffin_lim_kernel import griffin_lim_dense as fn
+    B = magnitude.shape[0]
+    chunk = gl_max_batch(T, n_fft, momentum, route)
+    log_dispatch("griffin_lim", route, f"T={T}, n_fft={n_fft}, {min(chunk, B)} rows a call")
     return torch.cat([
-        griffin_lim_staged(magnitude[i:i + chunk], n_fft, hop, n_iter,
-                           momentum=momentum)
+        fn(magnitude[i:i + chunk], n_fft, hop, n_iter, momentum=momentum)
         for i in range(0, B, chunk)
     ])

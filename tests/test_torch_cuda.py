@@ -97,6 +97,81 @@ def test_griffin_lim_kernel(dev, B, T):
     assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
 
 
+@pytest.mark.parametrize("B, T", [(1, 64), (3, 37)])
+def test_griffin_lim_kernel_momentum(dev, B, T):
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+
+    rng = np.random.default_rng(T + 1)
+    mag = torch.from_numpy(rng.random((B, T, 513)).astype(np.float32) ** 2).to(dev)
+    ms = gl.staged_magnitudes(mag, torch.bfloat16)
+    before = (gl.KERNEL.launches, gl.MOM_KERNEL.launches)
+    got = gl.griffin_lim_staged(mag, 1024, 256, 8, momentum=0.99)
+    assert (gl.KERNEL.launches, gl.MOM_KERNEL.launches) == (before[0], before[1] + 1)
+    want = gl.griffin_lim_staged_plain(ms, 256, 8, torch.bfloat16, momentum=0.99)
+    # As the plain mode, plus bf16 previous projections on both sides.
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    # The plain mode is unchanged by the momentum mode's arguments.
+    plain = gl.griffin_lim_staged_kernel(ms, 256, 8)
+    assert torch.equal(plain, gl.griffin_lim_staged_kernel(ms, 256, 8, 0.0))
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.99])
+@pytest.mark.parametrize("T", [47, 128])
+@pytest.mark.parametrize("n_fft, hop", [(512, 128), (1024, 256), (2048, 256)])
+def test_griffin_lim_dense_kernel(dev, n_fft, hop, T, momentum):
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
+
+    rng = np.random.default_rng(n_fft + T)
+    mag = torch.from_numpy(rng.random((2, T, n_fft // 2 + 1)).astype(np.float32) ** 2).to(dev)
+    before = gk.KERNEL.launches
+    got = gk.griffin_lim_dense(mag, n_fft, hop, 4, momentum=momentum)
+    assert gk.KERNEL.launches == before + 1
+    want = gk.griffin_lim_dense_plain(*gk.split_magnitude(mag, n_fft), n_fft, hop, 4,
+                                      torch.bfloat16, momentum)
+    assert got.shape == want.shape == (2, hop * (T - 1))
+    # bf16 operands, f32 sums in another order, and an iteration that
+    # amplifies the operand roundings they flip. The probe: the plain version
+    # run on the CPU, the same arithmetic with its f32 sums in yet another
+    # order. The relative L2 error stays within 2e-2 (the plain version
+    # without its Nyquist term misses by more); the peak error within 2e-2
+    # or, where the probe's peak moves further, 4x the probe's reading. (A
+    # 1e-6 nudge of the input, chip_smoke.py's probe at 60 iterations, has not
+    # spread yet at 4 and reads well below the kernel's sum-order difference.)
+    probe = gk.griffin_lim_dense_plain(*(t.cpu() for t in gk.split_magnitude(mag, n_fft)),
+                                       n_fft, hop, 4, torch.bfloat16, momentum).to(dev)
+
+    def peak_rel(a):
+        return ((a - want).abs().max() / want.abs().max()).item()
+
+    assert (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item() <= 2e-2
+    assert peak_rel(got) <= max(2e-2, 4 * peak_rel(probe)), (peak_rel(got), peak_rel(probe))
+
+
+def test_griffin_lim_auto_routes_on_the_card(dev, monkeypatch):
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+    from multi_speaker_tts_tpu_torch.ops import stft_matmul
+
+    rng = np.random.default_rng(5)
+    mag = torch.from_numpy(rng.random((3, 20, 513)).astype(np.float32)).to(dev)
+    monkeypatch.delenv("GL_DENSE_KERNEL", raising=False)
+    counts = (gl.KERNEL.launches, gk.KERNEL.launches)
+    stft_matmul.griffin_lim_auto(mag, 1024, 256, 2, 256 * 19)
+    assert (gl.KERNEL.launches, gk.KERNEL.launches) == (counts[0] + 1, counts[1])
+    monkeypatch.setenv("GL_DENSE_KERNEL", "1")
+    stft_matmul.griffin_lim_auto(mag, 1024, 256, 2, 256 * 19, momentum=0.99)
+    assert (gl.KERNEL.launches, gk.KERNEL.launches) == (counts[0] + 1, counts[1] + 1)
+    # Not eligible (hop 200): the GEMM route on the card, no kernel.
+    wav = stft_matmul.griffin_lim_auto(mag[..., :401], 800, 200, 2, 200 * 19)
+    assert wav.is_cuda and (gl.KERNEL.launches, gk.KERNEL.launches) == (counts[0] + 1,
+                                                                       counts[1] + 1)
+    # Eligible but wider than the dense kernel takes: it raises, no GEMM route.
+    wide = torch.from_numpy(rng.random((2, 20, 2049)).astype(np.float32)).to(dev)
+    with pytest.raises(ValueError, match="n_fft <= 2048"):
+        stft_matmul.griffin_lim_auto(wide, 4096, 256, 2, 256 * 19)
+    assert gk.KERNEL.launches == counts[1] + 1
+
+
 def test_bigru_kernel(dev):
     from multi_speaker_tts_tpu_torch.ops import birnn_kernel
     from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
@@ -251,6 +326,38 @@ def test_synthesizer_on_the_card(dev):
     for item in out:
         assert item["wav"].dtype == np.int16 and item["mel_length"] > 0
         assert np.isfinite(item["mel"]).all()
+
+
+@pytest.mark.parametrize("quantize", [None, "int8_pallas"])
+def test_stream_on_the_card(dev, quantize):
+    """The small checkpoint with its Conv head, streamed: windows vocoded by
+    the staged kernel at T = G + E + Gr, the mel blocks equal to the
+    batched mel under the same dropout draws."""
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+
+    params, batch_stats, meta = load_compact(ROOT / "demo" / "serving_ckpt.msgpack")
+    synth = Synthesizer(Recursive_Parse(meta["hp"]), params, batch_stats, quantize=quantize)
+    emb = synth.enroll([str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
+    texts = ["hello world.", "a b c"]
+    before = (gl.KERNEL.launches, decode_kernel.KERNELS["int8"].launches)
+    synth.generator.manual_seed(0)
+    chunks = list(synth.stream(texts, emb, segment_steps=16, pcm16=True, return_mel=True))
+    assert gl.KERNEL.launches - before[0] == len(chunks)
+    if quantize:
+        assert decode_kernel.KERNELS["int8"].launches > before[1]
+    synth.generator.manual_seed(0)
+    out = synth.synthesize(texts, emb)
+    mel = np.concatenate([c["mel_chunk"] for c in chunks], axis=1)
+    for b, item in enumerate(out):
+        T = item["mel_length"]
+        assert chunks[-1]["mel_lengths"][b] == T
+        assert np.abs(mel[b, :T] - item["mel"]).max() <= 1e-4
+    for c in chunks:
+        assert c["wav_chunk"].dtype == np.int16 and c["wav_chunk"].shape[1] == 32 * 256
 
 
 def _rel_peak(got, want) -> float:

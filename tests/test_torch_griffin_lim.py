@@ -1,5 +1,7 @@
-"""The staged Griffin-Lim kernel's plain version and the GEMM Griffin-Lim
-against the JAX package (interpret-mode Pallas, XLA) on the same inputs."""
+"""The staged Griffin-Lim kernel's plain version (plain and momentum), the
+GEMM Griffin-Lim (and its warm start), the FFT route and the vocoder's
+routing against the JAX package (interpret-mode Pallas, XLA) on the same
+inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,8 @@ from multi_speaker_tts_tpu.ops.griffin_lim_staged import (
     _staged_operands,
     griffin_lim_staged as jax_staged,
 )
+from multi_speaker_tts_tpu_torch import inference
+from multi_speaker_tts_tpu_torch.audio import dsp
 from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as staged
 from multi_speaker_tts_tpu_torch.ops import stft_matmul
 
@@ -107,11 +111,169 @@ def test_gl_batch_cap_keeps_working_set_in_l2():
     assert stft_matmul.gl_max_batch(128) * per_row <= stft_matmul.GL_L2_BUDGET_BYTES <= 40 << 20
 
 
+def test_gl_batch_cap_models_momentum_and_the_dense_kernel():
+    """Momentum adds two bf16 carries of 640 to the staged kernel's frame and
+    three f32 carries to the dense kernel's; the dense kernel's matrices come
+    off the budget first (16 MB at n_fft 2048)."""
+    cap = stft_matmul.gl_max_batch
+    budget = stft_matmul.GL_L2_BUDGET_BYTES
+    assert cap(128, momentum=0.99) * 128 * (2 * 640 * 4 + 1024 * 4 + 640 * 2 + 2 * 640 * 2) <= budget
+    assert cap(128, momentum=0.99) < cap(128)
+    dense = 128 * (2 * 512 * 4 + 4 + 1024 * 4 + 513 * 4)
+    assert cap(128, 1024, 0.0, "dense") * dense <= budget - 4 * 1024 * 512 * 2
+    assert cap(128, 1024, 0.99, "dense") < cap(128, 1024, 0.0, "dense")
+    assert cap(128, 2048, 0.0, "dense") < cap(128, 1024, 0.0, "dense") >= 4
+
+
 @pytest.mark.parametrize("kwargs, match", [
     (dict(n_fft=512, hop=256, n_iter=1), "n_fft=1024"),
     (dict(n_fft=1024, hop=200, n_iter=1), "128-multiple"),
-    (dict(n_fft=1024, hop=256, n_iter=1, momentum=0.99), "momentum"),
+    (dict(n_fft=1024, hop=1024, n_iter=1), "even"),
 ])
 def test_staged_refuses_what_it_does_not_take(mag, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         staged.griffin_lim_staged(torch.from_numpy(mag), **kwargs)
+
+
+# -- momentum in the staged kernel --------------------------------------------
+@pytest.mark.parametrize("n_iter", [1, 3])
+def test_staged_momentum_matches_pallas_interpret_f32(mag, n_iter):
+    """The TPU kernel's momentum branch (f32 carries in f32 mode)."""
+    want = np.asarray(jax_staged(jnp.asarray(mag), N_FFT, HOP, n_iter, interpret=True,
+                                 compute_dtype="float32", momentum=0.99))
+    got = staged.griffin_lim_staged(torch.from_numpy(mag), N_FFT, HOP, n_iter,
+                                    compute_dtype=torch.float32, momentum=0.99).numpy()
+    assert _rel(got, want) < 1e-4
+
+
+def test_staged_momentum_bf16_tracks_pallas_interpret_bf16(mag):
+    """bf16 leaves, magnitudes and previous-projection carries on both sides."""
+    want = np.asarray(jax_staged(jnp.asarray(mag), N_FFT, HOP, 3, interpret=True, momentum=0.99))
+    got = staged.griffin_lim_staged(torch.from_numpy(mag), N_FFT, HOP, 3, momentum=0.99).numpy()
+    assert _rel(got, want) < 1e-2
+
+
+def test_staged_momentum_is_not_the_plain_iteration(mag):
+    m = torch.from_numpy(mag)
+    plain = staged.griffin_lim_staged(m, N_FFT, HOP, 2, compute_dtype=torch.float32)
+    fast = staged.griffin_lim_staged(m, N_FFT, HOP, 2, compute_dtype=torch.float32,
+                                     momentum=0.99)
+    assert not torch.allclose(plain, fast)
+    zero = staged.griffin_lim_staged(m, N_FFT, HOP, 2, compute_dtype=torch.float32, momentum=0.0)
+    assert torch.equal(plain, zero)
+
+
+# -- the GEMM route's warm start ----------------------------------------------
+@pytest.mark.parametrize("gate", [None, 0.0, 1.0])
+def test_griffin_lim_matmul_warm_start_matches_jax(mag, gate):
+    length = HOP * (mag.shape[1] - 1)
+    head = np.random.default_rng(4).normal(size=(2, 5 * HOP)).astype(np.float32) * 0.1
+    jgate = None if gate is None else jnp.asarray(gate)
+    want = np.asarray(jstft.griffin_lim_matmul(jnp.asarray(mag), N_FFT, HOP, 3, length,
+                                               momentum=0.99, init_head=jnp.asarray(head),
+                                               init_head_gate=jgate))
+    got = stft_matmul.griffin_lim_matmul(torch.from_numpy(mag), N_FFT, HOP, 3, length,
+                                         momentum=0.99, init_head=torch.from_numpy(head),
+                                         init_head_gate=gate).numpy()
+    assert _rel(got, want) < 1e-4
+    cold = stft_matmul.griffin_lim_matmul(torch.from_numpy(mag), N_FFT, HOP, 3, length,
+                                          momentum=0.99).numpy()
+    assert (np.array_equal(got, cold)) == (gate == 0.0)
+
+
+# -- routing -------------------------------------------------------------------
+@pytest.mark.parametrize("args, want", [
+    ((3, 1024, 256, 47, 256 * 46, True), "staged"),
+    ((3, 512, 128, 47, 128 * 46, True), "dense"),
+    ((3, 2048, 256, 128, 256 * 127, True), "dense"),
+    ((3, 4096, 256, 128, 256 * 127, True), "dense"),  # which raises: wider than it takes
+    ((3, 1024, 256, 47, 256 * 46, False), "gemm"),  # a CPU tensor
+    ((2, 1024, 256, 47, 256 * 46, True), "gemm"),  # unbatched
+    ((3, 1024, 200, 47, 200 * 46, True), "gemm"),  # hop does not divide n_fft
+    ((3, 384, 128, 47, 128 * 46, True), "gemm"),  # odd n_fft / hop
+    ((3, 512, 64, 47, 64 * 46, True), "gemm"),  # hop not a 128-multiple
+    ((3, 1024, 256, 47, 256 * 40, True), "gemm"),  # another length
+])
+def test_gl_route_follows_the_jax_rule(monkeypatch, args, want):
+    monkeypatch.delenv("GL_DENSE_KERNEL", raising=False)
+    assert stft_matmul.gl_route(*args) == want
+
+
+def test_gl_dense_kernel_switch(monkeypatch):
+    monkeypatch.setenv("GL_DENSE_KERNEL", "1")
+    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, True) == "dense"
+    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, False) == "gemm"
+    monkeypatch.setenv("GL_DENSE_KERNEL", "")
+    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, True) == "staged"
+
+
+def test_griffin_lim_auto_momentum_on_cpu_is_the_matmul_path(mag):
+    length = HOP * (mag.shape[1] - 1)
+    a = stft_matmul.griffin_lim_auto(torch.from_numpy(mag), N_FFT, HOP, 2, length, momentum=0.99)
+    b = stft_matmul.griffin_lim_matmul(torch.from_numpy(mag), N_FFT, HOP, 2, length,
+                                       momentum=0.99)
+    assert torch.equal(a, b)
+
+
+# -- the FFT route (hop does not divide n_fft) --------------------------------
+FFT_N, FFT_HOP = 1000, 256
+
+
+@pytest.fixture(scope="module")
+def fft_mag():
+    rng = np.random.default_rng(3)
+    return (rng.random((2, 20, FFT_N // 2 + 1)) ** 2).astype(np.float32)
+
+
+def test_stft_istft_match_jax():
+    rng = np.random.default_rng(5)
+    wav = rng.normal(size=(2, FFT_HOP * 19)).astype(np.float32)
+    want = np.array(jdsp.stft(jnp.asarray(wav), FFT_N, FFT_HOP))
+    got = dsp.stft(torch.from_numpy(wav), FFT_N, FFT_HOP).numpy()
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    want_i = np.asarray(jdsp.istft(jnp.asarray(want), FFT_N, FFT_HOP, wav.shape[-1]))
+    got_i = dsp.istft(torch.from_numpy(want), FFT_N, FFT_HOP, wav.shape[-1]).numpy()
+    assert _rel(got_i, want_i) < 1e-5
+    assert _rel(got_i, wav) < 1e-4  # the round trip
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.99])
+def test_fft_griffin_lim_matches_jax(fft_mag, momentum):
+    length = FFT_HOP * (fft_mag.shape[1] - 1)
+    want = np.asarray(jdsp.griffin_lim(jnp.asarray(fft_mag), FFT_N, FFT_HOP, 4, length,
+                                       momentum=momentum))
+    got = dsp.griffin_lim(torch.from_numpy(fft_mag), FFT_N, FFT_HOP, 4, length,
+                          momentum=momentum).numpy()
+    assert got.shape == want.shape == (2, length)
+    assert _rel(got, want) < 1e-4
+
+
+def test_inv_spectrogram_matches_jax(fft_mag):
+    import dataclasses
+
+    from multi_speaker_tts_tpu.hparams import default_hparams
+
+    jcfg = dataclasses.replace(jdsp.DSPConfig.from_hp(default_hparams()), n_fft=FFT_N,
+                               hop=FFT_HOP, griffin_lim_iter=3, griffin_lim_momentum=0.99)
+    cfg = dsp.DSPConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(dsp.DSPConfig)})
+    S = np.clip(fft_mag, 0.0, 1.0)
+    want = np.asarray(jdsp.inv_spectrogram(jnp.asarray(S), jcfg))
+    got = dsp.inv_spectrogram(torch.from_numpy(S), cfg).numpy()
+    assert _rel(got, want) < 1e-4
+
+
+def test_vocoder_takes_the_fft_route_when_hop_does_not_divide_n_fft(fft_mag, monkeypatch):
+    """``inference._gl_vocode`` as JAX ``inference.py:79-91``."""
+    calls = []
+    for name, mod in (("fft", dsp), ("auto", stft_matmul)):
+        fn = getattr(mod, "griffin_lim" if name == "fft" else "griffin_lim_auto")
+        monkeypatch.setattr(mod, fn.__name__,
+                            lambda *a, _fn=fn, _n=name, **k: calls.append(_n) or _fn(*a, **k))
+    cfg = dsp.DSPConfig(22050, FFT_N, FFT_HOP, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 2)
+    lin = torch.from_numpy(np.clip(fft_mag, 0.0, 1.0))
+    wav = inference._gl_vocode(lin, None, cfg, False)
+    assert calls == ["fft"] and wav.shape == (2, FFT_HOP * 19)
+    cfg = dsp.DSPConfig(22050, 1024, 256, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 2)
+    inference._gl_vocode(torch.rand(2, 20, 513, generator=torch.Generator().manual_seed(0)),
+                         None, cfg, False)
+    assert calls == ["fft", "auto"]

@@ -249,7 +249,9 @@ def test_new_kernel_sources_carry_their_provenance():
                              ("decode.cu", "decode_pallas.py::decode_segment_pallas"),
                              ("lstm_bwd.cu", "lstm_pallas.py::lstm_seq_layer_bwd"),
                              ("bilstm_bwd.cu", "birnn_pallas.py::_bilstm_vjp_bwd"),
-                             ("bigru_bwd.cu", "birnn_pallas.py::_bigru_vjp_bwd")):
+                             ("bigru_bwd.cu", "birnn_pallas.py::_bigru_vjp_bwd"),
+                             ("griffin_lim_dense.cu", "griffin_lim_kernel.py::griffin_lim_pallas"),
+                             ("griffin_lim.cu", "griffin_lim_staged.py::griffin_lim_staged")):
         text = (PORT / "csrc" / source).read_text()
         assert replaces in text and "MSTTS_EXPORT" in text
         assert "cudaGetLastError" in (PORT / "csrc" / "common.cuh").read_text()
