@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the ten hand-written kernel sources of
+1. Builds the eleven hand-written kernel sources of
    ``multi_speaker_tts_tpu_torch`` from ``csrc/`` (one ``nvcc`` per source,
    all started together).
 2. Main path: ``demo/serving_ckpt_full.msgpack`` as it is (CBHG linear head
@@ -34,6 +34,15 @@
    decode and ``int8_pallas``: the staged kernel vocodes every window at
    T = 47, the decode kernel runs the int8 segments, the chunks are finite
    int16 and the streamed mel equals ``synthesize``'s under one seed.
+   Train phase: teacher-forced steps at full width (see its comments);
+   after the timed steps one extra forward records the attention step's
+   inputs at frame 32. Attention-step probe (h): the port's
+   ``tools/attention_probe.py`` at its defaults (B 96, S 100, 200 dependent
+   steps, seeded random weights) and at the train phase's recorded frame
+   with the checkpoint's attention weights: the kernel loop must launch
+   ``csrc/attention_step.cu`` once a step and run no plain step, the plain
+   loop no kernel; the looped outputs of the two agree within 1e-3 of the
+   peak; both loops are timed (two-point slope, CUDA events) and profiled.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -88,12 +97,19 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _time_ms(fn, warmup: int, reps: int) -> float:
+def _time_ms(fn, warmup: int, reps: int, queue_ahead: bool = False) -> float:
+    """Mean ms a call, from CUDA events around ``reps`` calls after
+    ``warmup``. ``queue_ahead`` first holds the card in a 20 ms spin, so
+    that the host queues every call before the card reaches the first: the
+    events then time the card's work alone, also for calls shorter than
+    their host-side dispatch."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if queue_ahead:
+        torch.cuda._sleep(int(0.02 * SM_CLOCK_HZ))
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -115,6 +131,12 @@ def _record(module, name: str, store: list) -> None:
 
     setattr(module, name, recorded)
     recorded.original = original
+
+
+def _restore(module, *names: str) -> None:
+    """Undo :func:`_record` for ``module.name`` of each name."""
+    for name in names:
+        setattr(module, name, getattr(module, name).original)
 
 
 def _bound_ms(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -218,9 +240,10 @@ def main() -> int:
     from multi_speaker_tts_tpu_torch.inference import Synthesizer
     from multi_speaker_tts_tpu_torch.audio import dsp
     from multi_speaker_tts_tpu_torch.ops import (
-        _build, birnn_kernel, decode_kernel, decoder_scan, griffin_lim_kernel,
-        griffin_lim_staged, lstm_kernel, mel_kernel, stft_matmul,
+        _build, attention_step_kernel, birnn_kernel, decode_kernel, decoder_scan,
+        griffin_lim_kernel, griffin_lim_staged, lstm_kernel, mel_kernel, stft_matmul,
     )
+    from multi_speaker_tts_tpu_torch.tools import attention_probe
 
     kernels = {
         "mel_frontend": mel_kernel.KERNEL,
@@ -240,6 +263,8 @@ def main() -> int:
         "text_encoder_bilstm_bwd": birnn_kernel.BWD_KERNEL,
         "cbhg_bigru_residuals": birnn_kernel.GRU_RES_KERNEL,
         "cbhg_bigru_bwd": birnn_kernel.GRU_BWD_KERNEL,
+        # The attention-step probe's (h).
+        "attention_step": attention_step_kernel.KERNEL,
     }
 
     # 1. Build ---------------------------------------------------------------
@@ -632,7 +657,21 @@ def main() -> int:
     print(f"[train] device idle, one step: busy {busy_ms:.1f} ms (profiled step) of {ms:.1f} "
           f"ms (unprofiled mean) = {100 * (1 - busy_ms / ms):.1f}% idle")
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del trainer
+    # One extra teacher-forced forward (no graph, after the timed steps):
+    # attention_block's inputs and the memory at frame 32, the train-shape
+    # case of the attention-step probe (h).
+    attn_rec, scan_rec = [], []
+    _record(decoder_scan, "attention_block", attn_rec)
+    _record(decoder_scan, "decoder_tf_scan", scan_rec)
+    try:
+        trainer.eval_step(batch)
+    finally:
+        _restore(decoder_scan, "attention_block", "decoder_tf_scan")
+    (h_tf, w_tf, cum_tf, keys_tf, ap_tf, mask_tf), _, _ = attn_rec[32]
+    train_attention = (decoder_scan.AttentionParams(*(t.detach() for t in ap_tf)),
+                       keys_tf.contiguous(), scan_rec[0][0][3].float().contiguous(), mask_tf,
+                       h_tf.contiguous(), w_tf.contiguous(), cum_tf.contiguous())
+    del attn_rec, scan_rec, trainer
 
     # Freeze: true (the checkpoint as it is): the encoder runs without a
     # graph, the LSTM backward never launches and its weights stay bit-equal.
@@ -681,6 +720,95 @@ def main() -> int:
             if gated and not v <= (2e-2 if k == "grad_norm" else 1e-2):
                 failures.append(f"[train] whole step {k}: card {on_card[k]} vs CPU {on_cpu[k]}")
 
+    # 2c. Attention-step probe (h) -------------------------------------------
+    # The port's tools/attention_probe.py: the plain loop (attention_block +
+    # the context bmm) and the kernel loop (one attention_step launch a
+    # step), 200 dependent steps each, at the probe's defaults (seeded
+    # random weights) and at the train phase's recorded frame with the
+    # checkpoint's attention weights. Counts zeroed just before each counted
+    # loop and read just after; the plain attention step must not run in
+    # the kernel loop, nor the kernel in the plain loop.
+    probe_args = attention_probe.parser().parse_args([])
+    n_it = probe_args.iters
+    g_attn = torch.Generator("cuda").manual_seed(13)
+
+    def rel_peak3(got, ref):
+        return {k: ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+                for k, g, r in zip(("w", "cum", "ctx"), got, ref)}
+
+    def probe_case(label, case):
+        ap, keys, memory, mask, h0, w0, cum0 = case
+        plain = attention_probe.make_plain_loop(ap, keys, memory, mask, n_it)
+        kern = attention_probe.make_kernel_loop(ap, keys, memory, mask, n_it)
+        plain(h0, w0, cum0)
+        kern(h0, w0, cum0)
+        torch.cuda.synchronize()
+        stores = {"attention_block": [], "attention_step_plain": [], "attention_step_kernel": []}
+        _record(decoder_scan, "attention_block", stores["attention_block"])
+        _record(attention_step_kernel, "attention_step_plain", stores["attention_step_plain"])
+        _record(attention_step_kernel, "attention_step_kernel", stores["attention_step_kernel"])
+        counted = {}
+        try:
+            for name, fn in (("kernel", kern), ("plain", plain)):
+                for store in stores.values():
+                    store.clear()
+                attention_step_kernel.KERNEL.launches = 0
+                out = fn(h0, w0, cum0)
+                torch.cuda.synchronize()
+                counted[name] = {"out": out, "launches": attention_step_kernel.KERNEL.launches,
+                                 "calls": {k: len(v) for k, v in stores.items()}}
+                if name == "kernel":  # the middle step's inputs, for the kernel row
+                    mid = stores["attention_step_kernel"][n_it // 2][0]
+        finally:
+            _restore(decoder_scan, "attention_block")
+            _restore(attention_step_kernel, "attention_step_plain", "attention_step_kernel")
+        ck, cp = counted["kernel"], counted["plain"]
+        if (ck["launches"] != n_it or ck["calls"]["attention_block"]
+                or ck["calls"]["attention_step_plain"]):
+            failures.append(f"[h {label}] kernel loop: {ck['launches']} launches for {n_it} "
+                            f"steps, plain calls {ck['calls']}")
+        if cp["launches"] or cp["calls"]["attention_block"] != n_it:
+            failures.append(f"[h {label}] plain loop: {cp['launches']} launches, calls "
+                            f"{cp['calls']}")
+        loop_err = rel_peak3(ck["out"], cp["out"])
+        # The plain loop against itself on h0 moved by 1e-6 of itself (seeded):
+        # how far the loop alone carries a last-bit difference.
+        noise = torch.randn(h0.shape, generator=g_attn, device=h0.device)
+        loop_probe = rel_peak3(plain(h0 * (1.0 + 1e-6 * noise), w0, cum0), cp["out"])
+        t_plain = attention_probe.time_loop(plain, h0, w0, cum0)
+        t_kern = attention_probe.time_loop(kern, h0, w0, cum0)
+        t_kern2 = attention_probe.time_loop(kern, h0, w0, cum0)
+        t_plain2 = attention_probe.time_loop(plain, h0, w0, cum0)
+        us = {"plain": 1e6 * (t_plain + t_plain2) / 2 / n_it,
+              "kernel": 1e6 * (t_kern + t_kern2) / 2 / n_it}
+        idle, busy_us = {}, {}
+        for name, fn in (("plain", plain), ("kernel", kern)):
+            busy_ms, _ = _profile(f"h {label} {name} loop", lambda fn=fn: fn(h0, w0, cum0))
+            idle[name] = 1 - busy_ms / (us[name] * n_it / 1e3)
+            busy_us[name] = 1e3 * busy_ms / n_it
+        B_, S_, A_ = keys.shape
+        print(f"[h {label}] B {B_}, S {S_}, A {A_}, D {memory.shape[-1]}, H {h0.shape[-1]}, "
+              f"{n_it} steps; launches: kernel loop {ck['launches']} (plain calls "
+              f"{ck['calls']}), plain loop {cp['launches']} (calls {cp['calls']}); us a step "
+              f"(CUDA events, two-point slope, plain / kernel / kernel / plain): plain "
+              f"{1e6 * t_plain / n_it:.2f}, {1e6 * t_plain2 / n_it:.2f}; kernel "
+              f"{1e6 * t_kern / n_it:.2f}, {1e6 * t_kern2 / n_it:.2f}; verdict kernel/plain = "
+              f"{us['kernel'] / us['plain']:.3f}x; device busy a step (profiled repeat): plain "
+              f"{busy_us['plain']:.2f} us, kernel {busy_us['kernel']:.2f} us; device idle over "
+              f"the timed loops: plain {100 * idle['plain']:.1f}%, kernel "
+              f"{100 * idle['kernel']:.1f}%")
+        print(f"[h {label}] looped outputs max |kernel - plain| / max |plain|: "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in loop_err.items()})
+              + " (tolerance 1e-3); the plain loop on h0 moved by 1e-6: "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in loop_probe.items()}))
+        return {"mid": mid, "loop_err": loop_err, "loop_probe": loop_probe, "us": us,
+                "idle": idle, "busy_us": busy_us, "launches": ck["launches"]}
+
+    attn_res = {
+        "probe": probe_case("probe", attention_probe.probe_inputs(probe_args, 0, "cuda")),
+        "train": probe_case("train shape", train_attention),
+    }
+
     # 3. Kernel phase --------------------------------------------------------
     rows = []
     launches = dict(pa["launches"],
@@ -693,7 +821,8 @@ def main() -> int:
                decode_segment_int8=pc["recorded"]["decode_segment_int8"])
 
     def check(name, replaces, source, kernel_fn, plain_fn, err_fn, tol,
-              bound, library_fn=None, warmup=3, reps=20, also=(), extra=None):
+              bound, library_fn=None, warmup=3, reps=20, also=(), extra=None,
+              queue_ahead=False):
         """Error over the timed inputs and the ``also`` (kernel_fn,
         plain_fn[, err_fn]) cases of other shapes; times at the first.
         ``err_fn`` gives one number or {label: number}, ``tol`` likewise;
@@ -720,8 +849,8 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": worst[lead], "tolerance": tols[lead],
-            "ms": _time_ms(kernel_fn, warmup, reps),
-            "plain_ms": _time_ms(plain_fn, 1, max(1, reps // 4)),
+            "ms": _time_ms(kernel_fn, warmup, reps, queue_ahead),
+            "plain_ms": _time_ms(plain_fn, 1, max(1, reps // 4), queue_ahead),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         }
@@ -1236,6 +1365,60 @@ def main() -> int:
                "library": "cuDNN bidirectional GRU backward (identity input weights; data "
                           "and weight gradients), the faster of bf16 and fp16",
                "sequential_floor_ms": Tg * Hg / 3 / SM_CLOCK_HZ * 1e3},
+    )
+
+    # Fused attention step (#11): the middle step of the probe's kernel loop
+    # at its defaults (timed), and of the train-shape loop (checkpoint
+    # weights). Gates: each output within 1e-4 of its peak for the step,
+    # and the 200-step loops' outputs (phase h) within 1e-3.
+    launches["attention_step"] = attn_res["probe"]["launches"]
+
+    def attn_pair(args):
+        return (lambda: attention_step_kernel.attention_step_kernel(*args),
+                lambda: attention_step_kernel.attention_step_plain(*args))
+
+    def attn_err(res):
+        def err(got, ref):
+            step = rel_peak3(got, ref)
+            return {"step": max(step.values()), "loop": max(res["loop_err"].values()),
+                    **step, **{f"{k}_loop": v for k, v in res["loop_err"].items()},
+                    **{f"{k}_loop_probe": v for k, v in res["loop_probe"].items()}}
+        return err
+
+    mid = attn_res["probe"]["mid"]
+    h_a, wp_a, cp_a, keys_a, mem_a, madd_a, ap_a = mid
+    Ba, Sa, Aa = keys_a.shape
+    Da, Ha = mem_a.shape[-1], h_a.shape[-1]
+    Ka, _, Ca = ap_a.conv_kernel.shape
+    attn_flops = (2 * Ba * Ha * Aa + 2 * Ba * Sa * Ca * 2 * Ka + 2 * Ba * Sa * Ca * Aa
+                  + 5 * Ba * Sa * Aa + 6 * Ba * Sa + 2 * Ba * Sa * Da)
+    attn_bytes = _nbytes(*mid[:6], *ap_a) + 4 * (2 * Ba * Sa + Ba * Da)
+    t_mid = attn_res["train"]["mid"]
+    check(
+        "attention_step", "tools/attention_probe.py:62",
+        "multi_speaker_tts_tpu_torch/csrc/attention_step.cu",
+        *attn_pair(mid), attn_err(attn_res["probe"]), {"step": 1e-4, "loop": 1e-3},
+        _bound_ms(attn_bytes, attn_flops, F32_FLOPS),
+        also=[(*attn_pair(t_mid), attn_err(attn_res["train"]))],
+        # A step is shorter than its host-side dispatch (phase h): time the
+        # card's work alone.
+        queue_ahead=True,
+        extra={
+            "shape": {"B": Ba, "S": Sa, "A": Aa, "D": Da, "H": Ha, "K": Ka, "C": Ca},
+            "rows_per_block": attention_step_kernel.ROWS_PER_BLOCK,
+            "ms_host_dispatched": _time_ms(attn_pair(mid)[0], 3, 20),
+            "launches_per_loop": {k: v["launches"] for k, v in attn_res.items()},
+            "loop_us_per_step": {k: v["us"] for k, v in attn_res.items()},
+            "loop_device_busy_us_per_step": {k: v["busy_us"] for k, v in attn_res.items()},
+            "loop_device_idle": {k: v["idle"] for k, v in attn_res.items()},
+            "train_case": {"shape": list(t_mid[3].shape) + [t_mid[4].shape[-1]],
+                           "ms": _time_ms(attn_pair(t_mid)[0], 3, 20, True),
+                           "plain_ms": _time_ms(attn_pair(t_mid)[1], 1, 5, True)},
+            "error_metric": "max |kernel - plain| / max |plain|, worst of w, cum and ctx: "
+                            "one step (the middle step's inputs) and after the 200-step loops",
+            "bound_note": "tanh counted as one operation; in a loop keys and memory "
+                          "(24.6 MB at these shapes) can stay in the 50 MB L2",
+        },
     )
 
     # 4. Report --------------------------------------------------------------

@@ -503,3 +503,103 @@ def test_train_step_full_width_on_the_card(dev, monkeypatch):
     f32 = hp.replace(Train={"Use_Mixed_Precision": False})
     with pytest.raises(NotImplementedError):
         Trainer(f32, params, batch_stats).train_step(batch)
+
+
+def _attention_case(dev, B, S, A, D, H, C, seed, masked=False, scale=0.1):
+    """Probe-style inputs for one fused attention step: normal x ``scale``
+    weights and keys, previous weights a softmax, cumulative weights above
+    them, padded with the location conv's zeros; ``masked`` zeroes the last
+    third of every row."""
+    from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
+    from multi_speaker_tts_tpu_torch.ops.decoder_scan import AttentionParams
+
+    rng = np.random.default_rng(seed)
+    K = 31
+    half = (K - 1) // 2
+
+    def f(*shape):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    ap = AttentionParams(f(H, A), f(K, 2, C), f(C, A), f(A, 1))
+    keys, memory, h0 = f(B, S, A), f(B, S, D), f(B, H)
+    w = torch.softmax(torch.from_numpy(rng.normal(size=(B, S)).astype(np.float32)), -1).to(dev)
+    cum = w + torch.from_numpy(rng.uniform(0, 2, (B, S)).astype(np.float32)).to(dev)
+    mask = torch.ones(B, S, device=dev)
+    if masked:
+        mask[:, 2 * S // 3:] = 0.0
+    pad = (half, K - 1 - half)
+    return (h0, torch.nn.functional.pad(w, pad), torch.nn.functional.pad(cum, pad), keys,
+            memory, ask.maskadd_of(mask), ap)
+
+
+ATTENTION_SHAPES = {
+    "tiny": (4, 12, 32, 32, 64, 8), "probe": (96, 100, 128, 512, 1024, 32),
+    "train": (32, 64, 128, 768, 1024, 32), "max": (5, 256, 512, 96, 1024, 32),
+}
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["open", "masked"])
+@pytest.mark.parametrize("shape", list(ATTENTION_SHAPES))
+def test_attention_step_kernel(dev, shape, masked):
+    """One fused step against its plain version: f32 on both sides, sums in
+    another order (the one-step gate of chip_smoke.py, 1e-4 of the peak)."""
+    from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
+
+    args = _attention_case(dev, *ATTENTION_SHAPES[shape], seed=len(shape), masked=masked,
+                           scale=0.5 if shape == "tiny" else 0.1)
+    got = ask.attention_step_kernel(*args)
+    want = ask.attention_step_plain(*args)
+    assert max(_rel_peak(g, w) for g, w in zip(got, want)) <= 1e-4
+    if masked:
+        S = args[3].shape[1]
+        assert float(got[0][:, 2 * S // 3:].abs().max()) == 0.0
+
+
+def test_attention_step_kernel_rows_per_block_agree(dev):
+    from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
+
+    args = _attention_case(dev, 7, 100, 128, 512, 1024, 32, seed=5, masked=True)
+    outs = {R: ask.attention_step_kernel(*args, rows=R) for R in (1, 2, 4)}
+    for R in (2, 4):
+        for a, b in zip(outs[1], outs[R]):
+            assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_attention_kernel_loop_launches_once_a_step(dev, monkeypatch):
+    from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+    from multi_speaker_tts_tpu_torch.tools import attention_probe as probe
+
+    args = probe.parser().parse_args(["-B", "8", "-S", "40"])
+    ap, keys, memory, mask, h0, w0, cum0 = probe.probe_inputs(args, 0, dev)
+
+    def boom(*a, **k):
+        raise AssertionError("the plain attention step ran in the kernel loop")
+
+    monkeypatch.setattr(dscan, "attention_block", boom)
+    monkeypatch.setattr(ask, "attention_step_plain", boom)
+    before = ask.KERNEL.launches
+    got = probe.make_kernel_loop(ap, keys, memory, mask, 3)(h0, w0, cum0)
+    torch.cuda.synchronize()
+    assert ask.KERNEL.launches - before == 3
+    monkeypatch.undo()
+    want = probe.make_plain_loop(ap, keys, memory, mask, 3)(h0, w0, cum0)
+    assert max(_rel_peak(g, w) for g, w in zip(got, want)) <= 1e-4
+
+
+def test_attention_step_kernel_raises_on_unsupported_shapes(dev):
+    from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
+
+    args = _attention_case(dev, 2, 12, 48, 32, 64, 8, seed=0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ask.attention_step(*args)
+
+
+def test_attention_step_kernel_raises_past_the_cards_shared_memory(dev):
+    """H 60000 needs ~254 KB of shared memory a block, more than the 227 KB
+    an H100 block may have: the launch fails and the wrapper raises."""
+    from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
+
+    args = _attention_case(dev, 2, 12, 32, 32, 60000, 8, seed=0)
+    with pytest.raises(RuntimeError, match="mstts_attention_step failed"):
+        ask.attention_step(*args)
