@@ -4,22 +4,24 @@
     python3 chip_smoke.py
 
 1. Builds the eleven hand-written kernel sources of
-   ``multi_speaker_tts_tpu_torch`` from ``csrc/`` (one ``nvcc`` per source,
-   all started together).
+   ``multi_speaker_tts_tpu_torch`` from ``csrc/`` and the barrier-only
+   ``barrier_floor.cu`` (one ``nvcc`` per source, all started together).
 2. Main path: ``demo/serving_ckpt_full.msgpack`` as it is (CBHG linear head
    on) on ``cuda``: enroll the three ``demo/enroll_*.wav`` and synthesize
    four texts in one batch as 16-bit PCM, three times: (a) the default
    decode (a Python loop of steps), (b) ``quantize="bf16_pallas"`` and (c)
    ``quantize="int8_pallas"`` (the K-step decode kernel). Each pass is
-   warmed up at its shapes, then run with the dropout generator reseeded to
-   0 and the launch counters zeroed just before and read just after. After
+   warmed up at its shapes, then run (every call draws its prenet dropout
+   from the synthesizer's seed) with the launch counters zeroed just
+   before and read just after. After
    (a) the mel, GE2E LSTM, BiLSTM, BiGRU and Griffin-Lim kernels must each
    have launched; after (b) and (c) the decode kernel must have launched
    and the plain decode step must not have run. The wavs must be finite
    int16, every mel length > 0, and the enrollment embedding must agree
    with the port's plain CPU path. Each pass is then repeated (same
    dropout draws) under ``torch.profiler``: its device busy time over the
-   unprofiled pass's wall time gives the device's idle share.
+   unprofiled pass's wall time gives the device's idle share, and the
+   repeat must decode the same mel lengths (one request, one answer).
    Whole-utterance agreement: (a) against (b), and (c) against the port's
    plain ``quantize="int8"`` decode on the card, under one seed.
    The mel-only configuration (``Linear_Head.Use: false``, vocoding through
@@ -48,7 +50,11 @@
    plain PyTorch version on the card with a stated tolerance, and timed
    with CUDA events beside the plain version and, where one PyTorch call
    computes the same function, that call (timed only; the port never
-   calls it).
+   calls it). The LSTM and BiLSTM rows also carry ``floor_ms``: T rounds
+   of their grid barrier alone on their grid, the least time T dependent
+   steps of that design take; the GE2E rows also ``one_step_ms`` (the
+   kernel on one step) and ``floor_one_round_ms``, which split a step's
+   cost from the launch's.
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -66,6 +72,7 @@ import json
 import math
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -241,7 +248,8 @@ def main() -> int:
     from multi_speaker_tts_tpu_torch.audio import dsp
     from multi_speaker_tts_tpu_torch.ops import (
         _build, attention_step_kernel, birnn_kernel, decode_kernel, decoder_scan,
-        griffin_lim_kernel, griffin_lim_staged, lstm_kernel, mel_kernel, stft_matmul,
+        griffin_lim_kernel, griffin_lim_staged, lstm_kernel, mel_kernel, recurrence_floor,
+        stft_matmul,
     )
     from multi_speaker_tts_tpu_torch.tools import attention_probe
 
@@ -269,7 +277,8 @@ def main() -> int:
 
     # 1. Build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build(dict.fromkeys(k.source for k in kernels.values()))
+    reports = _build.build([*dict.fromkeys(k.source for k in kernels.values()),
+                            recurrence_floor.KERNEL.source])
     print(f"build: {len(reports)} sources compiled in {time.perf_counter() - t0:.1f} s")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -324,7 +333,6 @@ def main() -> int:
             store.clear()
         for k in kernels.values():
             k.launches = 0
-        synth.generator.manual_seed(0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         t_enroll = 0.0
@@ -365,7 +373,6 @@ def main() -> int:
         """The same enroll + synthesize again (same dropout draws) under the
         profiler; the idle share of the unprofiled pass is its wall time
         less this device busy time."""
-        synth.generator.manual_seed(0)
         busy_ms, out = _profile(res["label"], lambda: synth.synthesize(
             TEXTS, synth.enroll(wavs), pcm16=True))
         lengths = [item["mel_length"] for item in out]
@@ -374,8 +381,12 @@ def main() -> int:
               f"repeat, mel_lengths {lengths}) of {wall_ms:.1f} ms wall = "
               f"{100 * (1 - busy_ms / wall_ms):.1f}% idle")
         if lengths != res["mel_lengths"]:
-            print(f"  (the profiled repeat decoded {lengths}, the unprofiled pass "
-                  f"{res['mel_lengths']}: the idle share above is approximate)")
+            failures.append(f"[{res['label']}] the same request decoded {lengths}, then "
+                            f"{res['mel_lengths']}")
+        else:
+            diff = max(float(np.abs(a["mel"] - b["mel"]).max()) for a, b in zip(out, res["out"]))
+            print(f"[{res['label']}] the same request again: equal mel lengths, mels "
+                  f"{diff:.3e} apart")
 
     always = ("mel_frontend", "ge2e_lstm_layer", "text_encoder_bilstm", "cbhg_bigru",
               "griffin_lim_staged")
@@ -537,7 +548,6 @@ def main() -> int:
             store.clear()
         for k in kernels.values():
             k.launches = 0
-        synth.generator.manual_seed(0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         chunks, t_first = [], None
@@ -549,7 +559,6 @@ def main() -> int:
         counts = {name: k.launches for name, k in kernels.items()}
         gl_T = sorted({c[0][0].shape[1] for c in recorded["griffin_lim_staged"]})
         n_plain = {name: len(v) for name, v in plain_calls.items()}
-        synth.generator.manual_seed(0)
         ref = synth.synthesize(TEXTS, emb)
         mel = np.concatenate([c["mel_chunk"] for c in chunks], axis=1)
         lens = [int(x) for x in chunks[-1]["mel_lengths"]]
@@ -580,7 +589,6 @@ def main() -> int:
                 failures.append(f"[{label}] chunk {w.dtype} {w.shape}")
                 break
         if label == "g stream":
-            synth.generator.manual_seed(0)
             busy_ms, _ = _profile(label, lambda: list(synth.stream(TEXTS, emb, segment_steps=16,
                                                                    pcm16=True)))
             print(f"[{label}] device idle, unprofiled stream: busy {busy_ms:.1f} ms (profiled "
@@ -863,6 +871,19 @@ def main() -> int:
             row["errors"], row["tolerances"] = worst, tols
         rows.append(row)
 
+    def floor_ms(T, ndir, H):
+        """The recurrences' sequential floor at these shapes: T rounds of
+        their grid barrier alone on their grid (csrc/barrier_floor.cu), with
+        the zeroed counter each call allocates, as theirs do."""
+        return _time_ms(lambda: recurrence_floor.barrier_floor(T, ndir, H, "cuda"), 3, 20)
+
+    def step_split(T, H, one_step):
+        """A GE2E row's per-step cost: its kernel on the first step alone
+        and one barrier round, beside ``floor_ms`` at T steps (a further
+        step costs (ms - one_step_ms) / (T - 1))."""
+        return {"floor_ms": floor_ms(T, 1, H), "one_step_ms": _time_ms(one_step, 3, 20),
+                "floor_one_round_ms": floor_ms(1, 1, H)}
+
     def cudnn_calls(lib, x):
         """The cuDNN yardstick of a recurrence: the bf16 module on the bf16
         input (the kernel's types; PyTorch does not flatten bf16 RNN weights,
@@ -917,6 +938,7 @@ def main() -> int:
         library_fn=cudnn_calls(lstm_lib, x_tm),
         also=[(lambda: lstm_kernel.lstm_seq_layer_kernel.original(p0, x0),
                lambda: lstm_kernel.lstm_seq_layer_plain(p0, x0, torch.bfloat16))],
+        extra=step_split(Tl, Hl, lambda: lstm_kernel.lstm_seq_layer_kernel.original(p, x_tm[:1])),
     )
 
     # Text-encoder BiLSTM recurrence on the hoisted gates.
@@ -946,6 +968,7 @@ def main() -> int:
         _bound_ms(2 * (2 * Sb * Bb * H4 + 2 * H4 * Hb + 2 * Sb * Bb * Hb),
                   2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
         library_fn=cudnn_calls(bi_lib, gx_cat),
+        extra={"floor_ms": floor_ms(Sb, 2, Hb)},
     )
 
     # CBHG BiGRU recurrence on the hoisted input gates, over the whole decode
@@ -1006,13 +1029,23 @@ def main() -> int:
 
     # The momentum mode and the dense kernel. The bf16 iteration is chaotic: a
     # flipped operand rounding grows with the iterations. So each case also
-    # runs the plain version against itself on its input moved by 1e-6
-    # (relative, seeded noise): ``probe_recorded_iterations``. The kernel is
-    # held to its plain version at 4 iterations (2e-2 of the peak), at the
-    # recorded iterations to max(2e-2, GL_PROBE_MULTIPLE x the probe's
-    # reading), and by the relative gap of spectral convergence there (the
-    # JAX package's 5% gate). Timed at the recorded iterations.
+    # runs the plain version on its input moved by 1e-6 (relative, seeded
+    # noise), GL_PROBE_DRAWS times, and the dense cases also the plain
+    # version on the CPU (the same arithmetic with its f32 sums in another
+    # order, as the kernel's are: the probe of the dense card test). The
+    # iteration can settle in more than one attractor: on one recorded input
+    # of pass (f) 3 of these 25 probes landed ~0.24 of the peak from the
+    # plain version and 22 within 0.02 (H100, 60 iterations). So the limit
+    # is max(2e-2, GL_PROBE_MULTIPLE x the median probe distance), which
+    # no outlier sets, and the kernel must land within it of the plain
+    # version or of one of its probes: of an output the plain version
+    # itself gives for the same magnitudes (``nearest_recorded_iterations``).
+    # Besides, the kernel is held to its plain version at 4 iterations (2e-2
+    # of the peak) and by the relative gap of spectral convergence at the
+    # recorded iterations (the JAX package's 5% gate). Timed at the recorded
+    # iterations.
     GL_PROBE_MULTIPLE = 4.0
+    GL_PROBE_DRAWS = 24
     g_probe = torch.Generator("cuda").manual_seed(11)
 
     def nudged(x):
@@ -1020,25 +1053,32 @@ def main() -> int:
         noise = torch.randn(x.shape, generator=g_probe, device=x.device)
         return x * (1.0 + 1e-6 * noise)
 
-    gl_tol = {"rel_4_iterations": 2e-2, "sc_gap": 5e-2, "rel_recorded_over_its_limit": 1.0}
+    gl_tol = {"rel_4_iterations": 2e-2, "sc_gap": 5e-2, "nearest_recorded_over_its_limit": 1.0}
 
-    def gl_err(mag, n_fft, hop, short_kernel, short_plain, probe_plain):
+    def gl_err(mag, n_fft, hop, short_kernel, short_plain, probe_plains):
         def err(got, ref):
             k4, p4 = short_kernel(), short_plain()
             sc_k, sc_p = sc_of(got, mag, n_fft, hop), sc_of(ref, mag, n_fft, hop)
-            rel, probe = rel_err(got, ref), rel_err(probe_plain(), ref)
-            limit = max(2e-2, GL_PROBE_MULTIPLE * probe)
+            probes = [probe() for probe in probe_plains]
+            readings = [rel_err(q, ref) for q in probes]
+            limit = max(2e-2, GL_PROBE_MULTIPLE * statistics.median(readings))
+            rel = rel_err(got, ref)
+            nearest = min(rel, *(rel_err(got, q) for q in probes))
             return {"rel_4_iterations": rel_err(k4, p4), "sc_gap": abs(sc_k - sc_p) / sc_p,
-                    "rel_recorded_over_its_limit": rel / limit,
-                    "rel_recorded_iterations": rel, "probe_recorded_iterations": probe}
+                    "nearest_recorded_over_its_limit": nearest / limit,
+                    "nearest_recorded_iterations": nearest, "rel_recorded_iterations": rel,
+                    "probe_median": statistics.median(readings), "probe_max": max(readings),
+                    "probe_readings_over_2e-2": sum(r > 2e-2 for r in readings)}
         return err
 
     gl_extra = {"error_metric": "max |kernel - plain| / max |plain| at 4 iterations; sc_gap: "
                                 "relative gap of spectral convergence at the recorded "
-                                "iterations; rel_recorded_over_its_limit: the same error at the "
-                                "recorded iterations over max(2e-2, "
-                                f"{GL_PROBE_MULTIPLE} x the plain version's own error on its "
-                                "input moved by 1e-6)"}
+                                "iterations; nearest_recorded_over_its_limit: the least such "
+                                "distance at the recorded iterations from the kernel to the "
+                                "plain version or one of its probes (its input moved by 1e-6, "
+                                f"{GL_PROBE_DRAWS} seeded draws; dense cases also run on the "
+                                f"CPU) over max(2e-2, {GL_PROBE_MULTIPLE} x the probes' median "
+                                "distance from the plain version)"}
 
     # Staged momentum mode, on pass (e)'s inputs: two bf16 previous-projection
     # buffers read and written once an iteration besides the plain mode's work.
@@ -1054,12 +1094,14 @@ def main() -> int:
 
     # The probe moves the f32 magnitudes the vocoder was given, before their
     # bf16 rounding into the staged layout.
-    mag_e_nudged = griffin_lim_staged.staged_magnitudes(nudged(mag_e_full), torch.bfloat16)
+    mags_e_nudged = [griffin_lim_staged.staged_magnitudes(nudged(mag_e_full), torch.bfloat16)
+                     for _ in range(GL_PROBE_DRAWS)]
     check(
         "griffin_lim_staged_momentum", "multi_speaker_tts_tpu/ops/griffin_lim_staged.py:254",
         "multi_speaker_tts_tpu_torch/csrc/griffin_lim.cu",
         *staged_mom(n_iter_e), gl_err(mag_e_full, 1024, hop_e, *staged_mom(4),
-                                      staged_mom(n_iter_e, mag_e_nudged)[1]), gl_tol,
+                                      [staged_mom(n_iter_e, m)[1] for m in mags_e_nudged]),
+        gl_tol,
         _bound_ms(2 * Be * Te * G + 4 * Be * (Te - 1) * hop_e + 2 * 5 * 4 * 256 * 128,
                   (n_iter_e + 0.5) * Be * Te * 32 * 2 * 128 * 128, BF16_FLOPS),
         warmup=1, reps=5,
@@ -1080,8 +1122,14 @@ def main() -> int:
             return (lambda: griffin_lim_kernel.griffin_lim_dense_kernel.original(*a),
                     lambda: griffin_lim_kernel.griffin_lim_dense_plain(*a[:5], torch.bfloat16,
                                                                        a[5]))
+        def on_cpu():
+            return griffin_lim_kernel.griffin_lim_dense_plain(
+                *(m.cpu() for m in args[:2]), *args[2:5], torch.bfloat16, args[5]).cuda()
+
+        probes = [pair(args[4], [nudged(m) for m in args[:2]])[1]
+                  for _ in range(GL_PROBE_DRAWS)] + [on_cpu]
         return (*pair(args[4]), gl_err(full_mag(args[0], args[1], args[2]), args[2], args[3],
-                                       *pair(4), pair(args[4], [nudged(m) for m in args[:2]])[1]))
+                                       *pair(4), probes))
 
     dense_args = pf_plain["recorded"]["griffin_lim_dense"][0][0]
     mp, mny, n_fft_d, hop_d, n_iter_d, _ = dense_args
@@ -1253,6 +1301,8 @@ def main() -> int:
         also=[(lambda: lstm_kernel.lstm_seq_layer_kernel.original(p0r, x0r, True),
                lambda: lstm_kernel.lstm_seq_layer_plain(p0r, x0r, torch.bfloat16, True))],
         extra={"mode": "save_residuals=True (train step)", "shape": [Tl, Bl, Dl, Hl],
+               **step_split(Tl, Hl, lambda: lstm_kernel.lstm_seq_layer_kernel.original(
+                   p1, x1[:1], True)),
                "error_metric": "max |kernel - plain| / max |plain|, worst output"},
     )
 
@@ -1289,6 +1339,8 @@ def main() -> int:
                lambda a=a: lstm_kernel.lstm_seq_layer_bwd_plain.original(*a))
               for a in (lb[0][0], lb[2][0])],
         extra={"shape": [Tb_, Bb_, H4b], "launches_per_step": 3,
+               **step_split(Tb_, Hb_, lambda: lstm_kernel.lstm_seq_layer_bwd_kernel.original(
+                   w_hh1, g1[-1:], c1[-1:], dh1, None if dys1 is None else dys1[-1:])),
                "error_metric": "max |dG - plain dG| / max |plain dG|",
                "library": "cuDNN LSTM backward (identity input weights; data and weight "
                           "gradients), the faster of bf16 and fp16"},
@@ -1309,6 +1361,7 @@ def main() -> int:
                   2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
         library_fn=cudnn_calls(bi_lib, torch.cat([bgf, bgb], dim=-1)),
         extra={"mode": "save_residuals=True (train step)", "shape": [Sb, Bb, H4],
+               "floor_ms": floor_ms(Sb, 2, Hb),
                "error_metric": "max |kernel - plain| / max |plain|, worst output"},
     )
     bargs = train_rec["text_encoder_bilstm_bwd"][-1][0]
@@ -1323,7 +1376,7 @@ def main() -> int:
                   2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
         library_fn=cudnn_backward(bi_lib, torch.cat([gf_, gb_], dim=-1),
                                   torch.cat([dyf_, dyb_], dim=-1)),
-        extra={"shape": [Sb, Bb, H4], "launches_per_step": 1,
+        extra={"shape": [Sb, Bb, H4], "launches_per_step": 1, "floor_ms": floor_ms(Sb, 2, Hb),
                "error_metric": "max |dG - plain dG| / max |plain dG|, both directions",
                "library": "cuDNN bidirectional LSTM backward (identity input weights; data "
                           "and weight gradients), the faster of bf16 and fp16"},

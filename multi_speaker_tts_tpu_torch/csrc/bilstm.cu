@@ -6,10 +6,15 @@
 // hoisted out as two large matmuls by the caller; the kernel runs only the
 // recurrence: step s advances the forward direction at natural time s and
 // the backward direction at T-1-s, both stored in natural time. The blocks
-// of each direction keep their slice of W_hh (256 x 1024 bf16 per
-// direction at production width, 512 KB) resident in shared memory
-// (lstm_persistent.cuh). Bound on an H100: S steps of grid-barrier and L2
-// latency; bytes (~1 MB of weights plus the gates) and FLOPs are tiny.
+// of each direction keep their slice of W_hh (64 blocks of 4 units a
+// direction at production width, H = 256) resident in shared memory, and
+// each step's h_{t-1} . W_hh runs on tensor cores (lstm_persistent.cuh).
+//
+// What bounds it on an H100: S sequential steps, each a grid barrier and
+// one L2 round trip of h_{t-1} (16 KB at B = 32); bytes (~1 MB of weights
+// plus the gates) and operations are tiny. The design loads the next
+// step's hoisted gates and stores the residuals between the barrier's
+// arrival and its wait.
 //
 // gf / cf / gb / cb non-null selects the residual mode of
 // _bilstm_fwd_impl(save_residuals=True): per direction the pre-activation

@@ -9,9 +9,12 @@
 // direction walks time in reverse, the backward direction natural time.
 // The weight and input gradients are whole-sequence GEMMs of the caller.
 // Design and numerics: lstm_bwd.cuh. At the production width (H = 256 a
-// direction) 64 blocks a direction keep 4 rows of W_hh (8 KB) each. Bound
-// on an H100: T steps of one grid barrier and one L2 pass over dG_t; the
-// bytes (~24 MB at T = 64, B = 32) and FLOPs are far below it.
+// direction) 64 blocks a direction keep 4 rows of W_hh each and run the
+// step's product on tensor cores.
+//
+// What bounds it on an H100: T sequential steps, each a grid barrier and
+// one pass over dG_t (64 KB at B = 32) from L2 into every SM; the bytes
+// (~24 MB at T = 64, B = 32) and operations are far below it.
 #include "lstm_bwd.cuh"
 
 MSTTS_EXPORT int mstts_bilstm_bwd(const void* gf, const void* cf, const void* gb,

@@ -2,14 +2,20 @@
 //
 // Replaces multi_speaker_tts_tpu/ops/lstm_pallas.py::lstm_seq_layer_fwd
 // (kernel body _fwd_kernel; the stack loop is lstm_stack_seq_pallas).
-// As on the TPU, the input projection x_t . W_ih is fused into the step:
-// each block keeps its slice of [W_ih; W_hh] resident in shared memory and
-// computes gates = [x_t, h_{t-1}] . W + b per step (lstm_persistent.cuh).
-// At the production width (H = 768, D = 768) the layer's 9.4 MB of bf16
-// weights are read once per launch; 128 blocks of 6 units hold 72 KB of
-// weights each. Bound on an H100: 64 steps of barrier and L2 latency; the
-// bytes (weights + activations, ~9.7 MB, ~3 us at 3.35 TB/s) and the
-// operations (~1.2 GFLOP at 3 windows) are far below it.
+// As on the TPU, the input projection x_t . W_ih + b is computed inside
+// the kernel: in its phase 0, before the time loop, on tensor cores, into
+// the f32 scratch xg (T, B, 4H) that the caller allocates; each step then
+// adds h_{t-1} . W_hh (tensor cores, lstm_persistent.cuh). At the
+// production width (H = 768, D = 768) 128 blocks of 6 units keep 74 KB of
+// weights each resident for the launch.
+//
+// What bounds it on an H100: 64 sequential steps, each a grid barrier and
+// one L2 round trip of h_{t-1} (48 KB at B = 32). The bytes (weights +
+// activations, ~10 MB, ~3 us at 3.35 TB/s) and the operations (~19 GFLOP
+// at B = 32, ~20 us of tensor cores) are far below it. The design takes the
+// input half off the step (phase 0), makes the step's product 36 MMAs a
+// warp at B = 32, and loads the next step's input half and stores the
+// residuals between the barrier's arrival and its wait.
 //
 // g_res / c_res non-null selects the residual mode of
 // lstm_seq_layer_fwd(save_residuals=True): the pre-activation gates
@@ -18,7 +24,7 @@
 #include "lstm_persistent.cuh"
 
 MSTTS_EXPORT int mstts_lstm_layer_fwd(const void* x, const void* w, const void* bias,
-                                      void* ys, void* h_last, void* c_last, void* g_res,
+                                      void* xg, void* ys, void* h_last, void* c_last, void* g_res,
                                       void* c_res, void* bar, int T, int B, int D, int H,
                                       void* stream) {
   if (D <= 0) return (int)cudaErrorInvalidValue;
@@ -31,6 +37,7 @@ MSTTS_EXPORT int mstts_lstm_layer_fwd(const void* x, const void* w, const void* 
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w[0] = static_cast<const __nv_bfloat16*>(w);
   a.bias[0] = static_cast<const float*>(bias);
+  a.xg = static_cast<float*>(xg);
   a.ys[0] = static_cast<__nv_bfloat16*>(ys);
   a.h_last = static_cast<float*>(h_last);
   a.c_last = static_cast<float*>(c_last);

@@ -8,9 +8,14 @@
 // dG (T, B, 4H) bf16; dW_ih, dW_hh, db and dx are whole-sequence GEMMs of
 // the caller, as in the JAX package. Design and numerics: lstm_bwd.cuh.
 // At the production width (H = 768, 4H = 3072) 128 blocks each keep 6 rows
-// of W_hh (36 KB) resident. Bound on an H100: 64 steps of one grid barrier
-// and one L2 pass over dG_t (196 KB); the bytes (~39 MB a layer at
-// B = 32: 12 us at 3.35 TB/s) and the 9.7 GFLOP are far below it.
+// of W_hh resident and run dh_{t-1} = dG_t . W_hh^T on tensor cores.
+//
+// What bounds it on an H100: 64 sequential steps, each a grid barrier and
+// one pass over dG_t (196 KB at B = 32) from L2 into every SM; the bytes
+// from device memory (~39 MB a layer at B = 32: 12 us at 3.35 TB/s) and
+// the 9.7 GFLOP (~10 us of tensor cores) are far below it. The design
+// streams dG_t through a register ring of 16-byte loads and loads the next
+// step's residuals between the barrier's arrival and its wait.
 #include "lstm_bwd.cuh"
 
 MSTTS_EXPORT int mstts_lstm_layer_bwd(const void* gates, const void* c_prev, const void* w,

@@ -1,11 +1,14 @@
-// Persistent reverse LSTM recurrence: one cooperative launch runs every
-// time step of the backward pass and emits the pre-activation gate
-// gradients dG (T, B, 4H) bf16, nothing else.
+// Persistent reverse LSTM recurrence on tensor cores: one cooperative
+// launch runs every time step of the backward pass and emits the
+// pre-activation gate gradients dG (T, B, 4H) bf16, nothing else.
 //
-// Shared by lstm_bwd.cu (GE2E layer, one direction) and bilstm_bwd.cu
-// (text-encoder BiLSTM, both directions in one launch). It reverses the
-// forward kernels of lstm_persistent.cuh from their residuals: the
-// pre-activation gates and c_{t-1}, both bf16 in natural time.
+// Shared by lstm_bwd.cu (GE2E layer, one direction: replaces
+// multi_speaker_tts_tpu/ops/lstm_pallas.py::lstm_seq_layer_bwd, kernel body
+// _bwd_kernel) and bilstm_bwd.cu (text-encoder BiLSTM, both directions in
+// one launch: replaces ops/birnn_pallas.py::_bilstm_vjp_bwd, kernel body
+// _bilstm_bwd_kernel). It reverses the forward kernels of
+// lstm_persistent.cuh from their residuals: the pre-activation gates and
+// c_{t-1}, both bf16 in natural time.
 //
 // Numerics follow the TPU kernels (lstm_pallas.py::_bwd_kernel,
 // birnn_pallas.py::_bilstm_bwd_kernel): the cell derivative is f32 from
@@ -13,24 +16,36 @@
 // are f32, dG is rounded to bf16 on store, and the carried
 // dh_{t-1} = bf16(dG_t) . W_hh^T is a bf16 product with f32 accumulation.
 //
-// Design (the forward kernel's, reversed): W_hh^T for one GE2E layer is
-// 4.7 MB of bf16, which no SM holds, so block j of direction d owns U of
-// the H units. It keeps rows u0..u0+U of W_hh (H, 4H) -- the columns of
-// W_hh^T that produce its units of dh_{t-1} -- in shared memory for the
-// launch, together with its units' f32 carries dh and dc. A step:
-//   1. the cell derivative of the block's units (all rows), dG_t stored;
-//   2. the counter grid barrier of common.cuh (dG_t complete everywhere);
-//   3. dh_{t-1}[b, u] = sum_n dG_t[b, n] W_hh[u, n] for the block's units:
-//      one warp per batch row loads that row of dG_t from L2 into
-//      registers at once (16 bytes a load, up to 16 loads a lane) and keeps
-//      one f32 sum per owned unit.
+// What bounds it: each step's product needs the whole dG_t row of every
+// batch row from every block (B x 4H bf16: 196 KB at B = 32, H = 768), so
+// a step costs one grid barrier plus one pass of 196 KB per SM through L2
+// (about 25 MB a step over 128 SMs), and the launch T of those. The bytes
+// from device memory (residuals, dG, W_hh once) and the 2*T*B*4H*H
+// operations are far below it. The design:
+//
+// - Block j of direction d owns U of the H units. It keeps rows
+//   u0..u0+U of W_hh (H, 4H) -- the columns of W_hh^T that produce its
+//   units of dh_{t-1} -- resident in shared memory (rows padded to 8 with
+//   zeros), with its units' f32 carries dh and dc.
+// - A step: (1) the cell derivative of the block's units for all rows,
+//   staged as a bf16 tile and stored as one run of U units per row and gate
+//   in the widest aligned pieces (4 bytes at U = 6, 8 at U = 4); (2) the
+//   grid barrier's arrival, then the next step's residuals and output
+//   cotangents (which no other block writes) are loaded into shared
+//   memory, then the wait; (3) dh_{t-1} [B, U] = dG_t [B, 4H] .
+//   W_hh[u0:u0+U, :]^T as mma.sync m16n8k16 (N = U padded to 8), K split
+//   across the 8 warps in 32-wide chunks, partial tiles added in shared
+//   memory in a fixed order.
+// - dG_t streams straight from L2 into registers: a lane loads 16 bytes
+//   (8 consecutive k) of four batch rows per chunk and feeds them to two
+//   MMAs through the permuted-k pairing of common.cuh
+//   (mstts_mma_bf16_k32), with the weights read 16 bytes a lane from shared
+//   memory. The loads of the next two chunks are in flight while the MMAs
+//   of the current two run (a register ring), which keeps 32 KB a block in
+//   flight: enough to cover L2 latency without shared-memory staging.
 // Direction 0 walks time in reverse; direction 1 (the BiLSTM's backward
 // direction, which ran t = T-1 .. 0) walks natural time. The last step
 // needs no product and no barrier.
-//
-// Bound on an H100: T steps of one grid barrier and one L2 round trip of
-// dG_t; the bytes (residuals, dG, W_hh once) and the 2*T*B*4H*H FLOPs are
-// far below it.
 #pragma once
 
 #include "common.cuh"
@@ -38,8 +53,9 @@
 namespace mstts {
 
 constexpr int kLstmBwdThreads = 256;
-constexpr int kLstmBwdMaxU = 8;  // units summed at once (one f32 sum each per lane)
-constexpr int kLstmBwdMaxLoads = 16;  // 16-byte loads of a dG row a lane holds: 4H <= 4096
+constexpr int kLstmBwdWarps = kLstmBwdThreads / 32;
+constexpr int kLstmBwdMaxNT = 2;   // n-tiles of 8 units: U <= 16
+constexpr int kLstmBwdChunks = 2;  // 32-wide k chunks a warp loads ahead
 
 struct LstmBwdArgs {
   int T;       // time steps
@@ -57,118 +73,164 @@ struct LstmBwdArgs {
 };
 
 __host__ __device__ inline size_t lstm_bwd_smem_bytes(int U, int H, int B) {
-  return sizeof(__nv_bfloat16) * (size_t)U * 4 * H + sizeof(float) * 2 * (size_t)B * U;
+  const int NP = mstts_round_up(U, 8), BP = mstts_round_up(B, 32);
+  return 2 * (size_t)NP * mstts_k32_stride(4 * H) +
+         4 * ((size_t)kLstmBwdWarps * BP * NP + 8 * (size_t)B * U) + 2 * (size_t)B * 4 * U;
 }
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4 v, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(p[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
-__global__ void __launch_bounds__(kLstmBwdThreads) lstm_bwd_kernel(LstmBwdArgs a) {
+__global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int H4 = 4 * a.H, K8 = H4 / 8;
+  const int H = a.H, H4 = 4 * a.H, B = a.B;
   const int dir = blockIdx.x / a.nblk;
   const int u0 = (blockIdx.x % a.nblk) * a.U;
-  const int U = min(a.U, a.H - u0);  // units owned (the last block may own fewer)
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [a.U][4H]
-  float* dh_s = reinterpret_cast<float*>(w_s + (size_t)a.U * H4);  // [B][a.U]
-  float* dc_s = dh_s + (size_t)a.B * a.U;                           // [B][a.U]
+  const int U = min(a.U, H - u0);  // units owned (the last block may own fewer)
+  const int NP = mstts_round_up(a.U, 8), NT = (U + 7) / 8;
+  const int BP = mstts_round_up(B, 32), WS = mstts_k32_stride(H4);
+  const int BU = B * a.U;
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NP][WS]
+  float* part_s = reinterpret_cast<float*>(w_s + (size_t)NP * WS);  // [warp][BP][NP]
+  float* dh_s = part_s + (size_t)kLstmBwdWarps * BP * NP;           // [B][a.U]
+  float* dc_s = dh_s + BU;                                           // [B][a.U]
+  float* res_s = dc_s + BU;  // [6][B][a.U]: gates i, f, g, o, c_{t-1}, output cotangent
+  __nv_bfloat16* dg_s = reinterpret_cast<__nv_bfloat16*>(res_s + 6 * BU);  // [B][4U]
 
+  for (size_t i = threadIdx.x; i < (size_t)NP * WS / 8; i += kLstmBwdThreads)
+    reinterpret_cast<uint4*>(w_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int K8 = H4 / 8;
   for (int i = threadIdx.x; i < U * K8; i += kLstmBwdThreads) {
     const int u = i / K8, k8 = i - u * K8;
-    reinterpret_cast<uint4*>(w_s + (size_t)u * H4)[k8] =
+    reinterpret_cast<uint4*>(w_s + (size_t)u * WS)[k8] =
         __ldg(reinterpret_cast<const uint4*>(a.w[dir] + (size_t)(u0 + u) * H4) + k8);
   }
-  for (int i = threadIdx.x; i < a.B * U; i += kLstmBwdThreads) {
+  for (int i = threadIdx.x; i < B * U; i += kLstmBwdThreads) {
     const int b = i / U, u = i - b * U;
-    dh_s[b * a.U + u] =
-        (dir == 0 && a.d_hT != nullptr) ? a.d_hT[(size_t)b * a.H + u0 + u] : 0.0f;
+    dh_s[b * a.U + u] = (dir == 0 && a.d_hT != nullptr) ? a.d_hT[(size_t)b * H + u0 + u] : 0.0f;
     dc_s[b * a.U + u] = 0.0f;
   }
-  __syncthreads();
 
   const __nv_bfloat16* gates = a.gates[dir];
   const __nv_bfloat16* c_prev = a.c_prev[dir];
   const float* d_ys = a.d_ys[dir];
   __nv_bfloat16* dG = a.dG[dir];
+  // The inputs of step s that no other block writes.
+  auto load_res = [&](int s) {
+    const int t = dir == 0 ? a.T - 1 - s : s;
+    for (int i = threadIdx.x; i < B * U; i += kLstmBwdThreads) {
+      const int b = i / U, u = i - b * U, j = b * a.U + u;
+      const size_t row = (size_t)t * B + b;
+      const __nv_bfloat16* g = gates + row * H4 + u0 + u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) res_s[k * BU + j] = __bfloat162float(__ldg(g + k * H));
+      res_s[4 * BU + j] = __bfloat162float(__ldg(c_prev + row * H + u0 + u));
+      res_s[5 * BU + j] = d_ys != nullptr ? __ldg(d_ys + row * H + u0 + u) : 0.0f;
+    }
+  };
+  load_res(0);
+  __syncthreads();
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarp = kLstmBwdThreads / 32;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int nchunk = H4 / 32;  // H % 8 == 0
+  const int cb = warp * nchunk / kLstmBwdWarps, ce = (warp + 1) * nchunk / kLstmBwdWarps;
   unsigned int epoch = 0;  // of the grid barrier
   for (int s = 0; s < a.T; ++s) {
     const int t = dir == 0 ? a.T - 1 - s : s;
-    // 1. Cell derivative of the owned units.
-    for (int i = threadIdx.x; i < a.B * U; i += kLstmBwdThreads) {
-      const int b = i / U, u = i - b * U;
-      const size_t row = (size_t)t * a.B + b;
-      float dh = dh_s[b * a.U + u];
-      if (d_ys != nullptr) dh += d_ys[row * a.H + u0 + u];
-      const __nv_bfloat16* g = gates + row * H4 + u0 + u;
-      const float ig = mstts_sigmoid(__bfloat162float(g[0]));
-      const float fg = mstts_sigmoid(__bfloat162float(g[a.H]));
-      const float gg = tanhf(__bfloat162float(g[2 * a.H]));
-      const float og = mstts_sigmoid(__bfloat162float(g[3 * a.H]));
-      const float cp = __bfloat162float(c_prev[row * a.H + u0 + u]);
+    // 1. Cell derivative of the owned units, staged as a bf16 tile.
+    for (int i = threadIdx.x; i < B * U; i += kLstmBwdThreads) {
+      const int b = i / U, u = i - b * U, j = b * a.U + u;
+      const float dh = dh_s[j] + res_s[5 * BU + j];
+      const float ig = mstts_sigmoid(res_s[j]);
+      const float fg = mstts_sigmoid(res_s[BU + j]);
+      const float gg = tanhf(res_s[2 * BU + j]);
+      const float og = mstts_sigmoid(res_s[3 * BU + j]);
+      const float cp = res_s[4 * BU + j];
       const float tc = tanhf(fg * cp + ig * gg);
       const float d_o = dh * tc * og * (1.0f - og);
-      const float dc = dc_s[b * a.U + u] + dh * og * (1.0f - tc * tc);
-      __nv_bfloat16* out = dG + row * H4 + u0 + u;
+      const float dc = dc_s[j] + dh * og * (1.0f - tc * tc);
+      __nv_bfloat16* out = dg_s + b * 4 * U + u;
       out[0] = __float2bfloat16(dc * gg * ig * (1.0f - ig));
-      out[a.H] = __float2bfloat16(dc * cp * fg * (1.0f - fg));
-      out[2 * a.H] = __float2bfloat16(dc * ig * (1.0f - gg * gg));
-      out[3 * a.H] = __float2bfloat16(d_o);
-      dc_s[b * a.U + u] = dc * fg;
+      out[U] = __float2bfloat16(dc * cp * fg * (1.0f - fg));
+      out[2 * U] = __float2bfloat16(dc * ig * (1.0f - gg * gg));
+      out[3 * U] = __float2bfloat16(d_o);
+      dc_s[j] = dc * fg;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < B * 4; i += kLstmBwdThreads) {
+      const int b = i / 4, k = i - b * 4;
+      mstts_store_bf16_run(dG + ((size_t)t * B + b) * H4 + k * H + u0, dg_s + (b * 4 + k) * U, U);
     }
     if (s + 1 == a.T) break;
-    // 2. dG_t is complete in every block.
-    mstts_grid_barrier(a.bar, epoch);
-    // 3. dh_{t-1} of the owned units, one batch row per warp. The lane's
-    // share of the row (K8 / 32 loads of 16 bytes) goes to registers
-    // first, so its L2 round trips overlap instead of running one by one.
-    for (int b = warp; b < a.B; b += nwarp) {
-      // Written by other blocks this launch: read through L2, never L1.
-      const uint4* drow = reinterpret_cast<const uint4*>(dG + ((size_t)t * a.B + b) * H4);
-      uint4 dv[kLstmBwdMaxLoads];
+    // 2. dG_t is complete in every block after the wait.
+    mstts_grid_arrive(a.bar, epoch);
+    load_res(s + 1);
+    mstts_grid_wait(a.bar, epoch);
+    // 3. dh_{t-1} of the owned units, 32 batch rows at a time: this lane
+    // holds rows m0 + g8 + {0, 8, 16, 24} of each chunk.
+    for (int m0 = 0; m0 < B; m0 += 32) {
+      const __nv_bfloat16* rows[4];
 #pragma unroll
-      for (int it = 0; it < kLstmBwdMaxLoads; ++it) {
-        const int k8 = lane + 32 * it;
-        if (k8 < K8) dv[it] = __ldcg(drow + k8);
+      for (int r = 0; r < 4; ++r) {
+        const int b = m0 + g8 + 8 * r;
+        rows[r] = b < B ? dG + ((size_t)t * B + b) * H4 + tq * 8 : nullptr;
       }
-      for (int ug = 0; ug < U; ug += kLstmBwdMaxU) {
-        float acc[kLstmBwdMaxU];
+      auto load = [&](uint4 (&buf)[kLstmBwdChunks][4], int c) {
 #pragma unroll
-        for (int j = 0; j < kLstmBwdMaxU; ++j) acc[j] = 0.0f;
+        for (int q = 0; q < kLstmBwdChunks; ++q)
 #pragma unroll
-        for (int it = 0; it < kLstmBwdMaxLoads; ++it) {
-          const int k8 = lane + 32 * it;
-          if (k8 < K8) {
-            float d[8];
-            bf16x8_to_f32(dv[it], d);
+          for (int r = 0; r < 4; ++r)
+            buf[q][r] = (c + q < ce && rows[r] != nullptr)
+                            ? __ldcg(reinterpret_cast<const uint4*>(rows[r] + (c + q) * 32))
+                            : make_uint4(0u, 0u, 0u, 0u);
+      };
+      float acc[2][kLstmBwdMaxNT][4] = {};
+      uint4 cur[kLstmBwdChunks][4], nxt[kLstmBwdChunks][4];
+      load(cur, cb);
+      for (int c = cb; c < ce; c += kLstmBwdChunks) {
+        const bool more = c + kLstmBwdChunks < ce;
+        if (more) load(nxt, c + kLstmBwdChunks);
 #pragma unroll
-            for (int j = 0; j < kLstmBwdMaxU; ++j) {
-              if (ug + j < U) {
-                float wv[8];
-                const uint4* wrow = reinterpret_cast<const uint4*>(w_s + (size_t)(ug + j) * H4);
-                bf16x8_to_f32(wrow[k8], wv);
+        for (int q = 0; q < kLstmBwdChunks; ++q) {
+          if (c + q < ce) {
 #pragma unroll
-                for (int e = 0; e < 8; ++e) acc[j] = fmaf(d[e], wv[e], acc[j]);
+            for (int j = 0; j < kLstmBwdMaxNT; ++j) {
+              if (j < NT) {
+                const uint4 bw = *reinterpret_cast<const uint4*>(
+                    w_s + (size_t)(j * 8 + g8) * WS + (c + q) * 32 + tq * 8);
+                mstts_mma_bf16_k32(acc[0][j], cur[q][0], cur[q][1], bw);
+                mstts_mma_bf16_k32(acc[1][j], cur[q][2], cur[q][3], bw);
               }
             }
           }
         }
+        if (more) {
 #pragma unroll
-        for (int j = 0; j < kLstmBwdMaxU; ++j) {
-          float v = acc[j];
+          for (int q = 0; q < kLstmBwdChunks; ++q)
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-          if (lane == 0 && ug + j < U) dh_s[b * a.U + ug + j] = v;
+            for (int r = 0; r < 4; ++r) cur[q][r] = nxt[q][r];
         }
       }
+      float* pw = part_s + (size_t)warp * BP * NP;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int j = 0; j < kLstmBwdMaxNT; ++j) {
+          if (j < NT) {
+            const int m = m0 + mi * 16 + g8, n = j * 8 + 2 * tq;
+            *reinterpret_cast<float2*>(pw + m * NP + n) = make_float2(acc[mi][j][0], acc[mi][j][1]);
+            *reinterpret_cast<float2*>(pw + (m + 8) * NP + n) =
+                make_float2(acc[mi][j][2], acc[mi][j][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < B * U; i += kLstmBwdThreads) {
+      const int b = i / U, u = i - b * U;
+      float v = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kLstmBwdWarps; ++w) v += part_s[((size_t)w * BP + b) * NP + u];
+      dh_s[b * a.U + u] = v;
     }
     __syncthreads();
   }
@@ -176,16 +238,12 @@ __global__ void __launch_bounds__(kLstmBwdThreads) lstm_bwd_kernel(LstmBwdArgs a
 
 // Runs the reverse recurrence of ndir directions in one cooperative launch.
 inline int lstm_bwd_run(LstmBwdArgs a, int ndir, cudaStream_t stream) {
-  int dev = 0, nsm = 0, max_smem = 0;
+  int dev = 0, max_smem = 0;
   MSTTS_CHECK(cudaGetDevice(&dev));
-  MSTTS_CHECK(cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev));
   MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  if (a.H % 8 != 0 || a.T < 1 || a.B < 1 || 4 * a.H > 8 * 32 * kLstmBwdMaxLoads)
-    return (int)cudaErrorInvalidValue;
-  // One block per SM at most: every block must be co-resident for the
-  // grid barrier, and fewer units per block means more parallel blocks.
-  a.U = (ndir * a.H + nsm - 1) / nsm;
-  a.nblk = (a.H + a.U - 1) / a.U;
+  if (a.H % 8 != 0 || a.T < 1 || a.B < 1) return (int)cudaErrorInvalidValue;
+  MSTTS_CHECK(mstts_recurrence_grid(ndir, a.H, &a.U, &a.nblk));
+  if ((a.U + 7) / 8 > kLstmBwdMaxNT) return (int)cudaErrorInvalidValue;
   const size_t smem = lstm_bwd_smem_bytes(a.U, a.H, a.B);
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   MSTTS_CHECK(cudaFuncSetAttribute(lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

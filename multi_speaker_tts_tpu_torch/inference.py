@@ -146,7 +146,7 @@ class Synthesizer:
         self.tacotron = Tacotron(hp, self.compute_dtype)
         load_into(self.tacotron, state, "tacotron.")
         self.tacotron.to(self.device)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.seed = seed
         self.enroll_bucket_floor = 1 << 13
         self.last_decode_bucket: int | None = None
 
@@ -199,14 +199,18 @@ class Synthesizer:
 
     # -- synthesize ------------------------------------------------------------
     def _prenet_masks(self, batch: int):
-        """Always-on prenet dropout: keep masks from the synthesizer's
-        generator, one (batch, size) bool mask per prenet layer per step."""
+        """Always-on prenet dropout: one (batch, size) bool keep mask per
+        prenet layer per step, from a generator seeded with ``self.seed``
+        for this call. As in the JAX package, whose every call starts from
+        the same key, the masks differ from step to step and repeat from
+        call to call: one request gives one answer."""
         keep = 1.0 - float(self.hp.Decoder.Prenet.Dropout_Rate)
         sizes = list(self.hp.Decoder.Prenet.Sizes)
+        generator = torch.Generator(self.device).manual_seed(self.seed)
 
         def draw(t: int):
             return [
-                torch.rand((batch, s), generator=self.generator, device=self.device) < keep
+                torch.rand((batch, s), generator=generator, device=self.device) < keep
                 for s in sizes
             ]
 

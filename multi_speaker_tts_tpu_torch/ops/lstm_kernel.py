@@ -3,9 +3,11 @@ pass), with its backward.
 
 Forward: replaces ``multi_speaker_tts_tpu/ops/lstm_pallas.py::lstm_seq_layer_fwd``
 (kernel body ``_fwd_kernel``) and the stack loop ``lstm_stack_seq_pallas``.
-The kernel (``csrc/lstm.cu``) fuses the input projection into the step as
-the TPU kernel does: gates = [x_t, h_{t-1}] . [W_ih; W_hh] + b with bf16
-operands and f32 accumulation, f32 cell state, outputs stored bf16. Its
+The kernel (``csrc/lstm.cu``) computes the input projection inside the
+launch as the TPU kernel does, but ahead of the time loop: x . W_ih + b for
+every step on tensor cores into an f32 scratch, then per step
+h_{t-1} . W_hh on tensor cores; bf16 operands and f32 accumulation, f32
+cell state, outputs stored bf16. Its
 residual mode (``save_residuals=True``, counted as :data:`RES_KERNEL`)
 also stores the pre-activation gates and c_{t-1} in bf16.
 
@@ -36,7 +38,7 @@ from multi_speaker_tts_tpu_torch.ops.lstm import (
 )
 from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
 
-_FWD = {"mstts_lstm_layer_fwd": [_build.P] * 9 + [_build.I] * 4 + [_build.P]}
+_FWD = {"mstts_lstm_layer_fwd": [_build.P] * 10 + [_build.I] * 4 + [_build.P]}
 KERNEL = _build.Kernel("ge2e_lstm", "lstm.cu", _FWD)
 RES_KERNEL = _build.Kernel("ge2e_lstm_residuals", "lstm.cu", _FWD)
 BWD_KERNEL = _build.Kernel("ge2e_lstm_bwd", "lstm_bwd.cu", {
@@ -75,6 +77,7 @@ def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor, save_residuals: boo
         raise ValueError(f"LSTM kernel needs D, H multiples of 8: D={D}, H={H}")
     w, b = _build.packed(_kernel_layout, p.w_ih, p.w_hh, p.b)
     dev = x_tm.device
+    xg = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)  # the kernel's phase 0
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     h_T = torch.empty((B, H), dtype=torch.float32, device=dev)
     c_T = torch.empty_like(h_T)
@@ -85,7 +88,7 @@ def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor, save_residuals: boo
     res_ptrs = [r.data_ptr() for r in res] or [None, None]
     bar = torch.zeros(1, dtype=torch.int32, device=dev)
     (RES_KERNEL if save_residuals else KERNEL).call(
-        "mstts_lstm_layer_fwd", x_tm.data_ptr(), w.data_ptr(), b.data_ptr(),
+        "mstts_lstm_layer_fwd", x_tm.data_ptr(), w.data_ptr(), b.data_ptr(), xg.data_ptr(),
         ys.data_ptr(), h_T.data_ptr(), c_T.data_ptr(), *res_ptrs, bar.data_ptr(),
         T, B, D, H, _build.stream_ptr(x_tm),
     )

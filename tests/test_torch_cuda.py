@@ -55,27 +55,56 @@ def test_mel_kernel(dev):
     assert (got - want).abs().max().item() <= 1e-4  # f32 FMAs, no TF32
 
 
-@pytest.mark.parametrize("B, D, H", [(3, 80, 768), (5, 768, 768), (40, 96, 128)])
-def test_lstm_layer_kernel(dev, B, D, H):
+# The edges of the tensor-core tiling (B in m-tiles of 16, 4U gate columns
+# in n-tiles of 8, K in k-steps of 16 or chunks of 32): B not a multiple of
+# 16 (3, 17, 40), D = 72 (D + H not a multiple of 16), H = 776 (on 132 SMs
+# the last of 130 blocks owns 2 of U = 6 units; BiLSTM: H = 136, 1 of 3),
+# T = 1, and B = 100, four launches of up to 32 rows (lstm_run's row split;
+# B = 40 takes two).
+LSTM_EDGES = [(17, 72, 64, 20), (40, 64, 776, 20), (3, 80, 768, 1), (100, 768, 768, 20)]
+
+
+# With 40-100 rows at H = 768 some rows' bf16 rounding flips grow through
+# the recurrence: there the plain bf16 version is itself 1.6-2.6e-2 from the
+# plain f32 one (H100, 20 steps). Those wide edges (tolerance DRIFT) hold the
+# kernel to half of that distance, at least 5e-3: nearer the plain bf16
+# version than that version is to f32.
+DRIFT = None
+
+
+@pytest.mark.parametrize("B, D, H, T, tol", [
+    (3, 80, 768, 20, 5e-3), (5, 768, 768, 20, 5e-3), (40, 96, 128, 20, 5e-3),
+    (17, 72, 64, 20, 5e-3), (40, 64, 776, 20, DRIFT), (3, 80, 768, 1, 5e-3),
+    (100, 768, 768, 20, DRIFT)])
+def test_lstm_layer_kernel(dev, B, D, H, T, tol):
     from multi_speaker_tts_tpu_torch.ops import lstm_kernel
 
     rng = np.random.default_rng(B)
     p = _lstm(rng, D, H, dev)
-    x = torch.from_numpy(rng.normal(size=(20, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
-    ys, h, c = lstm_kernel.lstm_seq_layer_kernel(p, x)
-    ys_p, h_p, c_p = lstm_kernel.lstm_seq_layer_plain(p, x, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(T, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    got = lstm_kernel.lstm_seq_layer_kernel(p, x)
+    want = lstm_kernel.lstm_seq_layer_plain(p, x, torch.bfloat16)
+
+    def dist(a, b):
+        return max((u.float() - v.float()).abs().max().item() for u, v in zip(a, b))
+
+    if tol is DRIFT:
+        tol = max(5e-3, 0.5 * dist(want, lstm_kernel.lstm_seq_layer_plain(p, x, torch.float32)))
     # bf16 operands and outputs, f32 sums in another order (KERNEL_PARITY 5e-3).
-    assert (ys.float() - ys_p.float()).abs().max().item() <= 5e-3
-    assert (h - h_p).abs().max().item() <= 5e-3
-    assert (c - c_p).abs().max().item() <= 5e-3
+    for a, b in zip(got, want):  # ys, h, c
+        assert (a.float() - b.float()).abs().max().item() <= tol
 
 
-def test_bilstm_kernel(dev):
+BILSTM_EDGES = [(17, 20, 136), (3, 1, 256), (100, 12, 256)]
+
+
+@pytest.mark.parametrize("B, S, H", [(4, 33, 256), *BILSTM_EDGES])
+def test_bilstm_kernel(dev, B, S, H):
     from multi_speaker_tts_tpu_torch.ops import birnn_kernel
 
     rng = np.random.default_rng(1)
-    pf, pb = _lstm(rng, 64, 256, dev), _lstm(rng, 64, 256, dev)
-    x = torch.from_numpy(rng.normal(size=(4, 33, 64)).astype(np.float32)).to(dev)
+    pf, pb = _lstm(rng, 64, H, dev), _lstm(rng, 64, H, dev)
+    x = torch.from_numpy(rng.normal(size=(B, S, 64)).astype(np.float32)).to(dev)
     gxf, gxb = birnn_kernel.bilstm_hoist(pf, pb, x, torch.bfloat16)
     ysf, ysb = birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh, pb.w_hh)
     rf, rb = birnn_kernel.bilstm_recurrence_plain(gxf, gxb, pf.w_hh, pb.w_hh, torch.bfloat16)
@@ -344,12 +373,10 @@ def test_stream_on_the_card(dev, quantize):
     emb = synth.enroll([str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
     texts = ["hello world.", "a b c"]
     before = (gl.KERNEL.launches, decode_kernel.KERNELS["int8"].launches)
-    synth.generator.manual_seed(0)
     chunks = list(synth.stream(texts, emb, segment_steps=16, pcm16=True, return_mel=True))
     assert gl.KERNEL.launches - before[0] == len(chunks)
     if quantize:
         assert decode_kernel.KERNELS["int8"].launches > before[1]
-    synth.generator.manual_seed(0)
     out = synth.synthesize(texts, emb)
     mel = np.concatenate([c["mel_chunk"] for c in chunks], axis=1)
     for b, item in enumerate(out):
@@ -366,13 +393,14 @@ def _rel_peak(got, want) -> float:
     return (err / want.float().abs().max().clamp(min=1e-9)).item()
 
 
-@pytest.mark.parametrize("B, D, H", [(32, 80, 768), (32, 768, 768), (5, 128, 128)])
-def test_lstm_residual_mode_and_backward_kernel(dev, B, D, H):
+@pytest.mark.parametrize("B, D, H, T", [(32, 80, 768, 24), (32, 768, 768, 24), (5, 128, 128, 24),
+                                        *LSTM_EDGES])
+def test_lstm_residual_mode_and_backward_kernel(dev, B, D, H, T):
     from multi_speaker_tts_tpu_torch.ops import lstm_kernel
 
     rng = np.random.default_rng(B + D)
     p = _lstm(rng, D, H, dev)
-    x = torch.from_numpy(rng.normal(size=(24, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(T, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
     got = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
     want = lstm_kernel.lstm_seq_layer_plain(p, x, torch.bfloat16, save_residuals=True)
     # The residual mode changes no output of the inference mode.
@@ -381,7 +409,7 @@ def test_lstm_residual_mode_and_backward_kernel(dev, B, D, H):
         assert a.shape == b.shape and _rel_peak(a, b) <= 1e-2
     gates, c_prev = got[3], got[4]
     d_hT = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(dev)
-    d_ys = torch.from_numpy(rng.normal(size=(24, B, H)).astype(np.float32)).to(dev)
+    d_ys = torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
     for dh, dys in ((d_hT, None), (None, d_ys), (d_hT, d_ys)):
         before = lstm_kernel.BWD_KERNEL.launches
         dG = lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates, c_prev, dh, dys)
@@ -392,19 +420,20 @@ def test_lstm_residual_mode_and_backward_kernel(dev, B, D, H):
         assert dG.dtype == torch.bfloat16 and _rel_peak(dG, ref) <= 1e-2
 
 
-def test_bilstm_residual_mode_and_backward_kernel(dev):
+@pytest.mark.parametrize("B, S, H", [(32, 64, 256), *BILSTM_EDGES])
+def test_bilstm_residual_mode_and_backward_kernel(dev, B, S, H):
     from multi_speaker_tts_tpu_torch.ops import birnn_kernel
 
     rng = np.random.default_rng(3)
-    pf, pb = _lstm(rng, 512, 256, dev), _lstm(rng, 512, 256, dev)
-    x = torch.from_numpy(rng.normal(size=(32, 64, 512)).astype(np.float32)).to(dev)
+    pf, pb = _lstm(rng, 512, H, dev), _lstm(rng, 512, H, dev)
+    x = torch.from_numpy(rng.normal(size=(B, S, 512)).astype(np.float32)).to(dev)
     gxf, gxb = birnn_kernel.bilstm_hoist(pf, pb, x, torch.bfloat16)
     got = birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh, pb.w_hh, save_residuals=True)
     want = birnn_kernel.bilstm_recurrence_plain(gxf, gxb, pf.w_hh, pb.w_hh, torch.bfloat16,
                                                 save_residuals=True)
     for a, b in zip(got, want):  # ysf, ysb, gf, cf, gb, cb
         assert a.shape == b.shape and _rel_peak(a, b) <= 1e-2
-    dyf, dyb = (torch.from_numpy(rng.normal(size=(64, 32, 256)).astype(np.float32)).to(dev)
+    dyf, dyb = (torch.from_numpy(rng.normal(size=(S, B, H)).astype(np.float32)).to(dev)
                 for _ in range(2))
     args = (*got[2:], pf.w_hh, pb.w_hh, dyf, dyb)
     before = birnn_kernel.BWD_KERNEL.launches
@@ -413,6 +442,22 @@ def test_bilstm_residual_mode_and_backward_kernel(dev):
     assert birnn_kernel.BWD_KERNEL.launches == before + 1
     for a, b in zip(dG, birnn_kernel.bilstm_bwd_plain(*args)):
         assert _rel_peak(a, b) <= 1e-2
+
+
+@pytest.mark.parametrize("ndir, H", [(1, 768), (2, 256)])
+def test_barrier_floor_kernel(dev, ndir, H):
+    """The floor kernel runs its rounds on the recurrences' grid: one
+    arrival per block per round."""
+    from multi_speaker_tts_tpu_torch.ops import recurrence_floor
+
+    before = recurrence_floor.KERNEL.launches
+    blocks, bar = recurrence_floor.barrier_floor(64, ndir, H, dev)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    U = -(-ndir * H // sms)
+    assert blocks == ndir * -(-H // U) <= sms
+    assert bar.item() == 64 * blocks
+    assert recurrence_floor.KERNEL.launches == before + 1
 
 
 def test_bigru_residual_mode_and_backward_kernel(dev):

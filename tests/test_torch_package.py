@@ -258,6 +258,63 @@ def test_new_kernel_sources_carry_their_provenance():
         assert "cudaGetLastError" in (PORT / "csrc" / "common.cuh").read_text()
 
 
+@pytest.mark.parametrize("header, replaces", [
+    ("lstm_persistent.cuh", ("lstm_pallas.py::lstm_seq_layer_fwd",
+                             "birnn_pallas.py::_bilstm_fwd_impl")),
+    ("lstm_bwd.cuh", ("lstm_pallas.py::lstm_seq_layer_bwd", "birnn_pallas.py::_bilstm_vjp_bwd")),
+])
+def test_lstm_kernels_step_on_tensor_cores(header, replaces):
+    """The persistent LSTM kernels name the TPU functions they replace and
+    compute their step products with mma.sync: no CUDA-core dot-product
+    loop (fmaf) is left in them."""
+    text = (PORT / "csrc" / header).read_text()
+    assert all(r in text for r in replaces)
+    assert "mstts_mma_bf16" in text and "fmaf(" not in text
+    assert "mma.sync.aligned.m16n8k16" in (PORT / "csrc" / "common.cuh").read_text()
+
+
+@pytest.mark.parametrize("entry", ["lstm_fwd", "lstm_fwd_residuals", "lstm_bwd", "bilstm_fwd",
+                                   "bilstm_bwd"])
+def test_lstm_kernel_entries_refuse_cpu_tensors(entry):
+    """The persistent LSTM kernels' entry points raise on CPU tensors before
+    anything reaches a card, and count no launch."""
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
+
+    T, B, D, H = 3, 2, 8, 8
+
+    def bf(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    p = LSTMParams(torch.zeros(D, 4 * H), torch.zeros(H, 4 * H), torch.zeros(4 * H))
+    gates, c_prev, dy = bf(T, B, 4 * H), bf(T, B, H), torch.zeros(T, B, H)
+    kernel, call = {
+        "lstm_fwd": (lstm_kernel.KERNEL,
+                     lambda: lstm_kernel.lstm_seq_layer_kernel(p, bf(T, B, D))),
+        "lstm_fwd_residuals": (lstm_kernel.RES_KERNEL,
+                               lambda: lstm_kernel.lstm_seq_layer_kernel(p, bf(T, B, D), True)),
+        "lstm_bwd": (lstm_kernel.BWD_KERNEL, lambda: lstm_kernel.lstm_seq_layer_bwd_kernel(
+            p.w_hh, gates, c_prev, torch.zeros(B, H), dy)),
+        "bilstm_fwd": (birnn_kernel.KERNEL, lambda: birnn_kernel.bilstm_recurrence_kernel(
+            gates, gates, p.w_hh, p.w_hh)),
+        "bilstm_bwd": (birnn_kernel.BWD_KERNEL, lambda: birnn_kernel.bilstm_bwd_kernel(
+            gates, c_prev, gates, c_prev, p.w_hh, p.w_hh, dy, dy)),
+    }[entry]
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+    assert kernel.launches == before
+
+
+def test_recurrence_floor_needs_a_card():
+    from multi_speaker_tts_tpu_torch.ops import recurrence_floor
+
+    before = recurrence_floor.KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        recurrence_floor.barrier_floor(4, 1, 64, "cpu")
+    assert recurrence_floor.KERNEL.launches == before
+
+
 def test_packed_weight_layout_is_built_once_per_weight_state():
     from multi_speaker_tts_tpu_torch.ops import _build
 
