@@ -52,9 +52,11 @@
    computes the same function, that call (timed only; the port never
    calls it). The LSTM and BiLSTM rows also carry ``floor_ms``: T rounds
    of their grid barrier alone on their grid, the least time T dependent
-   steps of that design take; the GE2E rows also ``one_step_ms`` (the
-   kernel on one step) and ``floor_one_round_ms``, which split a step's
-   cost from the launch's.
+   steps of that design take; the staged Griffin-Lim rows its 2 n_iter + 1
+   rounds on its grid; the BiGRU forward rows T steps of its recurrent
+   product and block barrier alone on its grid; the GE2E rows also
+   ``one_step_ms`` (the kernel on one step) and ``floor_one_round_ms``,
+   which split a step's cost from the launch's.
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -68,6 +70,7 @@ f32.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
@@ -125,6 +128,25 @@ def _time_ms(fn, warmup: int, reps: int, queue_ahead: bool = False) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+class _GcPauses:
+    """Python's garbage-collector pauses while active, as (generation, ms)."""
+
+    def __enter__(self):
+        self.pauses, self._start = [], 0.0
+        gc.callbacks.append(self._note)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._start = time.perf_counter()
+        else:
+            self.pauses.append((info["generation"],
+                                round((time.perf_counter() - self._start) * 1e3, 2)))
 
 
 def _record(module, name: str, store: list) -> None:
@@ -333,17 +355,22 @@ def main() -> int:
             store.clear()
         for k in kernels.values():
             k.launches = 0
+        # The earlier phases' garbage goes now, not inside the timed call:
+        # the profiler's event graphs are reference cycles of ~10^5 objects,
+        # whose gen-2 collection took 0.19 s inside pass (e) once (H100).
+        gc.collect()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t_enroll = 0.0
-        if emb is None:
-            emb = synth.enroll(wavs)
+        with _GcPauses() as gc_pauses:
+            t0 = time.perf_counter()
+            t_enroll = 0.0
+            if emb is None:
+                emb = synth.enroll(wavs)
+                torch.cuda.synchronize()
+                t_enroll = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = synth.synthesize(texts, emb, pcm16=True, **kw)
             torch.cuda.synchronize()
-            t_enroll = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = synth.synthesize(texts, emb, pcm16=True, **kw)
-        torch.cuda.synchronize()
-        t_synth = time.perf_counter() - t0
+            t_synth = time.perf_counter() - t0
         res = {
             "label": label, "emb": emb, "out": out, "t_enroll": t_enroll, "t_synth": t_synth,
             "launches": {name: k.launches for name, k in kernels.items()},
@@ -366,7 +393,8 @@ def main() -> int:
         print(f"[{label}] enroll: {len(wavs)} wavs in {t_enroll * 1e3:.1f} ms; synthesize: "
               f"{len(texts)} texts, mel_lengths {res['mel_lengths']}, decode bucket "
               f"{res['bucket']}, {audio_s:.2f} s of audio in {t_synth * 1e3:.1f} ms = "
-              f"{audio_s / t_synth:.2f}x real time")
+              f"{audio_s / t_synth:.2f}x real time; garbage-collector pauses (generation, "
+              f"ms): {gc_pauses.pauses}")
         return res
 
     def profile_pass(res, synth):
@@ -548,6 +576,7 @@ def main() -> int:
             store.clear()
         for k in kernels.values():
             k.launches = 0
+        gc.collect()  # as in run_pass
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         chunks, t_first = [], None
@@ -624,6 +653,7 @@ def main() -> int:
         store.clear()
     for k in kernels.values():
         k.launches = 0
+    gc.collect()  # as in run_pass
     step_ms, train_metrics = [], []
     for i in range(TRAIN_STEPS):
         counts = {name: k.launches for name, k in kernels.items()}
@@ -877,6 +907,12 @@ def main() -> int:
         the zeroed counter each call allocates, as theirs do."""
         return _time_ms(lambda: recurrence_floor.barrier_floor(T, ndir, H, "cuda"), 3, 20)
 
+    def gru_floor_ms(T, B, H):
+        """The BiGRU forward's sequential floor: T steps of its dependent
+        chain alone (recurrent product, bf16 store of h, block barrier) on
+        its grid (csrc/barrier_floor.cu), without the gates and the cell."""
+        return _time_ms(lambda: recurrence_floor.gru_chain_floor(T, B, H, "cuda"), 3, 20)
+
     def step_split(T, H, one_step):
         """A GE2E row's per-step cost: its kernel on the first step alone
         and one barrier round, beside ``floor_ms`` at T steps (a further
@@ -1001,9 +1037,7 @@ def main() -> int:
         _bound_ms(2 * (2 * Tg * Bg * H3 + 2 * Hg * H3 + 2 * Tg * Bg * Hg) + 4 * 2 * H3,
                   2 * 2 * Tg * Bg * Hg * H3, BF16_FLOPS),
         library_fn=cudnn_calls(gru_lib, gg_cat),
-        # Beside the bytes bound: T dependent steps, each at least a chain of
-        # H / 4 dependent f32 FMAs (4 cycles each) at the SM boost clock.
-        extra={"shape": [Tg, Bg, H3], "sequential_floor_ms": Tg * Hg / SM_CLOCK_HZ * 1e3},
+        extra={"shape": [Tg, Bg, H3], "floor_ms": gru_floor_ms(Tg, Bg, Hg)},
     )
 
     # Staged Griffin-Lim: (B, T, 640) bf16 magnitudes -> (B, hop * (T - 1)).
@@ -1013,6 +1047,15 @@ def main() -> int:
     def rel_err(a, b):
         return ((a - b).abs().max() / b.abs().max().clamp(min=1e-9)).item()
 
+    def gl_floor(B, T, hop, n_iter):
+        """The staged kernel's sequential floor: its 2 n_iter + 1 grid barrier
+        rounds alone on its own grid (csrc/barrier_floor.cu)."""
+        blocks = griffin_lim_staged.kernel_blocks(B, T, hop)
+        rounds = 2 * n_iter + 1
+        return {"blocks": blocks, "barrier_rounds": rounds,
+                "floor_ms": _time_ms(lambda: recurrence_floor.barrier_floor(
+                    rounds, 1, 1, "cuda", blocks=blocks), 3, 20)}
+
     check(
         "griffin_lim_staged", "multi_speaker_tts_tpu/ops/griffin_lim_staged.py:254",
         "multi_speaker_tts_tpu_torch/csrc/griffin_lim.cu",
@@ -1020,11 +1063,12 @@ def main() -> int:
         lambda: griffin_lim_staged.griffin_lim_staged_plain(mag_staged, hop, n_iter,
                                                             torch.bfloat16),
         rel_err, 2e-2,
-        _bound_ms(2 * Bg * Tg * G + 4 * Bg * (Tg - 1) * hop + 2 * 5 * 4 * 256 * 128,
+        _bound_ms(2 * Bg * Tg * G + 4 * Bg * (Tg - 1) * hop + 2 * 5 * 2 * 128 * 128,
                   (n_iter + 0.5) * Bg * Tg * 32 * 2 * 128 * 128, BF16_FLOPS),
         warmup=1, reps=5,
-        extra={"error_metric": "max |kernel - plain| / max |plain|",
-               "launches_stream": stream_res["g stream"]["launches"]["griffin_lim_staged"]},
+        extra=dict(gl_floor(Bg, Tg, hop, n_iter),
+                   error_metric="max |kernel - plain| / max |plain|",
+                   launches_stream=stream_res["g stream"]["launches"]["griffin_lim_staged"]),
     )
 
     # The momentum mode and the dense kernel. The bf16 iteration is chaotic: a
@@ -1102,10 +1146,11 @@ def main() -> int:
         *staged_mom(n_iter_e), gl_err(mag_e_full, 1024, hop_e, *staged_mom(4),
                                       [staged_mom(n_iter_e, m)[1] for m in mags_e_nudged]),
         gl_tol,
-        _bound_ms(2 * Be * Te * G + 4 * Be * (Te - 1) * hop_e + 2 * 5 * 4 * 256 * 128,
+        _bound_ms(2 * Be * Te * G + 4 * Be * (Te - 1) * hop_e + 2 * 5 * 2 * 128 * 128,
                   (n_iter_e + 0.5) * Be * Te * 32 * 2 * 128 * 128, BF16_FLOPS),
         warmup=1, reps=5,
-        extra=dict(gl_extra, momentum=mom_e, shape=[Be, Te, n_iter_e],
+        extra=dict(gl_extra, **gl_floor(Be, Te, hop_e, n_iter_e), momentum=mom_e,
+                   shape=[Be, Te, n_iter_e],
                    mode="momentum (TPU branch griffin_lim_staged.py:222-241)"),
     )
 
@@ -1398,6 +1443,7 @@ def main() -> int:
                   2 * 2 * Tg * Bg * Hg * H3, BF16_FLOPS),
         library_fn=cudnn_calls(gru_lib, torch.cat([tgf, tgb], dim=-1)),
         extra={"mode": "save_residuals=True (train step)", "shape": [Tg, Bg, H3],
+               "floor_ms": gru_floor_ms(Tg, Bg, Hg),
                "error_metric": "max |kernel - plain| / max |plain|, worst output"},
     )
     gargs = train_rec["cbhg_bigru_bwd"][-1][0]
@@ -1416,8 +1462,7 @@ def main() -> int:
         extra={"shape": [Tg, Bg, H3], "launches_per_step": 1,
                "error_metric": "max |dGx, dGh - plain| / max |plain|, both directions",
                "library": "cuDNN bidirectional GRU backward (identity input weights; data "
-                          "and weight gradients), the faster of bf16 and fp16",
-               "sequential_floor_ms": Tg * Hg / 3 / SM_CLOCK_HZ * 1e3},
+                          "and weight gradients), the faster of bf16 and fp16"},
     )
 
     # Fused attention step (#11): the middle step of the probe's kernel loop

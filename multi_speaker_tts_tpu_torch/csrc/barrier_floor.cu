@@ -1,10 +1,20 @@
-// The sequential floor of the persistent recurrences: their grid and block
-// (common.cuh's mstts_recurrence_grid, 256 threads) and `rounds` rounds of
-// their grid barrier, with no arithmetic and no memory traffic besides the
-// barrier's own. Replaces no TPU kernel: chip_smoke.py times it beside the
-// LSTM and BiLSTM kernels (their rows' floor_ms) to show how far each is
-// from the least time its T dependent steps can take on the card.
-#include "common.cuh"
+// Sequential floors of the recurrent kernels: the least time their T
+// dependent steps take on the card with their design, whatever the rest of
+// a step's arithmetic. Replaces no TPU kernel: chip_smoke.py times these
+// beside the kernels (their rows' floor_ms).
+//
+// mstts_barrier_floor: `rounds` rounds of the persistent kernels' grid
+// barrier on a grid of 256-thread blocks, with no arithmetic and no memory
+// traffic besides the barrier's own. The grid is the recurrences' (the LSTM
+// and BiLSTM kernels, common.cuh's mstts_recurrence_grid) or, with blocks >
+// 0, that many blocks (the staged Griffin-Lim's grid, griffin_lim.cu).
+//
+// mstts_gru_chain_floor: the BiGRU forward's (bigru.cu) grid and blocks,
+// running T steps of only its dependent chain: the recurrent product of
+// bigru_step.cuh (ldmatrix of h_{t-1}, the MMAs into four accumulators a
+// gate), the accumulators' fixed-order sum, the bf16 store of h_t and the
+// step's one __syncthreads. No input gates, no cell, no outputs.
+#include "bigru_step.cuh"
 
 __global__ void __launch_bounds__(256, 1) mstts_barrier_floor_kernel(unsigned int* bar,
                                                                      int rounds) {
@@ -14,16 +24,93 @@ __global__ void __launch_bounds__(256, 1) mstts_barrier_floor_kernel(unsigned in
 
 // blocks_out (host) receives the grid size, so that a caller can check the
 // counter: rounds * blocks arrivals.
-MSTTS_EXPORT int mstts_barrier_floor(void* bar, int rounds, int ndir, int H, void* blocks_out,
-                                     void* stream) {
-  if (rounds < 0 || ndir < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  int U = 0, nblk = 0;
-  MSTTS_CHECK(mstts_recurrence_grid(ndir, H, &U, &nblk));
-  *static_cast<int*>(blocks_out) = ndir * nblk;
+MSTTS_EXPORT int mstts_barrier_floor(void* bar, int rounds, int ndir, int H, int blocks,
+                                     void* blocks_out, void* stream) {
+  if (rounds < 0 || ndir < 1 || H < 1 || blocks < 0) return (int)cudaErrorInvalidValue;
+  int grid = blocks;
+  if (grid == 0) {
+    int U = 0, nblk = 0;
+    MSTTS_CHECK(mstts_recurrence_grid(ndir, H, &U, &nblk));
+    grid = ndir * nblk;
+  }
+  *static_cast<int*>(blocks_out) = grid;
   unsigned int* counter = static_cast<unsigned int*>(bar);
   void* params[] = {&counter, &rounds};
   MSTTS_CHECK(cudaLaunchCooperativeKernel((const void*)mstts_barrier_floor_kernel,
-                                          dim3(ndir * nblk), dim3(256), params, 0,
+                                          dim3(grid), dim3(256), params, 0,
                                           static_cast<cudaStream_t>(stream)));
   MSTTS_RETURN_LAUNCH_ERROR();
+}
+
+namespace {
+
+template <int KS>
+__global__ void __launch_bounds__(32 * KS, 1) gru_chain_floor_kernel(const __nv_bfloat16* wt,
+                                                                     int T) {
+  constexpr int H = 16 * KS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int HS = mstts_ldmatrix_stride(H);
+  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kGruRows][HS]
+  __nv_bfloat16* w_s = h_s + 2 * kGruRows * HS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int u0 = 16 * warp + (lane >> 2), tq = lane & 3;
+  for (int i = threadIdx.x; i < 2 * kGruRows * HS / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(h_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+  GruProduct<KS> product;
+  product.load(wt, w_s);
+  __syncthreads();
+  for (int s = 0; s < T; ++s) {
+    const int cur = s & 1;
+    float acc[3][4][4] = {};
+    product.run(acc, h_s + cur * kGruRows * HS + (lane & 7) * HS + ((lane >> 3) & 1) * 8);
+    __nv_bfloat16* h_next = h_s + (cur ^ 1) * kGruRows * HS;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        v += (acc[q][0][e] + acc[q][1][e]) + (acc[q][2][e] + acc[q][3][e]);
+      h_next[(2 * tq + (e & 1)) * HS + u0 + 8 * (e >> 1)] = __float2bfloat16(v);
+    }
+    __syncthreads();
+  }
+}
+
+template <int KS>
+int launch_gru_floor(const __nv_bfloat16* wt, int T, int blocks, cudaStream_t stream) {
+  constexpr int H = 16 * KS;
+  const size_t smem = sizeof(__nv_bfloat16) *
+                      (2 * kGruRows * (size_t)mstts_ldmatrix_stride(H) + gru_wsmem_elems(H));
+  MSTTS_CHECK(cudaFuncSetAttribute(gru_chain_floor_kernel<KS>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  gru_chain_floor_kernel<KS><<<blocks, 32 * KS, smem, stream>>>(wt, T);
+  MSTTS_RETURN_LAUNCH_ERROR();
+}
+
+}  // namespace
+
+// wt: (3H, H) bf16, W_hh transposed as the BiGRU takes it (its values do
+// not change the time). B batch rows: the BiGRU's grid, 2 x ceil(B / 8)
+// blocks, whose count blocks_out (host) receives.
+MSTTS_EXPORT int mstts_gru_chain_floor(const void* wt, int T, int B, int H, void* blocks_out,
+                                       void* stream) {
+  if (H % 16 != 0 || H < 16 || H > 192 || T < 0 || B < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = 2 * ((B + kGruRows - 1) / kGruRows);
+  *static_cast<int*>(blocks_out) = blocks;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wt);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (H / 16) {
+    case 1: return launch_gru_floor<1>(w, T, blocks, st);
+    case 2: return launch_gru_floor<2>(w, T, blocks, st);
+    case 3: return launch_gru_floor<3>(w, T, blocks, st);
+    case 4: return launch_gru_floor<4>(w, T, blocks, st);
+    case 5: return launch_gru_floor<5>(w, T, blocks, st);
+    case 6: return launch_gru_floor<6>(w, T, blocks, st);
+    case 7: return launch_gru_floor<7>(w, T, blocks, st);
+    case 8: return launch_gru_floor<8>(w, T, blocks, st);
+    case 9: return launch_gru_floor<9>(w, T, blocks, st);
+    case 10: return launch_gru_floor<10>(w, T, blocks, st);
+    case 11: return launch_gru_floor<11>(w, T, blocks, st);
+    default: return launch_gru_floor<12>(w, T, blocks, st);
+  }
 }

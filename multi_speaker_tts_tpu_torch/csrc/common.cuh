@@ -168,6 +168,18 @@ __device__ __forceinline__ void mstts_ldmatrix_x2(uint32_t* r, const void* p) {
                : "memory");
 }
 
+// Four 8 x 8 bf16 matrices, each transposed on the way: a thread receives
+// (row 2t, col g) and (row 2t + 1, col g) of each. For a B operand stored
+// k-major (row k holds its n values): lane l gives row k0 + (l % 8) +
+// (l / 8 % 2) * 8 at column n0 + (l / 16) * 8; r[0], r[1] are b0, b1 of
+// n-tile n0, r[2], r[3] those of n-tile n0 + 8.
+__device__ __forceinline__ void mstts_ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(mstts_smem_addr(p))
+               : "memory");
+}
+
 // 16 bytes global -> shared, cached in L2 only (data that other blocks
 // write during the launch must never come from L1).
 __device__ __forceinline__ void mstts_cp_async16(void* smem, const void* gmem) {

@@ -17,10 +17,12 @@ launch, emitting dGf and dGb.
 BiGRU: replaces ``birnn_pallas.py::_bigru_fwd_impl`` (kernel body
 ``_bigru_fwd_kernel``, reached through ``bigru_pallas``). The input gates
 x . W_ih + b_ih of both directions are hoisted the same way; the kernel
-(``csrc/bigru.cu``) runs gh = bf16(h) . W_hh + b_hh and the r, z, n cell
-with an f32 carry, one block per (direction, batch row) with that
-direction's W_hh resident in shared memory, so it needs no grid barrier.
-Its residual mode (:data:`GRU_RES_KERNEL`) stores gh and h_{t-1}. The
+(``csrc/bigru.cu``) runs gh = bf16(h) . W_hh + b_hh on tensor cores and the
+r, z, n cell with an f32 carry, one block per (direction, group of up to 8
+batch rows) with that direction's W_hh resident in registers, so it needs
+no grid barrier. It takes H % 16 == 0 and 16 <= H <= 128
+(:func:`bigru_shape_reason`). Its residual mode (:data:`GRU_RES_KERNEL`)
+stores gh and h_{t-1}. The
 backward (``birnn_pallas.py::_bigru_vjp_bwd``, kernel body
 ``_bigru_bwd_kernel``) is ``csrc/bigru_bwd.cu``, emitting dGx and dGh per
 direction.
@@ -266,9 +268,28 @@ def bigru_recurrence_plain(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
     return (*ys, *res)
 
 
-def _gru_layout(w_hh: torch.Tensor, b_hh: torch.Tensor):
-    """W_hh (H, 3H) as bf16 rows and the f32 recurrent bias."""
-    return w_hh.contiguous().to(torch.bfloat16), b_hh.float().contiguous()
+def _f32(b: torch.Tensor) -> torch.Tensor:
+    return b.float().contiguous()
+
+
+def bigru_shape_reason(gx_shape, w_hh_shapes) -> str | None:
+    """Why ``csrc/bigru.cu`` does not take these shapes, or None if it does:
+    (T, B, 3H) gates, equal for both directions, and (H, 3H) weights with
+    H % 16 == 0 (16-deep MMA k-steps, 16 units a warp) and 16 <= H <= 192
+    (one direction's W_hh stays in a block's registers and, above H = 128,
+    its shared memory)."""
+    T, B, H3 = gx_shape
+    H = H3 // 3
+    if T < 1 or B < 1 or H3 % 3 or any(tuple(s) != (H, H3) for s in w_hh_shapes):
+        return f"needs (T, B, 3H) gates and (H, 3H) weights, got {tuple(gx_shape)}"
+    if H % 16 or not 16 <= H <= 192:
+        return f"needs H % 16 == 0 and 16 <= H <= 192, got H = {H}"
+    return None
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernel copies 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
@@ -278,14 +299,14 @@ def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
         _build.require_cuda(g, torch.bfloat16, name)
     T, B, H3 = gxf.shape
     H = H3 // 3
-    if gxb.shape != gxf.shape or fwd.w_hh.shape != (H, H3) or bwd.w_hh.shape != (H, H3):
-        raise ValueError(f"BiGRU kernel needs equal (T, B, 3H) gates and (H, 3H) weights: {H}")
-    # One direction's W_hh must fit one block's shared memory, one thread
-    # per gate column.
-    if H % 8 or H3 > 1024 or 2 * H * H3 + 20 * H > 227 * 1024:
-        raise ValueError(f"BiGRU kernel needs H % 8 == 0 and H <= 192: {H}")
-    whf, bhf = _build.packed(_gru_layout, fwd.w_hh, fwd.b_hh)
-    whb, bhb = _build.packed(_gru_layout, bwd.w_hh, bwd.b_hh)
+    reason = (f"needs equal gates, got {tuple(gxf.shape)} and {tuple(gxb.shape)}"
+              if gxb.shape != gxf.shape
+              else bigru_shape_reason(gxf.shape, (fwd.w_hh.shape, bwd.w_hh.shape)))
+    if reason is not None:
+        raise ValueError(f"BiGRU kernel {reason}")
+    gxf, gxb = _aligned(gxf), _aligned(gxb)
+    whf, whb = (_build.packed(_transposed_bf16, w) for w in (fwd.w_hh, bwd.w_hh))
+    bhf, bhb = (_build.packed(_f32, b) for b in (fwd.b_hh, bwd.b_hh))
     ysf, ysb = _bf16_empty(gxf.device, (T, B, H), (T, B, H))
     res = ()
     if save_residuals:

@@ -17,17 +17,23 @@ counted as :data:`MOM_KERNEL`.
 
 The TPU kernel keeps the (T, 640) spectra of an utterance resident in VMEM
 for all iterations. An SM has 227 KB of shared memory, so the Hopper
-design (``csrc/griffin_lim.cu``) keeps the spectra and the synthesised
-frames in device memory (L2-resident at these sizes) and runs each
-iteration as two frame-tiled launches: inverse leaf products + inverse
-butterfly + synthesis window, then overlap-add + re-framing + analysis
-window + forward butterfly + forward leaf products + projection.
+design (``csrc/griffin_lim.cu``) is one cooperative launch a call whose
+blocks own (16-frame tile, class group) and (tile, 32-position slice)
+units; each iteration is two phases separated by a grid barrier: forward
+leaf products + projection + inverse leaf products per class (the
+projected spectra stay in shared memory), then inverse butterfly +
+overlap-add + re-framing + forward butterfly per slice. Each block keeps
+its class group's forward leaves resident in shared memory (the inverse
+leaves are the same bf16 values transposed, times a power of two); only
+the f32 u planes and the bf16 z operands go through device memory. It
+takes hop 128, 256 or 512 (:func:`staged_shape_reason`).
 
 :func:`griffin_lim_staged_plain` is the same iteration in plain torch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -37,7 +43,10 @@ from multi_speaker_tts_tpu_torch.ops import _build
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 from multi_speaker_tts_tpu_torch.ops.stft_matmul import _hann
 
-_FUNCTIONS = {"mstts_gl_staged": [_build.P] * 11 + [_build.I] * 4 + [_build.F, _build.P]}
+_FUNCTIONS = {
+    "mstts_gl_staged": [_build.P] * 11 + [_build.I] * 4 + [_build.F, _build.P],
+    "mstts_gl_staged_blocks": [_build.I] * 3 + [_build.P],
+}
 KERNEL = _build.Kernel("griffin_lim_staged", "griffin_lim.cu", _FUNCTIONS)
 MOM_KERNEL = _build.Kernel("griffin_lim_staged_momentum", "griffin_lim.cu", _FUNCTIONS)
 
@@ -79,32 +88,24 @@ def _staged_operands_f64():
 @functools.lru_cache(maxsize=8)
 def _operands(device: torch.device, compute_dtype: torch.dtype):
     """Device tensors: leaf matrices rounded to the compute dtype (held
-    f32), windows, permutation, and the kernel's stacked bf16 matrices
-    (class, [fwd_re, fwd_im, inv_re, inv_im], 256, 128) with
-    fwd_re = [Mr; -Mi], fwd_im = [Mi; Mr], inv_re = [IMr; -IMi],
-    inv_im = [IMi; IMr], so each complex product is one real one over
-    the stacked [re | im] operand."""
+    f32), windows, permutation, and the kernel's leaf operands: only the
+    bf16 forward leaves (class, [Mr, Mi], 128, 128), 320 KB. The inverse
+    leaf of class c is (two / 128) conj(M_c)^T with two = 2 for c in 1..3,
+    a power of two times the transpose, so its bf16 rounding is the
+    forward leaf's, transposed and scaled exactly."""
     fwd, inv, win_blocks, syn_blocks, perm = _staged_operands_f64()
 
     def t(a):
         return rounded(torch.from_numpy(a).to(device), compute_dtype)
 
     fwd_t = [(t(a), t(b)) for a, b in fwd]
-    inv_t = [(t(a), t(b)) for a, b in inv]
-    stacked = torch.stack([
-        torch.stack([
-            torch.cat([fr, -fi]), torch.cat([fi, fr]),
-            torch.cat([ir, -ii]), torch.cat([ii, ir]),
-        ])
-        for (fr, fi), (ir, ii) in zip(fwd_t, inv_t)
-    ]).to(torch.bfloat16).contiguous()
     return {
         "fwd": fwd_t,
-        "inv": inv_t,
+        "inv": [(t(a), t(b)) for a, b in inv],
         "win": torch.from_numpy(win_blocks).to(device),
         "syn": torch.from_numpy(syn_blocks).to(device),
         "perm": torch.from_numpy(perm).to(device),
-        "stacked": stacked,
+        "leaves": torch.stack([torch.stack(p) for p in fwd_t]).to(torch.bfloat16).contiguous(),
     }
 
 
@@ -210,32 +211,60 @@ def griffin_lim_staged_plain(mag_staged: torch.Tensor, hop: int, n_iter: int,
     return rows[:, k // 2:k // 2 + T - 1].reshape(B, (T - 1) * hop)
 
 
+KERNEL_HOPS = (128, 256, 512)  # n_fft / hop = 8, 4, 2: the kernel's template instances
+
+
+def staged_shape_reason(shape, hop: int) -> str | None:
+    """Why ``csrc/griffin_lim.cu`` does not take (B, T, lanes) staged
+    magnitudes at this hop, or None if it does."""
+    B, T, lanes = shape
+    if lanes != G or T < 2 or B < 1:
+        return f"needs staged magnitudes (B >= 1, T >= 2, {G}), got {tuple(shape)}"
+    if hop not in KERNEL_HOPS:
+        return f"needs hop in {KERNEL_HOPS}, got {hop}"
+    return None
+
+
+def kernel_blocks(B: int, T: int, hop: int) -> int:
+    """The kernel's grid at these shapes on the current card: 4 blocks per
+    16-frame tile slot, at most one block an SM."""
+    blocks = ctypes.c_int(0)
+    lib = KERNEL.lib()
+    err = lib.mstts_gl_staged_blocks(B, T, hop, ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"mstts_gl_staged_blocks failed: {lib.mstts_error_string(err).decode()}")
+    return blocks.value
+
+
 def griffin_lim_staged_kernel(mag_staged: torch.Tensor, hop: int, n_iter: int,
                               momentum: float = 0.0) -> torch.Tensor:
     """Launch ``csrc/griffin_lim.cu`` on CUDA bf16 staged magnitudes; with
     ``momentum`` > 0 its momentum mode, with two bf16 previous-projection
     buffers."""
     _build.require_cuda(mag_staged, torch.bfloat16, "mag_staged")
-    B, T, lanes = mag_staged.shape
-    if lanes != G or T < 2:
-        raise ValueError(f"staged magnitudes must be (B, T >= 2, {G})")
+    reason = staged_shape_reason(mag_staged.shape, hop)
+    if reason is not None:
+        raise ValueError(f"staged Griffin-Lim kernel {reason}")
+    B, T, _ = mag_staged.shape
     dev = mag_staged.device
     ops = _operands(dev, torch.bfloat16)
     wsum = _wsum_rows(hop, T, dev)
-    re = mag_staged.float().contiguous()
-    im = torch.zeros_like(re)
-    frames = torch.empty((B, T, N_FFT), dtype=torch.float32, device=dev)
+    mag = mag_staged if mag_staged.data_ptr() % 4 == 0 else mag_staged.clone()  # pairs
+    u = torch.empty((B, T, S, L), dtype=torch.float32, device=dev)
+    z = torch.empty((B, T, S, L), dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, (T - 1) * hop), dtype=torch.float32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
     pre = pim = None
     if momentum > 0.0:
-        pre = torch.zeros_like(mag_staged)
-        pim = torch.zeros_like(mag_staged)
+        pre = torch.zeros_like(mag)
+        pim = torch.zeros_like(mag)
     (MOM_KERNEL if momentum > 0.0 else KERNEL).call(
-        "mstts_gl_staged", mag_staged.data_ptr(), ops["stacked"].data_ptr(),
+        "mstts_gl_staged", mag.data_ptr(), ops["leaves"].data_ptr(),
         ops["win"].data_ptr(), ops["syn"].data_ptr(), wsum.data_ptr(),
-        re.data_ptr(), im.data_ptr(), frames.data_ptr(), out.data_ptr(),
+        u.data_ptr(), z.data_ptr(), out.data_ptr(),
         0 if pre is None else pre.data_ptr(), 0 if pim is None else pim.data_ptr(),
-        B, T, hop, n_iter, momentum / (1.0 + momentum), _build.stream_ptr(mag_staged),
+        bar.data_ptr(), B, T, hop, n_iter, momentum / (1.0 + momentum),
+        _build.stream_ptr(mag_staged),
     )
     return out
 

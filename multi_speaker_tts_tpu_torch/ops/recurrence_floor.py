@@ -1,11 +1,17 @@
-"""The sequential floor of the persistent recurrence kernels.
+"""Sequential floors of the recurrent kernels (``csrc/barrier_floor.cu``).
 
-``csrc/barrier_floor.cu`` launches the grid and block of the LSTM and
-BiLSTM kernels (``lstm_persistent.cuh``, ``lstm_bwd.cuh``) and runs only
-their grid barrier, ``rounds`` times: the least time that T dependent steps
-can take on the card with this design, whatever the arithmetic of a step.
-It replaces no TPU kernel and no model path calls it; ``chip_smoke.py``
-times it beside each recurrence (``floor_ms``). It has no plain version
+:func:`barrier_floor` launches a grid of 256-thread blocks, the LSTM and
+BiLSTM kernels' (``lstm_persistent.cuh``, ``lstm_bwd.cuh``) or an explicit
+block count (the staged Griffin-Lim's, ``griffin_lim.cu``), and runs only
+their grid barrier, ``rounds`` times: the least time that many dependent
+rounds can take on the card with that design, whatever the arithmetic of a
+round. :func:`gru_chain_floor` runs the BiGRU forward's grid and blocks
+(``bigru.cu``) through T steps of only its dependent chain: the recurrent
+product (``bigru_step.cuh``), the bf16 store of h and the step's block
+barrier, without the input gates and the cell.
+
+They replace no TPU kernel and no model path calls them; ``chip_smoke.py``
+times them beside those kernels (``floor_ms``). They have no plain version
 and no CPU path.
 """
 
@@ -18,20 +24,42 @@ import torch
 from multi_speaker_tts_tpu_torch.ops import _build
 
 KERNEL = _build.Kernel("barrier_floor", "barrier_floor.cu", {
-    "mstts_barrier_floor": [_build.P, _build.I, _build.I, _build.I, _build.P, _build.P],
+    "mstts_barrier_floor": [_build.P] + [_build.I] * 4 + [_build.P, _build.P],
+    "mstts_gru_chain_floor": [_build.P] + [_build.I] * 3 + [_build.P, _build.P],
 })
 
 
-def barrier_floor(rounds: int, ndir: int, hidden: int, device):
-    """Launch ``rounds`` grid barriers on the grid of an ``ndir``-direction
-    recurrence of ``hidden`` units on a CUDA ``device``. Returns the grid's
-    block count and the barrier's arrival counter, which holds
-    ``rounds * blocks`` once the launch has run."""
+def _cuda(device) -> torch.device:
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError("the barrier-floor kernel runs on a CUDA device only")
+        raise ValueError("the floor kernels run on a CUDA device only")
+    return device
+
+
+def barrier_floor(rounds: int, ndir: int, hidden: int, device, blocks: int = 0):
+    """Launch ``rounds`` grid barriers on a CUDA ``device``: on the grid of
+    an ``ndir``-direction recurrence of ``hidden`` units, or on ``blocks``
+    blocks when that is > 0. Returns the grid's block count and the
+    barrier's arrival counter, which holds ``rounds * blocks`` once the
+    launch has run."""
+    device = _cuda(device)
     bar = torch.zeros(1, dtype=torch.int32, device=device)
-    blocks = ctypes.c_int(0)
-    KERNEL.call("mstts_barrier_floor", bar.data_ptr(), rounds, ndir, hidden,
-                ctypes.addressof(blocks), torch.cuda.current_stream(device).cuda_stream)
-    return blocks.value, bar
+    grid = ctypes.c_int(0)
+    KERNEL.call("mstts_barrier_floor", bar.data_ptr(), rounds, ndir, hidden, blocks,
+                ctypes.addressof(grid), torch.cuda.current_stream(device).cuda_stream)
+    return grid.value, bar
+
+
+def gru_chain_floor(steps: int, batch: int, hidden: int, device) -> int:
+    """Launch ``steps`` steps of the BiGRU forward's dependent chain on a
+    CUDA ``device``, on its grid for ``batch`` rows of ``hidden`` units
+    (zero weights: their values do not change the time). Returns the
+    grid's block count."""
+    device = _cuda(device)
+    if hidden % 16 or not 16 <= hidden <= 192:
+        raise ValueError(f"the BiGRU floor needs H % 16 == 0 and 16 <= H <= 192, got {hidden}")
+    wt = torch.zeros((3 * hidden, hidden), dtype=torch.bfloat16, device=device)
+    grid = ctypes.c_int(0)
+    KERNEL.call("mstts_gru_chain_floor", wt.data_ptr(), steps, batch, hidden,
+                ctypes.addressof(grid), torch.cuda.current_stream(device).cuda_stream)
+    return grid.value

@@ -182,18 +182,20 @@ def gl_max_batch(T: int, n_fft: int = 1024, momentum: float = 0.0,
                  kernel: str = "staged") -> int:
     """Rows per kernel call, so that the call's working set stays within
     :data:`GL_L2_BUDGET_BYTES`. Per frame of a row:
-    - staged: f32 re / im spectra 2 x 640, f32 frames 1024, bf16 target
-      magnitudes 640; under momentum two bf16 previous projections of 640;
+    - staged: the f32 u planes 8 x 128 and the bf16 z operands 8 x 128
+      that its two phases exchange, bf16 target magnitudes 640; under
+      momentum two bf16 previous projections of 640. Its bf16 forward
+      leaves (5 x 2 x 128 x 128, 320 KB) come off the budget first;
     - dense: f32 re / im of Fp = n_fft/2 bins, the f32 Nyquist term, f32
       frames of n_fft, f32 magnitudes of Fp + 1; under momentum three f32
       carries (re, im, Nyquist). Its bf16 DFT matrices (8 n_fft Fp bytes,
       4 MB at n_fft 1024)
       come off the budget first."""
     if kernel == "staged":
-        per_frame = 2 * 640 * 4 + 1024 * 4 + 640 * 2
+        per_frame = 8 * 128 * 4 + 8 * 128 * 2 + 640 * 2
         if momentum > 0.0:
             per_frame += 2 * 640 * 2
-        budget = GL_L2_BUDGET_BYTES
+        budget = GL_L2_BUDGET_BYTES - 5 * 2 * 128 * 128 * 2
     else:
         Fp = n_fft // 2
         per_frame = 2 * Fp * 4 + 4 + n_fft * 4 + (Fp + 1) * 4

@@ -256,3 +256,36 @@ def test_tacotron_infer_with_cbhg_head_matches(tiny_hp):
         i, n = int(want_len.argmin()), int(want_len.min())
         masked = port.linear_head(got["mel_post"], torch.float32).detach().numpy()
         assert np.abs(masked[i, :n] - lin_want[i, :n]).max() > 10 * F32_TOL
+
+
+@pytest.mark.parametrize("H, B, ok", [
+    (128, 4, True), (128, 32, True), (64, 17, True), (16, 1, True), (48, 40, True),
+    (144, 4, True), (192, 4, True),
+    (8, 4, False), (72, 4, False), (200, 4, False), (208, 4, False),
+])
+def test_bigru_kernel_shape_rule(H, B, ok):
+    """``csrc/bigru.cu`` takes H % 16 == 0 and 16 <= H <= 192 (one
+    direction's W_hh in a block's registers and shared memory), any T and
+    B; the reason names the rule otherwise."""
+    reason = birnn_kernel.bigru_shape_reason((400, B, 3 * H), [(H, 3 * H)] * 2)
+    assert (reason is None) == ok
+    if not ok:
+        assert "H % 16 == 0 and 16 <= H <= 192" in reason
+
+
+def test_bigru_kernel_shape_rule_checks_the_weights():
+    assert "weights" in birnn_kernel.bigru_shape_reason((4, 2, 384), [(128, 384), (128, 256)])
+    assert "gates" in birnn_kernel.bigru_shape_reason((4, 0, 384), [(128, 384)] * 2)
+
+
+@pytest.mark.parametrize("residuals", [False, True])
+def test_bigru_kernel_refuses_cpu_tensors(residuals):
+    """The kernel entry raises on CPU tensors before anything reaches a card,
+    and counts no launch in either mode."""
+    p = gru.GRUParams(torch.zeros(8, 48), torch.zeros(16, 48), torch.zeros(48), torch.zeros(48))
+    g = torch.zeros(3, 2, 48, dtype=torch.bfloat16)
+    kernels = (birnn_kernel.GRU_KERNEL, birnn_kernel.GRU_RES_KERNEL)
+    before = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="CUDA"):
+        birnn_kernel.bigru_recurrence_kernel(g, g, p, p, residuals)
+    assert [k.launches for k in kernels] == before

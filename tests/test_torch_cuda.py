@@ -226,6 +226,149 @@ def test_bigru_kernel(dev):
         birnn_kernel.bigru_recurrence(gxf.float(), gxb.float(), pf, pb, torch.float32)
 
 
+@pytest.mark.parametrize("residuals", [False, True], ids=["plain", "residuals"])
+@pytest.mark.parametrize("H", [64, 128, 144, 192])
+@pytest.mark.parametrize("B", [1, 4, 16, 17, 32, 40])
+def test_bigru_kernel_row_groups(dev, B, H, residuals):
+    """One block per (direction, 8 rows): every batch size across the row
+    groups, both modes, within 5e-3 of the plain bf16 version; two launches
+    on one input are bit-equal; the residuals feed the backward kernel.
+    H 144 and 192 keep part of W_hh in shared memory."""
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+    rng = np.random.default_rng(B * H)
+
+    def gru(D):
+        return GRUParams(*(torch.from_numpy((rng.normal(size=s) * 0.1).astype(np.float32)).to(dev)
+                           for s in ((D, 3 * H), (H, 3 * H), (3 * H,), (3 * H,))))
+
+    T = 37
+    pf, pb = gru(128), gru(128)
+    x = torch.from_numpy(rng.normal(size=(B, T, 128)).astype(np.float32)).to(dev)
+    gxf, gxb = birnn_kernel.bigru_hoist(pf, pb, x, torch.bfloat16)
+    kernel = birnn_kernel.GRU_RES_KERNEL if residuals else birnn_kernel.GRU_KERNEL
+    before = kernel.launches
+    got = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
+    again = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    want = birnn_kernel.bigru_recurrence_plain(gxf, gxb, pf, pb, torch.bfloat16, residuals)
+    assert len(got) == len(want) == (6 if residuals else 2)
+    for i, (a, b, c) in enumerate(zip(got, again, want)):  # ysf, ysb[, ghf, hpf, ghb, hpb]
+        assert torch.equal(a, b) and a.shape == c.shape
+        if i in (2, 4):  # gh, |gh| up to ~2: one flipped bf16 rounding is 1e-2 of it
+            assert _rel_peak(a, c) <= 1e-2
+        else:  # h, |h| < 1
+            assert (a.float() - c.float()).abs().max().item() <= 5e-3
+    if residuals:
+        ysf, ysb, ghf, hpf, ghb, hpb = got
+        dyf, dyb = (torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
+                    for _ in range(2))
+        args = (gxf, ghf, hpf, gxb, ghb, hpb, pf.w_hh, pb.w_hh, dyf, dyb)
+        for a, b in zip(birnn_kernel.bigru_bwd(*args), birnn_kernel.bigru_bwd_plain(*args)):
+            assert _rel_peak(a, b) <= 1e-2
+
+
+GL_PROBES, GL_PROBE_MULTIPLE = 8, 4.0
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.99], ids=["plain", "momentum"])
+@pytest.mark.parametrize("T", [2, 17, 47, 128])
+def test_griffin_lim_staged_kernel_shapes(dev, T, momentum):
+    """The persistent staged kernel at the stream's T, a ragged tile, the
+    shortest utterance and, at T = 128, the largest batch one call takes
+    (gl_max_batch): within 2e-2 of the peak of the plain version at 8
+    iterations, one launch a call, two launches bit-equal. The momentum
+    iteration amplifies a flipped operand rounding further: at T = 128 and
+    B = 32 moving the f32 magnitudes by 1e-6 of themselves moves the plain
+    version's 8-iteration output by ~6% of its peak. So a momentum case
+    takes chip_smoke.py's Griffin-Lim rule: the plain version also runs on
+    the CPU (its f32 sums in another order) and on GL_PROBES such nudged
+    inputs, and the kernel must land within max(2e-2, GL_PROBE_MULTIPLE x
+    the probes' median distance from the plain version) of the peak from
+    the plain version or one of its probes; besides, within 2e-2 of the
+    peak of the plain version at 4 iterations and in relative L2 at 8. The
+    readings are printed (``-s``)."""
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+    from multi_speaker_tts_tpu_torch.ops import stft_matmul
+
+    B = stft_matmul.gl_max_batch(T, momentum=momentum) if T == 128 else 3
+    rng = np.random.default_rng(T)
+    mag = torch.from_numpy(rng.random((B, T, 513)).astype(np.float32) ** 2).to(dev)
+    ms = gl.staged_magnitudes(mag, torch.bfloat16)
+    kernel = gl.MOM_KERNEL if momentum else gl.KERNEL
+    before = kernel.launches
+    got = gl.griffin_lim_staged_kernel(ms, 256, 8, momentum)
+    again = gl.griffin_lim_staged_kernel(ms, 256, 8, momentum)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    want = gl.griffin_lim_staged_plain(ms, 256, 8, torch.bfloat16, momentum)
+    assert got.shape == want.shape == (B, 256 * (T - 1))
+    assert torch.equal(got, again)
+
+    def peak_rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    if not momentum:
+        assert peak_rel(got, want) <= 2e-2
+        return
+    g = torch.Generator(dev).manual_seed(T)
+    probes = {"card": want, "cpu": gl.griffin_lim_staged_plain(
+        ms.cpu(), 256, 8, torch.bfloat16, momentum).to(dev)}
+    for i in range(GL_PROBES):
+        moved = mag * (1.0 + 1e-6 * torch.randn(mag.shape, generator=g, device=dev))
+        probes[f"nudged {i}"] = gl.griffin_lim_staged_plain(
+            gl.staged_magnitudes(moved, torch.bfloat16), 256, 8, torch.bfloat16, momentum)
+    readings = {k: peak_rel(got, p) for k, p in probes.items()}
+    spread = [peak_rel(p, want) for k, p in probes.items() if k != "card"]
+    limit = max(2e-2, GL_PROBE_MULTIPLE * float(np.median(spread)))
+    rel4 = peak_rel(gl.griffin_lim_staged_kernel(ms, 256, 4, momentum),
+                    gl.griffin_lim_staged_plain(ms, 256, 4, torch.bfloat16, momentum))
+    l2 = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+    print(f"staged momentum B {B} T {T}: kernel vs plain at 8 iterations {readings['card']:.4g} "
+          f"of the peak, vs the CPU plain {readings['cpu']:.4g}, nearest "
+          f"{min(readings.values()):.4g}; CPU / nudged plain vs card plain: max "
+          f"{max(spread):.4g}, median {float(np.median(spread)):.4g}; limit {limit:.4g}; "
+          f"4 iterations {rel4:.4g}; relative L2 {l2:.4g}")
+    assert min(readings.values()) <= limit, readings
+    assert rel4 <= 2e-2
+    assert l2 <= 2e-2
+
+
+@pytest.mark.parametrize("hop", [128, 512])
+def test_griffin_lim_staged_kernel_other_hops(dev, hop):
+    """The hop template's other instances (n_fft / hop = 8 and 2)."""
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+
+    rng = np.random.default_rng(hop)
+    mag = torch.from_numpy(rng.random((2, 40, 513)).astype(np.float32) ** 2).to(dev)
+    ms = gl.staged_magnitudes(mag, torch.bfloat16)
+    got = gl.griffin_lim_staged_kernel(ms, hop, 8)
+    want = gl.griffin_lim_staged_plain(ms, hop, 8, torch.bfloat16)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+
+
+def test_bigru_and_staged_kernels_raise_on_shapes_they_refuse(dev):
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+    counts = (birnn_kernel.GRU_KERNEL.launches, gl.KERNEL.launches)
+    for H in (8, 72, 208):
+        p = GRUParams(*(torch.zeros(s, device=dev) for s in ((16, 3 * H), (H, 3 * H),
+                                                             (3 * H,), (3 * H,))))
+        g = torch.zeros(5, 2, 3 * H, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="H % 16"):
+            birnn_kernel.bigru_recurrence_kernel(g, g, p, p)
+    ms = torch.zeros(2, 20, 640, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="hop in"):
+        gl.griffin_lim_staged_kernel(ms, 384, 2)
+    with pytest.raises(ValueError, match="staged magnitudes"):
+        gl.griffin_lim_staged_kernel(ms[:, :1].contiguous(), 256, 2)
+    assert (birnn_kernel.GRU_KERNEL.launches, gl.KERNEL.launches) == counts
+
+
 def _decoder(rng, dev, H, D, P, A, mel, r, conv_k=31, conv_c=32, scale=0.02):
     # Weights at a trained model's scale: with larger random weights the AR
     # feedback is chaotic and amplifies f32 summation-order noise a million-fold
@@ -444,19 +587,41 @@ def test_bilstm_residual_mode_and_backward_kernel(dev, B, S, H):
         assert _rel_peak(a, b) <= 1e-2
 
 
-@pytest.mark.parametrize("ndir, H", [(1, 768), (2, 256)])
+@pytest.mark.parametrize("ndir, H", [(1, 768), (2, 256), ("gl", 128)])
 def test_barrier_floor_kernel(dev, ndir, H):
-    """The floor kernel runs its rounds on the recurrences' grid: one
-    arrival per block per round."""
+    """The floor kernel runs its rounds on the recurrences' grid, or on the
+    staged Griffin-Lim's (an explicit block count; T = H frames, B = 4,
+    hop 256): one arrival per block per round."""
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+    from multi_speaker_tts_tpu_torch.ops import recurrence_floor
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    before = recurrence_floor.KERNEL.launches
+    if ndir == "gl":
+        want = gl.kernel_blocks(4, H, 256)
+        assert want == 4 * min(4 * -(-H // 16), sms // 4)
+        blocks, bar = recurrence_floor.barrier_floor(64, 1, 1, dev, blocks=want)
+        assert blocks == want
+    else:
+        blocks, bar = recurrence_floor.barrier_floor(64, ndir, H, dev)
+        U = -(-ndir * H // sms)
+        assert blocks == ndir * -(-H // U)
+    torch.cuda.synchronize()
+    assert blocks <= sms
+    assert bar.item() == 64 * blocks
+    assert recurrence_floor.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("B, H", [(4, 128), (32, 128), (17, 192)])
+def test_gru_chain_floor_kernel(dev, B, H):
+    """The BiGRU's sequential floor runs on the BiGRU's grid, one launch a
+    call."""
     from multi_speaker_tts_tpu_torch.ops import recurrence_floor
 
     before = recurrence_floor.KERNEL.launches
-    blocks, bar = recurrence_floor.barrier_floor(64, ndir, H, dev)
+    blocks = recurrence_floor.gru_chain_floor(50, B, H, dev)
     torch.cuda.synchronize()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    U = -(-ndir * H // sms)
-    assert blocks == ndir * -(-H // U) <= sms
-    assert bar.item() == 64 * blocks
+    assert blocks == 2 * -(-B // 8)
     assert recurrence_floor.KERNEL.launches == before + 1
 
 

@@ -104,11 +104,32 @@ def test_staged_converges_like_the_gemm_path():
     assert abs(sc_st - sc_mm) / sc_mm <= 0.05, (sc_st, sc_mm)
 
 
+# The staged kernel's per-frame working set: f32 u planes (8 x 128), bf16 z
+# operands (8 x 128), bf16 magnitudes (640); its bf16 forward leaves (320 KB)
+# come off the budget first.
+STAGED_FRAME = 8 * 128 * 4 + 8 * 128 * 2 + 640 * 2
+STAGED_LEAVES = 5 * 2 * 128 * 128 * 2
+
+
 def test_gl_batch_cap_keeps_working_set_in_l2():
     assert stft_matmul.gl_max_batch(128) >= 4
     assert stft_matmul.gl_max_batch(10**6) == 1
-    per_row = 128 * (2 * 640 * 4 + 1024 * 4 + 640 * 2)
-    assert stft_matmul.gl_max_batch(128) * per_row <= stft_matmul.GL_L2_BUDGET_BYTES <= 40 << 20
+    per_row = 128 * STAGED_FRAME
+    cap = stft_matmul.gl_max_batch(128)
+    assert cap * per_row <= stft_matmul.GL_L2_BUDGET_BYTES - STAGED_LEAVES
+    assert (cap + 1) * per_row > stft_matmul.GL_L2_BUDGET_BYTES - STAGED_LEAVES
+    assert stft_matmul.GL_L2_BUDGET_BYTES <= 40 << 20
+
+
+@pytest.mark.parametrize("T", [2, 17, 47, 128, 400, 1000])
+@pytest.mark.parametrize("momentum", [0.0, 0.99])
+def test_gl_batch_cap_is_the_largest_staged_batch_in_budget(T, momentum):
+    """The staged cap at each T is the largest batch whose u planes, z
+    operands, magnitudes (and, under momentum, two bf16 previous
+    projections) fit beside the leaves."""
+    frame = STAGED_FRAME + (2 * 640 * 2 if momentum else 0)
+    room = stft_matmul.GL_L2_BUDGET_BYTES - STAGED_LEAVES
+    assert stft_matmul.gl_max_batch(T, momentum=momentum) == max(1, room // (T * frame))
 
 
 def test_gl_batch_cap_models_momentum_and_the_dense_kernel():
@@ -117,7 +138,7 @@ def test_gl_batch_cap_models_momentum_and_the_dense_kernel():
     off the budget first (16 MB at n_fft 2048)."""
     cap = stft_matmul.gl_max_batch
     budget = stft_matmul.GL_L2_BUDGET_BYTES
-    assert cap(128, momentum=0.99) * 128 * (2 * 640 * 4 + 1024 * 4 + 640 * 2 + 2 * 640 * 2) <= budget
+    assert cap(128, momentum=0.99) * 128 * (STAGED_FRAME + 2 * 640 * 2) <= budget - STAGED_LEAVES
     assert cap(128, momentum=0.99) < cap(128)
     dense = 128 * (2 * 512 * 4 + 4 + 1024 * 4 + 513 * 4)
     assert cap(128, 1024, 0.0, "dense") * dense <= budget - 4 * 1024 * 512 * 2
@@ -277,3 +298,139 @@ def test_vocoder_takes_the_fft_route_when_hop_does_not_divide_n_fft(fft_mag, mon
     inference._gl_vocode(torch.rand(2, 20, 513, generator=torch.Generator().manual_seed(0)),
                          None, cfg, False)
     assert calls == ["fft", "auto"]
+
+
+# -- the persistent kernel's decomposition (csrc/griffin_lim.cu) ---------------
+def test_inverse_leaves_are_scaled_transposes_of_the_forward_leaves():
+    """The kernel keeps only the bf16 forward leaves: the inverse leaf of
+    class c is (two / 128) times the transposed conjugate, two = 2 for the
+    mirrored classes 1-3, and that holds exactly after the bf16 rounding."""
+    ops = staged._operands(torch.device("cpu"), torch.bfloat16)
+    for g, c in enumerate(staged.KEPT):
+        (Mr, Mi), (IMr, IMi) = ops["fwd"][g], ops["inv"][g]
+        s = (2.0 if c in (1, 2, 3) else 1.0) / staged.L
+        assert torch.equal(IMr, s * Mr.t()) and torch.equal(IMi, -s * Mi.t())
+        assert torch.equal(ops["leaves"][g, 0].float(), Mr)
+        assert torch.equal(ops["leaves"][g, 1].float(), Mi)
+    assert ops["leaves"].shape == (5, 2, 128, 128) and ops["leaves"].dtype == torch.bfloat16
+
+
+def _kernel_order(mag_staged, hop, n_iter, compute_dtype, momentum=0.0):
+    """The iteration as ``csrc/griffin_lim.cu`` decomposes it: per class the
+    forward products from the forward leaves (complex classes as four real
+    products), the projection, and the inverse products from the same
+    leaves transposed and scaled; per leaf position m the inverse butterfly,
+    the overlap-add over frames padded by a K - 1 halo, the re-framing and
+    the forward butterfly into the kernel's z planes (z0, z4, z1r, z1i, z2r,
+    z2i, z3r, z3i) and u planes (u0, u1r, u1i, u2r, u2i, u3r, u3i, u4)."""
+    B, T, _ = mag_staged.shape
+    K, L = N_FFT // hop, staged.L
+    per_row, halo = hop // L, K - 1
+    ops = staged._operands(mag_staged.device, compute_dtype)
+    M = [ops["fwd"][c] for c in range(5)]
+    wsum = staged._wsum_rows(hop, T, mag_staged.device).reshape(T + K - 1, per_row, L)
+    mag = mag_staged.float()
+
+    def rnd(x):
+        return x.to(compute_dtype).float()
+
+    def u_planes(Y):  # Y[c] = (Yr, Yi), (B, T, 128) each
+        planes = [None] * 8
+        for c, (Yr, Yi) in enumerate(Y):
+            s = (2.0 if c in (1, 2, 3) else 1.0) / L
+            Mr, Mi = M[c]
+            ur = (rnd(Yr) @ Mr.t() + rnd(Yi) @ Mi.t()) * s
+            ui = (rnd(Yi) @ Mr.t() - rnd(Yr) @ Mi.t()) * s
+            if c in (0, 4):
+                planes[0 if c == 0 else 7] = ur
+            else:
+                planes[2 * c - 1], planes[2 * c] = ur, ui
+        return torch.stack(planes, dim=2)
+
+    def signal_rows(u):
+        u0, Ur1, Ui1, Ur2, Ui2, Ur3, Ui3, u4 = u.unbind(2)
+        blocks = staged._combine_inverse([(u0, None), (Ur1, Ui1), (Ur2, Ui2), (Ur3, Ui3),
+                                          (u4, None)])
+        frames = torch.stack([blocks[j] * ops["syn"][j] for j in range(8)], dim=2)
+        pad = frames.new_zeros((B, halo, 8, L))
+        fp = torch.cat([pad, frames, pad], dim=1)
+        rows = frames.new_zeros((B, T + K - 1, per_row, L))
+        for q in range(K):
+            rows = rows + fp[:, halo - q:halo - q + T + K - 1, q * per_row:(q + 1) * per_row]
+        return rows * wsum
+
+    def z_planes(rows):
+        b = [rows[:, j // per_row:j // per_row + T, j % per_row] * ops["win"][j]
+             for j in range(8)]
+        (z0, _), (z1r, z1i), (z2r, z2i), (z3r, z3i), (z4, _) = staged._combine_forward(b)
+        return [rnd(p) for p in (z0, z4, z1r, z1i, z2r, z2i, z3r, z3i)]
+
+    def spectra(z):
+        z0, z4, z1r, z1i, z2r, z2i, z3r, z3i = z
+        X = [(z0 @ M[0][0], z0 @ M[0][1])]
+        for zr, zi, (Mr, Mi) in ((z1r, z1i, M[1]), (z2r, z2i, M[2]), (z3r, z3i, M[3])):
+            X.append((zr @ Mr + (-zi) @ Mi, zr @ Mi + zi @ Mr))
+        X.append((z4 @ M[4][0], z4 @ M[4][1]))
+        return X
+
+    beta = momentum / (1.0 + momentum)
+    P = [(torch.zeros_like(mag[..., :L]),) * 2 for _ in range(5)]
+    u = u_planes([(mag[..., c * L:(c + 1) * L], torch.zeros_like(mag[..., :L]))
+                  for c in range(5)])
+    for _ in range(n_iter):
+        X = spectra(z_planes(signal_rows(u)))
+        Y = []
+        for c, (xr, xi) in enumerate(X):
+            if momentum > 0.0:
+                (pr, pi), P[c] = P[c], (rnd(xr), rnd(xi))
+                xr, xi = xr - beta * pr, xi - beta * pi
+            m = mag[..., c * L:(c + 1) * L]
+            sc = m * torch.rsqrt(xr * xr + xi * xi + 1e-12)
+            Y.append((xr * sc, xi * sc))
+        u = u_planes(Y)
+    rows = signal_rows(u)[:, K // 2:K // 2 + T - 1]
+    return rows.reshape(B, (T - 1) * hop)
+
+
+@pytest.mark.parametrize("hop", [128, 256, 512])
+@pytest.mark.parametrize("momentum", [0.0, 0.99])
+def test_kernel_decomposition_matches_the_plain_version_f32(mag, hop, momentum):
+    """In f32 the kernel's decomposition is the plain version's map with
+    sums in another order: within 1e-4 of the peak after three iterations,
+    at every hop the kernel takes, with and without momentum."""
+    ms = staged.staged_magnitudes(torch.from_numpy(mag), torch.float32)
+    want = staged.griffin_lim_staged_plain(ms, hop, 3, torch.float32, momentum)
+    got = _kernel_order(ms, hop, 3, torch.float32, momentum)
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want.numpy()) < 1e-4
+
+
+def test_kernel_decomposition_tracks_pallas_interpret_bf16(mag):
+    """With bf16 operands the decomposition tracks the TPU kernel (interpret
+    mode) as the plain version does: below 1% of the peak at three
+    iterations."""
+    want = np.asarray(jax_staged(jnp.asarray(mag), N_FFT, HOP, 3, interpret=True))
+    ms = staged.staged_magnitudes(torch.from_numpy(mag), torch.bfloat16)
+    assert _rel(_kernel_order(ms, HOP, 3, torch.bfloat16).numpy(), want) < 1e-2
+
+
+@pytest.mark.parametrize("shape, hop, match", [
+    ((4, 128, 640), 256, None),
+    ((1, 2, 640), 128, None),
+    ((2, 47, 640), 512, None),
+    ((4, 128, 513), 256, "staged magnitudes"),
+    ((4, 1, 640), 256, "staged magnitudes"),
+    ((0, 8, 640), 256, "staged magnitudes"),
+    ((4, 128, 640), 384, "hop in"),
+    ((4, 128, 640), 1024, "hop in"),
+])
+def test_staged_kernel_shape_rule(shape, hop, match):
+    reason = staged.staged_shape_reason(shape, hop)
+    assert reason is None if match is None else match in reason
+
+
+def test_staged_kernel_refuses_cpu_tensors():
+    before = (staged.KERNEL.launches, staged.MOM_KERNEL.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        staged.griffin_lim_staged_kernel(torch.zeros(1, 4, 640, dtype=torch.bfloat16), 256, 2)
+    assert (staged.KERNEL.launches, staged.MOM_KERNEL.launches) == before

@@ -306,12 +306,15 @@ def test_lstm_kernel_entries_refuse_cpu_tensors(entry):
     assert kernel.launches == before
 
 
-def test_recurrence_floor_needs_a_card():
+@pytest.mark.parametrize("floor", ["barrier", "gru_chain"])
+def test_recurrence_floor_needs_a_card(floor):
     from multi_speaker_tts_tpu_torch.ops import recurrence_floor
 
+    call = {"barrier": lambda: recurrence_floor.barrier_floor(4, 1, 64, "cpu"),
+            "gru_chain": lambda: recurrence_floor.gru_chain_floor(4, 4, 128, "cpu")}[floor]
     before = recurrence_floor.KERNEL.launches
     with pytest.raises(ValueError, match="CUDA"):
-        recurrence_floor.barrier_floor(4, 1, 64, "cpu")
+        call()
     assert recurrence_floor.KERNEL.launches == before
 
 

@@ -209,7 +209,7 @@ def test_second_step_sees_the_first_steps_weights(reference):
     layouts = [(lstm_kernel._kernel_layout, (lstm0.w_ih, lstm0.w_hh, lstm0.b)),
                (lstm_kernel._bf16, (lstm0.w_hh,)),
                (birnn_kernel._transposed_bf16, (gru.w_hh,)),
-               (birnn_kernel._gru_layout, (gru.w_hh, gru.b_hh))]
+               (birnn_kernel._f32, (gru.b_hh,))]
     before = [_build.packed(make, *ws) for make, ws in layouts]
     trainer.train_step(ref["batch"])
     for (make, ws), old in zip(layouts, before):
