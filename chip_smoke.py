@@ -302,10 +302,16 @@ def main() -> int:
     reports = _build.build([*dict.fromkeys(k.source for k in kernels.values()),
                             recurrence_floor.KERNEL.source])
     print(f"build: {len(reports)} sources compiled in {time.perf_counter() - t0:.1f} s")
+    # Registers and spills of each source's kernels, as -Xptxas -v reports them.
+    ptxas = {src: {"registers": [], "spill_bytes": 0} for src in reports}
     for src, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+            if "Used" in line and "registers" in line:
+                ptxas[src]["registers"].append(int(line.split("Used")[1].split()[0]))
+            if "spill stores" in line:
+                ptxas[src]["spill_bytes"] += int(line.split("bytes spill stores")[0].split(",")[-1])
 
     # 2. Main path -----------------------------------------------------------
     params, batch_stats, meta = load_compact(CKPT)
@@ -1190,6 +1196,35 @@ def main() -> int:
         mag_x = dsp.stft(sig, n_fft_x, hop_x).abs()
         also_dense.append(dense_case((*griffin_lim_kernel.split_magnitude(mag_x, n_fft_x),
                                       n_fft_x, hop_x, n_iter_d, 0.0)))
+    # One launch a call: the launches the kernel's library made in one call
+    # (counted there after each launch call) and the wrapper's count. The
+    # profiler's device events of the call are printed beside them: CUPTI
+    # does not see the card in every environment, so they are no gate.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kfn_dense = dense_case(dense_args)[0]
+    kfn_dense()
+    torch.cuda.synchronize()
+    lib0, wrap0 = griffin_lim_kernel.kernel_launch_count(), griffin_lim_kernel.KERNEL.launches
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        torch.ones(1, device="cuda").sum().item()
+    with profile(activities=acts) as prof:
+        kfn_dense()
+        torch.cuda.synchronize()
+    dense_launches = griffin_lim_kernel.kernel_launch_count() - lib0
+    dense_calls = griffin_lim_kernel.KERNEL.launches - wrap0
+    device_ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    profiled = sum("gl_dense_kernel" in n for n in device_ops)
+    print(f"griffin_lim_dense: one call = {dense_launches} kernel launch (library count), "
+          f"{dense_calls} (wrapper count); the profiler saw {profiled} of the kernel among "
+          f"the call's device ops {[n[:40] for n in device_ops]}")
+    if dense_launches != 1 or dense_calls != 1:
+        failures.append(f"griffin_lim_dense: {dense_launches} kernel launches ({dense_calls} "
+                        f"wrapper calls) in one call, not 1")
+    plan_d = griffin_lim_kernel.kernel_plan(Bd_, Td_, n_fft_d, hop_d)
+    rounds_d = 2 * n_iter_d + 1
     check(
         "griffin_lim_dense", "multi_speaker_tts_tpu/ops/griffin_lim_kernel.py:210",
         "multi_speaker_tts_tpu_torch/csrc/griffin_lim_dense.cu",
@@ -1200,7 +1235,15 @@ def main() -> int:
         warmup=1, reps=5, also=also_dense,
         extra=dict(gl_extra, shape=[Bd_, Td_, n_fft_d, hop_d, n_iter_d],
                    also="momentum 0.99 (pass f); n_fft 512 / hop 128 and 2048 / hop 256, "
-                        "seeded speech-like magnitudes"),
+                        "seeded speech-like magnitudes",
+                   kernel_launches_a_call=dense_launches,
+                   profiler_kernel_events_a_call=profiled, plan=plan_d, barrier_rounds=rounds_d,
+                   floor_ms=_time_ms(lambda: recurrence_floor.barrier_floor(
+                       rounds_d, 1, 1, "cuda", blocks=plan_d["blocks"]), 3, 20),
+                   ms_momentum=_time_ms(also_dense[0][0], 1, 5),
+                   ms_n_fft_512_hop_128=_time_ms(also_dense[1][0], 1, 5),
+                   ms_n_fft_2048_hop_256=_time_ms(also_dense[2][0], 1, 5),
+                   ptxas=ptxas.get("griffin_lim_dense.cu")),
     )
 
     # Decode segment, both modes: the first chunk and a mid-stream chunk of
@@ -1257,17 +1300,19 @@ def main() -> int:
 
         weights = _nbytes(bundle["w0"], bundle["w1"])
         # int8 keeps both layers' rows in shared memory for the launch; bf16
-        # keeps layer 0's (where they fit, as at this width) and re-reads
-        # layer 1's every step.
+        # keeps layer 0's and streams layer 1's every step.
         resident = mode == "int8"
         reread = 0 if resident else _nbytes(bundle["w1"])
-        rest = (_nbytes(*(v for k, v in bundle.items() if k not in ("quantized", "w0", "w1")))
+        rest = (_nbytes(*(v for k, v in bundle.items()
+                          if k not in ("quantized", "w0", "w1", "packed")))
                 + _nbytes(keys, memory, mask, args0[6], args0[7], args0[5],
                           *args0[4].h, *args0[4].c, args0[4].weights, args0[4].cum_weights,
                           args0[4].context))
         outputs = 4 * (Kd * Bd * (mel_dim * r + 1) + Kd * Bd * Sd + 4 * Bd * Hd + 2 * Bd * Sd
                        + Bd * Dd + Bd * mel_dim)
         flops = Kd * 2 * Bd * 4 * Hd * ((P2 + Dd + Hd) + (2 * Hd + Dd))
+        lay_d = decode_kernel.decode_layout(
+            Hd, torch.cuda.get_device_properties(0).multi_processor_count)
         check(
             name, "multi_speaker_tts_tpu/ops/decode_pallas.py:337",
             "multi_speaker_tts_tpu_torch/csrc/decode.cu",
@@ -1278,8 +1323,12 @@ def main() -> int:
                 "K": Kd, "B": Bd, "S": Sd, "chunks_on_main_path": len(calls),
                 "weight_bytes": weights,
                 "weights": ("read once per launch, then resident in shared memory" if resident
-                            else "layer 0 resident in shared memory, layer 1 re-read every "
-                                 "step through L2"),
+                            else "layer 0 resident in shared memory, layer 1 streamed every "
+                                 "step through L2 into registers"),
+                "barrier_rounds": 5 * Kd - 1, "blocks": lay_d["grid"], "threads": 512,
+                "floor_ms": _time_ms(lambda: recurrence_floor.barrier_floor(
+                    5 * Kd - 1, 1, 1, "cuda", blocks=lay_d["grid"], threads=512), 3, 20),
+                "ptxas": ptxas.get("decode.cu"),
                 # Beside bound_ms (every input once): the floor of this design,
                 # which reads what it re-reads once per step.
                 "reread_bytes_per_step": reread,
@@ -1288,7 +1337,8 @@ def main() -> int:
         )
         row = rows[-1]
         print(f"  {name}: {row['ms']:.3f} ms for K = {Kd} steps = {1e3 * row['ms'] / Kd:.1f} us "
-              f"per step; plain {row['plain_ms']:.2f} ms")
+              f"per step (floor {row['floor_ms']:.3f} ms: {row['barrier_rounds']} barrier rounds); "
+              f"plain {row['plain_ms']:.2f} ms")
 
     # Train phase kernels, on the inputs the last timed train step gave them:
     # the residual modes (every output against the plain version's, as a

@@ -4,10 +4,12 @@
 // beside the kernels (their rows' floor_ms).
 //
 // mstts_barrier_floor: `rounds` rounds of the persistent kernels' grid
-// barrier on a grid of 256-thread blocks, with no arithmetic and no memory
-// traffic besides the barrier's own. The grid is the recurrences' (the LSTM
-// and BiLSTM kernels, common.cuh's mstts_recurrence_grid) or, with blocks >
-// 0, that many blocks (the staged Griffin-Lim's grid, griffin_lim.cu).
+// barrier on a grid of blocks of `threads` threads (256 where it is 0),
+// with no arithmetic and no memory traffic besides the barrier's own. The
+// grid is the recurrences' (the LSTM and BiLSTM kernels, common.cuh's
+// mstts_recurrence_grid) or, with blocks > 0, that many blocks (the
+// Griffin-Lim kernels' grids, griffin_lim.cu and griffin_lim_dense.cu, and
+// the decode segment's 512-thread grid, decode.cu).
 //
 // mstts_gru_chain_floor: the BiGRU forward's (bigru.cu) grid and blocks,
 // running T steps of only its dependent chain: the recurrent product of
@@ -16,8 +18,8 @@
 // step's one __syncthreads. No input gates, no cell, no outputs.
 #include "bigru_step.cuh"
 
-__global__ void __launch_bounds__(256, 1) mstts_barrier_floor_kernel(unsigned int* bar,
-                                                                     int rounds) {
+__global__ void __launch_bounds__(1024, 1) mstts_barrier_floor_kernel(unsigned int* bar,
+                                                                      int rounds) {
   unsigned int epoch = 0;
   for (int r = 0; r < rounds; ++r) mstts_grid_barrier(bar, epoch);
 }
@@ -25,8 +27,10 @@ __global__ void __launch_bounds__(256, 1) mstts_barrier_floor_kernel(unsigned in
 // blocks_out (host) receives the grid size, so that a caller can check the
 // counter: rounds * blocks arrivals.
 MSTTS_EXPORT int mstts_barrier_floor(void* bar, int rounds, int ndir, int H, int blocks,
-                                     void* blocks_out, void* stream) {
-  if (rounds < 0 || ndir < 1 || H < 1 || blocks < 0) return (int)cudaErrorInvalidValue;
+                                     int threads, void* blocks_out, void* stream) {
+  if (rounds < 0 || ndir < 1 || H < 1 || blocks < 0 || threads < 0 || threads > 1024 ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
   int grid = blocks;
   if (grid == 0) {
     int U = 0, nblk = 0;
@@ -37,7 +41,7 @@ MSTTS_EXPORT int mstts_barrier_floor(void* bar, int rounds, int ndir, int H, int
   unsigned int* counter = static_cast<unsigned int*>(bar);
   void* params[] = {&counter, &rounds};
   MSTTS_CHECK(cudaLaunchCooperativeKernel((const void*)mstts_barrier_floor_kernel,
-                                          dim3(grid), dim3(256), params, 0,
+                                          dim3(grid), dim3(threads ? threads : 256), params, 0,
                                           static_cast<cudaStream_t>(stream)));
   MSTTS_RETURN_LAUNCH_ERROR();
 }

@@ -14,11 +14,13 @@ is f32. The stopped / lengths bookkeeping stays outside, vectorised over
 the chunk's stop logits (:func:`decoder_ar_segment_kernel`).
 
 On a CUDA tensor :func:`decode_segment` launches ``csrc/decode.cu`` (one
-persistent cooperative launch; int8 weights resident in shared memory for
-the segment, in bf16 mode layer 0's too and layer 1's re-read every step;
-see the source's header) or
-raises; on a CPU tensor it runs :func:`decode_segment_plain`, the same
-arithmetic in plain torch. The dropout masks are drawn by the wrapper from
+persistent cooperative launch, five grid-barrier rounds a step; gate
+products on tensor cores, int8 weights resident in shared memory for the
+segment, in bf16 mode layer 0's too and layer 1's streamed every step; see
+the source's header) or raises; on a CPU tensor it runs
+:func:`decode_segment_plain`, the same arithmetic in plain torch.
+:func:`pack_gate_weights` lays each block's gate rows out in the order its
+lanes read them, for the grid :func:`decode_layout` mirrors. The dropout masks are drawn by the wrapper from
 the caller's ``prenet_masks(t)`` in the plain loop's order, so the plain
 decode, the int8 plain decode and the kernel decode follow one trajectory
 under one seed.
@@ -37,13 +39,18 @@ from multi_speaker_tts_tpu_torch.ops.decoder_scan import DecoderCarry, DecoderPa
 from multi_speaker_tts_tpu_torch.ops.lstm import cell
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 
-_FUNCTIONS = {"mstts_decode_segment": [_build.P, _build.P, _build.P]}
+_FUNCTIONS = {"mstts_decode_segment": [_build.P, _build.P, _build.P],
+              "mstts_decode_layout": [_build.P, _build.P]}
 # One source, one launch count per mode.
 KERNELS = {
     "int8": _build.Kernel("decode_segment_int8", "decode.cu", _FUNCTIONS),
     "bf16": _build.Kernel("decode_segment_bf16", "decode.cu", _FUNCTIONS),
 }
 MAX_S = 256  # memory positions (the JAX package's gate)
+MAX_B = 16  # batch rows: two n-tiles of 8 in the gate products
+PRENET_BLOCKS = 4  # blocks of csrc/decode.cu that run the prenet (kPre)
+MAX_UNITS = 8  # hidden units a gate block owns: 4U gate rows in two m-tiles (kMaxMt)
+MAX_M_TILES = 2
 # The limits of csrc/decode.cu, whose own check is the last guard.
 _WIDTH = 16  # H, memory width and last prenet width in 16-element pieces
 _MAX_A = 512  # attention width: one thread per unit (kThreads)
@@ -51,10 +58,12 @@ _MAX_K = 4096  # depth of a gate product, [x, context, h]: what a block stages (
 
 
 def _shape_reason(H: int, D: int, prenet_sizes, S: int, A: int, mel_dim: int,
-                  conv_c: int) -> str | None:
+                  conv_c: int, B: int | None = None) -> str | None:
     """The one shape gate of the kernel: why it does not take these widths,
     or None."""
     P1, P2 = prenet_sizes
+    if B is not None and B > MAX_B:
+        return f"needs at most {MAX_B} batch rows (two n-tiles of 8), got {B}"
     if H % _WIDTH or D % _WIDTH or P2 % _WIDTH:
         return (f"needs H, memory and prenet widths in multiples of {_WIDTH}: "
                 f"{H}, {D}, {P2}")
@@ -86,6 +95,44 @@ def unsupported_reason(p: DecoderParams, prenet_sizes, memory_dim: int, S: int,
 def supported(p: DecoderParams, prenet_sizes, memory_dim: int, S: int,
               mel_dim: int) -> bool:
     return unsupported_reason(p, prenet_sizes, memory_dim, S, mel_dim) is None
+
+
+def decode_layout(H: int, n_sm: int) -> dict:
+    """The kernel's grid (``make_layout`` in ``csrc/decode.cu``): U units a
+    gate block, ``nblk`` gate blocks, PRENET_BLOCKS prenet blocks, and the
+    m-tiles of a block's 4U gate rows."""
+    U = -(-H // (n_sm - PRENET_BLOCKS))
+    nblk = -(-H // U)
+    return {"U": U, "nblk": nblk, "grid": nblk + PRENET_BLOCKS, "mt": -(-4 * U // 16)}
+
+
+def gate_rows(H: int, U: int, nblk: int, mt: int) -> torch.Tensor:
+    """(nblk, 16 mt) indices into the 4H gate columns, -1 for a pad row:
+    block j's local row r = g U + u is gate g of unit j U + u."""
+    r = torch.arange(16 * mt)
+    g, u = r // U, r % U
+    unit = torch.arange(nblk)[:, None] * U + u[None]
+    ok = (g[None] < 4) & (unit < H)
+    return torch.where(ok, g[None] * H + unit, torch.full_like(unit, -1))
+
+
+def pack_gate_weights(w: torch.Tensor, H: int, U: int, nblk: int, mt: int) -> torch.Tensor:
+    """(4H, K) gate rows (int8, or bf16) -> the kernel's bytes (nblk, mt,
+    windows, 2, 32, 16): a window is 64 int8 or 32 bf16 values of k, depth
+    zero-padded to whole windows; lane 4 g + t of half h holds the 16 bytes
+    of k at t x 16 bytes of row 16 m + g + 8 h (:func:`gate_rows`), pad rows
+    zero."""
+    esize = w.element_size()
+    per = 16 // esize  # values a lane's 16 bytes
+    win = 4 * per
+    K = w.shape[1]
+    Kp = -(-K // win) * win
+    idx = gate_rows(H, U, nblk, mt).to(w.device)
+    rows = torch.nn.functional.pad(w.view(torch.int16) if esize == 2 else w, (0, Kp - K))
+    rows = torch.where((idx >= 0)[..., None], rows[idx.clamp(min=0)], torch.zeros_like(rows[:1]))
+    # (nblk, mt, h, g, window, t, per) -> (nblk, mt, window, h, g, t, per)
+    rows = rows.reshape(nblk, mt, 2, 8, Kp // win, 4, per).permute(0, 1, 4, 2, 3, 5, 6)
+    return rows.contiguous().view(torch.uint8).reshape(nblk, mt, Kp // win, 2, 32, 16)
 
 
 def _bundle(quantize: bool, ws) -> dict:
@@ -192,7 +239,7 @@ def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
     P1, P2 = bundle["wp1"].shape[0], bundle["wp2"].shape[0]
     conv_k, _, conv_c = bundle["ck"].shape
     n_out = mel_dim * r + 1
-    reason = _shape_reason(H, D, (P1, P2), S, A, mel_dim, conv_c)
+    reason = _shape_reason(H, D, (P1, P2), S, A, mel_dim, conv_c, B)
     if reason is not None:
         raise ValueError(f"decode kernel {reason}")
     if bundle["wproj"].shape != (n_out, H + D) or bundle["wp1"].shape[1] != mel_dim:
@@ -212,16 +259,27 @@ def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
             raise ValueError("decode kernel: dropout masks must be (K, B, P1) and (K, B, P2)")
     dev = keys.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = decode_layout(H, n_sm)
+    if lay["mt"] > MAX_M_TILES:
+        raise ValueError(f"decode kernel needs at most {4 * MAX_UNITS} gate rows a block: H <= "
+                         f"{MAX_UNITS} x (SMs - {PRENET_BLOCKS}) = {MAX_UNITS * (n_sm - PRENET_BLOCKS)}"
+                         f" on this card, got H={H}")
+    packed = bundle.setdefault("packed", {})
+    key = (lay["U"], lay["nblk"], lay["mt"], dev)
+    if key not in packed:
+        packed[key] = tuple(pack_gate_weights(bundle[f"w{i}"], H, lay["U"], lay["nblk"], lay["mt"])
+                            for i in range(2))
+    w0p, w1p = packed[key]
     sizes = [K * B * n_out, K * B * S, B * H, B * H, B * H, B * H, B * S, B * S, B * D,
-             B * mel_dim,  # the outputs, then the scratch (see mstts_decode_segment)
-             4 * B * H + B * (D + P1 + P2) + n_sm * B * A]
+             B * mel_dim,  # the outputs, then the scratch (see mstts_decode_segment):
+             4 * B * H + B * (D + P2) + 4 * B * A]  # h0, h1 x 2, ctx, a2, 64-bit query sums
     # One allocation, every piece 16-byte aligned.
     padded = [-(-n // 4) * 4 for n in sizes]
     flat = torch.empty(sum(padded), dtype=torch.float32, device=dev)
     (ys, aligns, h0, c0, h1, c1, w, cum, ctx, prev_out, scratch) = (
         piece[:n] for piece, n in zip(flat.split(padded), sizes))
     bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    ptrs = [bundle[k].data_ptr() for k in _WEIGHT_KEYS]
+    ptrs = [w0p.data_ptr(), w1p.data_ptr()] + [bundle[k].data_ptr() for k in _WEIGHT_KEYS[2:]]
     ptrs += [keys.data_ptr(), memory.data_ptr(), mask.data_ptr(),
              0 if m1 is None else m1.data_ptr(), 0 if m2 is None else m2.data_ptr()]
     ptrs += [t.data_ptr() for t in state]

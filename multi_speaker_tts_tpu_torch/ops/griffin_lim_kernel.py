@@ -21,14 +21,19 @@ cropped signal):
 - n_iter + 1 inverses, then a centred crop of k/2 rows.
 
 The TPU kernel keeps the spectra and the matrices in VMEM for all
-iterations; ``csrc/griffin_lim_dense.cu`` keeps the spectra and frames in
-device memory (L2-resident at serving sizes), reads the bf16 matrices
-through L2 and runs two tiled launches an iteration (see the source).
+iterations; ``csrc/griffin_lim_dense.cu`` runs the whole call as one
+cooperative launch of two phases an iteration: an inverse phase whose units
+own a column slice of [Vr; Vi] (resident in shared memory where it fits)
+and overlap-add their frames into signal rows, and a forward phase whose
+units read a slab of those rows in place against 32 bins of [Wr | Wi] (see
+the source). :func:`pack_inverse` / :func:`pack_forward` lay the matrices
+out for it, :func:`dense_plan` mirrors its tiling.
 :func:`griffin_lim_dense_plain` is the same iteration in plain torch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -39,12 +44,25 @@ from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 from multi_speaker_tts_tpu_torch.ops.stft_matmul import _dft_matrices, _hann, _idft_matrices
 
 LANE = 128
-# The kernel holds a 16-frame tile of [re | im] (or of the frames) in shared
-# memory as bf16: n_fft 2048 is the widest that fits.
+# The widest transform the kernel takes: its ring and slab sizes assume it.
 DENSE_MAX_N_FFT = 2048
 KERNEL = _build.Kernel("griffin_lim_dense", "griffin_lim_dense.cu", {
-    "mstts_gl_dense": [_build.P] * 15 + [_build.I] * 5 + [_build.F, _build.P],
+    "mstts_gl_dense": [_build.P] * 10 + [_build.I] * 6 + [_build.F, _build.P],
+    "mstts_gl_dense_plan": [_build.I] * 5 + [_build.P],
+    "mstts_gl_dense_launch_count": [_build.P],
 })
+# csrc/griffin_lim_dense.cu's tile constants.
+TILE_N = 64  # columns of a block tile (both phases)
+TILE_K = 128  # k-slice of a ring stage
+RING_STAGES = 3  # forward ring
+RING_STAGES_INV = 4  # inverse ring
+MAX_M = 128  # rows of an inverse tile
+MAX_F = 64  # frames of a forward tile
+BINS = TILE_N // 2  # bins of a forward unit
+H100_SMS = 132
+H100_SMEM = 232448  # bytes a block can opt in to
+PLAN_KEYS = ("k", "cs", "n_cs", "n_bs", "nr", "resident", "blocks", "rt", "m_out", "ft", "mf",
+             "smem", "scratch")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -113,6 +131,164 @@ def _wsum_tensor(n_fft: int, hop: int, T: int, device: torch.device) -> torch.Te
     return torch.from_numpy(_wsum_rows(n_fft, hop, T, rows_pad)).to(device)
 
 
+def inverse_columns(n_fft: int, hop: int) -> np.ndarray:
+    """The kernel's inverse column slices: (n_cs, 64) indices into the
+    n_fft synthesis columns of [Vr; Vi], -1 for a zero pad column. Slice s
+    takes hop-columns s cs .. s cs + cs - 1 at every frame offset q: local
+    column q cs + c is synthesis column q hop + s cs + c, all that the
+    overlap-add of a signal row needs. cs is the largest power of two up to
+    32 with k cs <= 64."""
+    k = n_fft // hop
+    cs = 32
+    while k * cs > TILE_N:
+        cs //= 2
+    cols = np.full((hop // cs, TILE_N), -1, np.int64)
+    for s in range(hop // cs):
+        for q in range(k):
+            cols[s, q * cs:(q + 1) * cs] = q * hop + s * cs + np.arange(cs)
+    return cols
+
+
+def forward_columns(n_fft: int) -> np.ndarray:
+    """The kernel's forward column groups: (n_fft/2 / 32, 64) indices into
+    the 2 Fp columns of [Wr | Wi]. Group g, pair p: local columns 16 p ..
+    16 p + 7 are Wr of bins 32 g + 8 p .. + 7, the next eight Wi of the same
+    bins, so each warp's accumulators hold re and im of one bin."""
+    Fp = n_fft // 2
+    j = np.arange(TILE_N)
+    p, w = j // 16, j % 16
+    bins = np.arange(Fp // BINS)[:, None] * BINS + 8 * p[None] + w[None] % 8
+    return np.where(w[None] < 8, bins, Fp + bins)
+
+
+def core_matrices(cols: torch.Tensor) -> torch.Tensor:
+    """(..., 64, K) columns with their k values -> (..., 8, K / 8, 8, 8): core
+    matrices of 8 columns x 8 k (128 bytes in bf16), the 8 k of a column
+    contiguous, the layout the kernel's wgmma reads without swizzle."""
+    *lead, n, k = cols.shape
+    return cols.reshape(*lead, n // 8, 8, k // 8, 8).transpose(-3, -2).contiguous()
+
+
+def pack_inverse(vcat: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """[Vr; Vi] (2 Fp, n_fft) -> (n_cs, 8, 2 Fp / 8, 8, 8): each slice's 64
+    columns (:func:`inverse_columns`, pad columns zero) as core matrices."""
+    cols = torch.from_numpy(inverse_columns(n_fft, hop)).to(vcat.device)
+    packed = vcat.t()[cols.clamp(min=0)]
+    return core_matrices(torch.where((cols >= 0)[..., None], packed, torch.zeros_like(packed)))
+
+
+def pack_forward(wcat: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """[Wr | Wi] (n_fft, 2 Fp) -> (Fp / 32, 8, n_fft / 8, 8, 8): each bin
+    group's 64 columns (:func:`forward_columns`) as core matrices."""
+    cols = torch.from_numpy(forward_columns(n_fft)).to(wcat.device)
+    return core_matrices(wcat.t()[cols])
+
+
+@functools.lru_cache(maxsize=8)
+def _packed(n_fft: int, hop: int, device: torch.device):
+    ops, _ = _operands(n_fft, hop, device, torch.bfloat16)
+    return (pack_inverse(ops["vcat"], n_fft, hop), pack_forward(ops["wcat"], n_fft),
+            ops["wny"].reshape(-1).contiguous(), ops["vny"].reshape(-1).contiguous())
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align256(x: int) -> int:
+    return _round_up(x, 256)
+
+
+def dense_scratch_bytes(B: int, T: int, n_fft: int, hop: int, momentum: bool) -> int:
+    """Device scratch of one kernel call: spectra (B, T, n_fft) bf16, signal
+    rows (B, T + k - 1, hop) f32 and bf16, Nyquist values (B, T) f32, and
+    under momentum two (B, T, n_fft/2) and one (B, T) f32 carries; each
+    piece 256-byte aligned."""
+    bt, rows = B * T, B * (T + n_fft // hop - 1) * hop
+    s = _align256(2 * bt * n_fft) + _align256(4 * rows) + _align256(2 * rows) + _align256(4 * bt)
+    if momentum:
+        s += 2 * _align256(4 * bt * (n_fft // 2)) + _align256(4 * bt)
+    return s
+
+
+def dense_plan(B: int, T: int, n_fft: int, hop: int, momentum: bool = False,
+               n_sm: int = H100_SMS, max_smem: int = H100_SMEM) -> dict:
+    """The kernel's tiling (``make_plan`` in ``csrc/griffin_lim_dense.cu``,
+    step for step): the column slices, whether the inverse slice stays in
+    shared memory, the block count, the inverse row tiles and the forward
+    frame tiles, the shared memory and the scratch a call takes."""
+    k = n_fft // hop
+    cs = 32
+    while k * cs > TILE_N:
+        cs //= 2
+    p = {"k": k, "cs": cs, "n_cs": hop // cs, "n_bs": n_fft // 2 // BINS, "nr": T + k - 1}
+    small = 4 * (MAX_M + TILE_N) + 8 * 8  # + the rings' eight mbarriers
+
+    stage_b = 2 * TILE_N * TILE_K  # a ring stage of a matrix slice, core matrices
+
+    def inverse_bytes(rows, resident):
+        ring = 2 * RING_STAGES_INV * rows * TILE_K + (0 if resident else RING_STAGES_INV * stage_b)
+        return max(ring, 4 * rows * (TILE_N + 4)) + 4 * rows * cs
+
+    def forward_bytes(mf):
+        return RING_STAGES * stage_b + 2 * _round_up(mf + k - 1, 8) * hop
+
+    for resident in (1, 0):
+        base = 2 * TILE_N * n_fft if resident else 0
+        avail = max_smem - base - small
+        m_cap = next((m for m in range(MAX_M, 15, -16) if inverse_bytes(m, resident) <= avail), 0)
+        mf_cap = next((m for m in range(MAX_F, 15, -16) if forward_bytes(m) <= avail), 0)
+        p["resident"] = resident
+        if m_cap >= k + 1 and mf_cap:
+            break
+    if m_cap < k + 1 or mf_cap == 0 or n_sm < p["n_cs"]:
+        raise ValueError(f"no tiling of the dense kernel fits n_fft={n_fft}, hop={hop}")
+    blocks = n_sm // p["n_cs"] * p["n_cs"]
+    bpc = blocks // p["n_cs"]
+    best = None
+    for rt in range(_ceil_div(p["nr"], m_cap - k + 1), p["nr"] + 1):
+        m_out = _ceil_div(p["nr"], rt)
+        if _ceil_div(p["nr"], m_out) != rt:
+            continue
+        cost = _ceil_div(B * rt, bpc) * _ceil_div(m_out + k - 1, 16)
+        if best is None or cost < best:
+            best, p["rt"], p["m_out"] = cost, rt, m_out
+    best = None
+    for ft in range(_ceil_div(T, mf_cap), T + 1):
+        mf = _ceil_div(T, ft)
+        if _ceil_div(T, mf) != ft or _round_up(mf, 16) > mf_cap:
+            continue
+        cost = (_ceil_div(B * ft * p["n_bs"], blocks)
+                * (TILE_N * n_fft * 2 + (mf + k - 1) * hop * 2))
+        if best is None or cost < best:
+            best, p["ft"], p["mf"] = cost, ft, mf
+    units = max(B * p["rt"] * p["n_cs"], B * p["ft"] * p["n_bs"])
+    p["blocks"] = min(blocks, _round_up(units, p["n_cs"]))
+    p["smem"] = base + max(inverse_bytes(_round_up(p["m_out"] + k - 1, 16), p["resident"]),
+                           forward_bytes(_round_up(p["mf"], 16))) + small
+    p["scratch"] = dense_scratch_bytes(B, T, n_fft, hop, momentum)
+    return {key: p[key] for key in PLAN_KEYS}
+
+
+def kernel_plan(B: int, T: int, n_fft: int, hop: int, momentum: bool = False) -> dict:
+    """The plan the kernel computes for this card (``mstts_gl_dense_plan``)."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    lib = KERNEL.lib()
+    err = lib.mstts_gl_dense_plan(B, T, n_fft, hop, int(momentum), ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"mstts_gl_dense_plan failed: {lib.mstts_error_string(err).decode()}")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def kernel_launch_count() -> int:
+    """The kernel launches ``csrc/griffin_lim_dense.cu`` has made since its
+    library was loaded, counted in the library after each launch call (one a
+    ``griffin_lim_dense_kernel`` call)."""
+    out = ctypes.c_longlong()
+    KERNEL.lib().mstts_gl_dense_launch_count(ctypes.addressof(out))
+    return out.value
+
+
 def split_magnitude(magnitude: torch.Tensor, n_fft: int):
     """(B, T, n_fft/2 + 1) -> bins 0 .. n_fft/2 - 1 zero-padded to Fp
     (B, T, Fp) and the Nyquist bin (B, T, 1), f32."""
@@ -168,31 +344,26 @@ def griffin_lim_dense_plain(mag_p: torch.Tensor, mag_ny: torch.Tensor, n_fft: in
 def griffin_lim_dense_kernel(mag_p: torch.Tensor, mag_ny: torch.Tensor, n_fft: int,
                              hop: int, n_iter: int, momentum: float = 0.0) -> torch.Tensor:
     """Launch ``csrc/griffin_lim_dense.cu`` on CUDA f32 magnitudes (bf16
-    products)."""
+    products): one cooperative launch a call."""
     _build.require_cuda(mag_p, torch.float32, "mag_p")
     _build.require_cuda(mag_ny, torch.float32, "mag_ny")
     B, T, Fp = mag_p.shape
-    if hop % 128 or n_fft > DENSE_MAX_N_FFT or Fp != n_fft // 2 or T < 2:
+    if (hop % 128 or n_fft > DENSE_MAX_N_FFT or n_fft % 256 or Fp != n_fft // 2 or T < 2
+            or mag_ny.numel() != B * T):
         raise ValueError(f"the dense Griffin-Lim kernel takes a 128-multiple hop, n_fft <= "
-                         f"{DENSE_MAX_N_FFT} and T >= 2 (got n_fft={n_fft}, hop={hop}, T={T})")
+                         f"{DENSE_MAX_N_FFT} in multiples of 256 and T >= 2 (got n_fft={n_fft}, "
+                         f"hop={hop}, T={T})")
     dev = mag_p.device
-    ops, _ = _operands(n_fft, hop, dev, torch.bfloat16)
+    vpack, wpack, wny, vny = _packed(n_fft, hop, dev)
     wsum = _wsum_tensor(n_fft, hop, T, dev)
-    re, im, rny = mag_p.clone(), torch.zeros_like(mag_p), mag_ny.reshape(B, T).clone()
-    pre = pim = prny = None
-    if momentum > 0.0:
-        pre, pim, prny = torch.zeros_like(mag_p), torch.zeros_like(mag_p), torch.zeros_like(rny)
-    frames = torch.empty((B, T, n_fft), dtype=torch.float32, device=dev)
+    scratch = torch.empty(dense_scratch_bytes(B, T, n_fft, hop, momentum > 0.0),
+                          dtype=torch.uint8, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty((B, (T - 1) * hop), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     KERNEL.call(
-        "mstts_gl_dense", mag_p.data_ptr(), mag_ny.data_ptr(), ops["wcat"].data_ptr(),
-        ops["vcat"].data_ptr(), ops["wny"].data_ptr(), ops["vny"].data_ptr(), wsum.data_ptr(),
-        re.data_ptr(), im.data_ptr(), rny.data_ptr(), ptr(pre), ptr(pim), ptr(prny),
-        frames.data_ptr(), out.data_ptr(), B, T, n_fft, hop, n_iter,
+        "mstts_gl_dense", mag_p.data_ptr(), mag_ny.data_ptr(), vpack.data_ptr(),
+        wpack.data_ptr(), wny.data_ptr(), vny.data_ptr(), wsum.data_ptr(), scratch.data_ptr(),
+        bar.data_ptr(), out.data_ptr(), B, T, n_fft, hop, n_iter, int(momentum > 0.0),
         momentum / (1.0 + momentum), _build.stream_ptr(mag_p),
     )
     return out

@@ -1,9 +1,10 @@
 """Sequential floors of the recurrent kernels (``csrc/barrier_floor.cu``).
 
 :func:`barrier_floor` launches a grid of 256-thread blocks, the LSTM and
-BiLSTM kernels' (``lstm_persistent.cuh``, ``lstm_bwd.cuh``) or an explicit
-block count (the staged Griffin-Lim's, ``griffin_lim.cu``), and runs only
-their grid barrier, ``rounds`` times: the least time that many dependent
+BiLSTM kernels' (``lstm_persistent.cuh``, ``lstm_bwd.cuh``), or an explicit
+block count and block size (the Griffin-Lim kernels', ``griffin_lim.cu`` and
+``griffin_lim_dense.cu``; the decode segment's 512-thread blocks,
+``decode.cu``), and runs only their grid barrier, ``rounds`` times: the least time that many dependent
 rounds can take on the card with that design, whatever the arithmetic of a
 round. :func:`gru_chain_floor` runs the BiGRU forward's grid and blocks
 (``bigru.cu``) through T steps of only its dependent chain: the recurrent
@@ -24,7 +25,7 @@ import torch
 from multi_speaker_tts_tpu_torch.ops import _build
 
 KERNEL = _build.Kernel("barrier_floor", "barrier_floor.cu", {
-    "mstts_barrier_floor": [_build.P] + [_build.I] * 4 + [_build.P, _build.P],
+    "mstts_barrier_floor": [_build.P] + [_build.I] * 5 + [_build.P, _build.P],
     "mstts_gru_chain_floor": [_build.P] + [_build.I] * 3 + [_build.P, _build.P],
 })
 
@@ -36,16 +37,17 @@ def _cuda(device) -> torch.device:
     return device
 
 
-def barrier_floor(rounds: int, ndir: int, hidden: int, device, blocks: int = 0):
+def barrier_floor(rounds: int, ndir: int, hidden: int, device, blocks: int = 0,
+                  threads: int = 256):
     """Launch ``rounds`` grid barriers on a CUDA ``device``: on the grid of
     an ``ndir``-direction recurrence of ``hidden`` units, or on ``blocks``
-    blocks when that is > 0. Returns the grid's block count and the
-    barrier's arrival counter, which holds ``rounds * blocks`` once the
-    launch has run."""
+    blocks when that is > 0, of ``threads`` threads a block. Returns the
+    grid's block count and the barrier's arrival counter, which holds
+    ``rounds * blocks`` once the launch has run."""
     device = _cuda(device)
     bar = torch.zeros(1, dtype=torch.int32, device=device)
     grid = ctypes.c_int(0)
-    KERNEL.call("mstts_barrier_floor", bar.data_ptr(), rounds, ndir, hidden, blocks,
+    KERNEL.call("mstts_barrier_floor", bar.data_ptr(), rounds, ndir, hidden, blocks, threads,
                 ctypes.addressof(grid), torch.cuda.current_stream(device).cuda_stream)
     return grid.value, bar
 

@@ -144,20 +144,32 @@ def test_griffin_lim_kernel_momentum(dev, B, T):
     assert torch.equal(plain, gl.griffin_lim_staged_kernel(ms, 256, 8, 0.0))
 
 
+# The edges of the one-launch design: n_fft 512 / 2048 (the 2048 slices
+# stream through the ring instead of staying resident), T not a multiple of
+# the inverse and forward tiles (47, 130), a batch above one tile of rows
+# (B 6 at T 128: the inverse units of several utterances share a column
+# slice's blocks), hop 1024 (k = 2) and k = 16 (hop 128 at n_fft 2048).
+DENSE_CASES = [(2, 47), (2, 128), (6, 128), (3, 130)]
+
+
 @pytest.mark.parametrize("momentum", [0.0, 0.99])
-@pytest.mark.parametrize("T", [47, 128])
-@pytest.mark.parametrize("n_fft, hop", [(512, 128), (1024, 256), (2048, 256)])
-def test_griffin_lim_dense_kernel(dev, n_fft, hop, T, momentum):
+@pytest.mark.parametrize("B, T", DENSE_CASES)
+@pytest.mark.parametrize("n_fft, hop", [(512, 128), (1024, 256), (2048, 256), (2048, 1024),
+                                        (2048, 128)])
+def test_griffin_lim_dense_kernel(dev, n_fft, hop, B, T, momentum):
     from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
 
     rng = np.random.default_rng(n_fft + T)
-    mag = torch.from_numpy(rng.random((2, T, n_fft // 2 + 1)).astype(np.float32) ** 2).to(dev)
+    mag = torch.from_numpy(rng.random((B, T, n_fft // 2 + 1)).astype(np.float32) ** 2).to(dev)
     before = gk.KERNEL.launches
     got = gk.griffin_lim_dense(mag, n_fft, hop, 4, momentum=momentum)
-    assert gk.KERNEL.launches == before + 1
+    again = gk.griffin_lim_dense(mag, n_fft, hop, 4, momentum=momentum)
+    torch.cuda.synchronize()
+    assert gk.KERNEL.launches == before + 2
+    assert torch.equal(got, again)  # sums in a fixed order: the same input, the same output
     want = gk.griffin_lim_dense_plain(*gk.split_magnitude(mag, n_fft), n_fft, hop, 4,
                                       torch.bfloat16, momentum)
-    assert got.shape == want.shape == (2, hop * (T - 1))
+    assert got.shape == want.shape == (B, hop * (T - 1))
     # bf16 operands, f32 sums in another order, and an iteration that
     # amplifies the operand roundings they flip. The probe: the plain version
     # run on the CPU, the same arithmetic with its f32 sums in yet another
@@ -174,6 +186,36 @@ def test_griffin_lim_dense_kernel(dev, n_fft, hop, T, momentum):
 
     assert (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item() <= 2e-2
     assert peak_rel(got) <= max(2e-2, 4 * peak_rel(probe)), (peak_rel(got), peak_rel(probe))
+
+
+@pytest.mark.parametrize("B, T, n_fft, hop", [(4, 128, 1024, 256), (4, 128, 512, 128),
+                                              (4, 128, 2048, 256), (32, 128, 1024, 256),
+                                              (1, 1000, 1024, 256), (2, 2, 768, 128)])
+def test_griffin_lim_dense_kernel_plan_is_the_mirrored_one(dev, B, T, n_fft, hop):
+    """The tiling the kernel computes on this card is dense_plan's."""
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
+
+    props = torch.cuda.get_device_properties(dev)
+    smem = props.shared_memory_per_block_optin
+    for momentum in (False, True):
+        assert gk.kernel_plan(B, T, n_fft, hop, momentum) == gk.dense_plan(
+            B, T, n_fft, hop, momentum, props.multi_processor_count, smem)
+
+
+def test_griffin_lim_dense_kernel_is_one_launch_a_call(dev):
+    """Every iteration runs inside one cooperative launch: the kernel's
+    library counts one launch a call, plain and momentum, and the wrapper
+    one call."""
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
+
+    rng = np.random.default_rng(3)
+    mag = torch.from_numpy(rng.random((2, 40, 513)).astype(np.float32)).to(dev)
+    mp, mny = gk.split_magnitude(mag, 1024)
+    for momentum in (0.0, 0.99):
+        before = (gk.kernel_launch_count(), gk.KERNEL.launches)
+        gk.griffin_lim_dense_kernel(mp, mny, 1024, 256, 8, momentum)
+        torch.cuda.synchronize()
+        assert (gk.kernel_launch_count(), gk.KERNEL.launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_griffin_lim_auto_routes_on_the_card(dev, monkeypatch):
@@ -390,21 +432,35 @@ def _decoder(rng, dev, H, D, P, A, mel, r, conv_k=31, conv_c=32, scale=0.02):
     return p, prenet
 
 
+# B, S, A, D, H, P, mel, r, K: the production widths; a small decoder; the
+# edges of the redesign: one batch row, B 8 at K 16 (one full n-tile of the
+# gate products, eight attention groups of eight blocks), the longest memory
+# (S 256) with the widest attention (A 512) at the small demo checkpoint's
+# width (H 256, D 256), and B 16 (two n-tiles).
+DECODE_SHAPES = {
+    "full": (4, 48, 128, 768, 1024, 256, 80, 2, 10),
+    "small": (3, 24, 64, 128, 128, 128, 16, 2, 8),
+    "b1": (1, 48, 128, 768, 1024, 256, 80, 2, 10),
+    "b8_k16": (8, 48, 128, 768, 1024, 256, 80, 2, 16),
+    "s256_a512_w256": (2, 256, 512, 256, 256, 128, 80, 2, 6),
+    "b16": (16, 32, 128, 256, 256, 128, 80, 2, 4),
+}
+
+
 @pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
-@pytest.mark.parametrize("shape", ["full", "small"])
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
 def test_decode_segment_kernel(dev, quantize, shape, monkeypatch):
     from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
     from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
 
-    B, S, A, D, H, P, mel, r, K = ((4, 48, 128, 768, 1024, 256, 80, 2, 10) if shape == "full"
-                                   else (3, 24, 64, 128, 128, 128, 16, 2, 8))
+    B, S, A, D, H, P, mel, r, K = DECODE_SHAPES[shape]
     rng = np.random.default_rng(5)
     p, prenet = _decoder(rng, dev, H, D, P, A, mel, r)
     bundle = dk.prepare_bundle(p, prenet, quantize=quantize)
     assert dk.prepare_bundle(p, prenet, quantize=quantize) is bundle  # packed once
     t = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).to(dev)  # noqa: E731
     keys, memory = t(B, S, A), t(B, S, D)
-    lens = torch.tensor([S, S - 5, 7, S][:B], device=dev)
+    lens = torch.tensor(([S, S - 5, 7, S] * 4)[:B], device=dev)
     mask = (torch.arange(S, device=dev)[None] < lens[:, None]).float()
     keep = [torch.from_numpy(rng.random((K, B, P)) < 0.5).to(dev).float() / 0.5 for _ in range(2)]
     carry = dscan.initial_carry(B, memory, 2, H)
@@ -413,8 +469,14 @@ def test_decode_segment_kernel(dev, quantize, shape, monkeypatch):
     for _ in range(2):  # from the zero state, then from the kernel's own carry
         before = kernel.launches
         got = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        again = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert kernel.launches == before + 2
+        # The query's sums are exact (64-bit fixed point), every other sum in
+        # a fixed order: the same inputs give the same outputs, bit for bit.
+        assert all(torch.equal(x, y) for x, y in zip(got[1:], again[1:]))
+        assert all(torch.equal(x, y) for x, y in zip((*got[0].h, *got[0].c, got[0].context),
+                                                     (*again[0].h, *again[0].c, again[0].context)))
         want = dk.decode_segment_plain(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
         # f32 sums in another order flip a few int8 / bf16 operand roundings,
         # which the feedback compounds over K steps (frames and stops 1e-2,
@@ -451,6 +513,39 @@ def test_decode_kernel_raises_on_unsupported_shapes(dev):
         dk.decode_segment(bundle, torch.zeros(2, 24, 64, device=dev), memory,
                           torch.ones(2, 24, device=dev), dscan.initial_carry(2, memory, 2, 128),
                           torch.zeros(2, 16, device=dev), None, None, 4, 16, 2)
+    # More batch rows than two n-tiles of the gate products.
+    p, prenet = _decoder(rng, dev, 128, 128, 128, 64, 16, 2)
+    bundle = dk.prepare_bundle(p, prenet)
+    memory = torch.zeros(17, 24, 128, device=dev)
+    with pytest.raises(ValueError, match="batch rows"):
+        dk.decode_segment(bundle, torch.zeros(17, 24, 64, device=dev), memory,
+                          torch.ones(17, 24, device=dev), dscan.initial_carry(17, memory, 2, 128),
+                          torch.zeros(17, 16, device=dev), None, None, 4, 16, 2)
+    # More units a block than its two m-tiles of gate rows hold.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    H = 16 * (-(-(dk.MAX_UNITS * (n_sm - dk.PRENET_BLOCKS) + 1) // 16))
+    p, prenet = _decoder(rng, dev, H, 128, 128, 64, 16, 2)
+    bundle = dk.prepare_bundle(p, prenet)
+    memory = torch.zeros(2, 24, 128, device=dev)
+    with pytest.raises(ValueError, match="gate rows a block"):
+        dk.decode_segment(bundle, torch.zeros(2, 24, 64, device=dev), memory,
+                          torch.ones(2, 24, device=dev), dscan.initial_carry(2, memory, 2, H),
+                          torch.zeros(2, 16, device=dev), None, None, 4, 16, 2)
+
+
+@pytest.mark.parametrize("H", [128, 256, 1024])
+def test_decode_kernel_layout_is_the_mirrored_one(dev, H):
+    """The grid the kernel computes on this card is decode_layout's."""
+    import ctypes
+
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    dims = (ctypes.c_int * 13)(10, 4, 48, 128, 768, H, 256, 256, 80, 2, 31, 32, 1)
+    out = (ctypes.c_int * 8)()
+    assert dk.KERNELS["int8"].lib().mstts_decode_layout(dims, ctypes.addressof(out)) == 0
+    want = dk.decode_layout(H, n_sm)
+    assert list(out)[:3] == [want["U"], want["nblk"], want["grid"]] and out[4] == want["mt"]
 
 
 @pytest.mark.parametrize("early_exit", [True, False])
@@ -585,6 +680,21 @@ def test_bilstm_residual_mode_and_backward_kernel(dev, B, S, H):
     assert birnn_kernel.BWD_KERNEL.launches == before + 1
     for a, b in zip(dG, birnn_kernel.bilstm_bwd_plain(*args)):
         assert _rel_peak(a, b) <= 1e-2
+
+
+@pytest.mark.parametrize("threads", [256, 512])
+def test_barrier_floor_kernel_at_a_block_size(dev, threads):
+    """The floor of the decode segment's grid (512-thread blocks, one an
+    SM) and of the dense Griffin-Lim's (256): one arrival a block a round."""
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import recurrence_floor
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = dk.decode_layout(1024, sms)["grid"]
+    blocks, bar = recurrence_floor.barrier_floor(49, 1, 1, dev, blocks=want, threads=threads)
+    torch.cuda.synchronize()
+    assert blocks == want <= sms
+    assert bar.item() == 49 * blocks
 
 
 @pytest.mark.parametrize("ndir, H", [(1, 768), (2, 256), ("gl", 128)])

@@ -404,3 +404,53 @@ def test_cpu_segment_never_counts_a_launch(setup):
     _port(t, _jax_state0(j), 0, k=2)
     _port(t, _jax_state0(j), 0, k=2, quantize=False)
     assert {m: k.launches for m, k in dk.KERNELS.items()} == before
+
+
+# The kernel's host-side layout: the grid ops/decode_kernel.py mirrors from
+# csrc/decode.cu and the packed gate rows.
+@pytest.mark.parametrize("H, n_sm, want", [
+    (1024, 132, {"U": 8, "nblk": 128, "grid": 132, "mt": 2}),  # production decoder, H100
+    (256, 132, {"U": 2, "nblk": 128, "grid": 132, "mt": 1}),   # the small demo checkpoint
+    (128, 132, {"U": 1, "nblk": 128, "grid": 132, "mt": 1}),
+    (1024, 114, {"U": 10, "nblk": 103, "grid": 107, "mt": 3}),  # too wide for two m-tiles
+])
+def test_decode_layout(H, n_sm, want):
+    assert dk.decode_layout(H, n_sm) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("H, K", [(1024, 2048), (1024, 2816), (128, 384), (256, 600)])
+def test_gate_weight_packing_unpacks_exactly(dtype, H, K):
+    """Each block's 4U gate rows, depth padded to whole windows, lane by
+    lane: unpacked, the bytes are the plain (4H, K) rows, pad rows zero."""
+    lay = dk.decode_layout(H, 132)
+    U, nblk, mt = lay["U"], lay["nblk"], lay["mt"]
+    g = torch.Generator().manual_seed(H + K)
+    w = torch.randn((4 * H, K), generator=g)
+    w = (w * 40).clamp(-127, 127).to(torch.int8) if dtype == torch.int8 else w.to(dtype)
+    packed = dk.pack_gate_weights(w, H, U, nblk, mt)
+    esize = w.element_size()
+    win = 64 // esize
+    Kp = -(-K // win) * win
+    assert packed.shape == (nblk, mt, Kp // win, 2, 32, 16) and packed.dtype == torch.uint8
+    rows = packed.reshape(nblk, mt, Kp // win, 2, 8, 4, 16).permute(0, 1, 3, 4, 2, 5, 6)
+    rows = rows.reshape(nblk, 16 * mt, Kp * esize).contiguous()
+    rows = rows.view(torch.int16 if esize == 2 else torch.int8)
+    assert not rows[..., K:].any()
+    idx = dk.gate_rows(H, U, nblk, mt)
+    plain = w.view(torch.int16) if esize == 2 else w
+    assert torch.equal(rows[..., :K][idx >= 0], plain[idx[idx >= 0]])
+    assert not rows[idx < 0].any()
+    # Block j's local row g U + u is gate g of unit j U + u.
+    assert idx[1, 0].item() == U and idx[0, U].item() == H
+
+
+def test_shape_rule_accepts_the_served_decoders_and_names_what_it_refuses():
+    assert dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32, B=4) is None
+    assert dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32, B=16) is None
+    assert dk._shape_reason(256, 256, (128, 128), 256, 512, 80, 32, B=1) is None
+    assert "batch rows" in dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32, B=17)
+    assert "16" in dk._shape_reason(1024, 776, (256, 256), 48, 128, 80, 32, B=4)
+    assert "memory positions" in dk._shape_reason(1024, 768, (256, 256), 257, 128, 80, 32)
+    assert "attention width" in dk._shape_reason(1024, 768, (256, 256), 48, 516, 80, 32)
+    assert "deep" in dk._shape_reason(1664, 784, (256, 256), 48, 128, 80, 32)

@@ -120,3 +120,66 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         gk.griffin_lim_dense_kernel(*gk.split_magnitude(mag, 256), 256, 64, 1)
     assert gk.KERNEL.launches == before
+
+
+# The kernel's host-side layout: its packed matrices, and the planner that
+# ops/griffin_lim_kernel.py mirrors from csrc/griffin_lim_dense.cu.
+PACK_SHAPES = [(256, 128), (512, 128), (768, 128), (1024, 256), (1024, 512), (2048, 256),
+               (2048, 1024)]
+
+
+@pytest.mark.parametrize("n_fft, hop", PACK_SHAPES)
+def test_packed_matrices_unpack_to_the_plain_layout(n_fft, hop):
+    """Every synthesis column lands once in one inverse slice (pad columns
+    zero), every [Wr | Wi] column once in one forward group, and the core
+    matrices hold them exactly."""
+    ops, _ = gk._operands(n_fft, hop, torch.device("cpu"), torch.bfloat16)
+    cols = gk.inverse_columns(n_fft, hop)
+    assert sorted(cols[cols >= 0].tolist()) == list(range(n_fft))
+    fcols = gk.forward_columns(n_fft)
+    assert sorted(fcols.ravel().tolist()) == list(range(n_fft))
+    # Group g, pair p: Wr then Wi of the same eight bins.
+    assert (fcols[:, 8:16] == fcols[:, 0:8] + n_fft // 2).all()
+
+    def unpack(packed):  # (..., 8, K / 8, 8, 8) -> (..., 64, K)
+        *lead, nb, kc, r, e = packed.shape
+        return packed.transpose(-3, -2).reshape(*lead, nb * r, kc * e)
+
+    vp = unpack(gk.pack_inverse(ops["vcat"], n_fft, hop))
+    for s in range(cols.shape[0]):
+        live = cols[s] >= 0
+        assert torch.equal(vp[s, torch.from_numpy(live)], ops["vcat"].t()[cols[s][live]])
+        assert not vp[s, torch.from_numpy(~live)].any()
+    wp = unpack(gk.pack_forward(ops["wcat"], n_fft))
+    assert torch.equal(wp.reshape(-1, n_fft), ops["wcat"].t()[fcols.ravel()])
+
+
+def test_dense_plan_of_the_source_note():
+    """B 4, T 128, n_fft 1024, hop 256 on an H100: 16 column slices of 16
+    hop-columns resident in shared memory, 8 blocks each, inverse units of
+    66 rows (69 frames), forward units of 64 frames."""
+    p = gk.dense_plan(4, 128, 1024, 256)
+    assert (p["k"], p["cs"], p["n_cs"], p["n_bs"], p["nr"]) == (4, 16, 16, 16, 131)
+    assert (p["resident"], p["blocks"], p["rt"], p["m_out"], p["ft"], p["mf"]) == (1, 128, 2, 66, 2, 64)
+    assert p["smem"] <= gk.H100_SMEM
+    assert p["scratch"] == gk.dense_scratch_bytes(4, 128, 1024, 256, False)
+    # The wider transforms stream their slices; the momentum carries add scratch.
+    assert gk.dense_plan(4, 128, 2048, 256)["resident"] == 0
+    assert gk.dense_plan(4, 128, 1024, 256, True)["scratch"] > p["scratch"]
+
+
+@pytest.mark.parametrize("B, T", [(1, 2), (2, 17), (3, 47), (4, 128), (32, 128), (1, 1000)])
+@pytest.mark.parametrize("n_fft, hop", PACK_SHAPES)
+def test_dense_plan_covers_every_row_and_frame(B, T, n_fft, hop):
+    """Whatever the shape, the tiles cover every signal row and frame, fit
+    the block's shared memory and the card's SMs, and every block serves
+    one column slice."""
+    p = gk.dense_plan(B, T, n_fft, hop)
+    k = n_fft // hop
+    assert p["rt"] * p["m_out"] >= T + k - 1 > (p["rt"] - 1) * p["m_out"]
+    assert p["m_out"] + k - 1 <= gk.MAX_M
+    assert p["ft"] * p["mf"] >= T > (p["ft"] - 1) * p["mf"]
+    assert p["mf"] <= gk.MAX_F
+    assert p["blocks"] % p["n_cs"] == 0 and p["n_cs"] <= p["blocks"] <= gk.H100_SMS
+    assert p["smem"] <= gk.H100_SMEM
+    assert p["k"] * p["cs"] <= gk.TILE_N and hop % p["cs"] == 0
