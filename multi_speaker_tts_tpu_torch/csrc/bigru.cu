@@ -48,8 +48,9 @@
 //
 // Per-step dependent chain: ldmatrix of h, H / 64 dependent MMAs (2 at
 // H = 128) and three adds, the cell (two sigmoids and a tanh from ex2 / rcp,
-// see fast_sigmoid), a shared store and the block barrier. A thread's four
-// cells run without a branch, so their chains overlap.
+// see fast_sigmoid in bigru_step.cuh), a shared store and the block
+// barrier. A thread's four cells run without a branch, so their chains
+// overlap.
 //
 // Shapes: H % 16 == 0 and 16 <= H <= 192 (W_hh of one direction fits the
 // registers and shared memory of one SM);
@@ -83,13 +84,6 @@ __host__ __device__ inline size_t gru_smem_bytes(int H) {
          (kRows * ((size_t)kAhead * gx_stride(H) + 2 * (size_t)mstts_ldmatrix_stride(H)) +
           gru_wsmem_elems(H));
 }
-
-// The cell's sigmoid and tanh from the ex2 and rcp approximations: about
-// 1e-6 absolute error, far below the bf16 outputs' step (4e-3 near 1), and a
-// few instructions each, where the accurate expf, division and tanhf are
-// long sequences on the step's dependent chain.
-__device__ __forceinline__ float fast_sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
-__device__ __forceinline__ float fast_tanh(float x) { return 2.0f * fast_sigmoid(2.0f * x) - 1.0f; }
 
 template <int KS>  // H = 16 * KS hidden units, KS warps
 __global__ void __launch_bounds__(32 * KS, 1) bigru_kernel(GruArgs a) {

@@ -89,11 +89,11 @@ inline cudaError_t mstts_recurrence_grid(int ndir, int H, int* U, int* nblk) {
   return cudaSuccess;
 }
 
-__host__ __device__ inline int mstts_round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ constexpr int mstts_round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Row stride (elements) of a bf16 tile read with ldmatrix: an odd
 // multiple of 16 bytes, so eight consecutive rows hit eight bank groups.
-__host__ __device__ inline int mstts_ldmatrix_stride(int k) { return mstts_round_up(k, 16) + 8; }
+__host__ __device__ constexpr int mstts_ldmatrix_stride(int k) { return mstts_round_up(k, 16) + 8; }
 
 // Row stride of a bf16 tile read 16 bytes a lane in 32-wide k chunks
 // (lanes 4g..4g+3 read 64 bytes of row g): 64 mod 128 bytes.
@@ -203,4 +203,47 @@ __device__ __forceinline__ void mstts_mma_bf16_k32(float* c, const uint4& lo, co
                                                    const uint4& b) {
   mstts_mma_bf16(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
   mstts_mma_bf16(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+}
+
+// -- The TMA unit's bulk copies (sm_90) -----------------------------------
+//
+// One thread copies a contiguous run of bytes (a multiple of 16, both ends
+// 16-byte aligned) from global to shared memory without a register or an
+// instruction per 16 bytes. The copy completes on an mbarrier in shared
+// memory: the issuing side adds the bytes it expects (one arrival with
+// expect_tx), every reader waits on the barrier's phase. Shared memory that
+// plain stores wrote before is handed to the copies by fence.proxy.async.
+__device__ __forceinline__ void mstts_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mstts_smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mstts_mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mstts_smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mstts_mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mstts_smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mstts_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mstts_bulk_load(void* smem, const void* gmem, uint32_t bytes,
+                                                uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(mstts_smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(mstts_smem_addr(bar))
+      : "memory");
 }

@@ -270,10 +270,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // (cp.async.bulk.tensor, a box each) on the stage's mbarrier, and every
 // thread waits on the barrier's phase. Shared memory that plain loads and
 // stores used is handed to the copies through fence.proxy.async, and so is
-// global memory that other blocks wrote before a grid barrier.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mstts_smem_addr(bar)) : "memory");
-}
+// global memory that other blocks wrote before a grid barrier (the
+// mbarrier and fence helpers are common.cuh's).
 
 // The issuing thread's instructions are predicated inside the asm (`on`):
 // every thread runs them, no branch (a branch between products would make
@@ -286,23 +284,6 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes, bool 
       : "memory");
 }
 
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(mstts_smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
                                        uint64_t* bar, bool on) {
   asm volatile(
@@ -312,10 +293,6 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(mstts_smem_addr(bar)),
       "r"((int)on)
       : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async_global() {
@@ -427,7 +404,7 @@ struct Dense {
   // Every thread waits for every fill of a barrier, so that all keep its
   // phase.
   __device__ void wait_bar(int i) const {
-    mbar_wait(bars() + i, (phases >> i) & 1u);
+    mstts_mbar_wait(bars() + i, (phases >> i) & 1u);
     phases ^= 1u << i;
   }
 
@@ -516,7 +493,7 @@ struct Dense {
         mma(ks, af[h]);
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         frag_fence(af[h ^ 1]);  // slice ks - 1's fragments were in use until here
-        fence_proxy_async();    // and its stage was read
+        mstts_fence_proxy_async();    // and its stage was read
         __syncthreads();
         const int nx = ks + S - 1;
         if (nx < nks) issue(nx % S, nx);
@@ -554,14 +531,14 @@ struct Dense {
       const int q = i / a.p.cs, c = i - q * a.p.cs;
       vny_s()[i] = a.vny[q * a.hop + slice * a.p.cs + c];
     }
-    if (tid < kBars) mbar_init(bars() + tid);
+    if (tid < kBars) mstts_mbar_init(bars() + tid);
     if (tid == 0) {
       if (mstts_smem_addr(smem) & 1023u) __trap();  // the swizzled panels need 1024-byte alignment
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     cp_async_commit();
     cp_async_wait<0>();
-    fence_proxy_async();  // the resident slice, read by wgmma
+    mstts_fence_proxy_async();  // the resident slice, read by wgmma
   }
 
   // -- inverse phase: spectra -> frames -> overlap-add -> signal rows -------
@@ -649,7 +626,7 @@ struct Dense {
           *reinterpret_cast<__nv_bfloat162*>(a.r16 + o) = __floats2bfloat162_rn(v0, v1);
         }
       }
-      fence_proxy_async();
+      mstts_fence_proxy_async();
       __syncthreads();  // the frame tile, rn and ws are free for the next unit
     }
   }
@@ -804,7 +781,7 @@ struct Dense {
               __floats2bfloat162_rn(im[0] * s0, im[1] * s1);
         }
       }
-      fence_proxy_async();
+      mstts_fence_proxy_async();
       __syncthreads();  // the slab and the ring are free for the next unit
     }
   }

@@ -1,112 +1,151 @@
-// Fused mel front-end: padded waveform -> normalized log-mel.
+// Fused mel front-end: padded waveform -> normalized log-mel, one in-block
+// FFT a frame.
 //
 // Replaces multi_speaker_tts_tpu/ops/mel_kernel.py::melspectrogram_pallas
 // (kernel body _mel_kernel). Same function: frames read straight from the
-// preemphasised, reflect-padded signal; windowed rDFT (window folded into
-// the DFT table); |X|; mel basis; 20*log10(max(., 1e-5)) - ref; [0, 1]
-// normalisation. Everything in f32 FMAs on the CUDA cores, no TF32: the
-// front-end's budget is 1e-4 against the FFT path.
+// preemphasised, reflect-padded signal; Hann window; |rDFT|; mel basis;
+// 20*log10(max(., 1e-5)) - ref; [0, 1] normalisation. Everything in f32 on
+// the CUDA cores, no TF32: the front-end's budget is 1e-4 against its
+// plain version, the f32 DFT matmul.
 //
-// What bounds it on an H100: the DFT is n_fft * (n_fft/2+1) * 2 FMAs per
-// frame (about 1.05 MFMA at n_fft=1024), so a 129-frame enrollment clip is
-// ~0.27 GFLOP against 67 TFLOP/s of f32 -- operations bound, a few us
-// ideally; its input is only ~130 KB. Design: one block per (utterance,
-// tile of kTile frames). The block stages its windowed frames in shared
-// memory, each thread owns bins k, k+256, k+512 and walks n, reading the
-// interleaved (cos, -sin) table coalesced across threads (the 4.2 MB table
-// stays in L2 after the first blocks); kTile frames share every table
-// read. The magnitudes stay in shared memory for the mel product, whose
-// basis is stored (F, M) so threads of one frame read it coalesced.
+// What bounds it on an H100: not the work. A frame's real FFT is ~5 N log2 N
+// operations (51 K at n_fft = 1024), its basis product ~2K, so a 133-frame
+// enrollment clip needs ~7 MFLOP and ~190 KB of signal, basis and mels:
+// ~0.1 us either way. What is left is latency: the frame's load from
+// memory, the FFT's log2(n_fft / 2) dependent stages, each ending in a
+// block barrier, and the launch.
+//
+// Design: the TPU kernel's DFT matmul (2.1 M FMAs a frame against a 4.2 MB
+// table, which Hopper has to stream from L2 for every frame) becomes an
+// FFT; one block per (utterance, frame), so 133 blocks at the serving shape.
+// - The block loads its frame in 16-byte loads where the frame is aligned,
+//   multiplies it by the window and packs the N real points as N/2 complex
+//   points z[j] = x[2j] + i x[2j+1], stored in bit-reversed order.
+// - An N/2-point complex radix-2 FFT (decimation in time) runs in place in
+//   shared memory, N/4 butterflies a stage over the block's threads. The
+//   twiddles exp(-2 pi i k / N), k < N/2 (4 KB at N = 1024, computed in f64
+//   by the wrapper), are copied to shared memory once; stage s reads every
+//   (N / 2^(s + 1))-th of them.
+// - Both arrays are padded by one element every 16, so that the stages'
+//   power-of-two strides do not pile onto a few banks.
+// - The split into the N/2 + 1 bins of the real transform, X[k] = E[k] +
+//   W^k O[k] from Z[k] and conj(Z[N/2 - k]), and their magnitudes into
+//   shared memory.
+// - A thread per mel band sums its band's nonzero bins [lo, hi) of the basis
+//   (packed by the wrapper, only exact zeros skipped) in a fixed order, then
+//   the log, the normalisation and a coalesced store.
+// One launch a call, no atomics: two launches on one input are bit-equal.
+//
+// Shapes: n_fft a power of two from 256 to 4096 and hop dividing it (the
+// wrapper's mel_shape_reason refuses anything else before launch).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 4;  // frames per block
 constexpr int kThreads = 256;
-constexpr int kMaxBinsPerThread = 3;  // F <= 3 * kThreads
+
+// One padding element every 16: float2 index p at p + p / 16.
+__device__ __forceinline__ int padded(int p) { return p + (p >> 4); }
 
 __global__ void __launch_bounds__(kThreads)
-mel_frontend_kernel(const float* __restrict__ y_pad,    // (B, Lp)
-                    const float2* __restrict__ dft,     // (n_fft, F)
-                    const float* __restrict__ basis_t,  // (F, M)
-                    float* __restrict__ out,            // (B, T, M)
-                    int T, int Lp, int n_fft, int hop, int F, int M,
-                    float ref_db, float min_db) {
-  extern __shared__ float smem[];
-  float* frames = smem;                 // [kTile][n_fft]
-  float* mag = smem + kTile * n_fft;    // [kTile][F]
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
-  const int nf = min(kTile, T - t0);
-  const float* sig = y_pad + (size_t)b * Lp;
+mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
+               const float* __restrict__ window,   // (n_fft)
+               const float2* __restrict__ tw,      // (n_fft / 2): exp(-2 pi i k / n_fft)
+               const int* __restrict__ bands,      // (M, 3): lo, hi, offset into weights
+               const float* __restrict__ weights,  // the bands' basis values, packed
+               float* __restrict__ out,            // (B, T, M)
+               int T, int Lp, int log2n, int hop, int M, float ref_db, float min_db) {
+  extern __shared__ __align__(16) float2 smem2[];
+  const int LH = log2n - 1, NH = 1 << LH;  // NH = n_fft / 2 complex points
+  float2* z = smem2;                         // [padded(NH)]
+  float2* tws = z + padded(NH);              // [padded(NH)]
+  float* mag = reinterpret_cast<float*>(tws + padded(NH));  // [NH + 1]
+  const int b = blockIdx.x / T, t = blockIdx.x - b * T;
+  const float* x = y_pad + (size_t)b * Lp + (size_t)t * hop;
 
-  for (int i = threadIdx.x; i < kTile * n_fft; i += kThreads) {
-    const int f = i / n_fft, n = i - f * n_fft;
-    frames[i] = f < nf ? sig[(size_t)(t0 + f) * hop + n] : 0.0f;
+  for (int k = threadIdx.x; k < NH; k += kThreads) tws[padded(k)] = __ldg(tw + k);
+  // The windowed frame as NH complex points, z[j] at bit-reversed position.
+  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* w4 = reinterpret_cast<const float4*>(window);
+    for (int i = threadIdx.x; i < NH / 2; i += kThreads) {
+      const float4 v = __ldg(x4 + i), w = __ldg(w4 + i);
+      z[padded(__brev(2 * i) >> (32 - LH))] = make_float2(v.x * w.x, v.y * w.y);
+      z[padded(__brev(2 * i + 1) >> (32 - LH))] = make_float2(v.z * w.z, v.w * w.w);
+    }
+  } else {
+    for (int j = threadIdx.x; j < NH; j += kThreads)
+      z[padded(__brev(j) >> (32 - LH))] =
+          make_float2(__ldg(x + 2 * j) * __ldg(window + 2 * j),
+                      __ldg(x + 2 * j + 1) * __ldg(window + 2 * j + 1));
   }
   __syncthreads();
 
-  float re[kMaxBinsPerThread][kTile], im[kMaxBinsPerThread][kTile];
-#pragma unroll
-  for (int j = 0; j < kMaxBinsPerThread; ++j)
-#pragma unroll
-    for (int f = 0; f < kTile; ++f) re[j][f] = im[j][f] = 0.0f;
-
-  for (int n = 0; n < n_fft; ++n) {
-    float x[kTile];
-#pragma unroll
-    for (int f = 0; f < kTile; ++f) x[f] = frames[f * n_fft + n];
-#pragma unroll
-    for (int j = 0; j < kMaxBinsPerThread; ++j) {
-      const int k = threadIdx.x + j * kThreads;
-      if (k < F) {
-        const float2 w = dft[(size_t)n * F + k];
-#pragma unroll
-        for (int f = 0; f < kTile; ++f) {
-          re[j][f] = fmaf(x[f], w.x, re[j][f]);
-          im[j][f] = fmaf(x[f], w.y, im[j][f]);
-        }
-      }
+  // Radix-2 stages: butterflies of span 2h, twiddle W_{2h}^j = tw[j N / 2h].
+  for (int s = 0; s < LH; ++s) {
+    const int h = 1 << s;
+    for (int i = threadIdx.x; i < NH / 2; i += kThreads) {
+      const int j = i & (h - 1), a = ((i >> s) << (s + 1)) + j;
+      const int pa = padded(a), pb = padded(a + h);
+      const float2 w = tws[padded(j << (LH - s))];
+      const float2 u = z[pa], v = z[pb];
+      const float2 vw = make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);
+      z[pa] = make_float2(u.x + vw.x, u.y + vw.y);
+      z[pb] = make_float2(u.x - vw.x, u.y - vw.y);
     }
+    __syncthreads();
   }
-#pragma unroll
-  for (int j = 0; j < kMaxBinsPerThread; ++j) {
-    const int k = threadIdx.x + j * kThreads;
-    if (k < F) {
-#pragma unroll
-      for (int f = 0; f < kTile; ++f)
-        mag[f * F + k] = sqrtf(re[j][f] * re[j][f] + im[j][f] * im[j][f]);
+
+  // The real transform's bins: X[k] = E + W^k O, E = (Z[k] + conj Z[NH - k]) / 2,
+  // O = (Z[k] - conj Z[NH - k]) / 2i; X[0] and X[NH] from Z[0] alone.
+  for (int k = threadIdx.x; k <= NH; k += kThreads) {
+    float re, im;
+    if (k == 0 || k == NH) {
+      const float2 z0 = z[0];
+      re = k == 0 ? z0.x + z0.y : z0.x - z0.y;
+      im = 0.0f;
+    } else {
+      const float2 a = z[padded(k)], c = z[padded(NH - k)], w = tws[padded(k)];
+      const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
+      const float orr = 0.5f * (a.y + c.y), oi = -0.5f * (a.x - c.x);
+      re = er + (orr * w.x - oi * w.y);
+      im = ei + (orr * w.y + oi * w.x);
     }
+    mag[k] = sqrtf(re * re + im * im);
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < nf * M; i += kThreads) {
-    const int f = i / M, m = i - f * M;
+  float* o = out + (size_t)blockIdx.x * M;  // frame (b, t) of (B, T, M)
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    const int lo = __ldg(bands + 3 * m), hi = __ldg(bands + 3 * m + 1);
+    const float* wm = weights + __ldg(bands + 3 * m + 2);
     float acc = 0.0f;
-    for (int k = 0; k < F; ++k) acc = fmaf(mag[f * F + k], basis_t[(size_t)k * M + m], acc);
+    for (int k = lo; k < hi; ++k) acc = fmaf(mag[k], __ldg(wm + (k - lo)), acc);
     const float db = 20.0f * log10f(fmaxf(acc, 1e-5f)) - ref_db;
-    const float v = (db - min_db) / (-min_db);
-    out[((size_t)b * T + t0 + f) * M + m] = fminf(fmaxf(v, 0.0f), 1.0f);
+    o[m] = fminf(fmaxf((db - min_db) / (-min_db), 0.0f), 1.0f);
   }
 }
 
 }  // namespace
 
-MSTTS_EXPORT int mstts_mel_frontend(const void* y_pad, const void* dft,
-                                    const void* basis_t, void* out, int B,
-                                    int T, int Lp, int n_fft, int hop, int F,
-                                    int M, float ref_db, float min_db,
-                                    void* stream) {
-  if (F > kMaxBinsPerThread * kThreads) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)kTile * (n_fft + F);
-  if (smem > 48 * 1024) {
-    MSTTS_CHECK(cudaFuncSetAttribute(mel_frontend_kernel,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+MSTTS_EXPORT int mstts_mel_frontend(const void* y_pad, const void* window, const void* tw,
+                                    const void* bands, const void* weights, void* out, int B,
+                                    int T, int Lp, int n_fft, int hop, int M, float ref_db,
+                                    float min_db, void* stream) {
+  int log2n = 0;
+  while ((1 << log2n) < n_fft) ++log2n;
+  if ((1 << log2n) != n_fft || n_fft < 256 || n_fft > 4096 || hop < 1 || n_fft % hop ||
+      B < 1 || T < 1 || M < 1 || Lp < (T - 1) * hop + n_fft)
+    return (int)cudaErrorInvalidValue;
+  const int nh = n_fft / 2, padded_nh = nh + nh / 16;
+  const size_t smem = 2 * sizeof(float2) * (size_t)padded_nh + sizeof(float) * (nh + 1);
+  if (smem > 48 * 1024)
+    MSTTS_CHECK(cudaFuncSetAttribute(mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)smem));
-  }
-  const dim3 grid((T + kTile - 1) / kTile, B);
-  mel_frontend_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)y_pad, (const float2*)dft, (const float*)basis_t,
-      (float*)out, T, Lp, n_fft, hop, F, M, ref_db, min_db);
+  mel_fft_kernel<<<B * T, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y_pad), static_cast<const float*>(window),
+      static_cast<const float2*>(tw), static_cast<const int*>(bands),
+      static_cast<const float*>(weights), static_cast<float*>(out), T, Lp, log2n, hop, M, ref_db,
+      min_db);
   MSTTS_RETURN_LAUNCH_ERROR();
 }

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_HEADERS = ("common.cuh", "lstm_persistent.cuh", "lstm_bwd.cuh")
+_HEADERS = ("common.cuh", "lstm_persistent.cuh", "lstm_bwd.cuh", "bigru_step.cuh")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int

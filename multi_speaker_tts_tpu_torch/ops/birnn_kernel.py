@@ -20,12 +20,13 @@ x . W_ih + b_ih of both directions are hoisted the same way; the kernel
 (``csrc/bigru.cu``) runs gh = bf16(h) . W_hh + b_hh on tensor cores and the
 r, z, n cell with an f32 carry, one block per (direction, group of up to 8
 batch rows) with that direction's W_hh resident in registers, so it needs
-no grid barrier. It takes H % 16 == 0 and 16 <= H <= 128
+no grid barrier. It takes H % 16 == 0 and 16 <= H <= 192
 (:func:`bigru_shape_reason`). Its residual mode (:data:`GRU_RES_KERNEL`)
-stores gh and h_{t-1}. The
-backward (``birnn_pallas.py::_bigru_vjp_bwd``, kernel body
-``_bigru_bwd_kernel``) is ``csrc/bigru_bwd.cu``, emitting dGx and dGh per
-direction.
+stores gh and h_{t-1}. The backward (``birnn_pallas.py::_bigru_vjp_bwd``,
+kernel body ``_bigru_bwd_kernel``) is ``csrc/bigru_bwd.cu``, emitting dGx
+and dGh per direction: the same grid, dh^T = W_hh . bf16(dGh)^T on tensor
+cores with W_hh resident, the residuals staged ahead by cp.async; it takes
+the forward's shapes (:func:`bigru_bwd_shape_reason`).
 
 Under autograd the layers run through :class:`_BiLSTM` and :class:`_BiGRU`
 (ports of ``_bilstm_custom`` and ``_bigru_custom``): the hoist, the
@@ -340,9 +341,19 @@ def bigru_bwd_plain(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb,
                                     natural_time=True))
 
 
+def bigru_bwd_shape_reason(gx_shape, w_hh_shapes) -> str | None:
+    """Why ``csrc/bigru_bwd.cu`` does not take these shapes, or None if it
+    does: those of the residual-mode forward (:func:`bigru_shape_reason`),
+    whose residuals are its only input; the same grid, warps and resident
+    W_hh (16 units a warp, K = 3H in 16-deep k-steps)."""
+    return bigru_shape_reason(gx_shape, w_hh_shapes)
+
+
 def bigru_bwd_kernel(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb):
     """Launch ``csrc/bigru_bwd.cu`` on CUDA bf16 residuals and f32 output
-    cotangents (T, B, H) per direction."""
+    cotangents (T, B, H) per direction. The kernel reads W_hh (H, 3H) in
+    bf16 as the layer stores it: row u holds unit u's 3H k values, the A
+    operand's row-major layout (:func:`_bf16`, no other packing)."""
     T, B, H3 = gxf.shape
     H = H3 // 3
     for name, t, dtype, shape in (("gxf", gxf, torch.bfloat16, (T, B, H3)),
@@ -356,15 +367,16 @@ def bigru_bwd_kernel(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb):
         _build.require_cuda(t, dtype, name)
         if t.shape != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if H % 8 or H3 > 1024 or w_hh_f.shape != (H, H3) or w_hh_b.shape != (H, H3):
-        raise ValueError(f"BiGRU backward kernel needs (H, 3H) weights, H % 8 == 0, "
-                         f"H <= 341: {H}")
-    wtf = _build.packed(_transposed_bf16, w_hh_f)
-    wtb = _build.packed(_transposed_bf16, w_hh_b)
+    reason = bigru_bwd_shape_reason(gxf.shape, (w_hh_f.shape, w_hh_b.shape))
+    if reason is not None:
+        raise ValueError(f"BiGRU backward kernel {reason}")
+    gxf, ghf, hpf, gxb, ghb, hpb, dyf, dyb = (
+        _aligned(t) for t in (gxf, ghf, hpf, gxb, ghb, hpb, dyf, dyb))
+    wf, wb = (_build.packed(_bf16, w) for w in (w_hh_f, w_hh_b))
     outs = _bf16_empty(gxf.device, *[(T, B, H3)] * 4)
     GRU_BWD_KERNEL.call(
         "mstts_bigru_bwd", gxf.data_ptr(), ghf.data_ptr(), hpf.data_ptr(), gxb.data_ptr(),
-        ghb.data_ptr(), hpb.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), dyf.data_ptr(),
+        ghb.data_ptr(), hpb.data_ptr(), wf.data_ptr(), wb.data_ptr(), dyf.data_ptr(),
         dyb.data_ptr(), *(o.data_ptr() for o in outs), T, B, H, _build.stream_ptr(gxf),
     )
     return outs

@@ -4,11 +4,15 @@ Replaces ``multi_speaker_tts_tpu/ops/mel_kernel.py::melspectrogram_pallas``
 (kernel body ``_mel_kernel``). Preemphasis and reflect padding stay plain
 torch, as they stay XLA in the JAX package; the kernel
 (``csrc/mel.cu``) reads overlapping frames straight from the padded
-signal, multiplies them by the windowed DFT (f32 FMAs, no TF32),
-takes the magnitude, applies the mel basis and the log/normalisation.
+signal and runs one block a frame: the Hann window, an in-block radix-2
+FFT in f32 (twiddles from :func:`twiddles`), the magnitudes, each mel
+band's nonzero bins (:func:`mel_bands`) and the log/normalisation. It
+takes n_fft a power of two from 256 to 4096 with hop dividing it
+(:func:`mel_shape_reason`).
 
-:func:`melspectrogram_plain` is the same function in plain torch: the CPU
-path, and the card's yardstick.
+:func:`melspectrogram_plain` is the same function in plain torch, a
+windowed-DFT matmul (f32, no TF32): the CPU path, and the card's
+yardstick.
 """
 
 from __future__ import annotations
@@ -25,9 +29,9 @@ from multi_speaker_tts_tpu_torch.ops import _build
 
 KERNEL = _build.Kernel("mel_frontend", "mel.cu", {
     "mstts_mel_frontend": [
-        _build.P, _build.P, _build.P, _build.P,  # y_pad, dft, basis_t, out
-        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
-        _build.I,  # B, T, Lp, n_fft, hop, F, M
+        _build.P, _build.P, _build.P, _build.P, _build.P,  # y_pad, window, tw, bands, weights
+        _build.P,  # out
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,  # B, T, Lp, n_fft, hop, M
         ctypes.c_float, ctypes.c_float,  # ref_level_db, min_level_db
         _build.P,  # stream
     ],
@@ -48,6 +52,51 @@ def _operands(sample_rate: int, n_fft: int, n_mels: int, f_min: float,
     dft = np.stack([win * np.cos(ang), win * np.sin(ang)], axis=-1)
     basis_t = mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max).T
     return dft.astype(np.float32), np.ascontiguousarray(basis_t, np.float32)
+
+
+def mel_shape_reason(n_fft: int, hop: int) -> str | None:
+    """Why ``csrc/mel.cu`` does not take this frame, or None if it does:
+    n_fft a power of two from 256 to 4096 (a radix-2 FFT of n_fft / 2
+    complex points in one block's shared memory) and hop dividing it (the
+    TPU kernel's k = n_fft // hop frames a hop)."""
+    if n_fft < 256 or n_fft > 4096 or n_fft & (n_fft - 1):
+        return f"needs n_fft a power of two from 256 to 4096, got n_fft = {n_fft}"
+    if hop < 1 or n_fft % hop:
+        return f"needs hop dividing n_fft, got n_fft = {n_fft}, hop = {hop}"
+    return None
+
+
+def twiddles(n_fft: int) -> np.ndarray:
+    """exp(-2 pi i k / n_fft) for k < n_fft / 2 as (n_fft / 2, 2) f32 [re, im],
+    computed in f64: the FFT's twiddles and the real transform's split."""
+    ang = -2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
+def mel_bands(basis: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Each band's nonzero bins of an (M, F) mel basis: (M, 3) int32 rows
+    [lo, hi, offset], the band's first nonzero bin, one past its last (0, 0
+    for an all-zero band) and where its values basis[m, lo:hi] start in the
+    packed f32 weights, the second result. Only exact zeros are skipped:
+    the bins between lo and hi are kept as they are."""
+    bands, weights, offset = [], [], 0
+    for row in basis:
+        nz = np.flatnonzero(row)
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        bands.append((lo, hi, offset))
+        weights.append(row[lo:hi])
+        offset += hi - lo
+    return (np.asarray(bands, np.int32).reshape(-1, 3),
+            np.concatenate(weights).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_operands(cfg, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The kernel's constant operands: window, twiddles, bands, weights."""
+    bands, weights = mel_bands(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                                              cfg.f_min, cfg.f_max))
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        dsp.hann_window(cfg.n_fft), twiddles(cfg.n_fft), bands, weights))
 
 
 @functools.lru_cache(maxsize=8)
@@ -84,17 +133,18 @@ def melspectrogram_plain(y_pad: torch.Tensor, T: int, cfg) -> torch.Tensor:
 def melspectrogram_kernel(y_pad: torch.Tensor, T: int, cfg) -> torch.Tensor:
     """Launch ``csrc/mel.cu`` on a CUDA padded signal -> (B, T, n_mels)."""
     _build.require_cuda(y_pad, torch.float32, "y_pad")
-    dft, basis_t = _device_operands(cfg, y_pad.device)
+    reason = mel_shape_reason(cfg.n_fft, cfg.hop)
+    if reason is not None:
+        raise ValueError(f"mel kernel {reason}")
     B, Lp = y_pad.shape
-    if Lp < (T - 1) * cfg.hop + cfg.n_fft:
+    if T < 1 or Lp < (T - 1) * cfg.hop + cfg.n_fft:
         raise ValueError(f"padded signal of {Lp} samples holds < {T} frames")
-    out = torch.empty((B, T, cfg.n_mels), dtype=torch.float32,
-                      device=y_pad.device)
+    window, tw, bands, weights = _fft_operands(cfg, y_pad.device)
+    out = torch.empty((B, T, cfg.n_mels), dtype=torch.float32, device=y_pad.device)
     KERNEL.call(
-        "mstts_mel_frontend", y_pad.data_ptr(), dft.data_ptr(),
-        basis_t.data_ptr(), out.data_ptr(), B, T, Lp, cfg.n_fft, cfg.hop,
-        dft.shape[1], cfg.n_mels, cfg.ref_level_db, cfg.min_level_db,
-        _build.stream_ptr(y_pad),
+        "mstts_mel_frontend", y_pad.data_ptr(), window.data_ptr(), tw.data_ptr(),
+        bands.data_ptr(), weights.data_ptr(), out.data_ptr(), B, T, Lp, cfg.n_fft, cfg.hop,
+        cfg.n_mels, cfg.ref_level_db, cfg.min_level_db, _build.stream_ptr(y_pad),
     )
     return out
 

@@ -1,0 +1,209 @@
+"""Time one checkout's mel and BiGRU-backward kernels on the inputs its main
+path gives them, and the device busy time of the paths that launch them.
+
+The tool enrolls the three demo wavs (``Synthesizer.enroll``, which launches
+the mel front-end once a wav) and takes one ``Trainer.train_step`` on a batch
+of 32 made from the five demo wavs (one BiGRU-backward launch), keeping the
+inputs each wrapper was given. If ``--inputs PATH`` exists, the kernels are
+timed on the inputs kept there instead, so that two checkouts are timed on
+the same inputs; otherwise this run's inputs are written there. It prints one
+JSON line:
+
+- ``mel_ms`` and ``bigru_bwd_ms``: each kernel's wrapper (CUDA events, the
+  card held ahead so that the events time the card's work), with its error
+  against its plain version;
+- ``enroll_busy_ms`` and ``train_step_busy_ms``: the device busy time (the
+  union of the card's kernel and copy intervals under ``torch.profiler``) of
+  the enrollment and of one train step; ``train_step_ms`` the step's mean
+  time over three steps (CUDA events).
+
+``--repo DIR`` measures another checkout's package and kernel sources (for
+example the parent commit's, unpacked with ``git archive``); run the file by
+its path then, so that the package is imported from ``DIR``. To compare two
+checkouts, run them in turns on one card (parent, change, change, parent)::
+
+    python multi_speaker_tts_tpu_torch/tools/kernel_ab.py --repo _archive/parent \\
+        --inputs _archive/ab_inputs.pt --label parent
+    python multi_speaker_tts_tpu_torch/tools/kernel_ab.py \\
+        --inputs _archive/ab_inputs.pt --label change
+
+The demo checkpoint and wavs are read from the checkout holding this file.
+Nothing here runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parents[2]
+DEMO = HERE / "demo"
+ENROLL = ("enroll_spk0_utt0.wav", "enroll_spk0_utt1.wav", "enroll_spk5_utt0.wav")
+TRAIN_WAVS = ENROLL + ("clone_spk0.wav", "clone_spk5.wav")
+TEXTS = ("hello world, this is a test of the port.",
+         "the quick brown fox jumps over the lazy dog.")
+STAGES = ("enroll.", "synth.", "stream.")  # the port's span names
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock: the spin that holds the card ahead
+
+
+def time_ms(fn, warmup: int = 5, reps: int = 50, queue_ahead: bool = True) -> float:
+    """Mean ms a call from CUDA events around ``reps`` calls; ``queue_ahead``
+    first holds the card in a 20 ms spin, so that the events time the card's
+    work alone, also for calls shorter than their host-side dispatch."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if queue_ahead:
+        torch.cuda._sleep(int(0.02 * SM_CLOCK_HZ))
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def busy_ms(fn) -> float:
+    """The device busy time of ``fn()`` under torch.profiler: the union of
+    its CUDA kernel and copy intervals, without the device-side ranges of
+    the port's stage spans (``enroll.*``, ``synth.*``, ``stream.*``), which
+    cover the gaps between their kernels. A first, empty profile takes the
+    profiler's start-up cost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        torch.ones(1, device="cuda").sum().item()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith(STAGES))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us / 1e3
+
+
+def train_batch(hp, n: int = 32) -> dict:
+    """A batch of ``n`` in the ``collate_tts`` layout at the checkpoint's first
+    buckets: the five demo wavs cycled, mel and linear targets from the
+    port's front-end on the CPU, reference crops from a seeded generator."""
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
+    from multi_speaker_tts_tpu_torch.data.collate import collate_tts
+    from multi_speaker_tts_tpu_torch.text import encode_text
+
+    cfg = dsp.DSPConfig.from_hp(hp)
+    feats = []
+    for name in TRAIN_WAVS:
+        wav = torch.from_numpy(wav_io.load_wav(DEMO / name, target_sr=hp.Sound.Sample_Rate)[0])
+        feats.append((dsp.melspectrogram(wav, cfg).numpy(), dsp.spectrogram(wav, cfg).numpy()))
+    pats = [{"Tokens": encode_text(TEXTS[i % len(TEXTS)], hp), "Mel": feats[i % 5][0],
+             "Spect": feats[i % 5][1], "Speaker_ID": i % 5} for i in range(n)]
+    buckets = hp.Train.Batch_Bucketing
+    return collate_tts(pats, buckets.Token_Buckets[0], buckets.Mel_Buckets[0], hp.Sound.Mel_Dim,
+                       int(hp.Decoder.N_Frames_Per_Step), hp.Speaker_Embedding.GE2E.Window_Length,
+                       np.random.default_rng(0), hp.Sound.Spectrogram_Dim)
+
+
+def kept(module, name: str, store: list):
+    """Wrap ``module.name`` so that every call's positional arguments are kept."""
+    original = getattr(module, name)
+
+    def wrapper(*args):
+        store.append(args)
+        return original(*args)
+
+    setattr(module, name, wrapper)
+    return original
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=str(HERE), help="the checkout to measure")
+    ap.add_argument("--inputs", required=True,
+                    help="the kernels' inputs: read if the file exists, else written")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    repo = pathlib.Path(args.repo).resolve()
+    sys.path.insert(0, str(repo))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel, mel_kernel
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    _build.build(sorted(p.name for p in _build.CSRC.glob("*.cu")))
+    params, batch_stats, meta = load_compact(DEMO / "serving_ckpt_full.msgpack")
+    hp = Recursive_Parse(meta["hp"])
+    wavs = [wav_io.load_wav(DEMO / name, target_sr=hp.Sound.Sample_Rate)[0] for name in ENROLL]
+    mel_calls, bwd_calls = [], []
+    mel_fn = kept(mel_kernel, "melspectrogram_kernel", mel_calls)
+    bwd_fn = kept(birnn_kernel, "bigru_bwd_kernel", bwd_calls)
+
+    synth = Synthesizer(hp, params, batch_stats, seed=0)
+    synth.enroll(wavs)
+    row = {"label": args.label, "repo": str(repo), "device": torch.cuda.get_device_name(0),
+           "enroll_busy_ms": busy_ms(lambda: synth.enroll(wavs))}
+    del synth
+    trainer = Trainer(hp.replace(Speaker_Embedding={"GE2E": {"Freeze": False}}), params,
+                      batch_stats, seed=0)
+    batch = train_batch(hp)
+    trainer.train_step(batch)
+    row["train_step_ms"] = time_ms(lambda: trainer.train_step(batch), 0, 3, queue_ahead=False)
+    row["train_step_busy_ms"] = busy_ms(lambda: trainer.train_step(batch))
+    mel_kernel.melspectrogram_kernel, birnn_kernel.bigru_bwd_kernel = mel_fn, bwd_fn
+
+    inputs = pathlib.Path(args.inputs)
+    if inputs.exists():
+        saved = torch.load(inputs, map_location="cuda")
+        y_pad, T, cfg_fields = saved["mel"]
+        mel_args, bwd_args = (y_pad, T, dsp.DSPConfig(**cfg_fields)), saved["bigru_bwd"]
+        row["inputs"] = f"read from {inputs} (written by {saved['label']})"
+    else:
+        mel_args, bwd_args = mel_calls[0], bwd_calls[-1]
+        y_pad, T, cfg = mel_args
+        torch.save({"mel": (y_pad, T, dataclasses.asdict(cfg)), "bigru_bwd": bwd_args,
+                    "label": args.label}, inputs)
+        row["inputs"] = f"this run's, written to {inputs}"
+
+    def peak_rel(got, want):
+        return max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                   for a, b in zip(got, want))
+
+    row.update({
+        "mel_shape": list(mel_fn(*mel_args).shape), "bigru_bwd_shape": list(bwd_args[0].shape),
+        "mel_ms": time_ms(lambda: mel_fn(*mel_args)),
+        "mel_max_abs_err": (mel_fn(*mel_args)
+                            - mel_kernel.melspectrogram_plain(*mel_args)).abs().max().item(),
+        "bigru_bwd_ms": time_ms(lambda: bwd_fn(*bwd_args)),
+        "bigru_bwd_rel_peak_err": peak_rel(bwd_fn(*bwd_args),
+                                           birnn_kernel.bigru_bwd_plain(*bwd_args)),
+    })
+    print(json.dumps(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

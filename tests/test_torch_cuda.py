@@ -42,17 +42,40 @@ def _lstm(rng, D, H, dev, scale=0.1):
                         for s in ((D, 4 * H), (H, 4 * H), (4 * H,))))
 
 
-def test_mel_kernel(dev):
+@pytest.mark.parametrize("T", [1, 2, 133, 862])
+@pytest.mark.parametrize("hop_div", [4, 8])
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048, 4096])
+def test_mel_kernel(dev, n_fft, hop_div, T):
+    """The FFT kernel within 1e-4 of the plain f32 DFT matmul on noise, a
+    silent clip and a full-scale (clipped) clip, B 1-4 across the cases; a
+    repeat is bit-equal; one launch a call. The padded signals are made
+    directly (T = 1 is a clip of no samples before padding), with rows of
+    (T - 1) hop + n_fft + T % 3 samples: rows past the first start off the
+    16-byte grid, so both of the kernel's frame loads run."""
     from multi_speaker_tts_tpu_torch.audio import dsp
     from multi_speaker_tts_tpu_torch.ops import mel_kernel
 
-    cfg = dsp.DSPConfig(22050, 1024, 256, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
-    rng = np.random.default_rng(0)
-    wav = torch.from_numpy(rng.standard_normal((2, 256 * 40)).astype(np.float32) * 0.3)
-    y_pad, T = mel_kernel._pad_signal(wav.to(dev), cfg)
-    got = mel_kernel.melspectrogram_kernel(y_pad, T, cfg)
-    want = mel_kernel.melspectrogram_plain(y_pad, T, cfg)
-    assert (got - want).abs().max().item() <= 1e-4  # f32 FMAs, no TF32
+    hop = n_fft // hop_div
+    B = 1 + (n_fft // 256 + hop_div + T) % 4
+    cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    rng = np.random.default_rng(n_fft + T)
+    Lp = (T - 1) * hop + n_fft + T % 3
+    clips = {"noise": rng.standard_normal((B, Lp)) * 0.3,
+             "silent": np.zeros((B, Lp)),
+             "full scale": np.clip(3.0 * rng.standard_normal((B, Lp)), -1.0, 1.0)}
+    for kind, sig in clips.items():
+        y_pad = torch.from_numpy(sig.astype(np.float32)).to(dev)
+        before = mel_kernel.KERNEL.launches
+        got = mel_kernel.melspectrogram_kernel(y_pad, T, cfg)
+        again = mel_kernel.melspectrogram_kernel(y_pad, T, cfg)
+        torch.cuda.synchronize()
+        assert mel_kernel.KERNEL.launches == before + 2, kind
+        assert torch.equal(got, again), kind
+        want = mel_kernel.melspectrogram_plain(y_pad, T, cfg)
+        assert got.shape == want.shape == (B, T, 80)
+        assert (got - want).abs().max().item() <= 1e-4, kind  # f32, no TF32
+        if kind == "silent":
+            assert not got.any()
 
 
 # The edges of the tensor-core tiling (B in m-tiles of 16, 4U gate columns
@@ -269,13 +292,16 @@ def test_bigru_kernel(dev):
 
 
 @pytest.mark.parametrize("residuals", [False, True], ids=["plain", "residuals"])
-@pytest.mark.parametrize("H", [64, 128, 144, 192])
-@pytest.mark.parametrize("B", [1, 4, 16, 17, 32, 40])
+@pytest.mark.parametrize("H", [16, 64, 128, 144, 192])
+@pytest.mark.parametrize("B", [1, 4, 7, 8, 9, 16, 17, 32, 40])
 def test_bigru_kernel_row_groups(dev, B, H, residuals):
     """One block per (direction, 8 rows): every batch size across the row
-    groups, both modes, within 5e-3 of the plain bf16 version; two launches
-    on one input are bit-equal; the residuals feed the backward kernel.
-    H 144 and 192 keep part of W_hh in shared memory."""
+    groups, both modes, T 1, 2, 37 and 132, within 5e-3 of the plain bf16
+    version; two launches on one input are bit-equal; the residuals feed
+    the backward kernel, which holds within 1e-2 of the peak of its plain
+    version, one launch a call, bit-equal on a repeat. H 144 and 192 keep
+    part of W_hh in shared memory (and at H 192 the backward's residual ring
+    has two slots)."""
     from multi_speaker_tts_tpu_torch.ops import birnn_kernel
     from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
 
@@ -285,31 +311,37 @@ def test_bigru_kernel_row_groups(dev, B, H, residuals):
         return GRUParams(*(torch.from_numpy((rng.normal(size=s) * 0.1).astype(np.float32)).to(dev)
                            for s in ((D, 3 * H), (H, 3 * H), (3 * H,), (3 * H,))))
 
-    T = 37
     pf, pb = gru(128), gru(128)
-    x = torch.from_numpy(rng.normal(size=(B, T, 128)).astype(np.float32)).to(dev)
-    gxf, gxb = birnn_kernel.bigru_hoist(pf, pb, x, torch.bfloat16)
-    kernel = birnn_kernel.GRU_RES_KERNEL if residuals else birnn_kernel.GRU_KERNEL
-    before = kernel.launches
-    got = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
-    again = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
-    torch.cuda.synchronize()
-    assert kernel.launches == before + 2
-    want = birnn_kernel.bigru_recurrence_plain(gxf, gxb, pf, pb, torch.bfloat16, residuals)
-    assert len(got) == len(want) == (6 if residuals else 2)
-    for i, (a, b, c) in enumerate(zip(got, again, want)):  # ysf, ysb[, ghf, hpf, ghb, hpb]
-        assert torch.equal(a, b) and a.shape == c.shape
-        if i in (2, 4):  # gh, |gh| up to ~2: one flipped bf16 rounding is 1e-2 of it
-            assert _rel_peak(a, c) <= 1e-2
-        else:  # h, |h| < 1
-            assert (a.float() - c.float()).abs().max().item() <= 5e-3
-    if residuals:
-        ysf, ysb, ghf, hpf, ghb, hpb = got
-        dyf, dyb = (torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
-                    for _ in range(2))
-        args = (gxf, ghf, hpf, gxb, ghb, hpb, pf.w_hh, pb.w_hh, dyf, dyb)
-        for a, b in zip(birnn_kernel.bigru_bwd(*args), birnn_kernel.bigru_bwd_plain(*args)):
-            assert _rel_peak(a, b) <= 1e-2
+    for T in (1, 2, 37, 132):
+        x = torch.from_numpy(rng.normal(size=(B, T, 128)).astype(np.float32)).to(dev)
+        gxf, gxb = birnn_kernel.bigru_hoist(pf, pb, x, torch.bfloat16)
+        kernel = birnn_kernel.GRU_RES_KERNEL if residuals else birnn_kernel.GRU_KERNEL
+        before = kernel.launches
+        got = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
+        again = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        want = birnn_kernel.bigru_recurrence_plain(gxf, gxb, pf, pb, torch.bfloat16, residuals)
+        assert len(got) == len(want) == (6 if residuals else 2)
+        for i, (a, b, c) in enumerate(zip(got, again, want)):  # ysf, ysb[, ghf, hpf, ghb, hpb]
+            assert torch.equal(a, b) and a.shape == c.shape
+            if i in (2, 4):  # gh, |gh| up to ~2: one flipped bf16 rounding is 1e-2 of it
+                assert _rel_peak(a, c) <= 1e-2
+            else:  # h, |h| < 1
+                assert (a.float() - c.float()).abs().max().item() <= 5e-3
+        if residuals:
+            ysf, ysb, ghf, hpf, ghb, hpb = got
+            dyf, dyb = (torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
+                        for _ in range(2))
+            args = (gxf, ghf, hpf, gxb, ghb, hpb, pf.w_hh, pb.w_hh, dyf, dyb)
+            before = birnn_kernel.GRU_BWD_KERNEL.launches
+            dG = birnn_kernel.bigru_bwd(*args)
+            torch.cuda.synchronize()
+            assert birnn_kernel.GRU_BWD_KERNEL.launches == before + 1
+            for a, b, c in zip(dG, birnn_kernel.bigru_bwd(*args),
+                               birnn_kernel.bigru_bwd_plain(*args)):  # dGx, dGh per direction
+                assert torch.equal(a, b) and a.shape == c.shape == (T, B, 3 * H)
+                assert _rel_peak(a, c) <= 1e-2
 
 
 GL_PROBES, GL_PROBE_MULTIPLE = 8, 4.0
@@ -409,6 +441,23 @@ def test_bigru_and_staged_kernels_raise_on_shapes_they_refuse(dev):
     with pytest.raises(ValueError, match="staged magnitudes"):
         gl.griffin_lim_staged_kernel(ms[:, :1].contiguous(), 256, 2)
     assert (birnn_kernel.GRU_KERNEL.launches, gl.KERNEL.launches) == counts
+
+
+def test_bigru_bwd_and_mel_kernels_raise_on_shapes_they_refuse(dev):
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, mel_kernel
+
+    counts = (birnn_kernel.GRU_BWD_KERNEL.launches, mel_kernel.KERNEL.launches)
+    for H in (8, 72, 208):
+        g, hp = (torch.zeros(5, 2, n, dtype=torch.bfloat16, device=dev) for n in (3 * H, H))
+        w, dy = torch.zeros(H, 3 * H, device=dev), torch.zeros(5, 2, H, device=dev)
+        with pytest.raises(ValueError, match="H % 16"):
+            birnn_kernel.bigru_bwd_kernel(g, g, hp, g, g, hp, w, w, dy, dy)
+    for n_fft, hop in ((800, 200), (1000, 250), (1024, 300)):
+        cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+        with pytest.raises(ValueError, match="mel kernel needs"):
+            mel_kernel.melspectrogram_kernel(torch.zeros(1, 4 * n_fft, device=dev), 2, cfg)
+    assert (birnn_kernel.GRU_BWD_KERNEL.launches, mel_kernel.KERNEL.launches) == counts
 
 
 def _decoder(rng, dev, H, D, P, A, mel, r, conv_k=31, conv_c=32, scale=0.02):
@@ -722,14 +771,15 @@ def test_barrier_floor_kernel(dev, ndir, H):
     assert recurrence_floor.KERNEL.launches == before + 1
 
 
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 @pytest.mark.parametrize("B, H", [(4, 128), (32, 128), (17, 192)])
-def test_gru_chain_floor_kernel(dev, B, H):
-    """The BiGRU's sequential floor runs on the BiGRU's grid, one launch a
-    call."""
+def test_gru_chain_floor_kernel(dev, B, H, backward):
+    """The BiGRU's sequential floors (forward and backward) run on the
+    BiGRU's grid, one launch a call."""
     from multi_speaker_tts_tpu_torch.ops import recurrence_floor
 
     before = recurrence_floor.KERNEL.launches
-    blocks = recurrence_floor.gru_chain_floor(50, B, H, dev)
+    blocks = recurrence_floor.gru_chain_floor(50, B, H, dev, backward)
     torch.cuda.synchronize()
     assert blocks == 2 * -(-B // 8)
     assert recurrence_floor.KERNEL.launches == before + 1
