@@ -45,6 +45,19 @@
    ``csrc/attention_step.cu`` once a step and run no plain step, the plain
    loop no kernel; the looped outputs of the two agree within 1e-3 of the
    peak; both loops are timed (two-point slope, CUDA events) and profiled.
+   The serving daemon (i): ``serve.TTSServer`` over the checkpoint as it is
+   under ``bf16_pallas`` on 127.0.0.1 (max_batch 8, a 250 ms window):
+   /enroll, /speakers, 8 concurrent /synthesize (the four texts twice), one
+   ``Accept: audio/wav``, the malformed payloads of ``_parse_request`` (each
+   its 400 with the port's message), /stream on this checkpoint (501) and
+   /stream through a second server over the mel-only configuration (>= 2
+   chunks, the PCM of ``Synthesizer.stream``). The served bytes must be the
+   rows the worker's own ``synthesize`` returned, each batch re-run
+   directly must decode the same lengths with mels within 1e-4, /stats must
+   show a batch of 2 or more rows, and the six forward kernels must launch
+   with no plain version running; prints the burst's wall time, requests a
+   second and /stats p50 / p95 latency beside the card's name and power
+   limit.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -863,6 +876,236 @@ def main() -> int:
         "train": probe_case("train shape", train_attention),
     }
 
+    # 2d. The serving daemon (i) --------------------------------------------
+    # serve.TTSServer over the checkpoint as it is under bf16_pallas, on
+    # 127.0.0.1 (port 0), max_batch 8 and a 250 ms window: /enroll, GET
+    # /speakers, 8 concurrent /synthesize (the four texts twice, by speaker
+    # name), one Accept: audio/wav, the malformed payloads of _parse_request,
+    # /stream on this checkpoint (501: the CBHG head cannot stream), and
+    # /stream through a second server over the mel-only configuration. One
+    # warm-up request first, through a batcher of its own (it packs the bf16
+    # gate weights); the counts are zeroed after it. The
+    # worker's synthesize calls are recorded; the plain versions of the six
+    # forward kernels must not run.
+    import base64
+    import concurrent.futures
+    import io as io_lib
+    import urllib.error
+    import urllib.request
+
+    from multi_speaker_tts_tpu_torch import serve
+    from multi_speaker_tts_tpu_torch.audio import wav_io as port_wav_io
+
+    def http(method, url, body=None, headers=None):
+        req = urllib.request.Request(url, data=body, method=method, headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, resp.headers.get("Content-Type"), resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("Content-Type"), e.read()
+
+    def post_json(url, payload, headers=None):
+        return http("POST", url, json.dumps(payload).encode(),
+                    {"Content-Type": "application/json", **(headers or {})})
+
+    def stream_chunks(port_, payload):
+        """POST /stream on a raw socket -> (status line, [chunk payloads]);
+        a reply that is not chunked comes back as one payload."""
+        import socket
+
+        body = json.dumps(payload).encode()
+        with socket.create_connection(("127.0.0.1", port_), timeout=300) as sock:
+            sock.sendall(b"POST /stream HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                         b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+            buf = b""
+
+            def need(n):
+                nonlocal buf
+                while len(buf) < n:
+                    data = sock.recv(65536)
+                    if not data:
+                        raise ConnectionError("the server closed the connection")
+                    buf += data
+
+            while b"\r\n\r\n" not in buf:
+                need(len(buf) + 1)
+            head, buf = buf.split(b"\r\n\r\n", 1)
+            status = head.split(b"\r\n")[0]
+            if b"Transfer-Encoding: chunked" not in head:
+                n = [int(x.split(b":")[1]) for x in head.split(b"\r\n")
+                     if x.lower().startswith(b"content-length:")]
+                need(n[0] if n else 0)
+                return status, [buf]
+            chunks = []
+            while True:
+                while b"\r\n" not in buf:
+                    need(len(buf) + 1)
+                size_line, buf = buf.split(b"\r\n", 1)
+                size = int(size_line, 16)
+                need(size + 2)
+                if size == 0:
+                    return status, chunks
+                chunks.append(buf[:size])
+                buf = buf[size + 2:]
+
+    def wav_pcm(blob):
+        from scipy.io import wavfile
+
+        return wavfile.read(io_lib.BytesIO(blob))[1]
+
+    plain_fwd = {name: [] for name in ("melspectrogram_plain", "lstm_seq_layer_plain",
+                                       "bilstm_recurrence_plain", "bigru_recurrence_plain",
+                                       "griffin_lim_staged_plain")}
+    plain_mods = {"melspectrogram_plain": mel_kernel, "lstm_seq_layer_plain": lstm_kernel,
+                  "bilstm_recurrence_plain": birnn_kernel, "bigru_recurrence_plain": birnn_kernel,
+                  "griffin_lim_staged_plain": griffin_lim_staged}
+    for name, store in plain_fwd.items():
+        _record(plain_mods[name], name, store)
+    synth_d = Synthesizer(hp, params, batch_stats, seed=0, quantize="bf16_pallas")
+    worker_calls = []
+
+    def worker_synthesize(texts, *a, **k):
+        out = Synthesizer.synthesize(synth_d, texts, *a, **k)
+        worker_calls.append((list(texts), a, k, out))
+        return out
+
+    synth_d.synthesize = worker_synthesize
+    warm = serve.DynamicBatcher(synth_d, max_batch=8, max_wait_ms=250.0, pcm16=True)
+    warm.submit(TEXTS[0], emb)
+    warm.close()
+    daemon = serve.TTSServer(synth_d, host="127.0.0.1", port=0, max_batch=8, max_wait_ms=250.0,
+                             pcm16=True)
+    daemon.start_background()
+    hp_mel = hp.replace(Linear_Head={"Use": False})
+    synth_m = Synthesizer(hp_mel, params, batch_stats, seed=0, quantize="bf16_pallas")
+    daemon_m = serve.TTSServer(synth_m, host="127.0.0.1", port=0, max_batch=8, pcm16=True)
+    daemon_m.start_background()
+    base = f"http://127.0.0.1:{daemon.port}"
+    hop_i = synth_d.dsp_cfg.hop
+    worker_calls.clear()
+    for store in (*recorded.values(), *plain_calls.values(), *plain_fwd.values()):
+        store.clear()
+    for k in kernels.values():
+        k.launches = 0
+    gc.collect()  # as in run_pass
+    daemon_fail = []
+    try:
+        # 1-2: enroll one wav, list the speakers.
+        st, _, body = http("POST", f"{base}/enroll?name=spk0", ENROLL[0].read_bytes())
+        if st != 200 or not json.loads(body).get("ok"):
+            daemon_fail.append(f"/enroll: {st} {body[:200]!r}")
+        st, _, body = http("GET", f"{base}/speakers")
+        if st != 200 or json.loads(body) != ["spk0"]:
+            daemon_fail.append(f"/speakers: {st} {body[:200]!r}")
+        # 3: the burst, 8 concurrent requests by speaker name.
+        burst = [TEXTS[i % len(TEXTS)] for i in range(8)]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            replies = list(pool.map(lambda t: post_json(f"{base}/synthesize",
+                                                        {"text": t, "speaker": "spk0"}), burst))
+        t_burst = time.perf_counter() - t0
+        # 4: raw wav.
+        raw = post_json(f"{base}/synthesize", {"text": TEXTS[2], "speaker": "spk0"},
+                        {"Accept": "audio/wav"})
+        # 5: the malformed payloads, against the port's own _parse_request.
+        bad = [{"speaker": "spk0"}, {"text": "   ", "speaker": "spk0"}, {"text": 7},
+               {"text": "x", "speaker": "nobody"}, {"text": "x"},
+               {"text": "x", "speaker_embedding": [0.5, 0.5]},
+               {"text": "x", "speaker": "spk0", "max_steps": "many"},
+               {"text": "x", "speaker": "spk0", "max_steps": 0}]
+        for payload in bad:
+            want = daemon._parse_request(payload)[1]
+            got = post_json(f"{base}/synthesize", payload)
+            if want is None or got[0] != 400 or got[0] != want[0] or got[2] != want[2]:
+                daemon_fail.append(f"malformed {payload}: {got[0]} {got[2][:120]!r}, want {want}")
+        # 6: /stream on the CBHG checkpoint.
+        line_full, body_full = stream_chunks(daemon.port, {"text": TEXTS[0], "speaker": "spk0"})
+        if b" 501 " not in line_full + b" ":
+            daemon_fail.append(f"/stream on the CBHG head: {line_full!r} {body_full[:1]!r}")
+        # 7: /stream on the mel-only server, against Synthesizer.stream.
+        emb_d = daemon.registry.get("spk0")
+        daemon_m.registry.register("spk0", emb_d)
+        line_m, chunks_m = stream_chunks(daemon_m.port, {"text": TEXTS[1], "speaker": "spk0"})
+        stats = json.loads(http("GET", f"{base}/stats")[2])
+    finally:
+        daemon.shutdown()
+        daemon_m.shutdown()
+        for name in plain_fwd:
+            _restore(plain_mods[name], name)
+    counts_d = {name: k.launches for name, k in kernels.items()}
+    plain_d = {**{k: len(v) for k, v in plain_fwd.items()},
+               **{k: len(v) for k, v in plain_calls.items()}}
+    # Every well-formed reply: 200, int16 PCM of max(mel_length - 1, 1) hop
+    # samples, the bytes of a row the worker's own synthesize returned.
+    rows_by_text = {}
+    for texts, _, _, out in worker_calls:
+        for t, item in zip(texts, out):
+            rows_by_text.setdefault(t, []).append(serve._wav_bytes(item["wav"],
+                                                                   synth_d.dsp_cfg.sample_rate))
+    for t, (st, ctype, body) in zip(burst, replies):
+        if st != 200:
+            daemon_fail.append(f"/synthesize {t!r}: {st} {body[:200]!r}")
+            continue
+        item = json.loads(body)
+        blob = base64.b64decode(item["wav_b64"])
+        pcm = wav_pcm(blob)
+        if pcm.dtype != np.int16 or len(pcm) != max(item["mel_length"] - 1, 1) * hop_i:
+            daemon_fail.append(f"/synthesize {t!r}: {pcm.dtype} {pcm.shape}, mel_length "
+                               f"{item['mel_length']}")
+        if blob not in rows_by_text.get(t, []):
+            daemon_fail.append(f"/synthesize {t!r}: the bytes are no row of the worker's")
+        else:
+            rows_by_text[t].remove(blob)
+    if raw[0] != 200 or raw[1] != "audio/wav" or raw[2] not in rows_by_text.get(TEXTS[2], []):
+        daemon_fail.append(f"Accept: audio/wav: {raw[0]} {raw[1]}, bytes of a worker row: "
+                           f"{raw[2] in rows_by_text.get(TEXTS[2], [])}")
+    # Each batch the worker ran, again directly: the same lengths and mels.
+    batch_err = 0.0
+    for texts, a, k, out in worker_calls:
+        again = Synthesizer.synthesize(synth_d, texts, *a, **k)
+        if [x["mel_length"] for x in again] != [x["mel_length"] for x in out]:
+            daemon_fail.append(f"batch {texts}: direct lengths {[x['mel_length'] for x in again]}"
+                               f" != served {[x['mel_length'] for x in out]}")
+        else:
+            batch_err = max(batch_err, *(float(np.abs(x["mel"] - y["mel"]).max())
+                                         for x, y in zip(again, out)))
+    if not batch_err <= 1e-4:
+        daemon_fail.append(f"batches re-run directly: mels {batch_err} apart (tolerance 1e-4)")
+    hist = {int(k): v for k, v in stats.get("batch_size_histogram", {}).items()}
+    if not any(size >= 2 for size in hist):
+        daemon_fail.append(f"no batch of 2 or more rows: {hist}")
+    for name in ("mel_frontend", "ge2e_lstm_layer", "text_encoder_bilstm", "cbhg_bigru",
+                 "griffin_lim_staged", "decode_segment_bf16"):
+        if counts_d[name] == 0:
+            daemon_fail.append(f"kernel {name} was not launched on the daemon's path")
+    if any(plain_d.values()):
+        daemon_fail.append(f"a plain version ran on the card: {plain_d}")
+    # The mel-only stream: >= 2 chunks, equal to Synthesizer.stream trimmed.
+    want_pcm, final = [], 0
+    for item in synth_m.stream([TEXTS[1]], emb_d, segment_steps=16, pcm16=True):
+        want_pcm.append(item["wav_chunk"][0])
+        final = int(item["mel_lengths"][0])
+    want_pcm = np.concatenate(want_pcm)[:final * synth_m.dsp_cfg.hop]
+    got_pcm = np.frombuffer(b"".join(chunks_m[1:]), "<i2")
+    if b" 200 " not in line_m + b" " or len(chunks_m) - 1 < 2 or not np.array_equal(got_pcm,
+                                                                                   want_pcm):
+        daemon_fail.append(f"mel-only /stream: {line_m!r}, {len(chunks_m) - 1} chunks, "
+                           f"{got_pcm.shape} vs {want_pcm.shape} samples")
+    lat = stats.get("latency_ms", {})
+    smi_d = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=False).stdout.strip()
+    print(f"[i daemon] burst of {len(burst)} /synthesize: {t_burst * 1e3:.1f} ms wall, "
+          f"{len(burst) / t_burst:.2f} requests/s; /stats latency p50 {lat.get('p50')} ms, p95 "
+          f"{lat.get('p95')} ms over {lat.get('window')} requests; batch sizes {hist}; "
+          f"compiled_programs {stats.get('compiled_programs')} ({smi_d})")
+    print(f"[i daemon] worker batches {[len(c[0]) for c in worker_calls]}; re-run directly: "
+          f"largest mel difference {batch_err:.3e} (tolerance 1e-4); launches {counts_d}; plain "
+          f"calls {plain_d}; /stream on the CBHG head {line_full.decode(errors='replace')}; "
+          f"mel-only /stream {len(chunks_m) - 1} chunks, {got_pcm.size} samples equal to "
+          f"Synthesizer.stream: {np.array_equal(got_pcm, want_pcm)}")
+    failures.extend(f"[i daemon] {f}" for f in daemon_fail)
+    del synth_d, synth_m, daemon, daemon_m, warm
+
     # 3. Kernel phase --------------------------------------------------------
     rows = []
     launches = dict(pa["launches"],
@@ -1659,7 +1902,9 @@ def main() -> int:
         queue_ahead=True,
         extra={
             "shape": {"B": Ba, "S": Sa, "A": Aa, "D": Da, "H": Ha, "K": Ka, "C": Ca},
-            "rows_per_block": attention_step_kernel.ROWS_PER_BLOCK,
+            "plan": attention_step_kernel.kernel_plan(
+                Ba, Sa, Aa, Da, Ka, Ca, attention_step_kernel.max_clusters("cuda")),
+            "max_clusters": attention_step_kernel.max_clusters("cuda"),
             "ms_host_dispatched": _time_ms(attn_pair(mid)[0], 3, 20),
             "launches_per_loop": {k: v["launches"] for k, v in attn_res.items()},
             "loop_us_per_step": {k: v["us"] for k, v in attn_res.items()},

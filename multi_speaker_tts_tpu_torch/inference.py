@@ -27,12 +27,19 @@ padding), so they follow the JAX package exactly. The stages carry
 ``synth.vocode``; ``stream.decode``, ``stream.emit``, ``stream.vocode``)
 that a profiler run reads; without a profiler they cost about a microsecond
 each.
+
+CLI (the card by default; ``-device cpu`` runs the plain versions)::
+
+    python -m multi_speaker_tts_tpu_torch.inference -checkpoint demo/serving_ckpt_full.msgpack \
+        -text "..." [-ref enroll1.wav -ref enroll2.wav | -speaker_id N] [-stream] -out <dir>
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -44,6 +51,7 @@ from multi_speaker_tts_tpu_torch.checkpoints import load_compact
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
 from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
+from multi_speaker_tts_tpu_torch.models.speaker import SpeakerLUT
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import stft_matmul
 from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
@@ -135,20 +143,31 @@ class Synthesizer:
         self.hp = hp
         self.compute_dtype = compute_dtype_of(hp)
         self.dsp_cfg = dsp.DSPConfig.from_hp(hp)
-        if hp.Speaker_Embedding.get("Type") not in ("GE2E", None):
-            raise NotImplementedError("the torch port has the GE2E speaker encoder only")
+        spk_type = hp.Speaker_Embedding.get("Type")
+        if spk_type not in ("GE2E", "LUT", None):
+            raise NotImplementedError(f"unknown Speaker_Embedding.Type {spk_type!r}")
         state = params_from_jax(params, batch_stats, hp)
-        self.ge2e = None
-        if hp.Speaker_Embedding.get("Type") == "GE2E":
+        self.ge2e = self.speaker_lut = None
+        if spk_type == "GE2E":
             self.ge2e = GE2E.from_hp(hp, self.compute_dtype)
             load_into(self.ge2e, state, "ge2e.")
             self.ge2e.to(self.device)
+        elif spk_type == "LUT":
+            self.speaker_lut = SpeakerLUT.from_hp(hp)
+            load_into(self.speaker_lut, state, "speaker_lut.")
+            self.speaker_lut.to(self.device)
         self.tacotron = Tacotron(hp, self.compute_dtype)
         load_into(self.tacotron, state, "tacotron.")
         self.tacotron.to(self.device)
         self.seed = seed
         self.enroll_bucket_floor = 1 << 13
         self.last_decode_bucket: int | None = None
+        # The distinct programs the JAX package would compile for the calls
+        # made so far, by its own cache keys (its ``infer``, ``vocode`` and
+        # ``stream`` keys): the port runs eagerly and compiles nothing, but a
+        # server reports how many shapes its traffic has reached (``/stats``
+        # ``compiled_programs``). Each key maps to 1.
+        self.compile_counts: dict = {}
 
     @classmethod
     def from_compact(cls, path: str, hp=None, **kwargs) -> "Synthesizer":
@@ -198,6 +217,15 @@ class Synthesizer:
         return mean.cpu().numpy()
 
     # -- synthesize ------------------------------------------------------------
+    @torch.no_grad()
+    def embed_speaker_ids(self, speaker_ids) -> np.ndarray:
+        """Closed-set models (``Speaker_Embedding.Type: LUT``): ids -> (B, E)
+        unit-norm embeddings."""
+        if self.speaker_lut is None:
+            raise ValueError("model has no speaker lookup table")
+        ids = torch.as_tensor(np.atleast_1d(np.asarray(speaker_ids, np.int64)), device=self.device)
+        return self.speaker_lut(ids).cpu().numpy()
+
     def _prenet_masks(self, batch: int):
         """Always-on prenet dropout: one (batch, size) bool keep mask per
         prenet layer per step, from a generator seeded with ``self.seed``
@@ -216,9 +244,10 @@ class Synthesizer:
 
         return draw
 
-    def _prepare(self, texts, speaker_embedding, max_steps):
+    def _prepare(self, texts, speaker_embedding, speaker_ids, max_steps):
         """Tokens in a pow2 batch bucket (PAD rows inactive) and a
-        16-multiple token bucket; the decode bucket from the longest text."""
+        16-multiple token bucket; the decode bucket from the longest text;
+        LUT speaker ids looked up in place of an embedding."""
         hp = self.hp
         sequences = [text_frontend.encode_text(t, hp) for t in texts]
         B = len(sequences)
@@ -233,6 +262,8 @@ class Synthesizer:
         for i, s in enumerate(sequences):
             tokens[i, :len(s)] = s
             lengths[i] = len(s)
+        if speaker_ids is not None:
+            speaker_embedding = self.embed_speaker_ids(speaker_ids)
         spk = None
         if self.tacotron.speaker_embedding_size:
             if speaker_embedding is None:
@@ -253,7 +284,8 @@ class Synthesizer:
     def synthesize(self, texts: list[str], speaker_embedding=None,
                    max_steps: int | None = None, pcm16: bool = False,
                    early_exit: bool = True, return_linear: bool = True,
-                   vocode: bool = True, split_vocode: bool = True) -> list[dict]:
+                   vocode: bool = True, split_vocode: bool = True,
+                   speaker_ids=None) -> list[dict]:
         """Texts -> [{wav, mel, linear, alignment, mel_length}]. With
         ``split_vocode`` (the default) Griffin-Lim runs at a pow2 bucket of
         the batch's longest decoded length; ``split_vocode=False`` vocodes
@@ -261,10 +293,15 @@ class Synthesizer:
         (the wavs differ by Griffin-Lim's phase coupling into the padding).
         ``vocode=False`` returns no wav. ``linear`` is there for models
         with a linear head unless ``return_linear=False``; ``early_exit=False``
-        runs the fixed-length decode."""
+        runs the fixed-length decode. ``speaker_ids`` (LUT models) takes the
+        place of ``speaker_embedding``."""
         B, max_steps, tokens, lengths, spk, active = self._prepare(
-            texts, speaker_embedding, max_steps)
+            texts, speaker_embedding, speaker_ids, max_steps)
         self.last_decode_bucket = max_steps
+        split = vocode and split_vocode
+        self.compile_counts.setdefault(
+            ("infer", tokens.shape[1], tokens.shape[0], max_steps, vocode and not split, False,
+             early_exit, True if split else return_linear, False if split else pcm16), 1)
         out = self.tacotron.infer(
             tokens, lengths, spk, max_steps, float(self.hp.Decoder.Stop_Threshold),
             active, self._prenet_masks(tokens.shape[0]), early_exit,
@@ -272,6 +309,9 @@ class Synthesizer:
         mel_lengths = out["mel_lengths"].cpu().numpy()
         r = int(self.hp.Decoder.get("N_Frames_Per_Step", 1))
         Tb = _decode_bucket(max(int(mel_lengths.max()), r), max_steps)
+        if split:
+            self.compile_counts.setdefault(
+                ("vocode", tokens.shape[1], tokens.shape[0], Tb, return_linear, pcm16, False), 1)
         steps = max(-(-Tb // r), 1)
         mel_post = out["mel_post"][:, :Tb]
         linear = out["linear"][:, :Tb] if "linear" in out else None
@@ -304,7 +344,7 @@ class Synthesizer:
     @torch.no_grad()
     def stream(self, texts: list[str], speaker_embedding=None, max_steps: int | None = None,
                segment_steps: int = 16, gl_context: int = 12, pcm16: bool = False,
-               return_mel: bool = False, gl_warm_start: bool = False):
+               return_mel: bool = False, gl_warm_start: bool = False, speaker_ids=None):
         """Streaming synthesis: yields waveform chunks as decoding goes on.
 
         The decode runs in segments of ``segment_steps`` AR steps; each
@@ -327,7 +367,8 @@ class Synthesizer:
         and with ``return_mel`` the block's "mel_chunk" (B, E, mel). A CBHG
         head raises ``NotImplementedError`` (its bidirectional GRU needs the
         whole sequence); a segment shorter than the right halo raises
-        ``ValueError``."""
+        ``ValueError``. ``speaker_ids`` (LUT models) takes the place of
+        ``speaker_embedding``."""
         hp = self.hp
         r = int(hp.Decoder.get("N_Frames_Per_Step", 1))
         taco = self.tacotron
@@ -349,11 +390,13 @@ class Synthesizer:
                 f"right-context need {Gr + Q + P} (postnet {P} + linear {Q} + vocoder "
                 f"{Gr} frames); raise segment_steps")
         B, max_steps, tokens, lengths, spk, active = self._prepare(
-            texts, speaker_embedding, max_steps)
+            texts, speaker_embedding, speaker_ids, max_steps)
         Bp = tokens.shape[0]
         cap_steps = max(max_steps // r, 1)
         self.last_decode_bucket = max_steps
         n_segs = _round_up(max(cap_steps, K), K) // K
+        self.compile_counts.setdefault(
+            ("stream", tokens.shape[1], Bp, n_segs * K, K, cap_steps, G, pcm16, gl_warm_start), 1)
         bucket_frames = n_segs * E
         PAD_L, PAD_R = G + Q + P, Gr + Q + P
         Wmel, Wf = PAD_L + E + PAD_R, G + E + Gr
@@ -433,3 +476,106 @@ class Synthesizer:
         item = emit(a)
         item.update(frame_offset=a, done=True)
         yield item
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="TTS inference / zero-shot cloning")
+    parser.add_argument("-checkpoint", required=True,
+                        help=".msgpack compact checkpoint (export_compact)")
+    parser.add_argument("-text", action="append", default=[])
+    parser.add_argument("-text_file", default=None,
+                        help="file with one sentence per line")
+    parser.add_argument("-ref", action="append", default=[],
+                        help="enrollment wav(s) for zero-shot cloning (GE2E)")
+    parser.add_argument("-speaker_id", type=int, default=None,
+                        help="speaker index for LUT models")
+    parser.add_argument("-out", default="./inference")
+    parser.add_argument("-max_steps", type=int, default=None)
+    parser.add_argument("-stream", action="store_true",
+                        help="stream chunks to <out>/utt_<i>.wav as they "
+                             "decode (Synthesizer.stream); prints per-chunk "
+                             "timing instead of alignments")
+    parser.add_argument("-quantize", default=None, choices=["int8", "int8_pallas", "bf16_pallas"],
+                        help="the AR decode: weight-only int8, or the decode "
+                             "kernel with int8 or bf16 gates")
+    parser.add_argument("-device", default="cuda",
+                        help="cuda (the default; raises without a card) or cpu")
+    args = parser.parse_args(argv)
+
+    texts = list(args.text)
+    if args.text_file:
+        with open(args.text_file, encoding="utf-8") as f:
+            texts += [line.strip() for line in f if line.strip()]
+    if not texts:
+        parser.error("pass -text and/or -text_file")
+    if not args.checkpoint.endswith(".msgpack"):
+        parser.error(f"-checkpoint {args.checkpoint!r}: the port reads .msgpack compact "
+                     "checkpoints only (export_compact); Orbax directories are not ported yet")
+
+    synth = Synthesizer.from_compact(args.checkpoint, quantize=args.quantize,
+                                     device=args.device)
+    hp = synth.hp
+    spk_type = hp.Speaker_Embedding.get("Type")
+    if spk_type == "GE2E" and not args.ref:
+        parser.error(
+            "this model is speaker-conditioned: pass at least one enrollment "
+            "wav with -ref"
+        )
+    if spk_type == "LUT" and args.speaker_id is None:
+        parser.error("this model uses a speaker lookup table: pass -speaker_id")
+    spk = synth.enroll(args.ref) if args.ref else None
+    ids = None if args.speaker_id is None else [args.speaker_id] * len(texts)
+
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.stream:
+        t0 = time.perf_counter()
+        parts, lengths = [], None
+        for chunk in synth.stream(texts, spk, max_steps=args.max_steps, speaker_ids=ids):
+            parts.append(chunk["wav_chunk"])
+            lengths = chunk["mel_lengths"]
+            print(f"chunk at {(time.perf_counter() - t0) * 1e3:7.1f} ms: "
+                  f"frames {chunk['frame_offset']}.."
+                  f"{chunk['frame_offset'] + chunk['wav_chunk'].shape[1] // hp.Sound.Frame_Shift}")
+        wav = np.concatenate(parts, axis=1)
+        for i in range(len(texts)):
+            n = max(int(lengths[i]) - 1, 1) * hp.Sound.Frame_Shift
+            wav_io.save_wav(out_dir / f"utt_{i}.wav", wav[i, :n], hp.Sound.Sample_Rate)
+            print(f"wrote {out_dir}/utt_{i}.wav ({int(lengths[i])} frames, streamed)")
+        return
+
+    results = synth.synthesize(texts, spk, max_steps=args.max_steps, speaker_ids=ids)
+    for i, item in enumerate(results):
+        wav_io.save_wav(out_dir / f"utt_{i}.wav", item["wav"], hp.Sound.Sample_Rate)
+        np.save(out_dir / f"utt_{i}_mel.npy", item["mel"])
+        np.save(out_dir / f"utt_{i}_alignment.npy", item["alignment"])
+        _save_alignment_plot(
+            out_dir / f"utt_{i}_alignment.png", item["alignment"], item["mel_length"]
+        )
+        print(f"wrote {out_dir}/utt_{i}.wav ({item['mel_length']} frames)")
+
+
+def _save_alignment_plot(path, alignment: np.ndarray, mel_length: int) -> None:
+    """Attention-alignment image, the reference's de-facto health metric.
+    Skipped where matplotlib is not installed."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.imshow(
+        alignment[:mel_length].T, aspect="auto", origin="lower",
+        interpolation="none", cmap="viridis",
+    )
+    ax.set_xlabel("decoder step")
+    ax.set_ylabel("encoder position")
+    fig.tight_layout()
+    fig.savefig(path, dpi=100)
+    plt.close(fig)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,9 @@ so an edited source rebuilds and an unchanged one is reused.
 Every exported entry point returns a ``cudaError_t`` (0 = success) that
 it read with ``cudaGetLastError`` right after its launches; :meth:`Kernel.call`
 raises on anything else. Nothing here runs at import time: the CPU tests
-import every module of the port on a machine without ``nvcc``.
+import every module of the port on a machine without ``nvcc``. Builds and
+first loads hold one lock, so threads that first use a kernel together
+(a server's worker and its HTTP threads) build it once.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -31,6 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _HEADERS = ("common.cuh", "lstm_persistent.cuh", "lstm_bwd.cuh", "bigru_step.cuh")
+_BUILD_LOCK = threading.RLock()
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
@@ -57,6 +61,11 @@ def _target(source: str) -> pathlib.Path:
 def build(sources) -> dict[str, str]:
     """Compile every missing library, one ``nvcc`` per source, all started
     together. Returns ``{source: ptxas report}`` for what was compiled."""
+    with _BUILD_LOCK:
+        return _build(sources)
+
+
+def _build(sources) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for src in sources:
@@ -93,6 +102,12 @@ class Kernel:
         self._lib = None
 
     def lib(self):
+        if self._lib is None:
+            with _BUILD_LOCK:
+                return self._load()
+        return self._lib
+
+    def _load(self):
         if self._lib is None:
             build([self.source])
             lib = ctypes.CDLL(str(_target(self.source)))

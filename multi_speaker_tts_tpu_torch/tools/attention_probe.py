@@ -18,8 +18,9 @@ Run on the card::
         [-A 128] [-D 512] [-H 1024] [-iters 200] [-device cuda]
 
 ``-device cpu`` runs both loops on the CPU, where the kernel loop runs the
-plain version. On the card the probe also times one kernel step alone at
-1, 2 and 4 batch rows a thread block (:func:`step_card_us`). The inputs
+plain version. On the card the probe also prints the kernel's launch plan
+(batch rows a cluster, memory chunks) and times one kernel step alone
+(:func:`step_card_us`). The inputs
 are drawn from ``np.random.default_rng(0)`` in the JAX probe's order
 (:func:`probe_inputs`), so both probes see the same arrays.
 """
@@ -193,14 +194,16 @@ def main(argv=None) -> None:
 
     print(f"verdict: kernel/plain = {t_kernel / t_plain:.3f}x")
 
-    if device.type == "cuda":  # the first step's inputs, R batch rows a block
-        K = ap.conv_kernel.shape[0]
+    if device.type == "cuda":  # the first step's inputs
+        K, _, C = ap.conv_kernel.shape
         borders = ((K - 1) // 2, K - 1 - (K - 1) // 2)
         step = (h0, F.pad(w0, borders), F.pad(cum0, borders), keys, memory,
                 ask.maskadd_of(mask), ap)
-        for R in (1, 2, 4):
-            us = step_card_us(lambda R=R: ask.attention_step_kernel(*step, rows=R))
-            print(f"kernel step alone, {R} rows a block: {us:6.2f} us of card time")
+        plan = ask.kernel_plan(args.B, args.S, args.A, args.D, K, C,
+                               ask.max_clusters(device))
+        us = step_card_us(lambda: ask.attention_step_kernel(*step))
+        print(f"kernel plan {plan} (the card holds {ask.max_clusters(device)} clusters)")
+        print(f"kernel step alone: {us:6.2f} us of card time")
 
 
 if __name__ == "__main__":

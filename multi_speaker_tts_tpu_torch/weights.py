@@ -3,7 +3,8 @@
 :func:`params_from_jax` takes ``(params, batch_stats)`` as numpy trees (what
 ``checkpoints.load_compact`` returns) and produces the port's state: one
 flat ``{"ge2e.*" | "tacotron.*": array}`` dict whose keys are the
-``state_dict`` keys of :class:`models.ge2e.GE2E` (prefix ``ge2e.``) and
+``state_dict`` keys of :class:`models.ge2e.GE2E` (prefix ``ge2e.``),
+:class:`models.speaker.SpeakerLUT` (prefix ``speaker_lut.``) and
 :class:`models.tacotron.Tacotron` (prefix ``tacotron.``).
 
 Layouts stay the JAX ones (Dense kernels (in, out), LSTM gates i, f, g, o
@@ -37,6 +38,7 @@ def _same(x: np.ndarray) -> np.ndarray:
 _RULES = [
     ("params", r"ge2e/lstm_(\d+)/(w_ih|w_hh|b)", r"ge2e.lstm.\1.\2", _same),
     ("params", r"ge2e/projection/(kernel|bias)", r"ge2e.projection.\1", _same),
+    ("params", r"speaker_lut/table/embedding", "speaker_lut.table.weight", _same),
     ("params", r"tacotron/encoder/embedding/embedding", "tacotron.encoder.embedding", _same),
     ("params", r"tacotron/encoder/bilstm/(forward|backward)/(w_ih|w_hh|b)",
      r"tacotron.encoder.bilstm.\1_dir.\2", _same),

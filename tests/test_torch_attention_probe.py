@@ -169,25 +169,38 @@ def test_kernel_entry_refuses_cpu_tensors():
     assert ask.KERNEL.launches == before
 
 
-@pytest.mark.parametrize("S_, A_, D_, C_, rows, match", [
-    (257, 128, 512, 32, 1, "at most 256 memory positions"),
-    (100, 48, 512, 32, 1, "multiple of 32"),
-    (100, 544, 512, 32, 1, "up to 512"),
-    (100, 128, 520, 32, 1, "memory width"),
-    (100, 128, 512, 33, 1, "location channels"),
-    (100, 128, 512, 32, 3, "rows a block"),
+@pytest.mark.parametrize("S_, A_, D_, C_, match", [
+    (257, 128, 512, 32, "at most 256 memory positions"),
+    (100, 48, 512, 32, "multiple of 32"),
+    (100, 544, 512, 32, "up to 512"),
+    (100, 128, 520, 32, "memory width"),
+    (100, 128, 512, 33, "location channels"),
+    (100, 128, 65536, 32, "bytes of shared memory"),
 ])
-def test_shape_reason_refuses(S_, A_, D_, C_, rows, match):
-    reason = ask.shape_reason(S_, A_, D_, C_, rows)
+def test_shape_reason_refuses(S_, A_, D_, C_, match):
+    reason = ask.shape_reason(S_, A_, D_, C_)
     assert reason is not None and match in reason
 
 
-@pytest.mark.parametrize("S_, A_, D_, rows", [
-    (100, 128, 512, 1), (100, 128, 512, 2), (100, 128, 512, 4),
-    (64, 128, 768, 1), (256, 512, 1024, 4),
+@pytest.mark.parametrize("S_, A_, D_, B_", [
+    (100, 128, 512, 96), (100, 128, 512, 7), (100, 128, 512, 1),
+    (64, 128, 768, 32), (256, 512, 1024, 5),
 ])
-def test_shape_reason_takes_the_probe_and_train_shapes(S_, A_, D_, rows):
-    assert ask.shape_reason(S_, A_, D_, 32, rows) is None
+def test_shape_reason_takes_the_probe_and_train_shapes(S_, A_, D_, B_):
+    """Every width the first design took, and a launch plan that fits a
+    block's shared memory at any batch, at 16 clusters on the card."""
+    assert ask.shape_reason(S_, A_, D_, 32) is None
+    plan = ask.kernel_plan(B_, S_, A_, D_, 31, 32, 16)
+    assert plan is not None and plan["smem"] <= ask.SMEM_LIMIT
+    assert plan["R"] * plan["clusters"] >= B_ > plan["R"] * (plan["clusters"] - 1)
+
+
+def test_kernel_plan_at_the_probe_shape():
+    """At the probe's shape on 16 clusters: 6 rows a cluster, 128 blocks,
+    five of a block's six memory chunks in flight from the start."""
+    plan = ask.kernel_plan(96, 100, 128, 512, 31, 32, 16)
+    assert (plan["R"], plan["blocks"], plan["chunk"], plan["slots"]) == (6, 128, 13, 5)
+    assert ask.smem_bytes(100, 128, 512, 31, 32, 6, 13, 5) == plan["smem"]
 
 
 class _Stop(Exception):
@@ -254,3 +267,15 @@ def test_probe_refuses_to_guess_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe.main(["-B", "2", "-S", "8", "-iters", "1"])
+
+
+def test_stamp_tool_finds_every_phase_in_the_kernel_source():
+    """tools/attention_stamps.py stamps the kernel at its phase anchors: each
+    is in csrc/attention_step.cu once, so the tool measures this kernel."""
+    from multi_speaker_tts_tpu_torch.ops import _build
+    from multi_speaker_tts_tpu_torch.tools import attention_stamps
+
+    text = attention_stamps.stamped_source((_build.CSRC / "attention_step.cu").read_text())
+    assert text.count("MSTTS_STAMP(") == len(attention_stamps.ANCHORS) + 2 + 1  # + the macro
+    with pytest.raises(ValueError, match="anchor not found"):
+        attention_stamps.stamped_source("#include \"common.cuh\"\n")

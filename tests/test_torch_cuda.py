@@ -905,6 +905,12 @@ def _attention_case(dev, B, S, A, D, H, C, seed, masked=False, scale=0.1):
 ATTENTION_SHAPES = {
     "tiny": (4, 12, 32, 32, 64, 8), "probe": (96, 100, 128, 512, 1024, 32),
     "train": (32, 64, 128, 768, 1024, 32), "max": (5, 256, 512, 96, 1024, 32),
+    # B past the card's clusters, so a cluster takes several rows and the
+    # last fewer; S not a multiple of the cluster (the last block's run of
+    # positions is short), A / 32 not a power of two, C not a multiple of 8.
+    "ragged": (37, 37, 96, 160, 200, 20),
+    # A ring shorter than a block's memory chunks (refilled during the step).
+    "ring": (96, 256, 128, 512, 1024, 32),
 }
 
 
@@ -926,13 +932,36 @@ def test_attention_step_kernel(dev, shape, masked):
 
 
 def test_attention_step_kernel_rows_per_block_agree(dev):
+    """A row's outputs do not depend on how many rows its cluster takes: the
+    probe's batch (several rows a cluster) against its first 7 and its last
+    rows alone (one a cluster), bit for bit; and a repeat is bit-equal."""
     from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
 
-    args = _attention_case(dev, 7, 100, 128, 512, 1024, 32, seed=5, masked=True)
-    outs = {R: ask.attention_step_kernel(*args, rows=R) for R in (1, 2, 4)}
-    for R in (2, 4):
-        for a, b in zip(outs[1], outs[R]):
-            assert float((a - b).abs().max()) <= 1e-5
+    args = _attention_case(dev, 96, 100, 128, 512, 1024, 32, seed=5, masked=True)
+    B, S, A = args[3].shape
+    assert ask.kernel_plan(B, S, A, 512, 31, 32, ask.max_clusters(dev))["R"] > 1
+    full = ask.attention_step_kernel(*args)
+    again = ask.attention_step_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    for rows in (slice(0, 7), slice(95, 96)):
+        part = ask.attention_step_kernel(*(t[rows] for t in args[:6]), args[6])
+        assert all(torch.equal(a[rows], b) for a, b in zip(full, part))
+
+
+@pytest.mark.parametrize("shape", list(ATTENTION_SHAPES))
+def test_attention_step_smem_mirror(dev, shape):
+    """The wrapper's copy of the kernel's shared-memory layout equals the
+    kernel's own at the plan the wrapper launches."""
+    import ctypes
+
+    from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
+
+    B, S, A, D, H, C = ATTENTION_SHAPES[shape]
+    plan = ask.kernel_plan(B, S, A, D, 31, C, ask.max_clusters(dev))
+    dims = (ctypes.c_int * 8)(S, A, D, 31, C, plan["R"], plan["chunk"], plan["slots"])
+    out = ctypes.c_longlong(0)
+    ask.KERNEL.lib().mstts_attention_smem_bytes(dims, ctypes.byref(out))
+    assert out.value == plan["smem"] <= ask.SMEM_LIMIT
 
 
 def test_attention_kernel_loop_launches_once_a_step(dev, monkeypatch):
@@ -966,10 +995,53 @@ def test_attention_step_kernel_raises_on_unsupported_shapes(dev):
 
 
 def test_attention_step_kernel_raises_past_the_cards_shared_memory(dev):
-    """H 60000 needs ~254 KB of shared memory a block, more than the 227 KB
-    an H100 block may have: the launch fails and the wrapper raises."""
+    """D 65536: one memory position of a block's ring is 256 KB, more than
+    the 227 KB an H100 block may have: the wrapper refuses with its reason."""
     from multi_speaker_tts_tpu_torch.ops import attention_step_kernel as ask
 
-    args = _attention_case(dev, 2, 12, 32, 32, 60000, 8, seed=0)
-    with pytest.raises(RuntimeError, match="mstts_attention_step failed"):
+    args = _attention_case(dev, 2, 12, 32, 65536, 64, 8, seed=0)
+    before = ask.KERNEL.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
         ask.attention_step(*args)
+    assert ask.KERNEL.launches == before
+
+
+def test_daemon_serves_the_workers_bytes_on_the_card(dev):
+    """One /synthesize on the small checkpoint on the card: the wav bytes the
+    client receives are those of the row the worker's own synthesize call
+    returned, and a direct synthesize of the same request decodes the same
+    mel length (one request, one answer)."""
+    import base64
+    import json
+    import urllib.request
+
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.serve import TTSServer, _wav_bytes
+
+    synth = Synthesizer.from_compact(str(ROOT / "demo" / "serving_ckpt.msgpack"), device=dev)
+    calls, original = [], synth.synthesize
+
+    def recorded(texts, *args, **kwargs):
+        out = original(texts, *args, **kwargs)
+        calls.append((list(texts), args, kwargs, out))
+        return out
+
+    synth.synthesize = recorded
+    srv = TTSServer(synth, host="127.0.0.1", port=0, max_batch=4, max_wait_ms=5.0)
+    srv.registry.enroll("spk0", [str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
+    srv.start_background()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/synthesize", method="POST",
+            data=json.dumps({"text": "hello from the card.", "speaker": "spk0"}).encode())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            assert resp.status == 200
+            out = json.loads(resp.read())
+    finally:
+        srv.shutdown()
+    texts, args, kwargs, results = calls[-1]
+    assert texts == ["hello from the card."]
+    wav = base64.b64decode(out["wav_b64"])
+    assert wav == _wav_bytes(results[0]["wav"], synth.dsp_cfg.sample_rate)
+    again = original(texts, *args, **kwargs)
+    assert again[0]["mel_length"] == results[0]["mel_length"] == out["mel_length"]
