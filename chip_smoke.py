@@ -57,7 +57,24 @@
    show a batch of 2 or more rows, and the six forward kernels must launch
    with no plain version running; prints the burst's wall time, requests a
    second and /stats p50 / p95 latency beside the card's name and power
-   limit.
+   limit. Then a burst of 24 concurrent /synthesize through a server with
+   the default ``max_batch`` (32): every reply 200, /stats showing a batch
+   of more than 16 requests (padded to 32 rows: two row groups of the
+   decode kernel, one launch each a chunk), that batch re-run directly
+   within 1e-4.
+   The train phase runs the decoder scan through its autograd Function
+   (the hand-written backward), times the same step with the scan under
+   autograd (``decoder_tf_scan_ref``) and counts both steps' device
+   operations, and holds one call's gradients against the autograd loop's
+   (f32 1e-3, bf16 5e-2 of each gradient's peak).
+   Training end to end (j): ``python -m multi_speaker_tts_tpu_torch.train``
+   through ``main(argv)`` at the production widths on a synthetic corpus
+   (``-mode ge2e`` 5 steps; ``-mode tts -ge2e_checkpoint`` 6 steps saving
+   at step 3; a resume to step 8; ``export_compact`` and
+   ``Synthesizer.from_compact`` of the export synthesizing one text): every
+   loss finite, every step launching its mode's kernels with no plain
+   backward, the resume starting at the saved step with bit-equal params,
+   the export equal to the trained arrays at f16, the wav int16.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -118,6 +135,12 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 SM_CLOCK_HZ = 1.98e9
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=False).stdout.strip()
 
 
 def _fail(msg: str) -> None:
@@ -229,6 +252,7 @@ def _profile(label: str, fn):
         end = max(end, b)
     busy_ms = busy_us / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    _profile.last_ops = len(intervals)
     print(f"[{label}] profile (under the profiler): wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(intervals)} device ops")
@@ -264,6 +288,163 @@ def _train_batch(hp, n: int, seed: int) -> dict:
     return collate_tts(pats, buckets.Token_Buckets[0], buckets.Mel_Buckets[0], hp.Sound.Mel_Dim,
                        int(hp.Decoder.N_Frames_Per_Step), hp.Speaker_Embedding.GE2E.Window_Length,
                        np.random.default_rng(seed), hp.Sound.Spectrogram_Dim)
+
+
+def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict) -> list[str]:
+    """Pass (j): ``python -m multi_speaker_tts_tpu_torch.train`` driven
+    in-process (``main(argv)``) at the production widths of the shipped
+    defaults on a ``generate_synthetic_dataset`` corpus of 16 speakers x 2
+    utterances ("rich" voices): one GE2E batch (16 x 10 crops of 32
+    frames) and one TTS batch (32). ``-mode ge2e`` for 5 steps, ``-mode tts
+    -ge2e_checkpoint`` for 6 steps saving at step 3 (and 6), a resume to
+    step 8, then ``export_compact`` of the last checkpoint and
+    ``Synthesizer.from_compact`` of the export synthesizing one text. Every
+    step's launches are read around its ``train_step``. Returns the
+    failures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.data.pattern_generator import generate_synthetic_dataset
+    from multi_speaker_tts_tpu_torch.hparams import default_hparams
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.train import __main__ as train_cli
+    from multi_speaker_tts_tpu_torch.train.checkpoints import CheckpointManager, export_compact
+    from multi_speaker_tts_tpu_torch.train.ge2e_trainer import GE2ETrainer
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+    from multi_speaker_tts_tpu_torch.weights import params_to_jax
+
+    fails = []
+    ge2e_step = {"ge2e_lstm_layer_residuals": 3, "ge2e_lstm_bwd": 3}
+    steps = {"ge2e": [], "tts": []}  # (step, ms, launches, metrics) per train_step
+    resumed = {}
+
+    def watch(cls, mode):
+        original = cls.train_step
+
+        def step(self, batch):
+            if mode == "tts" and "run" in resumed and "at" not in resumed:
+                saved, at = CheckpointManager(self.checkpoints.directory).restore()
+                resumed["at"], resumed["step"] = at, self.step
+                resumed["equal"] = all(torch.equal(saved["params"][n], p.detach().cpu())
+                                       for n, p in zip(self.param_names, self.params))
+            counts = {name: k.launches for name, k in kernels.items()}
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = original(self, batch)
+            stop.record()
+            torch.cuda.synchronize()
+            steps[mode].append((self.step, start.elapsed_time(stop),
+                                {n: kernels[n].launches - counts[n] for n in kernels}, m))
+            return m
+
+        cls.train_step = step
+        return original
+
+    originals = {GE2ETrainer: watch(GE2ETrainer, "ge2e"), Trainer: watch(Trainer, "tts")}
+    for store in plain_bwd.values():
+        store.clear()
+    # GE2E crops of 32 frames: the corpus's utterances are 35-103 frames, and
+    # the default 160-frame crops would end in zero padding, which every
+    # utterance embeds alike (a constant loss of ln 16).
+    hp = default_hparams(Train={"Checkpoint_Save_Interval": 3, "Logging_Interval": 1},
+                         GE2E_Train={"Frame_Length": 32})
+    peak = {}
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            work = pathlib.Path(work)
+            t0 = time.perf_counter()
+            meta = generate_synthetic_dataset(hp, work / "corpus", n_speakers=16,
+                                              n_utterances=2, voice="rich")
+            pats = str(work / "corpus" / "patterns")
+            print(f"[j train] corpus: {len(meta['Files'])} patterns, mel lengths "
+                  f"{int(meta['Mel_Lengths'].min())}-{int(meta['Mel_Lengths'].max())}, tokens "
+                  f"{int(meta['Token_Lengths'].min())}-{int(meta['Token_Lengths'].max())} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            hp_file = work / "hp.json"
+            hp_file.write_text(json.dumps(hp.to_dict()))
+            common = ["-hp", str(hp_file), "-train_pattern", pats, "-log", str(work / "logs")]
+            runs = (("ge2e", ["-mode", "ge2e", "-checkpoint", str(work / "ge2e"), "-max_step", "5"]),
+                    ("tts", ["-mode", "tts", "-checkpoint", str(work / "tts"), "-ge2e_checkpoint",
+                             str(work / "ge2e"), "-max_step", "6"]),
+                    ("resume", ["-mode", "tts", "-checkpoint", str(work / "tts"),
+                                "-max_step", "8"]))
+            for name, argv in runs:
+                if name == "resume":
+                    resumed["run"] = True
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                train_cli.main(common + argv)
+                torch.cuda.synchronize()
+                peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+                print(f"[j train] {name}: main() returned after "
+                      f"{time.perf_counter() - t0:.1f} s, peak device memory {peak[name]:.2f} GiB")
+            tts_steps = CheckpointManager(work / "tts").steps()
+            state, last = CheckpointManager(work / "tts").restore()
+            hp_t = hp.replace(Speaker_Embedding={"GE2E": {
+                "Pretrained_Checkpoint": str(work / "ge2e")}})
+            params, batch_stats = params_to_jax({**state["params"], **state["batch_stats"]}, hp_t)
+            export = work / "export.msgpack"
+            export_compact(export, params, batch_stats, {"hp": hp_t.to_dict()})
+            got_p, got_bs, _ = load_compact(export)
+            flat = {**state["params"], **state["batch_stats"]}
+            want_p, want_bs = params_to_jax(
+                {k: v.half().float() for k, v in flat.items()}, hp_t)
+            export_equal = all(np.array_equal(a, b) for a, b in
+                               zip(_leaves(got_p) + _leaves(got_bs),
+                                   _leaves(want_p) + _leaves(want_bs)))
+            synth = Synthesizer.from_compact(str(export), seed=0)
+            out = synth.synthesize([TEXTS[0]], synth.enroll(str(ENROLL[0])), max_steps=64,
+                                   pcm16=True)[0]
+            wav = out["wav"]
+            print(f"[j train] tts checkpoints at steps {tts_steps}; export of step {last}: "
+                  f"{export.stat().st_size / 2 ** 20:.1f} MB, arrays equal to the trained ones "
+                  f"at f16: {export_equal}; from_compact synthesized {wav.dtype} {wav.shape}, "
+                  f"mel_length {out['mel_length']} (max_steps 64)")
+    finally:
+        for cls, original in originals.items():
+            cls.train_step = original
+    for mode, want in (("ge2e", ge2e_step), ("tts", per_step)):
+        ms = [x[1] for x in steps[mode][1:]] or [steps[mode][0][1]]
+        print(f"[j train] -mode {mode}: steps {[x[0] for x in steps[mode]]}, ms a step (CUDA "
+              f"events, after the first) {statistics.mean(ms):.2f} (all "
+              f"{json.dumps([round(x[1], 2) for x in steps[mode]])}); losses "
+              f"{json.dumps([round(x[3].get('loss', x[3].get('total', 0.0)), 5) for x in steps[mode]])}"
+              f"; peak memory {max(peak.get(mode, 0), peak.get('resume', 0) if mode == 'tts' else 0):.2f}"
+              f" GiB ({_smi()})")
+        for step, _, launches, m in steps[mode]:
+            if not all(math.isfinite(v) for v in m.values()) or m.get("skipped_nonfinite"):
+                fails.append(f"[j train] {mode} step {step}: metrics {m}")
+            if {n: launches[n] for n in want} != want:
+                fails.append(f"[j train] {mode} step {step}: launches "
+                             f"{ {n: launches[n] for n in want} }, want {want}")
+    if [x[0] for x in steps["ge2e"]] != [1, 2, 3, 4, 5] or \
+            [x[0] for x in steps["tts"]] != [1, 2, 3, 4, 5, 6, 7, 8]:
+        fails.append(f"[j train] steps run: {[x[0] for x in steps['ge2e']]}, "
+                     f"{[x[0] for x in steps['tts']]}")
+    if any(plain_bwd.values()):
+        fails.append(f"[j train] a plain backward ran on the card: "
+                     f"{ {k: len(v) for k, v in plain_bwd.items()} }")
+    print(f"[j train] resume: started at step {resumed.get('step')} from checkpoint step "
+          f"{resumed.get('at')}, params bit-equal to the saved ones: {resumed.get('equal')}")
+    if resumed.get("at") != 6 or resumed.get("step") != 6 or not resumed.get("equal"):
+        fails.append(f"[j train] resume: {resumed}")
+    if 3 not in tts_steps or not export_equal:
+        fails.append(f"[j train] checkpoints {tts_steps}, export equal {export_equal}")
+    if wav.dtype != np.int16 or wav.size == 0 or out["mel_length"] <= 0:
+        fails.append(f"[j train] synthesized {wav.dtype} {wav.shape}, {out['mel_length']}")
+    return fails
+
+
+def _leaves(tree: dict, prefix: str = "") -> list:
+    """The arrays of a nested dict, in sorted key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [v]
+    return out
 
 
 def main() -> int:
@@ -456,10 +637,13 @@ def main() -> int:
             if res["plain_steps"]["decoder_cell_step"] == 0:
                 failures.append(f"[{label}] the default decode ran no plain step")
         else:
+            # One launch a row group of at most 16 rows a chunk.
             chunks = len(res["recorded"]["segment"])
-            if res["launches"][decode] != chunks:
+            groups = sum(len(decode_kernel.row_groups(a[1].shape[0]))
+                         for a, _, _ in res["recorded"]["segment"])
+            if res["launches"][decode] != groups:
                 failures.append(f"[{label}] {res['launches'][decode]} decode launches for "
-                                f"{chunks} chunks")
+                                f"{chunks} chunks of {groups} row groups")
             if any(res["plain_steps"].values()):
                 failures.append(f"[{label}] the plain decode ran under a kernel mode: "
                                 f"{res['plain_steps']}")
@@ -530,7 +714,8 @@ def main() -> int:
         pf = run_pass(f"fixed-length {quantize}", synth, TEXTS[:1], emb=emb, early_exit=False)
         del synth
         steps = pf["bucket"] // r
-        want = steps // decoder_scan.chunk_size(steps, int(hp.Decoder.get("Early_Exit_Chunk", 16)))
+        want = (steps // decoder_scan.chunk_size(steps, int(hp.Decoder.get("Early_Exit_Chunk", 16)))
+                * len(decode_kernel.row_groups(1)))  # chunks x row groups of the one-row batch
         if pf["launches"][decode] != want:
             failures.append(f"[fixed-length {quantize}] {pf['launches'][decode]} decode "
                             f"launches for {want} chunks")
@@ -671,7 +856,7 @@ def main() -> int:
     print(f"[train] batch {TRAIN_BATCH}: tokens {batch['tokens'].shape}, mels "
           f"{batch['mels'].shape}, refs {batch['ref_mels'].shape}, spects "
           f"{batch['spects'].shape}, {frames} mel frames")
-    trainer = Trainer(hp_train, params, batch_stats, seed=0)  # -> cuda
+    trainer = Trainer.from_params(hp_train, params, batch_stats, seed=0)  # -> cuda
     recurrent = [(n, t) for n, t in zip(trainer.param_names, trainer.params)
                  if "lstm" in n or "gru" in n]
     t0 = time.perf_counter()
@@ -721,8 +906,42 @@ def main() -> int:
     print(f"[train] launches over the {TRAIN_STEPS} steps: {train_launches}; plain backward "
           f"calls {({k: len(v) for k, v in plain_bwd.items()})}")
     busy_ms, _ = _profile("train step", lambda: trainer.train_step(batch))
+    ops_fn = _profile.last_ops
     print(f"[train] device idle, one step: busy {busy_ms:.1f} ms (profiled step) of {ms:.1f} "
           f"ms (unprofiled mean) = {100 * (1 - busy_ms / ms):.1f}% idle")
+    # The same step with the decoder scan under autograd (decoder_tf_scan_ref,
+    # the Python loop's graph), in this run: what the hand-written backward
+    # (decoder_tf_scan, an autograd Function) changed. Host-bound steps vary
+    # by 2x between calls, so the two alternate, 5 rounds, and their medians
+    # are compared.
+    tf_scan = decoder_scan.decoder_tf_scan
+
+    def timed_step():
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        gc.collect()
+        start.record()
+        trainer.train_step(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    fn_ms, ref_ms = [], []
+    try:
+        for _ in range(5):
+            decoder_scan.decoder_tf_scan = tf_scan
+            fn_ms.append(timed_step())
+            decoder_scan.decoder_tf_scan = decoder_scan.decoder_tf_scan_ref
+            ref_ms.append(timed_step())
+        busy_ref, _ = _profile("train step, scan under autograd",
+                               lambda: trainer.train_step(batch))
+        ops_ref = _profile.last_ops
+    finally:
+        decoder_scan.decoder_tf_scan = tf_scan
+    print(f"[train] decoder scan, alternating steps: the Function median "
+          f"{statistics.median(fn_ms):.2f} ms a step ({json.dumps([round(x, 2) for x in fn_ms])}), "
+          f"{ops_fn} device ops (busy {busy_ms:.1f} ms); under autograd median "
+          f"{statistics.median(ref_ms):.2f} ms ({json.dumps([round(x, 2) for x in ref_ms])}), "
+          f"{ops_ref} device ops (busy {busy_ref:.1f} ms) ({_smi()})")
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # One extra teacher-forced forward (no graph, after the timed steps):
     # attention_block's inputs and the memory at frame 32, the train-shape
@@ -738,11 +957,41 @@ def main() -> int:
     train_attention = (decoder_scan.AttentionParams(*(t.detach() for t in ap_tf)),
                        keys_tf.contiguous(), scan_rec[0][0][3].float().contiguous(), mask_tf,
                        h_tf.contiguous(), w_tf.contiguous(), cum_tf.contiguous())
-    del attn_rec, scan_rec, trainer
+    # One call of the Function against decoder_tf_scan_ref under autograd, on
+    # the call's own inputs and seeded cotangents: f32 compute (gated 1e-3 of
+    # each gradient's peak) and the train step's bf16 (bf16 residuals and dG
+    # against autograd's f32 ones; gated 5e-2).
+    p_s, pre_s, keys_s, mem_s, mask_s, _ = scan_rec[0][0]
+    gen = torch.Generator("cuda").manual_seed(0)
+    leaves = [t.detach().clone().requires_grad_() for t in
+              [w for q in p_s.lstm for w in q] + list(p_s.attention) + [pre_s, keys_s, mem_s]]
+    n_l = len(p_s.lstm)
+    p_leaf = decoder_scan.DecoderParams(
+        tuple(decoder_scan.LSTMParams(*leaves[3 * i:3 * i + 3]) for i in range(n_l)),
+        decoder_scan.AttentionParams(*leaves[3 * n_l:3 * n_l + 4]), None, None)
+    px = py = None
+    scan_err = {}
+    for cd_name, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        got = []
+        for fn in (decoder_scan.decoder_tf_scan_ref, decoder_scan.decoder_tf_scan):
+            xs_, ws_ = fn(p_leaf, *leaves[-3:], mask_s.detach(), cd)
+            if px is None:
+                px = torch.randn(xs_.shape, generator=gen, device="cuda")
+                py = torch.randn(ws_.shape, generator=gen, device="cuda")
+            got.append(torch.autograd.grad((xs_ * px).sum() + (ws_ * py).sum(), leaves))
+        scan_err[cd_name] = max(float((a - b).abs().max() / a.abs().max().clamp(min=1e-12))
+                                for a, b in zip(*got))
+    print(f"[train] decoder scan gradients, the Function against autograd on one call's "
+          f"inputs (T {pre_s.shape[0]}, B {pre_s.shape[1]}): largest error over each "
+          f"gradient's peak f32 {scan_err['f32']:.2e} (tolerance 1e-3), bf16 "
+          f"{scan_err['bf16']:.2e} (tolerance 5e-2)")
+    if not (scan_err["f32"] <= 1e-3 and scan_err["bf16"] <= 5e-2):
+        failures.append(f"[train] decoder scan gradients: {scan_err}")
+    del attn_rec, scan_rec, trainer, leaves, p_leaf
 
     # Freeze: true (the checkpoint as it is): the encoder runs without a
     # graph, the LSTM backward never launches and its weights stay bit-equal.
-    trainer = Trainer(hp, params, batch_stats, seed=0)
+    trainer = Trainer.from_params(hp, params, batch_stats, seed=0)
     ge2e_before = [t.detach().clone() for t in trainer.ge2e.parameters()]
     counts = {name: k.launches for name, k in kernels.items()}
     m = trainer.train_step(batch)
@@ -772,9 +1021,10 @@ def main() -> int:
     hp0 = hp_train.replace(**no_dropout)
     for rows, gated in ((8, True), (TRAIN_BATCH, False)):
         part = {k: v[:rows] for k, v in batch.items()}
-        on_card = Trainer(hp0, params, batch_stats, seed=0).train_step(part)
+        on_card = Trainer.from_params(hp0, params, batch_stats, seed=0).train_step(part)
         t0 = time.perf_counter()
-        on_cpu = Trainer(hp0, params, batch_stats, device="cpu", seed=0).train_step(part)
+        on_cpu = Trainer.from_params(hp0, params, batch_stats, device="cpu",
+                                     seed=0).train_step(part)
         t_cpu = time.perf_counter() - t0
         errs = {k: abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-12)
                 for k in on_cpu if k != "skipped_nonfinite"}
@@ -1027,9 +1277,28 @@ def main() -> int:
         daemon_m.registry.register("spk0", emb_d)
         line_m, chunks_m = stream_chunks(daemon_m.port, {"text": TEXTS[1], "speaker": "spk0"})
         stats = json.loads(http("GET", f"{base}/stats")[2])
+        # 8: a burst of 24 through a server with the default max_batch (32):
+        # one batch of more than 16 requests, which _prepare pads to 32 rows,
+        # two row groups of the decode kernel.
+        daemon_b = serve.TTSServer(synth_d, host="127.0.0.1", port=0, max_wait_ms=250.0,
+                                   pcm16=True)
+        daemon_b.start_background()
+        daemon_b.registry.register("spk0", emb_d)
+        burst24 = [TEXTS[i % len(TEXTS)] for i in range(24)]
+        decode_before = kernels["decode_segment_bf16"].launches
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(burst24)) as pool:
+            replies24 = list(pool.map(lambda t: post_json(
+                f"http://127.0.0.1:{daemon_b.port}/synthesize", {"text": t, "speaker": "spk0"}),
+                burst24))
+        t_burst24 = time.perf_counter() - t0
+        decode24 = kernels["decode_segment_bf16"].launches - decode_before
+        stats24 = json.loads(http("GET", f"http://127.0.0.1:{daemon_b.port}/stats")[2])
     finally:
         daemon.shutdown()
         daemon_m.shutdown()
+        if "daemon_b" in locals():
+            daemon_b.shutdown()
         for name in plain_fwd:
             _restore(plain_mods[name], name)
     counts_d = {name: k.launches for name, k in kernels.items()}
@@ -1074,6 +1343,16 @@ def main() -> int:
     hist = {int(k): v for k, v in stats.get("batch_size_histogram", {}).items()}
     if not any(size >= 2 for size in hist):
         daemon_fail.append(f"no batch of 2 or more rows: {hist}")
+    hist24 = {int(k): v for k, v in stats24.get("batch_size_histogram", {}).items()}
+    bad24 = [(t, st, body[:120]) for t, (st, _, body) in zip(burst24, replies24) if st != 200]
+    if bad24:
+        daemon_fail.append(f"burst of 24: {len(bad24)} replies not 200, e.g. {bad24[:2]}")
+    if not any(size > 16 for size in hist24):
+        daemon_fail.append(f"burst of 24: no batch of more than 16 requests: {hist24}")
+    rows32 = [c for c in worker_calls if len(c[0]) > 16]
+    if not rows32 or decode24 == 0:
+        daemon_fail.append(f"burst of 24: worker batches {[len(c[0]) for c in worker_calls]}, "
+                           f"decode kernel launches {decode24}")
     for name in ("mel_frontend", "ge2e_lstm_layer", "text_encoder_bilstm", "cbhg_bigru",
                  "griffin_lim_staged", "decode_segment_bf16"):
         if counts_d[name] == 0:
@@ -1098,13 +1377,23 @@ def main() -> int:
           f"{len(burst) / t_burst:.2f} requests/s; /stats latency p50 {lat.get('p50')} ms, p95 "
           f"{lat.get('p95')} ms over {lat.get('window')} requests; batch sizes {hist}; "
           f"compiled_programs {stats.get('compiled_programs')} ({smi_d})")
+    print(f"[i daemon] burst of {len(burst24)} /synthesize through max_batch 32: "
+          f"{t_burst24 * 1e3:.1f} ms wall, {len(burst24) / t_burst24:.2f} requests/s, "
+          f"{sum(st == 200 for st, _, _ in replies24)} answered 200; /stats batch sizes {hist24}, "
+          f"latency p50 {stats24.get('latency_ms', {}).get('p50')} ms, p95 "
+          f"{stats24.get('latency_ms', {}).get('p95')} ms; bf16 decode launches {decode24} "
+          f"(one a row group of 16 a chunk: "
+          f"{len(decode_kernel.row_groups(32))} groups at the 32-row bucket) ({smi_d})")
     print(f"[i daemon] worker batches {[len(c[0]) for c in worker_calls]}; re-run directly: "
           f"largest mel difference {batch_err:.3e} (tolerance 1e-4); launches {counts_d}; plain "
           f"calls {plain_d}; /stream on the CBHG head {line_full.decode(errors='replace')}; "
           f"mel-only /stream {len(chunks_m) - 1} chunks, {got_pcm.size} samples equal to "
           f"Synthesizer.stream: {np.array_equal(got_pcm, want_pcm)}")
     failures.extend(f"[i daemon] {f}" for f in daemon_fail)
-    del synth_d, synth_m, daemon, daemon_m, warm
+    del synth_d, synth_m, daemon, daemon_m, daemon_b, warm
+
+    # 2e. Training end to end (j) --------------------------------------------
+    failures.extend(train_end_to_end(kernels, per_step, plain_bwd))
 
     # 3. Kernel phase --------------------------------------------------------
     rows = []
@@ -1637,6 +1926,18 @@ def main() -> int:
                  torch.zeros(2 * Bd, mel_dim, device=keys.device), *masks8, 16, mel_dim, r)
         zeros8 = torch.zeros(2 * Bd, dtype=torch.bool, device=keys.device)
         pairs.append((args8, decode_err(zeros8, zeros8.to(torch.int32), args8, probed=True)))
+        # B = 32, the daemon's 32-row bucket: the first chunk's batch 8 times
+        # over, two row groups of 16 (two launches a chunk).
+        def rep(t):
+            return t.repeat(8, *([1] * (t.dim() - 1)))
+
+        c0 = args0[4]
+        args32 = (bundle, rep(keys), rep(memory), rep(mask),
+                  type(c0)(tuple(map(rep, c0.h)), tuple(map(rep, c0.c)), rep(c0.weights),
+                           rep(c0.cum_weights), rep(c0.context)),
+                  rep(args0[5]), *(None if m is None else m.repeat(1, 8, 1) for m in args0[6:8]),
+                  *args0[8:])
+        pairs.append((args32, decode_err(rep(segs[0][0][7]), rep(segs[0][0][8]), args32)))
 
         def kernel_fn(a):
             return lambda: decode_kernel.decode_segment_kernel.original(*a)
@@ -1649,24 +1950,43 @@ def main() -> int:
         # keeps layer 0's and streams layer 1's every step.
         resident = mode == "int8"
         reread = 0 if resident else _nbytes(bundle["w1"])
-        rest = (_nbytes(*(v for k, v in bundle.items()
-                          if k not in ("quantized", "w0", "w1", "packed")))
-                + _nbytes(keys, memory, mask, args0[6], args0[7], args0[5],
-                          *args0[4].h, *args0[4].c, args0[4].weights, args0[4].cum_weights,
-                          args0[4].context))
-        outputs = 4 * (Kd * Bd * (mel_dim * r + 1) + Kd * Bd * Sd + 4 * Bd * Hd + 2 * Bd * Sd
-                       + Bd * Dd + Bd * mel_dim)
-        flops = Kd * 2 * Bd * 4 * Hd * ((P2 + Dd + Hd) + (2 * Hd + Dd))
+
+        def chunk_bound(a):
+            """The bound of one chunk on ``a``: every weight, input and output
+            once, and the gate products."""
+            B_ = a[1].shape[0]
+            rest = (_nbytes(*(v for k, v in bundle.items()
+                              if k not in ("quantized", "w0", "w1", "packed")))
+                    + _nbytes(*a[1:4], a[6], a[7], a[5], *a[4].h, *a[4].c, a[4].weights,
+                              a[4].cum_weights, a[4].context))
+            outputs = 4 * (Kd * B_ * (mel_dim * r + 1) + Kd * B_ * Sd + 4 * B_ * Hd
+                           + 2 * B_ * Sd + B_ * Dd + B_ * mel_dim)
+            flops = Kd * 2 * B_ * 4 * Hd * ((P2 + Dd + Hd) + (2 * Hd + Dd))
+            return _bound_ms(weights + rest + outputs, flops,
+                             INT8_OPS if resident else BF16_FLOPS)
+
+        bound32 = chunk_bound(args32)
+        # Card time (queued ahead): two launches of 16 rows, and one alone.
+        ms32 = _time_ms(kernel_fn(args32), 2, 10, queue_ahead=True)
+        c32 = args32[4]
+        args16 = (bundle, *(t[:16] for t in args32[1:4]),
+                  type(c32)(tuple(x[:16] for x in c32.h), tuple(x[:16] for x in c32.c),
+                            c32.weights[:16], c32.cum_weights[:16], c32.context[:16]),
+                  args32[5][:16], *(None if m is None else m[:, :16] for m in args32[6:8]),
+                  *args32[8:])
+        ms16 = _time_ms(kernel_fn(args16), 2, 10, queue_ahead=True)
         lay_d = decode_kernel.decode_layout(
             Hd, torch.cuda.get_device_properties(0).multi_processor_count)
         check(
             name, "multi_speaker_tts_tpu/ops/decode_pallas.py:337",
             "multi_speaker_tts_tpu_torch/csrc/decode.cu",
-            kernel_fn(args0), plain_fn(args0), pairs[0][1], decode_tol,
-            _bound_ms(weights + rest + outputs, flops, INT8_OPS if resident else BF16_FLOPS),
+            kernel_fn(args0), plain_fn(args0), pairs[0][1], decode_tol, chunk_bound(args0),
             reps=10, also=[(kernel_fn(a), plain_fn(a), e) for a, e in pairs[1:]],
             extra={
                 "K": Kd, "B": Bd, "S": Sd, "chunks_on_main_path": len(calls),
+                # One launch a row group of at most 16 rows a chunk.
+                "ms_b32": ms32, "bound_ms_b32": bound32[0], "launches_a_chunk_b32":
+                    len(decode_kernel.row_groups(32)), "ms_b16": ms16,
                 "weight_bytes": weights,
                 "weights": ("read once per launch, then resident in shared memory" if resident
                             else "layer 0 resident in shared memory, layer 1 streamed every "
@@ -1684,7 +2004,8 @@ def main() -> int:
         row = rows[-1]
         print(f"  {name}: {row['ms']:.3f} ms for K = {Kd} steps = {1e3 * row['ms'] / Kd:.1f} us "
               f"per step (floor {row['floor_ms']:.3f} ms: {row['barrier_rounds']} barrier rounds); "
-              f"plain {row['plain_ms']:.2f} ms")
+              f"plain {row['plain_ms']:.2f} ms; at B 32 (two launches) {ms32:.3f} ms, bound "
+              f"{bound32[0]:.4f} ms ({bound32[1]}); one launch at B 16 {ms16:.3f} ms")
 
     # Train phase kernels, on the inputs the last timed train step gave them:
     # the residual modes (every output against the plain version's, as a

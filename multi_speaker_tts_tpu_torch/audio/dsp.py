@@ -234,10 +234,23 @@ def inv_spectrogram(S_norm: torch.Tensor, cfg: DSPConfig, length: int | None = N
     return inv_preemphasis(wav, cfg.preemphasis)
 
 
+def mel_fused_eligible(wav: torch.Tensor, cfg: DSPConfig) -> bool:
+    """The JAX package's routing rule for the enrollment front-end: a
+    batched (B, L) wav whose length is a multiple of hop, and hop dividing
+    n_fft."""
+    return wav.ndim == 2 and cfg.n_fft % cfg.hop == 0 and wav.shape[-1] % cfg.hop == 0
+
+
 def melspectrogram_auto(wav: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
-    """The enrollment front-end: (B, L) -> (B, 1 + L/hop, n_mels) through
-    the fused front-end (its kernel for CUDA tensors, its plain version
-    for CPU tensors)."""
+    """The enrollment front-end, routed as the JAX ``melspectrogram_auto``
+    routes: an eligible input (:func:`mel_fused_eligible`) goes to the fused
+    front-end (its kernel for CUDA tensors, which raises for a frame it does
+    not take; its plain version for CPU tensors), every other input to the
+    FFT route :func:`melspectrogram`. (B, L) -> (B, 1 + L/hop, n_mels)."""
+    if not mel_fused_eligible(wav, cfg):
+        log_dispatch("melspectrogram", "fft", f"ndim={wav.ndim}, n_fft%hop={cfg.n_fft % cfg.hop}, "
+                     f"L%hop={wav.shape[-1] % cfg.hop}")
+        return melspectrogram(wav, cfg)
     from multi_speaker_tts_tpu_torch.ops.mel_kernel import melspectrogram_fused
 
     return melspectrogram_fused(wav, cfg)

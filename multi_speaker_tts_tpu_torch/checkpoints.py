@@ -1,4 +1,4 @@
-"""Compact checkpoint reader without ``msgpack`` or ``flax``.
+"""Compact checkpoint reader and writer without ``msgpack`` or ``flax``.
 
 ``multi_speaker_tts_tpu.train.checkpoints.export_compact`` writes one
 msgpack document ``{"params", "batch_stats", "meta"}`` through
@@ -8,6 +8,10 @@ itself msgpack-encoded), float arrays stored as f16. This module decodes
 that subset of msgpack in pure Python (maps, arrays, str/bin, ints,
 floats, nil/bool, ext types 1-3 and flax's chunked-array maps) and widens
 f16 leaves to f32, returning the same trees as ``load_compact``.
+:func:`packb` encodes the same subset the way ``msgpack.packb(...,
+use_bin_type=True)`` does, numpy arrays as flax's ext type 1, so that the
+JAX package's ``load_compact`` reads what
+:func:`..train.checkpoints.export_compact` writes.
 """
 
 from __future__ import annotations
@@ -156,3 +160,81 @@ def load_compact(path: str | pathlib.Path) -> tuple[dict, dict, dict]:
         _widen(payload["batch_stats"]),
         payload.get("meta", {}),
     )
+
+
+def _header(out: list, n: int, fix: int | None, fix_max: int, codes: tuple) -> None:
+    """A length-prefixed header: the fix form below ``fix_max``, then 8-,
+    16- and 32-bit lengths (``codes``; None where a width has no form)."""
+    if fix is not None and n < fix_max:
+        out.append(struct.pack(">B", fix | n))
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack object of {n} elements is too long")
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject:
+        raise ValueError("object arrays cannot be serialized")
+    return packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(obj, out: list) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        if 0 <= obj < 128 or -32 <= obj < 0:
+            out.append(struct.pack(">b" if obj < 0 else ">B", obj))
+        else:
+            forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if obj >= 0 else \
+                ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+            for code, fmt in forms:
+                try:
+                    out.append(struct.pack(">B", code) + struct.pack(fmt, obj))
+                    return
+                except struct.error:
+                    continue
+            raise ValueError(f"integer {obj} does not fit 64 bits")
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _header(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif isinstance(obj, (bytes, bytearray)):
+        _header(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out.append(bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for x in obj:
+            _pack(x, out)
+    elif isinstance(obj, dict):
+        _header(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k in sorted(obj):  # flax's tree copy sorts every dict by key
+            _pack(k, out)
+            _pack(obj[k], out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        data = _ndarray_to_bytes(np.asarray(obj))
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixed:
+            out.append(struct.pack(">B", fixed[len(data)]))
+        else:
+            _header(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+        out.append(struct.pack(">b", code) + data)
+    else:
+        raise TypeError(f"cannot msgpack-encode {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode one msgpack document: None, bools, ints, floats (64-bit),
+    str, bytes, lists / tuples, str-keyed dicts (keys sorted) and numpy
+    arrays or scalars (ext types 1 and 3): the bytes of flax's
+    ``msgpack_serialize`` for the trees ``export_compact`` writes."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)

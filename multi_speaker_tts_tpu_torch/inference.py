@@ -48,7 +48,7 @@ from torch.profiler import record_function
 from multi_speaker_tts_tpu_torch import text as text_frontend
 from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
 from multi_speaker_tts_tpu_torch.checkpoints import load_compact
-from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse, default_hparams
 from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
 from multi_speaker_tts_tpu_torch.models.speaker import SpeakerLUT
@@ -56,7 +56,7 @@ from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import stft_matmul
 from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
 from multi_speaker_tts_tpu_torch.text import PAD_ID
-from multi_speaker_tts_tpu_torch.weights import load_into, params_from_jax
+from multi_speaker_tts_tpu_torch.weights import load_into, params_from_jax, params_to_jax
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -125,6 +125,28 @@ _QUANTIZE_MODES = {
 }
 
 
+def prenet_mask_sampler(hp, device: torch.device, seed: int, batch: int):
+    """``t -> [(batch, size) bool keep mask per prenet layer]`` drawn in step
+    order from a generator seeded with ``seed``."""
+    keep = 1.0 - float(hp.Decoder.Prenet.Dropout_Rate)
+    sizes = list(hp.Decoder.Prenet.Sizes)
+    generator = torch.Generator(device).manual_seed(seed)
+
+    def draw(t: int):
+        return [torch.rand((batch, s), generator=generator, device=device) < keep
+                for s in sizes]
+
+    return draw
+
+
+def _not_ported(**given) -> None:
+    """Raise for a parameter of the JAX signature that the port keeps in its
+    place but does not run yet, when it is not at its default."""
+    for name, (value, default) in given.items():
+        if value != default:
+            raise NotImplementedError(f"{name}={value!r} is not ported yet")
+
+
 class Synthesizer:
     """Text -> waveform with zero-shot speaker cloning, on one device.
 
@@ -180,6 +202,36 @@ class Synthesizer:
             hp = Recursive_Parse(meta["hp"])
         return cls(hp, params, batch_stats, **kwargs)
 
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, hp=None, **kwargs) -> "Synthesizer":
+        """The latest step of a training checkpoint directory (the port's
+        ``train.checkpoints.CheckpointManager``); hp from the checkpoint
+        unless given."""
+        from multi_speaker_tts_tpu_torch.train.checkpoints import CheckpointManager
+
+        state, step = CheckpointManager(checkpoint_dir).restore()
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
+        if hp is None:
+            hp = Recursive_Parse(state["hp"]) if "hp" in state else default_hparams()
+        print(f"loaded checkpoint step {step}")
+        return cls.from_state(hp, state, **kwargs)
+
+    @classmethod
+    def from_state(cls, hp, state: dict, **kwargs) -> "Synthesizer":
+        """From a trainer's ``checkpoint_state()``: its params and BatchNorm
+        statistics by state key."""
+        params, batch_stats = params_to_jax({**state["params"], **state["batch_stats"]}, hp)
+        return cls(hp, params, batch_stats, **kwargs)
+
+    @classmethod
+    def from_path(cls, path: str, **kwargs) -> "Synthesizer":
+        """A checkpoint directory (:meth:`from_checkpoint`) or a compact
+        ``.msgpack`` file (:meth:`from_compact`)."""
+        if pathlib.Path(path).is_dir():
+            return cls.from_checkpoint(path, **kwargs)
+        return cls.from_compact(path, **kwargs)
+
     # -- enroll --------------------------------------------------------------
     @torch.no_grad()
     def enroll(self, wavs) -> np.ndarray:
@@ -232,17 +284,7 @@ class Synthesizer:
         for this call. As in the JAX package, whose every call starts from
         the same key, the masks differ from step to step and repeat from
         call to call: one request gives one answer."""
-        keep = 1.0 - float(self.hp.Decoder.Prenet.Dropout_Rate)
-        sizes = list(self.hp.Decoder.Prenet.Sizes)
-        generator = torch.Generator(self.device).manual_seed(self.seed)
-
-        def draw(t: int):
-            return [
-                torch.rand((batch, s), generator=generator, device=self.device) < keep
-                for s in sizes
-            ]
-
-        return draw
+        return prenet_mask_sampler(self.hp, self.device, self.seed, batch)
 
     def _prepare(self, texts, speaker_embedding, speaker_ids, max_steps):
         """Tokens in a pow2 batch bucket (PAD rows inactive) and a
@@ -282,11 +324,15 @@ class Synthesizer:
 
     @torch.no_grad()
     def synthesize(self, texts: list[str], speaker_embedding=None,
-                   max_steps: int | None = None, pcm16: bool = False,
-                   early_exit: bool = True, return_linear: bool = True,
-                   vocode: bool = True, split_vocode: bool = True,
-                   speaker_ids=None) -> list[dict]:
-        """Texts -> [{wav, mel, linear, alignment, mel_length}]. With
+                   max_steps: int | None = None, vocode: bool = True,
+                   sharded: bool = False, speaker_ids=None, early_exit: bool = True,
+                   pad_batch: bool = True, return_linear: bool = True,
+                   pcm16: bool = False, split_vocode: bool = True,
+                   return_device: bool = False) -> list[dict]:
+        """Texts -> [{wav, mel, linear, alignment, mel_length}], the
+        parameters in the JAX ``Synthesizer.synthesize`` order (``sharded``,
+        ``pad_batch`` and ``return_device`` are not ported yet and raise
+        ``NotImplementedError`` for anything but their default). With
         ``split_vocode`` (the default) Griffin-Lim runs at a pow2 bucket of
         the batch's longest decoded length; ``split_vocode=False`` vocodes
         the whole decode bucket, as the JAX package's fused program does
@@ -295,6 +341,8 @@ class Synthesizer:
         with a linear head unless ``return_linear=False``; ``early_exit=False``
         runs the fixed-length decode. ``speaker_ids`` (LUT models) takes the
         place of ``speaker_embedding``."""
+        _not_ported(sharded=(sharded, False), pad_batch=(pad_batch, True),
+                    return_device=(return_device, False))
         B, max_steps, tokens, lengths, spk, active = self._prepare(
             texts, speaker_embedding, speaker_ids, max_steps)
         self.last_decode_bucket = max_steps
@@ -342,9 +390,9 @@ class Synthesizer:
 
     # -- streaming synthesis ----------------------------------------------------
     @torch.no_grad()
-    def stream(self, texts: list[str], speaker_embedding=None, max_steps: int | None = None,
-               segment_steps: int = 16, gl_context: int = 12, pcm16: bool = False,
-               return_mel: bool = False, gl_warm_start: bool = False, speaker_ids=None):
+    def stream(self, texts: list[str], speaker_embedding=None, speaker_ids=None,
+               max_steps: int | None = None, segment_steps: int = 16, gl_context: int = 12,
+               pcm16: bool = False, return_mel: bool = False, gl_warm_start: bool = False):
         """Streaming synthesis: yields waveform chunks as decoding goes on.
 
         The decode runs in segments of ``segment_steps`` AR steps; each
@@ -481,7 +529,8 @@ class Synthesizer:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="TTS inference / zero-shot cloning")
     parser.add_argument("-checkpoint", required=True,
-                        help=".msgpack compact checkpoint (export_compact)")
+                        help=".msgpack compact checkpoint (export_compact) or a "
+                             "training checkpoint directory")
     parser.add_argument("-text", action="append", default=[])
     parser.add_argument("-text_file", default=None,
                         help="file with one sentence per line")
@@ -508,12 +557,10 @@ def main(argv=None) -> None:
             texts += [line.strip() for line in f if line.strip()]
     if not texts:
         parser.error("pass -text and/or -text_file")
-    if not args.checkpoint.endswith(".msgpack"):
-        parser.error(f"-checkpoint {args.checkpoint!r}: the port reads .msgpack compact "
-                     "checkpoints only (export_compact); Orbax directories are not ported yet")
-
-    synth = Synthesizer.from_compact(args.checkpoint, quantize=args.quantize,
-                                     device=args.device)
+    try:
+        synth = Synthesizer.from_path(args.checkpoint, quantize=args.quantize, device=args.device)
+    except FileNotFoundError as e:  # no such file, or a directory without a checkpoint
+        parser.error(f"-checkpoint {args.checkpoint!r}: {e}")
     hp = synth.hp
     spk_type = hp.Speaker_Embedding.get("Type")
     if spk_type == "GE2E" and not args.ref:

@@ -89,3 +89,29 @@ class GE2E(nn.Module):
             mask = keep[..., None].to(embs.dtype)
             mean = (embs * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
         return _l2_normalize(mean)
+
+
+def ge2e_similarity_matrix(embeddings: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """Scaled cosine similarity S[j, i, k] = w cos(e_ji, c_k) + b of (N, M,
+    E) unit-norm embeddings (N speakers x M utterances) against the speaker
+    centroids; the own-speaker column uses the leave-one-out centroid, and
+    w is clamped to at least 1e-6."""
+    N, M, _ = embeddings.shape
+    centroids = _l2_normalize(embeddings.mean(dim=1))  # (N, E)
+    loo = _l2_normalize((embeddings.sum(dim=1, keepdim=True) - embeddings) / (M - 1))
+    cos_all = torch.einsum("jme,ke->jmk", embeddings, centroids)
+    cos_own = (embeddings * loo).sum(-1)  # (N, M)
+    own = torch.eye(N, dtype=cos_all.dtype, device=cos_all.device)[:, None, :]
+    cos = cos_all * (1.0 - own) + cos_own[..., None] * own
+    return torch.clamp(weight, min=1e-6) * cos + bias
+
+
+def ge2e_loss(embeddings: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """The softmax GE2E loss: the mean over utterances of -S_jij +
+    logsumexp_k S_jik."""
+    S = ge2e_similarity_matrix(embeddings, weight, bias)
+    N = S.shape[0]
+    own = S[torch.arange(N), :, torch.arange(N)]  # (N, M)
+    return (-own + torch.logsumexp(S, dim=2)).mean()

@@ -12,7 +12,8 @@ Two paths share one parameter set, as in the JAX module:
   :mod:`..ops.decode_kernel`), the masked postnet, the head;
 - :meth:`Tacotron.forward`, the teacher-forced pass of training and
   evaluation: the prenet once over the shifted teacher frames, the
-  teacher-forced scan (:func:`..ops.decoder_scan.decoder_tf_scan`), the
+  teacher-forced scan with its hand-written backward
+  (:func:`..ops.decoder_scan.decoder_tf_scan`, an autograd Function), the
   frame and stop projections hoisted after it, the postnet and the head;
   ``train=True`` switches the BatchNorms to batch statistics and the conv
   dropouts on (their masks and the prenet's from the caller's generator);

@@ -14,7 +14,8 @@ is f32. The stopped / lengths bookkeeping stays outside, vectorised over
 the chunk's stop logits (:func:`decoder_ar_segment_kernel`).
 
 On a CUDA tensor :func:`decode_segment` launches ``csrc/decode.cu`` (one
-persistent cooperative launch, five grid-barrier rounds a step; gate
+persistent cooperative launch a group of at most 16 batch rows,
+:func:`row_groups`; five grid-barrier rounds a step; gate
 products on tensor cores, int8 weights resident in shared memory for the
 segment, in bf16 mode layer 0's too and layer 1's streamed every step; see
 the source's header) or raises; on a CPU tensor it runs
@@ -47,7 +48,7 @@ KERNELS = {
     "bf16": _build.Kernel("decode_segment_bf16", "decode.cu", _FUNCTIONS),
 }
 MAX_S = 256  # memory positions (the JAX package's gate)
-MAX_B = 16  # batch rows: two n-tiles of 8 in the gate products
+MAX_B = 16  # batch rows a launch: two n-tiles of 8 in the gate products
 PRENET_BLOCKS = 4  # blocks of csrc/decode.cu that run the prenet (kPre)
 MAX_UNITS = 8  # hidden units a gate block owns: 4U gate rows in two m-tiles (kMaxMt)
 MAX_M_TILES = 2
@@ -58,12 +59,10 @@ _MAX_K = 4096  # depth of a gate product, [x, context, h]: what a block stages (
 
 
 def _shape_reason(H: int, D: int, prenet_sizes, S: int, A: int, mel_dim: int,
-                  conv_c: int, B: int | None = None) -> str | None:
+                  conv_c: int) -> str | None:
     """The one shape gate of the kernel: why it does not take these widths,
-    or None."""
+    or None. Any batch is taken (:func:`row_groups`)."""
     P1, P2 = prenet_sizes
-    if B is not None and B > MAX_B:
-        return f"needs at most {MAX_B} batch rows (two n-tiles of 8), got {B}"
     if H % _WIDTH or D % _WIDTH or P2 % _WIDTH:
         return (f"needs H, memory and prenet widths in multiples of {_WIDTH}: "
                 f"{H}, {D}, {P2}")
@@ -224,6 +223,13 @@ def decode_segment_plain(bundle: dict, keys, memory, mask, carry: DecoderCarry,
     return carry, prev, ys[..., :mel_dim * r], ys[..., mel_dim * r], torch.stack(aligns)
 
 
+def row_groups(B: int) -> list[slice]:
+    """The launches of one chunk: consecutive groups of at most MAX_B rows.
+    Decode rows are independent (only the weights are shared), so each
+    group runs as its own launch on views of the batch's state."""
+    return [slice(g, min(g + MAX_B, B)) for g in range(0, B, MAX_B)]
+
+
 # Pointer table of csrc/decode.cu (enum Ptr), in order.
 _WEIGHT_KEYS = ("w0", "w1", "s0", "b0", "s1", "b1", "wproj", "bproj", "wp1", "bp1",
                 "wp2", "bp2", "wq", "ck", "wloc", "v")
@@ -231,19 +237,51 @@ _WEIGHT_KEYS = ("w0", "w1", "s0", "b0", "s1", "b1", "wproj", "bproj", "wp1", "bp
 
 def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
                           prev, m1, m2, K: int, mel_dim: int, r: int):
-    """Launch ``csrc/decode.cu`` on CUDA f32 state. Same returns as
-    :func:`decode_segment_plain`."""
+    """Launch ``csrc/decode.cu`` on CUDA f32 state, once for each group of
+    :func:`row_groups`. Same returns as :func:`decode_segment_plain`."""
+    B, S, A = keys.shape
+    D = memory.shape[-1]
+    H = carry.h[0].shape[-1]
+    P1, P2 = bundle["wp1"].shape[0], bundle["wp2"].shape[0]
+    conv_c = bundle["ck"].shape[2]
+    reason = _shape_reason(H, D, (P1, P2), S, A, mel_dim, conv_c)
+    if reason is not None:
+        raise ValueError(f"decode kernel {reason}")
+    if bundle["wproj"].shape != (mel_dim * r + 1, H + D) or bundle["wp1"].shape[1] != mel_dim:
+        raise ValueError("decode kernel: bundle and mel_dim / r disagree")
+    if m1 is not None and (m1.shape != (K, B, P1) or m2.shape != (K, B, P2)):
+        raise ValueError("decode kernel: dropout masks must be (K, B, P1) and (K, B, P2)")
+    rows = [memory.shape[0], mask.shape[0], prev.shape[0], *(x.shape[0] for x in carry.h),
+            *(x.shape[0] for x in carry.c), carry.weights.shape[0], carry.cum_weights.shape[0],
+            carry.context.shape[0]]
+    if any(n != B for n in rows) or mask.shape[1] != S or memory.shape[1] != S:
+        raise ValueError(f"decode kernel: inputs disagree on the batch rows ({B} keys rows, "
+                         f"then {rows}) or the memory positions")
+    groups = row_groups(B)
+    if len(groups) == 1:
+        return _launch(bundle, keys, memory, mask, carry, prev, m1, m2, K, mel_dim, r)
+    outs = [_launch(bundle, keys[g], memory[g], mask[g],
+                    DecoderCarry(*(tuple(x[g] for x in v) if isinstance(v, tuple) else v[g]
+                                   for v in carry)),
+                    prev[g], None if m1 is None else m1[:, g], None if m2 is None else m2[:, g],
+                    K, mel_dim, r)
+            for g in groups]
+    carries = [o[0] for o in outs]
+    carry = DecoderCarry(*(tuple(torch.cat(x) for x in zip(*v)) if isinstance(v[0], tuple)
+                           else torch.cat(v) for v in zip(*carries)))
+    return (carry, torch.cat([o[1] for o in outs]),
+            *(torch.cat([o[i] for o in outs], dim=1) for i in (2, 3, 4)))
+
+
+def _launch(bundle: dict, keys, memory, mask, carry: DecoderCarry, prev, m1, m2, K: int,
+            mel_dim: int, r: int):
+    """One launch of ``csrc/decode.cu`` over at most MAX_B rows."""
     B, S, A = keys.shape
     D = memory.shape[-1]
     H = carry.h[0].shape[-1]
     P1, P2 = bundle["wp1"].shape[0], bundle["wp2"].shape[0]
     conv_k, _, conv_c = bundle["ck"].shape
     n_out = mel_dim * r + 1
-    reason = _shape_reason(H, D, (P1, P2), S, A, mel_dim, conv_c, B)
-    if reason is not None:
-        raise ValueError(f"decode kernel {reason}")
-    if bundle["wproj"].shape != (n_out, H + D) or bundle["wp1"].shape[1] != mel_dim:
-        raise ValueError("decode kernel: bundle and mel_dim / r disagree")
 
     def f32(t):
         t = t.contiguous()
@@ -255,8 +293,6 @@ def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
                               carry.weights, carry.cum_weights, carry.context, prev)]
     if m1 is not None:
         m1, m2 = f32(m1), f32(m2)
-        if m1.shape != (K, B, P1) or m2.shape != (K, B, P2):
-            raise ValueError("decode kernel: dropout masks must be (K, B, P1) and (K, B, P2)")
     dev = keys.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     lay = decode_layout(H, n_sm)

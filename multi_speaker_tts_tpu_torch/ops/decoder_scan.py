@@ -16,11 +16,17 @@ step), as the JAX module takes ``prenet_apply_fn``: its always-on dropout
 draws its keep masks per step, so tests can feed the JAX package's own
 draws and production draws from a ``torch.Generator``.
 
-The teacher-forced scan of training (:func:`decoder_tf_scan`, the port of
-``decoder_tf_scan_ref``) runs the same cell over prenet-ed teacher frames
-and is differentiated by autograd; the JAX package's hand-written backward
-of that scan (``decoder_tf_scan``'s custom VJP: emitted gate gradients,
-deferred weight-gradient GEMMs) is no Pallas kernel and is not ported yet.
+The teacher-forced scan of training (:func:`decoder_tf_scan`) runs the same
+cell over prenet-ed teacher frames as a ``torch.autograd.Function`` with the
+JAX package's hand-written backward (``decoder_tf_scan``'s custom VJP). Its
+forward runs without a graph and keeps per step the gates, h and c of each
+layer and the context in the compute dtype; its backward is a reverse loop
+over small state that emits each layer's gate gradients dG_t (the cell's
+VJP in f32, one ``dG @ [W_ih; W_hh]^T`` product a layer, the attention
+block's VJP written out on the recomputed block) and forms every weight
+gradient after the loop as one GEMM over T x B rows, and the memory
+gradient as one contraction. :func:`decoder_tf_scan_ref`, the same loop
+under autograd, is the tests' oracle.
 """
 
 from __future__ import annotations
@@ -31,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from multi_speaker_tts_tpu_torch.ops import _build
-from multi_speaker_tts_tpu_torch.ops.lstm import cell
-from multi_speaker_tts_tpu_torch.ops.numerics import rounded
+from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams, cell
+from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
 
 
 class AttentionParams(NamedTuple):
@@ -130,49 +136,69 @@ def _gates(w_cat, b: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
     return rounded(xh, compute_dtype) @ w_cat + b
 
 
+def _conv_windows(x: torch.Tensor, K: int, left: int) -> torch.Tensor:
+    """(B, S, Cin) -> (B, S, Cin K) windows of a 1-D correlation padded
+    ``left`` on the left and K - 1 - left on the right (index c K + d)."""
+    B, S, Cin = x.shape
+    xp = F.pad(x, (0, 0, left, K - 1 - left))
+    return xp.unfold(1, K, 1).reshape(B, S, Cin * K)
+
+
 def location_conv(loc_in: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """SAME 1-D cross-correlation (B, S, Cin) x (K, Cin, C) -> (B, S, C), as
     one f32 matmul over the unfolded windows."""
-    B, S, Cin = loc_in.shape
-    K, _, C = kernel.shape
-    lo = (K - 1) // 2
-    xp = F.pad(loc_in, (0, 0, lo, K - 1 - lo))
-    win = xp.unfold(1, K, 1).reshape(B, S, Cin * K)  # index c * K + d
-    return win @ kernel.permute(1, 0, 2).reshape(Cin * K, C)
+    K, Cin, C = kernel.shape
+    return _conv_windows(loc_in, K, (K - 1) // 2) @ kernel.permute(1, 0, 2).reshape(Cin * K, C)
 
 
-def attention_block(h0, w_prev, cum_prev, keys, ap: AttentionParams, mask):
-    """One location-sensitive attention step -> (weights, cumulative)."""
-    q = h0.float() @ ap.wq
-    loc = location_conv(torch.stack([w_prev, cum_prev], dim=-1), ap.conv_kernel) @ ap.wloc
-    energies = (torch.tanh(q[:, None, :] + keys + loc) @ ap.v)[..., 0]
+def attention_block(h0, w_prev, cum_prev, keys, ap: AttentionParams, mask,
+                    keep: list | None = None):
+    """One location-sensitive attention step -> (weights, cumulative). With
+    a ``keep`` list, the step's conv windows, conv output and tanh features
+    are appended to it (for the scan's backward)."""
+    K, Cin, C = ap.conv_kernel.shape
+    win = _conv_windows(torch.stack([w_prev, cum_prev], dim=-1), K, (K - 1) // 2)
+    conv = win @ ap.conv_kernel.permute(1, 0, 2).reshape(Cin * K, C)
+    z = torch.tanh((h0.float() @ ap.wq)[:, None, :] + keys + conv @ ap.wloc)
+    energies = (z @ ap.v)[..., 0]
     energies = torch.where(mask > 0, energies, torch.full_like(energies, -1e9))
     w = torch.softmax(energies, dim=-1)
+    if keep is not None:
+        keep.append((win, conv, z))
     return w, cum_prev + w
 
 
 def decoder_cell_step(p: DecoderParams, fused: tuple, carry: DecoderCarry,
-                      pre_t, keys, memory, mask, compute_dtype):
-    """One decoder frame -> (carry', x_t = [h_last, context], w_t)."""
+                      pre_t, keys, memory, mask, compute_dtype, saved: dict | None = None):
+    """One decoder frame -> (carry', x_t = [h_last, context], w_t). With a
+    ``saved`` dict, each layer's pre-activation gates go to its ``gates``
+    list and the attention step's intermediates to its ``attention`` list."""
     hs, cs = list(carry.h), list(carry.c)
     attn_in = torch.cat([pre_t, carry.context], dim=-1)
-    hs[0], cs[0] = cell(_gates(fused[0], p.lstm[0].b, attn_in, hs[0], compute_dtype), cs[0])
+    g = _gates(fused[0], p.lstm[0].b, attn_in, hs[0], compute_dtype)
+    hs[0], cs[0] = cell(g, cs[0])
+    gates = [g]
+    keep = None if saved is None else saved["attention"]
     w, cum = attention_block(hs[0], carry.weights, carry.cum_weights, keys,
-                             p.attention, mask)
+                             p.attention, mask, keep=keep)
     context = torch.bmm(w[:, None, :], memory.float())[:, 0]
     x = torch.cat([hs[0], context], dim=-1)
     for i in range(1, len(p.lstm)):
-        hs[i], cs[i] = cell(_gates(fused[i], p.lstm[i].b, x, hs[i], compute_dtype), cs[i])
+        g = _gates(fused[i], p.lstm[i].b, x, hs[i], compute_dtype)
+        hs[i], cs[i] = cell(g, cs[i])
+        gates.append(g)
         x = torch.cat([hs[i], context], dim=-1)
+    if saved is not None:
+        saved["gates"].append(gates)
     return DecoderCarry(tuple(hs), tuple(cs), w, cum, context), x, w
 
 
-def decoder_tf_scan(p: DecoderParams, pre_seq, keys, memory, mask,
-                    compute_dtype=torch.float32):
+def decoder_tf_scan_ref(p: DecoderParams, pre_seq, keys, memory, mask,
+                        compute_dtype=torch.float32):
     """Teacher-forced scan over prenet-ed frames (T, B, P) -> (xs (T, B,
-    H + D_mem) = [h_last, context] per step, attention weights (T, B, S)).
-    A Python loop of :func:`decoder_cell_step` from the zero carry,
-    differentiable by autograd."""
+    H + D_mem) = [h_last, context] per step, attention weights (T, B, S)):
+    a Python loop of :func:`decoder_cell_step` from the zero carry under
+    autograd. The oracle of :func:`decoder_tf_scan` in the tests."""
     B = memory.shape[0]
     carry = initial_carry(B, memory, len(p.lstm), p.lstm[0].hidden_size)
     fused = fused_weights(p.lstm, compute_dtype)
@@ -183,6 +209,160 @@ def decoder_tf_scan(p: DecoderParams, pre_seq, keys, memory, mask,
         xs.append(x)
         ws.append(w)
     return torch.stack(xs), torch.stack(ws)
+
+
+def _cell_bwd(g: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor):
+    """VJP of :func:`..ops.lstm.cell` from f32 gates g (B, 4H) and c_prev
+    for the cotangents (dh, dc) of (h, c) -> (dg, dc_prev), c recomputed:
+    :func:`..ops.lstm.cell_bwd`'s arithmetic in fewer operations (one
+    sigmoid over all gates, the gates' derivatives as one product)."""
+    H = g.shape[1] // 4
+    s = torch.sigmoid(g)
+    i, f, o = s[:, :H], s[:, H:2 * H], s[:, 3 * H:]
+    gg = torch.tanh(g[:, 2 * H:3 * H])
+    tc = torch.tanh(f * c_prev + i * gg)
+    dc = dc + dh * o * (1.0 - tc * tc)
+    sd = s * (1.0 - s)
+    deriv = torch.cat([sd[:, :2 * H], 1.0 - gg * gg, sd[:, 3 * H:]], dim=1)
+    return torch.cat([dc * gg, dc * c_prev, dc * i, dh * tc], dim=1) * deriv, dc * f
+
+
+class _TFScan(torch.autograd.Function):
+    """The teacher-forced scan with the JAX package's hand-written backward.
+    Inputs: (keep, n_layers, compute_dtype, mask, pre_seq, keys, memory, then
+    w_ih, w_hh, b of each layer, then wq, conv_kernel, wloc, v); ``keep``
+    False (no gradient wanted) runs the forward and keeps nothing.
+
+    The forward keeps, stacked over steps: each layer's gates, h and c and
+    the context in the compute dtype (the JAX residuals), the attention
+    weights, and the attention step's conv windows, conv output and tanh
+    features in f32. The backward's reverse loop carries (dh, dc) a layer,
+    the context's, weights' and cumulative weights' cotangents, and emits
+    per step the gate gradients (f32) and the attention block's
+    intermediate cotangents; every weight gradient, the keys' and the
+    memory's are then one product or sum over all steps."""
+
+    @staticmethod
+    def forward(ctx, keep, n, cd, mask, pre_seq, keys, memory, *ws):
+        lstm = tuple(LSTMParams(*ws[3 * i:3 * i + 3]) for i in range(n))
+        p = DecoderParams(lstm, AttentionParams(*ws[3 * n:]), None, None)
+        B = memory.shape[0]
+        carry = initial_carry(B, memory, n, lstm[0].hidden_size)
+        fused = fused_weights(lstm, cd)
+        saved = {"gates": [], "attention": []} if keep else None
+        xs, w_seq, h_seq, c_seq, ctx_seq = [], [], [], [], []
+        for t in range(pre_seq.shape[0]):
+            carry, x, w = decoder_cell_step(p, fused, carry, pre_seq[t], keys, memory, mask,
+                                            cd, saved)
+            xs.append(x)
+            w_seq.append(w)
+            if keep:
+                h_seq.append(carry.h)
+                c_seq.append(carry.c)
+                ctx_seq.append(carry.context)
+        xs, w_seq = torch.stack(xs), torch.stack(w_seq)
+        if not keep:
+            return xs, w_seq
+        stack = lambda seq: [torch.stack(s) for s in zip(*seq)]  # noqa: E731
+        res = [torch.stack(ctx_seq).to(cd)]
+        for seq in (saved["gates"], h_seq, c_seq):
+            res += [x.to(cd) for x in stack(seq)]
+        ctx.n, ctx.cd = n, cd
+        ctx.save_for_backward(mask, pre_seq, keys, memory, w_seq, *stack(saved["attention"]),
+                              *res, *ws)
+        return xs, w_seq
+
+    @staticmethod
+    def backward(ctx, d_xs, d_ws):
+        n, cd = ctx.n, ctx.cd
+        (mask, pre_seq, keys, memory, w_seq, win_seq, conv_seq, z_seq, ctx_seq,
+         *rest) = ctx.saved_tensors
+        g_seq, h_seq, c_seq, ws = rest[:n], rest[n:2 * n], rest[2 * n:3 * n], rest[3 * n:]
+        lstm = tuple(LSTMParams(*ws[3 * i:3 * i + 3]) for i in range(n))
+        ap = AttentionParams(*ws[3 * n:])
+        T, B, P = pre_seq.shape
+        H = lstm[0].hidden_size
+        S, D = memory.shape[1:]
+        K, Cin, C = ap.conv_kernel.shape
+        lo = (K - 1) // 2
+        mem = memory.float()
+        valid = mask > 0
+        v = ap.v[:, 0]
+        wloc_t = ap.wloc.t()
+        wq_t = ap.wq.t()
+        # The conv input's gradient: the correlation with the flipped,
+        # transposed kernel, padded K - 1 - lo on the left.
+        kflip = ap.conv_kernel.flip(0).permute(2, 0, 1).reshape(C * K, Cin)
+        zero = memory.new_zeros((B, H), dtype=cd)
+        # The state each step read: the step before's, the zero state first.
+        shift = lambda seq, init: torch.cat([init[None], seq[:-1]])  # noqa: E731
+        h_prev = [shift(h_seq[i], zero) for i in range(n)]
+        c_prev = [shift(c_seq[i], zero).float() for i in range(n)]
+        ctx_prev = shift(ctx_seq, memory.new_zeros((B, D), dtype=cd))
+        g_f32 = [g.float() for g in g_seq]
+        fused_t = [w.t() for w in fused_weights(lstm, cd)]
+        dh = [memory.new_zeros((B, H)) for _ in range(n)]
+        dc = [memory.new_zeros((B, H)) for _ in range(n)]
+        dctx_c, dw_c, dcum_c = (memory.new_zeros(shape) for shape in ((B, D), (B, S), (B, S)))
+        dG = [[None] * T for _ in range(n)]
+        dpre, dctx_seq, de_seq, du_seq, dq_seq, dconv_seq = ([None] * T for _ in range(6))
+        for t in range(T - 1, -1, -1):
+            dh[n - 1] = dh[n - 1] + d_xs[t, :, :H]
+            dctx = d_xs[t, :, H:] + dctx_c
+            for i in range(n - 1, 0, -1):
+                dG[i][t], dc[i] = _cell_bwd(g_f32[i][t], c_prev[i][t], dh[i], dc[i])
+                dcat = rounded(dG[i][t], cd) @ fused_t[i]  # [d h_{i-1} | d ctx | d h_i prev]
+                dh[i - 1] = dh[i - 1] + dcat[:, :H]
+                dctx = dctx + dcat[:, H:H + D]
+                dh[i] = dcat[:, H + D:]
+            # The attention block from its kept intermediates: softmax, the
+            # -1e9 mask, tanh, the three products and the location conv.
+            dw = d_ws[t] + dw_c + dcum_c + torch.bmm(mem, dctx[:, :, None])[..., 0]
+            w = w_seq[t]
+            de = torch.where(valid, w * (dw - (dw * w).sum(-1, keepdim=True)), 0.0)
+            z = z_seq[t]
+            du = (de[..., None] * v) * (1.0 - z * z)  # (B, S, A)
+            dq = du.sum(1)
+            dconv = du @ wloc_t
+            dloc = _conv_windows(dconv, K, K - 1 - lo) @ kflip
+            dh[0] = dh[0] + dq @ wq_t
+            dw_c, dcum_c = dloc[..., 0], dcum_c + dloc[..., 1]
+            de_seq[t], du_seq[t], dq_seq[t], dconv_seq[t] = de, du, dq, dconv
+            dG[0][t], dc[0] = _cell_bwd(g_f32[0][t], c_prev[0][t], dh[0], dc[0])
+            dcat = rounded(dG[0][t], cd) @ fused_t[0]  # [d pre | d ctx prev | d h0 prev]
+            dpre[t] = dcat[:, :P]
+            dctx_c = dcat[:, P:P + D]
+            dh[0] = dcat[:, P + D:]
+            dctx_seq[t] = dctx
+        # Deferred weight gradients: one [x_in, h_prev]^T @ dG GEMM a layer
+        # (dG in the compute dtype, the biases' sums in f32), and the
+        # attention weights' sums over all steps.
+        grads = []
+        for i in range(n):
+            dg = torch.stack(dG[i])
+            xin = (torch.cat([pre_seq.to(cd), ctx_prev], dim=-1) if i == 0
+                   else torch.cat([h_seq[i - 1], ctx_seq], dim=-1))
+            dcat = seq_gemm(torch.cat([xin, h_prev[i]], dim=-1), dg.to(cd))
+            din = xin.shape[-1]
+            grads += [dcat[:din], dcat[din:], dg.sum((0, 1))]
+        du_seq = torch.stack(du_seq)
+        dk = seq_gemm(win_seq, torch.stack(dconv_seq)).reshape(Cin, K, C).permute(1, 0, 2)
+        dap = [seq_gemm(h_seq[0], torch.stack(dq_seq)), dk, seq_gemm(conv_seq, du_seq),
+               torch.einsum("tbsa,tbs->a", z_seq, torch.stack(de_seq))[:, None]]
+        dctx_seq = torch.stack(dctx_seq)
+        dmemory = torch.einsum("tbs,tbd->bsd", w_seq.to(cd).float(), dctx_seq.to(cd).float())
+        return (None, None, None, None, torch.stack(dpre), du_seq.sum(0), dmemory, *grads, *dap)
+
+
+def decoder_tf_scan(p: DecoderParams, pre_seq, keys, memory, mask,
+                    compute_dtype=torch.float32):
+    """Teacher-forced scan over prenet-ed frames (T, B, P) -> (xs (T, B,
+    H + D_mem), attention weights (T, B, S)): the numerics of
+    :func:`decoder_tf_scan_ref`, differentiated by the hand-written backward
+    of :class:`_TFScan`."""
+    ws = [w for q in p.lstm for w in q] + list(p.attention)
+    return _TFScan.apply(needs_grad(pre_seq, keys, memory, *ws), len(p.lstm), compute_dtype,
+                         mask, pre_seq, keys, memory, *ws)
 
 
 def _project(p: DecoderParams, x: torch.Tensor):

@@ -344,6 +344,14 @@ class SpeakerRegistry:
 # HTTP front-end
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """A listen backlog of 128 (the stdlib's is 5): a burst of up to
+    ``max_batch`` concurrent connections is accepted at once, not partly on
+    the clients' SYN retries a second later, past the batch window."""
+
+    request_queue_size = 128
+
+
 class TTSServer:
     """Owns the Synthesizer, batcher, registry, and the HTTP server."""
 
@@ -365,7 +373,7 @@ class TTSServer:
         )
         self.registry = SpeakerRegistry(synth, device_lock=self.device_lock)
         handler = _make_handler(self)
-        self.httpd = ThreadingHTTPServer((host, port), handler)
+        self.httpd = _HTTPServer((host, port), handler)
         self.httpd.daemon_threads = True
 
     @property
@@ -704,7 +712,8 @@ def _make_handler(server: TTSServer):
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="TTS serving daemon")
     parser.add_argument("-checkpoint", required=True,
-                        help=".msgpack compact checkpoint (export_compact)")
+                        help=".msgpack compact checkpoint (export_compact) or a "
+                             "training checkpoint directory")
     parser.add_argument("-host", default="127.0.0.1")
     parser.add_argument("-port", type=int, default=8000)
     parser.add_argument("-max_batch", type=int, default=32)
@@ -724,11 +733,10 @@ def main(argv=None) -> None:
                         help="cuda (the default; raises without a card) or cpu")
     args = parser.parse_args(argv)
 
-    if not args.checkpoint.endswith(".msgpack"):
-        parser.error(f"-checkpoint {args.checkpoint!r}: the port reads .msgpack compact "
-                     "checkpoints only (export_compact); Orbax directories are not ported yet")
-    synth = Synthesizer.from_compact(args.checkpoint, quantize=args.quantize,
-                                     device=args.device)
+    try:
+        synth = Synthesizer.from_path(args.checkpoint, quantize=args.quantize, device=args.device)
+    except FileNotFoundError as e:  # no such file, or a directory without a checkpoint
+        parser.error(f"-checkpoint {args.checkpoint!r}: {e}")
     server = TTSServer(
         synth, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,

@@ -167,8 +167,10 @@ def main(argv=None) -> int:
     row = {"label": args.label, "repo": str(repo), "device": torch.cuda.get_device_name(0),
            "enroll_busy_ms": busy_ms(lambda: synth.enroll(wavs))}
     del synth
-    trainer = Trainer(hp.replace(Speaker_Embedding={"GE2E": {"Freeze": False}}), params,
-                      batch_stats, seed=0)
+    # A checkout from before Trainer.from_params took the weights in its constructor.
+    make = getattr(Trainer, "from_params", Trainer)
+    trainer = make(hp.replace(Speaker_Embedding={"GE2E": {"Freeze": False}}), params,
+                   batch_stats, seed=0)
     batch = train_batch(hp)
     trainer.train_step(batch)
     row["train_step_ms"] = time_ms(lambda: trainer.train_step(batch), 0, 3, queue_ahead=False)

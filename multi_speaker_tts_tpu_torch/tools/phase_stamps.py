@@ -132,13 +132,13 @@ def fold(stamps: np.ndarray, rounds: int) -> dict:
     }
 
 
-def run_decode(mode: str, K: int):
+def run_decode(mode: str, K: int, B: int = 4):
     import torch
 
     dk = importlib.import_module("multi_speaker_tts_tpu_torch.ops.decode_kernel")
     dscan = importlib.import_module("multi_speaker_tts_tpu_torch.ops.decoder_scan")
     LSTMParams = importlib.import_module("multi_speaker_tts_tpu_torch.ops.lstm").LSTMParams
-    B, S, A, D, H, P, mel, r = 4, 48, 128, 768, 1024, 256, 80, 2  # the serving shapes
+    S, A, D, H, P, mel, r = 48, 128, 768, 1024, 256, 80, 2  # the serving shapes
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
 
@@ -179,7 +179,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, required=True, help="grid-barrier rounds a step")
     ap.add_argument("--steps", type=int, default=10, help="decode steps, or dense iterations")
     ap.add_argument("--repo", default=None, help="the checkout to measure (default: this one)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="decode batch rows, 1-16 (one launch; the serving batch is 4)")
     args = ap.parse_args(argv)
+    if not 1 <= args.batch <= 16:
+        ap.error("--batch takes 1-16 rows: the stamps are those of one launch")
     root = pathlib.Path(args.repo or pathlib.Path(__file__).resolve().parents[2]).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -188,7 +192,7 @@ def main(argv=None) -> int:
         raise SystemExit("phase_stamps needs a CUDA card")
     pkg = root / "multi_speaker_tts_tpu_torch"
     if args.kernel == "decode":
-        kernel_obj, call = run_decode(args.mode, args.steps)
+        kernel_obj, call = run_decode(args.mode, args.steps, args.batch)
         lib = build(pkg, "decode.cu", "decode_kernel")
     else:
         kernel_obj, call = run_dense(args.steps)
@@ -203,7 +207,8 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout.strip()
     for slot, block in ((0, "first block"), (1, "last block")):
         print(json.dumps({"checkout": str(root), "kernel": args.kernel, "mode": args.mode,
-                          "block": block, "card": name, **fold(stamps[slot], args.rounds)}))
+                          "batch": args.batch, "block": block, "card": name,
+                          **fold(stamps[slot], args.rounds)}))
     return 0
 
 

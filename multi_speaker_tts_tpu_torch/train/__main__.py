@@ -1,0 +1,71 @@
+"""Training CLI (port of ``python -m multi_speaker_tts_tpu.train``):
+
+    python -m multi_speaker_tts_tpu_torch.train -mode ge2e -train_pattern DIR \
+        -checkpoint GE2E_DIR -max_step N
+    python -m multi_speaker_tts_tpu_torch.train -mode tts -train_pattern DIR \
+        -ge2e_checkpoint GE2E_DIR -checkpoint TTS_DIR [-eval_pattern DIR] [-max_step N]
+
+``-hp`` reads a YAML file (needs pyyaml); without it the shipped defaults
+apply. Runs on the card unless ``-device cpu``. Multi-process training
+(``-distributed`` and its flags) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="Train the TTS stack on a CUDA card")
+    parser.add_argument("-hp", "--hyper_parameters", default=None)
+    parser.add_argument("-mode", choices=["tts", "ge2e"], default="tts")
+    parser.add_argument("-train_pattern", default=None)
+    parser.add_argument("-eval_pattern", default=None)
+    parser.add_argument("-checkpoint", default=None)
+    parser.add_argument("-log", default=None)
+    parser.add_argument("-max_step", type=int, default=None)
+    parser.add_argument("-ge2e_checkpoint", default=None,
+                        help="pretrained GE2E checkpoint dir (SV2TTS recipe)")
+    parser.add_argument("-freeze_ge2e", action="store_true")
+    parser.add_argument("-profile", action="store_true",
+                        help="capture a torch.profiler trace of steps 10-20")
+    parser.add_argument("-device", default="cuda",
+                        help="cuda (the default; raises without a card) or cpu")
+    parser.add_argument("-distributed", action="store_true")
+    parser.add_argument("-coordinator", default=None)
+    parser.add_argument("-num_processes", type=int, default=None)
+    parser.add_argument("-process_id", type=int, default=None)
+    args = parser.parse_args(argv)
+    if args.distributed or args.coordinator or args.num_processes or args.process_id is not None:
+        raise NotImplementedError("multi-process training (-distributed, -coordinator, "
+                                  "-num_processes, -process_id) is not ported yet")
+
+    from multi_speaker_tts_tpu_torch.hparams import load_hyper_parameters
+
+    hp = load_hyper_parameters(args.hyper_parameters)
+    if args.ge2e_checkpoint or args.freeze_ge2e:
+        hp = hp.replace(Speaker_Embedding={"GE2E": {
+            **({"Pretrained_Checkpoint": args.ge2e_checkpoint} if args.ge2e_checkpoint else {}),
+            **({"Freeze": True} if args.freeze_ge2e else {}),
+        }})
+    train_dir = args.train_pattern or hp.Train.Train_Pattern.Path
+
+    if args.mode == "ge2e":
+        from multi_speaker_tts_tpu_torch.train.ge2e_trainer import GE2ETrainer
+
+        trainer = GE2ETrainer(hp, checkpoint_dir=args.checkpoint, log_dir=args.log,
+                              device=args.device)
+        trainer.train(train_dir, max_steps=args.max_step or hp.Train.Max_Step)
+        return
+
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(hp, checkpoint_dir=args.checkpoint, log_dir=args.log, device=args.device)
+    if args.profile:
+        trainer.profile_steps = (10, 20)
+    trainer.train(train_dir, eval_pattern_dir=args.eval_pattern or hp.Train.Eval_Pattern.get("Path"),
+                  max_steps=args.max_step)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,142 @@
+"""Speaker-encoder training with the GE2E loss (port of
+``multi_speaker_tts_tpu.train.ge2e_trainer``).
+
+Batches of N speakers x M utterances of fixed-length mel crops
+(:class:`..data.datasets.GE2EBatchSampler`) -> embeddings (the GE2E LSTM
+stack through its autograd Function: kernel ``csrc/lstm.cu`` in residual
+mode forward, ``csrc/lstm_bwd.cu`` backward, on the card) -> the
+leave-one-out similarity matrix -> the softmax GE2E loss. The similarity's
+scale and bias (w, b) learn at ``Scale_Gradient`` (0.01) times the
+encoder's rate, w is clamped positive, and gradients are clipped to a
+global norm of 3.0: :class:`GE2EOptimizer` computes what the JAX package's
+optax chain computes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multi_speaker_tts_tpu_torch.data.datasets import GE2EBatchSampler, PatternDataset
+from multi_speaker_tts_tpu_torch.inference import resolve_device
+from multi_speaker_tts_tpu_torch.models.ge2e import GE2E, ge2e_loss
+from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
+from multi_speaker_tts_tpu_torch.train.checkpoints import CheckpointManager
+from multi_speaker_tts_tpu_torch.train.logger import Logger
+from multi_speaker_tts_tpu_torch.train.optim import global_norm
+from multi_speaker_tts_tpu_torch.weights import random_init
+
+CLIP_NORM = 3.0  # GE2E section 3
+MOMENTUM = 0.9
+
+
+class GE2EOptimizer:
+    """``make_ge2e_optimizer``'s chain over named parameters: clip by a
+    global norm of 3, scale the w / b gradients by ``scale``, then SGD with
+    momentum 0.9 (the trace g + 0.9 trace, the update -lr trace)."""
+
+    def __init__(self, lr: float, scale: float = 0.01):
+        self.lr, self.scale = lr, scale
+
+    def init(self, params: dict) -> dict:
+        return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+
+    @torch.no_grad()
+    def update(self, grads: dict, trace: dict) -> tuple[dict, dict]:
+        """(updates to add to the parameters, the next trace)."""
+        g_norm = global_norm(list(grads.values()))
+        grads = {k: g.float() for k, g in grads.items()}
+        if not bool(g_norm < CLIP_NORM):
+            grads = {k: g / g_norm * CLIP_NORM for k, g in grads.items()}
+        for k in ("w", "b"):
+            grads[k] = grads[k] * self.scale
+        trace = {k: grads[k] + MOMENTUM * trace[k] for k in grads}
+        return {k: -self.lr * t for k, t in trace.items()}, trace
+
+
+def make_ge2e_optimizer(hp) -> GE2EOptimizer:
+    g = hp.GE2E_Train
+    return GE2EOptimizer(g.Learning_Rate, g.get("Scale_Gradient", 0.01))
+
+
+class GE2ETrainer:
+    """Training loop of the speaker encoder on one device (CUDA unless
+    ``device`` says otherwise). ``params`` holds ``encoder.<state key>``,
+    ``w`` and ``b``; checkpoints hold ``{"step", "params": {"encoder": {...},
+    "w", "b"}, "opt_state"}``."""
+
+    def __init__(self, hp, checkpoint_dir: str | None = None, log_dir: str | None = None,
+                 device=None, seed: int = 0):
+        self.hp = hp
+        self.device = resolve_device(device)
+        self.model = GE2E.from_hp(hp, compute_dtype_of(hp))
+        random_init(hp, torch.Generator().manual_seed(seed), ge2e=self.model)
+        self.model.to(self.device)
+        loss = hp.Speaker_Embedding.GE2E.Loss
+        scalar = lambda v: torch.tensor(float(v), device=self.device)  # noqa: E731
+        self.params = {f"encoder.{k}": p for k, p in self.model.named_parameters()}
+        self.params["w"] = scalar(loss.Initial_Weight).requires_grad_()
+        self.params["b"] = scalar(loss.Initial_Bias).requires_grad_()
+        self.optimizer = make_ge2e_optimizer(hp)
+        self.opt_state = self.optimizer.init(self.params)
+        self.step = 0
+        self.checkpoints = CheckpointManager(checkpoint_dir or hp.Checkpoint_Path)
+        self.logger = Logger(log_dir or hp.Log_Path)
+        self.N, self.M = hp.GE2E_Train.Batch_Speakers, hp.GE2E_Train.Batch_Utterances
+
+    def state(self) -> dict:
+        """The checkpoint's state: tensors on the CPU."""
+        cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
+        enc = {k[len("encoder."):]: cpu(p) for k, p in self.params.items()
+               if k.startswith("encoder.")}
+        return {"step": self.step,
+                "params": {"encoder": enc, "w": cpu(self.params["w"]), "b": cpu(self.params["b"])},
+                "opt_state": {k: cpu(t) for k, t in self.opt_state.items()}}
+
+    @torch.no_grad()
+    def load_state(self, state: dict) -> None:
+        for k, p in self.params.items():
+            src = state["params"]["encoder"][k[len("encoder."):]] if k.startswith("encoder.") \
+                else state["params"][k]
+            p.copy_(src)
+        self.opt_state = {k: t.to(self.device) for k, t in state["opt_state"].items()}
+        self.step = int(state["step"])
+
+    def train_step(self, mels) -> dict:
+        """One step on (N M, L, mel) crops grouped by speaker -> loss, w, b."""
+        mels = torch.as_tensor(mels).to(self.device).float()
+        emb = self.model(mels).reshape(self.N, self.M, -1)
+        loss = ge2e_loss(emb, self.params["w"], self.params["b"])
+        names = list(self.params)
+        grads = torch.autograd.grad(loss, [self.params[k] for k in names])
+        updates, self.opt_state = self.optimizer.update(dict(zip(names, grads)),
+                                                        self.opt_state)
+        with torch.no_grad():
+            for k in names:
+                self.params[k].add_(updates[k])
+            self.params["w"].clamp_(min=1e-6)
+        self.step += 1
+        return {"loss": float(loss.detach()), "w": float(self.params["w"].detach()),
+                "b": float(self.params["b"].detach())}
+
+    def train(self, pattern_dir: str, max_steps: int, log_interval: int = 50,
+              save_interval: int = 500) -> dict:
+        """Resume from the latest checkpoint if there is one, then step to
+        ``max_steps``, saving every ``save_interval`` steps and at the end.
+        Returns the last step's metrics."""
+        hp = self.hp
+        sampler = GE2EBatchSampler(PatternDataset(pattern_dir), n_speakers=self.N,
+                                   m_utterances=self.M,
+                                   frame_length=hp.GE2E_Train.Frame_Length)
+        restored, step = self.checkpoints.restore()
+        if restored is not None and step > self.step:
+            self.load_state(restored)
+            print(f"resumed GE2E training from step {step}")
+        metrics = {}
+        while self.step < max_steps:
+            metrics = self.train_step(sampler.sample()["mels"])
+            if self.step % log_interval == 0:
+                self.logger.add_scalar_dict("GE2E", metrics, self.step)
+            if self.step % save_interval == 0 or self.step >= max_steps:
+                self.checkpoints.save(self.step, self.state())
+        self.logger.flush()
+        return metrics

@@ -1,16 +1,27 @@
-"""The teacher-forced train step (port of ``make_train_step`` /
-``make_eval_step`` in ``multi_speaker_tts_tpu.train.trainer``).
+"""The Tacotron trainer (port of ``multi_speaker_tts_tpu.train.trainer``).
 
-``Trainer.from_compact(path)`` -> ``train_step(batch)`` with a batch in the
-``collate_tts`` layout, on a CUDA device by default. One step:
+``Trainer(hp, checkpoint_dir, log_dir)`` on a CUDA device by default;
+:meth:`Trainer.initialize` draws a fresh init (the JAX initializers'
+families, :func:`..weights.random_init`), then resumes from the checkpoint
+directory's latest step or, for a GE2E model, grafts a pretrained encoder
+(``Speaker_Embedding.GE2E.Pretrained_Checkpoint``, the SV2TTS recipe);
+``from_params`` / ``from_compact`` start from given weights. :meth:`train`
+runs the loop over a pattern directory: bucketed batches (in process, or
+``Train.Num_Workers`` loader processes), a step a batch, logs, checkpoints,
+evaluation and an inference sample at the configured intervals, and a
+``torch.profiler`` trace over :attr:`profile_steps`.
 
-- GE2E conditioning on the reference crops (``Speaker_Embedding.GE2E.Freeze``:
-  under ``no_grad``, the JAX ``stop_gradient``; otherwise through the LSTM
-  stack's autograd Function, whose backward is ``csrc/lstm_bwd.cu``);
+One step (:meth:`train_step`):
+
+- speaker conditioning: GE2E on the reference crops (``Freeze``: under
+  ``no_grad``, the JAX ``stop_gradient``; otherwise through the LSTM stack's
+  autograd Function, whose backward is ``csrc/lstm_bwd.cu``), or the LUT
+  rows of the batch's ``speaker_ids``;
 - the teacher-forced Tacotron forward in train mode (BatchNorm batch
   statistics, conv dropout and the prenet's keep masks from the trainer's
   generator), the BiLSTM and BiGRU through their autograd Functions
-  (backwards ``csrc/bilstm_bwd.cu``, ``csrc/bigru_bwd.cu``);
+  (backwards ``csrc/bilstm_bwd.cu``, ``csrc/bigru_bwd.cu``) and the decoder
+  scan through its hand-written backward (:func:`..ops.decoder_scan.decoder_tf_scan`);
 - the losses, gradients by ``torch.autograd``;
 - the optimizer chain of :mod:`.optim`, applied in place (which bumps each
   parameter's version, so the kernels' packed weight layouts are rebuilt
@@ -22,35 +33,44 @@ finite, nothing changes -- no update reaches the parameters or the
 optimizer state, and the BatchNorm running statistics that the forward
 already moved are restored from a snapshot taken before it. The step count
 still advances. Metrics come back as floats (one host read a step).
-
-A fresh random init, the data loader, checkpoint saving, logging and
-multi-GPU training are not ported yet.
+Multi-GPU training is not ported yet.
 """
 
 from __future__ import annotations
 
+import pathlib
+import time
+
+import numpy as np
 import torch
 
+from multi_speaker_tts_tpu_torch.audio import dsp
 from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+from multi_speaker_tts_tpu_torch.data.datasets import BucketBatcher, PatternDataset
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
-from multi_speaker_tts_tpu_torch.inference import resolve_device
+from multi_speaker_tts_tpu_torch.inference import _gl_vocode, prenet_mask_sampler, resolve_device
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
 from multi_speaker_tts_tpu_torch.models.losses import tacotron_losses
+from multi_speaker_tts_tpu_torch.models.speaker import SpeakerLUT
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
-from multi_speaker_tts_tpu_torch.train.optim import global_norm, make_optimizer
-from multi_speaker_tts_tpu_torch.weights import load_into, module_state, params_from_jax
+from multi_speaker_tts_tpu_torch.train.checkpoints import CheckpointManager
+from multi_speaker_tts_tpu_torch.train.logger import Logger
+from multi_speaker_tts_tpu_torch.train.optim import OptState, global_norm, make_optimizer
+from multi_speaker_tts_tpu_torch.weights import load_into, module_state, params_from_jax, random_init
 
-_BATCH_KEYS = ("tokens", "token_lengths", "mels", "mel_lengths", "ref_mels", "spects")
+_BATCH_KEYS = ("tokens", "token_lengths", "mels", "mel_lengths", "ref_mels", "spects",
+               "speaker_ids")
 
 
-def build_models(hp, compute_dtype) -> tuple[Tacotron, GE2E | None]:
-    """(Tacotron, the GE2E encoder or None for an unconditioned model)."""
+def build_models(hp, compute_dtype) -> tuple[Tacotron, GE2E | None, SpeakerLUT | None]:
+    """(Tacotron, the GE2E encoder or None, the speaker table or None)."""
     spk_type = hp.Speaker_Embedding.get("Type")
-    if spk_type not in ("GE2E", None):
-        raise NotImplementedError("the torch port has the GE2E speaker encoder only")
-    ge2e = GE2E.from_hp(hp, compute_dtype) if spk_type == "GE2E" else None
-    return Tacotron(hp, compute_dtype), ge2e
+    if spk_type not in ("GE2E", "LUT", None):
+        raise NotImplementedError(f"unknown Speaker_Embedding.Type {spk_type!r}")
+    return (Tacotron(hp, compute_dtype),
+            GE2E.from_hp(hp, compute_dtype) if spk_type == "GE2E" else None,
+            SpeakerLUT.from_hp(hp) if spk_type == "LUT" else None)
 
 
 def resolve_guided_attention(hp) -> tuple[float | None, float]:
@@ -63,28 +83,25 @@ def resolve_guided_attention(hp) -> tuple[float | None, float]:
 
 
 class Trainer:
-    """Teacher-forced training of the GE2E-conditioned Tacotron on one
-    device, from a compact checkpoint's params and batch_stats with a fresh
-    optimizer state."""
+    """Teacher-forced training of the Tacotron (GE2E-, LUT- or
+    un-conditioned) on one device. The weights are unset until
+    :meth:`initialize` (or :meth:`from_params` / :meth:`from_compact`)."""
 
-    def __init__(self, hp, params, batch_stats, device=None, seed: int = 0):
+    def __init__(self, hp, checkpoint_dir: str | None = None, log_dir: str | None = None,
+                 device=None, seed: int = 0):
         self.device = resolve_device(device)
         self.hp = hp
+        self.seed = seed
         self.compute_dtype = compute_dtype_of(hp)
-        self.tacotron, self.ge2e = build_models(hp, self.compute_dtype)
-        state = params_from_jax(params, batch_stats, hp)
-        load_into(self.tacotron, state, "tacotron.")
-        self.tacotron.to(self.device)
-        if self.ge2e is not None:
-            load_into(self.ge2e, state, "ge2e.")
-            self.ge2e.to(self.device)
+        self.tacotron, self.ge2e, self.speaker_lut = build_models(hp, self.compute_dtype)
+        for m in self._modules().values():
+            m.to(self.device)
         self.freeze_ge2e = bool(self.ge2e is not None
                                 and hp.Speaker_Embedding.GE2E.get("Freeze", False))
         self.r = int(hp.Decoder.get("N_Frames_Per_Step", 1))
         self.ga_sigma, self.ga_weight = resolve_guided_attention(hp)
-        named = [] if self.ge2e is None else [
-            (f"ge2e.{n}", t) for n, t in self.ge2e.named_parameters()]
-        named += [(f"tacotron.{n}", t) for n, t in self.tacotron.named_parameters()]
+        named = [(f"{prefix}.{n}", t) for prefix, m in self._modules().items()
+                 for n, t in m.named_parameters()]
         self.param_names = [n for n, _ in named]  # state keys, as weights.py names them
         self.params = [t for _, t in named]
         self.frozen = [self.freeze_ge2e and n.startswith("ge2e.") for n in self.param_names]
@@ -92,9 +109,49 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.params)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.step = 0
+        self.initialized = False
+        self.checkpoint_dir = checkpoint_dir
+        self.log_dir = log_dir
+        self._checkpoints: CheckpointManager | None = None
+        self._logger: Logger | None = None
+        self.dsp_cfg = dsp.DSPConfig.from_hp(hp)
+        # (start, stop) steps of a torch.profiler trace; None: off.
+        self.profile_steps: tuple[int, int] | None = None
+
+    def _modules(self) -> dict:
+        mods = {"ge2e": self.ge2e, "speaker_lut": self.speaker_lut, "tacotron": self.tacotron}
+        return {k: m for k, m in mods.items() if m is not None}
+
+    @property
+    def checkpoints(self) -> CheckpointManager:
+        if self._checkpoints is None:
+            self._checkpoints = CheckpointManager(self.checkpoint_dir or self.hp.Checkpoint_Path)
+        return self._checkpoints
+
+    @property
+    def logger(self) -> Logger:
+        if self._logger is None:
+            self._logger = Logger(self.log_dir or self.hp.Log_Path)
+        return self._logger
+
+    # -- weights -----------------------------------------------------------------
+    def load_params(self, params: dict, batch_stats: dict) -> None:
+        """Load JAX (params, batch_stats) numpy trees into the modules."""
+        state = params_from_jax(params, batch_stats, self.hp)
+        for prefix, m in self._modules().items():
+            load_into(m, state, f"{prefix}.")
+        self.initialized = True
 
     @classmethod
-    def from_compact(cls, path, hp=None, device=None, seed: int = 0) -> "Trainer":
+    def from_params(cls, hp, params: dict, batch_stats: dict, **kwargs) -> "Trainer":
+        """A trainer from JAX (params, batch_stats) numpy trees, with a fresh
+        optimizer state."""
+        trainer = cls(hp, **kwargs)
+        trainer.load_params(params, batch_stats)
+        return trainer
+
+    @classmethod
+    def from_compact(cls, path, hp=None, **kwargs) -> "Trainer":
         """Load an ``export_compact`` checkpoint; hp from its ``meta["hp"]``
         unless given."""
         params, batch_stats, meta = load_compact(path)
@@ -102,12 +159,83 @@ class Trainer:
             if "hp" not in meta:
                 raise ValueError(f"{path} carries no hp; pass one explicitly")
             hp = Recursive_Parse(meta["hp"])
-        return cls(hp, params, batch_stats, device=device, seed=seed)
+        return cls.from_params(hp, params, batch_stats, **kwargs)
 
+    def initialize(self) -> None:
+        """A fresh init from a CPU generator seeded with ``seed``; then the
+        checkpoint directory's latest step, if it has one, or else the
+        pretrained GE2E encoder that the hparams name."""
+        random_init(self.hp, torch.Generator().manual_seed(self.seed), **self._modules())
+        self.initialized = True
+        restored, step = self.checkpoints.restore()
+        if restored is not None:
+            self.load_state(restored)
+            print(f"resumed from checkpoint step {step}")
+        elif self.ge2e is not None:
+            pre = self.hp.Speaker_Embedding.GE2E.get("Pretrained_Checkpoint")
+            if pre:
+                self.load_pretrained_ge2e(pre)
+
+    @torch.no_grad()
+    def load_pretrained_ge2e(self, checkpoint_dir: str) -> None:
+        """Graft the encoder of a GE2ETrainer checkpoint (shapes must match
+        the Speaker_Embedding config)."""
+        mgr = CheckpointManager(checkpoint_dir)
+        restored, step = mgr.restore()
+        if restored is None:
+            raise FileNotFoundError(f"no GE2E checkpoint under {checkpoint_dir}")
+        load_into(self.ge2e, {f"ge2e.{k}": v.numpy()
+                              for k, v in restored["params"]["encoder"].items()}, "ge2e.")
+        print(f"loaded pretrained GE2E encoder from step {step}")
+
+    def bn_stats(self) -> list[torch.Tensor]:
+        """The BatchNorm running statistics, in module order."""
+        return [b for name, b in self.tacotron.named_buffers()
+                if name.endswith(("bn_mean", "bn_var"))]
+
+    def state(self) -> dict:
+        """The flat ``ge2e.*`` / ``speaker_lut.*`` / ``tacotron.*`` state
+        (numpy), as ``weights.params_to_jax`` reads it."""
+        return module_state(**self._modules())
+
+    def checkpoint_state(self) -> dict:
+        """What a checkpoint holds: the step, the hparams, the params and
+        BatchNorm statistics by state key, the optimizer state and the
+        generator's state, on the CPU."""
+        cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
+        buffers = {f"tacotron.{n}": cpu(b) for n, b in self.tacotron.named_buffers()}
+        return {"step": self.step, "hp": self.hp.to_dict(),
+                "params": {n: cpu(p) for n, p in zip(self.param_names, self.params)},
+                "batch_stats": buffers,
+                "opt_state": {"count": self.opt_state.count,
+                              "mu": [cpu(m) for m in self.opt_state.mu],
+                              "nu": [cpu(v) for v in self.opt_state.nu]},
+                "generator": self.generator.get_state()}
+
+    @torch.no_grad()
+    def load_state(self, state: dict) -> None:
+        """Restore :meth:`checkpoint_state`'s dict."""
+        for n, p in zip(self.param_names, self.params):
+            p.copy_(state["params"][n])
+        for n, b in self.tacotron.named_buffers():
+            b.copy_(state["batch_stats"][f"tacotron.{n}"])
+        o = state["opt_state"]
+        self.opt_state = OptState(int(o["count"]), [m.to(self.device) for m in o["mu"]],
+                                  [v.to(self.device) for v in o["nu"]])
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
+        self.initialized = True
+
+    def save(self, step: int | None = None) -> None:
+        self.checkpoints.save(self.step if step is None else step, self.checkpoint_state())
+
+    # -- one step ----------------------------------------------------------------
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(batch[k]).to(self.device) for k in _BATCH_KEYS if k in batch}
 
     def _speaker_embedding(self, batch: dict):
+        if self.speaker_lut is not None:
+            return self.speaker_lut(batch["speaker_ids"].long())
         if self.ge2e is None:
             return None
         if self.freeze_ge2e:
@@ -120,11 +248,6 @@ class Trainer:
             outputs, batch["mels"], batch["mel_lengths"], batch["token_lengths"],
             spects=batch.get("spects"), n_frames_per_step=self.r,
             guided_attention_sigma=self.ga_sigma, guided_attention_weight=self.ga_weight)
-
-    def bn_stats(self) -> list[torch.Tensor]:
-        """The BatchNorm running statistics, in module order."""
-        return [b for name, b in self.tacotron.named_buffers()
-                if name.endswith(("bn_mean", "bn_var"))]
 
     def _forward_backward(self, batch: dict):
         """Train-mode forward on a device batch -> (losses, gradients in
@@ -179,7 +302,144 @@ class Trainer:
                                 generator=self.generator)
         return {k: float(v) for k, v in self._losses(batch, outputs).items()}, outputs
 
-    def state(self) -> dict:
-        """The flat ``ge2e.*`` / ``tacotron.*`` state (numpy), as
-        ``weights.params_to_jax`` reads it."""
-        return module_state(ge2e=self.ge2e, tacotron=self.tacotron)
+    # -- the loop ----------------------------------------------------------------
+    def make_batcher(self, pattern_dir: str, shuffle: bool = True) -> BucketBatcher:
+        hp = self.hp
+        lh = hp.get("Linear_Head")
+        return BucketBatcher(
+            PatternDataset(pattern_dir), batch_size=hp.Train.Batch_Size,
+            token_buckets=list(hp.Train.Batch_Bucketing.Token_Buckets),
+            mel_buckets=list(hp.Train.Batch_Bucketing.Mel_Buckets),
+            mel_dim=hp.Sound.Mel_Dim, n_frames_per_step=self.r,
+            ref_window=hp.Speaker_Embedding.GE2E.Window_Length if self.ge2e is not None else None,
+            shuffle=shuffle,
+            spect_dim=hp.Sound.Spectrogram_Dim if (lh is not None and lh.Use) else None)
+
+    def _batches(self, batcher: BucketBatcher):
+        """Endless training batches: from one long-lived loader with
+        ``Train.Num_Workers`` > 0, else the in-process batcher epoch by epoch
+        (``Accumulated_Dataset_Epoch`` passes a reshuffle)."""
+        hp = self.hp
+        n_workers = hp.Train.get("Num_Workers", 0) or 0
+        if n_workers > 0:
+            from multi_speaker_tts_tpu_torch.data.loader import make_loader
+
+            for batch in make_loader(batcher, num_workers=n_workers):
+                batch.pop("bucket", None)
+                yield batch
+        tp = hp.Train.get("Train_Pattern")
+        accumulated = int(tp.get("Accumulated_Dataset_Epoch", 1)) if tp else 1
+        while True:
+            for _ in range(accumulated):
+                for _, batch in batcher:
+                    yield batch
+
+    def train(self, pattern_dir: str, eval_pattern_dir: str | None = None,
+              max_steps: int | None = None) -> dict:
+        """Step to ``max_steps`` (``Train.Max_Step`` when None) from where the
+        trainer stands (a resumed checkpoint's step), then save. Returns the
+        last step's metrics."""
+        hp = self.hp
+        max_steps = max_steps or hp.Train.Max_Step
+        batcher = self.make_batcher(pattern_dir)
+        if not batcher.assignment:
+            raise ValueError(f"no pattern of {pattern_dir} fits the batch buckets (tokens "
+                             f"{batcher.token_buckets}, mels {batcher.mel_buckets})")
+        if not self.initialized:
+            self.initialize()
+        t_last, frames_since, metrics, prof = time.time(), 0, {}, None
+        if self.step < max_steps:
+            for batch in self._batches(batcher):
+                if self.profile_steps and self.step == self.profile_steps[0]:
+                    prof = _start_profile()
+                metrics = self.train_step(batch)
+                if prof is not None and self.step == self.profile_steps[1]:
+                    _stop_profile(prof, self.logger.log_dir / "profile")
+                    prof = None
+                frames_since += int(np.asarray(batch["mel_lengths"]).sum())
+                step = self.step
+                if step % hp.Train.Logging_Interval == 0:
+                    dt = max(time.time() - t_last, 1e-9)
+                    print(f"step {step}: loss {metrics['total']:.4f} "
+                          f"({frames_since / dt:,.0f} mel frames/s)", flush=True)
+                    self.logger.add_scalar_dict("Train/Loss", metrics, step)
+                    self.logger.add_scalar("Train/Learning_Rate",
+                                           self.optimizer.schedule(step), step)
+                    self.logger.add_scalar("Train/Mel_Frames_Per_Sec", frames_since / dt, step)
+                    t_last, frames_since = time.time(), 0
+                if step % hp.Train.Checkpoint_Save_Interval == 0:
+                    self.save(step)
+                if eval_pattern_dir is not None and step % hp.Train.Evaluation_Interval == 0:
+                    self.evaluate(eval_pattern_dir, step)
+                if (eval_pattern_dir is not None
+                        and step % hp.Train.get("Inference_Interval", 10 ** 9) == 0):
+                    self.inference_step(eval_pattern_dir, step)
+                if step >= max_steps:
+                    break
+        if prof is not None:
+            _stop_profile(prof, self.logger.log_dir / "profile")
+        self.save(self.step)
+        self.logger.flush()
+        return metrics
+
+    def evaluate(self, pattern_dir: str, step: int, max_batches: int = 8) -> dict:
+        """Mean teacher-forced losses over up to ``max_batches`` batches,
+        logged with the first row's alignment."""
+        totals: dict[str, float] = {}
+        count, outputs = 0, None
+        for _, batch in self.make_batcher(pattern_dir, shuffle=False):
+            if count >= max_batches:
+                break
+            losses, outputs = self.eval_step(batch)
+            for k, v in losses.items():
+                totals[k] = totals.get(k, 0.0) + v
+            count += 1
+        if not count:
+            return {}
+        means = {k: v / count for k, v in totals.items()}
+        self.logger.add_scalar_dict("Evaluation/Loss", means, step)
+        align = outputs["alignments"][0].float().cpu().numpy()
+        self.logger.add_image("Evaluation/Alignment", align / max(align.max(), 1e-6), step)
+        return means
+
+    @torch.no_grad()
+    def inference_step(self, pattern_dir: str, step: int) -> None:
+        """AR-synthesize one eval batch with the current weights and log the
+        first row's alignment and audio."""
+        hp, cfg = self.hp, self.dsp_cfg
+        try:
+            _, batch = next(iter(self.make_batcher(pattern_dir, shuffle=False)))
+        except StopIteration:
+            return
+        batch = self._to_device(batch)
+        max_steps = min(hp.Decoder.Max_Step, int(batch["mels"].shape[1]) * 2)
+        out = self.tacotron.infer(
+            batch["tokens"], batch["token_lengths"], self._speaker_embedding(batch), max_steps,
+            hp.Decoder.Stop_Threshold,
+            prenet_masks=prenet_mask_sampler(hp, self.device, self.seed + step,
+                                             batch["tokens"].shape[0]))
+        align = out["alignments"][0].float().cpu().numpy()
+        self.logger.add_image("Inference/Alignment", align / max(align.max(), 1e-6), step)
+        if "linear" in out and cfg.n_fft % cfg.hop == 0:
+            wav = _gl_vocode(out["linear"][:1], out["mel_post"][:1], cfg, False)[0]
+            T = int(out["mel_lengths"][0])
+            self.logger.add_audio("Inference/Audio", wav[:max(T - 1, 1) * cfg.hop].cpu().numpy(),
+                                  step, cfg.sample_rate)
+
+
+def _start_profile():
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, out_dir: pathlib.Path) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "trace.json"))
+    print(f"profile of the traced steps written to {out_dir / 'trace.json'}")

@@ -197,3 +197,52 @@ def load_into(module, state: dict[str, np.ndarray], prefix: str) -> None:
         if tuple(expected[key].shape) != value.shape:
             raise ValueError(f"{prefix}{key}: shape {value.shape} != {tuple(expected[key].shape)}")
     module.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in own.items()})
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def _init_leaf(path: str, shape: tuple, generator: torch.Generator) -> torch.Tensor:
+    """One parameter of a fresh model, by its JAX path, from the family the
+    JAX package's initializer draws it from: recurrent weights and biases
+    U(-1/sqrt(H), 1/sqrt(H)); Dense and Conv kernels lecun-normal (a normal
+    truncated to two deviations, variance 1/fan_in); ``nn.Embed`` tables
+    N(0, 1/E); biases 0, the highway gates' -1; BatchNorm scales 1."""
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf in ("w_ih", "w_hh", "b", "b_ih", "b_hh"):
+        H = shape[-1] // (3 if "/gru/" in path else 4)
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) / H ** 0.5
+    if leaf == "kernel":
+        fan_in = int(np.prod(shape[:-1]))
+        t = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+        return t * ((1.0 / fan_in) ** 0.5 / _TRUNC_STD)
+    if leaf == "embedding":
+        return torch.randn(shape, generator=generator) * (1.0 / shape[-1]) ** 0.5
+    if leaf == "bias":
+        return torch.full(shape, -1.0 if re.search(r"/highway_\d+/T/bias$", path) else 0.0)
+    if leaf == "scale":
+        return torch.ones(shape)
+    raise ValueError(f"no initializer for parameter {path}")
+
+
+def random_init(hp, generator: torch.Generator, **modules) -> tuple[dict, dict]:
+    """Fill ``modules`` (by prefix: ``ge2e=``, ``speaker_lut=``,
+    ``tacotron=``) with a fresh init drawn from ``generator`` (a CPU
+    generator), each tensor from its JAX initializer's family
+    (:func:`_init_leaf`; BatchNorm running mean 0, variance 1). Returns the
+    (params, batch_stats) JAX trees of the init."""
+    params, batch_stats = params_to_jax(module_state(**modules), hp)
+
+    def fill(tree, path, fn):
+        return {k: fill(v, f"{path}/{k}", fn) if isinstance(v, dict) else fn(f"{path}/{k}", v)
+                for k, v in tree.items()}
+
+    params = fill(params, "", lambda p, v: _init_leaf(p, v.shape, generator).numpy())
+    batch_stats = fill(batch_stats, "", lambda p, v: (np.ones_like(v) if p.endswith("/var")
+                                                       else np.zeros_like(v)))
+    state = params_from_jax(params, batch_stats, hp)
+    for prefix, module in modules.items():
+        if module is not None:
+            load_into(module, state, f"{prefix}.")
+    return params, batch_stats

@@ -485,7 +485,9 @@ def _decoder(rng, dev, H, D, P, A, mel, r, conv_k=31, conv_c=32, scale=0.02):
 # edges of the redesign: one batch row, B 8 at K 16 (one full n-tile of the
 # gate products, eight attention groups of eight blocks), the longest memory
 # (S 256) with the widest attention (A 512) at the small demo checkpoint's
-# width (H 256, D 256), and B 16 (two n-tiles).
+# width (H 256, D 256), B 16 (two n-tiles), and B 17, 32 and 40 at the
+# production widths: row groups of at most 16, one launch each (17 and 40 with
+# a short last group; 32 is what the daemon's max_batch pads 17-32 texts to).
 DECODE_SHAPES = {
     "full": (4, 48, 128, 768, 1024, 256, 80, 2, 10),
     "small": (3, 24, 64, 128, 128, 128, 16, 2, 8),
@@ -493,6 +495,9 @@ DECODE_SHAPES = {
     "b8_k16": (8, 48, 128, 768, 1024, 256, 80, 2, 16),
     "s256_a512_w256": (2, 256, 512, 256, 256, 128, 80, 2, 6),
     "b16": (16, 32, 128, 256, 256, 128, 80, 2, 4),
+    "b17": (17, 48, 128, 768, 1024, 256, 80, 2, 10),
+    "b32": (32, 48, 128, 768, 1024, 256, 80, 2, 10),
+    "b40": (40, 48, 128, 768, 1024, 256, 80, 2, 10),
 }
 
 
@@ -509,7 +514,7 @@ def test_decode_segment_kernel(dev, quantize, shape, monkeypatch):
     assert dk.prepare_bundle(p, prenet, quantize=quantize) is bundle  # packed once
     t = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).to(dev)  # noqa: E731
     keys, memory = t(B, S, A), t(B, S, D)
-    lens = torch.tensor(([S, S - 5, 7, S] * 4)[:B], device=dev)
+    lens = torch.tensor(([S, S - 5, 7, S] * 16)[:B], device=dev)
     mask = (torch.arange(S, device=dev)[None] < lens[:, None]).float()
     keep = [torch.from_numpy(rng.random((K, B, P)) < 0.5).to(dev).float() / 0.5 for _ in range(2)]
     carry = dscan.initial_carry(B, memory, 2, H)
@@ -520,7 +525,7 @@ def test_decode_segment_kernel(dev, quantize, shape, monkeypatch):
         got = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
         again = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 2
+        assert kernel.launches == before + 2 * len(dk.row_groups(B))
         # The query's sums are exact (64-bit fixed point), every other sum in
         # a fixed order: the same inputs give the same outputs, bit for bit.
         assert all(torch.equal(x, y) for x, y in zip(got[1:], again[1:]))
@@ -562,14 +567,6 @@ def test_decode_kernel_raises_on_unsupported_shapes(dev):
         dk.decode_segment(bundle, torch.zeros(2, 24, 64, device=dev), memory,
                           torch.ones(2, 24, device=dev), dscan.initial_carry(2, memory, 2, 128),
                           torch.zeros(2, 16, device=dev), None, None, 4, 16, 2)
-    # More batch rows than two n-tiles of the gate products.
-    p, prenet = _decoder(rng, dev, 128, 128, 128, 64, 16, 2)
-    bundle = dk.prepare_bundle(p, prenet)
-    memory = torch.zeros(17, 24, 128, device=dev)
-    with pytest.raises(ValueError, match="batch rows"):
-        dk.decode_segment(bundle, torch.zeros(17, 24, 64, device=dev), memory,
-                          torch.ones(17, 24, device=dev), dscan.initial_carry(17, memory, 2, 128),
-                          torch.zeros(17, 16, device=dev), None, None, 4, 16, 2)
     # More units a block than its two m-tiles of gate rows hold.
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     H = 16 * (-(-(dk.MAX_UNITS * (n_sm - dk.PRENET_BLOCKS) + 1) // 16))
@@ -845,7 +842,7 @@ def test_train_step_full_width_on_the_card(dev, monkeypatch):
     # recurrent tensor by more than an f32 ulp.
     hp = Recursive_Parse(meta["hp"]).replace(Speaker_Embedding={"GE2E": {"Freeze": False}},
                                              Train={"Learning_Rate": {"Warmup_Step": 1}})
-    trainer = Trainer(hp, params, batch_stats)
+    trainer = Trainer.from_params(hp, params, batch_stats)
     batch = _train_batch(hp, 4)
 
     def boom(*a, **k):
@@ -872,7 +869,94 @@ def test_train_step_full_width_on_the_card(dev, monkeypatch):
 
     f32 = hp.replace(Train={"Use_Mixed_Precision": False})
     with pytest.raises(NotImplementedError):
-        Trainer(f32, params, batch_stats).train_step(batch)
+        Trainer.from_params(f32, params, batch_stats).train_step(batch)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decoder_tf_scan_function_on_the_card(dev, cd):
+    """The teacher-forced scan's Function against decoder_tf_scan_ref under
+    autograd at the train step's shape (T 66, B 32, S 64, H 1024, memory
+    768, prenet 256, attention 128, conv 31 x 32): every gradient within
+    1e-3 of its peak in f32, 5e-2 in bf16 (bf16 residuals and dG against
+    autograd's f32 intermediates); the forward outputs equal."""
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    rng = np.random.default_rng(11)
+    T, B, S, P, Dm, H, A, K, C = 66, 32, 64, 256, 768, 1024, 128, 31, 32
+
+    def leaf(*shape, scale=0.02):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(
+            dev).requires_grad_()
+
+    lstm = [LSTMParams(leaf(P + Dm, 4 * H), leaf(H, 4 * H), leaf(4 * H)),
+            LSTMParams(leaf(H + Dm, 4 * H), leaf(H, 4 * H), leaf(4 * H))]
+    att = dscan.AttentionParams(leaf(H, A, scale=0.1), leaf(K, 2, C, scale=0.3),
+                                leaf(C, A, scale=0.3), leaf(A, 1, scale=0.3))
+    pre, keys, mem = leaf(T, B, P, scale=1.0), leaf(B, S, A, scale=0.5), leaf(B, S, Dm, scale=0.5)
+    lens = torch.tensor([S - (7 * b) % 40 for b in range(B)], device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).float()
+    p = dscan.DecoderParams(tuple(lstm), att, None, None)
+    leaves = [w for q in lstm for w in q] + list(att) + [pre, keys, mem]
+    gen = torch.Generator(dev).manual_seed(0)
+    px = torch.randn((T, B, H + Dm), generator=gen, device=dev)
+    pw = torch.randn((T, B, S), generator=gen, device=dev)
+    outs, grads = [], []
+    for fn in (dscan.decoder_tf_scan_ref, dscan.decoder_tf_scan):
+        xs, ws = fn(p, pre, keys, mem, mask, cd)
+        outs.append((xs.detach(), ws.detach()))
+        grads.append(torch.autograd.grad((xs * px).sum() + (ws * pw).sum(), leaves))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    tol = 1e-3 if cd == torch.float32 else 5e-2
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max() / a.abs().max()) <= tol
+
+
+def _cli_corpus(tmp_path):
+    from multi_speaker_tts_tpu_torch.data.pattern_generator import generate_synthetic_dataset
+    from multi_speaker_tts_tpu_torch.hparams import default_hparams
+
+    hp = default_hparams(Train={"Batch_Size": 8, "Num_Workers": 0},
+                         GE2E_Train={"Batch_Speakers": 4, "Batch_Utterances": 4})
+    generate_synthetic_dataset(hp, tmp_path / "corpus", n_speakers=4, n_utterances=2,
+                               voice="rich")
+    (tmp_path / "hp.json").write_text(__import__("json").dumps(hp.to_dict()))
+    return ["-hp", str(tmp_path / "hp.json"), "-train_pattern",
+            str(tmp_path / "corpus" / "patterns"), "-log", str(tmp_path / "logs")]
+
+
+def test_train_cli_one_step_each_mode_on_the_card(dev, tmp_path, monkeypatch):
+    """``train.__main__.main`` at the production widths (batch 8, GE2E 4 x
+    4): one GE2E step (kernels #2r and #8 three times each), then one TTS
+    step from that encoder (the three recurrences' residual and backward
+    kernels), no plain backward; both checkpoints written."""
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.train import __main__ as cli
+    from multi_speaker_tts_tpu_torch.train.checkpoints import CheckpointManager
+
+    def boom(*a, **k):
+        raise AssertionError("a plain backward ran on the card")
+
+    for mod, name in ((lstm_kernel, "lstm_seq_layer_bwd_plain"),
+                      (birnn_kernel, "bilstm_bwd_plain"), (birnn_kernel, "bigru_bwd_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    common = _cli_corpus(tmp_path)
+    kernels = {"lstm_bwd": lstm_kernel.BWD_KERNEL, "lstm_res": lstm_kernel.RES_KERNEL,
+               "bilstm_bwd": birnn_kernel.BWD_KERNEL, "bilstm_res": birnn_kernel.RES_KERNEL,
+               "bigru_bwd": birnn_kernel.GRU_BWD_KERNEL, "bigru_res": birnn_kernel.GRU_RES_KERNEL}
+    before = {k: v.launches for k, v in kernels.items()}
+    cli.main(common + ["-mode", "ge2e", "-checkpoint", str(tmp_path / "ge2e"), "-max_step", "1"])
+    ge2e = {k: v.launches - before[k] for k, v in kernels.items()}
+    assert ge2e == {"lstm_bwd": 3, "lstm_res": 3, "bilstm_bwd": 0, "bilstm_res": 0,
+                    "bigru_bwd": 0, "bigru_res": 0}
+    before = {k: v.launches for k, v in kernels.items()}
+    cli.main(common + ["-mode", "tts", "-checkpoint", str(tmp_path / "tts"), "-ge2e_checkpoint",
+                       str(tmp_path / "ge2e"), "-max_step", "1"])
+    tts = {k: v.launches - before[k] for k, v in kernels.items()}
+    assert tts == {"lstm_bwd": 3, "lstm_res": 3, "bilstm_bwd": 1, "bilstm_res": 1,
+                   "bigru_bwd": 1, "bigru_res": 1}
+    assert CheckpointManager(tmp_path / "ge2e").steps() == [1]
+    state, step = CheckpointManager(tmp_path / "tts").restore()
+    assert step == 1 and all(torch.isfinite(v).all() for v in state["params"].values())
 
 
 def _attention_case(dev, B, S, A, D, H, C, seed, masked=False, scale=0.1):

@@ -446,11 +446,9 @@ def test_gate_weight_packing_unpacks_exactly(dtype, H, K):
 
 
 def test_shape_rule_accepts_the_served_decoders_and_names_what_it_refuses():
-    assert dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32, B=4) is None
-    assert dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32, B=16) is None
-    assert dk._shape_reason(256, 256, (128, 128), 256, 512, 80, 32, B=1) is None
-    assert "batch rows" in dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32, B=17)
-    assert "16" in dk._shape_reason(1024, 776, (256, 256), 48, 128, 80, 32, B=4)
+    assert dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32) is None
+    assert dk._shape_reason(256, 256, (128, 128), 256, 512, 80, 32) is None
+    assert "16" in dk._shape_reason(1024, 776, (256, 256), 48, 128, 80, 32)
     assert "memory positions" in dk._shape_reason(1024, 768, (256, 256), 257, 128, 80, 32)
     assert "attention width" in dk._shape_reason(1024, 768, (256, 256), 48, 516, 80, 32)
     assert "deep" in dk._shape_reason(1664, 784, (256, 256), 48, 128, 80, 32)

@@ -108,7 +108,7 @@ def reference():
 
 def _trainer(ref, **hp_changes):
     hp = ref["hp"].replace(**hp_changes) if hp_changes else ref["hp"]
-    return Trainer(hp, ref["params"], ref["batch_stats"], device="cpu")
+    return Trainer.from_params(hp, ref["params"], ref["batch_stats"], device="cpu")
 
 
 def _rel(want, got) -> float:
@@ -220,7 +220,8 @@ def test_second_step_sees_the_first_steps_weights(reference):
             assert torch.equal(a, b) and not a.requires_grad
     params, batch_stats = weights.params_to_jax(trainer.state(), ref["hp"])
     second = trainer.train_step(ref["batch"])
-    fresh_losses, _ = Trainer(ref["hp"], params, batch_stats, device="cpu").gradients(ref["batch"])
+    fresh = Trainer.from_params(ref["hp"], params, batch_stats, device="cpu")
+    fresh_losses, _ = fresh.gradients(ref["batch"])
     for key, value in fresh_losses.items():
         assert second[key] == value, key
     assert second["total"] != ref["metrics"]["total"]
@@ -378,4 +379,4 @@ def test_cpu_training_never_counts_launches(reference):
 def test_trainer_runs_on_the_card_unless_asked(reference, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Trainer(reference["hp"], reference["params"], reference["batch_stats"])
+        Trainer.from_params(reference["hp"], reference["params"], reference["batch_stats"])
