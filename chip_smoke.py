@@ -75,6 +75,21 @@
    loss finite, every step launching its mode's kernels with no plain
    backward, the resume starting at the saved step with bit-equal params,
    the export equal to the trained arrays at f16, the wav int16.
+   Data parallelism, sharding and evaluation (k): (k1) two spawned ranks
+   (NCCL with a card a rank when there are two cards, else both on
+   ``cuda:0`` over an explicitly named gloo; the line says which) train the
+   checkpoint as it is (GE2E trainable, dropout on) on their halves of the
+   8-row train batch, three steps, held against the single-process step on
+   the same rows on the card (losses, gradient norm, every parameter after
+   step 1), the ranks bit-equal after three steps, each step launching the
+   six train kernels with no plain backward, the ranks joined on their exit
+   codes; (k2) the four texts under ``bf16_pallas`` sharded over a mesh of
+   two entries against the unsharded call (equal lengths, mel and linear
+   within 5e-2, the decode kernel launched in each shard); (k3) ``python -m
+   multi_speaker_tts_tpu_torch.evaluate -sv`` through ``main(argv)`` on
+   (j)'s export and corpus, on the card against ``-device cpu`` (finite
+   metrics, kernel #2 launched by ``speaker_verification``, losses, EER and
+   cosines within the stated tolerances).
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -290,7 +305,8 @@ def _train_batch(hp, n: int, seed: int) -> dict:
                        np.random.default_rng(seed), hp.Sound.Spectrogram_Dim)
 
 
-def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict) -> list[str]:
+def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict,
+                     work: pathlib.Path) -> list[str]:
     """Pass (j): ``python -m multi_speaker_tts_tpu_torch.train`` driven
     in-process (``main(argv)``) at the production widths of the shipped
     defaults on a ``generate_synthetic_dataset`` corpus of 16 speakers x 2
@@ -299,10 +315,9 @@ def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict) -> list[str
     -ge2e_checkpoint`` for 6 steps saving at step 3 (and 6), a resume to
     step 8, then ``export_compact`` of the last checkpoint and
     ``Synthesizer.from_compact`` of the export synthesizing one text. Every
-    step's launches are read around its ``train_step``. Returns the
-    failures."""
-    import tempfile
-
+    step's launches are read around its ``train_step``. The corpus and the
+    export stay in ``work`` (``corpus/patterns``, ``export.msgpack``) for
+    pass (k3). Returns the failures."""
     import numpy as np
     import torch
 
@@ -353,56 +368,54 @@ def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict) -> list[str
                          GE2E_Train={"Frame_Length": 32})
     peak = {}
     try:
-        with tempfile.TemporaryDirectory() as work:
-            work = pathlib.Path(work)
+        t0 = time.perf_counter()
+        meta = generate_synthetic_dataset(hp, work / "corpus", n_speakers=16,
+                                          n_utterances=2, voice="rich")
+        pats = str(work / "corpus" / "patterns")
+        print(f"[j train] corpus: {len(meta['Files'])} patterns, mel lengths "
+              f"{int(meta['Mel_Lengths'].min())}-{int(meta['Mel_Lengths'].max())}, tokens "
+              f"{int(meta['Token_Lengths'].min())}-{int(meta['Token_Lengths'].max())} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        hp_file = work / "hp.json"
+        hp_file.write_text(json.dumps(hp.to_dict()))
+        common = ["-hp", str(hp_file), "-train_pattern", pats, "-log", str(work / "logs")]
+        runs = (("ge2e", ["-mode", "ge2e", "-checkpoint", str(work / "ge2e"), "-max_step", "5"]),
+                ("tts", ["-mode", "tts", "-checkpoint", str(work / "tts"), "-ge2e_checkpoint",
+                         str(work / "ge2e"), "-max_step", "6"]),
+                ("resume", ["-mode", "tts", "-checkpoint", str(work / "tts"),
+                            "-max_step", "8"]))
+        for name, argv in runs:
+            if name == "resume":
+                resumed["run"] = True
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            meta = generate_synthetic_dataset(hp, work / "corpus", n_speakers=16,
-                                              n_utterances=2, voice="rich")
-            pats = str(work / "corpus" / "patterns")
-            print(f"[j train] corpus: {len(meta['Files'])} patterns, mel lengths "
-                  f"{int(meta['Mel_Lengths'].min())}-{int(meta['Mel_Lengths'].max())}, tokens "
-                  f"{int(meta['Token_Lengths'].min())}-{int(meta['Token_Lengths'].max())} "
-                  f"({time.perf_counter() - t0:.1f} s)")
-            hp_file = work / "hp.json"
-            hp_file.write_text(json.dumps(hp.to_dict()))
-            common = ["-hp", str(hp_file), "-train_pattern", pats, "-log", str(work / "logs")]
-            runs = (("ge2e", ["-mode", "ge2e", "-checkpoint", str(work / "ge2e"), "-max_step", "5"]),
-                    ("tts", ["-mode", "tts", "-checkpoint", str(work / "tts"), "-ge2e_checkpoint",
-                             str(work / "ge2e"), "-max_step", "6"]),
-                    ("resume", ["-mode", "tts", "-checkpoint", str(work / "tts"),
-                                "-max_step", "8"]))
-            for name, argv in runs:
-                if name == "resume":
-                    resumed["run"] = True
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                train_cli.main(common + argv)
-                torch.cuda.synchronize()
-                peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
-                print(f"[j train] {name}: main() returned after "
-                      f"{time.perf_counter() - t0:.1f} s, peak device memory {peak[name]:.2f} GiB")
-            tts_steps = CheckpointManager(work / "tts").steps()
-            state, last = CheckpointManager(work / "tts").restore()
-            hp_t = hp.replace(Speaker_Embedding={"GE2E": {
-                "Pretrained_Checkpoint": str(work / "ge2e")}})
-            params, batch_stats = params_to_jax({**state["params"], **state["batch_stats"]}, hp_t)
-            export = work / "export.msgpack"
-            export_compact(export, params, batch_stats, {"hp": hp_t.to_dict()})
-            got_p, got_bs, _ = load_compact(export)
-            flat = {**state["params"], **state["batch_stats"]}
-            want_p, want_bs = params_to_jax(
-                {k: v.half().float() for k, v in flat.items()}, hp_t)
-            export_equal = all(np.array_equal(a, b) for a, b in
-                               zip(_leaves(got_p) + _leaves(got_bs),
-                                   _leaves(want_p) + _leaves(want_bs)))
-            synth = Synthesizer.from_compact(str(export), seed=0)
-            out = synth.synthesize([TEXTS[0]], synth.enroll(str(ENROLL[0])), max_steps=64,
-                                   pcm16=True)[0]
-            wav = out["wav"]
-            print(f"[j train] tts checkpoints at steps {tts_steps}; export of step {last}: "
-                  f"{export.stat().st_size / 2 ** 20:.1f} MB, arrays equal to the trained ones "
-                  f"at f16: {export_equal}; from_compact synthesized {wav.dtype} {wav.shape}, "
-                  f"mel_length {out['mel_length']} (max_steps 64)")
+            train_cli.main(common + argv)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"[j train] {name}: main() returned after "
+                  f"{time.perf_counter() - t0:.1f} s, peak device memory {peak[name]:.2f} GiB")
+        tts_steps = CheckpointManager(work / "tts").steps()
+        state, last = CheckpointManager(work / "tts").restore()
+        hp_t = hp.replace(Speaker_Embedding={"GE2E": {
+            "Pretrained_Checkpoint": str(work / "ge2e")}})
+        params, batch_stats = params_to_jax({**state["params"], **state["batch_stats"]}, hp_t)
+        export = work / "export.msgpack"
+        export_compact(export, params, batch_stats, {"hp": hp_t.to_dict()})
+        got_p, got_bs, _ = load_compact(export)
+        flat = {**state["params"], **state["batch_stats"]}
+        want_p, want_bs = params_to_jax(
+            {k: v.half().float() for k, v in flat.items()}, hp_t)
+        export_equal = all(np.array_equal(a, b) for a, b in
+                           zip(_leaves(got_p) + _leaves(got_bs),
+                               _leaves(want_p) + _leaves(want_bs)))
+        synth = Synthesizer.from_compact(str(export), seed=0)
+        out = synth.synthesize([TEXTS[0]], synth.enroll(str(ENROLL[0])), max_steps=64,
+                               pcm16=True)[0]
+        wav = out["wav"]
+        print(f"[j train] tts checkpoints at steps {tts_steps}; export of step {last}: "
+              f"{export.stat().st_size / 2 ** 20:.1f} MB, arrays equal to the trained ones "
+              f"at f16: {export_equal}; from_compact synthesized {wav.dtype} {wav.shape}, "
+              f"mel_length {out['mel_length']} (max_steps 64)")
     finally:
         for cls, original in originals.items():
             cls.train_step = original
@@ -445,6 +458,339 @@ def _leaves(tree: dict, prefix: str = "") -> list:
         v = tree[k]
         out += _leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [v]
     return out
+
+
+# -- Pass (k): data parallelism, sharded synthesis, evaluation ---------------
+
+DP_WORLD, DP_ROWS, DP_STEPS = 2, 8, 3
+DP_TIMEOUT_S = 300
+# The per-step launches of the train step (GE2E trainable), on each rank.
+DP_PER_STEP = {"ge2e_lstm_layer_residuals": 3, "ge2e_lstm_bwd": 3,
+               "text_encoder_bilstm_residuals": 1, "text_encoder_bilstm_bwd": 1,
+               "cbhg_bigru_residuals": 1, "cbhg_bigru_bwd": 1}
+# (k1) The data-parallel step differs from the single-process step by its
+# summation orders only (BatchNorm sums in two halves added over the ranks,
+# 4-row against 8-row products, the gradients summed over the ranks), which
+# at bf16 flip roundings: the card-against-CPU whole step (same rows) is
+# held to 1e-2 a loss and 2e-2 on the gradient norm, and so is this one;
+# every parameter after step 1 within 5e-2 of the largest update of the
+# step (an update W times too large, or a rank's share of the gradient
+# lost, misses that by far).
+DP_LOSS_TOL, DP_NORM_TOL, DP_PARAM_TOL = 1e-2, 2e-2, 5e-2
+# (k2) Rows decode under the same prenet draws whatever the sharding; the
+# sharded and the unsharded call differ in the batch sizes their products
+# see. Mel and linear within 5e-2 (normalized units, peak ~4) of each other.
+SHARD_TOL = 5e-2
+# (k3) Card against the port's plain path on the CPU, same export, corpus and
+# prenet draws: the teacher-forced losses within 2e-2 (bf16 kernels against
+# their plain versions through a whole forward), the utterance embeddings
+# (unit norm) within 1e-2 and the mean cosines within 2e-2, and the EER
+# within 1 / 16: pass (j)'s corpus has 16 same-speaker trials, so one of
+# them crossing the threshold moves the EER by up to that.
+EVAL_LOSS_TOL, EMB_TOL, EER_TOL, COS_TOL = 2e-2, 1e-2, 1 / 16, 2e-2
+# (k3) embeds with windows of pass (j)'s GE2E crops (32 frames, shift 16):
+# the corpus's utterances are 35-103 frames, and a 160-frame window is
+# mostly zero padding, through which the encoder reaches one state for
+# every utterance (all cosines 1.0 on an H100, the EER ranking rounding
+# noise).
+EVAL_WINDOW, EVAL_SHIFT = 32, 16
+
+
+def _digest(tensors) -> str:
+    """sha256 of tensors' bytes, in order (bit-equality across processes)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank(rank: int, world: int, init: str, backend: str, out: str) -> None:
+    """One rank of (k1), in a spawned process: the checkpoint as it is with
+    GE2E trainable, this rank's rows of the 8-row batch, the state synced
+    from rank 0 (a broadcast), DP_STEPS steps, launches and plain backward
+    calls counted a step; rank 0 saves the params after step 1. Exits non-zero
+    on any error (the parent joins on exit codes)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.parallel import multihost
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    device = multihost.initialize_distributed(init, world, rank, backend=backend, device="cuda")
+    kernels = {"ge2e_lstm_layer_residuals": lstm_kernel.RES_KERNEL,
+               "ge2e_lstm_bwd": lstm_kernel.BWD_KERNEL,
+               "text_encoder_bilstm_residuals": birnn_kernel.RES_KERNEL,
+               "text_encoder_bilstm_bwd": birnn_kernel.BWD_KERNEL,
+               "cbhg_bigru_residuals": birnn_kernel.GRU_RES_KERNEL,
+               "cbhg_bigru_bwd": birnn_kernel.GRU_BWD_KERNEL}
+    plain = {name: [] for name in ("lstm_seq_layer_bwd_plain", "bilstm_bwd_plain",
+                                   "bigru_bwd_plain")}
+    _record(lstm_kernel, "lstm_seq_layer_bwd_plain", plain["lstm_seq_layer_bwd_plain"])
+    _record(birnn_kernel, "bilstm_bwd_plain", plain["bilstm_bwd_plain"])
+    _record(birnn_kernel, "bigru_bwd_plain", plain["bigru_bwd_plain"])
+    params, batch_stats, meta = load_compact(CKPT)
+    hp = Recursive_Parse(meta["hp"]).replace(Speaker_Embedding={"GE2E": {"Freeze": False}},
+                                             Train={"Batch_Size": DP_ROWS})
+    batch = _train_batch(hp, DP_ROWS, seed=0)
+    rows = multihost.local_rows(DP_ROWS)
+    local = {k: v[rows] for k, v in batch.items()}
+    trainer = Trainer.from_params(hp, params, batch_stats, device=device, seed=0)
+    trainer.sync_state()
+    res = {"rank": rank, "world": multihost.process_count(), "backend": backend,
+           "device": str(device), "steps": []}
+    for i in range(DP_STEPS):
+        counts = {n: k.launches for n, k in kernels.items()}
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = trainer.train_step(local)
+        stop.record()
+        torch.cuda.synchronize()
+        res["steps"].append({"metrics": m, "ms": start.elapsed_time(stop),
+                             "launches": {n: k.launches - counts[n] for n, k in kernels.items()}})
+        if i == 0 and rank == 0:
+            torch.save({n: p.detach().cpu() for n, p in zip(trainer.param_names, trainer.params)},
+                       f"{out}/params1.pt")
+    res["plain_bwd"] = {k: len(v) for k, v in plain.items()}
+    res["digest"] = _digest([*trainer.params, *trainer.tacotron.buffers()])
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    multihost.barrier("done")
+    multihost.shutdown()
+
+
+def dp_train(params, batch_stats, hp) -> list[str]:
+    """(k1): two ranks (spawned processes) of data-parallel training against
+    the single-process step on the same 8 rows on the card."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    fails = []
+    two_cards = torch.cuda.device_count() >= DP_WORLD
+    backend = "nccl" if two_cards else "gloo"
+    hp8 = hp.replace(Speaker_Embedding={"GE2E": {"Freeze": False}}, Train={"Batch_Size": DP_ROWS})
+    batch = _train_batch(hp8, DP_ROWS, seed=0)
+    ref = Trainer.from_params(hp8, params, batch_stats, seed=0)
+    theta0 = {n: p.detach().cpu().clone() for n, p in zip(ref.param_names, ref.params)}
+    m_ref = ref.train_step(batch)
+    theta1 = {n: p.detach().cpu().clone() for n, p in zip(ref.param_names, ref.params)}
+    del ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, f"file://{out}/rendezvous",
+                                                    backend, out)) for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + DP_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+        codes = []
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+            codes.append(p.exitcode)
+        wall = time.perf_counter() - t0
+        if codes != [0] * DP_WORLD:
+            return [f"[k1 data-parallel] rank exit codes {codes} (backend {backend})"]
+        ranks = [json.loads(pathlib.Path(f"{out}/rank{r}.json").read_text())
+                 for r in range(DP_WORLD)]
+        dp1 = torch.load(f"{out}/params1.pt")
+    print(f"[k1 data-parallel] backend {backend} ({'one card a rank' if two_cards else 'both ranks on cuda:0'}), "
+          f"{DP_WORLD} ranks x {DP_ROWS // DP_WORLD} rows, devices {[r['device'] for r in ranks]}; "
+          f"spawn to join {wall:.1f} s")
+    m0 = ranks[0]["steps"][0]["metrics"]
+    loss_err = {k: abs(m0[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12)
+                for k in m_ref if k not in ("skipped_nonfinite", "grad_norm")}
+    norm_err = abs(m0["grad_norm"] - m_ref["grad_norm"]) / max(abs(m_ref["grad_norm"]), 1e-12)
+    upd = max(float((theta1[n] - theta0[n]).abs().max()) for n in theta0)
+    per = {n: float((dp1[n] - theta1[n]).abs().max()) / upd for n in theta1}
+    worst = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[k1 data-parallel] step 1 against the single-process step on the same {DP_ROWS} rows "
+          f"(card): total {m0['total']:.6f} vs {m_ref['total']:.6f}, grad_norm "
+          f"{m0['grad_norm']:.4f} vs {m_ref['grad_norm']:.4f}; relative loss errors "
+          + json.dumps({k: float(f"{v:.2e}") for k, v in loss_err.items()})
+          + f" (tolerance {DP_LOSS_TOL}), grad_norm {norm_err:.2e} (tolerance {DP_NORM_TOL}); "
+          f"params after step 1: largest |dp - single| {max(per.values()) * upd:.3e} = "
+          f"{max(per.values()):.2e} of the largest update {upd:.3e} (tolerance {DP_PARAM_TOL}); "
+          f"worst {json.dumps([[n, float(f'{v:.2e}')] for n, v in worst])}")
+    if max(loss_err.values()) > DP_LOSS_TOL or norm_err > DP_NORM_TOL:
+        fails.append(f"[k1 data-parallel] step 1: {m0} vs single {m_ref}")
+    if max(per.values()) > DP_PARAM_TOL:
+        fails.append(f"[k1 data-parallel] params after step 1: {worst}")
+    for r in ranks:
+        for i, s in enumerate(r["steps"]):
+            m = s["metrics"]
+            if m["skipped_nonfinite"] or not all(math.isfinite(v) for v in m.values()):
+                fails.append(f"[k1 data-parallel] rank {r['rank']} step {i + 1}: {m}")
+            if s["launches"] != DP_PER_STEP:
+                fails.append(f"[k1 data-parallel] rank {r['rank']} step {i + 1}: launches "
+                             f"{s['launches']}, want {DP_PER_STEP}")
+        if any(r["plain_bwd"].values()):
+            fails.append(f"[k1 data-parallel] rank {r['rank']}: plain backward {r['plain_bwd']}")
+        if r["world"] != DP_WORLD:
+            fails.append(f"[k1 data-parallel] rank {r['rank']} saw a world of {r['world']}")
+    equal = len({r["digest"] for r in ranks}) == 1
+    same_metrics = all([s["metrics"] for s in r["steps"]] == [s["metrics"] for s in ranks[0]["steps"]]
+                       for r in ranks)
+    print(f"[k1 data-parallel] after {DP_STEPS} steps: params and BatchNorm statistics bit-equal "
+          f"on every rank: {equal}; equal metrics on every rank: {same_metrics}; totals "
+          f"{json.dumps([round(s['metrics']['total'], 6) for s in ranks[0]['steps']])}; launches a "
+          f"step on each rank {ranks[0]['steps'][0]['launches']}; plain backward calls "
+          f"{[r['plain_bwd'] for r in ranks]}")
+    ms = [[round(s["ms"], 2) for s in r["steps"]] for r in ranks]
+    print(f"[k1 data-parallel] ms a step (CUDA events, each rank; "
+          f"{'one card a rank' if two_cards else 'two ranks time-sharing one card over gloo: not a scaling figure'}): "
+          f"{json.dumps(ms)} ({_smi()})")
+    if not equal or not same_metrics:
+        fails.append(f"[k1 data-parallel] ranks differ after {DP_STEPS} steps")
+    return fails
+
+
+def sharded_synthesis(params, batch_stats, hp, wavs, kernels) -> list[str]:
+    """(k2): a mesh of two entries (two cards, or cuda:0 twice), the four
+    texts under bf16_pallas, sharded against unsharded."""
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan
+
+    fails = []
+    n_cards = torch.cuda.device_count()
+    mesh = [torch.device("cuda", i % n_cards) for i in range(2)]
+    synth = Synthesizer(hp, params, batch_stats, seed=0, quantize="bf16_pallas", mesh=mesh)
+    emb = synth.enroll(wavs)
+    synth.synthesize(TEXTS, emb, pcm16=True, sharded=True)  # warm-up
+    whole = synth.synthesize(TEXTS, emb, pcm16=True)
+    calls, plain = [], []
+    infer = Tacotron.infer
+    kernel = kernels["decode_segment_bf16"]
+
+    def counted(self, tokens, *args, **kwargs):
+        before = kernel.launches
+        out = infer(self, tokens, *args, **kwargs)
+        calls.append((str(tokens.device), tokens.shape[0], kernel.launches - before))
+        return out
+
+    _record(decoder_scan, "decoder_cell_step", plain)
+    Tacotron.infer = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = synth.synthesize(TEXTS, emb, pcm16=True, sharded=True)
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t0
+    finally:
+        Tacotron.infer = infer
+        _restore(decoder_scan, "decoder_cell_step")
+    lengths = ([x["mel_length"] for x in whole], [x["mel_length"] for x in sharded])
+    mel_err = max(float(np.abs(a["mel"] - b["mel"]).max()) for a, b in zip(whole, sharded)
+                  if a["mel_length"] == b["mel_length"]) if lengths[0] == lengths[1] else None
+    lin_err = max(float(np.abs(a["linear"] - b["linear"]).max()) for a, b in zip(whole, sharded)
+                  if a["mel_length"] == b["mel_length"]) if lengths[0] == lengths[1] else None
+    print(f"[k2 sharded] mesh {[str(d) for d in mesh]}, bf16_pallas: shards (device, rows, decode "
+          f"launches) {calls}; mel_lengths unsharded {lengths[0]}, sharded {lengths[1]}; max |mel "
+          f"diff| {mel_err}, max |linear diff| {lin_err} (tolerance {SHARD_TOL}); sharded call "
+          f"{t_sharded * 1e3:.1f} ms (shards one after another) ({_smi()})")
+    if lengths[0] != lengths[1] or mel_err > SHARD_TOL or lin_err > SHARD_TOL:
+        fails.append(f"[k2 sharded] lengths {lengths}, mel {mel_err}, linear {lin_err}")
+    if len(calls) != 2 or any(c[2] == 0 or c[1] != 2 for c in calls) or \
+            [c[0] for c in calls] != [str(d) for d in mesh]:
+        fails.append(f"[k2 sharded] shards {calls}")
+    if plain:
+        fails.append(f"[k2 sharded] {len(plain)} plain decode steps under bf16_pallas")
+    for x in sharded:
+        if x["wav"].dtype != np.int16 or x["wav"].size == 0:
+            fails.append(f"[k2 sharded] wav {x['wav'].dtype} {x['wav'].shape}")
+    return fails
+
+
+def evaluate_pass(export: pathlib.Path, patterns: str, kernels) -> list[str]:
+    """(k3): ``python -m multi_speaker_tts_tpu_torch.evaluate -sv`` through
+    ``main(argv)`` on pass (j)'s export and corpus (its hparams with GE2E
+    windows of (j)'s crops, ``-hp``), on the card and with ``-device cpu``
+    (the port's plain path)."""
+    import numpy as np
+
+    from multi_speaker_tts_tpu_torch import evaluate
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+
+    fails = []
+    sv_launches, embeddings = [], []
+    sv = evaluate.speaker_verification
+
+    def counted(*args, **kwargs):
+        before = kernels["ge2e_lstm_layer"].launches
+        out = sv(*args, **kwargs, return_embeddings=True)
+        sv_launches.append(kernels["ge2e_lstm_layer"].launches - before)
+        embeddings.append(out.pop("embeddings"))
+        out.pop("speaker_of")
+        return out
+
+    hp_file = export.parent / "evaluate_hp.json"
+    hp_file.write_text(json.dumps(Recursive_Parse(load_compact(export)[2]["hp"]).replace(
+        Speaker_Embedding={"GE2E": {"Window_Length": EVAL_WINDOW,
+                                    "Window_Shift": EVAL_SHIFT}}).to_dict()))
+    argv = ["-checkpoint", str(export), "-pattern", patterns, "-batches", "2", "-sv",
+            "-hp", str(hp_file)]
+    evaluate.speaker_verification = counted
+    try:
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        card = evaluate.main(argv)
+        t_card = time.perf_counter() - t0
+        launched = {n: k.launches - before[n] for n, k in kernels.items()
+                    if k.launches != before[n]}
+        t0 = time.perf_counter()
+        cpu = evaluate.main(argv + ["-device", "cpu"])
+        t_cpu = time.perf_counter() - t0
+    finally:
+        evaluate.speaker_verification = sv
+    errs = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12)
+            for k in ("mel_pre", "mel_post", "linear", "stop", "total")}
+    emb_err = float(np.abs(embeddings[0] - embeddings[1]).max())
+    print(f"[k3 evaluate] card ({t_card:.1f} s): "
+          + json.dumps({k: round(float(v), 5) for k, v in card.items()})
+          + f"; kernel launches {launched}, #2 in speaker_verification (card, then CPU) "
+          f"{sv_launches}")
+    print(f"[k3 evaluate] plain CPU ({t_cpu:.1f} s): "
+          + json.dumps({k: round(float(v), 5) for k, v in cpu.items()})
+          + "; relative loss errors " + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()})
+          + f" (tolerance {EVAL_LOSS_TOL}); embeddings max |card - CPU| {emb_err:.2e} (tolerance "
+          f"{EMB_TOL}); sv_eer {card['sv_eer']:.4f} vs {cpu['sv_eer']:.4f} "
+          f"(tolerance {EER_TOL}); own / cross cosine {card['sv_own_cos']:.4f} / "
+          f"{card['sv_cross_cos']:.4f} vs {cpu['sv_own_cos']:.4f} / {cpu['sv_cross_cos']:.4f} "
+          f"(tolerance {COS_TOL}) ({_smi()})")
+    if not all(math.isfinite(v) for v in (*card.values(), *cpu.values())):
+        fails.append(f"[k3 evaluate] non-finite metrics {card} {cpu}")
+    if max(errs.values()) > EVAL_LOSS_TOL:
+        fails.append(f"[k3 evaluate] losses card {card} vs CPU {cpu}")
+    if abs(card["sv_eer"] - cpu["sv_eer"]) > EER_TOL or emb_err > EMB_TOL or \
+            max(abs(card[k] - cpu[k]) for k in ("sv_own_cos", "sv_cross_cos")) > COS_TOL:
+        fails.append(f"[k3 evaluate] speaker verification card {card} vs CPU {cpu}")
+    if not sv_launches or sv_launches[0] == 0:
+        fails.append(f"[k3 evaluate] speaker_verification launched kernel #2 {sv_launches} times")
+    for name in ("text_encoder_bilstm", "cbhg_bigru", "ge2e_lstm_layer"):
+        if not launched.get(name):
+            fails.append(f"[k3 evaluate] kernel {name} not launched by the evaluation")
+    return fails
 
 
 def main() -> int:
@@ -1392,8 +1738,19 @@ def main() -> int:
     failures.extend(f"[i daemon] {f}" for f in daemon_fail)
     del synth_d, synth_m, daemon, daemon_m, daemon_b, warm
 
-    # 2e. Training end to end (j) --------------------------------------------
-    failures.extend(train_end_to_end(kernels, per_step, plain_bwd))
+    # 2e. Training end to end (j), then (k): data-parallel training, sharded
+    # synthesis, and the evaluation CLI on (j)'s export and corpus ----------
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        failures.extend(train_end_to_end(kernels, per_step, plain_bwd, work))
+        t_k = time.perf_counter()
+        failures.extend(dp_train(params, batch_stats, hp))
+        failures.extend(sharded_synthesis(params, batch_stats, hp, wavs, kernels))
+        failures.extend(evaluate_pass(work / "export.msgpack", str(work / "corpus" / "patterns"),
+                                      kernels))
+        print(f"[k] pass (k) took {time.perf_counter() - t_k:.1f} s")
 
     # 3. Kernel phase --------------------------------------------------------
     rows = []

@@ -15,6 +15,10 @@ embedding)`` -> waveforms, on a CUDA device by default:
   ``split_vocode=False``) -> Griffin-Lim (the staged or the dense kernel by
   the JAX package's route; the FFT route when the hop does not divide
   n_fft) -> inverse preemphasis -> optional 16-bit PCM;
+- sharded synthesis (``Synthesizer(mesh=...)``, ``synthesize(sharded=True)``):
+  the padded batch in contiguous row shards, one a device of the mesh,
+  each decoded by that device's replica of the weights under its rows of
+  the whole batch's prenet masks, all vocoded at one bucket;
 - stream: the same decode in segments of K steps, each block of frames
   emitted one segment later through the postnet / Conv head on a window
   with exact halos and windowed Griffin-Lim, crossfaded into the previous
@@ -55,6 +59,7 @@ from multi_speaker_tts_tpu_torch.models.speaker import SpeakerLUT
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import stft_matmul
 from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
+from multi_speaker_tts_tpu_torch.parallel import mesh as mesh_lib
 from multi_speaker_tts_tpu_torch.text import PAD_ID
 from multi_speaker_tts_tpu_torch.weights import load_into, params_from_jax, params_to_jax
 
@@ -139,12 +144,22 @@ def prenet_mask_sampler(hp, device: torch.device, seed: int, batch: int):
     return draw
 
 
-def _not_ported(**given) -> None:
-    """Raise for a parameter of the JAX signature that the port keeps in its
-    place but does not run yet, when it is not at its default."""
-    for name, (value, default) in given.items():
-        if value != default:
-            raise NotImplementedError(f"{name}={value!r} is not ported yet")
+class _StepMasks:
+    """One draw of prenet keep masks a step for a whole padded batch, in step
+    order, kept for the call, so that every row shard reads its rows of the
+    same draws however far each shard decodes."""
+
+    def __init__(self, draw):
+        self.draw, self.steps = draw, []
+
+    def rows(self, rows: slice, device: torch.device):
+        """``t -> [mask[rows] on device per prenet layer]``."""
+        def masks(t: int):
+            while len(self.steps) <= t:
+                self.steps.append(self.draw(len(self.steps)))
+            return [m[rows].to(device) for m in self.steps[t]]
+
+        return masks
 
 
 class Synthesizer:
@@ -153,14 +168,20 @@ class Synthesizer:
     ``quantize`` picks the AR decode: None (the checkpoint's own
     ``Decoder.Quantize_Int8`` / ``Decoder.Pallas_Decode``, by default the
     plain loop in the compute dtype), ``"int8"``, ``"int8_pallas"`` or
-    ``"bf16_pallas"``."""
+    ``"bf16_pallas"``. ``mesh`` (:func:`..parallel.mesh.create_mesh`, a
+    list of devices, which may repeat) holds one replica of the synthesizer
+    a device for ``synthesize(sharded=True)``; ``device`` defaults to its
+    first."""
 
     def __init__(self, hp, params, batch_stats, seed: int = 0, device=None,
-                 quantize: str | None = None):
+                 quantize: str | None = None, mesh=None):
         if quantize is not None:
             if quantize not in _QUANTIZE_MODES:
                 raise ValueError(f"unknown quantize mode {quantize!r}")
             hp = hp.replace(Decoder=_QUANTIZE_MODES[quantize])
+        if mesh is not None:
+            mesh = mesh_lib.create_mesh(devices=mesh)
+            device = mesh[0] if device is None else device
         self.device = resolve_device(device)
         self.hp = hp
         self.compute_dtype = compute_dtype_of(hp)
@@ -181,6 +202,9 @@ class Synthesizer:
         self.tacotron = Tacotron(hp, self.compute_dtype)
         load_into(self.tacotron, state, "tacotron.")
         self.tacotron.to(self.device)
+        self.mesh = mesh
+        self._replicas = {} if mesh is None else mesh_lib.replicate(self.tacotron, mesh)
+        self._replicas.setdefault(self.device, self.tacotron)
         self.seed = seed
         self.enroll_bucket_floor = 1 << 13
         self.last_decode_bucket: int | None = None
@@ -286,14 +310,20 @@ class Synthesizer:
         call to call: one request gives one answer."""
         return prenet_mask_sampler(self.hp, self.device, self.seed, batch)
 
-    def _prepare(self, texts, speaker_embedding, speaker_ids, max_steps):
-        """Tokens in a pow2 batch bucket (PAD rows inactive) and a
-        16-multiple token bucket; the decode bucket from the longest text;
-        LUT speaker ids looked up in place of an embedding."""
+    def _prepare(self, texts, speaker_embedding, speaker_ids, max_steps, n_shards: int = 1,
+                 pad_batch: bool = True):
+        """Tokens in a pow2 batch bucket (``pad_batch``; rounded up to a
+        multiple of ``n_shards``; PAD rows inactive) and a 16-multiple token
+        bucket; the decode bucket from the longest text; LUT speaker ids
+        looked up in place of an embedding."""
         hp = self.hp
         sequences = [text_frontend.encode_text(t, hp) for t in texts]
         B = len(sequences)
-        Bp = 1 << max(0, (B - 1).bit_length())
+        Bp = B
+        if pad_batch:
+            Bp = _round_up(1 << max(0, (B - 1).bit_length()), n_shards)
+        elif B % n_shards:
+            raise ValueError(f"pad_batch=False: {B} texts do not split over {n_shards} devices")
         longest = max(len(s) for s in sequences)
         if max_steps is None:
             per_token = int(hp.Decoder.get("Max_Frames_Per_Token", 12))
@@ -330,9 +360,7 @@ class Synthesizer:
                    pcm16: bool = False, split_vocode: bool = True,
                    return_device: bool = False) -> list[dict]:
         """Texts -> [{wav, mel, linear, alignment, mel_length}], the
-        parameters in the JAX ``Synthesizer.synthesize`` order (``sharded``,
-        ``pad_batch`` and ``return_device`` are not ported yet and raise
-        ``NotImplementedError`` for anything but their default). With
+        parameters in the JAX ``Synthesizer.synthesize`` order. With
         ``split_vocode`` (the default) Griffin-Lim runs at a pow2 bucket of
         the batch's longest decoded length; ``split_vocode=False`` vocodes
         the whole decode bucket, as the JAX package's fused program does
@@ -340,51 +368,85 @@ class Synthesizer:
         ``vocode=False`` returns no wav. ``linear`` is there for models
         with a linear head unless ``return_linear=False``; ``early_exit=False``
         runs the fixed-length decode. ``speaker_ids`` (LUT models) takes the
-        place of ``speaker_embedding``."""
-        _not_ported(sharded=(sharded, False), pad_batch=(pad_batch, True),
-                    return_device=(return_device, False))
+        place of ``speaker_embedding``.
+
+        ``pad_batch`` (the default) rounds the batch up to a pow2 bucket
+        with PAD rows (pre-stopped, sliced off); False runs the exact batch.
+        ``sharded`` with a mesh splits the padded batch (a multiple of the
+        mesh size) into contiguous row shards, one a device: each shard
+        decodes on its device under its rows of the prenet masks drawn for
+        the whole batch, and every shard is vocoded at the bucket of the
+        whole batch's longest decoded length, so a row's output does not
+        depend on the sharding (frames past each row's length are zeroed
+        before the postnet, and every shard's head reads the same decode
+        bucket). Without a mesh ``sharded`` changes nothing. The shards run
+        one after another from this thread. ``return_device`` returns the
+        raw output dict instead (``mel_post``, ``alignments``,
+        ``mel_lengths``, ``linear``; with ``split_vocode=False`` and
+        ``vocode`` also ``wav``), untrimmed, PAD rows included, on the
+        synthesizer's device."""
+        shards = self.mesh if sharded and self.mesh is not None else [self.device]
+        n = len(shards)
         B, max_steps, tokens, lengths, spk, active = self._prepare(
-            texts, speaker_embedding, speaker_ids, max_steps)
+            texts, speaker_embedding, speaker_ids, max_steps, n, pad_batch)
+        Bp = tokens.shape[0]
         self.last_decode_bucket = max_steps
         split = vocode and split_vocode
         self.compile_counts.setdefault(
-            ("infer", tokens.shape[1], tokens.shape[0], max_steps, vocode and not split, False,
+            ("infer", tokens.shape[1], Bp, max_steps, vocode and not split, sharded,
              early_exit, True if split else return_linear, False if split else pcm16), 1)
-        out = self.tacotron.infer(
-            tokens, lengths, spk, max_steps, float(self.hp.Decoder.Stop_Threshold),
-            active, self._prenet_masks(tokens.shape[0]), early_exit,
-        )
-        mel_lengths = out["mel_lengths"].cpu().numpy()
+        masks = _StepMasks(self._prenet_masks(Bp))
+        threshold = float(self.hp.Decoder.Stop_Threshold)
+        outs = []
+        for i, dev in enumerate(shards):
+            rows = slice(i * (Bp // n), (i + 1) * (Bp // n))
+            outs.append(self._replicas[dev].infer(
+                tokens[rows].to(dev), lengths[rows].to(dev),
+                None if spk is None else spk[rows].to(dev), max_steps, threshold,
+                active[rows].to(dev), masks.rows(rows, dev), early_exit))
+        if return_device:
+            keys = ["mel_post", "alignments", "mel_lengths"]
+            if "linear" in outs[0] and (split or return_linear):
+                keys.append("linear")
+            out = {k: torch.cat([o[k].to(self.device) for o in outs]) for k in keys}
+            if vocode and not split:
+                out["wav"] = torch.cat([_gl_vocode(o.get("linear"), o["mel_post"], self.dsp_cfg,
+                                                   pcm16).to(self.device) for o in outs])
+            return out
+        mel_lengths = torch.cat([o["mel_lengths"].cpu() for o in outs]).numpy()
         r = int(self.hp.Decoder.get("N_Frames_Per_Step", 1))
         Tb = _decode_bucket(max(int(mel_lengths.max()), r), max_steps)
         if split:
             self.compile_counts.setdefault(
-                ("vocode", tokens.shape[1], tokens.shape[0], Tb, return_linear, pcm16, False), 1)
+                ("vocode", tokens.shape[1], Bp, Tb, return_linear, pcm16, sharded), 1)
         steps = max(-(-Tb // r), 1)
-        mel_post = out["mel_post"][:, :Tb]
-        linear = out["linear"][:, :Tb] if "linear" in out else None
-        wav = None
-        if vocode:
-            lin_v, mel_v = ((linear, mel_post) if split_vocode
-                            else (out.get("linear"), out["mel_post"]))
-            with record_function("synth.vocode"):
-                wav = _gl_vocode(lin_v, mel_v, self.dsp_cfg, pcm16).cpu().numpy()
-        mel_np = mel_post.cpu().numpy()
-        linear_np = linear.cpu().numpy() if return_linear and linear is not None else None
-        aligns = out["alignments"][:, :steps].cpu().numpy()
+        parts = {"mel": [], "linear": [], "wav": [], "alignment": []}
+        for o in outs:
+            mel_post = o["mel_post"][:, :Tb]
+            linear = o["linear"][:, :Tb] if "linear" in o else None
+            if vocode:
+                lin_v, mel_v = ((linear, mel_post) if split_vocode
+                                else (o.get("linear"), o["mel_post"]))
+                with record_function("synth.vocode"):
+                    parts["wav"].append(_gl_vocode(lin_v, mel_v, self.dsp_cfg, pcm16).cpu())
+            parts["mel"].append(mel_post.cpu())
+            if return_linear and linear is not None:
+                parts["linear"].append(linear.cpu())
+            parts["alignment"].append(o["alignments"][:, :steps].cpu())
+        joined = {k: torch.cat(v).numpy() for k, v in parts.items() if v}
         hop = self.dsp_cfg.hop
         results = []
         for i in range(B):
             T = int(mel_lengths[i])
             item = {
-                "mel": mel_np[i, :T],
-                "alignment": aligns[i, :max(-(-T // r), 1)],
+                "mel": joined["mel"][i, :T],
+                "alignment": joined["alignment"][i, :max(-(-T // r), 1)],
                 "mel_length": T,
             }
-            if wav is not None:
-                item["wav"] = wav[i, :max(T - 1, 1) * hop]
-            if linear_np is not None:
-                item["linear"] = linear_np[i, :T]
+            if "wav" in joined:
+                item["wav"] = joined["wav"][i, :max(T - 1, 1) * hop]
+            if "linear" in joined:
+                item["linear"] = joined["linear"][i, :T]
             results.append(item)
         return results
 

@@ -18,6 +18,7 @@ from multi_speaker_tts_tpu_torch.ops.birnn_kernel import bigru, bilstm
 from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
 from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
+from multi_speaker_tts_tpu_torch.parallel import multihost
 
 _BN_EPS = 1e-5  # flax BatchNorm default
 _BN_MOMENTUM = 0.9  # the JAX package's ConvBNBlock
@@ -32,11 +33,12 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
             compute_dtype=torch.float32) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate,
     kept units scaled by 1 / keep_prob (in the compute dtype); rate 0 is the
-    identity. The keep mask is drawn from ``generator``."""
+    identity. The keep mask is drawn from ``generator``, at the global
+    batch's shape in a data-parallel run (:func:`..parallel.multihost.global_rand`)."""
     if rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = multihost.global_rand(x.shape, generator, x.device) < keep_prob
     return rounded(torch.where(keep, x / keep_prob, torch.zeros_like(x)), compute_dtype)
 
 
@@ -134,7 +136,11 @@ class ConvBNBlock(nn.Module):
     batch's mean and biased variance over (B, T) in f32 (E[y^2] - E[y]^2,
     clipped at 0), differentiated through; the running mean and variance
     move in place to 0.9 * running + 0.1 * batch; then dropout at
-    ``dropout_rate`` with masks from the caller's generator."""
+    ``dropout_rate`` with masks from the caller's generator. In a
+    data-parallel run the batch is the global one: the sums of y and y^2
+    and the row count are added over the processes (an autograd all-reduce)
+    before the division, so every process moves its running statistics
+    alike."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int,
                  activation: str = "relu", dropout_rate: float = 0.0):
@@ -159,8 +165,12 @@ class ConvBNBlock(nn.Module):
         y = rounded(rounded(y, compute_dtype) + rounded(self.bias, compute_dtype),
                     compute_dtype)
         if train:
-            mean = y.mean(dim=(0, 1))
-            var = torch.clamp((y * y).mean(dim=(0, 1)) - mean * mean, min=0.0)
+            C = y.shape[-1]
+            sums = multihost.all_reduce_autograd(torch.cat([
+                y.sum(dim=(0, 1)), (y * y).sum(dim=(0, 1)),
+                y.new_full((1,), float(y.shape[0] * y.shape[1]))]))
+            mean = sums[:C] / sums[-1]
+            var = torch.clamp(sums[C:2 * C] / sums[-1] - mean * mean, min=0.0)
             with torch.no_grad():
                 self.bn_mean.copy_(_BN_MOMENTUM * self.bn_mean + (1.0 - _BN_MOMENTUM) * mean)
                 self.bn_var.copy_(_BN_MOMENTUM * self.bn_var + (1.0 - _BN_MOMENTUM) * var)

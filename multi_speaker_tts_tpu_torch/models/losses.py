@@ -1,10 +1,22 @@
 """Training losses (port of ``multi_speaker_tts_tpu.models.losses``): masked
 mel L1 before and after the postnet, the stop-token BCE, the optional
-linear-spectrogram L1 and the guided-attention loss, all in f32."""
+linear-spectrogram L1 and the guided-attention loss, all in f32.
+
+Each loss is a masked sum over a masked count. In a data-parallel run the
+count is the global batch's (summed over the processes, no gradient through
+it) and the sum this process's rows': each process's loss is its share, and
+the shares add up to the single-device loss of the global batch."""
 
 from __future__ import annotations
 
 import torch
+
+from multi_speaker_tts_tpu_torch.parallel import multihost
+
+
+def _global_count(count: torch.Tensor) -> torch.Tensor:
+    """A denominator over the whole (data-parallel) batch, clamped at 1."""
+    return torch.clamp(multihost.all_reduce_sum([count.detach()])[0], min=1.0)
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int, dtype=torch.float32) -> torch.Tensor:
@@ -16,7 +28,7 @@ def sequence_mask(lengths: torch.Tensor, max_len: int, dtype=torch.float32) -> t
 def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean absolute error over valid frames only. mask: (B, T)."""
     err = (pred.float() - target.float()).abs() * mask[..., None]
-    return err.sum() / torch.clamp(mask.sum() * pred.shape[-1], min=1.0)
+    return err.sum() / _global_count(mask.sum() * pred.shape[-1])
 
 
 def _steps(mel_lengths: torch.Tensor, n_frames_per_step: int) -> torch.Tensor:
@@ -36,7 +48,7 @@ def stop_token_bce(stop_logits: torch.Tensor, mel_lengths: torch.Tensor,
     logits = stop_logits.float()
     bce = torch.clamp(logits, min=0.0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
     weight = torch.where(target > 0, positive_weight, 1.0) * valid
-    return (bce * weight).sum() / torch.clamp(weight.sum(), min=1.0)
+    return (bce * weight).sum() / _global_count(weight.sum())
 
 
 def guided_attention_loss(alignments: torch.Tensor, token_lengths: torch.Tensor,
@@ -51,7 +63,7 @@ def guided_attention_loss(alignments: torch.Tensor, token_lengths: torch.Tensor,
         token_lengths[:, None, None], min=1)
     W = 1.0 - torch.exp(-((s_pos - t_pos) ** 2) / (2 * sigma ** 2))
     mask = sequence_mask(mel_lengths, T)[:, :, None] * sequence_mask(token_lengths, S)[:, None, :]
-    return (alignments.float() * W * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (alignments.float() * W * mask).sum() / _global_count(mask.sum())
 
 
 def tacotron_losses(outputs: dict, mels: torch.Tensor, mel_lengths: torch.Tensor,

@@ -43,6 +43,7 @@ from multi_speaker_tts_tpu_torch.models.layers import (
 from multi_speaker_tts_tpu_torch.ops import decode_kernel
 from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
 from multi_speaker_tts_tpu_torch.ops.numerics import rounded
+from multi_speaker_tts_tpu_torch.parallel import multihost
 from multi_speaker_tts_tpu_torch.text import vocab_size as text_vocab_size
 
 
@@ -353,7 +354,8 @@ class Tacotron(nn.Module):
         """Teacher-forced pass (training and evaluation) -> mel_pre,
         mel_post, stop_logits, alignments (and linear with a head). The
         prenet's dropout is always on; its masks are ``prenet_masks`` (one
-        (B, T/r, size) bool tensor per layer) or drawn from ``generator``.
+        (B, T/r, size) bool tensor per layer) or drawn from ``generator``
+        (at the global batch's shape in a data-parallel run).
         ``train`` switches the BatchNorms to batch statistics (updating the
         running ones) and the conv dropouts on."""
         memory, mask = self.build_memory(tokens, token_lengths, speaker_embedding, train,
@@ -362,8 +364,8 @@ class Tacotron(nn.Module):
         if prenet_masks is None and dec.prenet_dropout > 0.0:
             shape = (mels.shape[0], mels.shape[1] // dec.r)
             prenet_masks = [
-                torch.rand((*shape, d.kernel.shape[1]), generator=generator,
-                           device=mels.device) < 1.0 - dec.prenet_dropout
+                multihost.global_rand((*shape, d.kernel.shape[1]), generator,
+                                      mels.device) < 1.0 - dec.prenet_dropout
                 for d in dec.prenet
             ]
         mel_pre, stops, aligns = dec.teacher_forced(memory, mask, mels, prenet_masks,

@@ -1,7 +1,8 @@
-"""Character-level text front-end (the port's own copy).
+"""Text front-end (the port's own copy of ``multi_speaker_tts_tpu.text``).
 
-Symbol table + cleaners + text->token-id conversion, the keithito-style
-character pipeline of ``multi_speaker_tts_tpu.text``. The symbol inventory is the
+Symbol table + cleaners + text->token-id conversion: the keithito-style
+character pipeline, and under ``Tokens.Use_Phoneme`` the phoneme pipeline
+of :mod:`.phonemes`. The symbol inventory is the
 classic English TTS set: pad, EOS, punctuation, and lowercase letters.
 """
 
@@ -146,22 +147,24 @@ def sequence_to_text(ids) -> str:
     return "".join(_id_to_symbol[int(i)] for i in ids if int(i) in _id_to_symbol)
 
 
-# --- hp-driven dispatch (characters only in the port so far) --------------
-
-def _check_characters(hp) -> None:
-    if hp.Tokens.get("Use_Phoneme", False):
-        raise NotImplementedError(
-            "the torch port reads characters only (Tokens.Use_Phoneme: false)"
-        )
-
+# --- hp-driven dispatch: characters vs phonemes (Tokens.Use_Phoneme) -------
 
 def vocab_size(hp) -> int:
     """Token-embedding vocabulary for the configured front-end."""
-    _check_characters(hp)
+    if hp.Tokens.get("Use_Phoneme", False):
+        from multi_speaker_tts_tpu_torch.text.phonemes import phoneme_symbols
+
+        return len(phoneme_symbols)
     return len(symbols)
 
 
 def encode_text(text: str, hp) -> np.ndarray:
-    """Raw text -> token ids under hp's front-end config."""
-    _check_characters(hp)
-    return text_to_sequence(text, hp.Tokens.get("Cleaners", ("english_cleaners",)))
+    """Raw text -> token ids under hp's front-end config: characters, or
+    with ``Tokens.Use_Phoneme`` ARPAbet phonemes (``Tokens.Phoneme_Lexicon``
+    a CMUdict-format file, the rules for other words)."""
+    cleaners = hp.Tokens.get("Cleaners", ("english_cleaners",))
+    if hp.Tokens.get("Use_Phoneme", False):
+        from multi_speaker_tts_tpu_torch.text.phonemes import phoneme_text_to_sequence
+
+        return phoneme_text_to_sequence(text, cleaners, hp.Tokens.get("Phoneme_Lexicon"))
+    return text_to_sequence(text, cleaners)

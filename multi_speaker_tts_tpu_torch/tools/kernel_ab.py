@@ -15,7 +15,10 @@ JSON line:
 - ``enroll_busy_ms`` and ``train_step_busy_ms``: the device busy time (the
   union of the card's kernel and copy intervals under ``torch.profiler``) of
   the enrollment and of one train step; ``train_step_ms`` the step's mean
-  time over three steps (CUDA events).
+  time over three steps (CUDA events);
+- ``synth_ms``: the median wall time (host clock to a synchronised card) of
+  ten ``synthesize`` calls of the two texts with the default decode, and
+  ``synth_ms_all`` the ten.
 
 ``--repo DIR`` measures another checkout's package and kernel sources (for
 example the parent commit's, unpacked with ``git archive``); run the file by
@@ -37,7 +40,9 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import statistics
 import sys
+import time
 
 HERE = pathlib.Path(__file__).resolve().parents[2]
 DEMO = HERE / "demo"
@@ -163,9 +168,18 @@ def main(argv=None) -> int:
     bwd_fn = kept(birnn_kernel, "bigru_bwd_kernel", bwd_calls)
 
     synth = Synthesizer(hp, params, batch_stats, seed=0)
-    synth.enroll(wavs)
+    emb = synth.enroll(wavs)
     row = {"label": args.label, "repo": str(repo), "device": torch.cuda.get_device_name(0),
            "enroll_busy_ms": busy_ms(lambda: synth.enroll(wavs))}
+    synth.synthesize(list(TEXTS), emb)
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synth.synthesize(list(TEXTS), emb)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    row["synth_ms"], row["synth_ms_all"] = statistics.median(walls), walls
     del synth
     # A checkout from before Trainer.from_params took the weights in its constructor.
     make = getattr(Trainer, "from_params", Trainer)

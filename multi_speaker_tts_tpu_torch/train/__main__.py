@@ -6,13 +6,22 @@
         -ge2e_checkpoint GE2E_DIR -checkpoint TTS_DIR [-eval_pattern DIR] [-max_step N]
 
 ``-hp`` reads a YAML file (needs pyyaml); without it the shipped defaults
-apply. Runs on the card unless ``-device cpu``. Multi-process training
-(``-distributed`` and its flags) is not ported yet.
+apply. Runs on the card unless ``-device cpu``. Data-parallel training runs
+one process a device, each started with the same arguments plus its id::
+
+    python -m multi_speaker_tts_tpu_torch.train ... -distributed \
+        -coordinator 127.0.0.1:PORT -num_processes 2 -process_id {0,1}
+
+(process i on ``cuda:i`` over NCCL, or on the CPU over gloo with ``-device
+cpu``; ``-coordinator`` also takes a ``file://`` URL). Process 0 writes the
+checkpoints and logs.
 """
 
 from __future__ import annotations
 
 import argparse
+
+from multi_speaker_tts_tpu_torch.parallel import multihost
 
 
 def main(argv=None) -> None:
@@ -31,14 +40,19 @@ def main(argv=None) -> None:
                         help="capture a torch.profiler trace of steps 10-20")
     parser.add_argument("-device", default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
-    parser.add_argument("-distributed", action="store_true")
-    parser.add_argument("-coordinator", default=None)
+    parser.add_argument("-distributed", action="store_true",
+                        help="data-parallel training: join the process group first")
+    parser.add_argument("-coordinator", default=None,
+                        help="process 0's host:port (or a file:// URL)")
     parser.add_argument("-num_processes", type=int, default=None)
     parser.add_argument("-process_id", type=int, default=None)
     args = parser.parse_args(argv)
-    if args.distributed or args.coordinator or args.num_processes or args.process_id is not None:
-        raise NotImplementedError("multi-process training (-distributed, -coordinator, "
-                                  "-num_processes, -process_id) is not ported yet")
+    device = args.device
+    if args.distributed:
+        device = multihost.initialize_distributed(args.coordinator, args.num_processes,
+                                                  args.process_id, device=args.device)
+        print(f"distributed: process {multihost.process_index()}/{multihost.process_count()} "
+              f"on {device}", flush=True)
 
     from multi_speaker_tts_tpu_torch.hparams import load_hyper_parameters
 
@@ -48,19 +62,27 @@ def main(argv=None) -> None:
             **({"Pretrained_Checkpoint": args.ge2e_checkpoint} if args.ge2e_checkpoint else {}),
             **({"Freeze": True} if args.freeze_ge2e else {}),
         }})
+    try:
+        _train(args, hp, device)
+    finally:
+        if args.distributed:
+            multihost.shutdown()
+
+
+def _train(args, hp, device) -> None:
     train_dir = args.train_pattern or hp.Train.Train_Pattern.Path
 
     if args.mode == "ge2e":
         from multi_speaker_tts_tpu_torch.train.ge2e_trainer import GE2ETrainer
 
         trainer = GE2ETrainer(hp, checkpoint_dir=args.checkpoint, log_dir=args.log,
-                              device=args.device)
+                              device=device)
         trainer.train(train_dir, max_steps=args.max_step or hp.Train.Max_Step)
         return
 
     from multi_speaker_tts_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(hp, checkpoint_dir=args.checkpoint, log_dir=args.log, device=args.device)
+    trainer = Trainer(hp, checkpoint_dir=args.checkpoint, log_dir=args.log, device=device)
     if args.profile:
         trainer.profile_steps = (10, 20)
     trainer.train(train_dir, eval_pattern_dir=args.eval_pattern or hp.Train.Eval_Pattern.get("Path"),

@@ -10,6 +10,13 @@ scale and bias (w, b) learn at ``Scale_Gradient`` (0.01) times the
 encoder's rate, w is clamped positive, and gradients are clipped to a
 global norm of 3.0: :class:`GE2EOptimizer` computes what the JAX package's
 optax chain computes.
+
+Data parallelism: each of W processes embeds its contiguous share of the
+N M rows; the embeddings are gathered in rank order with autograd
+(:func:`..parallel.multihost.all_gather_rows`), so every process computes
+the loss of the global N x M batch once, and scales it by 1 / W: the
+gather's backward sums the processes' cotangents, so the shares' gradients,
+summed over the processes, are the global loss's.
 """
 
 from __future__ import annotations
@@ -20,8 +27,9 @@ from multi_speaker_tts_tpu_torch.data.datasets import GE2EBatchSampler, PatternD
 from multi_speaker_tts_tpu_torch.inference import resolve_device
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E, ge2e_loss
 from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
+from multi_speaker_tts_tpu_torch.parallel import multihost
 from multi_speaker_tts_tpu_torch.train.checkpoints import CheckpointManager
-from multi_speaker_tts_tpu_torch.train.logger import Logger
+from multi_speaker_tts_tpu_torch.train.logger import Logger, NullLogger
 from multi_speaker_tts_tpu_torch.train.optim import global_norm
 from multi_speaker_tts_tpu_torch.weights import random_init
 
@@ -59,15 +67,22 @@ def make_ge2e_optimizer(hp) -> GE2EOptimizer:
 
 
 class GE2ETrainer:
-    """Training loop of the speaker encoder on one device (CUDA unless
-    ``device`` says otherwise). ``params`` holds ``encoder.<state key>``,
-    ``w`` and ``b``; checkpoints hold ``{"step", "params": {"encoder": {...},
-    "w", "b"}, "opt_state"}``."""
+    """Training loop of the speaker encoder on one device a process (CUDA
+    unless ``device`` says otherwise). ``params`` holds ``encoder.<state
+    key>``, ``w`` and ``b``; checkpoints hold ``{"step", "params":
+    {"encoder": {...}, "w", "b"}, "opt_state"}``, written by process 0 of a
+    data-parallel run only. ``n_devices`` must equal the process group's
+    size (1 without one): the port trains data-parallel with one process a
+    device."""
 
     def __init__(self, hp, checkpoint_dir: str | None = None, log_dir: str | None = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, n_devices: int | None = None):
         self.hp = hp
         self.device = resolve_device(device)
+        self.N, self.M = hp.GE2E_Train.Batch_Speakers, hp.GE2E_Train.Batch_Utterances
+        self.process_count = multihost.checked_process_count(n_devices, self.N * self.M,
+                                                             "GE2E batch rows N*M")
+        self.is_main = multihost.process_index() == 0
         self.model = GE2E.from_hp(hp, compute_dtype_of(hp))
         random_init(hp, torch.Generator().manual_seed(seed), ge2e=self.model)
         self.model.to(self.device)
@@ -79,9 +94,9 @@ class GE2ETrainer:
         self.optimizer = make_ge2e_optimizer(hp)
         self.opt_state = self.optimizer.init(self.params)
         self.step = 0
-        self.checkpoints = CheckpointManager(checkpoint_dir or hp.Checkpoint_Path)
-        self.logger = Logger(log_dir or hp.Log_Path)
-        self.N, self.M = hp.GE2E_Train.Batch_Speakers, hp.GE2E_Train.Batch_Utterances
+        self.checkpoints = (CheckpointManager(checkpoint_dir or hp.Checkpoint_Path)
+                            if self.is_main else None)
+        self.logger = (Logger if self.is_main else NullLogger)(log_dir or hp.Log_Path)
 
     def state(self) -> dict:
         """The checkpoint's state: tensors on the CPU."""
@@ -92,6 +107,16 @@ class GE2ETrainer:
                 "params": {"encoder": enc, "w": cpu(self.params["w"]), "b": cpu(self.params["b"])},
                 "opt_state": {k: cpu(t) for k, t in self.opt_state.items()}}
 
+    def sync_state(self) -> None:
+        """Give every process of a data-parallel run process 0's params,
+        optimizer trace and step (a no-op alone), after a barrier."""
+        if self.process_count <= 1:
+            return
+        multihost.barrier("ge2e_state")
+        step = torch.tensor([self.step], dtype=torch.int64)
+        multihost.broadcast_state([*self.params.values(), *self.opt_state.values(), step])
+        self.step = int(step[0])
+
     @torch.no_grad()
     def load_state(self, state: dict) -> None:
         for k, p in self.params.items():
@@ -101,15 +126,23 @@ class GE2ETrainer:
         self.opt_state = {k: t.to(self.device) for k, t in state["opt_state"].items()}
         self.step = int(state["step"])
 
-    def train_step(self, mels) -> dict:
-        """One step on (N M, L, mel) crops grouped by speaker -> loss, w, b."""
+    def gradients(self, mels) -> tuple[torch.Tensor, dict]:
+        """(the global batch's loss, its gradients by parameter name) from
+        this process's rows of the (N M, L, mel) crops grouped by speaker."""
         mels = torch.as_tensor(mels).to(self.device).float()
-        emb = self.model(mels).reshape(self.N, self.M, -1)
+        emb = multihost.all_gather_rows(self.model(mels)).reshape(self.N, self.M, -1)
         loss = ge2e_loss(emb, self.params["w"], self.params["b"])
         names = list(self.params)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names])
-        updates, self.opt_state = self.optimizer.update(dict(zip(names, grads)),
-                                                        self.opt_state)
+        grads = multihost.all_reduce_sum(list(torch.autograd.grad(
+            loss / self.process_count, [self.params[k] for k in names])))
+        return loss.detach(), dict(zip(names, grads))
+
+    def train_step(self, mels) -> dict:
+        """One step on this process's rows of the (N M, L, mel) crops
+        grouped by speaker -> loss, w, b."""
+        loss, grads = self.gradients(mels)
+        names = list(self.params)
+        updates, self.opt_state = self.optimizer.update(grads, self.opt_state)
         with torch.no_grad():
             for k in names:
                 self.params[k].add_(updates[k])
@@ -127,16 +160,19 @@ class GE2ETrainer:
         sampler = GE2EBatchSampler(PatternDataset(pattern_dir), n_speakers=self.N,
                                    m_utterances=self.M,
                                    frame_length=hp.GE2E_Train.Frame_Length)
-        restored, step = self.checkpoints.restore()
-        if restored is not None and step > self.step:
-            self.load_state(restored)
-            print(f"resumed GE2E training from step {step}")
+        if self.is_main:
+            restored, step = self.checkpoints.restore()
+            if restored is not None and step > self.step:
+                self.load_state(restored)
+                print(f"resumed GE2E training from step {step}")
+        self.sync_state()
+        rows = multihost.local_rows(self.N * self.M)
         metrics = {}
         while self.step < max_steps:
-            metrics = self.train_step(sampler.sample()["mels"])
+            metrics = self.train_step(sampler.sample()["mels"][rows])
             if self.step % log_interval == 0:
                 self.logger.add_scalar_dict("GE2E", metrics, self.step)
-            if self.step % save_interval == 0 or self.step >= max_steps:
+            if self.is_main and (self.step % save_interval == 0 or self.step >= max_steps):
                 self.checkpoints.save(self.step, self.state())
         self.logger.flush()
         return metrics

@@ -33,7 +33,17 @@ finite, nothing changes -- no update reaches the parameters or the
 optimizer state, and the BatchNorm running statistics that the forward
 already moved are restored from a snapshot taken before it. The step count
 still advances. Metrics come back as floats (one host read a step).
-Multi-GPU training is not ported yet.
+
+Data parallelism (:mod:`..parallel.multihost`): one process a device, all
+started with the same hparams and seed after
+``multihost.initialize_distributed``. Each process steps on its
+contiguous share of every global batch (``Train.Batch_Size`` rows over W
+processes); the BatchNorm statistics, the dropout masks and the loss
+denominators are the global batch's, the gradients are summed over the
+processes before the norm, the guard and the optimizer, so every process
+makes the single-device step's update on the global batch. Only process 0
+reads and writes checkpoints and logs; it broadcasts the state it starts
+from (fresh, resumed or grafted) to the others.
 """
 
 from __future__ import annotations
@@ -54,8 +64,9 @@ from multi_speaker_tts_tpu_torch.models.losses import tacotron_losses
 from multi_speaker_tts_tpu_torch.models.speaker import SpeakerLUT
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops.numerics import compute_dtype_of
+from multi_speaker_tts_tpu_torch.parallel import multihost
 from multi_speaker_tts_tpu_torch.train.checkpoints import CheckpointManager
-from multi_speaker_tts_tpu_torch.train.logger import Logger
+from multi_speaker_tts_tpu_torch.train.logger import Logger, NullLogger
 from multi_speaker_tts_tpu_torch.train.optim import OptState, global_norm, make_optimizer
 from multi_speaker_tts_tpu_torch.weights import load_into, module_state, params_from_jax, random_init
 
@@ -84,14 +95,22 @@ def resolve_guided_attention(hp) -> tuple[float | None, float]:
 
 class Trainer:
     """Teacher-forced training of the Tacotron (GE2E-, LUT- or
-    un-conditioned) on one device. The weights are unset until
-    :meth:`initialize` (or :meth:`from_params` / :meth:`from_compact`)."""
+    un-conditioned) on one device a process. The weights are unset until
+    :meth:`initialize` (or :meth:`from_params` / :meth:`from_compact`).
+
+    ``n_devices`` is the JAX signature's mesh size: here it must equal the
+    process group's size (1 without one), since the port trains
+    data-parallel with one process a device; any other value raises."""
 
     def __init__(self, hp, checkpoint_dir: str | None = None, log_dir: str | None = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, n_devices: int | None = None):
         self.device = resolve_device(device)
         self.hp = hp
         self.seed = seed
+        self.process_count = multihost.checked_process_count(n_devices, hp.Train.Batch_Size,
+                                                             "Train.Batch_Size")
+        self.process_index = multihost.process_index()
+        self.is_main = self.process_index == 0
         self.compute_dtype = compute_dtype_of(hp)
         self.tacotron, self.ge2e, self.speaker_lut = build_models(hp, self.compute_dtype)
         for m in self._modules().values():
@@ -123,15 +142,18 @@ class Trainer:
         return {k: m for k, m in mods.items() if m is not None}
 
     @property
-    def checkpoints(self) -> CheckpointManager:
-        if self._checkpoints is None:
+    def checkpoints(self) -> CheckpointManager | None:
+        """The checkpoint directory's manager; None in processes other than
+        the first of a data-parallel run."""
+        if self._checkpoints is None and self.is_main:
             self._checkpoints = CheckpointManager(self.checkpoint_dir or self.hp.Checkpoint_Path)
         return self._checkpoints
 
     @property
     def logger(self) -> Logger:
         if self._logger is None:
-            self._logger = Logger(self.log_dir or self.hp.Log_Path)
+            self._logger = (Logger if self.is_main else NullLogger)(
+                self.log_dir or self.hp.Log_Path)
         return self._logger
 
     # -- weights -----------------------------------------------------------------
@@ -164,17 +186,35 @@ class Trainer:
     def initialize(self) -> None:
         """A fresh init from a CPU generator seeded with ``seed``; then the
         checkpoint directory's latest step, if it has one, or else the
-        pretrained GE2E encoder that the hparams name."""
+        pretrained GE2E encoder that the hparams name. In a data-parallel
+        run process 0 does this and broadcasts the state to the others."""
         random_init(self.hp, torch.Generator().manual_seed(self.seed), **self._modules())
         self.initialized = True
-        restored, step = self.checkpoints.restore()
-        if restored is not None:
-            self.load_state(restored)
-            print(f"resumed from checkpoint step {step}")
-        elif self.ge2e is not None:
-            pre = self.hp.Speaker_Embedding.GE2E.get("Pretrained_Checkpoint")
-            if pre:
-                self.load_pretrained_ge2e(pre)
+        if self.is_main:
+            restored, step = self.checkpoints.restore()
+            if restored is not None:
+                self.load_state(restored)
+                print(f"resumed from checkpoint step {step}")
+            elif self.ge2e is not None:
+                pre = self.hp.Speaker_Embedding.GE2E.get("Pretrained_Checkpoint")
+                if pre:
+                    self.load_pretrained_ge2e(pre)
+        self.sync_state()
+
+    def sync_state(self) -> None:
+        """Give every process of a data-parallel run process 0's state:
+        params, BatchNorm statistics, optimizer state, step and generator
+        (a no-op alone). Every process passes a barrier first."""
+        if self.process_count <= 1:
+            return
+        multihost.barrier("trainer_state")
+        gen = self.generator.get_state()
+        counters = torch.tensor([self.step, self.opt_state.count], dtype=torch.int64)
+        multihost.broadcast_state([*self.params, *self.tacotron.buffers(), *self.opt_state.mu,
+                                   *self.opt_state.nu, gen, counters])
+        self.generator.set_state(gen)
+        self.step = int(counters[0])
+        self.opt_state = self.opt_state._replace(count=int(counters[1]))
 
     @torch.no_grad()
     def load_pretrained_ge2e(self, checkpoint_dir: str) -> None:
@@ -227,7 +267,9 @@ class Trainer:
         self.initialized = True
 
     def save(self, step: int | None = None) -> None:
-        self.checkpoints.save(self.step if step is None else step, self.checkpoint_state())
+        """Write a checkpoint (process 0 of a data-parallel run only)."""
+        if self.is_main:
+            self.checkpoints.save(self.step if step is None else step, self.checkpoint_state())
 
     # -- one step ----------------------------------------------------------------
     def _to_device(self, batch: dict) -> dict:
@@ -251,25 +293,29 @@ class Trainer:
 
     def _forward_backward(self, batch: dict):
         """Train-mode forward on a device batch -> (losses, gradients in
-        ``self.params`` order; zeros where none flows)."""
+        ``self.params`` order; zeros where none flows), both summed over the
+        processes of a data-parallel run: the global batch's."""
         outputs = self.tacotron(batch["tokens"], batch["token_lengths"], batch["mels"],
                                 self._speaker_embedding(batch), train=True,
                                 generator=self.generator)
         losses = self._losses(batch, outputs)
         grads = torch.autograd.grad(losses["total"], self.params, allow_unused=True)
-        return losses, [torch.zeros_like(p) if g is None else g
-                        for p, g in zip(self.params, grads)]
+        grads = multihost.all_reduce_sum([torch.zeros_like(p) if g is None else g
+                                          for p, g in zip(self.params, grads)])
+        return _global_losses(losses), grads
 
     def gradients(self, batch: dict) -> tuple[dict, dict]:
         """The train step's forward and backward without the update ->
         (losses as floats, ``{state key: gradient}`` as numpy). The forward
-        is in train mode, so it moves the BatchNorm running statistics."""
+        is in train mode, so it moves the BatchNorm running statistics.
+        ``batch`` is this process's rows of the global batch."""
         losses, grads = self._forward_backward(self._to_device(batch))
-        return ({k: float(v.detach()) for k, v in losses.items()},
+        return ({k: float(v) for k, v in losses.items()},
                 {n: g.detach().cpu().numpy() for n, g in zip(self.param_names, grads)})
 
     def train_step(self, batch: dict) -> dict:
-        """One teacher-forced step -> metrics: ``total``, each loss,
+        """One teacher-forced step on this process's rows of the global
+        batch -> metrics of the global batch: ``total``, each loss,
         ``grad_norm`` (of the raw gradients) and ``skipped_nonfinite``."""
         batch = self._to_device(batch)
         snapshot = [b.clone() for b in self.bn_stats()]
@@ -287,20 +333,23 @@ class Trainer:
                 for b, saved in zip(self.bn_stats(), snapshot):
                     b.copy_(saved)
         self.step += 1
-        metrics = {k: float(v.detach()) for k, v in losses.items()}
+        metrics = {k: float(v) for k, v in losses.items()}
         metrics["grad_norm"] = float(grad_norm)
         metrics["skipped_nonfinite"] = 0.0 if finite else 1.0
         return metrics
 
     @torch.no_grad()
-    def eval_step(self, batch: dict) -> tuple[dict, dict]:
-        """Teacher-forced evaluation -> (losses as floats, outputs): running
-        BatchNorm statistics, no conv dropout, the prenet still stochastic."""
+    def eval_step(self, batch: dict, prenet_masks=None) -> tuple[dict, dict]:
+        """Teacher-forced evaluation -> (losses of the global batch as
+        floats, this process's outputs): running BatchNorm statistics, no
+        conv dropout, the prenet still stochastic (its masks
+        ``prenet_masks``, else drawn from the trainer's generator)."""
         batch = self._to_device(batch)
         outputs = self.tacotron(batch["tokens"], batch["token_lengths"], batch["mels"],
                                 self._speaker_embedding(batch), train=False,
-                                generator=self.generator)
-        return {k: float(v) for k, v in self._losses(batch, outputs).items()}, outputs
+                                generator=self.generator, prenet_masks=prenet_masks)
+        return ({k: float(v) for k, v in _global_losses(self._losses(batch, outputs)).items()},
+                outputs)
 
     # -- the loop ----------------------------------------------------------------
     def make_batcher(self, pattern_dir: str, shuffle: bool = True) -> BucketBatcher:
@@ -315,16 +364,25 @@ class Trainer:
             shuffle=shuffle,
             spect_dim=hp.Sound.Spectrogram_Dim if (lh is not None and lh.Use) else None)
 
+    def _local_rows(self, batch: dict) -> dict:
+        """This process's contiguous rows of a global batch."""
+        rows = multihost.local_rows(len(batch["tokens"]))
+        return {k: v[rows] for k, v in batch.items()}
+
     def _batches(self, batcher: BucketBatcher):
-        """Endless training batches: from one long-lived loader with
-        ``Train.Num_Workers`` > 0, else the in-process batcher epoch by epoch
-        (``Accumulated_Dataset_Epoch`` passes a reshuffle)."""
+        """Endless training batches, this process's rows of each: from one
+        long-lived loader with ``Train.Num_Workers`` > 0 (which collates only
+        those rows), else the in-process batcher epoch by epoch
+        (``Accumulated_Dataset_Epoch`` passes a reshuffle; every process
+        draws the same global batch and keeps its rows)."""
         hp = self.hp
         n_workers = hp.Train.get("Num_Workers", 0) or 0
         if n_workers > 0:
             from multi_speaker_tts_tpu_torch.data.loader import make_loader
 
-            for batch in make_loader(batcher, num_workers=n_workers):
+            for batch in make_loader(batcher, num_workers=n_workers,
+                                     shard_index=self.process_index,
+                                     shard_count=self.process_count):
                 batch.pop("bucket", None)
                 yield batch
         tp = hp.Train.get("Train_Pattern")
@@ -332,7 +390,7 @@ class Trainer:
         while True:
             for _ in range(accumulated):
                 for _, batch in batcher:
-                    yield batch
+                    yield self._local_rows(batch)
 
     def train(self, pattern_dir: str, eval_pattern_dir: str | None = None,
               max_steps: int | None = None) -> dict:
@@ -348,9 +406,13 @@ class Trainer:
         if not self.initialized:
             self.initialize()
         t_last, frames_since, metrics, prof = time.time(), 0, {}, None
+        synced = self.process_count <= 1
         if self.step < max_steps:
             for batch in self._batches(batcher):
-                if self.profile_steps and self.step == self.profile_steps[0]:
+                if not synced:  # every loader is up: meet before the first step
+                    multihost.barrier("first_batch")
+                    synced = True
+                if self.is_main and self.profile_steps and self.step == self.profile_steps[0]:
                     prof = _start_profile()
                 metrics = self.train_step(batch)
                 if prof is not None and self.step == self.profile_steps[1]:
@@ -360,7 +422,7 @@ class Trainer:
                 step = self.step
                 if step % hp.Train.Logging_Interval == 0:
                     dt = max(time.time() - t_last, 1e-9)
-                    print(f"step {step}: loss {metrics['total']:.4f} "
+                    print(f"step {step}: loss {metrics['total']:.7g} "
                           f"({frames_since / dt:,.0f} mel frames/s)", flush=True)
                     self.logger.add_scalar_dict("Train/Loss", metrics, step)
                     self.logger.add_scalar("Train/Learning_Rate",
@@ -371,7 +433,7 @@ class Trainer:
                     self.save(step)
                 if eval_pattern_dir is not None and step % hp.Train.Evaluation_Interval == 0:
                     self.evaluate(eval_pattern_dir, step)
-                if (eval_pattern_dir is not None
+                if (eval_pattern_dir is not None and self.is_main
                         and step % hp.Train.get("Inference_Interval", 10 ** 9) == 0):
                     self.inference_step(eval_pattern_dir, step)
                 if step >= max_steps:
@@ -384,13 +446,14 @@ class Trainer:
 
     def evaluate(self, pattern_dir: str, step: int, max_batches: int = 8) -> dict:
         """Mean teacher-forced losses over up to ``max_batches`` batches,
-        logged with the first row's alignment."""
+        logged with the first row's alignment (every process of a
+        data-parallel run takes part; process 0 logs)."""
         totals: dict[str, float] = {}
         count, outputs = 0, None
         for _, batch in self.make_batcher(pattern_dir, shuffle=False):
             if count >= max_batches:
                 break
-            losses, outputs = self.eval_step(batch)
+            losses, outputs = self.eval_step(self._local_rows(batch))
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + v
             count += 1
@@ -405,7 +468,8 @@ class Trainer:
     @torch.no_grad()
     def inference_step(self, pattern_dir: str, step: int) -> None:
         """AR-synthesize one eval batch with the current weights and log the
-        first row's alignment and audio."""
+        first row's alignment and audio (process 0 of a data-parallel run
+        alone: the AR decode has no collective)."""
         hp, cfg = self.hp, self.dsp_cfg
         try:
             _, batch = next(iter(self.make_batcher(pattern_dir, shuffle=False)))
@@ -425,6 +489,14 @@ class Trainer:
             T = int(out["mel_lengths"][0])
             self.logger.add_audio("Inference/Audio", wav[:max(T - 1, 1) * cfg.hop].cpu().numpy(),
                                   step, cfg.sample_rate)
+
+
+def _global_losses(losses: dict) -> dict:
+    """Each loss summed over the processes (their shares add up to the
+    global batch's loss), detached."""
+    keys = list(losses)
+    summed = multihost.all_reduce_sum([torch.stack([losses[k].detach() for k in keys])])[0]
+    return dict(zip(keys, summed))
 
 
 def _start_profile():

@@ -1129,3 +1129,126 @@ def test_daemon_serves_the_workers_bytes_on_the_card(dev):
     assert wav == _wav_bytes(results[0]["wav"], synth.dsp_cfg.sample_rate)
     again = original(texts, *args, **kwargs)
     assert again[0]["mel_length"] == results[0]["mel_length"] == out["mel_length"]
+
+
+# -- data parallelism and sharded synthesis on the card ------------------------
+
+SMALL_CKPT = ROOT / "demo" / "serving_ckpt.msgpack"
+DP_ROWS = 8
+
+
+def _dp_hp():
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+
+    params, batch_stats, meta = load_compact(SMALL_CKPT)
+    hp = Recursive_Parse(meta["hp"]).replace(Speaker_Embedding={"GE2E": {"Freeze": False}},
+                                             Train={"Batch_Size": DP_ROWS})
+    return hp, params, batch_stats
+
+
+def _dp_card_rank(rank, world, init, backend, out):
+    """One rank of the card's data-parallel test, in a spawned process: the
+    small checkpoint (GE2E trainable, every dropout on), this rank's rows
+    of the 8-row batch, two steps; launches and plain backward calls
+    counted. Any error exits non-zero."""
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.parallel import multihost
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = multihost.initialize_distributed(init, world, rank, backend=backend, device="cuda")
+    plain = []
+    for mod, name in ((lstm_kernel, "lstm_seq_layer_bwd_plain"),
+                      (birnn_kernel, "bilstm_bwd_plain")):
+        setattr(mod, name, lambda *a, _o=getattr(mod, name), _n=name, **k:
+                plain.append(_n) or _o(*a, **k))
+    kernels = (lstm_kernel.RES_KERNEL, lstm_kernel.BWD_KERNEL, birnn_kernel.RES_KERNEL,
+               birnn_kernel.BWD_KERNEL)
+    hp, params, batch_stats = _dp_hp()
+    rows = multihost.local_rows(DP_ROWS)
+    batch = {k: v[rows] for k, v in _train_batch(hp, DP_ROWS).items()}
+    trainer = Trainer.from_params(hp, params, batch_stats, device=device, seed=0)
+    trainer.sync_state()
+    before = [k.launches for k in kernels]
+    metrics = [trainer.train_step(batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.save({"device": str(device), "metrics": metrics, "plain": plain,
+                "launches": [k.launches - b for k, b in zip(kernels, before)],
+                "grads": trainer.gradients(batch)[1],
+                "state": {n: p.detach().cpu() for n, p in zip(trainer.param_names,
+                                                              trainer.params)}},
+               f"{out}/rank{rank}.pt")
+    multihost.shutdown()
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_data_parallel_step_on_the_card(dev, backend, tmp_path):
+    """Two ranks (gloo: both on cuda:0; NCCL: one card a rank) against the
+    single-process steps on the same 8 rows on the card: the losses within
+    1e-2 and the gradient norm within 2e-2 (bf16 roundings flip with the
+    summation orders), the summed gradients of a third forward within 5e-2
+    of the largest; the ranks bit-equal; every backward on its kernel."""
+    import multiprocessing as mp
+
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip(f"NCCL takes one card a rank: {torch.cuda.device_count()} card(s) here")
+    hp, params, batch_stats = _dp_hp()
+    batch = _train_batch(hp, DP_ROWS)
+    ref = Trainer.from_params(hp, params, batch_stats, seed=0)
+    want = [ref.train_step(batch) for _ in range(2)]
+    ref_grads = ref.gradients(batch)[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_card_rank, args=(r, 2, f"file://{tmp_path}/rdv", backend,
+                                                      str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert codes == [0, 0]
+    got = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    assert [g["device"] for g in got] == (["cuda:0", "cuda:1"] if backend == "nccl"
+                                          else ["cuda:0", "cuda:0"])
+    layers = hp.Speaker_Embedding.GE2E.LSTM.Stacks
+    for g in got:  # a step: the GE2E layers' residual forward and backward, the BiLSTM's
+        assert g["plain"] == [] and g["launches"] == [2 * layers, 2 * layers, 2, 2]
+        assert g["metrics"] == got[0]["metrics"]
+        for n, t in g["state"].items():
+            assert torch.equal(t, got[0]["state"][n]), n
+    for m, w in zip(got[0]["metrics"], want):
+        assert not m["skipped_nonfinite"]
+        for k in w:
+            if k != "skipped_nonfinite":
+                assert abs(m[k] - w[k]) <= (2e-2 if k == "grad_norm" else 1e-2) * abs(w[k]), k
+    scale = max(np.abs(g).max() for g in ref_grads.values())
+    for n, g in ref_grads.items():
+        assert np.abs(got[0]["grads"][n] - g).max() <= 5e-2 * scale, n
+
+
+def test_sharded_synthesis_on_the_card(dev):
+    """A mesh of two entries (two cards, or cuda:0 twice): the small
+    checkpoint under ``int8_pallas``, sharded against unsharded: equal
+    lengths, mels within 5e-2, the decode kernel launched in each shard."""
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel
+
+    n = torch.cuda.device_count()
+    mesh = [torch.device("cuda", i % n) for i in range(2)]
+    synth = Synthesizer.from_compact(str(SMALL_CKPT), quantize="int8_pallas", mesh=mesh)
+    emb = synth.enroll([str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
+    texts = ["hello world.", "a b c", "the quick brown fox.", "one more sentence here."]
+    whole = synth.synthesize(texts, emb, pcm16=True)
+    before = decode_kernel.KERNELS["int8"].launches
+    sharded = synth.synthesize(texts, emb, pcm16=True, sharded=True)
+    assert decode_kernel.KERNELS["int8"].launches > before
+    for a, b in zip(whole, sharded):
+        assert a["mel_length"] == b["mel_length"]
+        assert np.abs(a["mel"] - b["mel"]).max() <= 5e-2
+        assert b["wav"].dtype == np.int16 and b["wav"].shape == a["wav"].shape

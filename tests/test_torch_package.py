@@ -335,3 +335,9 @@ def test_packed_weight_layout_is_built_once_per_weight_state():
     w.data = torch.full((3, 2), 2.0)  # so does new storage
     assert torch.equal(_build.packed(layout, w, b)[:6], torch.full((6,), 2.0))
     assert len(calls) == 3
+
+
+def test_import_checks_cover_the_data_parallel_evaluation_and_phoneme_modules():
+    mods = _port_modules()
+    for name in ("parallel", "parallel.mesh", "parallel.multihost", "evaluate", "text.phonemes"):
+        assert f"multi_speaker_tts_tpu_torch.{name}" in mods, name

@@ -3,7 +3,7 @@
 - ``Synthesizer.synthesize`` and ``stream`` take their arguments in the JAX
   order: a positional call binds the same parameters in both packages, and
   the port runs it (``vocode`` fourth; ``sharded``, ``pad_batch`` and
-  ``return_device`` in their places, refused past their defaults).
+  ``return_device`` in their places, each run past its default).
 - ``dsp.melspectrogram_auto`` routes by the JAX rule: a batched wav whose
   length hop divides, with hop dividing n_fft, to the fused front-end (its
   kernel on the card, its plain version here); every other input to the
@@ -62,11 +62,20 @@ def test_positional_synthesize_runs_in_the_jax_order(synth):
     assert "wav" not in out and out["mel_length"] > 0
     chunks = list(synth.stream(["hello world."], emb, None, 24, 8))
     assert chunks and all("wav_chunk" in c for c in chunks)
+    # sharded (no mesh: nothing to shard), pad_batch and return_device in
+    # their places: each runs, and decodes what the default call decodes.
     for pos, name in ((4, "sharded"), (7, "pad_batch"), (11, "return_device")):
         args = [["hello world."], emb, 24, False, False, None, True, True, True, False, True, False]
         args[pos] = not args[pos]
-        with pytest.raises(NotImplementedError, match=name):
-            synth.synthesize(*args)
+        got = synth.synthesize(*args)
+        if name == "return_device":
+            assert isinstance(got, dict) and got["mel_post"].shape[1] == 24
+            assert int(got["mel_lengths"][0]) == out["mel_length"]
+            np.testing.assert_array_equal(got["mel_post"][0, :out["mel_length"]].numpy(),
+                                          out["mel"])
+        else:
+            assert got[0]["mel_length"] == out["mel_length"]
+            np.testing.assert_array_equal(got[0]["mel"], out["mel"])
 
 
 def _cfg(n_fft, hop):

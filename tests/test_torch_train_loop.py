@@ -14,8 +14,8 @@
   ``load_compact`` (and byte-equal to the JAX writer's), the JAX file read
   by the port;
 - ``python -m multi_speaker_tts_tpu_torch.train`` through ``main(argv)``
-  with ``-device cpu`` in both modes, and its refusal of the distributed
-  flags.
+  with ``-device cpu`` in both modes, and ``-distributed`` without a
+  process count (one process).
 """
 
 import json
@@ -225,5 +225,8 @@ def test_cli_trains_both_modes_on_the_cpu(corpus, tmp_path):
     # The frozen encoder is the pretrained one, grafted and never updated.
     for k, v in ge2e["params"]["encoder"].items():
         assert torch.equal(state["params"][f"ge2e.{k}"], v), k
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(common + ["-distributed"])
+    # -distributed alone (no process count) runs in this one process, as the
+    # JAX CLI does; the data-parallel runs are tests/test_torch_parallel.py's.
+    cli.main(common + ["-mode", "ge2e", "-checkpoint", str(tmp_path / "ge2e"), "-max_step", "3",
+                       "-distributed"])
+    assert CheckpointManager(tmp_path / "ge2e").steps() == [2, 3]
