@@ -90,6 +90,25 @@
    (j)'s export and corpus, on the card against ``-device cpu`` (finite
    metrics, kernel #2 launched by ``speaker_verification``, losses, EER and
    cosines within the stated tolerances).
+   A reference torch checkpoint (l): the port's reference torch model at
+   the checkpoint's own hp, filled from its arrays by the inverse mapping
+   (:func:`reference_models_from_tree`), saved reference-style, converted
+   (``convert_full_checkpoint``, ``export_compact``) and served
+   (``Synthesizer.from_compact``): params bit-equal; the four texts under
+   the default decode and ``bf16_pallas`` bit-equal to the checkpoint's own
+   (lengths, mel, linear, wav) with #1-#6 launched; ``python -m
+   multi_speaker_tts_tpu_torch.convert`` as a subprocess writing the same
+   params; the reference model's teacher-forced forward on the card against
+   the port's ``Tacotron`` in f32 within 1e-3 of each output's peak. The
+   same checkpoint as f32 (m): enrollment and fixed-length synthesis by the
+   reference's routing (the recurrences on the plain route, their three
+   dispatch lines printed; #1 and #4 launched, #2, #3 and #5 not) against
+   the port's CPU f32 synthesis under the same prenet masks (mel 1e-3), one
+   train step at B 8 against the CPU's (losses 1e-4, gradient norm 1e-3)
+   with no recurrence kernel launched, and each recurrence wrapper raising
+   on a direct f32 call. The tools (n): ``tools/stream_quality.py`` on
+   ``demo/serving_ckpt.msgpack`` and ``tools/profile_train.py`` on the
+   train step at (j)'s shapes.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -106,7 +125,11 @@
    the DFT matmul's beside it (``dft_bound_ms``), and ``fft_route_ms``
    times the port's FFT route (``dsp.melspectrogram``: ``torch.stft``,
    several calls) on the same clip, a real-FFT yardstick that no path of
-   the port calls on the card.
+   the port calls on the card. The mel kernel's DFT route (an n_fft that
+   is not a power of two) gets a row at 800 / 200 and one at 600 / 150:
+   ``dsp.melspectrogram_auto`` on the three demo wavs launches it three
+   times a width (counted), each call within 1e-4 of the plain version,
+   timed beside ``torch.stft`` and the basis product.
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -303,6 +326,64 @@ def _train_batch(hp, n: int, seed: int) -> dict:
     return collate_tts(pats, buckets.Token_Buckets[0], buckets.Mel_Buckets[0], hp.Sound.Mel_Dim,
                        int(hp.Decoder.N_Frames_Per_Step), hp.Speaker_Embedding.GE2E.Window_Length,
                        np.random.default_rng(seed), hp.Sound.Spectrogram_Dim)
+
+
+def reference_models_from_tree(params: dict, batch_stats: dict, hp):
+    """The port's reference torch models (``convert/reference_torch.py``)
+    filled from a JAX-layout tree, by ``convert/mapping.full_mapping`` read
+    backwards: Dense and Conv weights transposed back, an LSTM's one bias
+    all in ``bias_ih`` with ``bias_hh`` zero, a GRU's two biases as they are,
+    BatchNorm as its four tensors. -> (tacotron, ge2e), on the CPU. Every
+    mapped torch key is filled; only BatchNorm's ``num_batches_tracked``
+    stays as built. Converting a reference-style save of the result gives
+    the tree back bit for bit (f32 transposes and ``b + 0`` are exact)."""
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.convert import state_dict as sd
+    from multi_speaker_tts_tpu_torch.convert.mapping import full_mapping
+    from multi_speaker_tts_tpu_torch.convert.reference_torch import (
+        build_reference_ge2e, build_reference_tacotron,
+    )
+
+    def leaf(tree, path):
+        for k in path.split("/"):
+            tree = tree[k]
+        return tree
+
+    def inverse(converter, p, stats):
+        if converter is sd.convert_dense:
+            return [p["kernel"].T] + ([p["bias"]] if "bias" in p else [])
+        if converter is sd.convert_conv1d:
+            return [np.transpose(p["kernel"], (2, 1, 0))] + ([p["bias"]] if "bias" in p else [])
+        if converter is sd.convert_lstm:
+            return [p["w_ih"].T, p["w_hh"].T, p["b"], np.zeros_like(p["b"])]
+        if converter is sd.convert_gru:
+            return [p["w_ih"].T, p["w_hh"].T, p["b_ih"], p["b_hh"]]
+        if converter is sd.convert_batchnorm:
+            return [p["scale"], p["bias"], stats["mean"], stats["var"]]
+        if converter is sd.convert_embedding:
+            return [p["embedding"]]
+        raise ValueError(f"no inverse for {converter.__name__}")
+
+    state = {}
+    for path, (converter, keys) in full_mapping(hp).items():
+        stats = leaf(batch_stats, path) if converter is sd.convert_batchnorm else None
+        values = inverse(converter, leaf(params, path), stats)
+        if len(values) != len(keys):
+            raise ValueError(f"{path}: {len(values)} arrays for torch keys {keys}")
+        state.update({k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                      for k, v in zip(keys, values)})
+    taco, ge2e = build_reference_tacotron(hp), build_reference_ge2e(hp)
+    for model, prefix in ((taco, ""), (ge2e, "ge2e.")):
+        own = {k[len(prefix):]: v for k, v in state.items()
+               if k.startswith(prefix) and (prefix or not k.startswith("ge2e."))}
+        missing, unexpected = model.load_state_dict(own, strict=False)
+        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+        if missing or unexpected:
+            raise ValueError(f"{prefix or 'tacotron'}: missing {missing[:5]}, "
+                             f"unexpected {unexpected[:5]}")
+    return taco.eval(), ge2e.eval()
 
 
 def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict,
@@ -793,6 +874,354 @@ def evaluate_pass(export: pathlib.Path, patterns: str, kernels) -> list[str]:
     return fails
 
 
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    fa, fb = _flat_tree(a), _flat_tree(b)
+    return fa.keys() == fb.keys() and all(
+        np.asarray(fa[k]).dtype == np.asarray(fb[k]).dtype and np.array_equal(fa[k], fb[k])
+        for k in fa)
+
+
+class _Tee:
+    """stdout, with every line written also kept (``lines``)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def convert_pass(params, batch_stats, meta, hp, wavs, kernels, work: pathlib.Path) -> list[str]:
+    """Pass (l): a reference torch checkpoint, converted and served on the
+    card. The port's reference torch model (``convert/reference_torch.py``)
+    at the checkpoint's own hp, filled from its arrays by the inverse mapping
+    (:func:`reference_models_from_tree`) and saved reference-style
+    (``torch.save({"Model", "Steps"})``), is converted with
+    ``convert_full_checkpoint`` and ``export_compact`` under that hp and
+    loaded with ``Synthesizer.from_compact``. Gates: (1) the converted
+    params bit-equal to the checkpoint's; (2) the four texts under the
+    default decode and ``bf16_pallas`` decode the checkpoint's own mel
+    lengths with mel, linear and wav bit-equal, the converted synthesizer
+    launching #1, #2, #3, #5, #4 (and #6 under ``bf16_pallas``); (3) ``python
+    -m multi_speaker_tts_tpu_torch.convert`` as a subprocess (default hp, the
+    same widths) writes the API's params; (4) the reference model's
+    teacher-forced forward on the card against the port's ``Tacotron`` of the
+    converted weights in f32, prenet dropout 0 on both sides, 8 rows of the
+    train batch: every output within 1e-3 of its peak (TF32 off). Returns
+    the failures."""
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.convert.mapping import convert_full_checkpoint
+    from multi_speaker_tts_tpu_torch.convert.reference_torch import (
+        build_reference_ge2e, build_reference_tacotron, save_reference_checkpoint,
+    )
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.tools.torch_parity import converted_models
+    from multi_speaker_tts_tpu_torch.train.checkpoints import export_compact
+
+    fails = []
+    t0 = time.perf_counter()
+    taco_ref, ge2e_ref = reference_models_from_tree(params, batch_stats, hp)
+    n_params = sum(t.numel() for m in (taco_ref, ge2e_ref) for t in m.parameters())
+    steps = int(meta.get("trained_steps", 0))
+    src = work / f"S_{steps}.pt"
+    save_reference_checkpoint(str(src), tacotron=taco_ref, ge2e=ge2e_ref, steps=steps)
+    tree = convert_full_checkpoint(str(src), hp)
+    dst = work / "converted.msgpack"
+    export_compact(dst, tree["params"], tree["batch_stats"],
+                   meta={"hp": hp.to_dict(), "source": str(src), "trained_steps": tree["step"]})
+    p_conv, b_conv, meta_conv = load_compact(dst)
+    gate1 = (_trees_equal(tree["params"], params) and _trees_equal(tree["batch_stats"], batch_stats)
+             and _trees_equal(p_conv, params) and _trees_equal(b_conv, batch_stats))
+    print(f"[l convert] reference torch model {n_params / 1e6:.2f}M params, saved "
+          f"({src.stat().st_size / 1e6:.1f} MB), converted and exported "
+          f"({dst.stat().st_size / 1e6:.1f} MB, step {meta_conv.get('trained_steps')}) in "
+          f"{time.perf_counter() - t0:.1f} s; params and batch_stats bit-equal to the "
+          f"checkpoint's: {gate1}")
+    if not gate1:
+        fails.append("[l convert] converted params differ from the checkpoint's")
+
+    want = ("mel_frontend", "ge2e_lstm_layer", "text_encoder_bilstm", "cbhg_bigru",
+            "griffin_lim_staged")
+    for quantize in (None, "bf16_pallas"):
+        label = quantize or "default"
+        conv = Synthesizer.from_compact(str(dst), seed=0, quantize=quantize)
+        orig = Synthesizer(hp, params, batch_stats, seed=0, quantize=quantize)
+        for k in kernels.values():
+            k.launches = 0
+        out_c = conv.synthesize(TEXTS, conv.enroll(wavs), pcm16=True)
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in kernels.items()}
+        out_o = orig.synthesize(TEXTS, orig.enroll(wavs), pcm16=True)
+        lens_c, lens_o = ([o["mel_length"] for o in out] for out in (out_c, out_o))
+        equal = {key: all(np.array_equal(a[key], b[key]) for a, b in zip(out_c, out_o))
+                 for key in ("mel", "linear", "wav")}
+        need = want + (("decode_segment_bf16",) if quantize else ())
+        print(f"[l convert] {label}: mel_lengths {lens_c} (the checkpoint's {lens_o}); "
+              f"bit-equal {equal}; launches " + json.dumps({n: counts[n] for n in need}))
+        if lens_c != lens_o or not all(equal.values()):
+            fails.append(f"[l convert] {label}: lengths {lens_c} vs {lens_o}, equal {equal}")
+        missing = [n for n in need if counts[n] == 0]
+        if missing:
+            fails.append(f"[l convert] {label}: kernels not launched: {missing}")
+        del conv, orig
+
+    cli_out = work / "converted_cli.msgpack"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "multi_speaker_tts_tpu_torch.convert", "-in", str(src),
+         "-out", str(cli_out)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True,
+        timeout=600)
+    cli_ok = res.returncode == 0 and cli_out.exists()
+    cli_equal = cli_ok and _trees_equal(load_compact(cli_out)[0], p_conv)
+    print(f"[l convert] CLI (default hp) in {time.perf_counter() - t0:.1f} s: rc "
+          f"{res.returncode}, {res.stdout.strip()[-120:]!r}; params equal to the API's: "
+          f"{cli_equal}")
+    if not cli_equal:
+        fails.append(f"[l convert] CLI: rc {res.returncode}, equal {cli_equal}: "
+                     f"{res.stderr[-400:]}")
+
+    hp32 = hp.replace(Train={"Use_Mixed_Precision": False},
+                      Decoder={"Prenet": {"Dropout_Rate": 0.0}})
+    taco_t, ge2e_t = build_reference_tacotron(hp32), build_reference_ge2e(hp32)
+    taco_t.load_state_dict(taco_ref.state_dict())
+    ge2e_t.load_state_dict(ge2e_ref.state_dict())
+    taco_t, ge2e_t = taco_t.cuda().eval(), ge2e_t.cuda().eval()
+    for m in (*taco_t.modules(), *ge2e_t.modules()):
+        if isinstance(m, torch.nn.RNNBase):
+            m.flatten_parameters()  # one cuDNN weight buffer, as loaded weights are not
+    taco_p, ge2e_p = converted_models(tree, hp32, torch.device("cuda"))
+    batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+             for k, v in _train_batch(hp, 8, seed=0).items()}
+    args = (batch["tokens"].long(), batch["token_lengths"].long(), batch["mels"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        spk_t, spk_p = ge2e_t(batch["ref_mels"]), ge2e_p(batch["ref_mels"])
+        out_t = taco_t(*args, spk_t)
+        out_p = taco_p(*args, spk_p)
+    torch.cuda.synchronize()
+    errs = {k: ((out_p[k] - out_t[k]).abs().max() / out_t[k].abs().max()).item()
+            for k in ("mel_pre", "mel_post", "stop_logits", "alignments", "linear")}
+    errs["speaker_embedding"] = ((spk_p - spk_t).abs().max() / spk_t.abs().max()).item()
+    print(f"[l convert] teacher-forced forward, reference torch model against the port's "
+          f"Tacotron (f32, prenet dropout 0, B 8, mels {tuple(batch['mels'].shape)}; "
+          f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}) "
+          f"in {time.perf_counter() - t0:.1f} s: max |port - torch| / max |torch| "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}) + " (tolerance 1e-3)")
+    if not all(v <= 1e-3 for v in errs.values()):
+        fails.append(f"[l convert] forward parity: {errs}")
+    return fails
+
+
+def f32_pass(params, batch_stats, hp, wavs, kernels) -> list[str]:
+    """Pass (m): the same checkpoint as f32 (``Train.Use_Mixed_Precision:
+    false``, the same arrays) on the card, by the reference's routing: the
+    recurrences on the plain route (the three dispatchers print their
+    ``[dispatch] ... -> plain`` lines), the mel front-end and Griffin-Lim
+    on their kernels. Enroll and synthesize the four texts with the
+    fixed-length decode, the prenet masks drawn on the CPU for both devices:
+    lengths equal and mel within 1e-3 of the port's CPU f32 synthesis (on
+    the card's embedding; the CPU does not vocode), wavs finite; #1 and #4
+    launched, #2, #3, #5 not. ``bf16_pallas`` on the f32 checkpoint runs
+    (#6 launched, the recurrences plain). One train step at B 8, f32, dropout 0, GE2E
+    trainable, against the CPU's: losses within 1e-4 relative, the
+    gradient norm within 1e-3; no recurrence kernel launched, forward,
+    residual or backward. Each kernel wrapper called directly on f32 CUDA
+    inputs raises. Returns the failures."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer, prenet_mask_sampler
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+    from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    fails = []
+    hp32 = hp.replace(Train={"Use_Mixed_Precision": False})
+    recurrences = ("ge2e_lstm_layer", "text_encoder_bilstm", "cbhg_bigru")
+    train_kernels = ("ge2e_lstm_layer_residuals", "ge2e_lstm_bwd",
+                     "text_encoder_bilstm_residuals", "text_encoder_bilstm_bwd",
+                     "cbhg_bigru_residuals", "cbhg_bigru_bwd")
+
+    def cpu_masks(synth):
+        synth._prenet_masks = lambda batch: prenet_mask_sampler(
+            synth.hp, torch.device("cpu"), synth.seed, batch)
+        return synth
+
+    card = cpu_masks(Synthesizer(hp32, params, batch_stats, seed=0))
+    for op in ("ge2e_lstm", "bilstm", "bigru"):
+        dsp._DISPATCH_LOGGED.discard((op, "plain"))
+    for k in kernels.values():
+        k.launches = 0
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        emb = card.enroll(wavs)
+        out_card = card.synthesize(TEXTS, emb, early_exit=False)
+        torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    lines = [ln.strip() for ln in "".join(tee.lines).splitlines() if "-> plain" in ln]
+    t0 = time.perf_counter()
+    cpu = cpu_masks(Synthesizer(hp32, params, batch_stats, seed=0, device="cpu"))
+    out_cpu = cpu.synthesize(TEXTS, emb, early_exit=False, vocode=False)
+    t_cpu = time.perf_counter() - t0
+    emb_cpu = Synthesizer(hp32, params, batch_stats, seed=0, device="cpu").enroll(wavs)
+    cos = float((emb * emb_cpu).sum())
+    lens = [o["mel_length"] for o in out_card]
+    lens_cpu = [o["mel_length"] for o in out_cpu]
+    mel_err = max(float(np.abs(a["mel"] - b["mel"]).max()) for a, b in zip(out_card, out_cpu))
+    finite = all(np.isfinite(o["wav"]).all() and o["wav"].size > 0 for o in out_card)
+    shown = {n: counts[n] for n in ("mel_frontend", *recurrences, "griffin_lim_staged")}
+    print(f"[m f32] dispatch lines {lines}; launches " + json.dumps(shown)
+          + f"; fixed-length decode, bucket {card.last_decode_bucket}, mel_lengths {lens} "
+          f"(CPU {lens_cpu}); mel max |card - CPU| {mel_err:.3e} (tolerance 1e-3); wavs finite "
+          f"{finite}; embedding cosine to the CPU's {cos:.7f}; card {t_card * 1e3:.1f} ms "
+          f"(enroll + synthesize + vocode), CPU synthesize {t_cpu:.1f} s")
+    if len(lines) != 3:
+        fails.append(f"[m f32] dispatch lines: {lines}")
+    if not (counts["mel_frontend"] and counts["griffin_lim_staged"]) or any(
+            counts[n] for n in recurrences):
+        fails.append(f"[m f32] launches {shown}")
+    if lens != lens_cpu or not mel_err <= 1e-3 or not finite or not cos >= 0.999:
+        fails.append(f"[m f32] synthesis: lengths {lens} vs {lens_cpu}, mel {mel_err}, "
+                     f"finite {finite}, cosine {cos}")
+    del card, cpu
+
+    # bf16_pallas on the f32 checkpoint: the decode kernel with the gates in
+    # bf16, as the JAX package allows (ADVICE.md items 1 and 3); the
+    # recurrences stay on the plain route.
+    synth_b = Synthesizer(hp32, params, batch_stats, seed=0, quantize="bf16_pallas")
+    for k in kernels.values():
+        k.launches = 0
+    out_b = synth_b.synthesize(TEXTS, emb)
+    torch.cuda.synchronize()
+    counts = {n: kernels[n].launches for n in ("decode_segment_bf16", *recurrences)}
+    finite_b = all(np.isfinite(o["wav"]).all() and o["mel_length"] > 0 for o in out_b)
+    print(f"[m f32] bf16_pallas on the f32 checkpoint: runs, mel_lengths "
+          f"{[o['mel_length'] for o in out_b]}, wavs finite {finite_b}; launches {counts}")
+    if not counts["decode_segment_bf16"] or any(counts[n] for n in recurrences) or not finite_b:
+        fails.append(f"[m f32] bf16_pallas: launches {counts}, finite {finite_b}")
+    del synth_b
+
+    no_dropout = dict(Decoder={"Prenet": {"Dropout_Rate": 0.0}},
+                      Encoder={"Conv": {"Dropout_Rate": 0.0}},
+                      Postnet={"Conv": {"Dropout_Rate": 0.0}},
+                      Linear_Head={"Conv": {"Dropout_Rate": 0.0}},
+                      Speaker_Embedding={"GE2E": {"Freeze": False}})
+    hp_t = hp32.replace(**no_dropout)
+    batch = _train_batch(hp, 8, seed=0)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    on_card = Trainer.from_params(hp_t, params, batch_stats, seed=0).train_step(batch)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    counts = {n: kernels[n].launches for n in (*recurrences, *train_kernels)}
+    on_cpu = Trainer.from_params(hp_t, params, batch_stats, device="cpu", seed=0).train_step(batch)
+    errs = {k: abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-12)
+            for k in on_cpu if k != "skipped_nonfinite"}
+    print(f"[m f32] train step B 8 (f32, dropout 0, GE2E trainable) in {t_step * 1e3:.1f} ms "
+          f"(first step, with its set-up): grad_norm {on_card['grad_norm']:.4f} vs CPU "
+          f"{on_cpu['grad_norm']:.4f}; relative errors "
+          + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()})
+          + f" (tolerance 1e-4 each loss, 1e-3 grad_norm); recurrence launches {counts}")
+    for k, v in errs.items():
+        if not v <= (1e-3 if k == "grad_norm" else 1e-4):
+            fails.append(f"[m f32] train step {k}: card {on_card[k]} vs CPU {on_cpu[k]}")
+    if any(counts.values()) or on_card["skipped_nonfinite"]:
+        fails.append(f"[m f32] train step: launches {counts}, metrics {on_card}")
+
+    T, B, H = 5, 2, 128
+    z = lambda *s: torch.zeros(s, device="cuda")  # noqa: E731
+    p = LSTMParams(z(H, 4 * H), z(H, 4 * H), z(4 * H))
+    g = GRUParams(z(H, 3 * H), z(H, 3 * H), z(3 * H), z(3 * H))
+    f32 = torch.float32
+    direct = {
+        "lstm_seq_layer_fwd": lambda: lstm_kernel.lstm_seq_layer_fwd(p, z(T, B, H), f32),
+        "lstm_seq_layer_bwd": lambda: lstm_kernel.lstm_seq_layer_bwd(
+            p.w_hh, z(T, B, 4 * H), z(T, B, H), None, z(T, B, H), f32),
+        "bilstm_recurrence": lambda: birnn_kernel.bilstm_recurrence(
+            z(T, B, 4 * H), z(T, B, 4 * H), p.w_hh, p.w_hh, f32),
+        "bilstm_bwd": lambda: birnn_kernel.bilstm_bwd(
+            *[z(T, B, n) for n in (4 * H, H, 4 * H, H)], p.w_hh, p.w_hh, z(T, B, H),
+            z(T, B, H), f32),
+        "bigru_recurrence": lambda: birnn_kernel.bigru_recurrence(
+            z(T, B, 3 * H), z(T, B, 3 * H), g, g, f32),
+        "bigru_bwd": lambda: birnn_kernel.bigru_bwd(
+            *[z(T, B, n) for n in (3 * H, 3 * H, H)] * 2, g.w_hh, g.w_hh, z(T, B, H),
+            z(T, B, H), f32),
+    }
+    raised = {}
+    for name, call in direct.items():
+        try:
+            call()
+            raised[name] = "returned"
+        except NotImplementedError:
+            raised[name] = "raised"
+    print(f"[m f32] the kernel wrappers called directly on f32 CUDA inputs: {raised}")
+    if any(v != "raised" for v in raised.values()):
+        fails.append(f"[m f32] direct f32 calls: {raised}")
+    return fails
+
+
+def tools_pass() -> list[str]:
+    """Pass (n): the port's ``tools/stream_quality.py`` on the small Conv-head
+    checkpoint (its three numbers) and ``tools/profile_train.py`` on the
+    train step at pass (j)'s shapes (its per-category table), each through
+    ``main(argv)`` on the card. Gates: finite numbers; the decoder scan's
+    forward and backward each timed once a step. Returns the failures."""
+    import math
+
+    from multi_speaker_tts_tpu_torch.tools import profile_train, stream_quality
+
+    fails = []
+    t0 = time.perf_counter()
+    sq = stream_quality.main(["-ckpt", str(ROOT / "demo" / "serving_ckpt.msgpack")])
+    keys = ("wav_mel_l1_batch", "wav_mel_l1_stream_crossfade", "wav_mel_l1_stream_warmstart")
+    print(f"[n stream_quality] {time.perf_counter() - t0:.1f} s on {sq['device']}: "
+          + json.dumps({k: sq[k] for k in keys}))
+    if sq["device"] != "cuda" or not all(math.isfinite(sq[k]) and sq[k] > 0 for k in keys):
+        fails.append(f"[n stream_quality] {sq}")
+    t0 = time.perf_counter()
+    pt = profile_train.main(["-steps", "2"])
+    sh = pt["scan_host_ms"]
+    print(f"[n profile_train] {time.perf_counter() - t0:.1f} s: step {pt['step_ms']:.2f} ms "
+          f"(CUDA events), wall {pt['step_wall_ms']:.2f} ms; decoder scan host ms forward "
+          f"{sh['forward']:.2f}, backward {sh['backward']:.2f} "
+          f"({100 * sh['share_of_step_wall']:.1f}% of the wall); device busy "
+          f"{pt['device_busy_ms_per_step']} ms a step, {pt['device_ops_per_step']} device ops "
+          f"(the profiler's; CUPTI does not see the card in every environment)")
+    if (pt["device"] != "cuda" or not math.isfinite(pt["step_ms"])
+            or sh["calls_per_step"] != {"forward": 1.0, "backward": 1.0}):
+        fails.append(f"[n profile_train] {pt}")
+    return fails
+
+
 def main() -> int:
     import numpy as np
 
@@ -822,6 +1251,9 @@ def main() -> int:
 
     kernels = {
         "mel_frontend": mel_kernel.KERNEL,
+        # Its DFT route (an n_fft that is not a power of two): the new mel
+        # rows of the kernel phase.
+        "mel_frontend_dft": mel_kernel.DFT_KERNEL,
         "ge2e_lstm_layer": lstm_kernel.KERNEL,
         "text_encoder_bilstm": birnn_kernel.KERNEL,
         "cbhg_bigru": birnn_kernel.GRU_KERNEL,
@@ -1751,6 +2183,15 @@ def main() -> int:
         failures.extend(evaluate_pass(work / "export.msgpack", str(work / "corpus" / "patterns"),
                                       kernels))
         print(f"[k] pass (k) took {time.perf_counter() - t_k:.1f} s")
+        # (l) a reference torch checkpoint converted and served, (m) the same
+        # checkpoint as f32, (n) the tools.
+        for label, run in (("l", lambda: convert_pass(params, batch_stats, meta, hp, wavs,
+                                                      kernels, work)),
+                           ("m", lambda: f32_pass(params, batch_stats, hp, wavs, kernels)),
+                           ("n", tools_pass)):
+            t_p = time.perf_counter()
+            failures.extend(run())
+            print(f"[{label}] pass ({label}) took {time.perf_counter() - t_p:.1f} s")
 
     # 3. Kernel phase --------------------------------------------------------
     rows = []
@@ -1874,6 +2315,71 @@ def main() -> int:
                              "(torch.stft), timed only"},
         queue_ahead=True,  # a call's host dispatch outlasts the kernel
     )
+
+    # Mel front-end, the DFT route (an n_fft that is not a power of two): the
+    # three demo wavs (zero-padded to a multiple of hop) through
+    # dsp.melspectrogram_auto at n_fft / hop 800 / 200 and 600 / 150, the JAX
+    # rule's fused route (the wrapper raised there before this route),
+    # counts zeroed just before each width's three calls and read just after:
+    # three DFT launches, no FFT launch. One row a width, timed on the first
+    # wav's padded signal, its error the worst of the three. The bound is the
+    # FFT row's least work at this N; dft_bound_ms the DFT's own operations
+    # (2 N F FMAs a frame) and its table; library_ms torch.stft and the basis
+    # product, timed only.
+    import dataclasses
+
+    for n_fft_d, hop_d in ((800, 200), (600, 150)):
+        name = f"mel_frontend_dft_{n_fft_d}"
+        cfg_d = dataclasses.replace(cfg, n_fft=n_fft_d, hop=hop_d)
+        recorded["mel_frontend"].clear()
+        mel_kernel.KERNEL.launches = mel_kernel.DFT_KERNEL.launches = 0
+        for w in wavs:
+            w_pad = np.pad(w, (0, -len(w) % hop_d)).astype(np.float32)
+            dsp.melspectrogram_auto(torch.from_numpy(w_pad).cuda()[None], cfg_d)
+        torch.cuda.synchronize()
+        launches[name] = mel_kernel.DFT_KERNEL.launches
+        print(f"[{name}] dsp.melspectrogram_auto at n_fft {n_fft_d} / hop {hop_d} on the "
+              f"{len(wavs)} demo wavs: DFT route launches {mel_kernel.DFT_KERNEL.launches}, FFT "
+              f"route launches {mel_kernel.KERNEL.launches}")
+        if mel_kernel.DFT_KERNEL.launches != len(wavs) or mel_kernel.KERNEL.launches:
+            failures.append(f"[{name}] launches: DFT {mel_kernel.DFT_KERNEL.launches}, FFT "
+                            f"{mel_kernel.KERNEL.launches} for {len(wavs)} wavs")
+        cases = [c[0] for c in recorded["mel_frontend"]]
+        (y_d, T_d, c_d), others = cases[0], cases[1:]
+        B_d, Lp_d = y_d.shape
+        F_d = n_fft_d // 2 + 1
+        nnz_d = int(np.count_nonzero(mel_kernel.mel_filterbank(
+            cfg.sample_rate, n_fft_d, cfg.n_mels, cfg.f_min, cfg.f_max)))
+        win_d = torch.from_numpy(dsp.hann_window(n_fft_d)).cuda()
+        basis_d = mel_kernel._device_operands(c_d, y_d.device)[1]
+        check(
+            name, "multi_speaker_tts_tpu/ops/mel_kernel.py:151",
+            "multi_speaker_tts_tpu_torch/csrc/mel.cu",
+            lambda y=y_d, t=T_d, c=c_d: mel_kernel.melspectrogram_kernel.original(y, t, c),
+            lambda y=y_d, t=T_d, c=c_d: mel_kernel.melspectrogram_plain(y, t, c),
+            max_abs, 1e-4,
+            _bound_ms(4 * (B_d * Lp_d + nnz_d + B_d * T_d * cfg.n_mels),
+                      B_d * T_d * (n_fft_d + 5 * (n_fft_d // 2) * math.log2(n_fft_d // 2)
+                                   + 10 * (n_fft_d // 2) + 3 * F_d + 2 * nnz_d),
+                      F32_FLOPS),
+            library_fn={"stft+basis": lambda y=y_d, h=hop_d, n=n_fft_d, w=win_d, b=basis_d: (
+                torch.stft(y, n, h, window=w, center=False, return_complex=True).abs()
+                .transpose(-1, -2) @ b)},
+            also=[(lambda y=y, t=t, c=c: mel_kernel.melspectrogram_kernel.original(y, t, c),
+                   lambda y=y, t=t, c=c: mel_kernel.melspectrogram_plain(y, t, c))
+                  for y, t, c in others],
+            extra={"shape": [B_d, T_d, n_fft_d, hop_d],
+                   "shapes_checked": [list(c[0].shape) + [c[1]] for c in cases],
+                   "dft_bound_ms": _bound_ms(
+                       4 * (B_d * Lp_d + 2 * n_fft_d + nnz_d + B_d * T_d * cfg.n_mels),
+                       B_d * T_d * (n_fft_d + 4 * n_fft_d * F_d + 3 * F_d + 2 * nnz_d),
+                       F32_FLOPS)[0],
+                   "bound_note": "real-FFT work a frame at this N, as the FFT row's; "
+                                 "dft_bound_ms: the direct DFT's 2 N F FMAs a frame and its "
+                                 "(N, 2) table; library: torch.stft + the basis product, "
+                                 "timed only"},
+            queue_ahead=True,
+        )
 
     # GE2E LSTM layer, timed at the 768-wide layers' shape (layer 1 of the
     # stack); its error also covers layer 0's (D = mel bins) shape.

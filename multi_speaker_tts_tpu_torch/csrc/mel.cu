@@ -1,5 +1,6 @@
-// Fused mel front-end: padded waveform -> normalized log-mel, one in-block
-// FFT a frame.
+// Fused mel front-end: padded waveform -> normalized log-mel, one block a
+// frame: an in-block FFT for an n_fft that is a power of two, a direct DFT
+// (mel_dft_kernel, below) for any other.
 //
 // Replaces multi_speaker_tts_tpu/ops/mel_kernel.py::melspectrogram_pallas
 // (kernel body _mel_kernel). Same function: frames read straight from the
@@ -36,8 +37,9 @@
 //   the log, the normalisation and a coalesced store.
 // One launch a call, no atomics: two launches on one input are bit-equal.
 //
-// Shapes: n_fft a power of two from 256 to 4096 and hop dividing it (the
-// wrapper's mel_shape_reason refuses anything else before launch).
+// Shapes: n_fft from 256 to 4096 and hop dividing it, a power of two for the
+// FFT route (the wrapper's mel_shape_reason refuses anything else before
+// launch; it picks the route).
 #include "common.cuh"
 
 namespace {
@@ -46,6 +48,24 @@ constexpr int kThreads = 256;
 
 // One padding element every 16: float2 index p at p + p / 16.
 __device__ __forceinline__ int padded(int p) { return p + (p >> 4); }
+
+// The frame's mel bands from its bin magnitudes in shared memory: a thread
+// per band sums the band's nonzero bins [lo, hi) in a fixed order, then the
+// log, the normalisation and a coalesced store of frame blockIdx.x.
+__device__ __forceinline__ void band_tail(const float* mag, const int* __restrict__ bands,
+                                          const float* __restrict__ weights,
+                                          float* __restrict__ out, int M, float ref_db,
+                                          float min_db) {
+  float* o = out + (size_t)blockIdx.x * M;  // frame (b, t) of (B, T, M)
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    const int lo = __ldg(bands + 3 * m), hi = __ldg(bands + 3 * m + 1);
+    const float* wm = weights + __ldg(bands + 3 * m + 2);
+    float acc = 0.0f;
+    for (int k = lo; k < hi; ++k) acc = fmaf(mag[k], __ldg(wm + (k - lo)), acc);
+    const float db = 20.0f * log10f(fmaxf(acc, 1e-5f)) - ref_db;
+    o[m] = fminf(fmaxf((db - min_db) / (-min_db), 0.0f), 1.0f);
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
@@ -115,15 +135,56 @@ mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
   }
   __syncthreads();
 
-  float* o = out + (size_t)blockIdx.x * M;  // frame (b, t) of (B, T, M)
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    const int lo = __ldg(bands + 3 * m), hi = __ldg(bands + 3 * m + 1);
-    const float* wm = weights + __ldg(bands + 3 * m + 2);
-    float acc = 0.0f;
-    for (int k = lo; k < hi; ++k) acc = fmaf(mag[k], __ldg(wm + (k - lo)), acc);
-    const float db = 20.0f * log10f(fmaxf(acc, 1e-5f)) - ref_db;
-    o[m] = fminf(fmaxf((db - min_db) / (-min_db), 0.0f), 1.0f);
+  band_tail(mag, bands, weights, out, M, ref_db, min_db);
+}
+
+
+// The route for an n_fft that is not a power of two: a direct real DFT, one
+// block a frame. The windowed frame and the table W[m] = (cos, -sin)(2 pi m /
+// N), m < N (computed in f64 by the wrapper; 6.4 KB at N = 800, 32 KB at
+// 4096), sit in shared memory; a thread a bin k <= N/2 sums x[n] W[(n k) mod
+// N] over n in f32 FMAs, its table index stepped by k and wrapped exactly in
+// integers (no phase accumulated across n). 2 N (N/2 + 1) FMAs a frame,
+// 0.64 M at N = 800: shared-memory traffic and latency bound it, not the
+// arithmetic. The bands' tail is the FFT route's.
+__global__ void __launch_bounds__(kThreads)
+mel_dft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
+               const float* __restrict__ window,   // (n_fft)
+               const float2* __restrict__ table,   // (n_fft): (cos, -sin)(2 pi m / n_fft)
+               const int* __restrict__ bands,      // (M, 3): lo, hi, offset into weights
+               const float* __restrict__ weights,  // the bands' basis values, packed
+               float* __restrict__ out,            // (B, T, M)
+               int T, int Lp, int n_fft, int hop, int M, float ref_db, float min_db) {
+  extern __shared__ __align__(16) float2 smem2[];
+  const int N = n_fft, F = n_fft / 2 + 1;
+  float2* tab = smem2;                               // [N]
+  float* xw = reinterpret_cast<float*>(tab + N);     // [N]
+  float* mag = xw + N;                               // [F]
+  const int b = blockIdx.x / T, t = blockIdx.x - b * T;
+  const float* x = y_pad + (size_t)b * Lp + (size_t)t * hop;
+
+  for (int m = threadIdx.x; m < N; m += kThreads) {
+    tab[m] = __ldg(table + m);
+    xw[m] = __ldg(x + m) * __ldg(window + m);
   }
+  __syncthreads();
+
+  for (int k = threadIdx.x; k < F; k += kThreads) {
+    float re = 0.0f, im = 0.0f;
+    int idx = 0;  // (n k) mod N
+    for (int n = 0; n < N; ++n) {
+      const float v = xw[n];
+      const float2 w = tab[idx];
+      re = fmaf(v, w.x, re);
+      im = fmaf(v, w.y, im);
+      idx += k;
+      if (idx >= N) idx -= N;
+    }
+    mag[k] = sqrtf(re * re + im * im);
+  }
+  __syncthreads();
+
+  band_tail(mag, bands, weights, out, M, ref_db, min_db);
 }
 
 }  // namespace
@@ -146,6 +207,26 @@ MSTTS_EXPORT int mstts_mel_frontend(const void* y_pad, const void* window, const
       static_cast<const float*>(y_pad), static_cast<const float*>(window),
       static_cast<const float2*>(tw), static_cast<const int*>(bands),
       static_cast<const float*>(weights), static_cast<float*>(out), T, Lp, log2n, hop, M, ref_db,
+      min_db);
+  MSTTS_RETURN_LAUNCH_ERROR();
+}
+
+MSTTS_EXPORT int mstts_mel_dft(const void* y_pad, const void* window, const void* table,
+                               const void* bands, const void* weights, void* out, int B, int T,
+                               int Lp, int n_fft, int hop, int M, float ref_db, float min_db,
+                               void* stream) {
+  if (n_fft < 256 || n_fft > 4096 || hop < 1 || n_fft % hop || B < 1 || T < 1 || M < 1 ||
+      Lp < (T - 1) * hop + n_fft)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (sizeof(float2) + sizeof(float)) * (size_t)n_fft +
+                      sizeof(float) * (n_fft / 2 + 1);
+  if (smem > 48 * 1024)
+    MSTTS_CHECK(cudaFuncSetAttribute(mel_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem));
+  mel_dft_kernel<<<B * T, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y_pad), static_cast<const float*>(window),
+      static_cast<const float2*>(table), static_cast<const int*>(bands),
+      static_cast<const float*>(weights), static_cast<float*>(out), T, Lp, n_fft, hop, M, ref_db,
       min_db);
   MSTTS_RETURN_LAUNCH_ERROR();
 }

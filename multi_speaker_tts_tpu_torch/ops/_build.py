@@ -27,6 +27,8 @@ import threading
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from multi_speaker_tts_tpu_torch.audio.dsp import log_dispatch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_kernels_build"
 NVCC_FLAGS = (
@@ -143,6 +145,28 @@ def packed(make, *weights):
     if hit is None or hit[0] != stamp:
         hit = per_make[make] = (stamp, make(*(w.detach() for w in weights)))
     return hit[1]
+
+
+def supported(compute_dtype) -> bool:
+    """The dtype half of the JAX package's capability checks
+    (``lstm_pallas.supported``, ``birnn_pallas.supported``): the recurrence
+    kernels compute in bf16 only."""
+    return compute_dtype == torch.bfloat16
+
+
+def plain_route(op: str, x, compute_dtype) -> bool:
+    """Whether a recurrence dispatcher (``lstm_stack_seq``, ``bilstm``,
+    ``bigru``) takes the reference's plain route: a compute dtype the
+    kernels do not take (:func:`supported`; an f32 checkpoint) runs the plain
+    recurrences, the port's counterparts of the XLA scans the reference runs
+    then, printing one ``[dispatch]`` line a process on the card. The kernel
+    wrappers themselves keep raising on such a dtype."""
+    if supported(compute_dtype):
+        return False
+    if x.is_cuda:
+        log_dispatch(op, "plain", f"compute dtype {compute_dtype}: the kernels compute in "
+                                  "bf16 only")
+    return True
 
 
 def stream_ptr(tensor) -> int:

@@ -33,7 +33,10 @@ Under autograd the layers run through :class:`_BiLSTM` and :class:`_BiGRU`
 recurrence in its residual mode, and in the backward the reverse kernel
 plus whole-sequence products for dW_ih, dW_hh, the biases and dx. The
 ``*_plain`` functions are the same recurrences in plain torch: the CPU
-path and the card's yardstick.
+path and the card's yardstick. A compute dtype the kernels do not take
+(an f32 checkpoint) goes, in :func:`bilstm` and :func:`bigru`, to the
+reference's own route: ``bilstm_fused`` / ``bigru_fused`` in plain torch,
+on the tensors' device, under autograd where a gradient is needed.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from multi_speaker_tts_tpu_torch.ops import gru as gru_ops
 from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
 from multi_speaker_tts_tpu_torch.ops.lstm import (
     LSTMParams,
+    bilstm_fused,
     input_gates,
     recurrence,
     recurrence_bwd,
@@ -234,7 +238,11 @@ class _BiLSTM(torch.autograd.Function):
 def bilstm(fwd: LSTMParams, bwd: LSTMParams, x: torch.Tensor,
            compute_dtype=torch.bfloat16) -> torch.Tensor:
     """(B, T, D) -> (B, T, 2H) f32, both directions concatenated. Under
-    autograd through :class:`_BiLSTM`, otherwise the inference kernel."""
+    autograd through :class:`_BiLSTM`, otherwise the inference kernel; an
+    f32 compute dtype runs :func:`..lstm.bilstm_fused`, as
+    ``bilstm_pallas`` does."""
+    if _build.plain_route("bilstm", x, compute_dtype):
+        return bilstm_fused(fwd, bwd, x, compute_dtype)
     if needs_grad(x, *fwd, *bwd):
         return _BiLSTM.apply(compute_dtype, x, *fwd, *bwd)
     gxf, gxb = bilstm_hoist(fwd, bwd, x, compute_dtype)
@@ -428,7 +436,11 @@ class _BiGRU(torch.autograd.Function):
 def bigru(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """(B, T, D) -> (B, T, 2H) f32, both directions concatenated. Under
-    autograd through :class:`_BiGRU`, otherwise the inference kernel."""
+    autograd through :class:`_BiGRU`, otherwise the inference kernel; an
+    f32 compute dtype runs :func:`..gru.bigru_fused`, as ``bigru_pallas``
+    does."""
+    if _build.plain_route("bigru", x, compute_dtype):
+        return gru_ops.bigru_fused(fwd, bwd, x, compute_dtype)
     if needs_grad(x, *fwd, *bwd):
         return _BiGRU.apply(compute_dtype, x, *fwd, *bwd)
     gxf, gxb = bigru_hoist(fwd, bwd, x, compute_dtype)

@@ -7,8 +7,11 @@ rounded to the compute dtype and the arithmetic is f32
 (:mod:`.numerics`); the cell state is always f32. These are the plain
 versions behind the GE2E LSTM kernels (:mod:`.lstm_kernel`) and the BiLSTM
 kernels (:mod:`.birnn_kernel`, whose ``bilstm`` is the port of
-``bilstm_fused``), forward (:func:`recurrence`, with the residuals the
-reverse pass reads) and backward (:func:`recurrence_bwd`).
+``bilstm_pallas``), forward (:func:`recurrence`, with the residuals the
+reverse pass reads) and backward (:func:`recurrence_bwd`). :func:`lstm_stack`
+and :func:`bilstm_fused` are the recurrences an f32 checkpoint runs, as the
+JAX package's XLA scans (``lstm_stack_wavefront``, ``bilstm_fused``) are,
+under autograd where a gradient is needed.
 """
 
 from __future__ import annotations
@@ -110,3 +113,20 @@ def lstm(p: LSTMParams, x: torch.Tensor, reverse: bool = False,
     gx = input_gates(p, x.transpose(0, 1), compute_dtype)
     ys, h, c = recurrence(gx, p.w_hh, compute_dtype, reverse)
     return ys.transpose(0, 1), (h, c)
+
+
+def lstm_stack(layers, x: torch.Tensor, compute_dtype=torch.float32):
+    """Stacked layers over (B, T, D), one after another: (the last layer's
+    outputs (B, T, H) f32, its final hidden state h_T (B, H) f32)."""
+    h_T = None
+    for p in layers:
+        x, (h_T, _) = lstm(p, x, compute_dtype=compute_dtype)
+    return x, h_T
+
+
+def bilstm_fused(fwd: LSTMParams, bwd: LSTMParams, x: torch.Tensor,
+                 compute_dtype=torch.float32) -> torch.Tensor:
+    """(B, T, D) -> (B, T, 2H) f32: both directions, input gates kept f32."""
+    y_f, _ = lstm(fwd, x, False, compute_dtype)
+    y_b, _ = lstm(bwd, x, True, compute_dtype)
+    return torch.cat([y_f, y_b], dim=-1)

@@ -33,6 +33,7 @@ from multi_speaker_tts_tpu_torch.ops.lstm import (
     LSTMParams,
     cell,
     input_gates,
+    lstm_stack,
     recurrence,
     recurrence_bwd,
 )
@@ -210,7 +211,13 @@ def lstm_stack_seq(layers, x: torch.Tensor, compute_dtype=torch.bfloat16):
     (B, T, H) f32, its final hidden state (B, H) f32). Under autograd (a
     weight or ``x`` needs a gradient) the residual mode and the backward
     kernels run through :class:`_LSTMStack`; otherwise the inference
-    kernel, which stores no residuals."""
+    kernel, which stores no residuals. A compute dtype the kernels do not
+    take (``_build.plain_route``: an f32 checkpoint) runs the plain stack
+    :func:`..lstm.lstm_stack` on the tensors' device, under autograd where
+    a gradient is needed, as ``lstm_stack_seq_pallas`` runs
+    ``lstm_stack_wavefront``."""
+    if _build.plain_route("ge2e_lstm", x, compute_dtype):
+        return lstm_stack(layers, x, compute_dtype)
     weights = [t for p in layers for t in p]
     if needs_grad(x, *weights):
         return _LSTMStack.apply(compute_dtype, x, *weights)

@@ -4,11 +4,16 @@ Replaces ``multi_speaker_tts_tpu/ops/mel_kernel.py::melspectrogram_pallas``
 (kernel body ``_mel_kernel``). Preemphasis and reflect padding stay plain
 torch, as they stay XLA in the JAX package; the kernel
 (``csrc/mel.cu``) reads overlapping frames straight from the padded
-signal and runs one block a frame: the Hann window, an in-block radix-2
-FFT in f32 (twiddles from :func:`twiddles`), the magnitudes, each mel
-band's nonzero bins (:func:`mel_bands`) and the log/normalisation. It
-takes n_fft a power of two from 256 to 4096 with hop dividing it
-(:func:`mel_shape_reason`).
+signal and runs one block a frame: the Hann window, the frame's real
+transform in f32, the magnitudes, each mel band's nonzero bins
+(:func:`mel_bands`) and the log/normalisation. The transform is an
+in-block radix-2 FFT (twiddles from :func:`twiddles`) for an n_fft that is
+a power of two and a direct DFT against a table of cos / sin(2 pi m / N)
+(:func:`dft_table`) for any other; :func:`melspectrogram_kernel` picks the
+route on the host and counts the DFT route's launches as
+:data:`DFT_KERNEL`. It takes n_fft from 256 to 4096 with hop dividing it
+(:func:`mel_shape_reason`), every frame the JAX rule sends to its kernel
+in that range.
 
 :func:`melspectrogram_plain` is the same function in plain torch, a
 windowed-DFT matmul (f32, no TF32): the CPU path, and the card's
@@ -27,15 +32,15 @@ from multi_speaker_tts_tpu_torch.audio import dsp
 from multi_speaker_tts_tpu_torch.audio.mel_filterbank import mel_filterbank
 from multi_speaker_tts_tpu_torch.ops import _build
 
-KERNEL = _build.Kernel("mel_frontend", "mel.cu", {
-    "mstts_mel_frontend": [
-        _build.P, _build.P, _build.P, _build.P, _build.P,  # y_pad, window, tw, bands, weights
-        _build.P,  # out
-        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,  # B, T, Lp, n_fft, hop, M
-        ctypes.c_float, ctypes.c_float,  # ref_level_db, min_level_db
-        _build.P,  # stream
-    ],
-})
+_ARGS = [
+    _build.P, _build.P, _build.P, _build.P, _build.P,  # y_pad, window, table, bands, weights
+    _build.P,  # out
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,  # B, T, Lp, n_fft, hop, M
+    ctypes.c_float, ctypes.c_float,  # ref_level_db, min_level_db
+    _build.P,  # stream
+]
+KERNEL = _build.Kernel("mel_frontend", "mel.cu", {"mstts_mel_frontend": _ARGS})
+DFT_KERNEL = _build.Kernel("mel_frontend_dft", "mel.cu", {"mstts_mel_dft": _ARGS})
 _AMP_FLOOR = 1e-5
 
 
@@ -56,21 +61,33 @@ def _operands(sample_rate: int, n_fft: int, n_mels: int, f_min: float,
 
 def mel_shape_reason(n_fft: int, hop: int) -> str | None:
     """Why ``csrc/mel.cu`` does not take this frame, or None if it does:
-    n_fft a power of two from 256 to 4096 (a radix-2 FFT of n_fft / 2
-    complex points in one block's shared memory) and hop dividing it (the
-    TPU kernel's k = n_fft // hop frames a hop)."""
-    if n_fft < 256 or n_fft > 4096 or n_fft & (n_fft - 1):
-        return f"needs n_fft a power of two from 256 to 4096, got n_fft = {n_fft}"
+    n_fft from 256 to 4096 (a frame and its transform's table in one
+    block's shared memory) and hop dividing it (the TPU kernel's
+    k = n_fft // hop frames a hop)."""
+    if n_fft < 256 or n_fft > 4096:
+        return f"needs n_fft from 256 to 4096, got n_fft = {n_fft}"
     if hop < 1 or n_fft % hop:
         return f"needs hop dividing n_fft, got n_fft = {n_fft}, hop = {hop}"
     return None
 
 
+def is_pow2(n: int) -> bool:
+    """Whether the FFT route takes this n_fft (else the DFT route)."""
+    return n > 0 and not n & (n - 1)
+
+
+def dft_table(n_fft: int) -> np.ndarray:
+    """(cos, -sin)(2 pi m / n_fft) for m < n_fft as (n_fft, 2) f32, computed
+    in f64: the DFT route's table, read at index (n k) mod n_fft."""
+    ang = -2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
 def twiddles(n_fft: int) -> np.ndarray:
     """exp(-2 pi i k / n_fft) for k < n_fft / 2 as (n_fft / 2, 2) f32 [re, im],
-    computed in f64: the FFT's twiddles and the real transform's split."""
-    ang = -2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft
-    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    computed in f64: the FFT's twiddles and the real transform's split (the
+    first half of :func:`dft_table`)."""
+    return dft_table(n_fft)[:n_fft // 2]
 
 
 def mel_bands(basis: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -92,11 +109,13 @@ def mel_bands(basis: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=8)
 def _fft_operands(cfg, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The kernel's constant operands: window, twiddles, bands, weights."""
+    """The kernel's constant operands: window, the route's table (the FFT's
+    twiddles or the DFT's), bands, weights."""
     bands, weights = mel_bands(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
                                               cfg.f_min, cfg.f_max))
+    table = twiddles(cfg.n_fft) if is_pow2(cfg.n_fft) else dft_table(cfg.n_fft)
     return tuple(torch.from_numpy(a).to(device) for a in (
-        dsp.hann_window(cfg.n_fft), twiddles(cfg.n_fft), bands, weights))
+        dsp.hann_window(cfg.n_fft), table, bands, weights))
 
 
 @functools.lru_cache(maxsize=8)
@@ -131,7 +150,8 @@ def melspectrogram_plain(y_pad: torch.Tensor, T: int, cfg) -> torch.Tensor:
 
 
 def melspectrogram_kernel(y_pad: torch.Tensor, T: int, cfg) -> torch.Tensor:
-    """Launch ``csrc/mel.cu`` on a CUDA padded signal -> (B, T, n_mels)."""
+    """Launch ``csrc/mel.cu`` on a CUDA padded signal -> (B, T, n_mels): the
+    FFT route for an n_fft that is a power of two, else the DFT route."""
     _build.require_cuda(y_pad, torch.float32, "y_pad")
     reason = mel_shape_reason(cfg.n_fft, cfg.hop)
     if reason is not None:
@@ -139,10 +159,12 @@ def melspectrogram_kernel(y_pad: torch.Tensor, T: int, cfg) -> torch.Tensor:
     B, Lp = y_pad.shape
     if T < 1 or Lp < (T - 1) * cfg.hop + cfg.n_fft:
         raise ValueError(f"padded signal of {Lp} samples holds < {T} frames")
-    window, tw, bands, weights = _fft_operands(cfg, y_pad.device)
+    window, table, bands, weights = _fft_operands(cfg, y_pad.device)
     out = torch.empty((B, T, cfg.n_mels), dtype=torch.float32, device=y_pad.device)
-    KERNEL.call(
-        "mstts_mel_frontend", y_pad.data_ptr(), window.data_ptr(), tw.data_ptr(),
+    kernel, fn = ((KERNEL, "mstts_mel_frontend") if is_pow2(cfg.n_fft)
+                  else (DFT_KERNEL, "mstts_mel_dft"))
+    kernel.call(
+        fn, y_pad.data_ptr(), window.data_ptr(), table.data_ptr(),
         bands.data_ptr(), weights.data_ptr(), out.data_ptr(), B, T, Lp, cfg.n_fft, cfg.hop,
         cfg.n_mels, cfg.ref_level_db, cfg.min_level_db, _build.stream_ptr(y_pad),
     )

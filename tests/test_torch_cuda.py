@@ -95,6 +95,56 @@ LSTM_EDGES = [(17, 72, 64, 20), (40, 64, 776, 20), (3, 80, 768, 1), (100, 768, 7
 DRIFT = None
 
 
+@pytest.mark.parametrize("T", [1, 2, 133, 862])
+@pytest.mark.parametrize("n_fft, hop", [(800, 200), (1000, 250), (600, 150), (1200, 300),
+                                        (4000, 1000)])
+def test_mel_kernel_dft_route(dev, n_fft, hop, T):
+    """The DFT route (an n_fft that is not a power of two) within 1e-4 of the
+    plain f32 DFT matmul on noise, a silent clip and a full-scale clip, B
+    1-4; a repeat is bit-equal; one launch a call on its own count, none on
+    the FFT route's."""
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.ops import mel_kernel
+
+    B = 1 + (n_fft // 200 + T) % 4
+    cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    rng = np.random.default_rng(n_fft + T)
+    Lp = (T - 1) * hop + n_fft + T % 3
+    clips = {"noise": rng.standard_normal((B, Lp)) * 0.3,
+             "silent": np.zeros((B, Lp)),
+             "full scale": np.clip(3.0 * rng.standard_normal((B, Lp)), -1.0, 1.0)}
+    for kind, sig in clips.items():
+        y_pad = torch.from_numpy(sig.astype(np.float32)).to(dev)
+        before = mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches
+        got = mel_kernel.melspectrogram_kernel(y_pad, T, cfg)
+        again = mel_kernel.melspectrogram_kernel(y_pad, T, cfg)
+        torch.cuda.synchronize()
+        assert (mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches) == (
+            before[0], before[1] + 2), kind
+        assert torch.equal(got, again), kind
+        want = mel_kernel.melspectrogram_plain(y_pad, T, cfg)
+        assert got.shape == want.shape == (B, T, 80)
+        assert (got - want).abs().max().item() <= 1e-4, kind  # f32, no TF32
+        if kind == "silent":
+            assert not got.any()
+
+
+def test_mel_auto_takes_the_dft_route_on_the_card(dev):
+    """``melspectrogram_auto`` at n_fft 800 / hop 200 (the JAX rule's fused
+    route) launches the DFT route and agrees with the CPU's plain version."""
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.ops import mel_kernel
+
+    cfg = dsp.DSPConfig(16000, 800, 200, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    wav = (np.random.default_rng(3).standard_normal((2, 200 * 40)) * 0.3).astype(np.float32)
+    before = mel_kernel.DFT_KERNEL.launches
+    got = dsp.melspectrogram_auto(torch.from_numpy(wav).to(dev), cfg)
+    torch.cuda.synchronize()
+    assert mel_kernel.DFT_KERNEL.launches == before + 1
+    want = dsp.melspectrogram_auto(torch.from_numpy(wav), cfg)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("B, D, H, T, tol", [
     (3, 80, 768, 20, 5e-3), (5, 768, 768, 20, 5e-3), (40, 96, 128, 20, 5e-3),
     (17, 72, 64, 20, 5e-3), (40, 64, 776, 20, DRIFT), (3, 80, 768, 1, 5e-3),
@@ -447,17 +497,19 @@ def test_bigru_bwd_and_mel_kernels_raise_on_shapes_they_refuse(dev):
     from multi_speaker_tts_tpu_torch.audio import dsp
     from multi_speaker_tts_tpu_torch.ops import birnn_kernel, mel_kernel
 
-    counts = (birnn_kernel.GRU_BWD_KERNEL.launches, mel_kernel.KERNEL.launches)
+    counts = (birnn_kernel.GRU_BWD_KERNEL.launches, mel_kernel.KERNEL.launches,
+              mel_kernel.DFT_KERNEL.launches)
     for H in (8, 72, 208):
         g, hp = (torch.zeros(5, 2, n, dtype=torch.bfloat16, device=dev) for n in (3 * H, H))
         w, dy = torch.zeros(H, 3 * H, device=dev), torch.zeros(5, 2, H, device=dev)
         with pytest.raises(ValueError, match="H % 16"):
             birnn_kernel.bigru_bwd_kernel(g, g, hp, g, g, hp, w, w, dy, dy)
-    for n_fft, hop in ((800, 200), (1000, 250), (1024, 300)):
+    for n_fft, hop in ((1024, 300), (8192, 256)):
         cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
         with pytest.raises(ValueError, match="mel kernel needs"):
             mel_kernel.melspectrogram_kernel(torch.zeros(1, 4 * n_fft, device=dev), 2, cfg)
-    assert (birnn_kernel.GRU_BWD_KERNEL.launches, mel_kernel.KERNEL.launches) == counts
+    assert (birnn_kernel.GRU_BWD_KERNEL.launches, mel_kernel.KERNEL.launches,
+            mel_kernel.DFT_KERNEL.launches) == counts
 
 
 def _decoder(rng, dev, H, D, P, A, mel, r, conv_k=31, conv_c=32, scale=0.02):
@@ -831,7 +883,8 @@ def test_train_step_full_width_on_the_card(dev, monkeypatch):
     """The full checkpoint with GE2E trainable: one step launches each
     backward kernel (the LSTM's once a layer) and the residual modes, runs
     no plain backward, stays finite and moves the weights; an f32
-    checkpoint raises."""
+    checkpoint trains by the reference's routing: no recurrence kernel,
+    forward or backward, launches, and its step is finite."""
     from multi_speaker_tts_tpu_torch.checkpoints import load_compact
     from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
     from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
@@ -868,8 +921,14 @@ def test_train_step_full_width_on_the_card(dev, monkeypatch):
     assert not still, still
 
     f32 = hp.replace(Train={"Use_Mixed_Precision": False})
-    with pytest.raises(NotImplementedError):
-        Trainer.from_params(f32, params, batch_stats).train_step(batch)
+    for kern in (lstm_kernel.KERNEL, birnn_kernel.KERNEL, birnn_kernel.GRU_KERNEL):
+        kernels[kern.name] = kern
+    before = {k: v.launches for k, v in kernels.items()}
+    metrics = Trainer.from_params(f32, params, batch_stats).train_step(batch)
+    torch.cuda.synchronize()
+    assert {k: v.launches - before[k] for k, v in kernels.items()} == dict.fromkeys(kernels, 0)
+    assert metrics["skipped_nonfinite"] == 0.0
+    assert all(np.isfinite(v) for v in metrics.values())
 
 
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1252,3 +1311,139 @@ def test_sharded_synthesis_on_the_card(dev):
         assert a["mel_length"] == b["mel_length"]
         assert np.abs(a["mel"] - b["mel"]).max() <= 5e-2
         assert b["wav"].dtype == np.int16 and b["wav"].shape == a["wav"].shape
+
+
+def _recurrence_kernels():
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+
+    return (lstm_kernel.KERNEL, lstm_kernel.RES_KERNEL, lstm_kernel.BWD_KERNEL,
+            birnn_kernel.KERNEL, birnn_kernel.RES_KERNEL, birnn_kernel.BWD_KERNEL,
+            birnn_kernel.GRU_KERNEL, birnn_kernel.GRU_RES_KERNEL, birnn_kernel.GRU_BWD_KERNEL)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["inference", "autograd"])
+def test_f32_dispatch_takes_the_references_route_on_the_card(dev, grad, capsys):
+    """An f32 compute dtype through the three dispatchers on CUDA tensors:
+    no recurrence kernel launches (forward, residual mode or backward); the
+    outputs, and under autograd the gradients, equal the same calls on the
+    CPU within 1e-4 of their peaks (f32, no TF32)."""
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+    rng = np.random.default_rng(5)
+
+    def arr(*shape):
+        return (rng.standard_normal(shape) * 0.1).astype(np.float32)
+
+    B, T, D, H = 4, 19, 80, 128
+    stack = [[arr(D, 4 * H), arr(H, 4 * H), arr(4 * H)], [arr(H, 4 * H), arr(H, 4 * H), arr(4 * H)]]
+    bil = [[arr(D, 4 * H), arr(H, 4 * H), arr(4 * H)] for _ in range(2)]
+    big = [[arr(D, 3 * H), arr(H, 3 * H), arr(3 * H), arr(3 * H)] for _ in range(2)]
+    x = arr(B, T, D)
+    calls = {
+        "ge2e_lstm": lambda w, xx: lstm_kernel.lstm_stack_seq(
+            [LSTMParams(*p) for p in w], xx, torch.float32)[1],
+        "bilstm": lambda w, xx: birnn_kernel.bilstm(LSTMParams(*w[0]), LSTMParams(*w[1]), xx,
+                                                    torch.float32),
+        "bigru": lambda w, xx: birnn_kernel.bigru(GRUParams(*w[0]), GRUParams(*w[1]), xx,
+                                                  torch.float32),
+    }
+    dsp._DISPATCH_LOGGED.clear()
+    counts = [k.launches for k in _recurrence_kernels()]
+    for name, weights in (("ge2e_lstm", stack), ("bilstm", bil), ("bigru", big)):
+        results = []
+        for device in (dev, torch.device("cpu")):
+            w = [[torch.from_numpy(a).to(device).requires_grad_(grad) for a in p]
+                 for p in weights]
+            xx = torch.from_numpy(x).to(device).requires_grad_(grad)
+            out = calls[name](w, xx)
+            grads = []
+            if grad:
+                (out * torch.cos(torch.arange(out.numel(), device=device).reshape(out.shape)
+                                 * 0.01)).sum().backward()
+                grads = [t.grad for p in w for t in p] + [xx.grad]
+            results.append([t.detach().cpu() for t in (out, *grads)])
+        for a, b in zip(*results):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max(), name
+    torch.cuda.synchronize()
+    assert [k.launches for k in _recurrence_kernels()] == counts
+    printed = capsys.readouterr().out
+    for name in ("ge2e_lstm", "bilstm", "bigru"):
+        assert f"[dispatch] {name} -> plain" in printed
+
+
+def test_recurrence_wrappers_still_raise_on_f32_cuda_inputs(dev):
+    """The capability rule lives at the dispatchers: each kernel wrapper
+    called directly with an f32 compute dtype on CUDA tensors raises, and
+    launches nothing."""
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+    T, B, H = 5, 2, 128
+    z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    p = LSTMParams(z(H, 4 * H), z(H, 4 * H), z(4 * H))
+    g = GRUParams(z(H, 3 * H), z(H, 3 * H), z(3 * H), z(3 * H))
+    counts = [k.launches for k in _recurrence_kernels()]
+    f32 = torch.float32
+    for call in (
+        lambda: lstm_kernel.lstm_seq_layer_fwd(p, z(T, B, H), f32),
+        lambda: lstm_kernel.lstm_seq_layer_bwd(p.w_hh, z(T, B, 4 * H), z(T, B, H), None,
+                                               z(T, B, H), f32),
+        lambda: birnn_kernel.bilstm_recurrence(z(T, B, 4 * H), z(T, B, 4 * H), p.w_hh, p.w_hh,
+                                               f32),
+        lambda: birnn_kernel.bilstm_bwd(*[z(T, B, n) for n in (4 * H, H, 4 * H, H)], p.w_hh,
+                                        p.w_hh, z(T, B, H), z(T, B, H), f32),
+        lambda: birnn_kernel.bigru_recurrence(z(T, B, 3 * H), z(T, B, 3 * H), g, g, f32),
+        lambda: birnn_kernel.bigru_bwd(*[z(T, B, n) for n in (3 * H, 3 * H, H)] * 2, g.w_hh,
+                                       g.w_hh, z(T, B, H), z(T, B, H), f32),
+    ):
+        with pytest.raises(NotImplementedError, match="bf16"):
+            call()
+    assert [k.launches for k in _recurrence_kernels()] == counts
+
+
+def test_convert_round_trip_on_the_card(dev, tmp_path):
+    """A tiny reference torch checkpoint (f32, prenet dropout 0) converted
+    through the CLI and served on the card: the converted port model's
+    teacher-forced forward on the card equals the reference's there (1e-4 of
+    each output's peak, TF32 off), and ``Synthesizer.from_compact`` enrolls and
+    decodes on the card."""
+    from multi_speaker_tts_tpu_torch.convert.__main__ import main as convert_main
+    from multi_speaker_tts_tpu_torch.convert.mapping import convert_full_checkpoint
+    from multi_speaker_tts_tpu_torch.convert.reference_torch import (
+        build_reference_ge2e, build_reference_tacotron, save_reference_checkpoint,
+    )
+    from multi_speaker_tts_tpu_torch.hparams import tiny_test_hparams
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.tools.torch_parity import converted_models
+
+    hp = tiny_test_hparams().replace(Decoder={"Prenet": {"Dropout_Rate": 0.0}},
+                                     Linear_Head={"Type": "CBHG"})
+    torch.manual_seed(7)
+    taco, ge2e = build_reference_tacotron(hp).eval(), build_reference_ge2e(hp).eval()
+    src = tmp_path / "S_5.pt"
+    save_reference_checkpoint(str(src), taco, ge2e, steps=5)
+    hp_json = tmp_path / "hp.json"
+    hp_json.write_text(__import__("json").dumps(hp.to_dict()))
+    convert_main(["-in", str(src), "-hp", str(hp_json), "-out", str(tmp_path / "c.msgpack")])
+    tree = convert_full_checkpoint(str(src), hp)
+    taco_p, ge2e_p = converted_models(tree, hp, dev)
+    taco, ge2e = taco.to(dev), ge2e.to(dev)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(1, 20, (2, 12))).long().to(dev)
+    lengths = torch.tensor([12, 9], device=dev)
+    mels = torch.from_numpy(rng.random((2, 16, hp.Sound.Mel_Dim), np.float32)).to(dev)
+    refs = torch.from_numpy(rng.random((2, hp.Speaker_Embedding.GE2E.Window_Length,
+                                        hp.Sound.Mel_Dim), np.float32)).to(dev)
+    with torch.no_grad():
+        spk_t, spk_p = ge2e(refs), ge2e_p(refs)
+        want, got = taco(tokens, lengths, mels, spk_t), taco_p(tokens, lengths, mels, spk_p)
+    assert (spk_p - spk_t).abs().max() <= 1e-4 * spk_t.abs().max()
+    for k in ("mel_pre", "mel_post", "stop_logits", "alignments", "linear"):
+        assert (got[k] - want[k]).abs().max() <= 1e-4 * want[k].abs().max(), k
+    synth = Synthesizer.from_compact(str(tmp_path / "c.msgpack"))
+    assert synth.device.type == "cuda"
+    emb = synth.enroll([rng.standard_normal(4096).astype(np.float32)])
+    out = synth.synthesize(["converted"], emb, max_steps=8, vocode=False)[0]
+    assert out["mel_length"] >= 1 and np.isfinite(out["mel"]).all()

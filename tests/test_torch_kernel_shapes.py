@@ -77,9 +77,19 @@ def test_mel_shape_reason_accepts_powers_of_two_with_dividing_hops(n_fft):
         assert mel_kernel.mel_shape_reason(n_fft, hop) is None
 
 
+@pytest.mark.parametrize("n_fft", [256, 600, 800, 1000, 1200, 2000, 4000])
+def test_mel_shape_reason_accepts_any_n_fft_that_hop_divides(n_fft):
+    """The DFT route takes every n_fft from 256 to 4096 that the JAX rule
+    sends to its kernel (hop dividing it), powers of two or not."""
+    for hop in (n_fft, n_fft // 2, n_fft // 4, n_fft // 5, 1):
+        if n_fft % hop == 0:
+            assert mel_kernel.mel_shape_reason(n_fft, hop) is None
+
+
 @pytest.mark.parametrize("n_fft, hop, why", [
-    (800, 200, "power of two"), (1000, 250, "power of two"), (128, 32, "power of two"),
-    (8192, 256, "power of two"), (1024, 300, "hop dividing"), (1024, 0, "hop dividing"),
+    (255, 85, "from 256 to 4096"), (4100, 410, "from 256 to 4096"),
+    (128, 32, "from 256 to 4096"), (8192, 256, "from 256 to 4096"),
+    (1024, 300, "hop dividing"), (1024, 0, "hop dividing"),
 ])
 def test_mel_shape_reason_refuses(n_fft, hop, why):
     reason = mel_kernel.mel_shape_reason(n_fft, hop)
@@ -88,11 +98,11 @@ def test_mel_shape_reason_refuses(n_fft, hop, why):
 
 def test_mel_kernel_checks_the_frame_before_any_launch(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    cfg = dsp.DSPConfig(22050, 1000, 250, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
-    before = mel_kernel.KERNEL.launches
-    with pytest.raises(ValueError, match="power of two"):
-        mel_kernel.melspectrogram_kernel(torch.zeros(1, 1000 + 4 * 250), 5, cfg)
-    assert mel_kernel.KERNEL.launches == before
+    cfg = dsp.DSPConfig(22050, 1000, 300, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    before = mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches
+    with pytest.raises(ValueError, match="hop dividing"):
+        mel_kernel.melspectrogram_kernel(torch.zeros(1, 1000 + 4 * 300), 5, cfg)
+    assert (mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches) == before
 
 
 @pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048, 4096])
@@ -103,6 +113,77 @@ def test_twiddles_are_exact_within_one_f32_ulp(n_fft):
     for got, want in ((tw[:, 0], exact.real), (tw[:, 1], exact.imag)):
         ulp = np.spacing(np.abs(want).astype(np.float32))
         assert np.all(np.abs(got.astype(np.float64) - want) <= ulp)
+
+
+@pytest.mark.parametrize("n_fft", [600, 800, 1000, 1200, 4000])
+def test_dft_table_is_exact_within_one_f32_ulp(n_fft):
+    tab = mel_kernel.dft_table(n_fft)
+    assert tab.dtype == np.float32 and tab.shape == (n_fft, 2)
+    exact = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
+    for got, want in ((tab[:, 0], exact.real), (tab[:, 1], exact.imag)):
+        ulp = np.spacing(np.abs(want).astype(np.float32))
+        assert np.all(np.abs(got.astype(np.float64) - want) <= ulp)
+
+
+@pytest.mark.parametrize("n_fft, hop", [(800, 200), (600, 150), (1000, 250), (1200, 300)])
+def test_dft_route_arithmetic_matches_the_plain_version(n_fft, hop):
+    """The DFT route's arithmetic, step for step in f32 numpy: the windowed
+    frame, each bin's sum over n of x[n] W[(n k) mod N] with the index
+    stepped by k and wrapped in integers, the magnitudes, the bands'
+    nonzero bins in order, the log and normalisation; within 1e-4 of the
+    plain version (the f32 windowed-DFT matmul), the card's tolerance."""
+    cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    T, rng = 9, np.random.default_rng(n_fft)
+    y_pad = (rng.standard_normal((2, (T - 1) * hop + n_fft)) * 0.3).astype(np.float32)
+    want = mel_kernel.melspectrogram_plain(torch.from_numpy(y_pad), T, cfg).numpy()
+    window = dsp.hann_window(n_fft).astype(np.float32)
+    tab = mel_kernel.dft_table(n_fft)
+    bands, weights = mel_kernel.mel_bands(mel_filterbank(22050, n_fft, 80, 0.0, None))
+    F = n_fft // 2 + 1
+    k = np.arange(F)
+    frames = np.stack([y_pad[:, t * hop:t * hop + n_fft] for t in range(T)], axis=1)
+    xw = frames * window  # (2, T, N) f32
+    re = np.zeros((2, T, F), np.float32)
+    im = np.zeros_like(re)
+    idx = np.zeros(F, np.int64)
+    for n in range(n_fft):
+        re += xw[..., n:n + 1] * tab[idx, 0]
+        im += xw[..., n:n + 1] * tab[idx, 1]
+        idx += k
+        idx[idx >= n_fft] -= n_fft
+    mag = np.sqrt(re * re + im * im)
+    got = np.zeros((2, T, 80), np.float32)
+    for m, (lo, hi, off) in enumerate(bands):
+        acc = np.zeros((2, T), np.float32)
+        for j in range(lo, hi):
+            acc += mag[..., j] * weights[off + j - lo]
+        db = 20.0 * np.log10(np.maximum(acc, 1e-5)) - cfg.ref_level_db
+        got[..., m] = np.clip((db - cfg.min_level_db) / -cfg.min_level_db, 0.0, 1.0)
+    assert np.abs(got - want).max() <= 1e-4
+
+
+@pytest.mark.parametrize("n_fft, route", [(1024, "fft"), (800, "dft"), (600, "dft")])
+def test_mel_kernel_picks_its_route_by_n_fft(monkeypatch, n_fft, route):
+    """A power of two takes the FFT entry point with the twiddles, any other
+    n_fft the DFT entry point with its full table; each counts its own
+    launches (the libraries' calls replaced, so this runs on the CPU)."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    calls = []
+    for kern in (mel_kernel.KERNEL, mel_kernel.DFT_KERNEL):
+        monkeypatch.setattr(kern, "lib", lambda kern=kern: type("Lib", (), {
+            fn: staticmethod(lambda *a, fn=fn: calls.append((fn, a)) or 0)
+            for fn in kern.functions})())
+    cfg = dsp.DSPConfig(22050, n_fft, n_fft // 4, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    before = mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches
+    mel_kernel.melspectrogram_kernel(torch.zeros(1, n_fft + 4 * (n_fft // 4)), 5, cfg)
+    (fn, args), = calls
+    assert fn == {"fft": "mstts_mel_frontend", "dft": "mstts_mel_dft"}[route]
+    table = mel_kernel._fft_operands(cfg, torch.device("cpu"))[1]
+    assert args[2] == table.data_ptr()
+    assert table.shape == ((n_fft // 2, 2) if route == "fft" else (n_fft, 2))
+    after = mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches
+    assert (after[0] - before[0], after[1] - before[1]) == ((1, 0) if route == "fft" else (0, 1))
 
 
 @pytest.mark.parametrize("n_mels", [40, 80, 128])

@@ -7,9 +7,9 @@
 - ``dsp.melspectrogram_auto`` routes by the JAX rule: a batched wav whose
   length hop divides, with hop dividing n_fft, to the fused front-end (its
   kernel on the card, its plain version here); every other input to the
-  FFT route, equal to the JAX package's rfft route within 1e-4. A frame the
-  kernel refuses (n_fft not a power of two) is eligible, and refused on the
-  card with ``mel_shape_reason``.
+  FFT route, equal to the JAX package's rfft route within 1e-4. An eligible
+  frame whose n_fft is not a power of two goes to the kernel's DFT route:
+  ``mel_shape_reason`` takes every eligible frame of n_fft 256-4096.
 - The decode kernel's wrapper takes any batch: groups of at most 16 rows,
   one launch each a chunk, their outputs joined in row order; with the
   launch replaced by the plain version the joined result equals one plain
@@ -84,7 +84,7 @@ def _cfg(n_fft, hop):
 
 @pytest.mark.parametrize("n_fft, hop, shape, route", [
     (256, 64, (2, 64 * 20), "fused"),
-    (800, 200, (1, 200 * 9), "fused"),  # eligible; refused on the card (below)
+    (800, 200, (1, 200 * 9), "fused"),  # eligible; the kernel's DFT route (below)
     (256, 96, (2, 96 * 20), "fft"),  # hop does not divide n_fft
     (256, 64, (2, 64 * 20 + 5), "fft"),  # length not a multiple of hop
     (256, 64, (64 * 20,), "fft"),  # not batched
@@ -102,8 +102,8 @@ def test_mel_routing_follows_the_jax_rule(monkeypatch, n_fft, hop, shape, route)
     jcfg = jdsp.DSPConfig(**{f: getattr(cfg, f) for f in jdsp.DSPConfig.__dataclass_fields__})
     want = np.asarray(jdsp.melspectrogram(jnp.asarray(wav), jcfg))
     assert got.shape == want.shape and np.abs(got.numpy() - want).max() <= 1e-4
-    if route == "fused":  # the kernel's reason to raise on a CUDA tensor, or None
-        assert (mel_kernel.mel_shape_reason(n_fft, hop) is not None) == (n_fft == 800)
+    if route == "fused":  # the kernel takes every eligible frame of n_fft 256-4096
+        assert mel_kernel.mel_shape_reason(n_fft, hop) is None
 
 
 @pytest.mark.parametrize("B, want", [(1, [1]), (16, [16]), (17, [16, 1]), (32, [16, 16]),
