@@ -108,7 +108,18 @@
    with no recurrence kernel launched, and each recurrence wrapper raising
    on a direct f32 call. The tools (n): ``tools/stream_quality.py`` on
    ``demo/serving_ckpt.msgpack`` and ``tools/profile_train.py`` on the
-   train step at (j)'s shapes.
+   train step at (j)'s shapes, and the five probe tools: ``ge2e_roofline``
+   at 16 x 10 x 160, ``decode_probe -steps 128``, ``gates_probe``,
+   ``decode_kernel_ab`` at S 48 and 1024 (the decode kernel launched in its
+   variants) and ``sv_harmonic_control`` on (j)'s export and corpus. Long
+   texts (o): 16 texts whose longest is 206 characters (S 208), a text of
+   S 1008, one at each kernel mode's one-row limit and one past the bf16
+   limit, under the default decode, ``bf16_pallas`` and ``int8_pallas``: no
+   call raises, the decode kernel launches once a row group a chunk (as
+   many rows a launch as fit its shared memory at S), past the limit the
+   plain loop runs with one ``[dispatch] decode -> plain`` line and no
+   launch, the same request twice decodes the same lengths; then a burst
+   of the 16 texts to a ``bf16_pallas`` daemon, every reply 200.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -129,7 +140,10 @@
    is not a power of two) gets a row at 800 / 200 and one at 600 / 150:
    ``dsp.melspectrogram_auto`` on the three demo wavs launches it three
    times a width (counted), each call within 1e-4 of the plain version,
-   timed beside ``torch.stft`` and the basis product.
+   timed beside ``torch.stft`` and the basis product. The decode rows also
+   hold pass (o)'s first chunks at S 208, 1008 and the mode's one-row
+   limit, at 16 rows and at one, to the plain version (bf16 by the probe
+   rule), and time them.
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -166,6 +180,20 @@ TEXTS = [
     "zero shot speaker cloning on one card.",
     "griffin lim turns the mel back into sound.",
 ]
+# Pass (o): twelve more short texts beside TEXTS, and the paragraph the long
+# texts are cut from (lowercase words: a character a token, and one more).
+MORE_TEXTS = [
+    "she sells sea shells by the sea shore.", "a stitch in time saves nine.",
+    "all that glitters is not gold.", "actions speak louder than words.",
+    "the early bird catches the worm.", "practice makes perfect.", "better late than never.",
+    "pack my box with five dozen liquor jugs.", "how vexingly quick daft zebras jump.",
+    "the five boxing wizards jump quickly.", "sphinx of black quartz, judge my vow.",
+    "a long text goes first in this batch.",
+]
+PARAGRAPH = ("a voice service reads whole paragraphs aloud, and it batches them with short "
+             "replies from the same speaker. the quick brown fox jumps over the lazy dog, "
+             "while she sells sea shells by the sea shore. all that glitters is not gold, "
+             "and a stitch in time saves nine. ")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 CUDA-core,
 # bf16 and int8 tensor-core operations/s, and the SM boost clock.
 HBM_BPS = 3.35e12
@@ -228,13 +256,18 @@ class _GcPauses:
                                 round((time.perf_counter() - self._start) * 1e3, 2)))
 
 
+# Whether the wrappers of _record keep what they see.
+_RECORDING = [True]
+
+
 def _record(module, name: str, store: list) -> None:
     """Wrap ``module.name`` so every call's arguments and result are kept."""
     original = getattr(module, name)
 
     def recorded(*args, **kwargs):
         result = original(*args, **kwargs)
-        store.append((args, kwargs, result))
+        if _RECORDING[0]:
+            store.append((args, kwargs, result))
         return result
 
     setattr(module, name, recorded)
@@ -1189,28 +1222,48 @@ def f32_pass(params, batch_stats, hp, wavs, kernels) -> list[str]:
     return fails
 
 
-def tools_pass() -> list[str]:
-    """Pass (n): the port's ``tools/stream_quality.py`` on the small Conv-head
-    checkpoint (its three numbers) and ``tools/profile_train.py`` on the
-    train step at pass (j)'s shapes (its per-category table), each through
-    ``main(argv)`` on the card. Gates: finite numbers; the decoder scan's
-    forward and backward each timed once a step. Returns the failures."""
+def tools_pass(work: pathlib.Path) -> list[str]:
+    """Pass (n): the port's tools, each through ``main(argv)`` on the card:
+    ``tools/stream_quality.py`` on the small Conv-head checkpoint (its three
+    numbers), ``tools/profile_train.py`` on the train step at pass (j)'s
+    shapes (its per-category table), ``ge2e_roofline`` at the base shape (16
+    x 10 x 160), ``decode_probe -steps 128``, ``gates_probe``,
+    ``decode_kernel_ab`` at S 48 and 1024, and ``sv_harmonic_control`` on
+    pass (j)'s export (with (k3)'s GE2E windows of its crops) and corpus
+    under ``work``. Recording is off while they run. Gates: finite numbers,
+    positive times; the decoder scan's forward and backward each timed once
+    a step; the decode kernel launched in the kernel variants. Returns the
+    failures."""
     import math
 
-    from multi_speaker_tts_tpu_torch.tools import profile_train, stream_quality
+    from multi_speaker_tts_tpu_torch.checkpoints import load_compact
+    from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel
+    from multi_speaker_tts_tpu_torch.tools import (
+        decode_kernel_ab, decode_probe, gates_probe, ge2e_roofline, profile_train,
+        stream_quality, sv_harmonic_control,
+    )
+    from multi_speaker_tts_tpu_torch.train.checkpoints import export_compact
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, f"[n {name}] {time.perf_counter() - t0:.1f} s"
+
+    def times_ok(report, keys):
+        return all(isinstance(report.get(k), float) and math.isfinite(report[k])
+                   and report[k] > 0 for k in keys)
 
     fails = []
-    t0 = time.perf_counter()
-    sq = stream_quality.main(["-ckpt", str(ROOT / "demo" / "serving_ckpt.msgpack")])
+    sq, head = timed("stream_quality", lambda: stream_quality.main(
+        ["-ckpt", str(ROOT / "demo" / "serving_ckpt.msgpack")]))
     keys = ("wav_mel_l1_batch", "wav_mel_l1_stream_crossfade", "wav_mel_l1_stream_warmstart")
-    print(f"[n stream_quality] {time.perf_counter() - t0:.1f} s on {sq['device']}: "
-          + json.dumps({k: sq[k] for k in keys}))
+    print(f"{head} on {sq['device']}: " + json.dumps({k: sq[k] for k in keys}))
     if sq["device"] != "cuda" or not all(math.isfinite(sq[k]) and sq[k] > 0 for k in keys):
         fails.append(f"[n stream_quality] {sq}")
-    t0 = time.perf_counter()
-    pt = profile_train.main(["-steps", "2"])
+    pt, head = timed("profile_train", lambda: profile_train.main(["-steps", "2"]))
     sh = pt["scan_host_ms"]
-    print(f"[n profile_train] {time.perf_counter() - t0:.1f} s: step {pt['step_ms']:.2f} ms "
+    print(f"{head}: step {pt['step_ms']:.2f} ms "
           f"(CUDA events), wall {pt['step_wall_ms']:.2f} ms; decoder scan host ms forward "
           f"{sh['forward']:.2f}, backward {sh['backward']:.2f} "
           f"({100 * sh['share_of_step_wall']:.1f}% of the wall); device busy "
@@ -1219,7 +1272,193 @@ def tools_pass() -> list[str]:
     if (pt["device"] != "cuda" or not math.isfinite(pt["step_ms"])
             or sh["calls_per_step"] != {"forward": 1.0, "backward": 1.0}):
         fails.append(f"[n profile_train] {pt}")
+
+    (g2,), head = timed("ge2e_roofline", lambda: ge2e_roofline.main([]))
+    print(f"{head}: " + json.dumps(g2))
+    if g2["device"] != "cuda" or not times_ok(g2, ("ms_per_step", "mfu", "frames_per_sec")):
+        fails.append(f"[n ge2e_roofline] {g2}")
+
+    before = {m: k.launches for m, k in decode_kernel.KERNELS.items()}
+    dp, head = timed("decode_probe", lambda: decode_probe.main(["-steps", "128"]))
+    launched = {m: k.launches - before[m] for m, k in decode_kernel.KERNELS.items()}
+    print(f"{head}: decode kernel launches {launched}; " + json.dumps(dp))
+    dp_keys = [k for k in dp if k.startswith(("decode_ms_", "us_per_step_"))]
+    if (dp["device"] != "cuda" or len(dp_keys) != 16 or not times_ok(dp, dp_keys)
+            or not all(launched.values())):
+        fails.append(f"[n decode_probe] launches {launched}, {dp}")
+
+    gp, head = timed("gates_probe", lambda: gates_probe.main([]))
+    print(f"{head}: " + json.dumps(gp))
+    if gp["device"] != "cuda" or not times_ok(gp, ("gates_us_per_step_bf16",
+                                                   "gates_us_per_step_int8_xla")):
+        fails.append(f"[n gates_probe] {gp}")
+
+    variants = ("xla_bf16", "xla_int8", "pallas_int8", "pallas_bf16")
+    for S in (48, 1024):
+        ab, head = timed(f"decode_kernel_ab S {S}", lambda: decode_kernel_ab.main(["-S", str(S)]))
+        print(f"{head}: " + json.dumps(ab))
+        if (ab["device"] != "cuda" or not times_ok(ab, [f"us_per_step_{v}" for v in variants])
+                or not (ab["launches_per_run_pallas_int8"] and ab["launches_per_run_pallas_bf16"])):
+            fails.append(f"[n decode_kernel_ab S {S}] {ab}")
+
+    # (j)'s export with GE2E windows of its crops, as (k3) evaluates it: a
+    # 160-frame window over these 35-103-frame utterances embeds them alike.
+    params_j, stats_j, meta_j = load_compact(work / "export.msgpack")
+    export_compact(work / "export_sv.msgpack", params_j, stats_j, dict(
+        meta_j, hp=Recursive_Parse(meta_j["hp"]).replace(Speaker_Embedding={"GE2E": {
+            "Window_Length": EVAL_WINDOW, "Window_Shift": EVAL_SHIFT}}).to_dict()))
+    sv, head = timed("sv_harmonic_control", lambda: sv_harmonic_control.main(
+        ["-checkpoint", str(work / "export_sv.msgpack"), "-pattern",
+         str(work / "corpus" / "patterns")]))
+    print(f"{head}: " + json.dumps({k: v for k, v in sv.items() if k != "pairs"}))
+    numbers = [v for k, v in sv.items() if isinstance(v, float)]
+    if sv["device"] != "cuda" or not all(math.isfinite(v) for v in numbers):
+        fails.append(f"[n sv_harmonic_control] {sv}")
     return fails
+
+
+def text_of(S: int, hp) -> str:
+    """A text of PARAGRAPH whose token bucket is S (a multiple of 16): its
+    tokens, a character each and one more, are more than S - 16."""
+    from multi_speaker_tts_tpu_torch.text import encode_text
+
+    text = (PARAGRAPH * (S // len(PARAGRAPH) + 2))[:S - 2].strip()
+    n = len(encode_text(text, hp))
+    if not S - 16 < n <= S:
+        raise ValueError(f"a text of {n} tokens for a bucket of {S}")
+    return text
+
+
+def long_text_pass(params, batch_stats, hp, wavs, kernels, recorded, plain_calls, post_json):
+    """Pass (o): long texts on the checkpoint as it is, under the default
+    decode, ``bf16_pallas`` and ``int8_pallas``: 16 texts (TEXTS, MORE_TEXTS
+    and a first one of 206 characters: S 208), one text of S 1008, one at
+    each kernel mode's one-row limit (the largest multiple of 16 at which a
+    launch over one row fits, ``decode_kernel.max_positions``) and one past
+    the bf16 limit. Gates: no call raises; under a kernel mode the decode
+    kernel launches once a row group (``kernel_row_groups``) a chunk and no
+    plain step runs, and past the limit it launches not at all and one
+    ``[dispatch] decode ... -> plain`` line is printed; the same request
+    twice gives the same lengths; wavs finite. Then a burst of the 16 texts
+    to a ``bf16_pallas`` daemon, all answered 200. Returns (the failures,
+    {mode: {S: the first chunk's recorded kernel arguments}}) for the
+    kernel phase."""
+    import concurrent.futures
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch import serve
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel
+
+    fails, chunks = [], {}
+    dev = torch.device("cuda")
+    card = decode_kernel.card_limits(dev)
+    synth = Synthesizer(hp, params, batch_stats, seed=0)
+    dec = synth.tacotron.decoder
+    widths = decode_kernel.widths_of(decode_kernel.prepare_bundle(
+        dec.params(), [(d.kernel, d.bias) for d in dec.prenet], quantize=False))
+    limit = {m: decode_kernel.max_positions(widths, m == "int8", *card) for m in ("bf16", "int8")}
+    emb = synth.enroll(wavs)
+    del synth
+    past = -(-(limit["bf16"] + 1) // 16) * 16
+    texts16 = [text_of(208, hp)] + TEXTS + MORE_TEXTS[:11]
+    cases = {"s208": (208, texts16), "s1008": (1008, [text_of(1008, hp)]),
+             "past": (past, [text_of(past, hp)])}
+    print(f"[o long texts] the decode kernel's one-row limit on this card ({_smi()}): "
+          f"{limit['bf16']} memory positions in bf16, {limit['int8']} in int8; past it the "
+          f"plain loop (the text past the limit: S {past}); rows a launch at S 208: "
+          + ", ".join(f"{m} {decode_kernel.group_rows(208, widths, m == 'int8', *card)}"
+                      for m in ("bf16", "int8")))
+    decodes = ("decode_segment_bf16", "decode_segment_int8")
+    for label, quantize in (("default", None), ("bf16_pallas", "bf16_pallas"),
+                            ("int8_pallas", "int8_pallas")):
+        mode = quantize.split("_")[0] if quantize else None
+        synth = Synthesizer(hp, params, batch_stats, seed=0, quantize=quantize)
+        mine = dict(cases)
+        if mode:
+            at = limit[mode] // 16 * 16
+            mine["limit"] = (at, [text_of(at, hp)])
+        dsp._DISPATCH_LOGGED.discard(("decode", "plain"))
+        for case, (S, texts) in mine.items():
+            for store in (*recorded.values(), *plain_calls.values()):
+                store.clear()
+            for k in kernels.values():
+                k.launches = 0
+            buf = io.StringIO()
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    out = synth.synthesize(texts, emb)
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = {n: kernels[n].launches for n in decodes}
+                calls = list(recorded["decode_segment_bf16"])  # both modes' wrapper
+                plain_steps = sum(len(v) for v in plain_calls.values())
+                again = synth.synthesize(texts, emb)
+            except Exception as e:  # a gate: no call raises
+                sys.stdout.write(buf.getvalue())
+                fails.append(f"[o {label}] {case} (S {S}) raised {type(e).__name__}: {e}")
+                continue
+            sys.stdout.write(buf.getvalue())
+            dispatch = [x for x in buf.getvalue().splitlines() if x.startswith("[dispatch] decode")]
+            lengths = [o["mel_length"] for o in out]
+            groups = [len(decode_kernel.kernel_row_groups(a[0], *a[1].shape[:2], dev))
+                      for a, _, _ in calls]
+            want = sum(groups)
+            got = launches[f"decode_segment_{mode}"] if mode else sum(launches.values())
+            routed = bool(mode) and S > limit[mode]
+            print(f"[o {label}] {case}: S {S}, {len(texts)} text(s), mel_lengths {lengths}, "
+                  f"{ms:.1f} ms; decode launches {launches} for {len(calls)} chunks "
+                  f"({groups[:1]} row groups a chunk); plain decode steps {plain_steps}; dispatch "
+                  f"lines {dispatch}")
+            if routed or not mode:
+                if any(launches.values()) or not plain_steps:
+                    fails.append(f"[o {label}] {case}: decode launches {launches}, plain steps "
+                                 f"{plain_steps}: the plain loop should run, no kernel")
+                if routed != bool(dispatch) or len(dispatch) > 1 or (
+                        dispatch and "-> plain" not in dispatch[0]):
+                    fails.append(f"[o {label}] {case}: dispatch lines {dispatch}")
+            else:
+                if not calls or got != want or plain_steps or any(
+                        a[1].shape[1] != S for a, _, _ in calls):
+                    fails.append(f"[o {label}] {case}: {got} launches for {len(calls)} chunks, "
+                                 f"want {want}; plain steps {plain_steps}")
+                elif case != "past":
+                    chunks.setdefault(mode, {})[S] = calls[0][0]
+            if [o["mel_length"] for o in again] != lengths:
+                fails.append(f"[o {label}] {case}: the same request decoded "
+                             f"{[o['mel_length'] for o in again]}, then {lengths}")
+            if not all(np.isfinite(o["wav"]).all() and o["mel_length"] > 0 for o in out):
+                fails.append(f"[o {label}] {case}: a wav is not finite or a length is 0")
+        del synth
+    # The daemon: a burst of the 16 texts under bf16_pallas.
+    synth = Synthesizer(hp, params, batch_stats, seed=0, quantize="bf16_pallas")
+    daemon = serve.TTSServer(synth, host="127.0.0.1", port=0, max_batch=16, max_wait_ms=250.0,
+                             pcm16=True)
+    daemon.start_background()
+    before = kernels["decode_segment_bf16"].launches
+    try:
+        daemon.registry.register("spk0", emb)
+        url = f"http://127.0.0.1:{daemon.port}/synthesize"
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(texts16)) as pool:
+            replies = list(pool.map(lambda t: post_json(url, {"text": t, "speaker": "spk0"}),
+                                    texts16))
+        t_burst = time.perf_counter() - t0
+    finally:
+        daemon.shutdown()
+    statuses = [st for st, _, _ in replies]
+    print(f"[o daemon] a burst of {len(texts16)} /synthesize under bf16_pallas, the longest "
+          f"{len(texts16[0])} characters: statuses {statuses}, {t_burst * 1e3:.1f} ms wall, "
+          f"bf16 decode launches {kernels['decode_segment_bf16'].launches - before} ({_smi()})")
+    if statuses != [200] * len(texts16) or kernels["decode_segment_bf16"].launches == before:
+        fails.append(f"[o daemon] statuses {statuses}")
+    return fails, chunks
 
 
 def main() -> int:
@@ -1417,7 +1656,7 @@ def main() -> int:
         else:
             # One launch a row group of at most 16 rows a chunk.
             chunks = len(res["recorded"]["segment"])
-            groups = sum(len(decode_kernel.row_groups(a[1].shape[0]))
+            groups = sum(len(decode_kernel.kernel_row_groups(a[0], *a[1].shape[:2], a[1].device))
                          for a, _, _ in res["recorded"]["segment"])
             if res["launches"][decode] != groups:
                 failures.append(f"[{label}] {res['launches'][decode]} decode launches for "
@@ -2170,6 +2409,15 @@ def main() -> int:
     failures.extend(f"[i daemon] {f}" for f in daemon_fail)
     del synth_d, synth_m, daemon, daemon_m, daemon_b, warm
 
+    # 2d'. Long texts (o): S past the JAX package's 256 up to the decode
+    # kernel's own limit, row groups sized by its shared memory, the plain
+    # loop past it, and a daemon burst with a long text ------------------
+    t_o = time.perf_counter()
+    fails_o, o_chunks = long_text_pass(params, batch_stats, hp, wavs, kernels, recorded,
+                                       plain_calls, post_json)
+    failures.extend(fails_o)
+    print(f"[o] pass (o) took {time.perf_counter() - t_o:.1f} s")
+
     # 2e. Training end to end (j), then (k): data-parallel training, sharded
     # synthesis, and the evaluation CLI on (j)'s export and corpus ----------
     import tempfile
@@ -2188,9 +2436,12 @@ def main() -> int:
         for label, run in (("l", lambda: convert_pass(params, batch_stats, meta, hp, wavs,
                                                       kernels, work)),
                            ("m", lambda: f32_pass(params, batch_stats, hp, wavs, kernels)),
-                           ("n", tools_pass)):
+                           ("n", lambda: tools_pass(work))):
             t_p = time.perf_counter()
+            # Pass (n)'s tools run hundreds of steps: nothing of theirs is kept.
+            _RECORDING[0] = label != "n"
             failures.extend(run())
+            _RECORDING[0] = True
             print(f"[{label}] pass ({label}) took {time.perf_counter() - t_p:.1f} s")
 
     # 3. Kernel phase --------------------------------------------------------
@@ -2802,6 +3053,24 @@ def main() -> int:
                   *args0[8:])
         pairs.append((args32, decode_err(rep(segs[0][0][7]), rep(segs[0][0][8]), args32)))
 
+        # Pass (o)'s first chunks (from the zero state, the checkpoint's own
+        # state and masks) at S 208, 1008 and the mode's one-row limit, at
+        # 16 rows (the row groups the layout sizes) and at one row; the bf16
+        # ones by the probe rule of the chunk from the zero state.
+        def with_rows(a, B_):
+            def take(t, dim=0):
+                n = t.shape[dim]
+                t = t.repeat(*[-(-B_ // n) if d == dim else 1 for d in range(t.dim())])
+                return t.narrow(dim, 0, B_)
+            c_ = a[4]
+            return (a[0], take(a[1]), take(a[2]), take(a[3]),
+                    type(c_)(tuple(map(take, c_.h)), tuple(map(take, c_.c)), take(c_.weights),
+                             take(c_.cum_weights), take(c_.context)),
+                    take(a[5]), *(None if m is None else take(m, 1) for m in a[6:8]), *a[8:])
+
+        long_cases = [(S_o, B_o, with_rows(a_o, B_o))
+                      for S_o, a_o in sorted(o_chunks.get(mode, {}).items()) for B_o in (16, 1)]
+
         def kernel_fn(a):
             return lambda: decode_kernel.decode_segment_kernel.original(*a)
 
@@ -2817,14 +3086,14 @@ def main() -> int:
         def chunk_bound(a):
             """The bound of one chunk on ``a``: every weight, input and output
             once, and the gate products."""
-            B_ = a[1].shape[0]
+            B_, S_, K_ = a[1].shape[0], a[1].shape[1], a[8]
             rest = (_nbytes(*(v for k, v in bundle.items()
                               if k not in ("quantized", "w0", "w1", "packed")))
                     + _nbytes(*a[1:4], a[6], a[7], a[5], *a[4].h, *a[4].c, a[4].weights,
                               a[4].cum_weights, a[4].context))
-            outputs = 4 * (Kd * B_ * (mel_dim * r + 1) + Kd * B_ * Sd + 4 * B_ * Hd
-                           + 2 * B_ * Sd + B_ * Dd + B_ * mel_dim)
-            flops = Kd * 2 * B_ * 4 * Hd * ((P2 + Dd + Hd) + (2 * Hd + Dd))
+            outputs = 4 * (K_ * B_ * (mel_dim * r + 1) + K_ * B_ * S_ + 4 * B_ * Hd
+                           + 2 * B_ * S_ + B_ * Dd + B_ * mel_dim)
+            flops = K_ * 2 * B_ * 4 * Hd * ((P2 + Dd + Hd) + (2 * Hd + Dd))
             return _bound_ms(weights + rest + outputs, flops,
                              INT8_OPS if resident else BF16_FLOPS)
 
@@ -2838,6 +3107,67 @@ def main() -> int:
                   args32[5][:16], *(None if m is None else m[:, :16] for m in args32[6:8]),
                   *args32[8:])
         ms16 = _time_ms(kernel_fn(args16), 2, 10, queue_ahead=True)
+        # The long chunks, held by the probe rule on every output: from the
+        # zero state at 16 distinct rows the chunk is ill-conditioned in both
+        # modes (H100: 1e-6 nudges of its inputs move the plain version's own
+        # int8 stop logits by up to 1.35e-2 and its state by up to 1.6e-2
+        # over K = 10 steps, beyond the 1e-2 of the short chunks). Each output
+        # within max(its tolerance, DECODE_PROBE_MULTIPLE x the probes'
+        # median distance) of the plain version or of one of its probes, and,
+        # a step at a time from the plain version's carry, every output within
+        # 1e-3 of it (``one_step``: the tight test of the kernel). Then card
+        # time, launches a chunk (row groups) and bound; at S 208 also 15
+        # rows, one launch fewer than 16 in bf16: the cost of the extra group
+        # (the weights read again).
+        def long_err(a):
+            got, ref = decode_kernel.decode_segment_kernel.original(*a), decode_plain(*a)
+            probes = [decode_plain(*nudged_segment(a)) for _ in range(DECODE_PROBE_DRAWS)]
+            probes.append(on_device(decode_plain(*on_device(a, "cpu")), ref[4].device))
+            parts = {"frames": lambda x: x[2], "stop_logits": lambda x: x[3],
+                     "prev": lambda x: x[1], "state": lambda x: tuple(x[0].h + x[0].c),
+                     "aligns": lambda x: x[4]}
+            e = {}
+            for q, part in parts.items():
+                readings = [max_abs(part(p), part(ref)) for p in probes]
+                limit = max(decode_tol.get(q, 1e-3), DECODE_PROBE_MULTIPLE
+                            * statistics.median(readings))
+                nearest = min(max_abs(part(got), part(ref)),
+                              *(max_abs(part(got), part(p)) for p in probes))
+                e[q] = max_abs(part(got), part(ref))
+                e[f"{q}_nearest_over_its_limit"] = nearest / limit
+                e[f"{q}_probe_median"] = statistics.median(readings)
+            carry_k, prev_k, worst = a[4], a[5], 0.0
+            for k in range(a[8]):
+                step = (*a[:4], carry_k, prev_k,
+                        *(m if m is None else m[k:k + 1] for m in a[6:8]), 1, *a[9:])
+                p_k, g_k = decode_plain(*step), decode_kernel.decode_segment_kernel.original(*step)
+                worst = max(worst, *(max_abs(part(g_k), part(p_k)) for part in parts.values()))
+                carry_k, prev_k = p_k[0], p_k[1]
+            e["one_step"] = worst
+            return e
+
+        long_extra = {}
+        for S_o, B_o, a_l in long_cases:
+            tag = f"s{S_o}_b{B_o}"
+            e = long_err(a_l)
+            bad = {k: v for k, v in e.items() if (k.endswith("_over_its_limit") and not v <= 1.0)
+                   or (k == "one_step" and not v <= 1e-3)}
+            print(f"  {name} S {S_o}, B {B_o}: {'ok' if not bad else 'FAILED'} "
+                  + json.dumps({k: float(f"{v:.3g}") for k, v in e.items()}))
+            if bad:
+                failures.append(f"{name} S {S_o} B {B_o}: {bad}")
+            long_extra[f"errors_{tag}"] = {k: e[k] for k in ("one_step", *(
+                q + "_nearest_over_its_limit" for q in ("frames", "stop_logits", "state",
+                                                         "aligns")))}
+            long_extra[f"ms_{tag}"] = _time_ms(kernel_fn(a_l), 1, 5, queue_ahead=True)
+            long_extra[f"launches_a_chunk_{tag}"] = len(decode_kernel.kernel_row_groups(
+                bundle, B_o, S_o, keys.device))
+            long_extra[f"bound_ms_{tag}"] = chunk_bound(a_l)[0]
+            if S_o == 208 and B_o == 16:
+                long_extra["ms_s208_b15"] = _time_ms(kernel_fn(with_rows(a_l, 15)), 1, 5,
+                                                     queue_ahead=True)
+                long_extra["launches_a_chunk_s208_b15"] = len(decode_kernel.kernel_row_groups(
+                    bundle, 15, 208, keys.device))
         lay_d = decode_kernel.decode_layout(
             Hd, torch.cuda.get_device_properties(0).multi_processor_count)
         check(
@@ -2849,7 +3179,8 @@ def main() -> int:
                 "K": Kd, "B": Bd, "S": Sd, "chunks_on_main_path": len(calls),
                 # One launch a row group of at most 16 rows a chunk.
                 "ms_b32": ms32, "bound_ms_b32": bound32[0], "launches_a_chunk_b32":
-                    len(decode_kernel.row_groups(32)), "ms_b16": ms16,
+                    len(decode_kernel.kernel_row_groups(bundle, 32, Sd, keys.device)),
+                "ms_b16": ms16,
                 "weight_bytes": weights,
                 "weights": ("read once per launch, then resident in shared memory" if resident
                             else "layer 0 resident in shared memory, layer 1 streamed every "
@@ -2862,6 +3193,11 @@ def main() -> int:
                 # which reads what it re-reads once per step.
                 "reread_bytes_per_step": reread,
                 "design_bound_ms": (weights + (Kd - 1) * reread) / HBM_BPS * 1e3,
+                # Pass (o): S past 256 up to the one-row limit (K = 10 chunks).
+                "one_row_limit_S": decode_kernel.max_positions(
+                    decode_kernel.widths_of(bundle), resident,
+                    *decode_kernel.card_limits(keys.device)),
+                **long_extra,
             },
         )
         row = rows[-1]
@@ -2869,6 +3205,9 @@ def main() -> int:
               f"per step (floor {row['floor_ms']:.3f} ms: {row['barrier_rounds']} barrier rounds); "
               f"plain {row['plain_ms']:.2f} ms; at B 32 (two launches) {ms32:.3f} ms, bound "
               f"{bound32[0]:.4f} ms ({bound32[1]}); one launch at B 16 {ms16:.3f} ms")
+        print(f"  {name} long texts (pass (o), one-row limit S {row['one_row_limit_S']}): "
+              + json.dumps({k: float(f"{v:.4g}") for k, v in long_extra.items()
+                            if not k.startswith("errors_")}))
 
     # Train phase kernels, on the inputs the last timed train step gave them:
     # the residual modes (every output against the plain version's, as a

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from multi_speaker_tts_tpu_torch.audio.dsp import log_dispatch
 from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.layers import (
     BiLSTM,
@@ -125,7 +126,10 @@ class Decoder(nn.Module):
         """What every AR mode shares: the parameters, the memory keys, the
         prenet at global step t (its keep masks from ``prenet_masks(t)``),
         the int8 weights of ``Quantize_Int8`` and, under ``Pallas_Decode``,
-        the decode kernel's K-step chunk body."""
+        the decode kernel's K-step chunk body, or past the kernel's limit on
+        memory positions (``decode_kernel.position_limit``) the plain loop's
+        weights, printing one ``[dispatch] decode -> plain`` line a process
+        on the card."""
         keys = self.memory_layer(memory.float())
         ws = [(d.kernel, d.bias) for d in self.prenet]
         rate = self.prenet_dropout
@@ -136,17 +140,32 @@ class Decoder(nn.Module):
 
         fused = dscan.quantize_fused(p) if self.quantize_int8 else None
         segment_fn = None
-        if self.pallas_decode:
-            # On the card the kernel launches or raises; there is no quiet
-            # fall-back to the plain loop for shapes it does not take.
-            bundle = decode_kernel.prepare_bundle(
-                p, ws, quantize=self.pallas_decode != "bf16")
+        quantized = self.pallas_decode != "bf16"
+        S = memory.shape[1]
+        limit = (decode_kernel.position_limit(p, [w.shape[1] for w, _ in ws], memory.shape[-1],
+                                              self.mel_dim, quantized,
+                                              decode_kernel.card_limits(memory.device))
+                 if self.pallas_decode else None)
+        if limit is not None and S > limit:
+            # The reference decodes on its XLA path wherever its kernel's
+            # gate refuses; so does the port past the one limit that depends
+            # on the text, the kernel's memory positions: the plain loop on
+            # the tensors' device, with the fused weights of Quantize_Int8's
+            # rule (int8 where it is set, else the compute dtype's).
+            if memory.is_cuda:
+                log_dispatch("decode", "plain", f"S={S} past the decode kernel's {limit} memory "
+                                                f"positions in {'int8' if quantized else 'bf16'}"
+                                                " mode")
+        elif self.pallas_decode:
+            # Every other refusal raises at the launch on the card: there is
+            # no quiet fall-back to the plain loop for widths it does not take.
+            bundle = decode_kernel.prepare_bundle(p, ws, quantize=quantized)
 
             def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K, th):
                 return decode_kernel.decoder_ar_segment_kernel(
                     bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K,
                     th, prenet_masks, self.mel_dim, self.r, rate)
-        elif fused is None:
+        if segment_fn is None and fused is None:
             fused = dscan.fused_weights(p.lstm, compute_dtype)
         return p, keys, prenet_fn, fused, segment_fn
 

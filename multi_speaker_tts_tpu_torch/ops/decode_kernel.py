@@ -14,14 +14,20 @@ is f32. The stopped / lengths bookkeeping stays outside, vectorised over
 the chunk's stop logits (:func:`decoder_ar_segment_kernel`).
 
 On a CUDA tensor :func:`decode_segment` launches ``csrc/decode.cu`` (one
-persistent cooperative launch a group of at most 16 batch rows,
-:func:`row_groups`; five grid-barrier rounds a step; gate
+persistent cooperative launch a group of at most 16 batch rows, as many
+as fit the card's shared memory at the text's memory positions S,
+:func:`kernel_row_groups` from :func:`layout_bytes`, the Python copy of the
+kernel's layout; five grid-barrier rounds a step; gate
 products on tensor cores, int8 weights resident in shared memory for the
 segment, in bf16 mode layer 0's too and layer 1's streamed every step; see
 the source's header) or raises; on a CPU tensor it runs
 :func:`decode_segment_plain`, the same arithmetic in plain torch.
 :func:`pack_gate_weights` lays each block's gate rows out in the order its
-lanes read them, for the grid :func:`decode_layout` mirrors. The dropout masks are drawn by the wrapper from
+lanes read them, for the grid :func:`decode_layout` mirrors. The kernel
+takes S up to the largest at which a launch over one row fits
+(:func:`max_positions`, about 5,300 in bf16 and 3,800 in int8 at production
+width on an H100); past it the AR decode runs the plain loop
+(``models/tacotron.py`` ``Decoder._ar_setup``). The dropout masks are drawn by the wrapper from
 the caller's ``prenet_masks(t)`` in the plain loop's order, so the plain
 decode, the int8 plain decode and the kernel decode follow one trajectory
 under one seed.
@@ -30,7 +36,8 @@ under one seed.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -47,7 +54,6 @@ KERNELS = {
     "int8": _build.Kernel("decode_segment_int8", "decode.cu", _FUNCTIONS),
     "bf16": _build.Kernel("decode_segment_bf16", "decode.cu", _FUNCTIONS),
 }
-MAX_S = 256  # memory positions (the JAX package's gate)
 MAX_B = 16  # batch rows a launch: two n-tiles of 8 in the gate products
 PRENET_BLOCKS = 4  # blocks of csrc/decode.cu that run the prenet (kPre)
 MAX_UNITS = 8  # hidden units a gate block owns: 4U gate rows in two m-tiles (kMaxMt)
@@ -56,18 +62,128 @@ MAX_M_TILES = 2
 _WIDTH = 16  # H, memory width and last prenet width in 16-element pieces
 _MAX_A = 512  # attention width: one thread per unit (kThreads)
 _MAX_K = 4096  # depth of a gate product, [x, context, h]: what a block stages (kMaxK)
+# The constants of csrc/decode.cu's make_layout.
+_THREADS, _WARPS, _ROWS_A_PASS = 512, 16, 4
+# An H100's SMs and opt-in shared memory a block (bytes): the card the
+# decisions below take on a CPU tensor, so that the CPU routes as the card.
+H100 = (132, 232448)
 
 
-def _shape_reason(H: int, D: int, prenet_sizes, S: int, A: int, mel_dim: int,
-                  conv_c: int) -> str | None:
+class Widths(NamedTuple):
+    """The decoder's widths that size a launch of csrc/decode.cu."""
+    H: int
+    D: int
+    P1: int
+    P2: int
+    A: int
+    mel: int
+    conv_k: int
+    conv_c: int
+
+
+def widths_of(bundle: dict) -> Widths:
+    """The widths of a :func:`prepare_bundle` bundle."""
+    H = bundle["b0"].shape[0] // 4
+    conv_k, _, conv_c = bundle["ck"].shape
+    return Widths(H, bundle["wproj"].shape[1] - H, bundle["wp1"].shape[0],
+                  bundle["wp2"].shape[0], bundle["wq"].shape[1], bundle["wp1"].shape[1],
+                  conv_k, conv_c)
+
+
+def card_limits(device) -> tuple[int, int]:
+    """(SMs, opt-in shared memory a block in bytes) of a CUDA device, the
+    H100's (:data:`H100`) for any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _x_stride(n_bytes: int) -> int:
+    s = -(-n_bytes // 64) * 64
+    return s + 64 if s % 128 == 0 else s
+
+
+def layout_bytes(B: int, S: int, w: Widths, quantized: bool, n_sm: int,
+                 max_smem: int) -> dict:
+    """``make_layout`` and the fit test of ``mstts_decode_layout`` in
+    csrc/decode.cu, in Python: the dynamic shared memory a block of a
+    launch over B rows at S memory positions takes (``total``), and whether
+    that launch fits a card of ``n_sm`` SMs and ``max_smem`` opt-in bytes a
+    block (``fits``). Everything a block keeps scales with B or S but the
+    gate weights: the B staged activation rows of a gate product, and the
+    attention row's (w, cum), mask and energies."""
+    lay = decode_layout(w.H, n_sm)
+    U, nblk, mt = lay["U"], lay["nblk"], lay["mt"]
+    nt = -(-B // 8)
+    win = 64 if quantized else 32
+    K0p = -(-(w.P2 + w.D + w.H) // win) * win
+    K1p = -(-(2 * w.H + w.D) // win) * win
+    nw0, nw1 = K0p // win, K1p // win
+    xstride = _x_stride((1 if quantized else 2) * max(K0p, K1p))
+    misc_at = 1024 * mt * (nw0 + nw1 if quantized else nw0)
+    att_at = misc_at + _align16(4 * (U * w.A + 4 * 16 * mt + 2 * B * U))
+    pad = S + w.conv_k - 1
+    loc = w.conv_c * w.A + w.conv_k * 2 * w.conv_c
+    att = -(-(w.A + 2 * pad + S) // 4) * 4
+    part = 4 * _WARPS * 16 * mt * 8 * nt
+    gate = (_align16(max(B * xstride, part))
+            + 4 * (16 * mt * MAX_B + MAX_B + _ROWS_A_PASS * _WARPS))
+    attn = 4 * (_WARPS * w.conv_c * 4 + w.A + _THREADS + S)
+    per = -(-w.P2 // PRENET_BLOCKS)
+    pre = 4 * (2 * B * w.P1 + w.P1 + per + B * per + B * w.mel + 24
+               + 4 * max(w.mel, w.P1) + _THREADS * _ROWS_A_PASS * 2)
+    scr = max(gate, attn, pre)
+    total = att_at + _align16(4 * (att + loc)) + scr
+    if total > max_smem:  # the location weights leave shared memory first
+        total -= _align16(4 * (att + loc)) - _align16(4 * att)
+    fits = (total <= max_smem and lay["grid"] <= n_sm and mt <= MAX_M_TILES
+            and B <= nblk)
+    return {"total": total, "fits": fits}
+
+
+@functools.lru_cache(maxsize=256)
+def max_positions(w: Widths, quantized: bool, n_sm: int, max_smem: int,
+                  rows: int = 1) -> int:
+    """The largest S at which a launch over ``rows`` rows fits (0 if none):
+    with ``rows=1`` the kernel's own limit on memory positions. A launch's
+    bytes grow with S, so the fitting S are 1 .. the limit."""
+    fits = lambda S: layout_bytes(rows, S, w, quantized, n_sm, max_smem)["fits"]  # noqa: E731
+    if not fits(1):
+        return 0
+    lo, hi = 1, 2
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:  # fits(lo), not fits(hi)
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+@functools.lru_cache(maxsize=256)
+def group_rows(S: int, w: Widths, quantized: bool, n_sm: int, max_smem: int) -> int:
+    """The most rows, up to MAX_B, that one launch takes at S (0 if not one)."""
+    return max((b for b in range(1, MAX_B + 1)
+                if layout_bytes(b, S, w, quantized, n_sm, max_smem)["fits"]), default=0)
+
+
+def _shape_reason(H: int, D: int, prenet_sizes, S: int | None, A: int, mel_dim: int,
+                  conv_c: int, conv_k: int = 31, quantized: bool = True,
+                  card: tuple[int, int] = H100) -> str | None:
     """The one shape gate of the kernel: why it does not take these widths,
-    or None. Any batch is taken (:func:`row_groups`)."""
+    or None. Any batch is taken (:func:`row_groups`); memory positions up to
+    the largest S at which a launch over one row fits the card's shared
+    memory (:func:`max_positions`; ``card``: SMs and opt-in bytes a block).
+    ``S=None`` checks the widths alone."""
     P1, P2 = prenet_sizes
     if H % _WIDTH or D % _WIDTH or P2 % _WIDTH:
         return (f"needs H, memory and prenet widths in multiples of {_WIDTH}: "
                 f"{H}, {D}, {P2}")
-    if S > MAX_S:
-        return f"needs at most {MAX_S} memory positions, got {S}"
     if A > _MAX_A:
         return f"needs an attention width of at most {_MAX_A}, got {A}"
     if max(2 * H, P2 + H) + D > _MAX_K:
@@ -75,25 +191,56 @@ def _shape_reason(H: int, D: int, prenet_sizes, S: int, A: int, mel_dim: int,
     if P1 % 4 or mel_dim % 4 or A % 4 or conv_c % 4:
         return ("needs the first prenet, mel, attention and location-conv widths in "
                 f"multiples of 4: {P1}, {mel_dim}, {A}, {conv_c}")
+    if decode_layout(H, card[0])["mt"] > MAX_M_TILES:
+        return (f"needs at most {4 * MAX_UNITS} gate rows a block: H <= {MAX_UNITS} x (SMs - "
+                f"{PRENET_BLOCKS}) = {MAX_UNITS * (card[0] - PRENET_BLOCKS)} on this card, "
+                f"got H={H}")
+    if S is not None:
+        limit = max_positions(Widths(H, D, P1, P2, A, mel_dim, conv_k, conv_c), quantized, *card)
+        if S > limit:
+            return position_reason(S, limit, quantized)
     return None
 
 
-def unsupported_reason(p: DecoderParams, prenet_sizes, memory_dim: int, S: int,
-                       mel_dim: int) -> str | None:
-    """Why the kernel does not take this decoder, or None if it does."""
+def position_reason(S: int, limit: int, quantized: bool) -> str:
+    return (f"needs at most {limit} memory positions in {'int8' if quantized else 'bf16'} "
+            "mode (the largest S at which a launch over one row fits the card's shared "
+            f"memory), got {S}")
+
+
+def unsupported_reason(p: DecoderParams, prenet_sizes, memory_dim: int, S: int | None,
+                       mel_dim: int, quantized: bool = True,
+                       card: tuple[int, int] = H100) -> str | None:
+    """Why the kernel does not take this decoder at S memory positions
+    (``None``: at any), or None if it does."""
     if len(p.lstm) != 2 or len(prenet_sizes) != 2:
         return (f"needs the 2-layer decoder and prenet, got {len(p.lstm)} and "
                 f"{len(prenet_sizes)} layers")
     H = p.lstm[0].hidden_size
     if p.lstm[1].hidden_size != H:
         return "needs equal LSTM sizes"
+    conv_k, _, conv_c = p.attention.conv_kernel.shape
     return _shape_reason(H, memory_dim, prenet_sizes, S, p.attention.wq.shape[1],
-                         mel_dim, p.attention.wloc.shape[0])
+                         mel_dim, conv_c, conv_k, quantized, card)
 
 
-def supported(p: DecoderParams, prenet_sizes, memory_dim: int, S: int,
-              mel_dim: int) -> bool:
-    return unsupported_reason(p, prenet_sizes, memory_dim, S, mel_dim) is None
+def supported(p: DecoderParams, prenet_sizes, memory_dim: int, S: int | None,
+              mel_dim: int, quantized: bool = True, card: tuple[int, int] = H100) -> bool:
+    return unsupported_reason(p, prenet_sizes, memory_dim, S, mel_dim, quantized, card) is None
+
+
+def position_limit(p: DecoderParams, prenet_sizes, memory_dim: int, mel_dim: int,
+                   quantized: bool, card: tuple[int, int]) -> int | None:
+    """The kernel's limit on memory positions for this decoder on ``card``
+    (:func:`max_positions` at one row), or None where it refuses the
+    decoder at any S: past the limit and only there, the AR decode runs
+    the plain loop (``Decoder._ar_setup``)."""
+    if not supported(p, prenet_sizes, memory_dim, None, mel_dim, quantized, card):
+        return None
+    H = p.lstm[0].hidden_size
+    conv_k, _, conv_c = p.attention.conv_kernel.shape
+    w = Widths(H, memory_dim, *prenet_sizes, p.attention.wq.shape[1], mel_dim, conv_k, conv_c)
+    return max_positions(w, quantized, *card) or None
 
 
 def decode_layout(H: int, n_sm: int) -> dict:
@@ -223,11 +370,26 @@ def decode_segment_plain(bundle: dict, keys, memory, mask, carry: DecoderCarry,
     return carry, prev, ys[..., :mel_dim * r], ys[..., mel_dim * r], torch.stack(aligns)
 
 
-def row_groups(B: int) -> list[slice]:
-    """The launches of one chunk: consecutive groups of at most MAX_B rows.
-    Decode rows are independent (only the weights are shared), so each
-    group runs as its own launch on views of the batch's state."""
-    return [slice(g, min(g + MAX_B, B)) for g in range(0, B, MAX_B)]
+def row_groups(B: int, rows: int = MAX_B) -> list[slice]:
+    """The launches of one chunk: consecutive groups of ``rows`` rows (the
+    last takes the rest). Decode rows are independent (only the weights are
+    shared), so each group runs as its own launch on views of the batch's
+    state."""
+    return [slice(g, min(g + rows, B)) for g in range(0, B, rows)]
+
+
+def kernel_row_groups(bundle: dict, B: int, S: int, device) -> list[slice]:
+    """The row groups the kernel launches over for B rows at S memory
+    positions on ``device``: the most rows, up to MAX_B, whose launch fits
+    the card's shared memory at this S (:func:`group_rows`). Each group
+    reads the gate weights again. Raises past the one-row limit."""
+    w = widths_of(bundle)
+    card = card_limits(device)
+    rows = group_rows(S, w, bundle["quantized"], *card)
+    if rows == 0:
+        raise ValueError("decode kernel " + position_reason(
+            S, max_positions(w, bundle["quantized"], *card), bundle["quantized"]))
+    return row_groups(B, rows)
 
 
 # Pointer table of csrc/decode.cu (enum Ptr), in order.
@@ -238,13 +400,16 @@ _WEIGHT_KEYS = ("w0", "w1", "s0", "b0", "s1", "b1", "wproj", "bproj", "wp1", "bp
 def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
                           prev, m1, m2, K: int, mel_dim: int, r: int):
     """Launch ``csrc/decode.cu`` on CUDA f32 state, once for each group of
-    :func:`row_groups`. Same returns as :func:`decode_segment_plain`."""
+    :func:`kernel_row_groups`. Same returns as :func:`decode_segment_plain`.
+    Raises for what the kernel does not take (:func:`_shape_reason`), S past
+    its one-row limit included."""
     B, S, A = keys.shape
     D = memory.shape[-1]
     H = carry.h[0].shape[-1]
     P1, P2 = bundle["wp1"].shape[0], bundle["wp2"].shape[0]
-    conv_c = bundle["ck"].shape[2]
-    reason = _shape_reason(H, D, (P1, P2), S, A, mel_dim, conv_c)
+    conv_k, _, conv_c = bundle["ck"].shape
+    reason = _shape_reason(H, D, (P1, P2), S, A, mel_dim, conv_c, conv_k, bundle["quantized"],
+                           card_limits(keys.device))
     if reason is not None:
         raise ValueError(f"decode kernel {reason}")
     if bundle["wproj"].shape != (mel_dim * r + 1, H + D) or bundle["wp1"].shape[1] != mel_dim:
@@ -257,7 +422,7 @@ def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
     if any(n != B for n in rows) or mask.shape[1] != S or memory.shape[1] != S:
         raise ValueError(f"decode kernel: inputs disagree on the batch rows ({B} keys rows, "
                          f"then {rows}) or the memory positions")
-    groups = row_groups(B)
+    groups = kernel_row_groups(bundle, B, S, keys.device)
     if len(groups) == 1:
         return _launch(bundle, keys, memory, mask, carry, prev, m1, m2, K, mel_dim, r)
     outs = [_launch(bundle, keys[g], memory[g], mask[g],
@@ -275,7 +440,7 @@ def decode_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
 
 def _launch(bundle: dict, keys, memory, mask, carry: DecoderCarry, prev, m1, m2, K: int,
             mel_dim: int, r: int):
-    """One launch of ``csrc/decode.cu`` over at most MAX_B rows."""
+    """One launch of ``csrc/decode.cu`` over one row group."""
     B, S, A = keys.shape
     D = memory.shape[-1]
     H = carry.h[0].shape[-1]
@@ -296,10 +461,6 @@ def _launch(bundle: dict, keys, memory, mask, carry: DecoderCarry, prev, m1, m2,
     dev = keys.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     lay = decode_layout(H, n_sm)
-    if lay["mt"] > MAX_M_TILES:
-        raise ValueError(f"decode kernel needs at most {4 * MAX_UNITS} gate rows a block: H <= "
-                         f"{MAX_UNITS} x (SMs - {PRENET_BLOCKS}) = {MAX_UNITS * (n_sm - PRENET_BLOCKS)}"
-                         f" on this card, got H={H}")
     packed = bundle.setdefault("packed", {})
     key = (lay["U"], lay["nblk"], lay["mt"], dev)
     if key not in packed:

@@ -550,6 +550,12 @@ DECODE_SHAPES = {
     "b17": (17, 48, 128, 768, 1024, 256, 80, 2, 10),
     "b32": (32, 48, 128, 768, 1024, 256, 80, 2, 10),
     "b40": (40, 48, 128, 768, 1024, 256, 80, 2, 10),
+    # Past the JAX package's 256 positions, at row counts whose launch the
+    # card's shared memory splits into groups (kernel_row_groups).
+    "s272_b16": (16, 272, 128, 768, 1024, 256, 80, 2, 10),
+    "s272_b1": (1, 272, 128, 768, 1024, 256, 80, 2, 10),
+    "s1024_b16": (16, 1024, 128, 768, 1024, 256, 80, 2, 10),
+    "s1024_b1": (1, 1024, 128, 768, 1024, 256, 80, 2, 10),
 }
 
 
@@ -577,7 +583,7 @@ def test_decode_segment_kernel(dev, quantize, shape, monkeypatch):
         got = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
         again = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 2 * len(dk.row_groups(B))
+        assert kernel.launches == before + 2 * len(dk.kernel_row_groups(bundle, B, S, dev))
         # The query's sums are exact (64-bit fixed point), every other sum in
         # a fixed order: the same inputs give the same outputs, bit for bit.
         assert all(torch.equal(x, y) for x, y in zip(got[1:], again[1:]))
@@ -644,6 +650,112 @@ def test_decode_kernel_layout_is_the_mirrored_one(dev, H):
     assert dk.KERNELS["int8"].lib().mstts_decode_layout(dims, ctypes.addressof(out)) == 0
     want = dk.decode_layout(H, n_sm)
     assert list(out)[:3] == [want["U"], want["nblk"], want["grid"]] and out[4] == want["mt"]
+
+
+# Widths (H, D, P1, P2, A, mel, conv_k, conv_c) of the layout grid: the
+# production decoder, the small demo checkpoint's, and a wide attention.
+LAYOUT_WIDTHS = [(1024, 768, 256, 256, 128, 80, 31, 32), (256, 320, 64, 64, 64, 80, 31, 32),
+                 (256, 256, 128, 128, 512, 80, 31, 32), (512, 512, 256, 256, 128, 80, 15, 16)]
+
+
+@pytest.mark.parametrize("widths", LAYOUT_WIDTHS, ids=lambda w: f"H{w[0]}_D{w[1]}_A{w[4]}")
+def test_decode_layout_bytes_is_the_kernels(dev, widths):
+    """``layout_bytes`` (the Python copy of make_layout and of the fit test)
+    against ``mstts_decode_layout`` on this card: the bytes and the fit of
+    every row count 1-16 at S 16-6000, both modes."""
+    import ctypes
+
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+
+    w = dk.Widths(*widths)
+    card = dk.card_limits(dev)
+    lib = dk.KERNELS["int8"].lib()
+    out = (ctypes.c_int * 8)()
+    for q in (0, 1):
+        for B in range(1, 17):
+            for S in list(range(16, 6001, 48)) + [1, 2, 255, 257]:
+                dims = (ctypes.c_int * 13)(10, B, S, w.A, w.D, w.H, w.P1, w.P2, w.mel, 2,
+                                           w.conv_k, w.conv_c, q)
+                assert lib.mstts_decode_layout(dims, ctypes.addressof(out)) == 0
+                got = dk.layout_bytes(B, S, w, bool(q), *card)
+                assert (got["total"], got["fits"]) == (out[6], bool(out[7])), (q, B, S)
+
+
+LONG = ("the quick brown fox jumps over the lazy dog. she sells sea shells by the sea "
+        "shore. a stitch in time saves nine. all that glitters is not gold. pack my box "
+        "with five dozen liquor jugs now.")
+
+
+@pytest.mark.parametrize("quantize", ["int8_pallas", "bf16_pallas"])
+def test_sixteen_texts_with_a_long_one_on_the_card(dev, quantize, monkeypatch):
+    """16 texts, the longest 200 characters (S 208): in bf16 16 rows do not
+    fit one launch there, so the kernel runs the row groups the layout
+    sizes; no plain decode step; the same request twice, the same lengths."""
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    texts = [(LONG + " " + LONG)[:206]] + ["hello world.", "she sells sea shells.", "a b c"] * 5
+    synth = Synthesizer.from_compact(str(ROOT / "demo" / "serving_ckpt_full.msgpack"),
+                                     quantize=quantize)
+
+    def boom(*a, **k):
+        raise AssertionError("the plain decode ran under a kernel mode")
+
+    monkeypatch.setattr(dscan, "decoder_cell_step", boom)
+    monkeypatch.setattr(dk, "decode_segment_plain", boom)
+    chunks = []
+    real = dk.decode_segment_kernel
+    monkeypatch.setattr(dk, "decode_segment_kernel",
+                        lambda b, keys, *a: chunks.append(keys.shape) or real(b, keys, *a))
+    kernel = dk.KERNELS[quantize.split("_")[0]]
+    emb = synth.enroll([str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
+    before = kernel.launches
+    out = synth.synthesize(texts, emb, vocode=False)
+    assert chunks and all(c[:2] == (16, 208) for c in chunks)
+    bundle = dk.prepare_bundle(synth.tacotron.decoder.params(),
+                               [(d.kernel, d.bias) for d in synth.tacotron.decoder.prenet],
+                               quantize=quantize == "int8_pallas")
+    groups = dk.kernel_row_groups(bundle, 16, 208, dev)
+    assert len(groups) == (1 if quantize == "int8_pallas" else 2)
+    assert kernel.launches - before == len(chunks) * len(groups)
+    assert all(np.isfinite(o["mel"]).all() and o["mel_length"] > 0 for o in out)
+    again = synth.synthesize(texts, emb, vocode=False)
+    assert [o["mel_length"] for o in again] == [o["mel_length"] for o in out]
+
+
+def test_decode_past_the_kernels_limit_on_the_card(dev, capsys):
+    """A text past the bf16 kernel's one-row limit: the AR decode runs the
+    plain loop on the card with one dispatch line and launches no decode
+    kernel; a direct call of the kernel there raises."""
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    synth = Synthesizer.from_compact(str(ROOT / "demo" / "serving_ckpt_full.msgpack"),
+                                     quantize="bf16_pallas")
+    dec = synth.tacotron.decoder
+    bundle = dk.prepare_bundle(dec.params(), [(d.kernel, d.bias) for d in dec.prenet],
+                               quantize=False)
+    limit = dk.max_positions(dk.widths_of(bundle), False, *dk.card_limits(dev))
+    text = (LONG + " ") * (limit // len(LONG) + 1)
+    text = text[:limit + 4]
+    emb = synth.enroll([str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
+    dsp._DISPATCH_LOGGED.discard(("decode", "plain"))
+    before = {m: k.launches for m, k in dk.KERNELS.items()}
+    out = synth.synthesize([text], emb, vocode=False, max_steps=64)
+    assert {m: k.launches for m, k in dk.KERNELS.items()} == before
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("[dispatch] decode")]
+    assert len(lines) == 1 and "-> plain" in lines[0] and str(limit) in lines[0], lines
+    assert np.isfinite(out[0]["mel"]).all() and out[0]["mel_length"] > 0
+    S = -(-(limit + 1) // 16) * 16
+    memory = torch.zeros(1, S, 768, device=dev)
+    with pytest.raises(ValueError, match=f"at most {limit} memory positions"):
+        dk.decode_segment_kernel(bundle, torch.zeros(1, S, 128, device=dev), memory,
+                                 torch.ones(1, S, device=dev),
+                                 dscan.initial_carry(1, memory, 2, 1024),
+                                 torch.zeros(1, 80, device=dev), None, None, 4, 80, 2)
 
 
 @pytest.mark.parametrize("early_exit", [True, False])

@@ -390,7 +390,12 @@ def test_supported_and_refusals(setup):
     assert not dk.supported(p, (P,), D, S, MEL)
     assert not dk.supported(p, (P, P), D + 7, S, MEL)  # off the kernel's 16-element grid
     assert not dk.supported(p, (P + 2, P), D, S, MEL)  # off its 4-element grid
-    assert not dk.supported(p, (P, P), D, dk.MAX_S + 1, MEL)
+    # The kernel's own limit on memory positions: one row a launch in an
+    # H100's shared memory.
+    limit = dk.max_positions(dk.Widths(H, D, P, P, A, MEL, CONV_K, CONV_C), True, *dk.H100)
+    assert limit > 256 and dk.supported(p, (P, P), D, limit, MEL)
+    assert not dk.supported(p, (P, P), D, limit + 1, MEL)
+    assert str(limit) in dk.unsupported_reason(p, (P, P), D, limit + 1, MEL)
     assert "16" in dk.unsupported_reason(p, (P, P), D + 7, S, MEL)
     with pytest.raises(ValueError, match="2-layer"):
         dk.prepare_bundle(three, t["prenet"])
@@ -449,6 +454,9 @@ def test_shape_rule_accepts_the_served_decoders_and_names_what_it_refuses():
     assert dk._shape_reason(1024, 768, (256, 256), 48, 128, 80, 32) is None
     assert dk._shape_reason(256, 256, (128, 128), 256, 512, 80, 32) is None
     assert "16" in dk._shape_reason(1024, 776, (256, 256), 48, 128, 80, 32)
-    assert "memory positions" in dk._shape_reason(1024, 768, (256, 256), 257, 128, 80, 32)
+    # S up to the kernel's one-row limit (3,788 in int8 at these widths on an
+    # H100), not the JAX package's 256.
+    assert dk._shape_reason(1024, 768, (256, 256), 257, 128, 80, 32) is None
+    assert "3788 memory positions" in dk._shape_reason(1024, 768, (256, 256), 3789, 128, 80, 32)
     assert "attention width" in dk._shape_reason(1024, 768, (256, 256), 48, 516, 80, 32)
     assert "deep" in dk._shape_reason(1664, 784, (256, 256), 48, 128, 80, 32)
