@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the eleven hand-written kernel sources of
+1. Builds the twelve hand-written kernel sources of
    ``multi_speaker_tts_tpu_torch`` from ``csrc/`` and the barrier-only
    ``barrier_floor.cu`` (one ``nvcc`` per source, all started together).
 2. Main path: ``demo/serving_ckpt_full.msgpack`` as it is (CBHG linear head
@@ -120,6 +120,26 @@
    plain loop runs with one ``[dispatch] decode -> plain`` line and no
    launch, the same request twice decodes the same lengths; then a burst
    of the 16 texts to a ``bf16_pallas`` daemon, every reply 200.
+   Every batch and width the reference's gates admit (p): (p1) one
+   ``GE2ETrainer`` step at GE2E's published batch, 64 speakers x 10
+   utterances of 160-frame crops from seeded speech-like clips, at the
+   repo's GE2E widths (768 x 3): a finite loss, the LSTM backward launched
+   in its row groups (3 layers x 2), and the step's gradients again with
+   the plain reverse pass in place of the kernel (loss, gradient norm
+   within 2e-2, dG of the first 8 rows of every layer within 1e-2 of the
+   peak); (p2) a fresh ``Trainer`` at decoder LSTM 1536, attention 640 and
+   CBHG ``GRU_Size`` 512 (256 a direction), its weights set to a trained
+   model's scale N(0, 0.02), through ``Synthesizer.from_state``: enroll ->
+   synthesize (fixed length, 64 steps: at random weights the stop logit
+   fires at once) -> Griffin-Lim under ``bf16_pallas`` and ``int8_pallas``
+   (mel, GE2E LSTM, BiLSTM, the wide BiGRU, the decode kernel past H 1024
+   and the staged Griffin-Lim launched; no plain decode step and no
+   ``[dispatch] ... -> plain`` line; a repeat decodes the same lengths),
+   then one train step of 8 rows (the wide BiGRU's residual mode and
+   backward launched); (p3) ``dsp.melspectrogram_auto`` at n_fft 32, 128,
+   8192, 16384, 32768 (the FFT route's global-memory mode), 6000 and 17000
+   (the DFT route and its global-memory mode), each route's launches
+   counted.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -143,7 +163,12 @@
    timed beside ``torch.stft`` and the basis product. The decode rows also
    hold pass (o)'s first chunks at S 208, 1008 and the mode's one-row
    limit, at 16 rows and at one, to the plain version (bf16 by the probe
-   rule), and time them.
+   rule), and time them. Pass (p)'s rows: #8 at 640 rows (the row groups'
+   launches), the wide BiGRU's three modes at (p2)'s H 256 and seeded H
+   384, 512 and 1024, the decode kernel past H 1024 in both modes ((p2)'s
+   first chunk cut to K 4, seeded decoders at H 1152-2048, B 1 and 16, S 64
+   and 208, attention 1024), and the mel front-end's routes and modes at
+   (p3)'s widths, each with its production row's tolerance.
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -156,6 +181,7 @@ f32.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -260,13 +286,17 @@ class _GcPauses:
 _RECORDING = [True]
 
 
-def _record(module, name: str, store: list) -> None:
-    """Wrap ``module.name`` so every call's arguments and result are kept."""
+def _record(module, name: str, store: list, keep: int | None = None, instead=None) -> None:
+    """Wrap ``module.name`` so every call's arguments and result are kept
+    while _RECORDING is on. With ``keep`` (a pass's own store) the first
+    ``keep`` calls are kept whatever _RECORDING says; ``instead`` runs in
+    place of the original, on the same arguments."""
     original = getattr(module, name)
+    run = original if instead is None else instead
 
     def recorded(*args, **kwargs):
-        result = original(*args, **kwargs)
-        if _RECORDING[0]:
+        result = run(*args, **kwargs)
+        if _RECORDING[0] if keep is None else len(store) < keep:
             store.append((args, kwargs, result))
         return result
 
@@ -278,6 +308,26 @@ def _restore(module, *names: str) -> None:
     """Undo :func:`_record` for ``module.name`` of each name."""
     for name in names:
         setattr(module, name, getattr(module, name).original)
+
+
+def _tensors(x) -> list:
+    """The tensors of a result, nested tuples (a carry) walked in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return [x] if hasattr(x, "data_ptr") else []
+
+
+@contextlib.contextmanager
+def _recorded(*hooks):
+    """:func:`_record` each ``(module, name, store, keep[, instead])`` for
+    the block, :func:`_restore` after it."""
+    for module, name, *rest in hooks:
+        _record(module, name, *rest)
+    try:
+        yield
+    finally:
+        for module, name, *_ in reversed(hooks):
+            _restore(module, name)
 
 
 def _bound_ms(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -1461,6 +1511,284 @@ def long_text_pass(params, batch_stats, hp, wavs, kernels, recorded, plain_calls
     return fails, chunks
 
 
+# -- Pass (p): the kernels at every batch and width the reference's gates admit --
+
+# (p1) GE2E's published batch (N 64 speakers x M 10 utterances, 160-frame
+# crops) at the repo's GE2E widths (768 x 3); (p2) a decoder LSTM of 1536,
+# attention 640 and a CBHG GRU_Size of 512 (256 a direction), the production
+# widths otherwise; the mel front-end at n_fft outside 256-4096.
+P1_N, P1_M, P1_FRAMES = 64, 10, 160
+P2_HP = {"Decoder": {"LSTM": {"Sizes": 1536}, "Attention": {"Size": 640}},
+         "Linear_Head": {"CBHG": {"GRU_Size": 512}}}
+P2_STEPS = 64
+# (n_fft, hop) of the mel rows: the FFT route below 256 and past 4096 (its
+# global-memory mode at 32768), the DFT route at 6000 and (global) 17000.
+P3_MEL = {"mel_frontend_small": [(32, 8), (128, 32)],
+          "mel_frontend_large": [(8192, 2048), (16384, 4096)],
+          "mel_frontend_dft_6000": [(6000, 1500)],
+          "mel_frontend_global": [(32768, 8192)],
+          "mel_frontend_dft_global": [(17000, 4250)]}
+
+
+def _p1_mels(hp, n_rows: int, frames: int, seed: int):
+    """Seeded speech-like clips on the card: speaker s a pitch and a
+    spectral tilt, each utterance its own jitter of both, 20 harmonics and a
+    little noise; through the port's front-end (its mel kernel) and cut to
+    ``frames`` frames, rows grouped by speaker."""
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp
+
+    cfg = dsp.DSPConfig.from_hp(hp)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L = cfg.hop * (frames + 8)
+    spk = torch.arange(n_rows, device="cuda") // P1_M
+    n_spk = int(spk.max()) + 1
+    f0_s = 90.0 + 160.0 * torch.rand(n_spk, device="cuda", generator=g)
+    tilt_s = 0.15 + 0.35 * torch.rand(n_spk, device="cuda", generator=g)
+    f0 = f0_s[spk] * (1.0 + 0.03 * torch.randn(n_rows, device="cuda", generator=g))
+    tilt = tilt_s[spk] * (1.0 + 0.1 * torch.randn(n_rows, device="cuda", generator=g))
+    t = torch.arange(L, device="cuda") / cfg.sample_rate
+    wav = 0.01 * torch.randn(n_rows, L, device="cuda", generator=g)
+    for k in range(1, 21):
+        phase = 2 * math.pi * torch.rand(n_rows, 1, device="cuda", generator=g)
+        wav += torch.exp(-tilt * k)[:, None] * torch.sin(2 * math.pi * k * f0[:, None] * t + phase)
+    wav = 0.5 * wav / wav.abs().amax(dim=1, keepdim=True)
+    return dsp.melspectrogram_auto(wav, cfg)[:, :frames].contiguous()
+
+
+def widths_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
+    """Pass (p). (p1) one ``GE2ETrainer`` step at N 64 x M 10 on seeded
+    clips (the LSTM backward launching in row groups), then the step's
+    gradients again with the plain reverse pass in place of the kernel;
+    (p2) a fresh ``Trainer`` at P2_HP, its weights set to a trained model's
+    scale N(0, 0.02), through ``Synthesizer.from_state``: enroll ->
+    synthesize (fixed length) -> Griffin-Lim of the untrimmed decode under
+    ``bf16_pallas`` and ``int8_pallas``, twice each and bit-equal, and one
+    train step of 8 rows (the wide BiGRU's residual mode and backward);
+    (p3) ``dsp.melspectrogram_auto`` at each n_fft of P3_MEL. Counts zeroed
+    just before each and read just after. Returns the failures and what the
+    kernel phase's rows of this pass read."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.hparams import default_hparams
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import (
+        _build, birnn_kernel, decode_kernel, decoder_scan, lstm_kernel, mel_kernel,
+    )
+    from multi_speaker_tts_tpu_torch.train.ge2e_trainer import GE2ETrainer
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    fails, data = [], {"launches": {}}
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    def moved(before):
+        return {n: kernels[n].launches - before[n] for n in kernels
+                if kernels[n].launches != before[n]}
+
+    # (p1) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    hp = default_hparams(GE2E_Train={"Batch_Speakers": P1_N, "Batch_Utterances": P1_M,
+                                     "Frame_Length": P1_FRAMES})
+    trainer = GE2ETrainer(hp, checkpoint_dir=str(work / "p1_ge2e"), log_dir=str(work / "p1_logs"),
+                          device="cuda", seed=0)
+    mels = _p1_mels(hp, P1_N * P1_M, P1_FRAMES, seed=64)
+    H = hp.Speaker_Embedding.GE2E.LSTM.Sizes
+    layers = hp.Speaker_Embedding.GE2E.LSTM.Stacks
+    groups = lstm_kernel.bwd_row_groups(1, H, P1_N * P1_M, _build.card_limits("cuda"))
+    bwd_calls = []
+    torch.cuda.synchronize()
+    before = counts()
+    with _recorded((lstm_kernel, "lstm_seq_layer_bwd_kernel", bwd_calls, layers)):
+        m = trainer.train_step(mels)
+    torch.cuda.synchronize()
+    launched = moved(before)
+    bwd_args = [a for a, _, _ in bwd_calls]
+    del bwd_calls
+    data["launches"]["ge2e_lstm_bwd_640"] = launched.get("ge2e_lstm_bwd", 0)
+    want = {"ge2e_lstm_layer_residuals": layers, "ge2e_lstm_bwd": layers * len(groups)}
+    print(f"[p1 ge2e] GE2ETrainer.train_step at N {P1_N} x M {P1_M} = {P1_N * P1_M} rows, "
+          f"{P1_FRAMES}-frame crops, LSTM {H} x {layers}: loss {m['loss']:.6f}, w {m['w']:.5f}, "
+          f"b {m['b']:.5f}; backward row groups {[g.stop - g.start for g in groups]}; launches "
+          f"{launched}; {time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(v) for v in m.values()):
+        fails.append(f"[p1 ge2e] metrics {m}")
+    if {n: launched.get(n, 0) for n in want} != want or len(groups) < 2:
+        fails.append(f"[p1 ge2e] launches {launched}, want {want} ({len(groups)} row groups)")
+    # The step's gradients with the kernel and with the plain reverse pass
+    # (on the card) in its place, the forward the same: the loss equal, the
+    # gradient norm within 2e-2 (the whole-step gate) and dG of the first 8
+    # rows of every layer within 1e-2 of the peak (the kernel's gate).
+    dGs, grads = {"kernel": [], "plain": []}, {}
+    for label, instead in (("kernel", None), ("plain", lstm_kernel.lstm_seq_layer_bwd_plain)):
+        with _recorded((lstm_kernel, "lstm_seq_layer_bwd_kernel", dGs[label], layers, instead)):
+            loss, g = trainer.gradients(mels)
+        grads[label] = (float(loss), {k: v.float() for k, v in g.items()})
+        dGs[label] = [out[:, :8].clone() for _, _, out in dGs[label]]
+    torch.cuda.synchronize()
+    dG_k, dG_p = dGs["kernel"], dGs["plain"]
+    (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+    norm_k = float(torch.sqrt(sum((v * v).sum() for v in gk.values())))
+    norm_p = float(torch.sqrt(sum((v * v).sum() for v in gp.values())))
+    per = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max().clamp(min=1e-12))
+           for k in gp}
+    dg8 = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-12))
+              for a, b in zip(dG_k, dG_p))
+    data["p1"] = {"loss": [lk, lp], "grad_norm": [norm_k, norm_p], "dG8": dg8,
+                  "args": bwd_args, "groups": [g.stop - g.start for g in groups]}
+    print(f"[p1 ge2e] kernel vs plain reverse pass: loss {lk:.7f} / {lp:.7f}, grad norm "
+          f"{norm_k:.6g} / {norm_p:.6g} (rel {abs(norm_k - norm_p) / max(norm_p, 1e-12):.2e}), "
+          f"dG of the first 8 rows {dg8:.2e} of the peak; per parameter (max |diff| / max |plain|) "
+          + json.dumps({k: float(f"{v:.2e}") for k, v in per.items()}))
+    if (abs(lk - lp) > 1e-2 * max(1.0, abs(lp)) or abs(norm_k - norm_p) > 2e-2 * norm_p
+            or dg8 > 1e-2 or len(dG_k) != layers or len(dG_p) != layers):
+        fails.append(f"[p1 ge2e] kernel vs plain backward: loss {lk} / {lp}, norm {norm_k} / "
+                     f"{norm_p}, dG8 {dg8}")
+    del trainer, mels, grads, gk, gp
+    print(f"[p1 ge2e] took {time.perf_counter() - t0:.1f} s")
+
+    # (p2) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    hp_w = default_hparams(**P2_HP)
+    tr = Trainer(hp_w, checkpoint_dir=str(work / "p2_wide"), log_dir=str(work / "p2_logs"),
+                 device="cuda", seed=0)
+    tr.initialize()
+    gen = torch.Generator().manual_seed(1536)
+    with torch.no_grad():
+        for p in tr.params:
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    state = tr.checkpoint_state()
+    p2 = {"decode": {}, "bigru": [], "bigru_res": [], "bigru_bwd": []}
+    saved_logged = set(dsp._DISPATCH_LOGGED)
+    dsp._DISPATCH_LOGGED.clear()  # any plain route prints its line again
+    log = io.StringIO()
+    need = ("mel_frontend", "ge2e_lstm_layer", "text_encoder_bilstm", "cbhg_bigru_wide",
+            "griffin_lim_staged")
+    for quantize in ("bf16_pallas", "int8_pallas"):
+        mode = quantize.split("_")[0]
+        synth = Synthesizer.from_state(hp_w, state, quantize=quantize, seed=0)
+        emb = synth.enroll([str(p) for p in ENROLL])
+        # Fixed length: at random weights the stop logit fires at once, and
+        # the kernel is to decode every step of the bucket.
+        synth.synthesize(TEXTS[:1], emb, max_steps=16, early_exit=False,
+                         pcm16=True)  # warm-up: packs the weights
+        torch.cuda.synchronize()
+        before = counts()
+        dec, gru_calls, plain_steps, plain_segments = [], [], [], []
+        with contextlib.redirect_stdout(log), _recorded(
+                (decode_kernel, "decode_segment_kernel", dec, 1 << 30),
+                (birnn_kernel, "bigru_recurrence_kernel", gru_calls, 1),
+                (decoder_scan, "decoder_cell_step", plain_steps, 1 << 30),
+                (decode_kernel, "decode_segment_plain", plain_segments, 1 << 30)):
+            emb = synth.enroll([str(p) for p in ENROLL])
+            # The whole fixed-length decode vocoded untrimmed, twice.
+            runs = [synth.synthesize(TEXTS, emb, max_steps=P2_STEPS, early_exit=False,
+                                     pcm16=True, split_vocode=False, return_device=True)
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        launched = moved(before)
+        plain_ran = {"decoder_cell_step": len(plain_steps),
+                     "decode_segment_plain": len(plain_segments)}
+        p2["decode"][mode] = dec[0][0] if dec else None
+        if not p2["bigru"]:
+            p2["bigru"] = [a for a, _, _ in gru_calls]
+        data["launches"][f"decode_segment_{mode}_wide"] = launched.get(f"decode_segment_{mode}", 0)
+        data["launches"]["cbhg_bigru_wide"] = (data["launches"].get("cbhg_bigru_wide", 0)
+                                               + launched.get("cbhg_bigru_wide", 0))
+        # Every chunk of the second run bit-equal to the first's (the kernel
+        # is deterministic), and so the whole output.
+        n = len(dec) // 2
+        chunks_equal = n > 0 and len(dec) == 2 * n and all(
+            torch.equal(x, y) for (_, _, r1), (_, _, r2) in zip(dec[:n], dec[n:])
+            for x, y in zip(_tensors(r1), _tensors(r2)))
+        out, again = runs
+        outputs_equal = out.keys() == again.keys() and all(
+            torch.equal(out[k], again[k]) for k in out)
+        mel, wav = out["mel_post"], out["wav"]
+        frames, hop = mel.shape[1], synth.dsp_cfg.hop
+        wav_ok = (wav.dtype == torch.int16 and bool(torch.isfinite(mel).all())
+                  and tuple(wav.shape) == (mel.shape[0], hop * (frames - 1)))
+        lengths = out["mel_lengths"].tolist()
+        print(f"[p2 wide] {quantize}: decoder LSTM {hp_w.Decoder.LSTM.Sizes}, attention "
+              f"{hp_w.Decoder.Attention.Size}, CBHG GRU_Size {hp_w.Linear_Head.CBHG.GRU_Size}: "
+              f"{n} decode chunks a run over {frames} frames, bit-equal on repeat: chunks "
+              f"{chunks_equal}, outputs {outputs_equal}; stop lengths {lengths}; untrimmed int16 "
+              f"wavs {tuple(wav.shape)} {wav_ok}; launches {launched}; plain decode calls "
+              f"{plain_ran}")
+        missing = [n for n in (*need, f"decode_segment_{mode}") if not launched.get(n)]
+        if missing or any(plain_ran.values()) or not wav_ok or frames < P2_STEPS \
+                or not chunks_equal or not outputs_equal:
+            fails.append(f"[p2 wide] {quantize}: not launched {missing}, plain {plain_ran}, "
+                         f"{frames} frames, wavs {wav_ok}, bit-equal on repeat: chunks "
+                         f"{chunks_equal}, outputs {outputs_equal}")
+        del synth
+    # One train step of 8 rows: the wide BiGRU's residual mode and backward.
+    batch = _train_batch(hp_w, 8, seed=0)
+    before = counts()
+    res_calls, bwd_calls = [], []
+    with contextlib.redirect_stdout(log), _recorded(
+            (birnn_kernel, "bigru_recurrence_kernel", res_calls, 1 << 30),
+            (birnn_kernel, "bigru_bwd_kernel", bwd_calls, 1)):
+        m = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launched = moved(before)
+    for n in ("cbhg_bigru_wide_residuals", "cbhg_bigru_wide_bwd"):
+        data["launches"][n] = launched.get(n, 0)
+    p2["bigru_res"] = [a for a, _, _ in res_calls if len(a) > 4 and a[4]][:1]
+    p2["bigru_bwd"] = [a for a, _, _ in bwd_calls]
+    print(f"[p2 wide] Trainer.train_step on 8 rows: loss {m.get('loss', m.get('total'))}, "
+          f"launches {launched}")
+    if not launched.get("cbhg_bigru_wide_residuals") or not launched.get("cbhg_bigru_wide_bwd") \
+            or not all(math.isfinite(float(v)) for v in m.values() if isinstance(v, float)):
+        fails.append(f"[p2 wide] train step: launches {launched}, metrics {m}")
+    plain_lines = [ln for ln in log.getvalue().splitlines() if "[dispatch]" in ln]
+    print(f"[p2 wide] [dispatch] lines: {plain_lines}")
+    if any("-> plain" in ln for ln in plain_lines):
+        fails.append(f"[p2 wide] a plain route ran: {plain_lines}")
+    dsp._DISPATCH_LOGGED.update(saved_logged)
+    data["p2"] = p2
+    del tr, state
+    print(f"[p2 wide] took {time.perf_counter() - t0:.1f} s")
+
+    # (p3) the front-end's entry point at the mel rows' widths -------------
+    import dataclasses
+
+    t0 = time.perf_counter()
+    cfg = dsp.DSPConfig.from_hp(default_hparams())
+    rng = np.random.default_rng(3)
+    mel_objs = {"mel_frontend_small": mel_kernel.KERNEL, "mel_frontend_large": mel_kernel.KERNEL,
+                "mel_frontend_dft_6000": mel_kernel.DFT_KERNEL,
+                "mel_frontend_global": mel_kernel.FFT_GLOBAL_KERNEL,
+                "mel_frontend_dft_global": mel_kernel.DFT_GLOBAL_KERNEL}
+    data["mel"] = {}
+    for name, widths in P3_MEL.items():
+        objs = {id(k): k for k in mel_objs.values()}.values()
+        before = {id(k): k.launches for k in objs}
+        calls = []
+        with _recorded((mel_kernel, "melspectrogram_kernel", calls, 1 << 30)):
+            for n_fft, hop in widths:
+                wav = torch.from_numpy((rng.standard_normal((2, hop * 9)) * 0.3)
+                                       .astype(np.float32)).cuda()
+                dsp.melspectrogram_auto(wav, dataclasses.replace(cfg, n_fft=n_fft, hop=hop))
+        torch.cuda.synchronize()
+        launched = {k.name: k.launches - before[id(k)] for k in objs if k.launches != before[id(k)]}
+        data["launches"][name] = launched.get(mel_objs[name].name, 0)
+        data["mel"][name] = [a for a, _, _ in calls]
+        print(f"[p3 mel] {name}: dsp.melspectrogram_auto at (n_fft, hop) {widths}: launches "
+              f"{launched}")
+        if launched != {mel_objs[name].name: len(widths)}:
+            fails.append(f"[p3 mel] {name}: launches {launched}")
+    print(f"[p3 mel] took {time.perf_counter() - t0:.1f} s")
+    return fails, data
+
+
 def main() -> int:
     import numpy as np
 
@@ -1511,6 +1839,13 @@ def main() -> int:
         "cbhg_bigru_bwd": birnn_kernel.GRU_BWD_KERNEL,
         # The attention-step probe's (h).
         "attention_step": attention_step_kernel.KERNEL,
+        # Pass (p)'s routes past the production widths: the BiGRU past H 192
+        # (all three modes) and the mel front-end's global-memory modes.
+        "cbhg_bigru_wide": birnn_kernel.WIDE_GRU_KERNEL,
+        "cbhg_bigru_wide_residuals": birnn_kernel.WIDE_GRU_RES_KERNEL,
+        "cbhg_bigru_wide_bwd": birnn_kernel.WIDE_GRU_BWD_KERNEL,
+        "mel_frontend_global": mel_kernel.FFT_GLOBAL_KERNEL,
+        "mel_frontend_dft_global": mel_kernel.DFT_GLOBAL_KERNEL,
     }
 
     # 1. Build ---------------------------------------------------------------
@@ -2443,6 +2778,14 @@ def main() -> int:
             failures.extend(run())
             _RECORDING[0] = True
             print(f"[{label}] pass ({label}) took {time.perf_counter() - t_p:.1f} s")
+        # (p) every batch and width the reference's gates admit: its own
+        # captures keep what its kernel rows read.
+        t_p = time.perf_counter()
+        _RECORDING[0] = False
+        fails_p, wide = widths_pass(kernels, work)
+        _RECORDING[0] = True
+        failures.extend(fails_p)
+        print(f"[p] pass (p) took {time.perf_counter() - t_p:.1f} s")
 
     # 3. Kernel phase --------------------------------------------------------
     rows = []
@@ -3442,6 +3785,295 @@ def main() -> int:
                           "(24.6 MB at these shapes) can stay in the 50 MB L2",
         },
     )
+
+    # Pass (p)'s rows: the routes past the production widths, on what pass
+    # (p) gave them, with ``launches`` from its main-path runs. Each held with
+    # the tolerance its production row uses.
+    launches.update(wide["launches"])
+
+    def orig(fn):
+        return getattr(fn, "original", fn)
+
+    def also_times(pairs, bounds, libs=None):
+        """The kernel, plain and library ms and the bound of each ``also``
+        case of a row (its other shapes), timed as the row's own."""
+        out = []
+        for i, (k_fn, p_fn) in enumerate(pairs):
+            d = {"ms": _time_ms(k_fn, 2, 10), "plain_ms": _time_ms(p_fn, 1, 2)}
+            d["bound_ms"], d["bound_by"] = bounds[i]
+            if libs is not None:
+                d["library_ms"] = min(_time_ms(f, 2, 10) for f in libs[i].values())
+            out.append(d)
+        return out
+
+    # #8 at GE2E's published batch: the middle layer's call of the (p1)
+    # step (per-step cotangents), 640 rows in the kernel's row groups.
+    w8, g8, c8, dh8, dys8 = wide["p1"]["args"][1]
+    T8, B8, H48 = g8.shape
+    H8 = H48 // 4
+    lib8 = torch.nn.LSTM(H48, H8).to(device=g8.device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lib8.weight_ih_l0.copy_(torch.eye(H48, device=g8.device))
+        lib8.weight_hh_l0.copy_(w8.t())
+        lib8.bias_ih_l0.zero_()
+        lib8.bias_hh_l0.zero_()
+    lib8.flatten_parameters()
+    check(
+        "ge2e_lstm_bwd_640", "multi_speaker_tts_tpu/ops/lstm_pallas.py:227",
+        "multi_speaker_tts_tpu_torch/csrc/lstm_bwd.cu",
+        lambda: orig(lstm_kernel.lstm_seq_layer_bwd_kernel)(w8, g8, c8, dh8, dys8),
+        lambda: orig(lstm_kernel.lstm_seq_layer_bwd_plain)(w8, g8, c8, dh8, dys8),
+        rel_peak, 1e-2,
+        _bound_ms(lstm_bwd_bytes(g8, c8, dh8, dys8), 2 * T8 * B8 * H48 * H8, BF16_FLOPS),
+        library_fn=cudnn_backward(lib8, g8, dys8 if dys8 is not None
+                                  else torch.zeros(T8, B8, H8, device=g8.device),
+                                  torch.zeros(B8, H8, device=g8.device) if dh8 is None else dh8),
+        reps=5,
+        extra={"shape": [T8, B8, H48], "row_groups": wide["p1"]["groups"],
+               "launches_per_step": len(wide["p1"]["groups"]) * 3,
+               "step_vs_plain_backward": {k: wide["p1"][k] for k in ("loss", "grad_norm", "dG8")},
+               "error_metric": "max |dG - plain dG| / max |plain dG|",
+               "library": "cuDNN LSTM backward (identity input weights; data and weight "
+                          "gradients), the faster of bf16 and fp16"},
+    )
+
+    # The BiGRU past H 192: (p2)'s CBHG call (H 256 a direction) and its
+    # train step's residual mode and backward, also at H 384, 512 and 1024
+    # on seeded inputs (B 4, T 37, the narrow card tests' scale).
+    def gru_case(H, B=4, T=37, seed=0):
+        from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+        rng_g = np.random.default_rng(seed + H)
+        sc = 0.1 * (128 / H) ** 0.5
+
+        def one():
+            return GRUParams(*(torch.from_numpy((rng_g.normal(size=sh) * s_).astype(np.float32))
+                               .cuda() for sh, s_ in (((128, 3 * H), 0.1), ((H, 3 * H), sc),
+                                                      ((3 * H,), 0.1), ((3 * H,), 0.1))))
+
+        pf_, pb_ = one(), one()
+        x_ = torch.from_numpy(rng_g.normal(size=(B, T, 128)).astype(np.float32)).cuda()
+        return (*birnn_kernel.bigru_hoist(pf_, pb_, x_, torch.bfloat16), pf_, pb_)
+
+    def gru_lib_of(gf_, pf_, pb_):
+        H3_ = gf_.shape[-1]
+        lib = torch.nn.GRU(2 * H3_, H3_ // 3, bidirectional=True).to(device=gf_.device,
+                                                                     dtype=torch.bfloat16)
+        e, z = torch.eye(H3_, device=gf_.device), torch.zeros(H3_, H3_, device=gf_.device)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(torch.cat([e, z], dim=1))
+            lib.weight_ih_l0_reverse.copy_(torch.cat([z, e], dim=1))
+            lib.weight_hh_l0.copy_(pf_.w_hh.t())
+            lib.weight_hh_l0_reverse.copy_(pb_.w_hh.t())
+            lib.bias_hh_l0.copy_(pf_.b_hh)
+            lib.bias_hh_l0_reverse.copy_(pb_.b_hh)
+            lib.bias_ih_l0.zero_()
+            lib.bias_ih_l0_reverse.zero_()
+        lib.flatten_parameters()
+        return lib
+
+    def gru_bytes(gf_, res):
+        T_, B_, H3_ = gf_.shape
+        H_ = H3_ // 3
+        out = 2 * T_ * B_ * H_ * (2 + (2 * 4 if res else 0))  # ys (+ gh, h_{t-1}), both dirs
+        return 2 * (2 * T_ * B_ * H3_ + 2 * H_ * H3_) + out + 4 * 2 * H3_
+
+    def gru_bound(gf_, res):
+        T_, B_, H3_ = gf_.shape
+        return _bound_ms(gru_bytes(gf_, res), 2 * 2 * T_ * B_ * (H3_ // 3) * H3_, BF16_FLOPS)
+
+    synth_cases = {H: gru_case(H) for H in (384, 512, 1024)}
+    synth_libs = [cudnn_calls(gru_lib_of(c[0], c[2], c[3]), torch.cat(c[:2], dim=-1))
+                  for c in synth_cases.values()]
+    pw = wide["p2"]
+    for name, res in (("cbhg_bigru_wide", False), ("cbhg_bigru_wide_residuals", True)):
+        a_ = (pw["bigru"] if not res else pw["bigru_res"])[0]
+        gf_, gb_, pf_, pb_ = a_[:4]
+        T_, B_, H3_ = gf_.shape
+        lib = gru_lib_of(gf_, pf_, pb_)
+        pairs = [(lambda c=c: orig(birnn_kernel.bigru_recurrence_kernel)(*c, res),
+                  lambda c=c: birnn_kernel.bigru_recurrence_plain(*c, torch.bfloat16, res))
+                 for c in synth_cases.values()]
+        check(
+            name, "multi_speaker_tts_tpu/ops/birnn_pallas.py:450",
+            "multi_speaker_tts_tpu_torch/csrc/bigru_wide.cu",
+            lambda a=(gf_, gb_, pf_, pb_, res): orig(birnn_kernel.bigru_recurrence_kernel)(*a),
+            lambda a=(gf_, gb_, pf_, pb_): birnn_kernel.bigru_recurrence_plain(
+                *a, torch.bfloat16, res),
+            rel_peak if res else max_abs, 1e-2 if res else 5e-3,
+            gru_bound(gf_, res),
+            library_fn=cudnn_calls(lib, torch.cat([gf_, gb_], dim=-1)),
+            also=pairs, reps=10,
+            extra={"shape": [T_, B_, H3_], "also_H": list(synth_cases),
+                   "also_times": also_times(pairs, [gru_bound(c[0], res)
+                                                    for c in synth_cases.values()], synth_libs),
+                   "row_groups": len(birnn_kernel.wide_row_groups(False, H3_ // 3, B_,
+                                                                  _build.card_limits("cuda"))),
+                   "mode": "save_residuals=True (train step)" if res else "inference",
+                   "library": "cuDNN bidirectional GRU (identity input weights), the faster "
+                              "of bf16 and fp16"},
+        )
+    def gru_bwd_bound(a):
+        T_, B_, H3_ = a[0].shape
+        return _bound_ms(_nbytes(*a[:6], a[8], a[9]) + 2 * 2 * H3_ * (H3_ // 3)
+                         + 4 * _nbytes(a[0]), 2 * 2 * T_ * B_ * H3_ * (H3_ // 3), BF16_FLOPS)
+
+    ba = pw["bigru_bwd"][0]
+    bgx, bgh, bhp = ba[0], ba[1], ba[2]
+    T_, B_, H3_ = bgx.shape
+    Hb_ = H3_ // 3
+    lib = gru_lib_of(bgx, *pw["bigru_res"][0][2:4])
+    bwd_also, bwd_bounds, bwd_libs = [], [], []
+    for c in synth_cases.values():
+        ysf_, ysb_, ghf_, hpf_, ghb_, hpb_ = birnn_kernel.bigru_recurrence_kernel(*c, True)
+        Hc = c[0].shape[-1] // 3
+        dyc = [torch.from_numpy(np.random.default_rng(Hc + i).normal(size=(37, 4, Hc))
+                                .astype(np.float32)).cuda() for i in range(2)]
+        argc = (c[0], ghf_, hpf_, c[1], ghb_, hpb_, c[2].w_hh, c[3].w_hh, *dyc)
+        bwd_also.append((lambda a=argc: orig(birnn_kernel.bigru_bwd_kernel)(*a),
+                         lambda a=argc: orig(birnn_kernel.bigru_bwd_plain)(*a)))
+        bwd_bounds.append(gru_bwd_bound(argc))
+        bwd_libs.append(cudnn_backward(gru_lib_of(c[0], c[2], c[3]), torch.cat(c[:2], dim=-1),
+                                       torch.cat(dyc, dim=-1)))
+    check(
+        "cbhg_bigru_wide_bwd", "multi_speaker_tts_tpu/ops/birnn_pallas.py:529",
+        "multi_speaker_tts_tpu_torch/csrc/bigru_wide.cu",
+        lambda: orig(birnn_kernel.bigru_bwd_kernel)(*ba),
+        lambda: orig(birnn_kernel.bigru_bwd_plain)(*ba),
+        rel_peak, 1e-2, gru_bwd_bound(ba),
+        library_fn=cudnn_backward(lib, torch.cat([ba[0], ba[3]], dim=-1),
+                                  torch.cat([ba[8], ba[9]], dim=-1)),
+        also=bwd_also, reps=10,
+        extra={"shape": [T_, B_, H3_], "also_H": list(synth_cases),
+               "also_times": also_times(bwd_also, bwd_bounds, bwd_libs),
+               "error_metric": "max |dGx, dGh - plain| / max |plain|, both directions",
+               "library": "cuDNN bidirectional GRU backward (identity input weights; data "
+                          "and weight gradients), the faster of bf16 and fp16"},
+    )
+
+    # The decode kernel past H 1024, both modes: (p2)'s first chunk (H 1536,
+    # attention 640) from the zero state cut to K 4 (a K 16 chunk from the
+    # zero state is chaotic in bf16, pass (b)'s rule), and seeded decoders
+    # (the card tests' scale) at H 1152, 1664 and 2048 (bf16) or 2048 (int8),
+    # B 1 and 16, S 64 and 208, attention 1024, K 4 each; at H 2048 layer 1's
+    # gate product (4,608 deep) is staged in pieces in both modes. Frames and
+    # stop logits 1e-2, alignments 1e-3. ``ms`` times the K 4 chunk; ms_chunk
+    # the recorded chunk at its own K.
+    def decode_err(got, ref):
+        return {"aligns": max_abs(got[4], ref[4]), "frames": max_abs(got[2], ref[2]),
+                "stops": max_abs(got[3], ref[3])}
+
+    def seeded_decode(H, B, S, A, quantize, seed=11, K=4):
+        from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+        from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
+
+        rng_d = np.random.default_rng(seed + H + S)
+        D, P, mel_, r_ = 512, 256, 80, 2
+
+        def w(*shape, s=0.02):
+            return torch.from_numpy((rng_d.standard_normal(shape) * s).astype(np.float32)).cuda()
+
+        p_ = dscan.DecoderParams(
+            lstm=(LSTMParams(w(P + D, 4 * H), w(H, 4 * H), w(4 * H)),
+                  LSTMParams(w(H + D, 4 * H), w(H, 4 * H), w(4 * H))),
+            attention=dscan.AttentionParams(w(H, A), w(31, 2, 32, s=0.3), w(32, A, s=0.3),
+                                            w(A, 1, s=0.3)),
+            frame_proj=(w(H + D, mel_ * r_), w(mel_ * r_)), stop_proj=(w(H + D, 1), w(1)))
+        bundle = decode_kernel.prepare_bundle(p_, [(w(mel_, P, s=0.2), w(P)),
+                                                   (w(P, P, s=0.2), w(P))], quantize=quantize)
+        keys_, memory_ = w(B, S, A, s=0.3), w(B, S, D, s=0.3)
+        lens = torch.tensor(([S, S - 5, 7, S] * 16)[:B], device="cuda")
+        mask_ = (torch.arange(S, device="cuda")[None] < lens[:, None]).float()
+        keep = [torch.from_numpy(rng_d.random((K, B, P)) < 0.5).cuda().float() / 0.5
+                for _ in range(2)]
+        return (bundle, keys_, memory_, mask_, dscan.initial_carry(B, memory_, 2, H),
+                torch.zeros(B, mel_, device="cuda"), *keep, K, mel_, r_)
+
+    def decode_bound(a, quantize):
+        bnd, keys_r, mem_r, K_ = a[0], a[1], a[2], a[8]
+        Bd, Sd, _ = keys_r.shape
+        Hd = a[4].h[0].shape[-1]
+        wbytes = _nbytes(bnd["w0"], bnd["w1"]) + sum(
+            _nbytes(bnd[k]) for k in ("wproj", "wp1", "wp2", "wq", "wloc"))
+        ops = K_ * Bd * 2 * 4 * Hd * (bnd["w0"].shape[1] + bnd["w1"].shape[1])
+        return _bound_ms(wbytes + _nbytes(keys_r, mem_r) + 4 * K_ * Bd * (bnd["bproj"].numel() + Sd),
+                         ops, INT8_OPS if quantize else BF16_FLOPS)
+
+    for mode, quantize in (("bf16", False), ("int8", True)):
+        rec_d = pw["decode"][mode]
+        K4 = min(4, rec_d[8])
+        d4 = (*rec_d[:6], *(None if m_ is None else m_[:K4] for m_ in rec_d[6:8]), K4, *rec_d[9:])
+        seeded = ([(1152, 16, 208, 128), (1664, 1, 64, 128), (1152, 16, 64, 1024),
+                   (2048, 16, 208, 128)] if not quantize
+                  else [(2048, 16, 208, 128), (2048, 1, 64, 128), (1152, 1, 208, 1024)])
+        bnd, keys_r = rec_d[0], rec_d[1]
+        Bd, Sd, Ad = keys_r.shape
+        Hd = rec_d[4].h[0].shape[-1]
+        seeded_args = [seeded_decode(H_, B_, S_, A_, quantize) for H_, B_, S_, A_ in seeded]
+        pairs = [(lambda a=a: orig(decode_kernel.decode_segment_kernel)(*a),
+                  lambda a=a: orig(decode_kernel.decode_segment_plain)(*a)) for a in seeded_args]
+        check(
+            f"decode_segment_{mode}_wide", "multi_speaker_tts_tpu/ops/decode_pallas.py:337",
+            "multi_speaker_tts_tpu_torch/csrc/decode.cu",
+            lambda a=d4: orig(decode_kernel.decode_segment_kernel)(*a),
+            lambda a=d4: orig(decode_kernel.decode_segment_plain)(*a),
+            decode_err, {"aligns": 1e-3, "frames": 1e-2, "stops": 1e-2},
+            decode_bound(d4, quantize), also=pairs, reps=10,
+            extra={"shape": {"B": Bd, "S": Sd, "A": Ad, "H": Hd, "K": K4},
+                   "also": [{"H": h, "B": b, "S": s_, "A": a_, "K": 4} for h, b, s_, a_ in seeded],
+                   "also_times": also_times(pairs, [decode_bound(a, quantize)
+                                                    for a in seeded_args]),
+                   "layout": decode_kernel.layout_bytes(
+                       Bd, Sd, decode_kernel.widths_of(bnd), quantize,
+                       *decode_kernel.card_limits("cuda")),
+                   "ms_chunk": _time_ms(lambda a=rec_d: orig(
+                       decode_kernel.decode_segment_kernel)(*a), 1, 5),
+                   "K_chunk": rec_d[8],
+                   "bound_note": "gate weights, projection, prenet and attention weights, "
+                                 "keys and memory read once; the gate products' operations"},
+        )
+
+    # The mel front-end outside 256-4096: (p3)'s calls, one row a route and
+    # mode, timed at the first width; bound and library as the mel rows'.
+    def mel_bound(a):
+        y_, T_, c_ = a
+        B_, Lp_ = y_.shape
+        N_, F_ = c_.n_fft, c_.n_fft // 2 + 1
+        nnz_ = int(np.count_nonzero(mel_kernel.mel_filterbank(
+            c_.sample_rate, N_, c_.n_mels, c_.f_min, c_.f_max)))
+        half_ = max(N_ // 2, 2)
+        return _bound_ms(4 * (B_ * Lp_ + nnz_ + B_ * T_ * c_.n_mels),
+                         B_ * T_ * (N_ + 5 * half_ * math.log2(half_) + 10 * half_ + 3 * F_
+                                    + 2 * nnz_), F32_FLOPS)
+
+    def mel_lib(a):
+        y_, _, c_ = a
+        w_ = torch.from_numpy(dsp.hann_window(c_.n_fft)).cuda()
+        b_ = torch.from_numpy(mel_kernel._operands_basis(
+            c_.sample_rate, c_.n_fft, c_.n_mels, c_.f_min, c_.f_max)).cuda()
+        return {"stft+basis": lambda: (torch.stft(y_, c_.n_fft, c_.hop, window=w_, center=False,
+                                                  return_complex=True).abs()
+                                       .transpose(-1, -2) @ b_)}
+
+    for name, cases_m in wide["mel"].items():
+        (y_m, T_m, c_m), others_m = cases_m[0][:3], cases_m[1:]
+        pairs_m = [(lambda a=o[:3]: orig(mel_kernel.melspectrogram_kernel)(*a),
+                    lambda a=o[:3]: mel_kernel.melspectrogram_plain(*a)) for o in others_m]
+        N_m = c_m.n_fft
+        check(
+            name, "multi_speaker_tts_tpu/ops/mel_kernel.py:151",
+            "multi_speaker_tts_tpu_torch/csrc/mel.cu",
+            lambda a=(y_m, T_m, c_m): orig(mel_kernel.melspectrogram_kernel)(*a),
+            lambda a=(y_m, T_m, c_m): mel_kernel.melspectrogram_plain(*a),
+            max_abs, 1e-4, mel_bound((y_m, T_m, c_m)),
+            library_fn=mel_lib((y_m, T_m, c_m)),
+            also=pairs_m, reps=10, queue_ahead=True,
+            extra={"widths": [[o[2].n_fft, o[2].hop] for o in cases_m],
+                   "also_times": also_times(pairs_m, [mel_bound(o[:3]) for o in others_m],
+                                            [mel_lib(o[:3]) for o in others_m]),
+                   "plan": list(mel_kernel.plan(N_m, _build.card_limits("cuda"))),
+                   "bound_note": "real-FFT work a frame at this N, as the mel rows'"},
+        )
 
     # 4. Report --------------------------------------------------------------
     print(json.dumps({"kernels": rows}))

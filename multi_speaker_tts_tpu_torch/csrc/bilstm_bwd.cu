@@ -20,10 +20,10 @@
 MSTTS_EXPORT int mstts_bilstm_bwd(const void* gf, const void* cf, const void* gb,
                                   const void* cb, const void* whf, const void* whb,
                                   const void* dyf, const void* dyb, void* dGf, void* dGb,
-                                  void* bar, int T, int B, int H, void* stream) {
+                                  void* bar, int T, int B, int H, int b0, int rows, void* stream) {
   mstts::LstmBwdArgs a = {};
   a.T = T;
-  a.B = B;
+  a.Bs = B;
   a.H = H;
   a.gates[0] = static_cast<const __nv_bfloat16*>(gf);
   a.gates[1] = static_cast<const __nv_bfloat16*>(gb);
@@ -36,5 +36,5 @@ MSTTS_EXPORT int mstts_bilstm_bwd(const void* gf, const void* cf, const void* gb
   a.dG[0] = static_cast<__nv_bfloat16*>(dGf);
   a.dG[1] = static_cast<__nv_bfloat16*>(dGb);
   a.bar = static_cast<unsigned int*>(bar);
-  return mstts::lstm_bwd_run(a, 2, static_cast<cudaStream_t>(stream));
+  return mstts::lstm_bwd_run(a, 2, b0, rows, static_cast<cudaStream_t>(stream));
 }

@@ -56,6 +56,16 @@
 // its wait. The host packs each block's rows in the order its lanes read
 // them (ops/decode_kernel.py::pack_gate_weights). h0 / h1 ping-pong between
 // two global buffers, read with ld.cg (never through L1).
+// Past H 1024 (on an H100) a gate block owns more than 8 units, so its 4U
+// gate rows take up to 4 m-tiles (a second build of the kernel, MT = 4; the
+// production widths keep theirs, MT = 2), and its weight rows outgrow the
+// block (464 KB int8, 352 KB bf16 at H 2048): the block keeps resident the
+// first windows of each layer that fit beside the launch's other regions
+// and streams the rest from L2 every step (make_layout; r0 / r1). A gate
+// product deeper than kMaxK (4,608 at int8 H 2048) is staged in pieces of
+// kMaxK, in int8 after a first pass for the row's scale. The attention
+// phase loops over the attention units (a lane a float4 of them), so it
+// takes any width.
 #include <algorithm>
 
 #include "common.cuh"
@@ -65,12 +75,15 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 16;      // batch rows: two n-tiles of 8
-constexpr int kMaxMt = 2;      // m-tiles of a block's 4U gate rows (U <= 8)
+// m-tiles of a block's 4U gate rows: the kernel is built for MT = 2 (U <= 8,
+// H <= 1024 on an H100) and MT = 4 (U <= 16, H <= 2048), each launch taking
+// the smaller that holds its rows.
+constexpr int kMaxMt = 4;
 constexpr int kGroup = 8;      // blocks that share a batch row's attention
 constexpr int kPre = 4;        // prenet blocks
 constexpr int kPos = 4;        // memory positions a warp scores at a time
 constexpr int kRows = 4;       // batch rows a staging pass
-constexpr int kMaxK = 4096;    // depth of a gate product
+constexpr int kMaxK = 4096;    // depth of a staging piece (rows deeper are staged in pieces)
 constexpr int kW1Batch = 1;    // bf16 layer-1 windows a warp requests at a time
 constexpr int kCtx = 12;       // memory values a context thread requests ahead
 constexpr double kFix = 4294967296.0;  // 2^32: fixed-point scale of the query sums
@@ -89,6 +102,7 @@ enum Dim { DK, DB, DS, DA, DD, DH, DP1, DP2, DMEL, DR, DCONVK, DCONVC, DQUANT, N
 struct Layout {
   int U, nblk, grid, group, mt, nt;  // units a block, gate blocks, blocks, attention group, tiles
   int K0p, K1p, win, nw0, nw1;       // padded depths, k a window, windows a layer
+  int r0, r1;                        // resident windows of each layer (of nw0, nw1)
   int xstride;                       // bytes of a staged activation row
   int loc_res, pre_res;              // wloc + ck / the prenet weights in shared memory
   size_t w, misc, att, scr, total;   // byte offsets of the regions and the size
@@ -128,25 +142,12 @@ __host__ __device__ inline int x_stride(int bytes) {
 // weights (prenet blocks); launch-long f32 state (own wq rows, bias and
 // scale of both layers, c0 / c1); the attention row's state (location
 // projection and conv kernel where they fit, v, (w, cum), mask); and the
-// per-phase scratch.
-__host__ __device__ inline Layout make_layout(const DecArgs& a, int nsm, int max_smem) {
-  Layout L = {};
-  L.U = (a.H + (nsm - kPre) - 1) / (nsm - kPre);
-  L.nblk = (a.H + L.U - 1) / L.U;
-  L.grid = L.nblk + kPre;
-  const int per_row = a.B > 0 ? L.nblk / a.B : 1;
-  L.group = per_row < 1 ? 1 : (per_row < kGroup ? per_row : kGroup);
-  L.mt = (4 * L.U + 15) / 16;
-  L.nt = (a.B + 7) / 8;
-  const bool q = a.quant != 0;
-  L.win = q ? 64 : 32;
-  L.K0p = (a.K0 + L.win - 1) / L.win * L.win;
-  L.K1p = (a.K1 + L.win - 1) / L.win * L.win;
-  L.nw0 = L.K0p / L.win;
-  L.nw1 = L.K1p / L.win;
-  L.xstride = x_stride((q ? 1 : 2) * (L.K0p > L.K1p ? L.K0p : L.K1p));
+// per-phase scratch. r0 / r1 of each m-tile's windows are resident.
+__host__ __device__ inline void place(const DecArgs& a, Layout& L, int r0, int r1, int max_smem) {
+  L.r0 = r0;
+  L.r1 = r1;
   L.w = 0;
-  L.misc = L.w + (size_t)1024 * L.mt * (q ? L.nw0 + L.nw1 : L.nw0);
+  L.misc = L.w + (size_t)1024 * L.mt * (r0 + r1);
   const size_t misc = (size_t)L.U * a.A + 4 * 16 * (size_t)L.mt + 2 * (size_t)a.B * L.U;
   L.att = L.misc + align16(sizeof(float) * misc);
   const size_t pad = (size_t)a.S + a.conv_k - 1;
@@ -175,6 +176,46 @@ __host__ __device__ inline Layout make_layout(const DecArgs& a, int nsm, int max
   const size_t pre_w = sizeof(float) * ((size_t)a.P1 * a.mel +
                                         (size_t)(a.P2 + kPre - 1) / kPre * a.P1);
   L.pre_res = pre_w <= L.scr;
+}
+
+// The grid, then the regions. Every window is resident (int8 both layers,
+// bf16 layer 0; bf16 layer 1 streams every step) unless the weights alone
+// outgrow a block: when not even a launch over one row at one position
+// fits beside them (past H 1024 on an H100), the windows resident are as
+// many as fit beside this launch's other regions, layer 0's first, and the
+// rest of each m-tile's windows stream from L2 every step.
+__host__ __device__ inline Layout make_layout(const DecArgs& a, int nsm, int max_smem) {
+  Layout L = {};
+  L.U = (a.H + (nsm - kPre) - 1) / (nsm - kPre);
+  L.nblk = (a.H + L.U - 1) / L.U;
+  L.grid = L.nblk + kPre;
+  const int per_row = a.B > 0 ? L.nblk / a.B : 1;
+  L.group = per_row < 1 ? 1 : (per_row < kGroup ? per_row : kGroup);
+  L.mt = (4 * L.U + 15) / 16;
+  L.nt = (a.B + 7) / 8;
+  const bool q = a.quant != 0;
+  L.win = q ? 64 : 32;
+  L.K0p = (a.K0 + L.win - 1) / L.win * L.win;
+  L.K1p = (a.K1 + L.win - 1) / L.win * L.win;
+  L.nw0 = L.K0p / L.win;
+  L.nw1 = L.K1p / L.win;
+  L.xstride = x_stride((q ? 1 : 2) * (L.K0p > L.K1p ? L.K0p : L.K1p));
+  const int full1 = q ? L.nw1 : 0;
+  place(a, L, L.nw0, full1, max_smem);
+  if (L.total <= (size_t)max_smem) return L;
+  DecArgs one = a;
+  one.B = 1;
+  one.S = 1;
+  Layout L1 = L;
+  L1.nt = 1;
+  place(one, L1, L.nw0, full1, max_smem);
+  if (L1.total <= (size_t)max_smem) return L;  // the rows or positions are too many
+  place(a, L, 0, 0, max_smem);
+  if (L.total > (size_t)max_smem) return L;
+  const int nres = (int)(((size_t)max_smem - L.total) / ((size_t)1024 * L.mt));
+  const int r0 = nres < L.nw0 ? nres : L.nw0;
+  const int r1 = nres - r0 < full1 ? nres - r0 : full1;
+  place(a, L, r0, r1, max_smem);
   return L;
 }
 
@@ -226,7 +267,7 @@ extern __shared__ __align__(16) unsigned char smem[];
 
 // The arguments stay in the launch's parameter space (__grid_constant__):
 // the decoder holds a reference, so that no copy lands in local memory.
-template <bool Q>
+template <bool Q, int MT>  // MT: m-tiles the launch's gate rows take (L.mt <= MT)
 struct Decoder {
   const DecArgs& a;
   int tid, warp, lane, u0, Uown, role;  // role: 0 gate block, 1 prenet block
@@ -273,15 +314,19 @@ struct Decoder {
   __device__ void load_state() {
     const Layout& L = a.L;
     if (role == 0) {
-      // Weight rows: int8 both layers, bf16 layer 0 (contiguous per block).
-      const size_t n0 = (size_t)1024 * L.mt * L.nw0, n1 = (size_t)1024 * L.mt * L.nw1;
-      const unsigned char* src0 = a.w[0] + (size_t)blockIdx.x * n0;
-      for (size_t i = (size_t)tid * 16; i < n0; i += (size_t)kThreads * 16)
-        mstts_cp_async16(wts() + i, src0 + i);
-      if (Q) {
-        const unsigned char* src1 = a.w[1] + (size_t)blockIdx.x * n1;
-        for (size_t i = (size_t)tid * 16; i < n1; i += (size_t)kThreads * 16)
-          mstts_cp_async16(wts() + n0 + i, src1 + i);
+      // The resident windows: the first r of each m-tile's nw of each layer
+      // (all of them but where the weights outgrow the block; bf16 layer 1
+      // streams), m-tile after m-tile.
+      unsigned char* dst = wts();
+      for (int l = 0; l < 2; ++l) {
+        const int nw = l == 0 ? L.nw0 : L.nw1, r = l == 0 ? L.r0 : L.r1;
+        const size_t n = (size_t)1024 * L.mt * r, run = (size_t)1024 * r;
+        const unsigned char* src = a.w[l] + (size_t)blockIdx.x * 1024 * L.mt * nw;
+        for (size_t i = (size_t)tid * 16; i < n; i += (size_t)kThreads * 16) {
+          const size_t m = i / run;
+          mstts_cp_async16(dst + i, src + m * 1024 * nw + (i - m * run));
+        }
+        dst += n;
       }
       for (int i = tid; i < L.U * a.A; i += kThreads)
         wq_s()[i] = i < Uown * a.A ? a.wq[(size_t)u0 * a.A + i] : 0.0f;
@@ -465,28 +510,30 @@ struct Decoder {
                                   : x2 + (size_t)b * H_ + (i - n1);
       return __ldcg(reinterpret_cast<const float4*>(src));
     };
-    // A thread's 16-byte pieces: row r of the group, pieces tid + n kThreads
-    // (kd4 <= 2 kThreads: kMaxK).
+    // A row is staged in pieces of kMaxK values (one piece up to kMaxK
+    // deep). A thread's 16-byte loads of a piece: row r of the group, loads
+    // tid + n kThreads (kMaxK / 4 <= 2 kThreads). In int8 mode a row deeper
+    // than one piece takes its scale from a first pass over every piece.
+    const int pieces = (Kdim + kMaxK - 1) / kMaxK;
     for (int b0 = 0; b0 < B_; b0 += kRows) {
       const int rows = min(kRows, B_ - b0);
       float4 v[kRows][2];
+      auto load_piece = [&](int p) {
+        const int k0 = p * kMaxK, kd4p = min(kd4 - k0 / 4, kMaxK / 4);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+        for (int r = 0; r < kRows; ++r)
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int q = tid + n * kThreads;
-          v[r][n] = r < rows && q < kd4 ? load4(b0 + r, 4 * q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        }
-      if (Q) {
+          for (int n = 0; n < 2; ++n) {
+            const int q = tid + n * kThreads;
+            v[r][n] = r < rows && q < kd4p ? load4(b0 + r, k0 + 4 * q)
+                                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+      };
+      auto row_scales = [&](float (&m)[kRows]) {
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          float m = 0.0f;
-#pragma unroll
-          for (int n = 0; n < 2; ++n)
-            m = fmaxf(m, fmaxf(fmaxf(fabsf(v[r][n].x), fabsf(v[r][n].y)),
-                               fmaxf(fabsf(v[r][n].z), fabsf(v[r][n].w))));
-          m = warp_max(m);
-          if (lane == 0) red[r * kWarps + warp] = m;
+          const float mr = warp_max(m[r]);
+          if (lane == 0) red[r * kWarps + warp] = mr;
         }
         __syncthreads();
         if (tid < rows) {
@@ -495,28 +542,53 @@ struct Decoder {
           amax_s[b0 + tid] = fmaxf(mm, 1e-8f) / 127.0f;
         }
         __syncthreads();
+      };
+      auto absmax = [&](float (&m)[kRows]) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            m[r] = fmaxf(m[r], fmaxf(fmaxf(fabsf(v[r][n].x), fabsf(v[r][n].y)),
+                                     fmaxf(fabsf(v[r][n].z), fabsf(v[r][n].w))));
+      };
+      if (Q && pieces > 1) {
+        float m[kRows] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int p = 0; p < pieces; ++p) {
+          load_piece(p);
+          absmax(m);
+        }
+        row_scales(m);
       }
+      for (int p = 0; p < pieces; ++p) {
+        load_piece(p);
+        if (Q && pieces == 1) {
+          float m[kRows] = {0.0f, 0.0f, 0.0f, 0.0f};
+          absmax(m);
+          row_scales(m);
+        }
+        const int k0 = p * kMaxK, kd4p = min(kd4 - k0 / 4, kMaxK / 4);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r >= rows) break;
-        unsigned char* row = xs + (size_t)(b0 + r) * L_xstride;
-        const float am = Q ? amax_s[b0 + r] : 1.0f;
+        for (int r = 0; r < kRows; ++r) {
+          if (r >= rows) break;
+          unsigned char* row = xs + (size_t)(b0 + r) * L_xstride + (Q ? k0 : 2 * k0);
+          const float am = Q ? amax_s[b0 + r] : 1.0f;
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int q = tid + n * kThreads;
-          if (q >= kd4) continue;
-          const float4 vv = v[r][n];
-          if (Q) {
-            char4 c;
-            c.x = (signed char)fminf(fmaxf(rintf(vv.x / am), -127.0f), 127.0f);
-            c.y = (signed char)fminf(fmaxf(rintf(vv.y / am), -127.0f), 127.0f);
-            c.z = (signed char)fminf(fmaxf(rintf(vv.z / am), -127.0f), 127.0f);
-            c.w = (signed char)fminf(fmaxf(rintf(vv.w / am), -127.0f), 127.0f);
-            *reinterpret_cast<char4*>(row + 4 * q) = c;
-          } else {
-            __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(row + 8 * q);
-            dst[0] = __floats2bfloat162_rn(vv.x, vv.y);
-            dst[1] = __floats2bfloat162_rn(vv.z, vv.w);
+          for (int n = 0; n < 2; ++n) {
+            const int q = tid + n * kThreads;
+            if (q >= kd4p) continue;
+            const float4 vv = v[r][n];
+            if (Q) {
+              char4 c;
+              c.x = (signed char)fminf(fmaxf(rintf(vv.x / am), -127.0f), 127.0f);
+              c.y = (signed char)fminf(fmaxf(rintf(vv.y / am), -127.0f), 127.0f);
+              c.z = (signed char)fminf(fmaxf(rintf(vv.z / am), -127.0f), 127.0f);
+              c.w = (signed char)fminf(fmaxf(rintf(vv.w / am), -127.0f), 127.0f);
+              *reinterpret_cast<char4*>(row + 4 * q) = c;
+            } else {
+              __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(row + 8 * q);
+              dst[0] = __floats2bfloat162_rn(vv.x, vv.y);
+              dst[1] = __floats2bfloat162_rn(vv.z, vv.w);
+            }
           }
         }
       }
@@ -533,13 +605,15 @@ struct Decoder {
     __syncthreads();
   }
 
-  // This warp's windows of the product into acc (m-tile, n-tile). Weights
-  // from shared memory (w_s), or streamed from device memory (bf16 layer 1,
-  // w_s null), kW1Batch windows at a time, of which `pre` holds the first
-  // batch, requested before the phase's barrier wait.
-  __device__ void product(int nw, const unsigned char* w_s, const unsigned char* xs,
-                          float (&accf)[kMaxMt][2][4], int (&acci)[kMaxMt][2][4],
-                          uint4 (&pre)[kW1Batch][kMaxMt][2]) const {
+  // This warp's windows of the product into acc (m-tile, n-tile). The
+  // layer's first nres windows of each m-tile from shared memory (w_s), the
+  // rest streamed from device memory: bf16 layer 1 (nres 0) kW1Batch windows
+  // at a time, of which `pre` holds the first batch, requested before the
+  // phase's barrier wait; any other partly resident layer (past H 1024)
+  // window by window.
+  __device__ void product(int layer, int nw, int nres, const unsigned char* w_s,
+                          const unsigned char* xs, float (&accf)[MT][2][4], int (&acci)[MT][2][4],
+                          uint4 (&pre)[kW1Batch][MT][2]) const {
     const int B_ = a.B;
     const int L_mt = a.L.mt;
     const int L_nt = a.L.nt;
@@ -550,11 +624,11 @@ struct Decoder {
       if (nt >= L_nt || n >= B_) return make_uint4(0u, 0u, 0u, 0u);
       return *reinterpret_cast<const uint4*>(xs + (size_t)n * L_xstride + w * 64 + 16 * t);
     };
-    if (Q || w_s != nullptr) {
+    if (nres == nw) {
       for (int w = warp; w < nw; w += kWarps) {
         const uint4 x[2] = {xfrag(w, 0), xfrag(w, 1)};
 #pragma unroll
-        for (int m = 0; m < kMaxMt; ++m) {
+        for (int m = 0; m < MT; ++m) {
           if (m >= L_mt) break;
           const unsigned char* p = w_s + ((size_t)m * nw + w) * 1024 + 16 * lane;
           const uint4 lo = *reinterpret_cast<const uint4*>(p);
@@ -566,14 +640,37 @@ struct Decoder {
       }
       return;
     }
-    const unsigned char* base = a.w[1] + (size_t)blockIdx.x * 1024 * L_mt * nw;
+    const unsigned char* base = a.w[layer] + (size_t)blockIdx.x * 1024 * L_mt * nw;
+    if (Q || layer == 0 || nres > 0) {
+      for (int w = warp; w < nw; w += kWarps) {
+        const uint4 x[2] = {xfrag(w, 0), xfrag(w, 1)};
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (m >= L_mt) break;
+          uint4 lo, hi;
+          if (w < nres) {
+            const unsigned char* p = w_s + ((size_t)m * nres + w) * 1024 + 16 * lane;
+            lo = *reinterpret_cast<const uint4*>(p);
+            hi = *reinterpret_cast<const uint4*>(p + 512);
+          } else {
+            const unsigned char* p = base + ((size_t)m * nw + w) * 1024 + 16 * lane;
+            lo = __ldg(reinterpret_cast<const uint4*>(p));
+            hi = __ldg(reinterpret_cast<const uint4*>(p + 512));
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            if (nt < L_nt) window_mma<Q>(accf[m][nt], acci[m][nt], lo, hi, x[nt]);
+        }
+      }
+      return;
+    }
     for (int w0 = warp; w0 < nw; w0 += kWarps * kW1Batch) {
-      uint4 wv[kW1Batch][kMaxMt][2];
+      uint4 wv[kW1Batch][MT][2];
       if (w0 == warp) {
 #pragma unroll
         for (int bi = 0; bi < kW1Batch; ++bi)
 #pragma unroll
-          for (int m = 0; m < kMaxMt; ++m) {
+          for (int m = 0; m < MT; ++m) {
             wv[bi][m][0] = pre[bi][m][0];
             wv[bi][m][1] = pre[bi][m][1];
           }
@@ -586,7 +683,7 @@ struct Decoder {
         if (w >= nw) break;
         const uint4 x[2] = {xfrag(w, 0), xfrag(w, 1)};
 #pragma unroll
-        for (int m = 0; m < kMaxMt; ++m) {
+        for (int m = 0; m < MT; ++m) {
           if (m >= L_mt) break;
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
@@ -598,12 +695,12 @@ struct Decoder {
 
   // A warp's kW1Batch windows w0, w0 + kWarps, ... of the streamed layer.
   __device__ void request_w1(const unsigned char* base, int nw, int w0,
-                             uint4 (&wv)[kW1Batch][kMaxMt][2]) const {
+                             uint4 (&wv)[kW1Batch][MT][2]) const {
 #pragma unroll
     for (int bi = 0; bi < kW1Batch; ++bi) {
       const int w = w0 + bi * kWarps;
 #pragma unroll
-      for (int m = 0; m < kMaxMt; ++m) {
+      for (int m = 0; m < MT; ++m) {
         if (w < nw && m < a.L.mt) {
           const unsigned char* p = base + ((size_t)m * nw + w) * 1024 + 16 * lane;
           wv[bi][m][0] = __ldg(reinterpret_cast<const uint4*>(p));
@@ -615,7 +712,7 @@ struct Decoder {
     }
   }
 
-  __device__ void prefetch_w1(uint4 (&pre)[kW1Batch][kMaxMt][2]) const {
+  __device__ void prefetch_w1(uint4 (&pre)[kW1Batch][MT][2]) const {
     if (role == 0)
       request_w1(a.w[1] + (size_t)blockIdx.x * 1024 * a.L.mt * a.L.nw1, a.L.nw1, warp, pre);
   }
@@ -624,7 +721,7 @@ struct Decoder {
   // share of the attention query into qacc.
   __device__ void gates(int layer, const float* x0, int n0, const float* x1, const float* h_prev,
                         float* h_next, unsigned long long* qacc,
-                        uint4 (&pre)[kW1Batch][kMaxMt][2]) {
+                        uint4 (&pre)[kW1Batch][MT][2]) {
     const int B_ = a.B;
     const int A_ = a.A;
     const int H_ = a.H;
@@ -653,14 +750,14 @@ struct Decoder {
     float* amax_s = gv + rows16 * kMaxB;
     float* mred = amax_s + kMaxB;
     stage(x0, n0, x1, h_prev, Kdim, Kp, xs, amax_s, mred);
-    float accf[kMaxMt][2][4] = {};
-    int acci[kMaxMt][2][4] = {};
-    const unsigned char* w_s = layer == 0 ? wts() : (Q ? wts() + (size_t)1024 * L_mt * L_nw0 : nullptr);
-    product(nw, w_s, xs, accf, acci, pre);
+    float accf[MT][2][4] = {};
+    int acci[MT][2][4] = {};
+    const unsigned char* w_s = layer == 0 ? wts() : wts() + (size_t)1024 * L_mt * a.L.r0;
+    product(layer, nw, layer == 0 ? a.L.r0 : a.L.r1, w_s, xs, accf, acci, pre);
     __syncthreads();  // the staged rows are consumed: their space takes the partial sums
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int m = 0; m < kMaxMt; ++m) {
+    for (int m = 0; m < MT; ++m) {
       if (m >= L_mt) break;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
@@ -944,15 +1041,15 @@ struct Decoder {
   }
 };
 
-template <bool Q>
+template <bool Q, int MT>
 __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const __grid_constant__ DecArgs a) {
-  Decoder<Q> d(a);
+  Decoder<Q, MT> d(a);
   // The query sums start at zero (both parities).
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < 2 * a.B * a.A; i += gridDim.x * kThreads)
     a.qacc[i] = 0ull;
   d.load_state();
   unsigned int epoch = 0;  // of the grid barrier
-  uint4 pre[kW1Batch][kMaxMt][2] = {};
+  uint4 pre[kW1Batch][MT][2] = {};
   for (int k = 0; k < a.K; ++k) {
     // State versions: before step 0 the inputs, after step K-1 the outputs.
     const float* h_old[2];
@@ -989,8 +1086,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const __grid_consta
 }  // namespace
 
 // The grid and shared memory of a launch, for the wrapper's packing and the
-// tests: 8 ints (U, gate blocks, blocks, attention group, m-tiles, window,
-// bytes of shared memory, 1 if it fits the card).
+// tests: 10 ints (U, gate blocks, blocks, attention group, m-tiles, window,
+// bytes of shared memory, 1 if it fits the card, resident windows of layer
+// 0 and of layer 1).
 MSTTS_EXPORT int mstts_decode_layout(const int* d, void* out) {
   int dev = 0, nsm = 0, max_smem = 0;
   MSTTS_CHECK(cudaGetDevice(&dev));
@@ -1008,6 +1106,8 @@ MSTTS_EXPORT int mstts_decode_layout(const int* d, void* out) {
   o[0] = L.U; o[1] = L.nblk; o[2] = L.grid; o[3] = L.group; o[4] = L.mt; o[5] = L.win;
   o[6] = (int)L.total;
   o[7] = L.total <= (size_t)max_smem && L.grid <= nsm && L.mt <= kMaxMt && a.B <= L.nblk;
+  o[8] = L.r0;
+  o[9] = L.r1;
   return 0;
 }
 
@@ -1052,8 +1152,8 @@ MSTTS_EXPORT int mstts_decode_segment(const void* const* p, const int* d, void* 
   MSTTS_CHECK(cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev));
   MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
   if (a.K < 1 || a.B < 1 || a.B > kMaxB || a.S < 1 || a.A < 1 || a.A % 4 || a.H % 16 ||
-      a.D % 16 || a.P2 % 16 || a.P1 % 4 || a.mel % 4 || a.r < 1 || a.K0 > kMaxK ||
-      a.K1 > kMaxK || a.conv_c % 4 || a.P1 > 2 * kThreads || a.P2 > 8 * kThreads || nsm <= kPre)
+      a.D % 16 || a.P2 % 16 || a.P1 % 4 || a.mel % 4 || a.r < 1 || a.conv_c % 4 ||
+      a.P1 > 2 * kThreads || a.P2 > 8 * kThreads || nsm <= kPre)
     return (int)cudaErrorInvalidValue;
   // The staging's 16-byte loads: state rows and scratch must be aligned.
   for (int i : {H0_IN, H1_IN, CTX_IN, H0_OUT, H1_OUT, CTX_OUT, SCRATCH, KEYS, W0, W1})
@@ -1062,7 +1162,12 @@ MSTTS_EXPORT int mstts_decode_segment(const void* const* p, const int* d, void* 
   a.L = make_layout(a, nsm, max_smem);
   if (a.B > a.L.nblk || a.L.total > (size_t)max_smem || a.L.grid > nsm || a.L.mt > kMaxMt)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = quantized ? (const void*)decode_kernel<true> : (const void*)decode_kernel<false>;
+  // The production widths (two m-tiles) keep their own build of the kernel.
+  const bool wide = a.L.mt > 2;
+  const void* kernel = quantized ? (wide ? (const void*)decode_kernel<true, 4>
+                                         : (const void*)decode_kernel<true, 2>)
+                                 : (wide ? (const void*)decode_kernel<false, 4>
+                                         : (const void*)decode_kernel<false, 2>);
   MSTTS_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)a.L.total));
   void* params[] = {&a};

@@ -20,10 +20,10 @@
 
 MSTTS_EXPORT int mstts_lstm_layer_bwd(const void* gates, const void* c_prev, const void* w,
                                       const void* d_hT, const void* d_ys, void* dG, void* bar,
-                                      int T, int B, int H, void* stream) {
+                                      int T, int B, int H, int b0, int rows, void* stream) {
   mstts::LstmBwdArgs a = {};
   a.T = T;
-  a.B = B;
+  a.Bs = B;
   a.H = H;
   a.gates[0] = static_cast<const __nv_bfloat16*>(gates);
   a.c_prev[0] = static_cast<const __nv_bfloat16*>(c_prev);
@@ -32,5 +32,5 @@ MSTTS_EXPORT int mstts_lstm_layer_bwd(const void* gates, const void* c_prev, con
   a.d_ys[0] = static_cast<const float*>(d_ys);
   a.dG[0] = static_cast<__nv_bfloat16*>(dG);
   a.bar = static_cast<unsigned int*>(bar);
-  return mstts::lstm_bwd_run(a, 1, static_cast<cudaStream_t>(stream));
+  return mstts::lstm_bwd_run(a, 1, b0, rows, static_cast<cudaStream_t>(stream));
 }

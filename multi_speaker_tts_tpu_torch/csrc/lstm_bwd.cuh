@@ -46,6 +46,11 @@
 // Direction 0 walks time in reverse; direction 1 (the BiLSTM's backward
 // direction, which ran t = T-1 .. 0) walks natural time. The last step
 // needs no product and no barrier.
+// - A block's shared memory grows with the rows it carries (the partial
+//   tiles, the carries, the residual tile), so a launch takes a group of
+//   the batch's rows (lstm_bwd_run) and the wrapper runs as many rows a
+//   group as fit (352 at H = 768 on an H100, so GE2E's 64 x 10 = 640 rows
+//   take two launches).
 #pragma once
 
 #include "common.cuh"
@@ -59,7 +64,8 @@ constexpr int kLstmBwdChunks = 2;  // 32-wide k chunks a warp loads ahead
 
 struct LstmBwdArgs {
   int T;       // time steps
-  int B;       // batch rows
+  int B;       // rows in this launch
+  int Bs;      // row stride of the time-major tensors (the full batch)
   int H;       // hidden units per direction
   int U;       // hidden units per block
   int nblk;    // blocks per direction
@@ -118,7 +124,7 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
     const int t = dir == 0 ? a.T - 1 - s : s;
     for (int i = threadIdx.x; i < B * U; i += kLstmBwdThreads) {
       const int b = i / U, u = i - b * U, j = b * a.U + u;
-      const size_t row = (size_t)t * B + b;
+      const size_t row = (size_t)t * a.Bs + b;
       const __nv_bfloat16* g = gates + row * H4 + u0 + u;
 #pragma unroll
       for (int k = 0; k < 4; ++k) res_s[k * BU + j] = __bfloat162float(__ldg(g + k * H));
@@ -158,7 +164,8 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
     __syncthreads();
     for (int i = threadIdx.x; i < B * 4; i += kLstmBwdThreads) {
       const int b = i / 4, k = i - b * 4;
-      mstts_store_bf16_run(dG + ((size_t)t * B + b) * H4 + k * H + u0, dg_s + (b * 4 + k) * U, U);
+      mstts_store_bf16_run(dG + ((size_t)t * a.Bs + b) * H4 + k * H + u0, dg_s + (b * 4 + k) * U,
+                           U);
     }
     if (s + 1 == a.T) break;
     // 2. dG_t is complete in every block after the wait.
@@ -172,7 +179,7 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int b = m0 + g8 + 8 * r;
-        rows[r] = b < B ? dG + ((size_t)t * B + b) * H4 + tq * 8 : nullptr;
+        rows[r] = b < B ? dG + ((size_t)t * a.Bs + b) * H4 + tq * 8 : nullptr;
       }
       auto load = [&](uint4 (&buf)[kLstmBwdChunks][4], int c) {
 #pragma unroll
@@ -236,18 +243,32 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
   }
 }
 
-// Runs the reverse recurrence of ndir directions in one cooperative launch.
-inline int lstm_bwd_run(LstmBwdArgs a, int ndir, cudaStream_t stream) {
+// Runs the reverse recurrence of ndir directions for rows b0 .. b0 + rows
+// of the batch (a.Bs rows) in one cooperative launch, or
+// refuses them if a block's shared memory does not hold that many rows.
+// Rows are independent (only W_hh is shared), so the caller runs a batch
+// in groups (ops/lstm_kernel.py::bwd_row_groups), each launch with a
+// barrier counter of its own.
+inline int lstm_bwd_run(LstmBwdArgs a, int ndir, int b0, int rows, cudaStream_t stream) {
   int dev = 0, max_smem = 0;
   MSTTS_CHECK(cudaGetDevice(&dev));
   MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  if (a.H % 8 != 0 || a.T < 1 || a.B < 1) return (int)cudaErrorInvalidValue;
+  if (a.H % 8 != 0 || a.T < 1 || b0 < 0 || rows < 1 || b0 + rows > a.Bs)
+    return (int)cudaErrorInvalidValue;
   MSTTS_CHECK(mstts_recurrence_grid(ndir, a.H, &a.U, &a.nblk));
   if ((a.U + 7) / 8 > kLstmBwdMaxNT) return (int)cudaErrorInvalidValue;
-  const size_t smem = lstm_bwd_smem_bytes(a.U, a.H, a.B);
+  const size_t smem = lstm_bwd_smem_bytes(a.U, a.H, rows);
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   MSTTS_CHECK(cudaFuncSetAttribute(lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem));
+  a.B = rows;
+  for (int d = 0; d < ndir; ++d) {
+    a.gates[d] += (size_t)b0 * 4 * a.H;
+    a.c_prev[d] += (size_t)b0 * a.H;
+    if (a.d_ys[d]) a.d_ys[d] += (size_t)b0 * a.H;
+    a.dG[d] += (size_t)b0 * 4 * a.H;
+  }
+  if (a.d_hT) a.d_hT += (size_t)b0 * a.H;
   void* params[] = {&a};
   MSTTS_CHECK(cudaLaunchCooperativeKernel((const void*)lstm_bwd_kernel, dim3(ndir * a.nblk),
                                           dim3(kLstmBwdThreads), params, smem, stream));

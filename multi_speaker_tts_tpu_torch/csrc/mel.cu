@@ -37,9 +37,16 @@
 //   the log, the normalisation and a coalesced store.
 // One launch a call, no atomics: two launches on one input are bit-equal.
 //
-// Shapes: n_fft from 256 to 4096 and hop dividing it, a power of two for the
-// FFT route (the wrapper's mel_shape_reason refuses anything else before
-// launch; it picks the route).
+// Shapes: any n_fft that hop divides (the wrapper's mel_shape_reason refuses
+// anything else before launch; it picks the route): a power of two from 4
+// up takes the FFT route, any other n_fft the DFT route. Where a route's
+// frame, table and bins outgrow a block's shared memory (the FFT past
+// n_fft 16384 on an H100, the DFT past 16603), its global-memory
+// mode (kGlobal) keeps them in device memory and L2 instead: the FFT's
+// points and bins in a scratch the wrapper allocates (a block's own rows;
+// __syncthreads orders a block's global writes as it does its shared
+// ones), its twiddles read where they lie; the DFT's table and frame read
+// where they lie, its bins in the scratch. Same arithmetic, same order.
 #include "common.cuh"
 
 namespace {
@@ -67,6 +74,7 @@ __device__ __forceinline__ void band_tail(const float* mag, const int* __restric
   }
 }
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
                const float* __restrict__ window,   // (n_fft)
@@ -74,16 +82,29 @@ mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
                const int* __restrict__ bands,      // (M, 3): lo, hi, offset into weights
                const float* __restrict__ weights,  // the bands' basis values, packed
                float* __restrict__ out,            // (B, T, M)
+               float* scratch,  // kGlobal: (B T) x [padded(NH) float2 | NH + 1 floats, to 4]
                int T, int Lp, int log2n, int hop, int M, float ref_db, float min_db) {
   extern __shared__ __align__(16) float2 smem2[];
   const int LH = log2n - 1, NH = 1 << LH;  // NH = n_fft / 2 complex points
-  float2* z = smem2;                         // [padded(NH)]
-  float2* tws = z + padded(NH);              // [padded(NH)]
-  float* mag = reinterpret_cast<float*>(tws + padded(NH));  // [NH + 1]
+  float2* z;                                  // [padded(NH)]
+  float2* tws = nullptr;                      // [padded(NH)] (shared memory only)
+  float* mag;                                 // [NH + 1]
+  if constexpr (kGlobal) {
+    z = reinterpret_cast<float2*>(
+        scratch + (size_t)blockIdx.x * (2 * padded(NH) + mstts_round_up(NH + 1, 4)));
+    mag = reinterpret_cast<float*>(z + padded(NH));
+  } else {
+    z = smem2;
+    tws = z + padded(NH);
+    mag = reinterpret_cast<float*>(tws + padded(NH));
+  }
+  // Twiddle k < NH.
+  auto twiddle = [&](int k) { return kGlobal ? __ldg(tw + k) : tws[padded(k)]; };
   const int b = blockIdx.x / T, t = blockIdx.x - b * T;
   const float* x = y_pad + (size_t)b * Lp + (size_t)t * hop;
 
-  for (int k = threadIdx.x; k < NH; k += kThreads) tws[padded(k)] = __ldg(tw + k);
+  if constexpr (!kGlobal)
+    for (int k = threadIdx.x; k < NH; k += kThreads) tws[padded(k)] = __ldg(tw + k);
   // The windowed frame as NH complex points, z[j] at bit-reversed position.
   if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
     const float4* x4 = reinterpret_cast<const float4*>(x);
@@ -107,7 +128,7 @@ mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
     for (int i = threadIdx.x; i < NH / 2; i += kThreads) {
       const int j = i & (h - 1), a = ((i >> s) << (s + 1)) + j;
       const int pa = padded(a), pb = padded(a + h);
-      const float2 w = tws[padded(j << (LH - s))];
+      const float2 w = twiddle(j << (LH - s));
       const float2 u = z[pa], v = z[pb];
       const float2 vw = make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);
       z[pa] = make_float2(u.x + vw.x, u.y + vw.y);
@@ -125,7 +146,7 @@ mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
       re = k == 0 ? z0.x + z0.y : z0.x - z0.y;
       im = 0.0f;
     } else {
-      const float2 a = z[padded(k)], c = z[padded(NH - k)], w = tws[padded(k)];
+      const float2 a = z[padded(k)], c = z[padded(NH - k)], w = twiddle(k);
       const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
       const float orr = 0.5f * (a.y + c.y), oi = -0.5f * (a.x - c.x);
       re = er + (orr * w.x - oi * w.y);
@@ -147,6 +168,7 @@ mel_fft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
 // integers (no phase accumulated across n). 2 N (N/2 + 1) FMAs a frame,
 // 0.64 M at N = 800: shared-memory traffic and latency bound it, not the
 // arithmetic. The bands' tail is the FFT route's.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 mel_dft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
                const float* __restrict__ window,   // (n_fft)
@@ -154,27 +176,30 @@ mel_dft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
                const int* __restrict__ bands,      // (M, 3): lo, hi, offset into weights
                const float* __restrict__ weights,  // the bands' basis values, packed
                float* __restrict__ out,            // (B, T, M)
+               float* scratch,                     // kGlobal: (B T) x (n_fft / 2 + 1) floats
                int T, int Lp, int n_fft, int hop, int M, float ref_db, float min_db) {
   extern __shared__ __align__(16) float2 smem2[];
   const int N = n_fft, F = n_fft / 2 + 1;
-  float2* tab = smem2;                               // [N]
-  float* xw = reinterpret_cast<float*>(tab + N);     // [N]
-  float* mag = xw + N;                               // [F]
+  float2* tab = smem2;                               // [N] (shared memory only)
+  float* xw = reinterpret_cast<float*>(tab + N);     // [N] (shared memory only)
+  float* mag = kGlobal ? scratch + (size_t)blockIdx.x * F : xw + N;  // [F]
   const int b = blockIdx.x / T, t = blockIdx.x - b * T;
   const float* x = y_pad + (size_t)b * Lp + (size_t)t * hop;
 
-  for (int m = threadIdx.x; m < N; m += kThreads) {
-    tab[m] = __ldg(table + m);
-    xw[m] = __ldg(x + m) * __ldg(window + m);
+  if constexpr (!kGlobal) {
+    for (int m = threadIdx.x; m < N; m += kThreads) {
+      tab[m] = __ldg(table + m);
+      xw[m] = __ldg(x + m) * __ldg(window + m);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   for (int k = threadIdx.x; k < F; k += kThreads) {
     float re = 0.0f, im = 0.0f;
     int idx = 0;  // (n k) mod N
     for (int n = 0; n < N; ++n) {
-      const float v = xw[n];
-      const float2 w = tab[idx];
+      const float v = kGlobal ? __ldg(x + n) * __ldg(window + n) : xw[n];
+      const float2 w = kGlobal ? __ldg(table + idx) : tab[idx];
       re = fmaf(v, w.x, re);
       im = fmaf(v, w.y, im);
       idx += k;
@@ -187,46 +212,77 @@ mel_dft_kernel(const float* __restrict__ y_pad,    // (B, Lp)
   band_tail(mag, bands, weights, out, M, ref_db, min_db);
 }
 
-}  // namespace
-
-MSTTS_EXPORT int mstts_mel_frontend(const void* y_pad, const void* window, const void* tw,
-                                    const void* bands, const void* weights, void* out, int B,
-                                    int T, int Lp, int n_fft, int hop, int M, float ref_db,
-                                    float min_db, void* stream) {
-  int log2n = 0;
-  while ((1 << log2n) < n_fft) ++log2n;
-  if ((1 << log2n) != n_fft || n_fft < 256 || n_fft > 4096 || hop < 1 || n_fft % hop ||
-      B < 1 || T < 1 || M < 1 || Lp < (T - 1) * hop + n_fft)
-    return (int)cudaErrorInvalidValue;
+// Shared memory of a route's block (0: FFT, 1: DFT) at n_fft: the
+// wrapper's mel_kernel.smem_bytes. Past the card's opt-in bytes the wrapper
+// asks for the global-memory mode.
+size_t mel_smem_bytes(int dft, int n_fft) {
+  if (dft)
+    return (sizeof(float2) + sizeof(float)) * (size_t)n_fft + sizeof(float) * (n_fft / 2 + 1);
   const int nh = n_fft / 2, padded_nh = nh + nh / 16;
-  const size_t smem = 2 * sizeof(float2) * (size_t)padded_nh + sizeof(float) * (nh + 1);
-  if (smem > 48 * 1024)
-    MSTTS_CHECK(cudaFuncSetAttribute(mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem));
-  mel_fft_kernel<<<B * T, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  return 2 * sizeof(float2) * (size_t)padded_nh + sizeof(float) * (nh + 1);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, bool global_mode, size_t smem, int blocks, cudaStream_t stream,
+                  const void* y_pad, const void* window, const void* table, const void* bands,
+                  const void* weights, void* out, void* scratch, int T, int Lp, int n, int hop,
+                  int M, float ref_db, float min_db) {
+  if (global_mode) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    smem = 0;
+  } else {
+    int dev = 0, max_smem = 0;
+    MSTTS_CHECK(cudaGetDevice(&dev));
+    MSTTS_CHECK(
+        cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+    if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024)
+      MSTTS_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem));
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(y_pad), static_cast<const float*>(window),
-      static_cast<const float2*>(tw), static_cast<const int*>(bands),
-      static_cast<const float*>(weights), static_cast<float*>(out), T, Lp, log2n, hop, M, ref_db,
-      min_db);
+      static_cast<const float2*>(table), static_cast<const int*>(bands),
+      static_cast<const float*>(weights), static_cast<float*>(out),
+      static_cast<float*>(scratch), T, Lp, n, hop, M, ref_db, min_db);
   MSTTS_RETURN_LAUNCH_ERROR();
 }
 
+}  // namespace
+
+// global_mode: 1 runs the route's global-memory mode on `scratch` (see the
+// header), 0 the shared-memory one (scratch unused).
+MSTTS_EXPORT int mstts_mel_frontend(const void* y_pad, const void* window, const void* tw,
+                                    const void* bands, const void* weights, void* out,
+                                    void* scratch, int global_mode, int B, int T, int Lp,
+                                    int n_fft, int hop, int M, float ref_db, float min_db,
+                                    void* stream) {
+  int log2n = 0;
+  while ((1 << log2n) < n_fft) ++log2n;
+  if ((1 << log2n) != n_fft || n_fft < 4 || hop < 1 || n_fft % hop || B < 1 || T < 1 ||
+      M < 1 || Lp < (T - 1) * hop + n_fft)
+    return (int)cudaErrorInvalidValue;
+  return global_mode
+             ? launch(mel_fft_kernel<true>, true, 0, B * T, static_cast<cudaStream_t>(stream),
+                      y_pad, window, tw, bands, weights, out, scratch, T, Lp, log2n, hop, M,
+                      ref_db, min_db)
+             : launch(mel_fft_kernel<false>, false, mel_smem_bytes(0, n_fft), B * T,
+                      static_cast<cudaStream_t>(stream), y_pad, window, tw, bands, weights, out,
+                      scratch, T, Lp, log2n, hop, M, ref_db, min_db);
+}
+
 MSTTS_EXPORT int mstts_mel_dft(const void* y_pad, const void* window, const void* table,
-                               const void* bands, const void* weights, void* out, int B, int T,
-                               int Lp, int n_fft, int hop, int M, float ref_db, float min_db,
-                               void* stream) {
-  if (n_fft < 256 || n_fft > 4096 || hop < 1 || n_fft % hop || B < 1 || T < 1 || M < 1 ||
+                               const void* bands, const void* weights, void* out, void* scratch,
+                               int global_mode, int B, int T, int Lp, int n_fft, int hop, int M,
+                               float ref_db, float min_db, void* stream) {
+  if (n_fft < 1 || hop < 1 || n_fft % hop || B < 1 || T < 1 || M < 1 ||
       Lp < (T - 1) * hop + n_fft)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (sizeof(float2) + sizeof(float)) * (size_t)n_fft +
-                      sizeof(float) * (n_fft / 2 + 1);
-  if (smem > 48 * 1024)
-    MSTTS_CHECK(cudaFuncSetAttribute(mel_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem));
-  mel_dft_kernel<<<B * T, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y_pad), static_cast<const float*>(window),
-      static_cast<const float2*>(table), static_cast<const int*>(bands),
-      static_cast<const float*>(weights), static_cast<float*>(out), T, Lp, n_fft, hop, M, ref_db,
-      min_db);
-  MSTTS_RETURN_LAUNCH_ERROR();
+  return global_mode
+             ? launch(mel_dft_kernel<true>, true, 0, B * T, static_cast<cudaStream_t>(stream),
+                      y_pad, window, table, bands, weights, out, scratch, T, Lp, n_fft, hop, M,
+                      ref_db, min_db)
+             : launch(mel_dft_kernel<false>, false, mel_smem_bytes(1, n_fft), B * T,
+                      static_cast<cudaStream_t>(stream), y_pad, window, table, bands, weights,
+                      out, scratch, T, Lp, n_fft, hop, M, ref_db, min_db);
 }

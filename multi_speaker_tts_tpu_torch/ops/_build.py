@@ -17,6 +17,7 @@ first loads hold one lock, so threads that first use a kernel together
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -93,7 +94,11 @@ class Kernel:
     """One ``csrc`` source: its lazily built library and a launch count.
 
     ``launches`` counts calls of the kernel's entry points that reached
-    the card; the plain versions never touch it.
+    the card; the plain versions never touch it. An entry point launches
+    its kernel once (a batch past one launch's rows is one call a row
+    group, :meth:`call_groups`), save the LSTM forward's
+    (``lstm_run`` in csrc/lstm_persistent.cuh), which loops over its row
+    groups inside one call.
     """
 
     def __init__(self, name: str, source: str, functions: dict):
@@ -128,6 +133,17 @@ class Kernel:
             msg = lib.mstts_error_string(err).decode()
             raise RuntimeError(f"{self.name}: {fn} failed: {msg} ({err})")
         self.launches += 1
+
+    def call_groups(self, fn: str, args, groups, T: int, B: int, H: int, stream: int,
+                    device) -> None:
+        """Run a persistent recurrence's entry point once a row group: its
+        arguments are ``args``, a grid-barrier counter, then T, B, H, the
+        group's first row and its rows, then the stream. Each launch gets a
+        zeroed counter of its own and counts once."""
+        bar = torch.zeros(len(groups), dtype=torch.int32, device=device)
+        for i, g in enumerate(groups):
+            self.call(fn, *args, bar.data_ptr() + 4 * i, T, B, H, g.start, g.stop - g.start,
+                      stream)
 
 
 _PACKED = WeakIdKeyDictionary()
@@ -167,6 +183,46 @@ def plain_route(op: str, x, compute_dtype) -> bool:
         log_dispatch(op, "plain", f"compute dtype {compute_dtype}: the kernels compute in "
                                   "bf16 only")
     return True
+
+
+# An H100's SMs and opt-in shared memory a block (bytes): the card the
+# wrappers' launch plans take on a CPU tensor, so that the CPU plans as the
+# card does.
+H100 = (132, 232448)
+
+
+def card_limits(device) -> tuple[int, int]:
+    """(SMs, opt-in shared memory a block in bytes) of a CUDA device, the
+    H100's (:data:`H100`) for any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100
+    return _cuda_limits(device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_limits(index: int) -> tuple[int, int]:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def recurrence_grid(ndir: int, H: int, n_sm: int) -> tuple[int, int]:
+    """``mstts_recurrence_grid`` (csrc/common.cuh): (U units a block, blocks
+    a direction) of the persistent recurrences, one block an SM."""
+    U = -(-ndir * H // n_sm)
+    return U, -(-H // U)
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def k32_stride(k: int) -> int:
+    """``mstts_k32_stride`` (csrc/common.cuh): the row stride of a bf16 tile
+    read 16 bytes a lane in 32-wide k chunks."""
+    s = round_up(k, 32)
+    return s + 32 if (2 * s) % 128 == 0 else s
 
 
 def stream_ptr(tensor) -> int:

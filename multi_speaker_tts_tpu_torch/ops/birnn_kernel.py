@@ -12,7 +12,8 @@ the same step, f32 carries, outputs in the compute dtype. Its residual mode
 pre-activation gates and c_{t-1}. The backward
 (``birnn_pallas.py::_bilstm_vjp_bwd``, kernel body ``_bilstm_bwd_kernel``)
 is ``csrc/bilstm_bwd.cu``: both directions' reverse recurrences in one
-launch, emitting dGf and dGb.
+launch a row group (:func:`..lstm_kernel.bwd_rows`: 512 rows at H 256),
+emitting dGf and dGb.
 
 BiGRU: replaces ``birnn_pallas.py::_bigru_fwd_impl`` (kernel body
 ``_bigru_fwd_kernel``, reached through ``bigru_pallas``). The input gates
@@ -20,13 +21,19 @@ x . W_ih + b_ih of both directions are hoisted the same way; the kernel
 (``csrc/bigru.cu``) runs gh = bf16(h) . W_hh + b_hh on tensor cores and the
 r, z, n cell with an f32 carry, one block per (direction, group of up to 8
 batch rows) with that direction's W_hh resident in registers, so it needs
-no grid barrier. It takes H % 16 == 0 and 16 <= H <= 192
-(:func:`bigru_shape_reason`). Its residual mode (:data:`GRU_RES_KERNEL`)
-stores gh and h_{t-1}. The backward (``birnn_pallas.py::_bigru_vjp_bwd``,
-kernel body ``_bigru_bwd_kernel``) is ``csrc/bigru_bwd.cu``, emitting dGx
-and dGh per direction: the same grid, dh^T = W_hh . bf16(dGh)^T on tensor
-cores with W_hh resident, the residuals staged ahead by cp.async; it takes
-the forward's shapes (:func:`bigru_bwd_shape_reason`).
+no grid barrier. It takes H % 16 == 0 and 16 <= H <= 192. Its residual
+mode (:data:`GRU_RES_KERNEL`) stores gh and h_{t-1}. The backward
+(``birnn_pallas.py::_bigru_vjp_bwd``, kernel body ``_bigru_bwd_kernel``) is
+``csrc/bigru_bwd.cu``, emitting dGx and dGh per direction: the same grid,
+dh^T = W_hh . bf16(dGh)^T on tensor cores with W_hh resident, the
+residuals staged ahead by cp.async. Past H 192 one direction's W_hh no
+longer fits one SM, and both go to ``csrc/bigru_wide.cu``
+(:func:`bigru_route`; :data:`WIDE_GRU_KERNEL`, :data:`WIDE_GRU_RES_KERNEL`,
+:data:`WIDE_GRU_BWD_KERNEL`): persistent cooperative launches in which a
+block owns U units of a direction and their W_hh slice, h_{t-1} or dGh
+passing through L2 under a grid barrier, in row groups sized by shared
+memory (:func:`wide_rows`), up to H 1,248 on an H100
+(:func:`bigru_shape_reason`, :func:`bigru_bwd_shape_reason`).
 
 Under autograd the layers run through :class:`_BiLSTM` and :class:`_BiGRU`
 (ports of ``_bilstm_custom`` and ``_bigru_custom``): the hoist, the
@@ -41,6 +48,8 @@ on the tensors' device, under autograd where a gradient is needed.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from multi_speaker_tts_tpu_torch.ops import _build
@@ -53,13 +62,14 @@ from multi_speaker_tts_tpu_torch.ops.lstm import (
     recurrence,
     recurrence_bwd,
 )
+from multi_speaker_tts_tpu_torch.ops.lstm_kernel import bwd_row_groups
 from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
 
 _BILSTM = {"mstts_bilstm_fwd": [_build.P] * 11 + [_build.I] * 3 + [_build.P]}
 KERNEL = _build.Kernel("bilstm", "bilstm.cu", _BILSTM)
 RES_KERNEL = _build.Kernel("bilstm_residuals", "bilstm.cu", _BILSTM)
 BWD_KERNEL = _build.Kernel("bilstm_bwd", "bilstm_bwd.cu", {
-    "mstts_bilstm_bwd": [_build.P] * 11 + [_build.I] * 3 + [_build.P],
+    "mstts_bilstm_bwd": [_build.P] * 11 + [_build.I] * 5 + [_build.P],
 })
 _BIGRU = {"mstts_bigru_fwd": [_build.P] * 12 + [_build.I] * 3 + [_build.P]}
 GRU_KERNEL = _build.Kernel("bigru", "bigru.cu", _BIGRU)
@@ -67,6 +77,12 @@ GRU_RES_KERNEL = _build.Kernel("bigru_residuals", "bigru.cu", _BIGRU)
 GRU_BWD_KERNEL = _build.Kernel("bigru_bwd", "bigru_bwd.cu", {
     "mstts_bigru_bwd": [_build.P] * 14 + [_build.I] * 3 + [_build.P],
 })
+# The route past H = 192 (csrc/bigru_wide.cu): units split across blocks.
+_WIDE = {"mstts_bigru_wide_fwd": [_build.P] * 13 + [_build.I] * 5 + [_build.P],
+         "mstts_bigru_wide_bwd": [_build.P] * 15 + [_build.I] * 5 + [_build.P]}
+WIDE_GRU_KERNEL = _build.Kernel("bigru_wide", "bigru_wide.cu", _WIDE)
+WIDE_GRU_RES_KERNEL = _build.Kernel("bigru_wide_residuals", "bigru_wide.cu", _WIDE)
+WIDE_GRU_BWD_KERNEL = _build.Kernel("bigru_wide_bwd", "bigru_wide.cu", _WIDE)
 
 
 def _bf16_empty(device, *shapes):
@@ -168,14 +184,14 @@ def bilstm_bwd_kernel(gf, cf, gb, cb, w_hh_f, w_hh_b, dyf, dyb):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if H % 8 or w_hh_f.shape != (H, H4) or w_hh_b.shape != (H, H4):
         raise ValueError(f"BiLSTM backward kernel needs (H, 4H) weights, H % 8 == 0: {H}")
+    groups = bwd_row_groups(2, H, B, _build.card_limits(gf.device))
     whf, whb = _build.packed(_bf16, w_hh_f), _build.packed(_bf16, w_hh_b)
     dGf, dGb = torch.empty_like(gf), torch.empty_like(gb)
-    bar = torch.zeros(1, dtype=torch.int32, device=gf.device)
-    BWD_KERNEL.call(
-        "mstts_bilstm_bwd", gf.data_ptr(), cf.data_ptr(), gb.data_ptr(), cb.data_ptr(),
-        whf.data_ptr(), whb.data_ptr(), dyf.data_ptr(), dyb.data_ptr(), dGf.data_ptr(),
-        dGb.data_ptr(), bar.data_ptr(), T, B, H, _build.stream_ptr(gf),
-    )
+    BWD_KERNEL.call_groups(
+        "mstts_bilstm_bwd",
+        (gf.data_ptr(), cf.data_ptr(), gb.data_ptr(), cb.data_ptr(), whf.data_ptr(),
+         whb.data_ptr(), dyf.data_ptr(), dyb.data_ptr(), dGf.data_ptr(), dGb.data_ptr()),
+        groups, T, B, H, _build.stream_ptr(gf), gf.device)
     return dGf, dGb
 
 
@@ -281,18 +297,75 @@ def _f32(b: torch.Tensor) -> torch.Tensor:
     return b.float().contiguous()
 
 
-def bigru_shape_reason(gx_shape, w_hh_shapes) -> str | None:
-    """Why ``csrc/bigru.cu`` does not take these shapes, or None if it does:
-    (T, B, 3H) gates, equal for both directions, and (H, 3H) weights with
-    H % 16 == 0 (16-deep MMA k-steps, 16 units a warp) and 16 <= H <= 192
-    (one direction's W_hh stays in a block's registers and, above H = 128,
-    its shared memory)."""
+# The narrow kernels' widest H: one direction's W_hh in one block.
+NARROW_MAX_H = 192
+_WIDE_WARPS = 8  # csrc/bigru_wide.cu's kWarps
+
+
+def wide_smem_bytes(bwd: bool, U: int, H: int, B: int) -> int:
+    """``fwd_smem_bytes`` / ``bwd_smem_bytes`` (csrc/bigru_wide.cu): a
+    block's shared memory on the wide route, U units of H over B rows: the
+    resident W_hh slice (forward: 3U columns of depth H; backward: U rows of
+    depth 3H), the warps' partial tiles, and per row the carries and the
+    step's own inputs."""
+    NP = _build.round_up(U if bwd else 3 * U, 8)
+    BP = _build.round_up(B, 32)
+    w = 2 * NP * _build.k32_stride(3 * H if bwd else H)
+    if bwd:
+        return w + 4 * (_WIDE_WARPS * BP * NP + 10 * B * U)
+    return w + 4 * (_WIDE_WARPS * BP * NP + 4 * B * U + 3 * U)
+
+
+@functools.lru_cache(maxsize=1024)
+def wide_rows(bwd: bool, H: int, B: int, card: tuple[int, int] = _build.H100) -> int:
+    """Rows a launch of the wide route takes: as many of the B as a block's
+    shared memory holds on ``card``; 0 if not one."""
+    n_sm, max_smem = card
+    U, _ = _build.recurrence_grid(2, H, n_sm)
+    rows = B
+    while rows > 0 and wide_smem_bytes(bwd, U, H, rows) > max_smem:
+        rows -= 1
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def wide_max_h(card: tuple[int, int] = _build.H100) -> int:
+    """The widest H (a multiple of 16) whose forward and backward take one
+    row a launch on ``card``."""
+    H = NARROW_MAX_H
+    while all(wide_rows(bwd, H + 16, 1, card) for bwd in (False, True)):
+        H += 16
+    return H
+
+
+def bigru_route(H: int) -> str:
+    """"narrow" (csrc/bigru.cu, csrc/bigru_bwd.cu: W_hh in one block) up to
+    H 192, "wide" (csrc/bigru_wide.cu: units split across blocks) above."""
+    return "narrow" if H <= NARROW_MAX_H else "wide"
+
+
+def wide_row_groups(bwd: bool, H: int, B: int, card: tuple[int, int]) -> list:
+    """The launches of one wide-route call: groups of :func:`wide_rows`."""
+    rows = wide_rows(bwd, H, B, card)
+    return [slice(b, min(b + rows, B)) for b in range(0, B, rows)]
+
+
+def bigru_shape_reason(gx_shape, w_hh_shapes,
+                       card: tuple[int, int] = _build.H100) -> str | None:
+    """Why neither BiGRU forward route takes these shapes, or None if one
+    does: (T, B, 3H) gates, equal for both directions, and (H, 3H) weights
+    with H % 16 == 0 (16-deep MMA k-steps); up to H 192 the narrow kernel
+    (one direction's W_hh in a block), above it the wide route up to what
+    one row's launch fits on ``card`` (:func:`wide_max_h`: 1,248 on an
+    H100). The JAX gate (``birnn_pallas.supported``) takes H % 128 == 0:
+    256 .. 1,152 here."""
     T, B, H3 = gx_shape
     H = H3 // 3
     if T < 1 or B < 1 or H3 % 3 or any(tuple(s) != (H, H3) for s in w_hh_shapes):
         return f"needs (T, B, 3H) gates and (H, 3H) weights, got {tuple(gx_shape)}"
-    if H % 16 or not 16 <= H <= 192:
-        return f"needs H % 16 == 0 and 16 <= H <= 192, got H = {H}"
+    hmax = wide_max_h(card)
+    if H % 16 or not 16 <= H <= hmax:
+        return f"needs H % 16 == 0 and 16 <= H <= {hmax} on this card, got H = {H}"
     return None
 
 
@@ -310,7 +383,8 @@ def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
     H = H3 // 3
     reason = (f"needs equal gates, got {tuple(gxf.shape)} and {tuple(gxb.shape)}"
               if gxb.shape != gxf.shape
-              else bigru_shape_reason(gxf.shape, (fwd.w_hh.shape, bwd.w_hh.shape)))
+              else bigru_shape_reason(gxf.shape, (fwd.w_hh.shape, bwd.w_hh.shape),
+                                      _build.card_limits(gxf.device)))
     if reason is not None:
         raise ValueError(f"BiGRU kernel {reason}")
     gxf, gxb = _aligned(gxf), _aligned(gxb)
@@ -321,11 +395,16 @@ def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
     if save_residuals:
         res = _bf16_empty(gxf.device, (T, B, H3), (T, B, H), (T, B, H3), (T, B, H))
     res_ptrs = [r.data_ptr() for r in res] or [None] * 4
-    (GRU_RES_KERNEL if save_residuals else GRU_KERNEL).call(
-        "mstts_bigru_fwd", gxf.data_ptr(), gxb.data_ptr(), whf.data_ptr(),
-        whb.data_ptr(), bhf.data_ptr(), bhb.data_ptr(), ysf.data_ptr(),
-        ysb.data_ptr(), *res_ptrs, T, B, H, _build.stream_ptr(gxf),
-    )
+    args = (gxf.data_ptr(), gxb.data_ptr(), whf.data_ptr(), whb.data_ptr(), bhf.data_ptr(),
+            bhb.data_ptr(), ysf.data_ptr(), ysb.data_ptr(), *res_ptrs)
+    if bigru_route(H) == "narrow":
+        (GRU_RES_KERNEL if save_residuals else GRU_KERNEL).call(
+            "mstts_bigru_fwd", *args, T, B, H, _build.stream_ptr(gxf))
+    else:
+        (WIDE_GRU_RES_KERNEL if save_residuals else WIDE_GRU_KERNEL).call_groups(
+            "mstts_bigru_wide_fwd", args,
+            wide_row_groups(False, H, B, _build.card_limits(gxf.device)), T, B, H,
+            _build.stream_ptr(gxf), gxf.device)
     return (ysf, ysb, *res)
 
 
@@ -349,12 +428,13 @@ def bigru_bwd_plain(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb,
                                     natural_time=True))
 
 
-def bigru_bwd_shape_reason(gx_shape, w_hh_shapes) -> str | None:
-    """Why ``csrc/bigru_bwd.cu`` does not take these shapes, or None if it
-    does: those of the residual-mode forward (:func:`bigru_shape_reason`),
-    whose residuals are its only input; the same grid, warps and resident
-    W_hh (16 units a warp, K = 3H in 16-deep k-steps)."""
-    return bigru_shape_reason(gx_shape, w_hh_shapes)
+def bigru_bwd_shape_reason(gx_shape, w_hh_shapes,
+                           card: tuple[int, int] = _build.H100) -> str | None:
+    """Why neither BiGRU backward route (``csrc/bigru_bwd.cu`` up to H 192,
+    ``csrc/bigru_wide.cu`` above) takes these shapes, or None if one does:
+    those of the residual-mode forward (:func:`bigru_shape_reason`), whose
+    residuals are its only input, on the same route."""
+    return bigru_shape_reason(gx_shape, w_hh_shapes, card)
 
 
 def bigru_bwd_kernel(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb):
@@ -375,18 +455,23 @@ def bigru_bwd_kernel(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb):
         _build.require_cuda(t, dtype, name)
         if t.shape != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    reason = bigru_bwd_shape_reason(gxf.shape, (w_hh_f.shape, w_hh_b.shape))
+    card = _build.card_limits(gxf.device)
+    reason = bigru_bwd_shape_reason(gxf.shape, (w_hh_f.shape, w_hh_b.shape), card)
     if reason is not None:
         raise ValueError(f"BiGRU backward kernel {reason}")
     gxf, ghf, hpf, gxb, ghb, hpb, dyf, dyb = (
         _aligned(t) for t in (gxf, ghf, hpf, gxb, ghb, hpb, dyf, dyb))
     wf, wb = (_build.packed(_bf16, w) for w in (w_hh_f, w_hh_b))
     outs = _bf16_empty(gxf.device, *[(T, B, H3)] * 4)
-    GRU_BWD_KERNEL.call(
-        "mstts_bigru_bwd", gxf.data_ptr(), ghf.data_ptr(), hpf.data_ptr(), gxb.data_ptr(),
-        ghb.data_ptr(), hpb.data_ptr(), wf.data_ptr(), wb.data_ptr(), dyf.data_ptr(),
-        dyb.data_ptr(), *(o.data_ptr() for o in outs), T, B, H, _build.stream_ptr(gxf),
-    )
+    args = (gxf.data_ptr(), ghf.data_ptr(), hpf.data_ptr(), gxb.data_ptr(), ghb.data_ptr(),
+            hpb.data_ptr(), wf.data_ptr(), wb.data_ptr(), dyf.data_ptr(), dyb.data_ptr(),
+            *(o.data_ptr() for o in outs))
+    if bigru_route(H) == "narrow":
+        GRU_BWD_KERNEL.call("mstts_bigru_bwd", *args, T, B, H, _build.stream_ptr(gxf))
+    else:
+        WIDE_GRU_BWD_KERNEL.call_groups("mstts_bigru_wide_bwd", args,
+                                        wide_row_groups(True, H, B, card), T, B, H,
+                                        _build.stream_ptr(gxf), gxf.device)
     return outs
 
 

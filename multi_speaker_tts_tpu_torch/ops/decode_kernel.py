@@ -19,8 +19,10 @@ as fit the card's shared memory at the text's memory positions S,
 :func:`kernel_row_groups` from :func:`layout_bytes`, the Python copy of the
 kernel's layout; five grid-barrier rounds a step; gate
 products on tensor cores, int8 weights resident in shared memory for the
-segment, in bf16 mode layer 0's too and layer 1's streamed every step; see
-the source's header) or raises; on a CPU tensor it runs
+segment, in bf16 mode layer 0's too and layer 1's streamed every step;
+past H 1024 on an H100 up to four m-tiles of gate rows a block, the
+windows that fit resident and the rest streamed, gate products deeper than
+4,096 staged in pieces; see the source's header) or raises; on a CPU tensor it runs
 :func:`decode_segment_plain`, the same arithmetic in plain torch.
 :func:`pack_gate_weights` lays each block's gate rows out in the order its
 lanes read them, for the grid :func:`decode_layout` mirrors. The kernel
@@ -56,17 +58,15 @@ KERNELS = {
 }
 MAX_B = 16  # batch rows a launch: two n-tiles of 8 in the gate products
 PRENET_BLOCKS = 4  # blocks of csrc/decode.cu that run the prenet (kPre)
-MAX_UNITS = 8  # hidden units a gate block owns: 4U gate rows in two m-tiles (kMaxMt)
-MAX_M_TILES = 2
+MAX_UNITS = 16  # hidden units a gate block owns: 4U gate rows in four m-tiles (kMaxMt)
+MAX_M_TILES = 4
 # The limits of csrc/decode.cu, whose own check is the last guard.
 _WIDTH = 16  # H, memory width and last prenet width in 16-element pieces
-_MAX_A = 512  # attention width: one thread per unit (kThreads)
-_MAX_K = 4096  # depth of a gate product, [x, context, h]: what a block stages (kMaxK)
 # The constants of csrc/decode.cu's make_layout.
 _THREADS, _WARPS, _ROWS_A_PASS = 512, 16, 4
-# An H100's SMs and opt-in shared memory a block (bytes): the card the
-# decisions below take on a CPU tensor, so that the CPU routes as the card.
-H100 = (132, 232448)
+# The card the decisions below take on a CPU tensor (_build.H100).
+H100 = _build.H100
+card_limits = _build.card_limits
 
 
 class Widths(NamedTuple):
@@ -90,16 +90,6 @@ def widths_of(bundle: dict) -> Widths:
                   conv_k, conv_c)
 
 
-def card_limits(device) -> tuple[int, int]:
-    """(SMs, opt-in shared memory a block in bytes) of a CUDA device, the
-    H100's (:data:`H100`) for any other device."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return H100
-    props = torch.cuda.get_device_properties(device)
-    return props.multi_processor_count, props.shared_memory_per_block_optin
-
-
 def _align16(x: int) -> int:
     return -(-x // 16) * 16
 
@@ -109,30 +99,20 @@ def _x_stride(n_bytes: int) -> int:
     return s + 64 if s % 128 == 0 else s
 
 
-def layout_bytes(B: int, S: int, w: Widths, quantized: bool, n_sm: int,
-                 max_smem: int) -> dict:
-    """``make_layout`` and the fit test of ``mstts_decode_layout`` in
-    csrc/decode.cu, in Python: the dynamic shared memory a block of a
-    launch over B rows at S memory positions takes (``total``), and whether
-    that launch fits a card of ``n_sm`` SMs and ``max_smem`` opt-in bytes a
-    block (``fits``). Everything a block keeps scales with B or S but the
-    gate weights: the B staged activation rows of a gate product, and the
-    attention row's (w, cum), mask and energies."""
-    lay = decode_layout(w.H, n_sm)
-    U, nblk, mt = lay["U"], lay["nblk"], lay["mt"]
+def _place(B: int, S: int, w: Widths, quantized: bool, lay: dict, r0: int, r1: int,
+           max_smem: int) -> int:
+    """``place`` in csrc/decode.cu: the bytes of a launch over B rows at S
+    with r0 / r1 windows of each m-tile resident (the location weights
+    leave shared memory where they would not fit)."""
+    U, mt = lay["U"], lay["mt"]
     nt = -(-B // 8)
-    win = 64 if quantized else 32
-    K0p = -(-(w.P2 + w.D + w.H) // win) * win
-    K1p = -(-(2 * w.H + w.D) // win) * win
-    nw0, nw1 = K0p // win, K1p // win
-    xstride = _x_stride((1 if quantized else 2) * max(K0p, K1p))
-    misc_at = 1024 * mt * (nw0 + nw1 if quantized else nw0)
+    misc_at = 1024 * mt * (r0 + r1)
     att_at = misc_at + _align16(4 * (U * w.A + 4 * 16 * mt + 2 * B * U))
     pad = S + w.conv_k - 1
     loc = w.conv_c * w.A + w.conv_k * 2 * w.conv_c
     att = -(-(w.A + 2 * pad + S) // 4) * 4
     part = 4 * _WARPS * 16 * mt * 8 * nt
-    gate = (_align16(max(B * xstride, part))
+    gate = (_align16(max(B * lay["xstride"], part))
             + 4 * (16 * mt * MAX_B + MAX_B + _ROWS_A_PASS * _WARPS))
     attn = 4 * (_WARPS * w.conv_c * 4 + w.A + _THREADS + S)
     per = -(-w.P2 // PRENET_BLOCKS)
@@ -142,9 +122,45 @@ def layout_bytes(B: int, S: int, w: Widths, quantized: bool, n_sm: int,
     total = att_at + _align16(4 * (att + loc)) + scr
     if total > max_smem:  # the location weights leave shared memory first
         total -= _align16(4 * (att + loc)) - _align16(4 * att)
-    fits = (total <= max_smem and lay["grid"] <= n_sm and mt <= MAX_M_TILES
-            and B <= nblk)
-    return {"total": total, "fits": fits}
+    return total
+
+
+def layout_bytes(B: int, S: int, w: Widths, quantized: bool, n_sm: int,
+                 max_smem: int) -> dict:
+    """``make_layout`` and the fit test of ``mstts_decode_layout`` in
+    csrc/decode.cu, in Python: the dynamic shared memory a block of a
+    launch over B rows at S memory positions takes (``total``), whether
+    that launch fits a card of ``n_sm`` SMs and ``max_smem`` opt-in bytes a
+    block (``fits``), and the windows of each layer's m-tiles it keeps
+    resident (``r0``, ``r1``). Everything a block keeps scales with B or S
+    but the gate weights: the B staged activation rows of a gate product,
+    and the attention row's (w, cum), mask and energies. Every window is
+    resident (int8 both layers, bf16 layer 0) unless the weights alone
+    outgrow a block, so that not even a launch over one row at one position
+    fits beside them (past H 1024 on an H100): then as many as fit beside
+    the launch's other regions, layer 0's first, the rest streamed."""
+    lay = decode_layout(w.H, n_sm)
+    win = 64 if quantized else 32
+    K0p = -(-(w.P2 + w.D + w.H) // win) * win
+    K1p = -(-(2 * w.H + w.D) // win) * win
+    nw0, nw1 = K0p // win, K1p // win
+    lay = dict(lay, xstride=_x_stride((1 if quantized else 2) * max(K0p, K1p)))
+    full1 = nw1 if quantized else 0
+    r0, r1 = nw0, full1
+    total = _place(B, S, w, quantized, lay, r0, r1, max_smem)
+    if (total > max_smem
+            and _place(1, 1, w, quantized, lay, nw0, full1, max_smem) > max_smem):
+        total = _place(B, S, w, quantized, lay, 0, 0, max_smem)
+        if total <= max_smem:
+            nres = (max_smem - total) // (1024 * lay["mt"])
+            r0 = min(nres, nw0)
+            r1 = min(nres - r0, full1)
+            total = _place(B, S, w, quantized, lay, r0, r1, max_smem)
+        else:
+            r0 = r1 = 0
+    fits = (total <= max_smem and lay["grid"] <= n_sm and lay["mt"] <= MAX_M_TILES
+            and B <= lay["nblk"])
+    return {"total": total, "fits": fits, "r0": r0, "r1": r1}
 
 
 @functools.lru_cache(maxsize=256)
@@ -184,10 +200,6 @@ def _shape_reason(H: int, D: int, prenet_sizes, S: int | None, A: int, mel_dim: 
     if H % _WIDTH or D % _WIDTH or P2 % _WIDTH:
         return (f"needs H, memory and prenet widths in multiples of {_WIDTH}: "
                 f"{H}, {D}, {P2}")
-    if A > _MAX_A:
-        return f"needs an attention width of at most {_MAX_A}, got {A}"
-    if max(2 * H, P2 + H) + D > _MAX_K:
-        return f"needs gate products at most {_MAX_K} deep"
     if P1 % 4 or mel_dim % 4 or A % 4 or conv_c % 4:
         return ("needs the first prenet, mel, attention and location-conv widths in "
                 f"multiples of 4: {P1}, {mel_dim}, {A}, {conv_c}")

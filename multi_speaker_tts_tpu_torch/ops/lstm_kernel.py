@@ -17,7 +17,11 @@ recurrence from the residuals and emits dG (T, B, 4H) bf16; the stack's
 ``torch.autograd.Function`` (:class:`_LSTMStack`, the port of
 ``_stack_custom`` / ``_stack_fwd`` / ``_stack_bwd``) turns dG into dW_ih,
 dW_hh, db and the lower layer's output cotangent with whole-sequence
-matrix products, as the JAX package does outside its kernels.
+matrix products, as the JAX package does outside its kernels. A launch
+takes a group of the batch's rows: the wrapper plans as many rows a group
+as a block's shared memory holds (:func:`bwd_rows`: 352 rows at H 768 on
+an H100, so GE2E's 640-row batch takes two), the kernel refuses a group
+that does not fit, and each launch counts.
 
 :func:`lstm_seq_layer_plain` and :func:`lstm_seq_layer_bwd_plain` are the
 same layer in plain torch: the CPU path (in any compute dtype) and the
@@ -25,6 +29,8 @@ card's yardstick.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -43,7 +49,7 @@ _FWD = {"mstts_lstm_layer_fwd": [_build.P] * 10 + [_build.I] * 4 + [_build.P]}
 KERNEL = _build.Kernel("ge2e_lstm", "lstm.cu", _FWD)
 RES_KERNEL = _build.Kernel("ge2e_lstm_residuals", "lstm.cu", _FWD)
 BWD_KERNEL = _build.Kernel("ge2e_lstm_bwd", "lstm_bwd.cu", {
-    "mstts_lstm_layer_bwd": [_build.P] * 7 + [_build.I] * 3 + [_build.P],
+    "mstts_lstm_layer_bwd": [_build.P] * 7 + [_build.I] * 5 + [_build.P],
 })
 
 
@@ -115,6 +121,45 @@ def lstm_seq_layer_bwd_plain(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: to
     return recurrence_bwd(w_hh, gates, c_prev, d_hT, d_ys, compute_dtype)
 
 
+# csrc/lstm_bwd.cuh's constants: warps a block, n-tiles of 8 units a block.
+_BWD_WARPS, _BWD_MAX_NT = 8, 2
+
+
+def bwd_smem_bytes(U: int, H: int, B: int) -> int:
+    """``lstm_bwd_smem_bytes`` (csrc/lstm_bwd.cuh): a block's shared memory
+    for U units of H over B rows: the resident W_hh rows, the warps' partial
+    tiles, the carries, the residuals and the dG tile."""
+    NP, BP = _build.round_up(U, 8), _build.round_up(B, 32)
+    return (2 * NP * _build.k32_stride(4 * H)
+            + 4 * (_BWD_WARPS * BP * NP + 8 * B * U) + 2 * B * 4 * U)
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_rows(ndir: int, H: int, B: int, card: tuple[int, int] = _build.H100) -> int:
+    """Rows a launch of the reverse recurrence takes: as many of the B as
+    one block's shared memory holds on ``card`` (SMs, opt-in bytes); 0 if
+    not one row; -1 for a width past the kernel's n-tiles (U > 16 units a
+    block)."""
+    n_sm, max_smem = card
+    U, _ = _build.recurrence_grid(ndir, H, n_sm)
+    if -(-U // 8) > _BWD_MAX_NT:
+        return -1
+    rows = B
+    while rows > 0 and bwd_smem_bytes(U, H, rows) > max_smem:
+        rows -= 1
+    return rows
+
+
+def bwd_row_groups(ndir: int, H: int, B: int, card: tuple[int, int] = _build.H100) -> list:
+    """The launches of one call: consecutive groups of :func:`bwd_rows` rows
+    (the last takes the rest). Raises where the kernel takes no launch."""
+    rows = bwd_rows(ndir, H, B, card)
+    if rows < 1:
+        raise ValueError(f"LSTM backward kernel needs at most {8 * _BWD_MAX_NT} units a block "
+                         f"and one row in a block's shared memory: H={H}, {ndir} direction(s)")
+    return [slice(b, min(b + rows, B)) for b in range(0, B, rows)]
+
+
 def lstm_seq_layer_bwd_kernel(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: torch.Tensor,
                               d_hT: torch.Tensor | None, d_ys: torch.Tensor | None):
     """Launch ``csrc/lstm_bwd.cu`` on CUDA bf16 residuals and f32
@@ -130,14 +175,15 @@ def lstm_seq_layer_bwd_kernel(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: t
             _build.require_cuda(t, torch.float32, name)
             if t.shape != shape:
                 raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    groups = bwd_row_groups(1, H, B, _build.card_limits(gates.device))
     w = _build.packed(_bf16, w_hh)
     dG = torch.empty_like(gates)
-    bar = torch.zeros(1, dtype=torch.int32, device=gates.device)
-    BWD_KERNEL.call(
-        "mstts_lstm_layer_bwd", gates.data_ptr(), c_prev.data_ptr(), w.data_ptr(),
-        None if d_hT is None else d_hT.data_ptr(), None if d_ys is None else d_ys.data_ptr(),
-        dG.data_ptr(), bar.data_ptr(), T, B, H, _build.stream_ptr(gates),
-    )
+    BWD_KERNEL.call_groups(
+        "mstts_lstm_layer_bwd",
+        (gates.data_ptr(), c_prev.data_ptr(), w.data_ptr(),
+         None if d_hT is None else d_hT.data_ptr(), None if d_ys is None else d_ys.data_ptr(),
+         dG.data_ptr()),
+        groups, T, B, H, _build.stream_ptr(gates), gates.device)
     return dG
 
 

@@ -18,7 +18,12 @@ JSON line:
   time over three steps (CUDA events);
 - ``synth_ms``: the median wall time (host clock to a synchronised card) of
   ten ``synthesize`` calls of the two texts with the default decode, and
-  ``synth_ms_all`` the ten.
+  ``synth_ms_all`` the ten;
+- ``seeded_ms``: the production-width kernels on seeded inputs at the shapes
+  of ``chip_smoke.py``'s rows (the card's work alone, the median of three
+  timings): the mel front-end's two routes, the GE2E layer's residual
+  forward and backward, the BiLSTM and BiGRU backwards, the BiGRU forward in
+  both modes, and a K 10 decode chunk in both modes.
 
 ``--repo DIR`` measures another checkout's package and kernel sources (for
 example the parent commit's, unpacked with ``git archive``); run the file by
@@ -123,6 +128,73 @@ def train_batch(hp, n: int = 32) -> dict:
                        np.random.default_rng(0), hp.Sound.Spectrogram_Dim)
 
 
+def seeded_ms() -> dict:
+    """``seeded_ms`` of the JSON line (the module docstring): inputs from a
+    seeded generator, weights at a trained model's scale for the decode."""
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel, lstm_kernel, mel_kernel
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+    from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
+
+    rng = np.random.default_rng(0)
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)).cuda()
+
+    def ms(fn):
+        return statistics.median(time_ms(fn, 3, 20) for _ in range(3))
+
+    out = {}
+    for n_fft, hop, T in ((1024, 256, 133), (800, 200, 100)):
+        cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+        y = t(1, (T - 1) * hop + n_fft, s=0.3)
+        out[f"mel_{n_fft}"] = ms(lambda: mel_kernel.melspectrogram_kernel(y, T, cfg))
+    p = LSTMParams(t(768, 3072, s=0.1), t(768, 3072, s=0.1), t(3072, s=0.1))
+    x = t(64, 32, 768).to(torch.bfloat16)
+    _, _, _, g, c = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
+    dys = t(64, 32, 768)
+    out["lstm_fwd_residuals"] = ms(lambda: lstm_kernel.lstm_seq_layer_kernel(p, x, True))
+    out["lstm_bwd"] = ms(lambda: lstm_kernel.lstm_seq_layer_bwd_kernel(p.w_hh, g, c, None, dys))
+    pf, pb = (LSTMParams(t(512, 1024, s=0.1), t(256, 1024, s=0.1), t(1024, s=0.1))
+              for _ in range(2))
+    gxf, gxb = birnn_kernel.bilstm_hoist(pf, pb, t(32, 64, 512), torch.bfloat16)
+    res = birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh, pb.w_hh, True)[2:]
+    dyf, dyb = t(64, 32, 256), t(64, 32, 256)
+    out["bilstm_bwd"] = ms(lambda: birnn_kernel.bilstm_bwd_kernel(*res, pf.w_hh, pb.w_hh, dyf, dyb))
+    gf, gb = (GRUParams(t(128, 384, s=0.1), t(128, 384, s=0.1), t(384, s=0.1), t(384, s=0.1))
+              for _ in range(2))
+    for label, B, T in (("bigru", 4, 400), ("bigru_residuals", 32, 132)):
+        hf, hb = birnn_kernel.bigru_hoist(gf, gb, t(B, T, 128), torch.bfloat16)
+        keep = label != "bigru"
+        out[label] = ms(lambda: birnn_kernel.bigru_recurrence_kernel(hf, hb, gf, gb, keep))
+    r = birnn_kernel.bigru_recurrence_kernel(hf, hb, gf, gb, True)
+    args = (hf, r[2], r[3], hb, r[4], r[5], gf.w_hh, gb.w_hh, t(132, 32, 128), t(132, 32, 128))
+    out["bigru_bwd"] = ms(lambda: birnn_kernel.bigru_bwd_kernel(*args))
+    H, D, P, A, mel, rr, B, S, K = 1024, 768, 256, 128, 80, 2, 4, 48, 10
+    w = lambda *shape, s=0.02: t(*shape, s=s)  # noqa: E731
+    dp = dscan.DecoderParams(
+        lstm=(LSTMParams(w(P + D, 4 * H), w(H, 4 * H), w(4 * H)),
+              LSTMParams(w(H + D, 4 * H), w(H, 4 * H), w(4 * H))),
+        attention=dscan.AttentionParams(w(H, A), w(31, 2, 32, s=0.3), w(32, A, s=0.3),
+                                        w(A, 1, s=0.3)),
+        frame_proj=(w(H + D, mel * rr), w(mel * rr)), stop_proj=(w(H + D, 1), w(1)))
+    prenet = [(w(mel, P, s=0.2), w(P)), (w(P, P, s=0.2), w(P))]
+    keys, memory = w(B, S, A, s=0.3), w(B, S, D, s=0.3)
+    masks = [torch.from_numpy(rng.random((K, B, P)) < 0.5).cuda().float() / 0.5 for _ in range(2)]
+    carry = dscan.initial_carry(B, memory, 2, H)
+    ones, prev = torch.ones(B, S, device="cuda"), torch.zeros(B, mel, device="cuda")
+    for mode, q in (("bf16", False), ("int8", True)):
+        bundle = dk.prepare_bundle(dp, prenet, quantize=q)
+        out[f"decode_{mode}"] = ms(lambda: dk.decode_segment_kernel(
+            bundle, keys, memory, ones, carry, prev, *masks, K, mel, rr))
+    return out
+
+
 def kept(module, name: str, store: list):
     """Wrap ``module.name`` so that every call's positional arguments are kept."""
     original = getattr(module, name)
@@ -217,6 +289,7 @@ def main(argv=None) -> int:
         "bigru_bwd_rel_peak_err": peak_rel(bwd_fn(*bwd_args),
                                            birnn_kernel.bigru_bwd_plain(*bwd_args)),
     })
+    row["seeded_ms"] = seeded_ms()
     print(json.dumps(row))
     return 0
 

@@ -479,7 +479,7 @@ def test_bigru_and_staged_kernels_raise_on_shapes_they_refuse(dev):
     from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
 
     counts = (birnn_kernel.GRU_KERNEL.launches, gl.KERNEL.launches)
-    for H in (8, 72, 208):
+    for H in (8, 72, 200):
         p = GRUParams(*(torch.zeros(s, device=dev) for s in ((16, 3 * H), (H, 3 * H),
                                                              (3 * H,), (3 * H,))))
         g = torch.zeros(5, 2, 3 * H, dtype=torch.bfloat16, device=dev)
@@ -499,12 +499,12 @@ def test_bigru_bwd_and_mel_kernels_raise_on_shapes_they_refuse(dev):
 
     counts = (birnn_kernel.GRU_BWD_KERNEL.launches, mel_kernel.KERNEL.launches,
               mel_kernel.DFT_KERNEL.launches)
-    for H in (8, 72, 208):
+    for H in (8, 72, 200):
         g, hp = (torch.zeros(5, 2, n, dtype=torch.bfloat16, device=dev) for n in (3 * H, H))
         w, dy = torch.zeros(H, 3 * H, device=dev), torch.zeros(5, 2, H, device=dev)
         with pytest.raises(ValueError, match="H % 16"):
             birnn_kernel.bigru_bwd_kernel(g, g, hp, g, g, hp, w, w, dy, dy)
-    for n_fft, hop in ((1024, 300), (8192, 256)):
+    for n_fft, hop in ((1024, 300), (8192, 3000)):
         cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
         with pytest.raises(ValueError, match="mel kernel needs"):
             mel_kernel.melspectrogram_kernel(torch.zeros(1, 4 * n_fft, device=dev), 2, cfg)
@@ -637,7 +637,7 @@ def test_decode_kernel_raises_on_unsupported_shapes(dev):
                           torch.zeros(2, 16, device=dev), None, None, 4, 16, 2)
 
 
-@pytest.mark.parametrize("H", [128, 256, 1024])
+@pytest.mark.parametrize("H", [128, 256, 1024, 1152, 2048])
 def test_decode_kernel_layout_is_the_mirrored_one(dev, H):
     """The grid the kernel computes on this card is decode_layout's."""
     import ctypes
@@ -646,7 +646,7 @@ def test_decode_kernel_layout_is_the_mirrored_one(dev, H):
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     dims = (ctypes.c_int * 13)(10, 4, 48, 128, 768, H, 256, 256, 80, 2, 31, 32, 1)
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 10)()
     assert dk.KERNELS["int8"].lib().mstts_decode_layout(dims, ctypes.addressof(out)) == 0
     want = dk.decode_layout(H, n_sm)
     assert list(out)[:3] == [want["U"], want["nblk"], want["grid"]] and out[4] == want["mt"]
@@ -655,7 +655,10 @@ def test_decode_kernel_layout_is_the_mirrored_one(dev, H):
 # Widths (H, D, P1, P2, A, mel, conv_k, conv_c) of the layout grid: the
 # production decoder, the small demo checkpoint's, and a wide attention.
 LAYOUT_WIDTHS = [(1024, 768, 256, 256, 128, 80, 31, 32), (256, 320, 64, 64, 64, 80, 31, 32),
-                 (256, 256, 128, 128, 512, 80, 31, 32), (512, 512, 256, 256, 128, 80, 15, 16)]
+                 (256, 256, 128, 128, 512, 80, 31, 32), (512, 512, 256, 256, 128, 80, 15, 16),
+                 # past H 1024: the weights partly streamed, up to four m-tiles
+                 (1152, 512, 256, 256, 128, 80, 31, 32), (1536, 512, 256, 256, 640, 80, 31, 32),
+                 (2048, 512, 256, 256, 1024, 80, 31, 32)]
 
 
 @pytest.mark.parametrize("widths", LAYOUT_WIDTHS, ids=lambda w: f"H{w[0]}_D{w[1]}_A{w[4]}")
@@ -670,7 +673,7 @@ def test_decode_layout_bytes_is_the_kernels(dev, widths):
     w = dk.Widths(*widths)
     card = dk.card_limits(dev)
     lib = dk.KERNELS["int8"].lib()
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 10)()
     for q in (0, 1):
         for B in range(1, 17):
             for S in list(range(16, 6001, 48)) + [1, 2, 255, 257]:
@@ -678,7 +681,8 @@ def test_decode_layout_bytes_is_the_kernels(dev, widths):
                                            w.conv_k, w.conv_c, q)
                 assert lib.mstts_decode_layout(dims, ctypes.addressof(out)) == 0
                 got = dk.layout_bytes(B, S, w, bool(q), *card)
-                assert (got["total"], got["fits"]) == (out[6], bool(out[7])), (q, B, S)
+                assert ((got["total"], got["fits"], got["r0"], got["r1"])
+                        == (out[6], bool(out[7]), out[8], out[9])), (q, B, S)
 
 
 LONG = ("the quick brown fox jumps over the lazy dog. she sells sea shells by the sea "
@@ -1559,3 +1563,237 @@ def test_convert_round_trip_on_the_card(dev, tmp_path):
     emb = synth.enroll([rng.standard_normal(4096).astype(np.float32)])
     out = synth.synthesize(["converted"], emb, max_steps=8, vocode=False)[0]
     assert out["mel_length"] >= 1 and np.isfinite(out["mel"]).all()
+
+
+# -- every batch and width the reference's gates admit -------------------------
+
+
+def test_lstm_bwd_in_row_groups_at_the_ge2e_batch(dev):
+    """GE2E's published batch, 64 speakers x 10 utterances = 640 rows of a
+    768-wide layer over 160 frames: the reverse kernel launches once a row
+    group its shared memory sizes (352 + 288 on an H100; the card takes the
+    plan's group and refuses one row more), holds within 1e-2 of the peak
+    of the plain reverse pass, and the rows one launch takes whole are
+    bit-equal to a one-launch call on those rows alone."""
+    from multi_speaker_tts_tpu_torch.ops import _build, lstm_kernel
+
+    B, D, H, T = 640, 768, 768, 160
+    card = _build.card_limits(dev)
+    rows = lstm_kernel.bwd_rows(1, H, B, card)
+    assert 1 <= rows < B
+    rng = np.random.default_rng(640)
+    p = _lstm(rng, D, H, dev)
+    x = torch.from_numpy(rng.normal(size=(T, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    _, _, _, gates, c_prev = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
+    d_hT = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(dev)
+    d_ys = torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32) * 0.1).to(dev)
+    before = lstm_kernel.BWD_KERNEL.launches
+    dG = lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates, c_prev, d_hT, d_ys)
+    torch.cuda.synchronize()
+    groups = lstm_kernel.bwd_row_groups(1, H, B, card)
+    assert len(groups) >= 2 and lstm_kernel.BWD_KERNEL.launches == before + len(groups)
+    ref = lstm_kernel.lstm_seq_layer_bwd_plain(p.w_hh, gates, c_prev, d_hT, d_ys)
+    assert _rel_peak(dG, ref) <= 1e-2
+    g = groups[0]
+    alone = lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates[:, g].contiguous(),
+                                           c_prev[:, g].contiguous(), d_hT[g].contiguous(),
+                                           d_ys[:, g].contiguous())
+    assert torch.equal(alone, dG[:, g])
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    w = _build.packed(lstm_kernel._bf16, p.w_hh)
+    assert lstm_kernel.BWD_KERNEL.lib().mstts_lstm_layer_bwd(
+        gates.data_ptr(), c_prev.data_ptr(), w.data_ptr(), None, None, dG.data_ptr(),
+        bar.data_ptr(), T, B, H, 0, rows + 1, _build.stream_ptr(gates)) != 0
+
+
+def test_bilstm_bwd_in_row_groups(dev):
+    """The BiLSTM's reverse kernel past one launch's rows (512 at H 256 on
+    an H100): 640 rows in two launches, within 1e-2 of the plain passes;
+    one row more than the plan's group is refused."""
+    from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel, lstm_kernel
+
+    B, S, H = 640, 24, 256
+    groups = lstm_kernel.bwd_row_groups(2, H, B, _build.card_limits(dev))
+    assert len(groups) == 2
+    rng = np.random.default_rng(5)
+    pf, pb = _lstm(rng, 512, H, dev), _lstm(rng, 512, H, dev)
+    x = torch.from_numpy(rng.normal(size=(B, S, 512)).astype(np.float32)).to(dev)
+    gxf, gxb = birnn_kernel.bilstm_hoist(pf, pb, x, torch.bfloat16)
+    got = birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh, pb.w_hh, save_residuals=True)
+    dyf, dyb = (torch.from_numpy(rng.normal(size=(S, B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    args = (*got[2:], pf.w_hh, pb.w_hh, dyf, dyb)
+    before = birnn_kernel.BWD_KERNEL.launches
+    dG = birnn_kernel.bilstm_bwd(*args)
+    torch.cuda.synchronize()
+    assert birnn_kernel.BWD_KERNEL.launches == before + 2
+    for a, b in zip(dG, birnn_kernel.bilstm_bwd_plain(*args)):
+        assert _rel_peak(a, b) <= 1e-2
+    whf, whb = (_build.packed(birnn_kernel._bf16, w) for w in (pf.w_hh, pb.w_hh))
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in (*got[2:], whf, whb, dyf, dyb, *dG, bar)]
+    assert birnn_kernel.BWD_KERNEL.lib().mstts_bilstm_bwd(
+        *ptrs, S, B, H, 0, groups[0].stop + 1, _build.stream_ptr(dyf)) != 0
+
+
+@pytest.mark.parametrize("B", [1, 4, 33])
+@pytest.mark.parametrize("H", [208, 256, 384, 512, 1024, 1248])
+def test_bigru_wide_route(dev, H, B):
+    """Past H 192 both directions run csrc/bigru_wide.cu: forward, residual
+    mode and backward within the narrow kernels' tolerances of the plain
+    versions (h 5e-3, gh and dG 1e-2 of the peak), bit-equal on a repeat;
+    launches counted a row group."""
+    from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel
+    from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
+
+    card = _build.card_limits(dev)
+    rng = np.random.default_rng(B * H)
+    scale = 0.1 * (128 / H) ** 0.5  # the recurrent sums at the narrow tests' size
+
+    def gru(D):
+        return GRUParams(*(torch.from_numpy((rng.normal(size=s) * sc).astype(np.float32)).to(dev)
+                           for s, sc in (((D, 3 * H), 0.1), ((H, 3 * H), scale),
+                                         ((3 * H,), 0.1), ((3 * H,), 0.1))))
+
+    pf, pb = gru(128), gru(128)
+    T = 37
+    x = torch.from_numpy(rng.normal(size=(B, T, 128)).astype(np.float32)).to(dev)
+    gxf, gxb = birnn_kernel.bigru_hoist(pf, pb, x, torch.bfloat16)
+    for residuals in (False, True):
+        kernel = birnn_kernel.WIDE_GRU_RES_KERNEL if residuals else birnn_kernel.WIDE_GRU_KERNEL
+        before = kernel.launches
+        got = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
+        again = birnn_kernel.bigru_recurrence_kernel(gxf, gxb, pf, pb, residuals)
+        torch.cuda.synchronize()
+        n = len(birnn_kernel.wide_row_groups(False, H, B, card))
+        assert kernel.launches == before + 2 * n
+        want = birnn_kernel.bigru_recurrence_plain(gxf, gxb, pf, pb, torch.bfloat16, residuals)
+        for i, (a, b, c) in enumerate(zip(got, again, want)):
+            assert torch.equal(a, b) and a.shape == c.shape
+            if i in (2, 4):
+                assert _rel_peak(a, c) <= 1e-2
+            else:
+                assert (a.float() - c.float()).abs().max().item() <= 5e-3
+    ysf, ysb, ghf, hpf, ghb, hpb = got
+    dyf, dyb = (torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    args = (gxf, ghf, hpf, gxb, ghb, hpb, pf.w_hh, pb.w_hh, dyf, dyb)
+    before = birnn_kernel.WIDE_GRU_BWD_KERNEL.launches
+    dG = birnn_kernel.bigru_bwd(*args)
+    torch.cuda.synchronize()
+    assert birnn_kernel.WIDE_GRU_BWD_KERNEL.launches == before + len(
+        birnn_kernel.wide_row_groups(True, H, B, card))
+    for a, b, c in zip(dG, birnn_kernel.bigru_bwd(*args), birnn_kernel.bigru_bwd_plain(*args)):
+        assert torch.equal(a, b) and a.shape == c.shape == (T, B, 3 * H)
+        assert _rel_peak(a, c) <= 1e-2
+
+
+@pytest.mark.parametrize("H", [208, 512, 1248])
+def test_bigru_wide_takes_the_plans_group_and_refuses_one_row_more(dev, H):
+    """The wide route's entry points launch the most rows the Python plan
+    gives a group (wide_rows, on zero inputs: one step) and refuse one row
+    more, forward and backward."""
+    from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel
+
+    lib = birnn_kernel.WIDE_GRU_KERNEL.lib()
+    for bwd, fn, n_ptr in ((False, lib.mstts_bigru_wide_fwd, 8),
+                           (True, lib.mstts_bigru_wide_bwd, 14)):
+        rows = birnn_kernel.wide_rows(bwd, H, 1 << 14, _build.card_limits(dev))
+        assert 1 <= rows < 1 << 14
+        bufs = [torch.zeros((rows + 1) * 3 * H + 3 * H * H, device=dev) for _ in range(n_ptr)]
+        ptrs = [b.data_ptr() for b in bufs] + ([None] * 4 if not bwd else [])
+        for n, ok in ((rows, True), (rows + 1, False)):
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            err = fn(*ptrs, bar.data_ptr(), 1, rows + 1, H, 0, n, _build.stream_ptr(bar))
+            assert (err == 0) == ok, (bwd, n, err)
+        torch.cuda.synchronize()
+
+
+# B, S, A, D, H, P, mel, r, K and the mode past H 1024: the weights partly
+# streamed, three or four m-tiles of gate rows, gate products deeper than a
+# staging piece (H 2048: layer 1's 4,608, in both modes), attention 1024 wide.
+WIDE_DECODE = {
+    "h1152_bf16": (16, 208, 128, 512, 1152, 256, 80, 2, 4, False),
+    "h1536_bf16_b1": (1, 64, 640, 512, 1536, 256, 80, 2, 4, False),
+    "h1536_int8": (16, 64, 640, 512, 1536, 256, 80, 2, 4, True),
+    "h1664_bf16": (16, 208, 128, 512, 1664, 256, 80, 2, 4, False),
+    "h2048_int8": (16, 208, 128, 512, 2048, 256, 80, 2, 4, True),
+    "h2048_int8_b1": (1, 64, 128, 512, 2048, 256, 80, 2, 4, True),
+    "h2048_bf16": (16, 208, 128, 512, 2048, 256, 80, 2, 4, False),
+    "h2048_bf16_b1": (1, 64, 128, 512, 2048, 256, 80, 2, 4, False),
+    "a1024_bf16": (16, 64, 1024, 512, 1152, 256, 80, 2, 4, False),
+    "a1024_int8_b1": (1, 208, 1024, 512, 1024, 256, 80, 2, 4, True),
+}
+
+
+@pytest.mark.parametrize("shape", list(WIDE_DECODE))
+def test_decode_segment_kernel_past_h1024(dev, shape):
+    """The decode kernel at the widths past its production layout, one
+    chunk from the zero state and one from the kernel's own carry: bit-equal
+    on a repeat, one launch a row group, and within the production gate of
+    the plain version (frames, stops, state 1e-2, aligns 1e-3)."""
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    B, S, A, D, H, P, mel, r, K, quantize = WIDE_DECODE[shape]
+    rng = np.random.default_rng(11)
+    p, prenet = _decoder(rng, dev, H, D, P, A, mel, r)
+    bundle = dk.prepare_bundle(p, prenet, quantize=quantize)
+    t = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).to(dev)  # noqa: E731
+    keys, memory = t(B, S, A), t(B, S, D)
+    lens = torch.tensor(([S, S - 5, 7, S] * 16)[:B], device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).float()
+    keep = [torch.from_numpy(rng.random((K, B, P)) < 0.5).to(dev).float() / 0.5 for _ in range(2)]
+    carry = dscan.initial_carry(B, memory, 2, H)
+    prev = torch.zeros(B, mel, device=dev)
+    kernel = dk.KERNELS["int8" if quantize else "bf16"]
+    assert dk._shape_reason(H, D, (P, P), S, A, mel, 32, 31, quantize,
+                            dk.card_limits(dev)) is None
+    for _ in range(2):
+        before = kernel.launches
+        got = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        again = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2 * len(dk.kernel_row_groups(bundle, B, S, dev))
+        assert all(torch.equal(x, y) for x, y in zip(got[1:], again[1:]))
+        want = dk.decode_segment_plain(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        assert (got[2] - want[2]).abs().max().item() <= 1e-2
+        assert (got[3] - want[3]).abs().max().item() <= 1e-2
+        assert (got[4] - want[4]).abs().max().item() <= 1e-3
+        assert (got[1] - want[1]).abs().max().item() <= 1e-2
+        for a, b in zip((*got[0].h, *got[0].c, got[0].context),
+                        (*want[0].h, *want[0].c, want[0].context)):
+            assert a.shape == b.shape and (a - b).abs().max().item() <= 1e-2
+        carry, prev = got[0], got[1]
+
+
+@pytest.mark.parametrize("n_fft, hop", [(4, 1), (32, 8), (128, 32), (6000, 1500), (8192, 2048),
+                                        (16384, 4096), (32768, 8192), (17000, 4250),
+                                        (12, 4)])
+def test_mel_kernel_at_any_n_fft(dev, n_fft, hop):
+    """Frames outside 256-4096: the FFT route from n_fft 4 and past 4096
+    (its global-memory mode past 16384 on an H100), the DFT route at any
+    other n_fft (its global-memory mode past 16603), each within 1e-4 of the
+    plain version (the f32 DFT matmul; past n_fft 8192, whose table would
+    take gigabytes, an f32 rfft), bit-equal on a repeat, one launch a call
+    on its own count."""
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.ops import _build, mel_kernel
+
+    cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    route, global_mode = mel_kernel.plan(n_fft, _build.card_limits(dev))
+    kernel = {("fft", False): mel_kernel.KERNEL, ("dft", False): mel_kernel.DFT_KERNEL,
+              ("fft", True): mel_kernel.FFT_GLOBAL_KERNEL,
+              ("dft", True): mel_kernel.DFT_GLOBAL_KERNEL}[route, global_mode]
+    rng = np.random.default_rng(n_fft)
+    T = 7
+    for B in (1, 3):
+        y_pad = torch.from_numpy((rng.standard_normal((B, (T - 1) * hop + n_fft + B % 2))
+                                  * 0.3).astype(np.float32)).to(dev)
+        before = kernel.launches
+        got = mel_kernel.melspectrogram_kernel(y_pad, T, cfg)
+        again = mel_kernel.melspectrogram_kernel(y_pad, T, cfg)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2 and torch.equal(got, again)
+        want = mel_kernel.melspectrogram_plain(y_pad, T, cfg)
+        assert (got - want).abs().max().item() <= 1e-4

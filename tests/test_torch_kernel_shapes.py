@@ -25,10 +25,10 @@ def test_bigru_bwd_shape_reason_accepts_the_forwards_widths(H):
     assert birnn_kernel.bigru_shape_reason(*_gru_shapes(132, 32, H)) is None
 
 
-@pytest.mark.parametrize("H", [8, 72, 208])
+@pytest.mark.parametrize("H", [8, 72, 200])
 def test_bigru_bwd_shape_reason_refuses_other_widths(H):
     reason = birnn_kernel.bigru_bwd_shape_reason(*_gru_shapes(5, 2, H))
-    assert reason == f"needs H % 16 == 0 and 16 <= H <= 192, got H = {H}"
+    assert reason == f"needs H % 16 == 0 and 16 <= H <= 1248 on this card, got H = {H}"
     assert reason == birnn_kernel.bigru_shape_reason(*_gru_shapes(5, 2, H))
 
 
@@ -64,31 +64,31 @@ def test_bigru_bwd_kernel_checks_shapes_before_any_launch(monkeypatch):
     args = (bf(T, B, 3 * H), bf(T, B, 3 * H), bf(T, B, H)) * 2 + (
         w, w, torch.zeros(T, B, H), torch.zeros(T, B, H))
     before = birnn_kernel.GRU_BWD_KERNEL.launches
-    with pytest.raises(ValueError, match="H % 16 == 0 and 16 <= H <= 192"):
+    with pytest.raises(ValueError, match="H % 16 == 0 and 16 <= H <= 1248"):
         birnn_kernel.bigru_bwd(*args)
     with pytest.raises(NotImplementedError, match="bf16"):
         birnn_kernel.bigru_bwd(*args, torch.float32)
     assert birnn_kernel.GRU_BWD_KERNEL.launches == before
 
 
-@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("n_fft", [4, 32, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 65536])
 def test_mel_shape_reason_accepts_powers_of_two_with_dividing_hops(n_fft):
     for hop in (n_fft, n_fft // 2, n_fft // 4, n_fft // 8, 1):
-        assert mel_kernel.mel_shape_reason(n_fft, hop) is None
+        assert mel_kernel.mel_shape_reason(n_fft, hop) is None or hop == 0
 
 
-@pytest.mark.parametrize("n_fft", [256, 600, 800, 1000, 1200, 2000, 4000])
+@pytest.mark.parametrize("n_fft", [6, 100, 256, 600, 800, 1000, 1200, 2000, 4000, 6000, 24000])
 def test_mel_shape_reason_accepts_any_n_fft_that_hop_divides(n_fft):
-    """The DFT route takes every n_fft from 256 to 4096 that the JAX rule
-    sends to its kernel (hop dividing it), powers of two or not."""
+    """The kernel takes every n_fft that the JAX rule sends to its kernel
+    (hop dividing it), powers of two or not, whatever its size."""
     for hop in (n_fft, n_fft // 2, n_fft // 4, n_fft // 5, 1):
         if n_fft % hop == 0:
             assert mel_kernel.mel_shape_reason(n_fft, hop) is None
 
 
 @pytest.mark.parametrize("n_fft, hop, why", [
-    (255, 85, "from 256 to 4096"), (4100, 410, "from 256 to 4096"),
-    (128, 32, "from 256 to 4096"), (8192, 256, "from 256 to 4096"),
+    (255, 10, "hop dividing"), (4100, 3000, "hop dividing"),
+    (128, 48, "hop dividing"), (8192, 3000, "hop dividing"),
     (1024, 300, "hop dividing"), (1024, 0, "hop dividing"),
 ])
 def test_mel_shape_reason_refuses(n_fft, hop, why):
@@ -162,28 +162,42 @@ def test_dft_route_arithmetic_matches_the_plain_version(n_fft, hop):
     assert np.abs(got - want).max() <= 1e-4
 
 
-@pytest.mark.parametrize("n_fft, route", [(1024, "fft"), (800, "dft"), (600, "dft")])
-def test_mel_kernel_picks_its_route_by_n_fft(monkeypatch, n_fft, route):
+_MEL_KERNELS = {("fft", False): "KERNEL", ("dft", False): "DFT_KERNEL",
+                ("fft", True): "FFT_GLOBAL_KERNEL", ("dft", True): "DFT_GLOBAL_KERNEL"}
+
+
+@pytest.mark.parametrize("n_fft, route, global_mode", [
+    (1024, "fft", False), (800, "dft", False), (600, "dft", False), (32, "fft", False),
+    (16384, "fft", False), (6000, "dft", False), (32768, "fft", True), (17000, "dft", True),
+])
+def test_mel_kernel_picks_its_route_by_n_fft(monkeypatch, n_fft, route, global_mode):
     """A power of two takes the FFT entry point with the twiddles, any other
-    n_fft the DFT entry point with its full table; each counts its own
-    launches (the libraries' calls replaced, so this runs on the CPU)."""
+    n_fft the DFT entry point with its full table; past an H100's shared
+    memory a block, the route's global-memory mode with a scratch; each
+    counts its own launches (the libraries' calls replaced, so this runs
+    on the CPU)."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
     calls = []
-    for kern in (mel_kernel.KERNEL, mel_kernel.DFT_KERNEL):
+    kernels = [getattr(mel_kernel, name) for name in _MEL_KERNELS.values()]
+    for kern in kernels:
         monkeypatch.setattr(kern, "lib", lambda kern=kern: type("Lib", (), {
             fn: staticmethod(lambda *a, fn=fn: calls.append((fn, a)) or 0)
             for fn in kern.functions})())
-    cfg = dsp.DSPConfig(22050, n_fft, n_fft // 4, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
-    before = mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches
-    mel_kernel.melspectrogram_kernel(torch.zeros(1, n_fft + 4 * (n_fft // 4)), 5, cfg)
+    assert mel_kernel.plan(n_fft) == (route, global_mode)
+    hop = n_fft // 4
+    cfg = dsp.DSPConfig(22050, n_fft, hop, 80, 0.0, None, 0.97, -100.0, 20.0, 1.5, 60)
+    before = [k.launches for k in kernels]
+    mel_kernel.melspectrogram_kernel(torch.zeros(1, n_fft + 4 * hop), 5, cfg)
     (fn, args), = calls
     assert fn == {"fft": "mstts_mel_frontend", "dft": "mstts_mel_dft"}[route]
     table = mel_kernel._fft_operands(cfg, torch.device("cpu"))[1]
     assert args[2] == table.data_ptr()
     assert table.shape == ((n_fft // 2, 2) if route == "fft" else (n_fft, 2))
-    after = mel_kernel.KERNEL.launches, mel_kernel.DFT_KERNEL.launches
-    assert (after[0] - before[0], after[1] - before[1]) == ((1, 0) if route == "fft" else (0, 1))
+    assert args[7] == int(global_mode) and (args[6] is not None) == global_mode
+    after = [k.launches for k in kernels]
+    want = getattr(mel_kernel, _MEL_KERNELS[route, global_mode])
+    assert [a - b for a, b in zip(after, before)] == [int(k is want) for k in kernels]
 
 
 @pytest.mark.parametrize("n_mels", [40, 80, 128])
