@@ -139,7 +139,20 @@
    backward launched); (p3) ``dsp.melspectrogram_auto`` at n_fft 32, 128,
    8192, 16384, 32768 (the FFT route's global-memory mode), 6000 and 17000
    (the DFT route and its global-memory mode), each route's launches
-   counted.
+   counted. The LSTM family at every width the JAX gate admits, and the
+   reference's routes (q): (q1) one ``GE2ETrainer`` step at a GE2E LSTM of
+   1792 x 3, 16 speakers x 10 utterances of 160-frame crops: #2r and #8 on
+   their wide layouts, launched once a row group (5 forward groups a layer,
+   one backward), and the step's gradients again with the plain reverse
+   pass (p1's gates); (q2) a fresh ``Trainer`` with an encoder BiLSTM of
+   2304 (1152 a direction) and a GE2E LSTM of 1792 at N(0, 0.02) through
+   ``Synthesizer.from_state``: enroll -> synthesize (fixed length) ->
+   Griffin-Lim, then one train step of 8 rows (#2, #2r, #3, #3r, #8, #9 on
+   their wide routes, no ``[dispatch] ... -> plain`` line); (q3) the routed
+   cases: Griffin-Lim at n_fft 1024 / T 1300 and 4096 / 512 / T 400 (GEMM,
+   as the JAX package), a bf16 decode at H 2176 and a BiGRU of 1264 a
+   direction (the plain versions), each with its ``[dispatch]`` line and no
+   launch of the refused kernel.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -168,7 +181,11 @@
    384, 512 and 1024, the decode kernel past H 1024 in both modes ((p2)'s
    first chunk cut to K 4, seeded decoders at H 1152-2048, B 1 and 16, S 64
    and 208, attention 1024), and the mel front-end's routes and modes at
-   (p3)'s widths, each with its production row's tolerance.
+   (p3)'s widths, each with its production row's tolerance. Pass (q)'s
+   rows: #2 at (q2)'s enrollment (GE2E 1792) and seeded 1152 (D = H) and
+   1664 (D 80), #2r and #8 at (q1)'s 160 rows, #3 / #3r at (q2)'s encoder
+   and seeded 32 rows (1152 a direction), #9 at (q2)'s train step, each with
+   cuDNN's ``nn.LSTM`` at the same shapes.
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -496,7 +513,6 @@ def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict,
     from multi_speaker_tts_tpu_torch.weights import params_to_jax
 
     fails = []
-    ge2e_step = {"ge2e_lstm_layer_residuals": 3, "ge2e_lstm_bwd": 3}
     steps = {"ge2e": [], "tts": []}  # (step, ms, launches, metrics) per train_step
     resumed = {}
 
@@ -530,6 +546,18 @@ def train_end_to_end(kernels: dict, per_step: dict, plain_bwd: dict,
     # utterance embeds alike (a constant loss of ln 16).
     hp = default_hparams(Train={"Checkpoint_Save_Interval": 3, "Logging_Interval": 1},
                          GE2E_Train={"Frame_Length": 32})
+    # The launches of a GE2E step: a forward launch a row group of each
+    # layer (up to 32 rows a group), a backward launch a layer (one group).
+    from multi_speaker_tts_tpu_torch.ops import _build, lstm_kernel
+
+    rows_g, card = hp.GE2E_Train.Batch_Speakers * hp.GE2E_Train.Batch_Utterances, \
+        _build.card_limits("cuda")
+    H_g, n_g = hp.Speaker_Embedding.GE2E.LSTM.Sizes, hp.Speaker_Embedding.GE2E.LSTM.Stacks
+    ge2e_step = {
+        "ge2e_lstm_layer_residuals": sum(
+            len(lstm_kernel.fwd_row_groups(1, D, H_g, rows_g, card))
+            for D in [hp.Sound.Mel_Dim] + [H_g] * (n_g - 1)),
+        "ge2e_lstm_bwd": n_g * len(lstm_kernel.bwd_row_groups(1, H_g, rows_g, card))}
     peak = {}
     try:
         t0 = time.perf_counter()
@@ -1557,6 +1585,24 @@ def _p1_mels(hp, n_rows: int, frames: int, seed: int):
     return dsp.melspectrogram_auto(wav, cfg)[:, :frames].contiguous()
 
 
+def _fresh_state(hp, work: pathlib.Path, label: str, seed: int):
+    """A fresh ``Trainer`` at ``hp`` on the card, its weights set to a
+    trained model's scale N(0, 0.02): (trainer, checkpoint_state())."""
+    import torch
+
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(hp, checkpoint_dir=str(work / label), log_dir=str(work / f"{label}_logs"),
+                 device="cuda", seed=0)
+    tr.initialize()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in tr.params:
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return tr, tr.checkpoint_state()
+
+
 def widths_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
     """Pass (p). (p1) one ``GE2ETrainer`` step at N 64 x M 10 on seeded
     clips (the LSTM backward launching in row groups), then the step's
@@ -1581,7 +1627,6 @@ def widths_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
         _build, birnn_kernel, decode_kernel, decoder_scan, lstm_kernel, mel_kernel,
     )
     from multi_speaker_tts_tpu_torch.train.ge2e_trainer import GE2ETrainer
-    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
 
     fails, data = [], {"launches": {}}
 
@@ -1602,6 +1647,7 @@ def widths_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
     H = hp.Speaker_Embedding.GE2E.LSTM.Sizes
     layers = hp.Speaker_Embedding.GE2E.LSTM.Stacks
     groups = lstm_kernel.bwd_row_groups(1, H, P1_N * P1_M, _build.card_limits("cuda"))
+    fwd_groups = lstm_kernel.fwd_row_groups(1, H, H, P1_N * P1_M, _build.card_limits("cuda"))
     bwd_calls = []
     torch.cuda.synchronize()
     before = counts()
@@ -1612,7 +1658,8 @@ def widths_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
     bwd_args = [a for a, _, _ in bwd_calls]
     del bwd_calls
     data["launches"]["ge2e_lstm_bwd_640"] = launched.get("ge2e_lstm_bwd", 0)
-    want = {"ge2e_lstm_layer_residuals": layers, "ge2e_lstm_bwd": layers * len(groups)}
+    want = {"ge2e_lstm_layer_residuals": layers * len(fwd_groups),
+            "ge2e_lstm_bwd": layers * len(groups)}
     print(f"[p1 ge2e] GE2ETrainer.train_step at N {P1_N} x M {P1_M} = {P1_N * P1_M} rows, "
           f"{P1_FRAMES}-frame crops, LSTM {H} x {layers}: loss {m['loss']:.6f}, w {m['w']:.5f}, "
           f"b {m['b']:.5f}; backward row groups {[g.stop - g.start for g in groups]}; launches "
@@ -1656,15 +1703,7 @@ def widths_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
     # (p2) ---------------------------------------------------------------
     t0 = time.perf_counter()
     hp_w = default_hparams(**P2_HP)
-    tr = Trainer(hp_w, checkpoint_dir=str(work / "p2_wide"), log_dir=str(work / "p2_logs"),
-                 device="cuda", seed=0)
-    tr.initialize()
-    gen = torch.Generator().manual_seed(1536)
-    with torch.no_grad():
-        for p in tr.params:
-            if p.dim() >= 2:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
-    state = tr.checkpoint_state()
+    tr, state = _fresh_state(hp_w, work, "p2_wide", seed=1536)
     p2 = {"decode": {}, "bigru": [], "bigru_res": [], "bigru_bwd": []}
     saved_logged = set(dsp._DISPATCH_LOGGED)
     dsp._DISPATCH_LOGGED.clear()  # any plain route prints its line again
@@ -1789,6 +1828,232 @@ def widths_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
     return fails, data
 
 
+# -- Pass (q): the LSTM family at every width the JAX gate admits, and the --
+# -- reference's routes where both gates refuse ------------------------------
+
+# (q1) a GE2E LSTM of 1792 x 3 (past the resident forward and past one
+# backward row), 16 speakers x 10 utterances of 160-frame crops; (q2) a text
+# encoder BiLSTM of 2304 (1152 a direction) and a GE2E LSTM of 1792 through
+# the synthesizer and one train step; (q3) one routed case each where the
+# port's kernel and the JAX gate both refuse.
+Q1_N, Q1_M, Q1_FRAMES, Q1_H = 16, 10, 160, 1792
+Q2_HP = {"Encoder": {"LSTM_Size": 2304},
+         "Speaker_Embedding": {"GE2E": {"LSTM": {"Sizes": 1792}}}}
+Q2_STEPS = 32
+Q3_HP = {"Decoder": {"LSTM": {"Sizes": 2176}}, "Linear_Head": {"CBHG": {"GRU_Size": 2528}}}
+# (n_fft, hop, T) of the Griffin-Lim routed to GEMM past the JAX package's cap
+# for the staged kernel (n_fft 1024) and for the dense one (4096).
+Q3_GL = [(1024, 256, 1300), (4096, 512, 400)]
+
+
+def lstm_family_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
+    """Pass (q). (q1) one ``GE2ETrainer`` step at Q1_H on seeded clips (#2r
+    and #8 on their wide routes, counted a row group), then the step's
+    gradients again with the plain reverse pass in place of #8 (p1's
+    gates); (q2) a fresh ``Trainer`` at Q2_HP through
+    ``Synthesizer.from_state``: enroll -> synthesize (fixed length) ->
+    Griffin-Lim, then one train step of 8 rows (#2, #2r, #3, #3r, #8, #9 on
+    their wide routes; no ``[dispatch] ... -> plain`` line); (q3) the routed
+    cases: Griffin-Lim at each of Q3_GL, and a synthesizer at Q3_HP (bf16
+    decode past H 2048, BiGRU at H 1264 a direction), each with its
+    ``[dispatch]`` line and no launch of the refused kernel. Counts zeroed
+    just before each and read just after. Returns the failures and what the
+    kernel phase's rows of this pass read."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.hparams import default_hparams
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import (
+        _build, birnn_kernel, griffin_lim_kernel, griffin_lim_staged, lstm_kernel, stft_matmul,
+    )
+    from multi_speaker_tts_tpu_torch.train.ge2e_trainer import GE2ETrainer
+
+    fails, data = [], {"launches": {}}
+    card = _build.card_limits("cuda")
+    objs = {"ge2e_lstm": lstm_kernel.KERNEL, "ge2e_lstm_residuals": lstm_kernel.RES_KERNEL,
+            "ge2e_lstm_bwd": lstm_kernel.BWD_KERNEL, "bilstm": birnn_kernel.KERNEL,
+            "bilstm_residuals": birnn_kernel.RES_KERNEL, "bilstm_bwd": birnn_kernel.BWD_KERNEL}
+    refused = {k: v for k, v in kernels.items() if k.startswith(("decode", "cbhg_bigru"))}
+
+    def counts(ks):
+        return {name: k.launches for name, k in ks.items()}
+
+    def moved(ks, before):
+        return {n: ks[n].launches - before[n] for n in ks if ks[n].launches != before[n]}
+
+    # (q1) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    hp = default_hparams(GE2E_Train={"Batch_Speakers": Q1_N, "Batch_Utterances": Q1_M,
+                                     "Frame_Length": Q1_FRAMES},
+                         Speaker_Embedding={"GE2E": {"LSTM": {"Sizes": Q1_H}}})
+    trainer = GE2ETrainer(hp, checkpoint_dir=str(work / "q1_ge2e"), log_dir=str(work / "q1_logs"),
+                          device="cuda", seed=0)
+    mels = _p1_mels(hp, Q1_N * Q1_M, Q1_FRAMES, seed=1792)
+    layers, B1 = hp.Speaker_Embedding.GE2E.LSTM.Stacks, Q1_N * Q1_M
+    fwd_groups = {D: lstm_kernel.fwd_row_groups(1, D, Q1_H, B1, card) for D in (80, Q1_H)}
+    bwd_groups = lstm_kernel.bwd_row_groups(1, Q1_H, B1, card)
+    plan = {"fwd_rows": {D: g[0].stop for D, g in fwd_groups.items()},
+            "fwd_layout": {D: lstm_kernel.fwd_layout(1, D, Q1_H, B1, g[0].stop, card)
+                           for D, g in fwd_groups.items()},
+            "bwd_rows": bwd_groups[0].stop,
+            "bwd_layout": lstm_kernel.bwd_layout(1, Q1_H, B1, bwd_groups[0].stop, card)}
+    fwd_calls, bwd_calls = [], []
+    torch.cuda.synchronize()
+    before = counts(objs)
+    with _recorded((lstm_kernel, "lstm_seq_layer_kernel", fwd_calls, layers),
+                   (lstm_kernel, "lstm_seq_layer_bwd_kernel", bwd_calls, layers)):
+        m = trainer.train_step(mels)
+    torch.cuda.synchronize()
+    launched = moved(objs, before)
+    want = {"ge2e_lstm_residuals": len(fwd_groups[80]) + (layers - 1) * len(fwd_groups[Q1_H]),
+            "ge2e_lstm_bwd": layers * len(bwd_groups)}
+    data["launches"]["ge2e_lstm_layer_residuals_wide"] = launched.get("ge2e_lstm_residuals", 0)
+    data["launches"]["ge2e_lstm_bwd_wide"] = launched.get("ge2e_lstm_bwd", 0)
+    print(f"[q1 ge2e] GE2ETrainer.train_step at N {Q1_N} x M {Q1_M} = {B1} rows, {Q1_FRAMES}-"
+          f"frame crops, LSTM {Q1_H} x {layers}: loss {m['loss']:.6f}; plan {json.dumps(plan)}; "
+          f"launches {launched}, want {want}; {time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(v) for v in m.values()):
+        fails.append(f"[q1 ge2e] metrics {m}")
+    if {n: launched.get(n, 0) for n in want} != want or not all(
+            plan["fwd_layout"][D]["wide"] for D in (80, Q1_H)) or not plan["bwd_layout"]["wide"]:
+        fails.append(f"[q1 ge2e] launches {launched}, want {want}; plan {plan}")
+    dGs, grads = {"kernel": [], "plain": []}, {}
+    for label, instead in (("kernel", None), ("plain", lstm_kernel.lstm_seq_layer_bwd_plain)):
+        with _recorded((lstm_kernel, "lstm_seq_layer_bwd_kernel", dGs[label], layers, instead)):
+            loss, g = trainer.gradients(mels)
+        grads[label] = (float(loss), {k: v.float() for k, v in g.items()})
+        dGs[label] = [out[:, :8].clone() for _, _, out in dGs[label]]
+    torch.cuda.synchronize()
+    (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+    norm_k = float(torch.sqrt(sum((v * v).sum() for v in gk.values())))
+    norm_p = float(torch.sqrt(sum((v * v).sum() for v in gp.values())))
+    dg8 = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-12))
+              for a, b in zip(dGs["kernel"], dGs["plain"]))
+    data["q1"] = {"fwd": [a for a, _, _ in fwd_calls], "bwd": [a for a, _, _ in bwd_calls],
+                  "loss": [lk, lp], "grad_norm": [norm_k, norm_p], "dG8": dg8, "plan": plan}
+    print(f"[q1 ge2e] kernel vs plain reverse pass: loss {lk:.7f} / {lp:.7f}, grad norm "
+          f"{norm_k:.6g} / {norm_p:.6g} (rel {abs(norm_k - norm_p) / max(norm_p, 1e-12):.2e}), "
+          f"dG of the first 8 rows {dg8:.2e} of the peak")
+    if (abs(lk - lp) > 1e-2 * max(1.0, abs(lp)) or abs(norm_k - norm_p) > 2e-2 * norm_p
+            or dg8 > 1e-2 or len(dGs["kernel"]) != layers):
+        fails.append(f"[q1 ge2e] kernel vs plain backward: loss {lk} / {lp}, norm {norm_k} / "
+                     f"{norm_p}, dG8 {dg8}")
+    del trainer, mels, grads, gk, gp, dGs
+    print(f"[q1 ge2e] took {time.perf_counter() - t0:.1f} s")
+
+    # (q2) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    hp_w = default_hparams(**Q2_HP)
+    tr, state = _fresh_state(hp_w, work, "q2_wide", seed=2304)
+    saved_logged = set(dsp._DISPATCH_LOGGED)
+    dsp._DISPATCH_LOGGED.clear()  # any plain route prints its line again
+    log = io.StringIO()
+    synth = Synthesizer.from_state(hp_w, state, seed=0)
+    emb = synth.enroll([str(p) for p in ENROLL])
+    synth.synthesize(TEXTS[:1], emb, max_steps=8, early_exit=False, pcm16=True)  # warm-up
+    torch.cuda.synchronize()
+    before = counts(objs)
+    enroll_calls, bi_calls = [], []
+    with contextlib.redirect_stdout(log), _recorded(
+            (lstm_kernel, "lstm_seq_layer_kernel", enroll_calls, 3),
+            (birnn_kernel, "bilstm_recurrence_kernel", bi_calls, 1)):
+        emb = synth.enroll([str(p) for p in ENROLL])
+        out = synth.synthesize(TEXTS, emb, max_steps=Q2_STEPS, early_exit=False, pcm16=True,
+                               split_vocode=False, return_device=True)
+    torch.cuda.synchronize()
+    launched = moved(objs, before)
+    mel, wav = out["mel_post"], out["wav"]
+    wav_ok = (wav.dtype == torch.int16 and bool(torch.isfinite(mel).all())
+              and tuple(wav.shape) == (mel.shape[0], synth.dsp_cfg.hop * (mel.shape[1] - 1)))
+    data["launches"]["ge2e_lstm_layer_wide"] = launched.get("ge2e_lstm", 0)
+    data["launches"]["text_encoder_bilstm_wide"] = launched.get("bilstm", 0)
+    H2 = hp_w.Encoder.LSTM_Size // 2
+    print(f"[q2 wide] synthesize: encoder BiLSTM {H2} a direction, GE2E LSTM "
+          f"{hp_w.Speaker_Embedding.GE2E.LSTM.Sizes}: {mel.shape[1]} frames, int16 wavs "
+          f"{tuple(wav.shape)} {wav_ok}; launches {launched}")
+    if not launched.get("ge2e_lstm") or not launched.get("bilstm") or not wav_ok:
+        fails.append(f"[q2 wide] synthesize: launches {launched}, wavs {wav_ok}")
+    del synth
+    batch = _train_batch(hp_w, 8, seed=0)
+    before = counts(objs)
+    res_calls, bwd9_calls = [], []
+    with contextlib.redirect_stdout(log), _recorded(
+            (birnn_kernel, "bilstm_recurrence_kernel", res_calls, 1),
+            (birnn_kernel, "bilstm_bwd_kernel", bwd9_calls, 1)):
+        m = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launched = moved(objs, before)
+    for row, n in (("text_encoder_bilstm_residuals_wide", "bilstm_residuals"),
+                   ("text_encoder_bilstm_bwd_wide", "bilstm_bwd")):
+        data["launches"][row] = launched.get(n, 0)
+    need = ("ge2e_lstm_residuals", "ge2e_lstm_bwd", "bilstm_residuals", "bilstm_bwd")
+    print(f"[q2 wide] Trainer.train_step on 8 rows: total {m.get('total')}, launches {launched}")
+    if any(not launched.get(n) for n in need) or m.get("skipped_nonfinite"):
+        fails.append(f"[q2 wide] train step: launches {launched}, metrics {m}")
+    plain_lines = [ln for ln in log.getvalue().splitlines() if "[dispatch]" in ln]
+    print(f"[q2 wide] [dispatch] lines: {plain_lines}")
+    if any("-> plain" in ln for ln in plain_lines):
+        fails.append(f"[q2 wide] a plain route ran: {plain_lines}")
+    data["q2"] = {"enroll": [a for a, _, _ in enroll_calls], "bilstm": [a for a, _, _ in bi_calls],
+                  "bilstm_res": [a for a, _, _ in res_calls],
+                  "bilstm_bwd": [a for a, _, _ in bwd9_calls]}
+    del tr, state, batch
+    print(f"[q2 wide] took {time.perf_counter() - t0:.1f} s")
+
+    # (q3) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1300)
+    gl_kernels = {"griffin_lim_staged": griffin_lim_staged.KERNEL,
+                  "griffin_lim_staged_momentum": griffin_lim_staged.MOM_KERNEL,
+                  "griffin_lim_dense": griffin_lim_kernel.KERNEL}
+    for n_fft, hop, T in Q3_GL:
+        mag = torch.from_numpy(rng.random((1, T, n_fft // 2 + 1)).astype(np.float32)).cuda()
+        dsp._DISPATCH_LOGGED.clear()
+        log = io.StringIO()
+        before = counts(gl_kernels)
+        with contextlib.redirect_stdout(log):
+            wav = stft_matmul.griffin_lim_auto(mag, n_fft, hop, 8, hop * (T - 1))
+        torch.cuda.synchronize()
+        lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[dispatch]")]
+        ok = (lines == [ln for ln in lines if "griffin_lim -> gemm" in ln] and len(lines) == 1
+              and not moved(gl_kernels, before) and bool(torch.isfinite(wav).all())
+              and tuple(wav.shape) == (1, hop * (T - 1)))
+        print(f"[q3 routes] griffin_lim_auto at n_fft {n_fft}, hop {hop}, T {T}, B 1: {lines}; "
+              f"Griffin-Lim launches {moved(gl_kernels, before)}; wav {tuple(wav.shape)}")
+        if not ok:
+            fails.append(f"[q3 routes] Griffin-Lim at {n_fft} / {hop}, T {T}: {lines}")
+    hp_r = default_hparams(**Q3_HP)
+    tr, state = _fresh_state(hp_r, work, "q3_routes", seed=2176)
+    synth = Synthesizer.from_state(hp_r, state, quantize="bf16_pallas", seed=0)
+    emb = synth.enroll([str(p) for p in ENROLL[:1]])
+    dsp._DISPATCH_LOGGED.clear()
+    log = io.StringIO()
+    before = counts(refused)
+    with contextlib.redirect_stdout(log):
+        out = synth.synthesize(TEXTS[:1], emb, max_steps=4, early_exit=False, vocode=False,
+                               return_device=True)
+    torch.cuda.synchronize()
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[dispatch]")]
+    moved_r = moved(refused, before)
+    want_lines = ("[dispatch] decode -> plain", "[dispatch] bigru -> plain")
+    ok = (all(any(ln.startswith(w) for ln in lines) for w in want_lines) and not moved_r
+          and bool(torch.isfinite(out["mel_post"]).all()))
+    print(f"[q3 routes] synthesize under bf16_pallas at decoder LSTM "
+          f"{hp_r.Decoder.LSTM.Sizes} and CBHG GRU_Size {hp_r.Linear_Head.CBHG.GRU_Size} "
+          f"({hp_r.Linear_Head.CBHG.GRU_Size // 2} a direction): {lines}; decode and BiGRU "
+          f"launches {moved_r}; mel {tuple(out['mel_post'].shape)}")
+    if not ok:
+        fails.append(f"[q3 routes] decode / BiGRU: {lines}, launches {moved_r}")
+    dsp._DISPATCH_LOGGED.update(saved_logged)
+    del tr, state, synth
+    print(f"[q3 routes] took {time.perf_counter() - t0:.1f} s")
+    return fails, data
+
+
 def main() -> int:
     import numpy as np
 
@@ -1852,7 +2117,8 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build([*dict.fromkeys(k.source for k in kernels.values()),
                             recurrence_floor.KERNEL.source])
-    print(f"build: {len(reports)} sources compiled in {time.perf_counter() - t0:.1f} s")
+    t_build = time.perf_counter()
+    print(f"build: {len(reports)} sources compiled in {t_build - t0:.1f} s")
     # Registers and spills of each source's kernels, as -Xptxas -v reports them.
     ptxas = {src: {"registers": [], "spill_bytes": 0} for src in reports}
     for src, log in reports.items():
@@ -2786,9 +3052,19 @@ def main() -> int:
         _RECORDING[0] = True
         failures.extend(fails_p)
         print(f"[p] pass (p) took {time.perf_counter() - t_p:.1f} s")
+        # (q) the LSTM family at every width the JAX gate admits, and the
+        # reference's routes: its own captures keep what its rows read.
+        t_p = time.perf_counter()
+        _RECORDING[0] = False
+        fails_q, family = lstm_family_pass(kernels, work)
+        _RECORDING[0] = True
+        failures.extend(fails_q)
+        print(f"[q] pass (q) took {time.perf_counter() - t_p:.1f} s")
 
     # 3. Kernel phase --------------------------------------------------------
-    rows = []
+    t_kernels = time.perf_counter()
+    print(f"[time] the main path and passes (a)-(q) took {t_kernels - t_build:.1f} s")
+    rows, row_end = [], [t_kernels]
     launches = dict(pa["launches"],
                     decode_segment_bf16=pb["launches"]["decode_segment_bf16"],
                     decode_segment_int8=pc["launches"]["decode_segment_int8"],
@@ -2840,6 +3116,10 @@ def main() -> int:
         if len(tols) > 1:
             row["errors"], row["tolerances"] = worst, tols
         rows.append(row)
+        # Since the previous row: this row's inputs, library modules and
+        # ``extra`` timings included.
+        print(f"[time] row {name} took {time.perf_counter() - row_end[0]:.1f} s")
+        row_end[0] = time.perf_counter()
 
     def floor_ms(T, ndir, H):
         """The recurrences' sequential floor at these shapes: T rounds of
@@ -2869,6 +3149,71 @@ def main() -> int:
         lib16.flatten_parameters()
         x16 = x.half()
         return {"bf16": lambda: lib(x), "fp16": lambda: lib16(x16)}
+
+    def lstm_lib_of(w_hh, w_ih=None, b=None):
+        """cuDNN's bf16 nn.LSTM with the port's (in, 4H) weights; with
+        identity input weights and no bias where ``w_ih`` is None (its input
+        is then the hoisted gates, as the backward rows take it)."""
+        H_, H4_ = w_hh.shape
+        dev_ = w_hh.device
+        lib = torch.nn.LSTM(H4_ if w_ih is None else w_ih.shape[0], H_).to(
+            device=dev_, dtype=torch.bfloat16)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(torch.eye(H4_, device=dev_) if w_ih is None else w_ih.t())
+            lib.weight_hh_l0.copy_(w_hh.t())
+            if b is None:
+                lib.bias_ih_l0.zero_()
+            else:
+                lib.bias_ih_l0.copy_(b)
+            lib.bias_hh_l0.zero_()
+        lib.flatten_parameters()
+        return lib
+
+    def birnn_lib_of(cls, w_f, w_b, b_hh=(None, None)):
+        """cuDNN's bf16 bidirectional ``cls`` (nn.LSTM or nn.GRU) on the
+        hoisted gates of both directions: identity input weights, the port's
+        (H, nG) recurrent weights, the recurrent biases ``b_hh`` (the GRU's
+        b_hn) or none."""
+        H_, G_ = w_f.shape
+        dev_ = w_f.device
+        lib = cls(2 * G_, H_, bidirectional=True).to(device=dev_, dtype=torch.bfloat16)
+        e_, z_ = torch.eye(G_, device=dev_), torch.zeros(G_, G_, device=dev_)
+        with torch.no_grad():
+            for sfx, w_in, w_, bh_ in (("", torch.cat([e_, z_], dim=1), w_f, b_hh[0]),
+                                       ("_reverse", torch.cat([z_, e_], dim=1), w_b, b_hh[1])):
+                getattr(lib, "weight_ih_l0" + sfx).copy_(w_in)
+                getattr(lib, "weight_hh_l0" + sfx).copy_(w_.t())
+                getattr(lib, "bias_ih_l0" + sfx).zero_()
+                if bh_ is None:
+                    getattr(lib, "bias_hh_l0" + sfx).zero_()
+                else:
+                    getattr(lib, "bias_hh_l0" + sfx).copy_(bh_)
+        lib.flatten_parameters()
+        return lib
+
+    # The recurrences' bounds: inputs, weights and outputs once (residual
+    # modes: the gates and c_{t-1}, 5H a row a step), 2 operations a MAC.
+    def lstm_fwd_bound(p_, x_, residuals):
+        T_, B_, D_ = x_.shape
+        H_ = p_.hidden_size
+        res_ = T_ * B_ * 5 * H_ if residuals else 0
+        return _bound_ms(2 * (T_ * B_ * D_ + 4 * H_ * (D_ + H_) + T_ * B_ * H_ + res_)
+                         + 4 * (4 * H_ + 2 * B_ * H_), 2 * T_ * B_ * 4 * H_ * (D_ + H_),
+                         BF16_FLOPS)
+
+    def bilstm_bound(g_, residuals):
+        S_, B_, H4_ = g_.shape
+        H_ = H4_ // 4
+        res_ = 2 * S_ * B_ * 5 * H_ if residuals else 0
+        return _bound_ms(2 * (2 * S_ * B_ * H4_ + 2 * H4_ * H_ + 2 * S_ * B_ * H_ + res_),
+                         2 * 2 * S_ * B_ * H4_ * H_, BF16_FLOPS)
+
+    def gru_bound(gf_, res):
+        T_, B_, H3_ = gf_.shape
+        H_ = H3_ // 3
+        out = 2 * T_ * B_ * H_ * (2 + (2 * 4 if res else 0))  # ys (+ gh, h_{t-1}), both dirs
+        return _bound_ms(2 * (2 * T_ * B_ * H3_ + 2 * H_ * H3_) + out + 4 * 2 * H3_,
+                         2 * 2 * T_ * B_ * H_ * H3_, BF16_FLOPS)
 
     def max_abs(a, b):
         if isinstance(a, tuple):
@@ -2981,21 +3326,14 @@ def main() -> int:
     (p0, x0, *_), _, _ = next(c for c in rec["ge2e_lstm_layer"] if c[0][1].shape[-1] == 80)
     Tl, Bl, Dl = x_tm.shape
     Hl = p.hidden_size
-    lstm_lib = torch.nn.LSTM(Dl, Hl).to(device=x_tm.device, dtype=torch.bfloat16)
-    with torch.no_grad():
-        lstm_lib.weight_ih_l0.copy_(p.w_ih.t())
-        lstm_lib.weight_hh_l0.copy_(p.w_hh.t())
-        lstm_lib.bias_ih_l0.copy_(p.b)
-        lstm_lib.bias_hh_l0.zero_()
-    lstm_lib.flatten_parameters()
+    lstm_lib = lstm_lib_of(p.w_hh, p.w_ih, p.b)
     check(
         "ge2e_lstm_layer", "multi_speaker_tts_tpu/ops/lstm_pallas.py:108",
         "multi_speaker_tts_tpu_torch/csrc/lstm.cu",
         lambda: lstm_kernel.lstm_seq_layer_kernel.original(p, x_tm),
         lambda: lstm_kernel.lstm_seq_layer_plain(p, x_tm, torch.bfloat16),
         max_abs, 5e-3,
-        _bound_ms(2 * (Tl * Bl * Dl + 4 * Hl * (Dl + Hl) + Tl * Bl * Hl) + 4 * (4 * Hl + 2 * Bl * Hl),
-                  2 * Tl * Bl * 4 * Hl * (Dl + Hl), BF16_FLOPS),
+        lstm_fwd_bound(p, x_tm, False),
         library_fn=cudnn_calls(lstm_lib, x_tm),
         also=[(lambda: lstm_kernel.lstm_seq_layer_kernel.original(p0, x0),
                lambda: lstm_kernel.lstm_seq_layer_plain(p0, x0, torch.bfloat16))],
@@ -3006,19 +3344,7 @@ def main() -> int:
     (gxf, gxb, whf, whb, *_), _, _ = rec["text_encoder_bilstm"][0]
     Sb, Bb, H4 = gxf.shape
     Hb = H4 // 4
-    bi_lib = torch.nn.LSTM(2 * H4, Hb, bidirectional=True).to(device=gxf.device,
-                                                             dtype=torch.bfloat16)
-    eye = torch.eye(H4, device=gxf.device)
-    zero = torch.zeros_like(eye)
-    with torch.no_grad():  # identity input weights: the gates are the input
-        bi_lib.weight_ih_l0.copy_(torch.cat([eye, zero], dim=1))
-        bi_lib.weight_ih_l0_reverse.copy_(torch.cat([zero, eye], dim=1))
-        bi_lib.weight_hh_l0.copy_(whf.t())
-        bi_lib.weight_hh_l0_reverse.copy_(whb.t())
-        for bias in (bi_lib.bias_ih_l0, bi_lib.bias_hh_l0,
-                     bi_lib.bias_ih_l0_reverse, bi_lib.bias_hh_l0_reverse):
-            bias.zero_()
-    bi_lib.flatten_parameters()
+    bi_lib = birnn_lib_of(torch.nn.LSTM, whf, whb)
     gx_cat = torch.cat([gxf, gxb], dim=-1)
     check(
         "text_encoder_bilstm", "multi_speaker_tts_tpu/ops/birnn_pallas.py:161",
@@ -3026,8 +3352,7 @@ def main() -> int:
         lambda: birnn_kernel.bilstm_recurrence_kernel.original(gxf, gxb, whf, whb),
         lambda: birnn_kernel.bilstm_recurrence_plain(gxf, gxb, whf, whb, torch.bfloat16),
         max_abs, 5e-3,
-        _bound_ms(2 * (2 * Sb * Bb * H4 + 2 * H4 * Hb + 2 * Sb * Bb * Hb),
-                  2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
+        bilstm_bound(gxf, False),
         library_fn=cudnn_calls(bi_lib, gx_cat),
         extra={"floor_ms": floor_ms(Sb, 2, Hb)},
     )
@@ -3038,20 +3363,7 @@ def main() -> int:
     (ggf, ggb, gru_f, gru_b, *_), _, _ = rec["cbhg_bigru"][0]
     Tg, Bg, H3 = ggf.shape
     Hg = H3 // 3
-    gru_lib = torch.nn.GRU(2 * H3, Hg, bidirectional=True).to(device=ggf.device,
-                                                             dtype=torch.bfloat16)
-    eye = torch.eye(H3, device=ggf.device)
-    zero = torch.zeros_like(eye)
-    with torch.no_grad():
-        gru_lib.weight_ih_l0.copy_(torch.cat([eye, zero], dim=1))
-        gru_lib.weight_ih_l0_reverse.copy_(torch.cat([zero, eye], dim=1))
-        gru_lib.weight_hh_l0.copy_(gru_f.w_hh.t())
-        gru_lib.weight_hh_l0_reverse.copy_(gru_b.w_hh.t())
-        gru_lib.bias_hh_l0.copy_(gru_f.b_hh)
-        gru_lib.bias_hh_l0_reverse.copy_(gru_b.b_hh)
-        gru_lib.bias_ih_l0.zero_()
-        gru_lib.bias_ih_l0_reverse.zero_()
-    gru_lib.flatten_parameters()
+    gru_lib = birnn_lib_of(torch.nn.GRU, gru_f.w_hh, gru_b.w_hh, (gru_f.b_hh, gru_b.b_hh))
     gg_cat = torch.cat([ggf, ggb], dim=-1)
     check(
         "cbhg_bigru", "multi_speaker_tts_tpu/ops/birnn_pallas.py:450",
@@ -3059,8 +3371,7 @@ def main() -> int:
         lambda: birnn_kernel.bigru_recurrence_kernel.original(ggf, ggb, gru_f, gru_b),
         lambda: birnn_kernel.bigru_recurrence_plain(ggf, ggb, gru_f, gru_b, torch.bfloat16),
         max_abs, 5e-3,
-        _bound_ms(2 * (2 * Tg * Bg * H3 + 2 * Hg * H3 + 2 * Tg * Bg * Hg) + 4 * 2 * H3,
-                  2 * 2 * Tg * Bg * Hg * H3, BF16_FLOPS),
+        gru_bound(ggf, False),
         library_fn=cudnn_calls(gru_lib, gg_cat),
         extra={"shape": [Tg, Bg, H3], "floor_ms": gru_floor_ms(Tg, Bg, Hg)},
     )
@@ -3601,9 +3912,7 @@ def main() -> int:
         lambda: lstm_kernel.lstm_seq_layer_kernel.original(p1, x1, True),
         lambda: lstm_kernel.lstm_seq_layer_plain(p1, x1, torch.bfloat16, True),
         rel_peak, 1e-2,
-        _bound_ms(2 * (Tl * Bl * Dl + 4 * Hl * (Dl + Hl) + Tl * Bl * Hl + Tl * Bl * 5 * Hl)
-                  + 4 * (4 * Hl + 2 * Bl * Hl),
-                  2 * Tl * Bl * 4 * Hl * (Dl + Hl), BF16_FLOPS),
+        lstm_fwd_bound(p1, x1, True),
         library_fn=cudnn_calls(lstm_lib, x1),
         also=[(lambda: lstm_kernel.lstm_seq_layer_kernel.original(p0r, x0r, True),
                lambda: lstm_kernel.lstm_seq_layer_plain(p0r, x0r, torch.bfloat16, True))],
@@ -3620,17 +3929,19 @@ def main() -> int:
     (w_hh1, g1, c1, dh1, dys1), _, _ = lb[1]
     Tb_, Bb_, H4b = g1.shape
     Hb_ = H4b // 4
-    lstm_bwd_lib = torch.nn.LSTM(H4b, Hb_).to(device=g1.device, dtype=torch.bfloat16)
-    with torch.no_grad():
-        lstm_bwd_lib.weight_ih_l0.copy_(torch.eye(H4b, device=g1.device))
-        lstm_bwd_lib.weight_hh_l0.copy_(w_hh1.t())
-        lstm_bwd_lib.bias_ih_l0.zero_()
-        lstm_bwd_lib.bias_hh_l0.zero_()
-    lstm_bwd_lib.flatten_parameters()
 
     def lstm_bwd_bytes(g, c, dh, dys):
         return (_nbytes(g, c) + 2 * g.shape[-1] * c.shape[-1] + _nbytes(g)
                 + (0 if dh is None else _nbytes(dh)) + (0 if dys is None else _nbytes(dys)))
+
+    def lstm_bwd_library(w_hh, g, dh, dys):
+        """cuDNN's LSTM backward on #8's operands: identity input weights on
+        the gates, the h_T and per-step cotangents (zeros where None)."""
+        T_, B_, H4_ = g.shape
+        return cudnn_backward(
+            lstm_lib_of(w_hh), g,
+            torch.zeros(T_, B_, H4_ // 4, device=g.device) if dys is None else dys,
+            torch.zeros(B_, H4_ // 4, device=g.device) if dh is None else dh)
 
     check(
         "ge2e_lstm_bwd", "multi_speaker_tts_tpu/ops/lstm_pallas.py:227",
@@ -3639,9 +3950,7 @@ def main() -> int:
         lambda: lstm_kernel.lstm_seq_layer_bwd_plain.original(w_hh1, g1, c1, dh1, dys1),
         rel_peak, 1e-2,
         _bound_ms(lstm_bwd_bytes(g1, c1, dh1, dys1), 2 * Tb_ * Bb_ * H4b * Hb_, BF16_FLOPS),
-        library_fn=cudnn_backward(lstm_bwd_lib, g1, dys1 if dys1 is not None
-                                  else torch.zeros(Tb_, Bb_, Hb_, device=g1.device),
-                                  torch.zeros(Bb_, Hb_, device=g1.device) if dh1 is None else dh1),
+        library_fn=lstm_bwd_library(w_hh1, g1, dh1, dys1),
         also=[(lambda a=a: lstm_kernel.lstm_seq_layer_bwd_kernel.original(*a),
                lambda a=a: lstm_kernel.lstm_seq_layer_bwd_plain.original(*a))
               for a in (lb[0][0], lb[2][0])],
@@ -3664,8 +3973,7 @@ def main() -> int:
         lambda: birnn_kernel.bilstm_recurrence_kernel.original(bgf, bgb, bwf, bwb, True),
         lambda: birnn_kernel.bilstm_recurrence_plain(bgf, bgb, bwf, bwb, torch.bfloat16, True),
         rel_peak, 1e-2,
-        _bound_ms(2 * (2 * Sb * Bb * H4 + 2 * H4 * Hb + 2 * Sb * Bb * Hb + 2 * Sb * Bb * 5 * Hb),
-                  2 * 2 * Sb * Bb * H4 * Hb, BF16_FLOPS),
+        bilstm_bound(bgf, True),
         library_fn=cudnn_calls(bi_lib, torch.cat([bgf, bgb], dim=-1)),
         extra={"mode": "save_residuals=True (train step)", "shape": [Sb, Bb, H4],
                "floor_ms": floor_ms(Sb, 2, Hb),
@@ -3700,9 +4008,7 @@ def main() -> int:
         lambda: birnn_kernel.bigru_recurrence_kernel.original(tgf, tgb, tpf, tpb, True),
         lambda: birnn_kernel.bigru_recurrence_plain(tgf, tgb, tpf, tpb, torch.bfloat16, True),
         rel_peak, 1e-2,
-        _bound_ms(2 * (2 * Tg * Bg * H3 + 2 * Hg * H3 + 2 * Tg * Bg * Hg
-                       + 2 * Tg * Bg * (H3 + Hg)) + 4 * 2 * H3,
-                  2 * 2 * Tg * Bg * Hg * H3, BF16_FLOPS),
+        gru_bound(tgf, True),
         library_fn=cudnn_calls(gru_lib, torch.cat([tgf, tgb], dim=-1)),
         extra={"mode": "save_residuals=True (train step)", "shape": [Tg, Bg, H3],
                "floor_ms": gru_floor_ms(Tg, Bg, Hg),
@@ -3811,13 +4117,6 @@ def main() -> int:
     w8, g8, c8, dh8, dys8 = wide["p1"]["args"][1]
     T8, B8, H48 = g8.shape
     H8 = H48 // 4
-    lib8 = torch.nn.LSTM(H48, H8).to(device=g8.device, dtype=torch.bfloat16)
-    with torch.no_grad():
-        lib8.weight_ih_l0.copy_(torch.eye(H48, device=g8.device))
-        lib8.weight_hh_l0.copy_(w8.t())
-        lib8.bias_ih_l0.zero_()
-        lib8.bias_hh_l0.zero_()
-    lib8.flatten_parameters()
     check(
         "ge2e_lstm_bwd_640", "multi_speaker_tts_tpu/ops/lstm_pallas.py:227",
         "multi_speaker_tts_tpu_torch/csrc/lstm_bwd.cu",
@@ -3825,9 +4124,7 @@ def main() -> int:
         lambda: orig(lstm_kernel.lstm_seq_layer_bwd_plain)(w8, g8, c8, dh8, dys8),
         rel_peak, 1e-2,
         _bound_ms(lstm_bwd_bytes(g8, c8, dh8, dys8), 2 * T8 * B8 * H48 * H8, BF16_FLOPS),
-        library_fn=cudnn_backward(lib8, g8, dys8 if dys8 is not None
-                                  else torch.zeros(T8, B8, H8, device=g8.device),
-                                  torch.zeros(B8, H8, device=g8.device) if dh8 is None else dh8),
+        library_fn=lstm_bwd_library(w8, g8, dh8, dys8),
         reps=5,
         extra={"shape": [T8, B8, H48], "row_groups": wide["p1"]["groups"],
                "launches_per_step": len(wide["p1"]["groups"]) * 3,
@@ -3855,42 +4152,18 @@ def main() -> int:
         x_ = torch.from_numpy(rng_g.normal(size=(B, T, 128)).astype(np.float32)).cuda()
         return (*birnn_kernel.bigru_hoist(pf_, pb_, x_, torch.bfloat16), pf_, pb_)
 
-    def gru_lib_of(gf_, pf_, pb_):
-        H3_ = gf_.shape[-1]
-        lib = torch.nn.GRU(2 * H3_, H3_ // 3, bidirectional=True).to(device=gf_.device,
-                                                                     dtype=torch.bfloat16)
-        e, z = torch.eye(H3_, device=gf_.device), torch.zeros(H3_, H3_, device=gf_.device)
-        with torch.no_grad():
-            lib.weight_ih_l0.copy_(torch.cat([e, z], dim=1))
-            lib.weight_ih_l0_reverse.copy_(torch.cat([z, e], dim=1))
-            lib.weight_hh_l0.copy_(pf_.w_hh.t())
-            lib.weight_hh_l0_reverse.copy_(pb_.w_hh.t())
-            lib.bias_hh_l0.copy_(pf_.b_hh)
-            lib.bias_hh_l0_reverse.copy_(pb_.b_hh)
-            lib.bias_ih_l0.zero_()
-            lib.bias_ih_l0_reverse.zero_()
-        lib.flatten_parameters()
-        return lib
-
-    def gru_bytes(gf_, res):
-        T_, B_, H3_ = gf_.shape
-        H_ = H3_ // 3
-        out = 2 * T_ * B_ * H_ * (2 + (2 * 4 if res else 0))  # ys (+ gh, h_{t-1}), both dirs
-        return 2 * (2 * T_ * B_ * H3_ + 2 * H_ * H3_) + out + 4 * 2 * H3_
-
-    def gru_bound(gf_, res):
-        T_, B_, H3_ = gf_.shape
-        return _bound_ms(gru_bytes(gf_, res), 2 * 2 * T_ * B_ * (H3_ // 3) * H3_, BF16_FLOPS)
+    def gru_lib_of(pf_, pb_):
+        return birnn_lib_of(torch.nn.GRU, pf_.w_hh, pb_.w_hh, (pf_.b_hh, pb_.b_hh))
 
     synth_cases = {H: gru_case(H) for H in (384, 512, 1024)}
-    synth_libs = [cudnn_calls(gru_lib_of(c[0], c[2], c[3]), torch.cat(c[:2], dim=-1))
+    synth_libs = [cudnn_calls(gru_lib_of(c[2], c[3]), torch.cat(c[:2], dim=-1))
                   for c in synth_cases.values()]
     pw = wide["p2"]
     for name, res in (("cbhg_bigru_wide", False), ("cbhg_bigru_wide_residuals", True)):
         a_ = (pw["bigru"] if not res else pw["bigru_res"])[0]
         gf_, gb_, pf_, pb_ = a_[:4]
         T_, B_, H3_ = gf_.shape
-        lib = gru_lib_of(gf_, pf_, pb_)
+        lib = gru_lib_of(pf_, pb_)
         pairs = [(lambda c=c: orig(birnn_kernel.bigru_recurrence_kernel)(*c, res),
                   lambda c=c: birnn_kernel.bigru_recurrence_plain(*c, torch.bfloat16, res))
                  for c in synth_cases.values()]
@@ -3922,7 +4195,7 @@ def main() -> int:
     bgx, bgh, bhp = ba[0], ba[1], ba[2]
     T_, B_, H3_ = bgx.shape
     Hb_ = H3_ // 3
-    lib = gru_lib_of(bgx, *pw["bigru_res"][0][2:4])
+    lib = gru_lib_of(*pw["bigru_res"][0][2:4])
     bwd_also, bwd_bounds, bwd_libs = [], [], []
     for c in synth_cases.values():
         ysf_, ysb_, ghf_, hpf_, ghb_, hpb_ = birnn_kernel.bigru_recurrence_kernel(*c, True)
@@ -3933,7 +4206,7 @@ def main() -> int:
         bwd_also.append((lambda a=argc: orig(birnn_kernel.bigru_bwd_kernel)(*a),
                          lambda a=argc: orig(birnn_kernel.bigru_bwd_plain)(*a)))
         bwd_bounds.append(gru_bwd_bound(argc))
-        bwd_libs.append(cudnn_backward(gru_lib_of(c[0], c[2], c[3]), torch.cat(c[:2], dim=-1),
+        bwd_libs.append(cudnn_backward(gru_lib_of(c[2], c[3]), torch.cat(c[:2], dim=-1),
                                        torch.cat(dyc, dim=-1)))
     check(
         "cbhg_bigru_wide_bwd", "multi_speaker_tts_tpu/ops/birnn_pallas.py:529",
@@ -4075,7 +4348,214 @@ def main() -> int:
                    "bound_note": "real-FFT work a frame at this N, as the mel rows'"},
         )
 
+    # Pass (q)'s rows: the LSTM family on its wide routes, on the inputs the
+    # pass gave them (#2 at q2's enrollment, GE2E 1792: layer 1 timed, layer
+    # 0 held; #2r and #8 at q1's 160 rows; #3, #3r and #9 at q2's encoder,
+    # 1152 a direction) and on seeded inputs at 32 rows (#2 at 1152 with
+    # D = H and 1664 with D 80; #3 / #3r at 1152, past the resident W_hh
+    # tiles). Each with its production row's tolerance; library: cuDNN's
+    # nn.LSTM at the same shapes.
+    launches.update(family["launches"])
+
+    def seeded_layer(D_, H_, B_=32, T_=64, seed=0):
+        from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
+
+        g_ = torch.Generator(device="cuda").manual_seed(seed + H_)
+        sc_ = 0.1 * (768 / H_) ** 0.5
+        p_ = LSTMParams(*(torch.randn(s_, device="cuda", generator=g_) * sc_
+                          for s_ in ((D_, 4 * H_), (H_, 4 * H_), (4 * H_,))))
+        x_ = torch.randn(T_, B_, D_, device="cuda", generator=g_).to(torch.bfloat16)
+        return p_, x_
+
+    def seeded_bilstm(H_, B_=32, S_=64, seed=0):
+        g_ = torch.Generator(device="cuda").manual_seed(seed + H_)
+        sc_ = 0.1 * (256 / H_) ** 0.5
+        gx_ = [(torch.randn(S_, B_, 4 * H_, device="cuda", generator=g_) * 0.5)
+               .to(torch.bfloat16) for _ in range(2)]
+        w_ = [torch.randn(H_, 4 * H_, device="cuda", generator=g_) * sc_ for _ in range(2)]
+        return (*gx_, *w_)
+
+    def fwd_plan(ndir, D_, H_, B_):
+        r_ = lstm_kernel.fwd_rows(ndir, D_, H_, B_, _build.card_limits("cuda"))
+        return {"rows": r_, **lstm_kernel.fwd_layout(ndir, D_, H_, B_, r_,
+                                                     _build.card_limits("cuda"))}
+
+    fwd_k = orig(lstm_kernel.lstm_seq_layer_kernel)
+    bi_k = orig(birnn_kernel.bilstm_recurrence_kernel)
+
+    wide_fwd_errors = []
+
+    def wide_fwd_err(p_, x_):
+        """#2's production gate, max |kernel - plain| <= 5e-3 on ys, h_T and
+        c_T, widened to the plain bf16 version's own distance from its f32
+        version (``drift``) where that is larger: at these widths a few bf16
+        rounding flips of h grow through the recurrence, and the kernel sums
+        in another order, so both are bf16 trajectories of one f32
+        recurrence (tests/test_torch_cuda.py's wide cases). As a number held
+        to 5e-3: ``scaled_abs`` = max |kernel - plain| x 5e-3 / max(5e-3,
+        drift); and, as in the card test, every output within 1e-2 of its
+        peak (``rel_peak``), a limit the data does not set. Each case's
+        readings (drift and the raw distance too) go to
+        ``wide_fwd_errors``."""
+        ref32 = lstm_kernel.lstm_seq_layer_plain(p_, x_, torch.float32)
+        ref16 = lstm_kernel.lstm_seq_layer_plain(p_, x_, torch.bfloat16)
+        drift = max_abs(tuple(ref16[:3]), tuple(ref32))
+
+        def err(got, ref):
+            raw = max_abs(tuple(got[:3]), tuple(ref[:3]))
+            e = {"scaled_abs": raw * 5e-3 / max(5e-3, drift),
+                 "rel_peak": rel_peak(tuple(got[:3]), tuple(ref[:3])),
+                 "max_abs": raw, "drift": drift}
+            wide_fwd_errors.append({"shape": list(x_.shape) + [p_.hidden_size], **e})
+            return e
+        return err
+
+    # #2 (inference) at q2's enrollment and seeded 1152 / 1664 (D 80).
+    q2e = family["q2"]["enroll"]
+    (pe1, xe1, *_) = next(a for a in q2e if a[1].shape[-1] != 80)
+    (pe0, xe0, *_) = next(a for a in q2e if a[1].shape[-1] == 80)
+    seeded2 = [seeded_layer(1152, 1152), seeded_layer(80, 1664)]
+    pairs2 = [(lambda a=a: fwd_k(*a),
+               lambda a=a: lstm_kernel.lstm_seq_layer_plain(*a, torch.bfloat16),
+               wide_fwd_err(*a)) for a in ((pe0, xe0), *seeded2)]
+    check(
+        "ge2e_lstm_layer_wide", "multi_speaker_tts_tpu/ops/lstm_pallas.py:108",
+        "multi_speaker_tts_tpu_torch/csrc/lstm.cu",
+        lambda: fwd_k(pe1, xe1), lambda: lstm_kernel.lstm_seq_layer_plain(pe1, xe1,
+                                                                          torch.bfloat16),
+        wide_fwd_err(pe1, xe1), {"scaled_abs": 5e-3, "rel_peak": 1e-2},
+        lstm_fwd_bound(pe1, xe1, False),
+        library_fn=cudnn_calls(lstm_lib_of(pe1.w_hh, pe1.w_ih, pe1.b), xe1),
+        also=pairs2, reps=10,
+        extra={"shape": list(xe1.shape) + [pe1.hidden_size],
+               "plan": fwd_plan(1, xe1.shape[-1], pe1.hidden_size, xe1.shape[1]),
+               "also_shapes": [list(a[1].shape) + [a[0].hidden_size]
+                               for a in ((pe0, xe0), *seeded2)],
+               "also_plans": [fwd_plan(1, a[1].shape[-1], a[0].hidden_size, a[1].shape[1])
+                              for a in ((pe0, xe0), *seeded2)],
+               "also_times": also_times([c[:2] for c in pairs2],
+                                        [lstm_fwd_bound(*a, False) for a in ((pe0, xe0),
+                                                                             *seeded2)]),
+               "floor_ms": floor_ms(xe1.shape[0], 1, pe1.hidden_size),
+               "per_shape_errors": wide_fwd_errors,
+               "error_metric": "scaled_abs: max |kernel - plain| x 5e-3 / max(5e-3, drift), "
+                               "drift = max |plain bf16 - plain f32|; rel_peak: max |kernel - "
+                               "plain| / max |plain|; each the worst of ys, h_T, c_T"},
+    )
+    # #2r at q1's 160 rows (layer 1 timed, layer 0 held), seeded 1152 too.
+    q1f = family["q1"]["fwd"]
+    (pr1, xr1, _) = next(a for a in q1f if a[1].shape[-1] != 80)
+    (pr0, xr0, _) = next(a for a in q1f if a[1].shape[-1] == 80)
+    pairs2r = [(lambda a=(pr0, xr0): fwd_k(*a, True),
+                lambda a=(pr0, xr0): lstm_kernel.lstm_seq_layer_plain(*a, torch.bfloat16, True)),
+               (lambda a=seeded2[0]: fwd_k(*a, True),
+                lambda a=seeded2[0]: lstm_kernel.lstm_seq_layer_plain(*a, torch.bfloat16, True))]
+    check(
+        "ge2e_lstm_layer_residuals_wide", "multi_speaker_tts_tpu/ops/lstm_pallas.py:108",
+        "multi_speaker_tts_tpu_torch/csrc/lstm.cu",
+        lambda: fwd_k(pr1, xr1, True),
+        lambda: lstm_kernel.lstm_seq_layer_plain(pr1, xr1, torch.bfloat16, True),
+        rel_peak, 1e-2, lstm_fwd_bound(pr1, xr1, True),
+        library_fn=cudnn_calls(lstm_lib_of(pr1.w_hh, pr1.w_ih, pr1.b), xr1),
+        also=pairs2r, reps=5,
+        extra={"mode": "save_residuals=True (q1's GE2E step)",
+               "shape": list(xr1.shape) + [pr1.hidden_size],
+               "plan": fwd_plan(1, xr1.shape[-1], pr1.hidden_size, xr1.shape[1]),
+               "launches_per_step": launches["ge2e_lstm_layer_residuals_wide"],
+               "also_times": also_times(pairs2r, [lstm_fwd_bound(pr0, xr0, True),
+                                                  lstm_fwd_bound(*seeded2[0], True)]),
+               "floor_ms": floor_ms(xr1.shape[0], 1, pr1.hidden_size),
+               "error_metric": "max |kernel - plain| / max |plain|, worst output"},
+    )
+    # #8 at q1's 160 rows (layer 1, per-step cotangents).
+    wq8, gq8, cq8, dhq8, dysq8 = family["q1"]["bwd"][1]
+    Tq8, Bq8, H4q8 = gq8.shape
+    Hq8 = H4q8 // 4
+    check(
+        "ge2e_lstm_bwd_wide", "multi_speaker_tts_tpu/ops/lstm_pallas.py:227",
+        "multi_speaker_tts_tpu_torch/csrc/lstm_bwd.cu",
+        lambda: orig(lstm_kernel.lstm_seq_layer_bwd_kernel)(wq8, gq8, cq8, dhq8, dysq8),
+        lambda: orig(lstm_kernel.lstm_seq_layer_bwd_plain)(wq8, gq8, cq8, dhq8, dysq8),
+        rel_peak, 1e-2,
+        _bound_ms(lstm_bwd_bytes(gq8, cq8, dhq8, dysq8), 2 * Tq8 * Bq8 * H4q8 * Hq8, BF16_FLOPS),
+        library_fn=lstm_bwd_library(wq8, gq8, dhq8, dysq8),
+        reps=5,
+        extra={"shape": [Tq8, Bq8, H4q8], "plan": family["q1"]["plan"]["bwd_layout"],
+               "launches_per_step": launches["ge2e_lstm_bwd_wide"],
+               "step_vs_plain_backward": {k: family["q1"][k] for k in ("loss", "grad_norm",
+                                                                        "dG8")},
+               "floor_ms": floor_ms(Tq8, 1, Hq8),
+               "error_metric": "max |dG - plain dG| / max |plain dG|",
+               "library": "cuDNN LSTM backward (identity input weights; data and weight "
+                          "gradients), the faster of bf16 and fp16"},
+    )
+    # #3 at q2's encoder (1152 a direction), seeded at 32 rows too.
+    (q3gf, q3gb, q3wf, q3wb, *_) = family["q2"]["bilstm"][0]
+    seeded3 = seeded_bilstm(1152)
+    pairs3 = [(lambda: bi_k(*seeded3),
+               lambda: birnn_kernel.bilstm_recurrence_plain(*seeded3, torch.bfloat16))]
+    check(
+        "text_encoder_bilstm_wide", "multi_speaker_tts_tpu/ops/birnn_pallas.py:161",
+        "multi_speaker_tts_tpu_torch/csrc/bilstm.cu",
+        lambda: bi_k(q3gf, q3gb, q3wf, q3wb),
+        lambda: birnn_kernel.bilstm_recurrence_plain(q3gf, q3gb, q3wf, q3wb, torch.bfloat16),
+        max_abs, 5e-3, bilstm_bound(q3gf, False),
+        library_fn=cudnn_calls(birnn_lib_of(torch.nn.LSTM, q3wf, q3wb), torch.cat([q3gf, q3gb], dim=-1)),
+        also=pairs3, reps=10,
+        extra={"shape": list(q3gf.shape), "plan": fwd_plan(2, 0, q3gf.shape[-1] // 4,
+                                                            q3gf.shape[1]),
+               "also_plans": [fwd_plan(2, 0, 1152, 32)],
+               "also_times": also_times(pairs3, [bilstm_bound(seeded3[0], False)],
+                                        [cudnn_calls(birnn_lib_of(torch.nn.LSTM, *seeded3[2:]),
+                                                     torch.cat(seeded3[:2], dim=-1))]),
+               "floor_ms": floor_ms(q3gf.shape[0], 2, q3gf.shape[-1] // 4)},
+    )
+    # #3r at q2's train step (8 rows), seeded at 32 rows too.
+    (r3gf, r3gb, r3wf, r3wb, _) = family["q2"]["bilstm_res"][0]
+    pairs3r = [(lambda: bi_k(*seeded3, True),
+                lambda: birnn_kernel.bilstm_recurrence_plain(*seeded3, torch.bfloat16, True))]
+    check(
+        "text_encoder_bilstm_residuals_wide", "multi_speaker_tts_tpu/ops/birnn_pallas.py:161",
+        "multi_speaker_tts_tpu_torch/csrc/bilstm.cu",
+        lambda: bi_k(r3gf, r3gb, r3wf, r3wb, True),
+        lambda: birnn_kernel.bilstm_recurrence_plain(r3gf, r3gb, r3wf, r3wb, torch.bfloat16,
+                                                     True),
+        rel_peak, 1e-2, bilstm_bound(r3gf, True),
+        library_fn=cudnn_calls(birnn_lib_of(torch.nn.LSTM, r3wf, r3wb), torch.cat([r3gf, r3gb], dim=-1)),
+        also=pairs3r, reps=10,
+        extra={"mode": "save_residuals=True (q2's train step)", "shape": list(r3gf.shape),
+               "plan": fwd_plan(2, 0, r3gf.shape[-1] // 4, r3gf.shape[1]),
+               "also_times": also_times(pairs3r, [bilstm_bound(seeded3[0], True)]),
+               "floor_ms": floor_ms(r3gf.shape[0], 2, r3gf.shape[-1] // 4),
+               "error_metric": "max |kernel - plain| / max |plain|, worst output"},
+    )
+    # #9 at q2's train step (8 rows, 1152 a direction).
+    bargs9 = family["q2"]["bilstm_bwd"][0]
+    gf9, cf9, gb9, cb9, wf9, wb9, dyf9, dyb9 = bargs9
+    S9, B9, H49 = gf9.shape
+    H9 = H49 // 4
+    check(
+        "text_encoder_bilstm_bwd_wide", "multi_speaker_tts_tpu/ops/birnn_pallas.py:255",
+        "multi_speaker_tts_tpu_torch/csrc/bilstm_bwd.cu",
+        lambda: orig(birnn_kernel.bilstm_bwd_kernel)(*bargs9),
+        lambda: orig(birnn_kernel.bilstm_bwd_plain)(*bargs9),
+        rel_peak, 1e-2,
+        _bound_ms(_nbytes(gf9, cf9, gb9, cb9, dyf9, dyb9, gf9, gb9) + 2 * 2 * H49 * H9,
+                  2 * 2 * S9 * B9 * H49 * H9, BF16_FLOPS),
+        library_fn=cudnn_backward(birnn_lib_of(torch.nn.LSTM, wf9, wb9), torch.cat([gf9, gb9], dim=-1),
+                                  torch.cat([dyf9, dyb9], dim=-1)),
+        reps=10,
+        extra={"shape": [S9, B9, H49],
+               "plan": lstm_kernel.bwd_layout(2, H9, B9, lstm_kernel.bwd_rows(
+                   2, H9, B9, _build.card_limits("cuda")), _build.card_limits("cuda")),
+               "floor_ms": floor_ms(S9, 2, H9),
+               "error_metric": "max |dG - plain dG| / max |plain dG|, both directions",
+               "library": "cuDNN bidirectional LSTM backward (identity input weights; data "
+                          "and weight gradients), the faster of bf16 and fp16"},
+    )
+
     # 4. Report --------------------------------------------------------------
+    print(f"[time] the kernel phase took {time.perf_counter() - t_kernels:.1f} s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

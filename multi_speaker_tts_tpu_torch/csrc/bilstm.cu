@@ -16,6 +16,10 @@
 // step's hoisted gates and stores the residuals between the barrier's
 // arrival and its wait.
 //
+// Past H 1088 a direction on an H100 the launch takes the wide layout of
+// lstm_persistent.cuh (the W_hh tiles that do not fit stream from L2 each
+// step). One call launches once, over rows b0 .. b0 + rows of the batch.
+//
 // gf / cf / gb / cb non-null selects the residual mode of
 // _bilstm_fwd_impl(save_residuals=True): per direction the pre-activation
 // gates (T, B, 4H) and c_{t-1} (T, B, H), bf16, in natural time, for the
@@ -25,7 +29,7 @@
 MSTTS_EXPORT int mstts_bilstm_fwd(const void* gxf, const void* gxb, const void* whf,
                                   const void* whb, void* ysf, void* ysb, void* gf, void* cf,
                                   void* gb, void* cb, void* bar, int T, int B, int H,
-                                  void* stream) {
+                                  int b0, int rows, void* stream) {
   mstts::LstmArgs a = {};
   a.T = T;
   a.B = B;
@@ -45,5 +49,5 @@ MSTTS_EXPORT int mstts_bilstm_fwd(const void* gxf, const void* gxb, const void* 
   const bool any = gf || cf || gb || cb, all = gf && cf && gb && cb;
   if (any && !all) return (int)cudaErrorInvalidValue;
   a.bar = static_cast<unsigned int*>(bar);
-  return mstts::lstm_run(a, 2, static_cast<cudaStream_t>(stream));
+  return mstts::lstm_run(a, 2, b0, rows, static_cast<cudaStream_t>(stream));
 }

@@ -17,6 +17,12 @@
 // warp at B = 32, and loads the next step's input half and stores the
 // residuals between the barrier's arrival and its wait.
 //
+// Past those widths (a block's full layout no longer holding 32 rows) the
+// launch takes the wide layout of lstm_persistent.cuh: W_ih read from L2 in
+// phase 0 and the W_hh tiles that do not fit streamed from L2 each step.
+// One call launches once, over rows b0 .. b0 + rows of the batch; the
+// caller plans the groups (ops/lstm_kernel.fwd_row_groups).
+//
 // g_res / c_res non-null selects the residual mode of
 // lstm_seq_layer_fwd(save_residuals=True): the pre-activation gates
 // (T, B, 4H) and c_{t-1} (T, B, H), both bf16, for the reverse kernel
@@ -26,7 +32,7 @@
 MSTTS_EXPORT int mstts_lstm_layer_fwd(const void* x, const void* w, const void* bias,
                                       void* xg, void* ys, void* h_last, void* c_last, void* g_res,
                                       void* c_res, void* bar, int T, int B, int D, int H,
-                                      void* stream) {
+                                      int b0, int rows, void* stream) {
   if (D <= 0) return (int)cudaErrorInvalidValue;
   mstts::LstmArgs a = {};
   a.T = T;
@@ -45,5 +51,11 @@ MSTTS_EXPORT int mstts_lstm_layer_fwd(const void* x, const void* w, const void* 
   a.c_res[0] = static_cast<__nv_bfloat16*>(c_res);
   if ((g_res == nullptr) != (c_res == nullptr)) return (int)cudaErrorInvalidValue;
   a.bar = static_cast<unsigned int*>(bar);
-  return mstts::lstm_run(a, 1, static_cast<cudaStream_t>(stream));
+  return mstts::lstm_run(a, 1, b0, rows, static_cast<cudaStream_t>(stream));
+}
+
+// The layout a launch takes on this card (lstm_layout): out = U, nblk, wide,
+// ntr, bytes, fits; for ops/lstm_kernel.fwd_layout's card test.
+MSTTS_EXPORT int mstts_lstm_fwd_layout(int ndir, int D, int H, int B, int rows, void* out) {
+  return mstts::lstm_layout_of(ndir, D, H, B, rows, static_cast<int*>(out));
 }

@@ -34,3 +34,9 @@ MSTTS_EXPORT int mstts_lstm_layer_bwd(const void* gates, const void* c_prev, con
   a.bar = static_cast<unsigned int*>(bar);
   return mstts::lstm_bwd_run(a, 1, b0, rows, static_cast<cudaStream_t>(stream));
 }
+
+// The layout a launch takes on this card (lstm_bwd_layout): out = U, nblk,
+// wide, ntr, bytes, fits; for ops/lstm_kernel.bwd_layout's card test.
+MSTTS_EXPORT int mstts_lstm_bwd_layout(int ndir, int H, int B, int rows, void* out) {
+  return mstts::lstm_bwd_layout_of(ndir, H, B, rows, static_cast<int*>(out));
+}

@@ -51,6 +51,16 @@
 //   the batch's rows (lstm_bwd_run) and the wrapper runs as many rows a
 //   group as fit (352 at H = 768 on an H100, so GE2E's 64 x 10 = 640 rows
 //   take two launches).
+// - The wide layout (a second build, lstm_bwd_kernel<kLstmBwdWideNT, true>):
+//   where the full layout does not hold min(B, 32) rows, or a block owns
+//   more than 16 units (more n-tiles than the production build's
+//   registers hold), W_hh's rows past the first ntr n-tiles leave shared
+//   memory, and a streamed tile's 16-byte B pieces are read from L2 beside
+//   the dG chunk they pair with. The launch then takes as many rows as the
+//   rest of the block holds. dG_t, which every block reads from L2 every
+//   step, stays the larger stream. lstm_bwd_layout decides;
+//   ops/lstm_kernel.bwd_layout mirrors it. The production widths keep the
+//   full layout and its build, lstm_bwd_kernel<kLstmBwdMaxNT, false>.
 #pragma once
 
 #include "common.cuh"
@@ -60,6 +70,7 @@ namespace mstts {
 constexpr int kLstmBwdThreads = 256;
 constexpr int kLstmBwdWarps = kLstmBwdThreads / 32;
 constexpr int kLstmBwdMaxNT = 2;   // n-tiles of 8 units: U <= 16
+constexpr int kLstmBwdWideNT = 8;  // the wide build's: U <= 64
 constexpr int kLstmBwdChunks = 2;  // 32-wide k chunks a warp loads ahead
 
 struct LstmBwdArgs {
@@ -69,6 +80,7 @@ struct LstmBwdArgs {
   int H;       // hidden units per direction
   int U;       // hidden units per block
   int nblk;    // blocks per direction
+  int ntr;     // n-tiles of 8 W_hh rows resident in shared memory (the rest stream)
   const __nv_bfloat16* gates[2];  // (T, B, 4H) pre-activation gates
   const __nv_bfloat16* c_prev[2]; // (T, B, H) cell state before each step
   const __nv_bfloat16* w[2];      // (H, 4H) W_hh: row k holds the 4H gate columns of unit k
@@ -78,12 +90,52 @@ struct LstmBwdArgs {
   unsigned int* bar;              // the grid barrier's arrival counter, zeroed by the wrapper
 };
 
-__host__ __device__ inline size_t lstm_bwd_smem_bytes(int U, int H, int B) {
+// A block's shared memory for U units over B rows, W_hh aside: the warps'
+// partial tiles, the carries, the residuals and the dG tile.
+__host__ __device__ inline size_t lstm_bwd_base_bytes(int U, int B) {
   const int NP = mstts_round_up(U, 8), BP = mstts_round_up(B, 32);
-  return 2 * (size_t)NP * mstts_k32_stride(4 * H) +
-         4 * ((size_t)kLstmBwdWarps * BP * NP + 8 * (size_t)B * U) + 2 * (size_t)B * 4 * U;
+  return 4 * ((size_t)kLstmBwdWarps * BP * NP + 8 * (size_t)B * U) + 2 * (size_t)B * 4 * U;
 }
 
+// The full layout: the base and the block's W_hh rows.
+__host__ __device__ inline size_t lstm_bwd_smem_bytes(int U, int H, int B) {
+  return 2 * (size_t)mstts_round_up(U, 8) * mstts_k32_stride(4 * H) + lstm_bwd_base_bytes(U, B);
+}
+
+struct LstmBwdLayout {
+  int U, nblk;   // units a block, blocks a direction (mstts_recurrence_grid)
+  int wide;      // 0: the full layout and build; 1: the W_hh tiles past ntr from L2
+  int ntr;       // W_hh n-tiles resident
+  size_t bytes;  // shared memory a block
+  int fits;      // bytes <= max_smem and the build holds the block's n-tiles
+};
+
+// The layout of a launch over `rows` of a batch of Bs rows on a card of nsm
+// SMs and max_smem opt-in bytes a block: the full one wherever it holds
+// min(Bs, 32) rows within the production build's n-tiles, else the wide one
+// with as many W_hh tiles as fit beside the base.
+__host__ __device__ inline LstmBwdLayout lstm_bwd_layout(int ndir, int H, int Bs, int rows,
+                                                         int nsm, size_t max_smem) {
+  LstmBwdLayout L = {};
+  L.U = (ndir * H + nsm - 1) / nsm;
+  L.nblk = (H + L.U - 1) / L.U;
+  const int NT = (L.U + 7) / 8;
+  L.wide = NT > kLstmBwdMaxNT || lstm_bwd_smem_bytes(L.U, H, Bs < 32 ? Bs : 32) > max_smem;
+  if (!L.wide) {
+    L.ntr = NT;
+    L.bytes = lstm_bwd_smem_bytes(L.U, H, rows);
+  } else {
+    const size_t base = lstm_bwd_base_bytes(L.U, rows);
+    const size_t tile = 2 * 8 * (size_t)mstts_k32_stride(4 * H);
+    const size_t fit = base > max_smem ? 0 : (max_smem - base) / tile;
+    L.ntr = fit < (size_t)NT ? (int)fit : NT;
+    L.bytes = base + (size_t)L.ntr * tile;
+  }
+  L.fits = L.bytes <= max_smem && NT <= (L.wide ? kLstmBwdWideNT : kLstmBwdMaxNT);
+  return L;
+}
+
+template <int kMaxNT, bool kWide>
 __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = a.H, H4 = 4 * a.H, B = a.B;
@@ -93,18 +145,19 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
   const int NP = mstts_round_up(a.U, 8), NT = (U + 7) / 8;
   const int BP = mstts_round_up(B, 32), WS = mstts_k32_stride(H4);
   const int BU = B * a.U;
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NP][WS]
-  float* part_s = reinterpret_cast<float*>(w_s + (size_t)NP * WS);  // [warp][BP][NP]
+  const int NR = kWide ? 8 * a.ntr : NP;  // W_hh rows resident
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NR][WS]
+  float* part_s = reinterpret_cast<float*>(w_s + (size_t)NR * WS);  // [warp][BP][NP]
   float* dh_s = part_s + (size_t)kLstmBwdWarps * BP * NP;           // [B][a.U]
   float* dc_s = dh_s + BU;                                           // [B][a.U]
   float* res_s = dc_s + BU;  // [6][B][a.U]: gates i, f, g, o, c_{t-1}, output cotangent
   __nv_bfloat16* dg_s = reinterpret_cast<__nv_bfloat16*>(res_s + 6 * BU);  // [B][4U]
 
-  for (size_t i = threadIdx.x; i < (size_t)NP * WS / 8; i += kLstmBwdThreads)
+  for (size_t i = threadIdx.x; i < (size_t)NR * WS / 8; i += kLstmBwdThreads)
     reinterpret_cast<uint4*>(w_s)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   const int K8 = H4 / 8;
-  for (int i = threadIdx.x; i < U * K8; i += kLstmBwdThreads) {
+  for (int i = threadIdx.x; i < min(U, NR) * K8; i += kLstmBwdThreads) {
     const int u = i / K8, k8 = i - u * K8;
     reinterpret_cast<uint4*>(w_s + (size_t)u * WS)[k8] =
         __ldg(reinterpret_cast<const uint4*>(a.w[dir] + (size_t)(u0 + u) * H4) + k8);
@@ -190,7 +243,7 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
                             ? __ldcg(reinterpret_cast<const uint4*>(rows[r] + (c + q) * 32))
                             : make_uint4(0u, 0u, 0u, 0u);
       };
-      float acc[2][kLstmBwdMaxNT][4] = {};
+      float acc[2][kMaxNT][4] = {};
       uint4 cur[kLstmBwdChunks][4], nxt[kLstmBwdChunks][4];
       load(cur, cb);
       for (int c = cb; c < ce; c += kLstmBwdChunks) {
@@ -200,10 +253,18 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
         for (int q = 0; q < kLstmBwdChunks; ++q) {
           if (c + q < ce) {
 #pragma unroll
-            for (int j = 0; j < kLstmBwdMaxNT; ++j) {
+            for (int j = 0; j < kMaxNT; ++j) {
               if (j < NT) {
-                const uint4 bw = *reinterpret_cast<const uint4*>(
-                    w_s + (size_t)(j * 8 + g8) * WS + (c + q) * 32 + tq * 8);
+                uint4 bw;
+                if (!kWide || j < a.ntr)
+                  bw = *reinterpret_cast<const uint4*>(w_s + (size_t)(j * 8 + g8) * WS +
+                                                       (c + q) * 32 + tq * 8);
+                else  // a streamed tile: row u0 + j*8 + g8 of W_hh, from L2
+                  bw = j * 8 + g8 < U
+                           ? __ldg(reinterpret_cast<const uint4*>(
+                                 a.w[dir] + (size_t)(u0 + j * 8 + g8) * H4 + (c + q) * 32 +
+                                 tq * 8))
+                           : make_uint4(0u, 0u, 0u, 0u);
                 mstts_mma_bf16_k32(acc[0][j], cur[q][0], cur[q][1], bw);
                 mstts_mma_bf16_k32(acc[1][j], cur[q][2], cur[q][3], bw);
               }
@@ -221,7 +282,7 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-        for (int j = 0; j < kLstmBwdMaxNT; ++j) {
+        for (int j = 0; j < kMaxNT; ++j) {
           if (j < NT) {
             const int m = m0 + mi * 16 + g8, n = j * 8 + 2 * tq;
             *reinterpret_cast<float2*>(pw + m * NP + n) = make_float2(acc[mi][j][0], acc[mi][j][1]);
@@ -244,23 +305,23 @@ __global__ void __launch_bounds__(kLstmBwdThreads, 1) lstm_bwd_kernel(LstmBwdArg
 }
 
 // Runs the reverse recurrence of ndir directions for rows b0 .. b0 + rows
-// of the batch (a.Bs rows) in one cooperative launch, or
-// refuses them if a block's shared memory does not hold that many rows.
-// Rows are independent (only W_hh is shared), so the caller runs a batch
-// in groups (ops/lstm_kernel.py::bwd_row_groups), each launch with a
-// barrier counter of its own.
+// of the batch (a.Bs rows) in one cooperative launch, in the layout
+// lstm_bwd_layout gives, or refuses them where it does not fit. Rows are
+// independent (only W_hh is shared), so the caller runs a batch in groups
+// (ops/lstm_kernel.py::bwd_row_groups), each launch with a barrier counter
+// of its own.
 inline int lstm_bwd_run(LstmBwdArgs a, int ndir, int b0, int rows, cudaStream_t stream) {
-  int dev = 0, max_smem = 0;
+  int dev = 0, nsm = 0, max_smem = 0;
   MSTTS_CHECK(cudaGetDevice(&dev));
+  MSTTS_CHECK(cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev));
   MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
   if (a.H % 8 != 0 || a.T < 1 || b0 < 0 || rows < 1 || b0 + rows > a.Bs)
     return (int)cudaErrorInvalidValue;
-  MSTTS_CHECK(mstts_recurrence_grid(ndir, a.H, &a.U, &a.nblk));
-  if ((a.U + 7) / 8 > kLstmBwdMaxNT) return (int)cudaErrorInvalidValue;
-  const size_t smem = lstm_bwd_smem_bytes(a.U, a.H, rows);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  MSTTS_CHECK(cudaFuncSetAttribute(lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem));
+  const LstmBwdLayout L = lstm_bwd_layout(ndir, a.H, a.Bs, rows, nsm, (size_t)max_smem);
+  if (!L.fits) return (int)cudaErrorInvalidValue;
+  a.U = L.U;
+  a.nblk = L.nblk;
+  a.ntr = L.ntr;
   a.B = rows;
   for (int d = 0; d < ndir; ++d) {
     a.gates[d] += (size_t)b0 * 4 * a.H;
@@ -269,10 +330,31 @@ inline int lstm_bwd_run(LstmBwdArgs a, int ndir, int b0, int rows, cudaStream_t 
     a.dG[d] += (size_t)b0 * 4 * a.H;
   }
   if (a.d_hT) a.d_hT += (size_t)b0 * a.H;
+  const void* kernel = L.wide ? (const void*)lstm_bwd_kernel<kLstmBwdWideNT, true>
+                              : (const void*)lstm_bwd_kernel<kLstmBwdMaxNT, false>;
+  MSTTS_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)L.bytes));
   void* params[] = {&a};
-  MSTTS_CHECK(cudaLaunchCooperativeKernel((const void*)lstm_bwd_kernel, dim3(ndir * a.nblk),
-                                          dim3(kLstmBwdThreads), params, smem, stream));
+  MSTTS_CHECK(cudaLaunchCooperativeKernel(kernel, dim3(ndir * L.nblk), dim3(kLstmBwdThreads),
+                                          params, L.bytes, stream));
   MSTTS_RETURN_LAUNCH_ERROR();
+}
+
+// The layout of a launch on this card, for the caller's mirror
+// (ops/lstm_kernel.bwd_layout): out = U, nblk, wide, ntr, bytes, fits.
+inline int lstm_bwd_layout_of(int ndir, int H, int Bs, int rows, int* out) {
+  int dev = 0, nsm = 0, max_smem = 0;
+  MSTTS_CHECK(cudaGetDevice(&dev));
+  MSTTS_CHECK(cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev));
+  MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  const LstmBwdLayout L = lstm_bwd_layout(ndir, H, Bs, rows, nsm, (size_t)max_smem);
+  out[0] = L.U;
+  out[1] = L.nblk;
+  out[2] = L.wide;
+  out[3] = L.ntr;
+  out[4] = (int)L.bytes;
+  out[5] = L.fits;
+  return 0;
 }
 
 }  // namespace mstts

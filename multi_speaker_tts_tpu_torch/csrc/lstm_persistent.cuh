@@ -45,6 +45,21 @@
 //   phase-0 weight rows so that a quarter-warp's 16-byte loads of two rows
 //   do (stride 64 mod 128 bytes).
 //
+// The wide layout (a second instantiation, lstm_persistent_kernel<true>):
+// where a block's full layout does not hold min(B, kLstmMaxRows) rows
+// (at 32 rows on an H100: from H 1000 for a stacked layer with D = H, from
+// H 1208 for GE2E's layer 0 at D 80, from H 904 a direction for the
+// BiLSTM), W_ih leaves shared memory (phase 0 reads it from L2, 16 bytes a
+// lane, in the register ring that brings x), the partial tiles take 4
+// slots of two warps each (kLstmWideSlots), and every n-tile of W_hh past
+// the ntr that fit beside the launch's other regions stays in L2 (at 32
+// rows: from H 1328, and from H 952 a direction): a streamed tile's B
+// fragments are loaded each step, one k-step ahead of their MMAs.
+// lstm_layout decides, from the card's opt-in bytes;
+// ops/lstm_kernel.fwd_layout mirrors it. Every production width keeps the
+// full layout, so its code is the instantiation
+// lstm_persistent_kernel<false>, unchanged.
+//
 // Residual mode (training): with g_res / c_res set, each step also stores
 // the f32 pre-activation gates rounded to bf16 and c_{t-1} rounded to bf16,
 // in natural time, which is what the TPU kernels store with
@@ -64,13 +79,20 @@ namespace mstts {
 constexpr int kLstmThreads = 256;
 constexpr int kLstmWarps = kLstmThreads / 32;
 // Rows a launch: at most kLstmMT m-tiles of 16. Larger batches take more
-// launches (lstm_run); at B = 64 two launches of 32 rows took the time of
-// one of 64, and the step's code, which every step fetches again, is smaller.
+// launches, one entry call a row group that the caller plans
+// (ops/lstm_kernel.fwd_row_groups); at B = 64 two launches of 32 rows took
+// the time of one of 64, and the step's code, which every step fetches
+// again, is smaller.
 constexpr int kLstmMaxRows = 32;
 constexpr int kLstmMT = kLstmMaxRows / 16;
 constexpr int kLstmNGroup = 3;    // n-tiles of 8 gate columns a warp holds at once
 constexpr int kLstmRing = 2;      // phase 0: 32-wide k chunks a warp loads ahead
 constexpr int kLstmPre = 4;       // input-half values a thread prefetches a step
+// Slots of partial tiles: the full layout splits a step's K across the 8
+// warps; the wide one across 4 slots of two warps each, the two taking
+// alternate n-groups, which halves the partial tiles (at H 4096 a
+// direction they would outgrow a block beside h_{t-1}).
+constexpr int kLstmWideSlots = 4;
 
 struct LstmArgs {
   int T;      // time steps
@@ -80,6 +102,7 @@ struct LstmArgs {
   int H;      // hidden units per direction
   int U;      // hidden units per block
   int nblk;   // blocks per direction
+  int ntr;    // n-tiles of 8 W_hh columns resident in shared memory (the rest stream)
   const __nv_bfloat16* x;      // (T, Bs, D) when D > 0
   const __nv_bfloat16* gx[2];  // (T, Bs, 4H) hoisted gates + bias when D == 0
   const __nv_bfloat16* w[2];   // (4H, D + H): row n = [W_ih[:, n]; W_hh[:, n]]
@@ -91,17 +114,57 @@ struct LstmArgs {
   __nv_bfloat16* g_res[2];     // (T, Bs, 4H) pre-activation gates, or null
   __nv_bfloat16* c_res[2];     // (T, Bs, H) cell state before the step, or null
   unsigned int* bar;           // the grid barrier's arrival counter, zeroed by the wrapper
-  unsigned int epoch0;         // arrivals counted by this call's earlier launches
 };
 
-__host__ __device__ inline size_t lstm_smem_bytes(int U, int D, int H, int B) {
+// A block's shared memory for U units of H over B rows, the weights aside:
+// h_{t-1}, the partial tiles of `slots` slots, the input half, c and the
+// residual tile.
+__host__ __device__ inline size_t lstm_base_bytes(int U, int H, int B, int slots) {
   const int NP = mstts_round_up(4 * U, 8), BP = mstts_round_up(B, 16);
-  const size_t bf16 = (size_t)NP * (D > 0 ? mstts_k32_stride(D) : 0) +
-                      (size_t)(NP + BP) * mstts_ldmatrix_stride(H);
-  const size_t f32 = (size_t)kLstmWarps * BP * NP + (size_t)B * NP + (size_t)B * U;
-  return 2 * bf16 + 4 * f32 + 2 * ((size_t)B * 4 * U + (size_t)B * U);
+  return 2 * (size_t)BP * mstts_ldmatrix_stride(H) +
+         4 * ((size_t)slots * BP * NP + (size_t)B * NP + (size_t)B * U) +
+         2 * ((size_t)B * 4 * U + (size_t)B * U);
 }
 
+// The full layout: the base and the block's W_ih and W_hh columns.
+__host__ __device__ inline size_t lstm_smem_bytes(int U, int D, int H, int B) {
+  const int NP = mstts_round_up(4 * U, 8);
+  return lstm_base_bytes(U, H, B, kLstmWarps) +
+         2 * (size_t)NP * ((D > 0 ? mstts_k32_stride(D) : 0) + mstts_ldmatrix_stride(H));
+}
+
+struct LstmLayout {
+  int U, nblk;   // units a block, blocks a direction (mstts_recurrence_grid)
+  int wide;      // 0: the full layout; 1: W_ih and the W_hh tiles past ntr from L2
+  int ntr;       // W_hh n-tiles resident
+  size_t bytes;  // shared memory a block
+};
+
+// The layout of a launch over `rows` of a batch of Bs rows on a card of nsm
+// SMs and max_smem opt-in bytes a block: the full one wherever it holds
+// min(Bs, kLstmMaxRows) rows, else the wide one with as many W_hh tiles as
+// fit beside the base. The launch fits if bytes <= max_smem.
+__host__ __device__ inline LstmLayout lstm_layout(int ndir, int D, int H, int Bs, int rows,
+                                                  int nsm, size_t max_smem) {
+  LstmLayout L = {};
+  L.U = (ndir * H + nsm - 1) / nsm;
+  L.nblk = (H + L.U - 1) / L.U;
+  const int NT = mstts_round_up(4 * L.U, 8) / 8;
+  L.wide = lstm_smem_bytes(L.U, D, H, Bs < kLstmMaxRows ? Bs : kLstmMaxRows) > max_smem;
+  if (!L.wide) {
+    L.ntr = NT;
+    L.bytes = lstm_smem_bytes(L.U, D, H, rows);
+    return L;
+  }
+  const size_t base = lstm_base_bytes(L.U, H, rows, kLstmWideSlots);
+  const size_t tile = 2 * 8 * (size_t)mstts_ldmatrix_stride(H);
+  const size_t fit = base > max_smem ? 0 : (max_smem - base) / tile;
+  L.ntr = fit < (size_t)NT ? (int)fit : NT;
+  L.bytes = base + (size_t)L.ntr * tile;
+  return L;
+}
+
+template <bool kWide>
 __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = a.D, H = a.H, B = a.B, H4 = 4 * a.H;
@@ -111,34 +174,45 @@ __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmAr
   const int R = 4 * U;             // gate columns owned: n = g*U + u
   const int NP = mstts_round_up(4 * a.U, 8), NT = (R + 7) / 8;
   const int BP = mstts_round_up(B, 16), MT = BP / 16;
-  const int DS = D > 0 ? mstts_k32_stride(D) : 0, HS = mstts_ldmatrix_stride(H);
+  const int DS = D > 0 && !kWide ? mstts_k32_stride(D) : 0, HS = mstts_ldmatrix_stride(H);
+  const int NR = kWide ? 8 * a.ntr : NP;  // W_hh rows resident
+  constexpr int kSlots = kWide ? kLstmWideSlots : kLstmWarps;  // partial tiles
   __nv_bfloat16* wx_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NP][DS] W_ih columns
-  __nv_bfloat16* wh_s = wx_s + (size_t)NP * DS;                      // [NP][HS] W_hh columns
-  __nv_bfloat16* h_s = wh_s + (size_t)NP * HS;                       // [BP][HS] h_{t-1}
+  __nv_bfloat16* wh_s = wx_s + (size_t)NP * DS;                      // [NR][HS] W_hh columns
+  __nv_bfloat16* h_s = wh_s + (size_t)NR * HS;                       // [BP][HS] h_{t-1}
   float* part_s = reinterpret_cast<float*>(h_s + (size_t)BP * HS);   // [warp][BP][NP]
-  float* pre_s = part_s + (size_t)kLstmWarps * BP * NP;              // [B][NP] input half
+  float* pre_s = part_s + (size_t)kSlots * BP * NP;                  // [B][NP] input half
   float* c_s = pre_s + (size_t)B * NP;                               // [B][a.U]
   __nv_bfloat16* gres_s = reinterpret_cast<__nv_bfloat16*>(c_s + (size_t)B * a.U);  // [B][R]
   __nv_bfloat16* cres_s = gres_s + (size_t)B * 4 * a.U;                             // [B][a.U]
 
   // Zero the padded tiles (rows past R or B, columns past D or H), then
   // load the resident weight slice: local row r = g*U + u <- global row
-  // g*H + u0 + u.
-  const size_t n_bf16_16 = ((size_t)NP * DS + (size_t)(NP + BP) * HS) / 8;
+  // g*H + u0 + u (wide layout: W_hh's first NR rows only).
+  const size_t n_bf16_16 = ((size_t)NP * DS + (size_t)(NR + BP) * HS) / 8;
   for (size_t i = threadIdx.x; i < n_bf16_16; i += kLstmThreads)
     reinterpret_cast<uint4*>(wx_s)[i] = make_uint4(0u, 0u, 0u, 0u);
   for (int i = threadIdx.x; i < B * a.U; i += kLstmThreads) c_s[i] = 0.0f;
   __syncthreads();
   const int K8 = (D + H) / 8, D8 = D / 8;
-  for (int i = threadIdx.x; i < R * K8; i += kLstmThreads) {
-    const int r = i / K8, k8 = i - r * K8;
-    const int g = r / U, u = r - g * U;
-    const uint4 v =
-        __ldg(reinterpret_cast<const uint4*>(a.w[dir] + (size_t)(g * H + u0 + u) * (D + H)) + k8);
-    if (k8 < D8)
-      reinterpret_cast<uint4*>(wx_s + (size_t)r * DS)[k8] = v;
-    else
-      reinterpret_cast<uint4*>(wh_s + (size_t)r * HS)[k8 - D8] = v;
+  // This block's global weight row of local gate column n.
+  auto wrow = [&](int n) { return a.w[dir] + (size_t)((n / U) * H + u0 + n % U) * (D + H); };
+  if constexpr (!kWide) {
+    for (int i = threadIdx.x; i < R * K8; i += kLstmThreads) {
+      const int r = i / K8, k8 = i - r * K8;
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(wrow(r)) + k8);
+      if (k8 < D8)
+        reinterpret_cast<uint4*>(wx_s + (size_t)r * DS)[k8] = v;
+      else
+        reinterpret_cast<uint4*>(wh_s + (size_t)r * HS)[k8 - D8] = v;
+    }
+  } else {
+    const int H8 = H / 8, RR = min(R, NR);
+    for (int i = threadIdx.x; i < RR * H8; i += kLstmThreads) {
+      const int r = i / H8, k8 = i - r * H8;
+      reinterpret_cast<uint4*>(wh_s + (size_t)r * HS)[k8] =
+          __ldg(reinterpret_cast<const uint4*>(wrow(r) + D) + k8);
+    }
   }
   __syncthreads();
 
@@ -174,19 +248,46 @@ __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmAr
                             : make_uint4(0u, 0u, 0u, 0u);
       };
       for (int ng = 0; ng < NT; ng += kLstmNGroup) {
+        // Wide layout: this lane's W_ih row of each n-tile, read from L2 in
+        // the same ring as x (wcur / wnxt: the weight pieces of the chunks
+        // whose x pieces cur / nxt hold).
+        const __nv_bfloat16* wxr[kLstmNGroup];
+#pragma unroll
+        for (int j = 0; j < kLstmNGroup; ++j) {
+          const int n = (ng + j) * 8 + g8;
+          wxr[j] = kWide && ng + j < NT && n < R ? wrow(n) + tq * 8 : nullptr;
+        }
+        auto loadw = [&](uint4 (&buf)[kLstmRing][kLstmNGroup], int kc) {
+#pragma unroll
+          for (int q = 0; q < kLstmRing; ++q)
+#pragma unroll
+            for (int j = 0; j < kLstmNGroup; ++j)
+              buf[q][j] = wxr[j] != nullptr && kc + q < kchunks && (kc + q) * 32 + tq * 8 < D
+                              ? __ldg(reinterpret_cast<const uint4*>(wxr[j] + (kc + q) * 32))
+                              : make_uint4(0u, 0u, 0u, 0u);
+        };
         float acc[2][kLstmNGroup][4] = {};
         uint4 cur[kLstmRing][4], nxt[kLstmRing][4];
+        uint4 wcur[kLstmRing][kLstmNGroup], wnxt[kLstmRing][kLstmNGroup];
         load(cur, 0);
+        if constexpr (kWide) loadw(wcur, 0);
         for (int kc = 0; kc < kchunks; kc += kLstmRing) {
           const bool more = kc + kLstmRing < kchunks;
           if (more) load(nxt, kc + kLstmRing);
+          if constexpr (kWide) {
+            if (more) loadw(wnxt, kc + kLstmRing);
+          }
 #pragma unroll
           for (int q = 0; q < kLstmRing; ++q) {
 #pragma unroll
             for (int j = 0; j < kLstmNGroup; ++j) {
               if (kc + q < kchunks && ng + j < NT) {
-                const uint4 b = *reinterpret_cast<const uint4*>(
-                    wx_s + (size_t)((ng + j) * 8 + g8) * DS + (kc + q) * 32 + tq * 8);
+                uint4 b;
+                if constexpr (kWide)
+                  b = wcur[q][j];
+                else
+                  b = *reinterpret_cast<const uint4*>(
+                      wx_s + (size_t)((ng + j) * 8 + g8) * DS + (kc + q) * 32 + tq * 8);
                 mstts_mma_bf16_k32(acc[0][j], cur[q][0], cur[q][1], b);
                 mstts_mma_bf16_k32(acc[1][j], cur[q][2], cur[q][3], b);
               }
@@ -197,6 +298,12 @@ __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmAr
             for (int q = 0; q < kLstmRing; ++q)
 #pragma unroll
               for (int r = 0; r < 4; ++r) cur[q][r] = nxt[q][r];
+            if constexpr (kWide) {
+#pragma unroll
+              for (int q = 0; q < kLstmRing; ++q)
+#pragma unroll
+                for (int j = 0; j < kLstmNGroup; ++j) wcur[q][j] = wnxt[q][j];
+            }
           }
         }
 #pragma unroll
@@ -265,36 +372,75 @@ __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmAr
   put_pre(0);
 
   const int ksteps = (H + 15) / 16;
-  const int kb = warp * ksteps / kLstmWarps, ke = (warp + 1) * ksteps / kLstmWarps;
+  // This warp's k range (its slot's) and its first n-group; the full
+  // layout: a k range a warp, every n-group.
+  const int slot = warp % kSlots, pair = warp / kSlots;
+  const int kb = slot * ksteps / kSlots, ke = (slot + 1) * ksteps / kSlots;
   const bool residuals = a.g_res[dir] != nullptr;
-  unsigned int epoch = a.epoch0;  // of the grid barrier
+  unsigned int epoch = 0;  // of the grid barrier
   for (int s = 0; s < a.T; ++s) {
     const int t = dir == 0 ? s : a.T - 1 - s;  // natural time of this step
     const int tp = dir == 0 ? t - 1 : t + 1;   // natural time of h_{prev}
     if (s + 1 < a.T) fetch_pre(s + 1);  // in flight through the step
     if (s > 0) {  // at s = 0, h_s holds zeros
       // Each warp stages the columns of h_{t-1} that its own k range reads
-      // (and no other warp does), so it waits for its own copies only.
-      // Written by other blocks this launch: cp.async.cg reads through L2.
+      // (and no other warp does), so it waits for its own copies only; in
+      // the wide layout the two warps of a slot share them, and the block
+      // waits for all. Written by other blocks this launch: cp.async.cg
+      // reads through L2.
       const int c0 = 2 * kb, cw = min(2 * ke, H / 8) - c0;  // 8-column pieces
       const __nv_bfloat16* src = a.ys[dir] + (size_t)tp * a.Bs * H;
-      for (int i = lane; i < B * cw; i += 32) {
+      for (int i = lane + 32 * pair; i < B * cw; i += 32 * (kLstmWarps / kSlots)) {
         const int b = i / cw, k8 = c0 + i % cw;
         mstts_cp_async16(h_s + (size_t)b * HS + 8 * k8, src + (size_t)b * H + 8 * k8);
       }
       mstts_cp_async_wait_all();
-      __syncwarp();
+      if constexpr (kWide)
+        __syncthreads();
+      else
+        __syncwarp();
     }
 
     // The recurrent half: this warp's k range of h_{t-1} . W_hh slice.
-    for (int ng = 0; ng < NT; ng += kLstmNGroup) {
+    for (int ng = pair * kLstmNGroup; ng < NT; ng += kLstmWarps / kSlots * kLstmNGroup) {
+      // Wide layout: a streamed n-tile's B fragments (b0 = k 2tq, 2tq + 1 and
+      // b1 = k 2tq + 8, 2tq + 9 of row n = g8) come from this lane's W_hh row
+      // in L2, loaded one k-step ahead of their MMAs.
+      const __nv_bfloat16* whr[kLstmNGroup];
+      uint32_t nb[kLstmNGroup][2];
+      auto fetch = [&](int ks) {
+#pragma unroll
+        for (int j = 0; j < kLstmNGroup; ++j) {
+          const int k0 = ks * 16 + 2 * tq;
+          const bool on = whr[j] != nullptr && ks < ke;
+          nb[j][0] = on ? __ldg(reinterpret_cast<const unsigned int*>(whr[j] + k0)) : 0u;
+          nb[j][1] = on && k0 + 8 < H
+                         ? __ldg(reinterpret_cast<const unsigned int*>(whr[j] + k0 + 8)) : 0u;
+        }
+      };
+      if constexpr (kWide) {
+#pragma unroll
+        for (int j = 0; j < kLstmNGroup; ++j) {
+          const int n = (ng + j) * 8 + g8;
+          whr[j] = ng + j >= a.ntr && ng + j < NT && n < R ? wrow(n) + D : nullptr;
+        }
+        fetch(kb);
+      }
       float acc[kLstmMT][kLstmNGroup][4] = {};
       for (int ks = kb; ks < ke; ++ks) {
         const int k0 = ks * 16;
         uint32_t bf[kLstmNGroup][2];
+        if constexpr (kWide) {
+#pragma unroll
+          for (int j = 0; j < kLstmNGroup; ++j) {
+            bf[j][0] = nb[j][0];
+            bf[j][1] = nb[j][1];
+          }
+          fetch(ks + 1);
+        }
 #pragma unroll
         for (int j = 0; j < kLstmNGroup; ++j)
-          if (ng + j < NT)
+          if (ng + j < NT && (!kWide || ng + j < a.ntr))
             mstts_ldmatrix_x2(bf[j], wh_s + (size_t)((ng + j) * 8 + (lane & 7)) * HS + k0 +
                                          ((lane >> 3) & 1) * 8);
 #pragma unroll
@@ -310,7 +456,7 @@ __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmAr
           }
         }
       }
-      float* pw = part_s + (size_t)warp * BP * NP;
+      float* pw = part_s + (size_t)slot * BP * NP;
 #pragma unroll
       for (int mi = 0; mi < kLstmMT; ++mi) {
 #pragma unroll
@@ -335,7 +481,7 @@ __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmAr
         const int n = g * U + u;
         float v = pre_s[b * NP + n];
 #pragma unroll
-        for (int w = 0; w < kLstmWarps; ++w) v += part_s[((size_t)w * BP + b) * NP + n];
+        for (int w = 0; w < kSlots; ++w) v += part_s[((size_t)w * BP + b) * NP + n];
         gs[g] = v;
       }
       const float ig = mstts_sigmoid(gs[0]);
@@ -370,47 +516,65 @@ __global__ void __launch_bounds__(kLstmThreads, 1) lstm_persistent_kernel(LstmAr
   }
 }
 
-// Runs the recurrence for all rows, in launches of as many rows as shared
-// memory and the kLstmMT m-tiles of a step hold. `a` arrives with its
-// pointers at row 0 and a.B = a.Bs.
-inline int lstm_run(LstmArgs a, int ndir, cudaStream_t stream) {
-  int dev = 0, max_smem = 0;
+// Runs the recurrence of ndir directions for rows b0 .. b0 + rows of the
+// batch (a.Bs rows) in one cooperative launch, in the layout lstm_layout
+// gives, or refuses them where it does not fit. Rows are independent
+// (only the weights are shared), so the caller runs a batch in groups
+// (ops/lstm_kernel.py::fwd_row_groups), each launch with a barrier counter
+// of its own. `a` arrives with its pointers at row 0.
+inline int lstm_run(LstmArgs a, int ndir, int b0, int rows, cudaStream_t stream) {
+  int dev = 0, nsm = 0, max_smem = 0;
   MSTTS_CHECK(cudaGetDevice(&dev));
+  MSTTS_CHECK(cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev));
   MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  if (a.D % 8 != 0 || a.H % 8 != 0 || a.T < 1 || a.Bs < 1 || (a.D > 0 && a.xg == nullptr))
+  if (a.D % 8 != 0 || a.H % 8 != 0 || a.T < 1 || a.Bs < 1 || (a.D > 0 && a.xg == nullptr) ||
+      b0 < 0 || rows < 1 || rows > kLstmMaxRows || b0 + rows > a.Bs)
     return (int)cudaErrorInvalidValue;
-  MSTTS_CHECK(mstts_recurrence_grid(ndir, a.H, &a.U, &a.nblk));
-  int rows = std::min(a.Bs, kLstmMaxRows);
-  while (rows > 1 && lstm_smem_bytes(a.U, a.D, a.H, rows) > (size_t)max_smem) rows = (rows + 1) / 2;
-  const size_t smem_max_rows = lstm_smem_bytes(a.U, a.D, a.H, rows);
-  if (smem_max_rows > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  MSTTS_CHECK(cudaFuncSetAttribute(lstm_persistent_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem_max_rows));
-  const dim3 grid(ndir * a.nblk), block(kLstmThreads);
-  for (int b0 = 0; b0 < a.Bs; b0 += rows) {
-    LstmArgs c = a;
-    c.B = std::min(rows, a.Bs - b0);
-    c.epoch0 = (unsigned int)(b0 / rows) * grid.x * (unsigned int)(a.T - 1);
-    if (c.x) c.x += (size_t)b0 * a.D;
-    if (c.xg) c.xg += (size_t)b0 * 4 * a.H;
-    for (int d = 0; d < ndir; ++d) {
-      if (c.gx[d]) c.gx[d] += (size_t)b0 * 4 * a.H;
-      c.ys[d] += (size_t)b0 * a.H;
-      if (c.g_res[d]) {
-        c.g_res[d] += (size_t)b0 * 4 * a.H;
-        c.c_res[d] += (size_t)b0 * a.H;
-      }
+  const LstmLayout L = lstm_layout(ndir, a.D, a.H, a.Bs, rows, nsm, (size_t)max_smem);
+  if (L.bytes > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  a.U = L.U;
+  a.nblk = L.nblk;
+  a.ntr = L.ntr;
+  a.B = rows;
+  if (a.x) a.x += (size_t)b0 * a.D;
+  if (a.xg) a.xg += (size_t)b0 * 4 * a.H;
+  for (int d = 0; d < ndir; ++d) {
+    if (a.gx[d]) a.gx[d] += (size_t)b0 * 4 * a.H;
+    a.ys[d] += (size_t)b0 * a.H;
+    if (a.g_res[d]) {
+      a.g_res[d] += (size_t)b0 * 4 * a.H;
+      a.c_res[d] += (size_t)b0 * a.H;
     }
-    if (c.h_last) {
-      c.h_last += (size_t)b0 * a.H;
-      c.c_last += (size_t)b0 * a.H;
-    }
-    void* params[] = {&c};
-    MSTTS_CHECK(cudaLaunchCooperativeKernel((const void*)lstm_persistent_kernel, grid, block,
-                                            params, lstm_smem_bytes(a.U, a.D, a.H, c.B), stream));
   }
+  if (a.h_last) {
+    a.h_last += (size_t)b0 * a.H;
+    a.c_last += (size_t)b0 * a.H;
+  }
+  const void* kernel = L.wide ? (const void*)lstm_persistent_kernel<true>
+                              : (const void*)lstm_persistent_kernel<false>;
+  MSTTS_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)L.bytes));
+  void* params[] = {&a};
+  MSTTS_CHECK(cudaLaunchCooperativeKernel(kernel, dim3(ndir * L.nblk), dim3(kLstmThreads), params,
+                                          L.bytes, stream));
   MSTTS_RETURN_LAUNCH_ERROR();
+}
+
+// The layout of a launch on this card, for the caller's mirror
+// (ops/lstm_kernel.fwd_layout): out = U, nblk, wide, ntr, bytes, fits.
+inline int lstm_layout_of(int ndir, int D, int H, int Bs, int rows, int* out) {
+  int dev = 0, nsm = 0, max_smem = 0;
+  MSTTS_CHECK(cudaGetDevice(&dev));
+  MSTTS_CHECK(cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev));
+  MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  const LstmLayout L = lstm_layout(ndir, D, H, Bs, rows, nsm, (size_t)max_smem);
+  out[0] = L.U;
+  out[1] = L.nblk;
+  out[2] = L.wide;
+  out[3] = L.ntr;
+  out[4] = (int)L.bytes;
+  out[5] = L.bytes <= (size_t)max_smem && rows <= kLstmMaxRows;
+  return 0;
 }
 
 }  // namespace mstts

@@ -52,7 +52,11 @@ from torch.profiler import record_function
 from multi_speaker_tts_tpu_torch import text as text_frontend
 from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
 from multi_speaker_tts_tpu_torch.checkpoints import load_compact
-from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse, default_hparams
+from multi_speaker_tts_tpu_torch.hparams import (
+    Recursive_Parse,
+    default_hparams,
+    load_hyper_parameters,
+)
 from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
 from multi_speaker_tts_tpu_torch.models.speaker import SpeakerLUT
@@ -593,6 +597,9 @@ def main(argv=None) -> None:
     parser.add_argument("-checkpoint", required=True,
                         help=".msgpack compact checkpoint (export_compact) or a "
                              "training checkpoint directory")
+    parser.add_argument("-hp", "--hyper_parameters", default=None,
+                        help="hyper-parameters (YAML, needs pyyaml, or JSON) in place "
+                             "of the checkpoint's own")
     parser.add_argument("-text", action="append", default=[])
     parser.add_argument("-text_file", default=None,
                         help="file with one sentence per line")
@@ -612,6 +619,7 @@ def main(argv=None) -> None:
     parser.add_argument("-device", default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
     args = parser.parse_args(argv)
+    hp = load_hyper_parameters(args.hyper_parameters) if args.hyper_parameters else None
 
     texts = list(args.text)
     if args.text_file:
@@ -620,7 +628,8 @@ def main(argv=None) -> None:
     if not texts:
         parser.error("pass -text and/or -text_file")
     try:
-        synth = Synthesizer.from_path(args.checkpoint, quantize=args.quantize, device=args.device)
+        synth = Synthesizer.from_path(args.checkpoint, hp=hp, quantize=args.quantize,
+                                      device=args.device)
     except FileNotFoundError as e:  # no such file, or a directory without a checkpoint
         parser.error(f"-checkpoint {args.checkpoint!r}: {e}")
     hp = synth.hp

@@ -126,10 +126,12 @@ class Decoder(nn.Module):
         """What every AR mode shares: the parameters, the memory keys, the
         prenet at global step t (its keep masks from ``prenet_masks(t)``),
         the int8 weights of ``Quantize_Int8`` and, under ``Pallas_Decode``,
-        the decode kernel's K-step chunk body, or past the kernel's limit on
-        memory positions (``decode_kernel.position_limit``) the plain loop's
-        weights, printing one ``[dispatch] decode -> plain`` line a process
-        on the card."""
+        the decode kernel's K-step chunk body. Where the kernel's gate and
+        the reference's both refuse (``decode_kernel.plain_reason``: past the
+        kernel's limit on memory positions; on the card, bf16 past H 2048 on
+        an H100, whose fused weights pass the reference's 80 MB), the plain
+        loop's weights on the tensors' device instead, printing one
+        ``[dispatch] decode -> plain`` line a process on the card."""
         keys = self.memory_layer(memory.float())
         ws = [(d.kernel, d.bias) for d in self.prenet]
         rate = self.prenet_dropout
@@ -142,23 +144,17 @@ class Decoder(nn.Module):
         segment_fn = None
         quantized = self.pallas_decode != "bf16"
         S = memory.shape[1]
-        limit = (decode_kernel.position_limit(p, [w.shape[1] for w, _ in ws], memory.shape[-1],
-                                              self.mel_dim, quantized,
-                                              decode_kernel.card_limits(memory.device))
-                 if self.pallas_decode else None)
-        if limit is not None and S > limit:
-            # The reference decodes on its XLA path wherever its kernel's
-            # gate refuses; so does the port past the one limit that depends
-            # on the text, the kernel's memory positions: the plain loop on
-            # the tensors' device, with the fused weights of Quantize_Int8's
-            # rule (int8 where it is set, else the compute dtype's).
+        plain = (decode_kernel.plain_reason(p, [w.shape[1] for w, _ in ws], memory.shape[-1], S,
+                                            self.mel_dim, quantized,
+                                            decode_kernel.card_limits(memory.device),
+                                            memory.is_cuda)
+                 if self.pallas_decode else None)  # why the plain loop runs instead
+        if plain is not None:
             if memory.is_cuda:
-                log_dispatch("decode", "plain", f"S={S} past the decode kernel's {limit} memory "
-                                                f"positions in {'int8' if quantized else 'bf16'}"
-                                                " mode")
+                log_dispatch("decode", "plain", plain)
         elif self.pallas_decode:
-            # Every other refusal raises at the launch on the card: there is
-            # no quiet fall-back to the plain loop for widths it does not take.
+            # Every other refusal (where the reference launches its kernel)
+            # raises at the launch on the card: no quiet fall-back.
             bundle = decode_kernel.prepare_bundle(p, ws, quantize=quantized)
 
             def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K, th):

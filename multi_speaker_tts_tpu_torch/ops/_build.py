@@ -95,10 +95,8 @@ class Kernel:
 
     ``launches`` counts calls of the kernel's entry points that reached
     the card; the plain versions never touch it. An entry point launches
-    its kernel once (a batch past one launch's rows is one call a row
-    group, :meth:`call_groups`), save the LSTM forward's
-    (``lstm_run`` in csrc/lstm_persistent.cuh), which loops over its row
-    groups inside one call.
+    its kernel once: a batch past one launch's rows is one call a row
+    group (:meth:`call_groups`).
     """
 
     def __init__(self, name: str, source: str, functions: dict):
@@ -134,15 +132,14 @@ class Kernel:
             raise RuntimeError(f"{self.name}: {fn} failed: {msg} ({err})")
         self.launches += 1
 
-    def call_groups(self, fn: str, args, groups, T: int, B: int, H: int, stream: int,
-                    device) -> None:
+    def call_groups(self, fn: str, args, groups, dims, stream: int, device) -> None:
         """Run a persistent recurrence's entry point once a row group: its
-        arguments are ``args``, a grid-barrier counter, then T, B, H, the
-        group's first row and its rows, then the stream. Each launch gets a
-        zeroed counter of its own and counts once."""
+        arguments are ``args``, a grid-barrier counter, the ``dims`` (T, B[,
+        D], H), the group's first row and its rows, then the stream. Each
+        launch gets a zeroed counter of its own and counts once."""
         bar = torch.zeros(len(groups), dtype=torch.int32, device=device)
         for i, g in enumerate(groups):
-            self.call(fn, *args, bar.data_ptr() + 4 * i, T, B, H, g.start, g.stop - g.start,
+            self.call(fn, *args, bar.data_ptr() + 4 * i, *dims, g.start, g.stop - g.start,
                       stream)
 
 
@@ -170,19 +167,42 @@ def supported(compute_dtype) -> bool:
     return compute_dtype == torch.bfloat16
 
 
-def plain_route(op: str, x, compute_dtype) -> bool:
+def plain_route(op: str, x, compute_dtype, refusal, reference_launches: bool) -> bool:
     """Whether a recurrence dispatcher (``lstm_stack_seq``, ``bilstm``,
-    ``bigru``) takes the reference's plain route: a compute dtype the
-    kernels do not take (:func:`supported`; an f32 checkpoint) runs the plain
-    recurrences, the port's counterparts of the XLA scans the reference runs
-    then, printing one ``[dispatch]`` line a process on the card. The kernel
-    wrappers themselves keep raising on such a dtype."""
-    if supported(compute_dtype):
+    ``bigru``) takes the reference's plain route, the port's counterpart of
+    the XLA scans the reference runs where its gate refuses its kernel:
+    - a compute dtype the kernels do not take (:func:`supported`; an f32
+      checkpoint), on any device;
+    - on the card, a shape the port's kernels refuse (``refusal()``: why,
+      or None; asked only here) that the reference's gate refuses too
+      (``reference_launches`` False).
+    Either prints one ``[dispatch]`` line a process on the card. Where the
+    reference launches its kernel and the port's refuses, the kernel
+    wrapper raises, as it does on an f32 tensor."""
+    if not supported(compute_dtype):
+        if x.is_cuda:
+            log_dispatch(op, "plain", f"compute dtype {compute_dtype}: the kernels compute in "
+                                      "bf16 only")
+        return True
+    if reference_launches or not x.is_cuda:
         return False
-    if x.is_cuda:
-        log_dispatch(op, "plain", f"compute dtype {compute_dtype}: the kernels compute in "
-                                  "bf16 only")
+    why = refusal()
+    if why is None:
+        return False
+    log_dispatch(op, "plain", f"{why}; the reference's gate refuses it too")
     return True
+
+
+# The JAX package's lane: its recurrence and decode kernels take widths in
+# multiples of it (``lstm_pallas.supported``, ``birnn_pallas.supported``,
+# ``decode_pallas.supported``).
+REFERENCE_LANE = 128
+
+
+def reference_widths_ok(*widths: int) -> bool:
+    """The width half of the JAX package's recurrence gates: every hidden
+    size a multiple of :data:`REFERENCE_LANE`."""
+    return all(w % REFERENCE_LANE == 0 for w in widths)
 
 
 # An H100's SMs and opt-in shared memory a block (bytes): the card the

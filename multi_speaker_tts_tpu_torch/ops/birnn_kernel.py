@@ -7,13 +7,18 @@ As in the JAX package, the input projections x . W_ih + b of both
 directions are hoisted out as two whole-sequence matmuls (stored in the
 compute dtype); the kernel (``csrc/bilstm.cu``) runs only the recurrence,
 the forward direction at natural time s and the backward one at T-1-s in
-the same step, f32 carries, outputs in the compute dtype. Its residual mode
+the same step, f32 carries, outputs in the compute dtype, in row groups of
+up to 32 (:func:`..lstm_kernel.fwd_row_groups`, one launch and count a
+group; from 904 units a direction at 32 rows on an H100, the wide layout,
+which streams the W_hh tiles that do not fit). Its residual mode
 (counted as :data:`RES_KERNEL`) also stores each direction's
 pre-activation gates and c_{t-1}. The backward
 (``birnn_pallas.py::_bilstm_vjp_bwd``, kernel body ``_bilstm_bwd_kernel``)
 is ``csrc/bilstm_bwd.cu``: both directions' reverse recurrences in one
-launch a row group (:func:`..lstm_kernel.bwd_rows`: 512 rows at H 256),
-emitting dGf and dGb.
+launch a row group (:func:`..lstm_kernel.bwd_rows`: 512 rows at H 256; past
+16 units a block its wide build), emitting dGf and dGb. Where the kernels
+take no launch and ``birnn_pallas.supported`` refuses too (an H that is not
+a multiple of 8), :func:`bilstm` runs the plain version (``bilstm_fused``).
 
 BiGRU: replaces ``birnn_pallas.py::_bigru_fwd_impl`` (kernel body
 ``_bigru_fwd_kernel``, reached through ``bigru_pallas``). The input gates
@@ -62,10 +67,15 @@ from multi_speaker_tts_tpu_torch.ops.lstm import (
     recurrence,
     recurrence_bwd,
 )
-from multi_speaker_tts_tpu_torch.ops.lstm_kernel import bwd_row_groups
+from multi_speaker_tts_tpu_torch.ops.lstm_kernel import (
+    bwd_row_groups,
+    bwd_rows,
+    fwd_row_groups,
+    fwd_rows,
+)
 from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
 
-_BILSTM = {"mstts_bilstm_fwd": [_build.P] * 11 + [_build.I] * 3 + [_build.P]}
+_BILSTM = {"mstts_bilstm_fwd": [_build.P] * 11 + [_build.I] * 5 + [_build.P]}
 KERNEL = _build.Kernel("bilstm", "bilstm.cu", _BILSTM)
 RES_KERNEL = _build.Kernel("bilstm_residuals", "bilstm.cu", _BILSTM)
 BWD_KERNEL = _build.Kernel("bilstm_bwd", "bilstm_bwd.cu", {
@@ -132,6 +142,7 @@ def bilstm_recurrence_kernel(gxf, gxb, w_hh_f, w_hh_b, save_residuals: bool = Fa
     H = H4 // 4
     if gxb.shape != gxf.shape or H % 8:
         raise ValueError(f"BiLSTM kernel needs equal gates, H % 8 == 0: {H}")
+    groups = fwd_row_groups(2, 0, H, B, _build.card_limits(gxf.device))
     whf = _build.packed(_transposed_bf16, w_hh_f)
     whb = _build.packed(_transposed_bf16, w_hh_b)
     ysf, ysb = _bf16_empty(gxf.device, (T, B, H), (T, B, H))
@@ -139,12 +150,11 @@ def bilstm_recurrence_kernel(gxf, gxb, w_hh_f, w_hh_b, save_residuals: bool = Fa
     if save_residuals:
         res = _bf16_empty(gxf.device, (T, B, H4), (T, B, H), (T, B, H4), (T, B, H))
     res_ptrs = [r.data_ptr() for r in res] or [None] * 4
-    bar = torch.zeros(1, dtype=torch.int32, device=gxf.device)
-    (RES_KERNEL if save_residuals else KERNEL).call(
-        "mstts_bilstm_fwd", gxf.data_ptr(), gxb.data_ptr(), whf.data_ptr(),
-        whb.data_ptr(), ysf.data_ptr(), ysb.data_ptr(), *res_ptrs, bar.data_ptr(),
-        T, B, H, _build.stream_ptr(gxf),
-    )
+    (RES_KERNEL if save_residuals else KERNEL).call_groups(
+        "mstts_bilstm_fwd",
+        (gxf.data_ptr(), gxb.data_ptr(), whf.data_ptr(), whb.data_ptr(), ysf.data_ptr(),
+         ysb.data_ptr(), *res_ptrs),
+        groups, (T, B, H), _build.stream_ptr(gxf), gxf.device)
     return (ysf, ysb, *res)
 
 
@@ -191,7 +201,7 @@ def bilstm_bwd_kernel(gf, cf, gb, cb, w_hh_f, w_hh_b, dyf, dyb):
         "mstts_bilstm_bwd",
         (gf.data_ptr(), cf.data_ptr(), gb.data_ptr(), cb.data_ptr(), whf.data_ptr(),
          whb.data_ptr(), dyf.data_ptr(), dyb.data_ptr(), dGf.data_ptr(), dGb.data_ptr()),
-        groups, T, B, H, _build.stream_ptr(gf), gf.device)
+        groups, (T, B, H), _build.stream_ptr(gf), gf.device)
     return dGf, dGb
 
 
@@ -251,15 +261,32 @@ class _BiLSTM(torch.autograd.Function):
         return (None, dx.transpose(0, 1).to(x.dtype), *grads)
 
 
+def bilstm_refusal(H: int, B: int, grad: bool,
+                   card: tuple[int, int] = _build.H100) -> str | None:
+    """Why the BiLSTM kernels take no launch at H a direction over B rows on
+    ``card`` (the backward too where a gradient is needed), or None."""
+    if fwd_rows(2, 0, H, B, card) < 1:
+        return f"the BiLSTM kernel takes no launch at H={H}"
+    if grad and bwd_rows(2, H, B, card) < 1:
+        return f"the BiLSTM backward kernel takes no launch at H={H}"
+    return None
+
+
 def bilstm(fwd: LSTMParams, bwd: LSTMParams, x: torch.Tensor,
            compute_dtype=torch.bfloat16) -> torch.Tensor:
     """(B, T, D) -> (B, T, 2H) f32, both directions concatenated. Under
-    autograd through :class:`_BiLSTM`, otherwise the inference kernel; an
-    f32 compute dtype runs :func:`..lstm.bilstm_fused`, as
-    ``bilstm_pallas`` does."""
-    if _build.plain_route("bilstm", x, compute_dtype):
+    autograd through :class:`_BiLSTM`, otherwise the inference kernel.
+    Where ``bilstm_pallas`` runs its XLA route and the port's kernels do
+    not take the layer either (``_build.plain_route``: an f32 compute
+    dtype; on the card a width not a multiple of 8 or past the kernels'
+    launches), :func:`..lstm.bilstm_fused` runs on the tensors' device."""
+    grad = needs_grad(x, *fwd, *bwd)
+    H = fwd.hidden_size
+    if _build.plain_route("bilstm", x, compute_dtype,
+                          lambda: bilstm_refusal(H, x.shape[0], grad, _build.card_limits(x.device)),
+                          _build.reference_widths_ok(H)):
         return bilstm_fused(fwd, bwd, x, compute_dtype)
-    if needs_grad(x, *fwd, *bwd):
+    if grad:
         return _BiLSTM.apply(compute_dtype, x, *fwd, *bwd)
     gxf, gxb = bilstm_hoist(fwd, bwd, x, compute_dtype)
     ysf, ysb = bilstm_recurrence(gxf, gxb, fwd.w_hh, bwd.w_hh, compute_dtype)
@@ -403,7 +430,7 @@ def bigru_recurrence_kernel(gxf, gxb, fwd: GRUParams, bwd: GRUParams,
     else:
         (WIDE_GRU_RES_KERNEL if save_residuals else WIDE_GRU_KERNEL).call_groups(
             "mstts_bigru_wide_fwd", args,
-            wide_row_groups(False, H, B, _build.card_limits(gxf.device)), T, B, H,
+            wide_row_groups(False, H, B, _build.card_limits(gxf.device)), (T, B, H),
             _build.stream_ptr(gxf), gxf.device)
     return (ysf, ysb, *res)
 
@@ -470,7 +497,7 @@ def bigru_bwd_kernel(gxf, ghf, hpf, gxb, ghb, hpb, w_hh_f, w_hh_b, dyf, dyb):
         GRU_BWD_KERNEL.call("mstts_bigru_bwd", *args, T, B, H, _build.stream_ptr(gxf))
     else:
         WIDE_GRU_BWD_KERNEL.call_groups("mstts_bigru_wide_bwd", args,
-                                        wide_row_groups(True, H, B, card), T, B, H,
+                                        wide_row_groups(True, H, B, card), (T, B, H),
                                         _build.stream_ptr(gxf), gxf.device)
     return outs
 
@@ -521,10 +548,20 @@ class _BiGRU(torch.autograd.Function):
 def bigru(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """(B, T, D) -> (B, T, 2H) f32, both directions concatenated. Under
-    autograd through :class:`_BiGRU`, otherwise the inference kernel; an
-    f32 compute dtype runs :func:`..gru.bigru_fused`, as ``bigru_pallas``
-    does."""
-    if _build.plain_route("bigru", x, compute_dtype):
+    autograd through :class:`_BiGRU`, otherwise the inference kernel.
+    Where ``bigru_pallas`` runs its XLA route and the port's kernels do not
+    take the layer either (``_build.plain_route``: an f32 compute dtype; on
+    the card a width the kernels refuse, :func:`bigru_shape_reason`, that
+    is not a multiple of 128), :func:`..gru.bigru_fused` runs on the
+    tensors' device."""
+    H = fwd.w_hh.shape[0]
+
+    def refusal():
+        why = bigru_shape_reason((x.shape[1], x.shape[0], 3 * H),
+                                 (fwd.w_hh.shape, bwd.w_hh.shape), _build.card_limits(x.device))
+        return why and f"BiGRU kernel {why}"
+
+    if _build.plain_route("bigru", x, compute_dtype, refusal, _build.reference_widths_ok(H)):
         return gru_ops.bigru_fused(fwd, bwd, x, compute_dtype)
     if needs_grad(x, *fwd, *bwd):
         return _BiGRU.apply(compute_dtype, x, *fwd, *bwd)

@@ -241,6 +241,51 @@ def supported(p: DecoderParams, prenet_sizes, memory_dim: int, S: int | None,
     return unsupported_reason(p, prenet_sizes, memory_dim, S, mel_dim, quantized, card) is None
 
 
+# The JAX gate's budget for the bf16 mode's fused weights (bytes).
+REFERENCE_BF16_WEIGHT_BYTES = 80 * 1024 * 1024
+
+
+def reference_supported(p: DecoderParams, prenet_sizes, memory_dim: int, S: int,
+                        quantized: bool = True) -> bool:
+    """The JAX package's gate of its decode kernel (``decode_pallas.supported``:
+    a TPU's lane and VMEM budgets), copied: the 2-layer decoder with equal
+    LSTM sizes, widths in multiples of 128, S <= 256 and, in bf16, both
+    fused matrices within 80 MB. Where it refuses, the reference decodes on
+    its XLA path; where the port's kernel refuses too, so does the port
+    (``Decoder._ar_setup``)."""
+    if len(p.lstm) != 2:
+        return False
+    H = p.lstm[0].hidden_size
+    P = prenet_sizes[-1]
+    lane = _build.REFERENCE_LANE
+    if p.lstm[1].hidden_size != H or H % lane or memory_dim % lane or P % lane or S > 256:
+        return False
+    if not quantized:
+        w_bytes = 2 * 4 * H * ((P + memory_dim + H) + (2 * H + memory_dim))
+        return w_bytes <= REFERENCE_BF16_WEIGHT_BYTES
+    return True
+
+
+def plain_reason(p: DecoderParams, prenet_sizes, memory_dim: int, S: int, mel_dim: int,
+                 quantized: bool, card: tuple[int, int], on_card: bool) -> str | None:
+    """Why the AR decode runs the plain loop in the kernel's place, or None
+    (the kernel, which raises on any other refusal). The reference decodes
+    on its XLA path wherever its gate refuses (:func:`reference_supported`);
+    the port does where its kernel refuses too: past the kernel's limit on
+    memory positions (:func:`position_limit`, on any device), and on the
+    card at widths the kernel refuses at any S."""
+    limit = position_limit(p, prenet_sizes, memory_dim, mel_dim, quantized, card)
+    if limit is not None:
+        if S <= limit:
+            return None
+        return (f"S={S} past the decode kernel's {limit} memory positions in "
+                f"{'int8' if quantized else 'bf16'} mode")
+    if not on_card or reference_supported(p, prenet_sizes, memory_dim, S, quantized):
+        return None
+    why = unsupported_reason(p, prenet_sizes, memory_dim, S, mel_dim, quantized, card)
+    return f"decode kernel {why}; the reference's gate refuses it too"
+
+
 def position_limit(p: DecoderParams, prenet_sizes, memory_dim: int, mel_dim: int,
                    quantized: bool, card: tuple[int, int]) -> int | None:
     """The kernel's limit on memory positions for this decoder on ``card``

@@ -9,7 +9,12 @@ every step on tensor cores into an f32 scratch, then per step
 h_{t-1} . W_hh on tensor cores; bf16 operands and f32 accumulation, f32
 cell state, outputs stored bf16. Its
 residual mode (``save_residuals=True``, counted as :data:`RES_KERNEL`)
-also stores the pre-activation gates and c_{t-1} in bf16.
+also stores the pre-activation gates and c_{t-1} in bf16. A launch takes
+up to 32 rows; the wrapper plans the groups (:func:`fwd_row_groups`), one
+entry call and one count a group. Where a block's full layout (W_ih and
+W_hh resident) does not hold 32 rows, the launch takes the wide one
+(:func:`fwd_layout`): W_ih from L2 in phase 0, and the W_hh tiles that do
+not fit streamed from L2 each step.
 
 Backward: replaces ``lstm_pallas.py::lstm_seq_layer_bwd`` (kernel body
 ``_bwd_kernel``). The kernel (``csrc/lstm_bwd.cu``) runs the reverse
@@ -21,7 +26,10 @@ matrix products, as the JAX package does outside its kernels. A launch
 takes a group of the batch's rows: the wrapper plans as many rows a group
 as a block's shared memory holds (:func:`bwd_rows`: 352 rows at H 768 on
 an H100, so GE2E's 640-row batch takes two), the kernel refuses a group
-that does not fit, and each launch counts.
+that does not fit, and each launch counts. Where one row does not fit
+beside the resident W_hh rows, or a block owns more than 16 units, the
+launch takes the wide layout (:func:`bwd_layout`: the W_hh tiles past
+those that fit read from L2).
 
 :func:`lstm_seq_layer_plain` and :func:`lstm_seq_layer_bwd_plain` are the
 same layer in plain torch: the CPU path (in any compute dtype) and the
@@ -45,11 +53,13 @@ from multi_speaker_tts_tpu_torch.ops.lstm import (
 )
 from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
 
-_FWD = {"mstts_lstm_layer_fwd": [_build.P] * 10 + [_build.I] * 4 + [_build.P]}
+_FWD = {"mstts_lstm_layer_fwd": [_build.P] * 10 + [_build.I] * 6 + [_build.P],
+        "mstts_lstm_fwd_layout": [_build.I] * 5 + [_build.P]}
 KERNEL = _build.Kernel("ge2e_lstm", "lstm.cu", _FWD)
 RES_KERNEL = _build.Kernel("ge2e_lstm_residuals", "lstm.cu", _FWD)
 BWD_KERNEL = _build.Kernel("ge2e_lstm_bwd", "lstm_bwd.cu", {
     "mstts_lstm_layer_bwd": [_build.P] * 7 + [_build.I] * 5 + [_build.P],
+    "mstts_lstm_bwd_layout": [_build.I] * 4 + [_build.P],
 })
 
 
@@ -75,6 +85,84 @@ def _bf16(w: torch.Tensor) -> torch.Tensor:
     return w.contiguous().to(torch.bfloat16)
 
 
+# csrc/lstm_persistent.cuh's constants: warps a block (the full layout's
+# partial-tile slots), the wide layout's slots, rows a launch.
+_FWD_WARPS, _FWD_WIDE_SLOTS, FWD_MAX_ROWS = 8, 4, 32
+
+
+def _ldmatrix_stride(k: int) -> int:
+    return _build.round_up(k, 16) + 8
+
+
+def fwd_base_bytes(U: int, H: int, B: int, slots: int = _FWD_WARPS) -> int:
+    """``lstm_base_bytes`` (csrc/lstm_persistent.cuh): a block's shared
+    memory for U units of H over B rows, the weights aside: h_{t-1}, the
+    partial tiles of ``slots`` slots, the input half, c and the residual
+    tile."""
+    NP, BP = _build.round_up(4 * U, 8), _build.round_up(B, 16)
+    return (2 * BP * _ldmatrix_stride(H) + 4 * (slots * BP * NP + B * NP + B * U)
+            + 2 * (B * 4 * U + B * U))
+
+
+def fwd_smem_bytes(U: int, D: int, H: int, B: int) -> int:
+    """``lstm_smem_bytes``: the full layout, the base and the block's W_ih
+    and W_hh columns."""
+    NP = _build.round_up(4 * U, 8)
+    return (fwd_base_bytes(U, H, B)
+            + 2 * NP * ((_build.k32_stride(D) if D > 0 else 0) + _ldmatrix_stride(H)))
+
+
+def fwd_layout(ndir: int, D: int, H: int, B: int, rows: int,
+               card: tuple[int, int] = _build.H100) -> dict:
+    """``lstm_layout`` (csrc/lstm_persistent.cuh): a launch over ``rows`` of
+    a batch of B on ``card`` (SMs, opt-in bytes). The full layout wherever
+    it holds min(B, 32) rows (every production width), else the wide one:
+    W_ih from L2, half the partial tiles, and of W_hh's n-tiles of 8 gate
+    columns the ``ntr`` that fit beside the base resident, the rest
+    streamed each step."""
+    n_sm, max_smem = card
+    U, nblk = _build.recurrence_grid(ndir, H, n_sm)
+    NT = _build.round_up(4 * U, 8) // 8
+    wide = fwd_smem_bytes(U, D, H, min(B, FWD_MAX_ROWS)) > max_smem
+    if not wide:
+        ntr, nbytes = NT, fwd_smem_bytes(U, D, H, rows)
+    else:
+        base = fwd_base_bytes(U, H, rows, _FWD_WIDE_SLOTS)
+        tile = 2 * 8 * _ldmatrix_stride(H)
+        ntr = min(NT, (max_smem - base) // tile) if base <= max_smem else 0
+        nbytes = base + ntr * tile
+    return {"U": U, "nblk": nblk, "wide": wide, "ntr": ntr, "bytes": nbytes,
+            "fits": nbytes <= max_smem and rows <= FWD_MAX_ROWS}
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_rows(ndir: int, D: int, H: int, B: int, card: tuple[int, int] = _build.H100) -> int:
+    """Rows a launch of the forward takes: the most, up to 32, whose layout
+    fits on ``card``; 0 if not one (or D, H not multiples of 8)."""
+    if D % 8 or H % 8:
+        return 0
+    rows = min(B, FWD_MAX_ROWS)
+    while rows > 0 and not fwd_layout(ndir, D, H, B, rows, card)["fits"]:
+        rows -= 1
+    return rows
+
+
+def _groups(rows: int, B: int) -> list:
+    return [slice(b, min(b + rows, B)) for b in range(0, B, rows)]
+
+
+def fwd_row_groups(ndir: int, D: int, H: int, B: int,
+                   card: tuple[int, int] = _build.H100) -> list:
+    """The launches of one forward call: consecutive groups of
+    :func:`fwd_rows` rows (the last takes the rest). Raises where the
+    kernel takes no launch."""
+    rows = fwd_rows(ndir, D, H, B, card)
+    if rows < 1:
+        raise ValueError(f"LSTM kernel needs D, H multiples of 8 and one row's launch in a "
+                         f"block's shared memory: D={D}, H={H}, {ndir} direction(s)")
+    return _groups(rows, B)
+
+
 def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor, save_residuals: bool = False):
     """Launch ``csrc/lstm.cu`` on a CUDA bf16 (T, B, D) input."""
     _build.require_cuda(x_tm, torch.bfloat16, "x_tm")
@@ -82,6 +170,7 @@ def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor, save_residuals: boo
     H = p.hidden_size
     if p.w_ih.shape != (D, 4 * H) or D % 8 or H % 8:
         raise ValueError(f"LSTM kernel needs D, H multiples of 8: D={D}, H={H}")
+    groups = fwd_row_groups(1, D, H, B, _build.card_limits(x_tm.device))
     w, b = _build.packed(_kernel_layout, p.w_ih, p.w_hh, p.b)
     dev = x_tm.device
     xg = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)  # the kernel's phase 0
@@ -93,12 +182,11 @@ def lstm_seq_layer_kernel(p: LSTMParams, x_tm: torch.Tensor, save_residuals: boo
         res = (torch.empty((T, B, 4 * H), dtype=torch.bfloat16, device=dev),
                torch.empty((T, B, H), dtype=torch.bfloat16, device=dev))
     res_ptrs = [r.data_ptr() for r in res] or [None, None]
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    (RES_KERNEL if save_residuals else KERNEL).call(
-        "mstts_lstm_layer_fwd", x_tm.data_ptr(), w.data_ptr(), b.data_ptr(), xg.data_ptr(),
-        ys.data_ptr(), h_T.data_ptr(), c_T.data_ptr(), *res_ptrs, bar.data_ptr(),
-        T, B, D, H, _build.stream_ptr(x_tm),
-    )
+    (RES_KERNEL if save_residuals else KERNEL).call_groups(
+        "mstts_lstm_layer_fwd",
+        (x_tm.data_ptr(), w.data_ptr(), b.data_ptr(), xg.data_ptr(), ys.data_ptr(),
+         h_T.data_ptr(), c_T.data_ptr(), *res_ptrs),
+        groups, (T, B, D, H), _build.stream_ptr(x_tm), dev)
     return (ys, h_T, c_T, *res)
 
 
@@ -121,31 +209,53 @@ def lstm_seq_layer_bwd_plain(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: to
     return recurrence_bwd(w_hh, gates, c_prev, d_hT, d_ys, compute_dtype)
 
 
-# csrc/lstm_bwd.cuh's constants: warps a block, n-tiles of 8 units a block.
-_BWD_WARPS, _BWD_MAX_NT = 8, 2
+# csrc/lstm_bwd.cuh's constants: warps a block, n-tiles of 8 units a block
+# in the production build and in the wide one.
+_BWD_WARPS, _BWD_MAX_NT, _BWD_WIDE_NT = 8, 2, 8
+
+
+def bwd_base_bytes(U: int, B: int) -> int:
+    """``lstm_bwd_base_bytes`` (csrc/lstm_bwd.cuh): a block's shared memory
+    for U units over B rows, W_hh aside: the warps' partial tiles, the
+    carries, the residuals and the dG tile."""
+    NP, BP = _build.round_up(U, 8), _build.round_up(B, 32)
+    return 4 * (_BWD_WARPS * BP * NP + 8 * B * U) + 2 * B * 4 * U
 
 
 def bwd_smem_bytes(U: int, H: int, B: int) -> int:
-    """``lstm_bwd_smem_bytes`` (csrc/lstm_bwd.cuh): a block's shared memory
-    for U units of H over B rows: the resident W_hh rows, the warps' partial
-    tiles, the carries, the residuals and the dG tile."""
-    NP, BP = _build.round_up(U, 8), _build.round_up(B, 32)
-    return (2 * NP * _build.k32_stride(4 * H)
-            + 4 * (_BWD_WARPS * BP * NP + 8 * B * U) + 2 * B * 4 * U)
+    """``lstm_bwd_smem_bytes``: the full layout, the base and the block's
+    resident W_hh rows."""
+    return 2 * _build.round_up(U, 8) * _build.k32_stride(4 * H) + bwd_base_bytes(U, B)
+
+
+def bwd_layout(ndir: int, H: int, B: int, rows: int,
+               card: tuple[int, int] = _build.H100) -> dict:
+    """``lstm_bwd_layout`` (csrc/lstm_bwd.cuh): a launch over ``rows`` of a
+    batch of B on ``card``. The full layout and the production build
+    wherever it holds min(B, 32) rows within 16 units a block, else the
+    wide build (up to 64 units a block): of W_hh's n-tiles of 8 rows the
+    ``ntr`` that fit beside the base resident, the rest read from L2."""
+    n_sm, max_smem = card
+    U, nblk = _build.recurrence_grid(ndir, H, n_sm)
+    NT = -(-U // 8)
+    wide = NT > _BWD_MAX_NT or bwd_smem_bytes(U, H, min(B, 32)) > max_smem
+    if not wide:
+        ntr, nbytes = NT, bwd_smem_bytes(U, H, rows)
+    else:
+        base, tile = bwd_base_bytes(U, rows), 2 * 8 * _build.k32_stride(4 * H)
+        ntr = min(NT, (max_smem - base) // tile) if base <= max_smem else 0
+        nbytes = base + ntr * tile
+    return {"U": U, "nblk": nblk, "wide": wide, "ntr": ntr, "bytes": nbytes,
+            "fits": nbytes <= max_smem and NT <= (_BWD_WIDE_NT if wide else _BWD_MAX_NT)}
 
 
 @functools.lru_cache(maxsize=1024)
 def bwd_rows(ndir: int, H: int, B: int, card: tuple[int, int] = _build.H100) -> int:
     """Rows a launch of the reverse recurrence takes: as many of the B as
-    one block's shared memory holds on ``card`` (SMs, opt-in bytes); 0 if
-    not one row; -1 for a width past the kernel's n-tiles (U > 16 units a
-    block)."""
-    n_sm, max_smem = card
-    U, _ = _build.recurrence_grid(ndir, H, n_sm)
-    if -(-U // 8) > _BWD_MAX_NT:
-        return -1
+    its layout (:func:`bwd_layout`) fits on ``card`` (SMs, opt-in bytes);
+    0 if not one."""
     rows = B
-    while rows > 0 and bwd_smem_bytes(U, H, rows) > max_smem:
+    while rows > 0 and not bwd_layout(ndir, H, B, rows, card)["fits"]:
         rows -= 1
     return rows
 
@@ -155,9 +265,10 @@ def bwd_row_groups(ndir: int, H: int, B: int, card: tuple[int, int] = _build.H10
     (the last takes the rest). Raises where the kernel takes no launch."""
     rows = bwd_rows(ndir, H, B, card)
     if rows < 1:
-        raise ValueError(f"LSTM backward kernel needs at most {8 * _BWD_MAX_NT} units a block "
-                         f"and one row in a block's shared memory: H={H}, {ndir} direction(s)")
-    return [slice(b, min(b + rows, B)) for b in range(0, B, rows)]
+        raise ValueError(f"LSTM backward kernel needs at most {8 * _BWD_WIDE_NT} units a "
+                         f"block and one row in a block's shared memory: H={H}, "
+                         f"{ndir} direction(s)")
+    return _groups(rows, B)
 
 
 def lstm_seq_layer_bwd_kernel(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: torch.Tensor,
@@ -183,7 +294,7 @@ def lstm_seq_layer_bwd_kernel(w_hh: torch.Tensor, gates: torch.Tensor, c_prev: t
         (gates.data_ptr(), c_prev.data_ptr(), w.data_ptr(),
          None if d_hT is None else d_hT.data_ptr(), None if d_ys is None else d_ys.data_ptr(),
          dG.data_ptr()),
-        groups, T, B, H, _build.stream_ptr(gates), gates.device)
+        groups, (T, B, H), _build.stream_ptr(gates), gates.device)
     return dG
 
 
@@ -252,20 +363,39 @@ class _LSTMStack(torch.autograd.Function):
         return (None, d_ys.transpose(0, 1).to(ctx.x_dtype), *grads)
 
 
+def stack_refusal(layers, B: int, grad: bool, card: tuple[int, int] = _build.H100):
+    """Why the kernels take no launch for this stack over B rows on
+    ``card`` (forward, and the backward where a gradient is needed), or
+    None."""
+    for p in layers:
+        D, H = p.w_ih.shape[0], p.hidden_size
+        if fwd_rows(1, D, H, B, card) < 1:
+            return f"the LSTM kernel takes no launch at D={D}, H={H}"
+        if grad and bwd_rows(1, H, B, card) < 1:
+            return f"the LSTM backward kernel takes no launch at H={H}"
+    return None
+
+
 def lstm_stack_seq(layers, x: torch.Tensor, compute_dtype=torch.bfloat16):
     """Stacked layers, layer by layer over (B, T, D): (last layer's outputs
     (B, T, H) f32, its final hidden state (B, H) f32). Under autograd (a
     weight or ``x`` needs a gradient) the residual mode and the backward
     kernels run through :class:`_LSTMStack`; otherwise the inference
-    kernel, which stores no residuals. A compute dtype the kernels do not
-    take (``_build.plain_route``: an f32 checkpoint) runs the plain stack
-    :func:`..lstm.lstm_stack` on the tensors' device, under autograd where
-    a gradient is needed, as ``lstm_stack_seq_pallas`` runs
-    ``lstm_stack_wavefront``."""
-    if _build.plain_route("ge2e_lstm", x, compute_dtype):
-        return lstm_stack(layers, x, compute_dtype)
+    kernel, which stores no residuals. Where the JAX package runs its XLA
+    wavefront instead of its kernels, as ``lstm_stack_seq_pallas`` does
+    (``_build.plain_route``), and the port's kernels do not take the stack
+    either, the plain stack :func:`..lstm.lstm_stack` runs on the tensors'
+    device, under autograd where a gradient is needed: a compute dtype
+    other than bf16 (an f32 checkpoint), or on the card a width that is
+    not a multiple of 8 or past the kernels' launches."""
     weights = [t for p in layers for t in p]
-    if needs_grad(x, *weights):
+    grad = needs_grad(x, *weights)
+    if _build.plain_route("ge2e_lstm", x, compute_dtype,
+                          lambda: stack_refusal(layers, x.shape[0], grad,
+                                                _build.card_limits(x.device)),
+                          _build.reference_widths_ok(*(p.hidden_size for p in layers))):
+        return lstm_stack(layers, x, compute_dtype)
+    if grad:
         return _LSTMStack.apply(compute_dtype, x, *weights)
     ys = x.transpose(0, 1).to(compute_dtype).contiguous()
     h_T = None

@@ -8,10 +8,12 @@ path the JAX package takes off the TPU. :func:`griffin_lim_auto` is the
 vocoder's device dispatch, by the JAX package's rule (:func:`gl_route`):
 an eligible CUDA tensor goes to the staged kernel
 (:mod:`.griffin_lim_staged`, n_fft = 1024) or the dense kernel
-(:mod:`.griffin_lim_kernel`, other sizes or ``GL_DENSE_KERNEL`` set), in
-batch chunks that keep the kernel's working set inside the card's L2; any
-other tensor takes :func:`griffin_lim_matmul` (the GEMM route; on the CPU
-that is what the JAX package runs too).
+(:mod:`.griffin_lim_kernel`, other sizes or ``GL_DENSE_KERNEL`` set)
+wherever the JAX package's own cap for that kernel
+(:func:`reference_gl_max_batch`) takes min(B, 8) rows, in batch chunks
+that keep the kernel's working set inside the card's L2; any other tensor
+takes :func:`griffin_lim_matmul` (the GEMM route; on the CPU that is what
+the JAX package runs too).
 """
 
 from __future__ import annotations
@@ -155,14 +157,39 @@ def griffin_lim_matmul(magnitude: torch.Tensor, n_fft: int, hop: int,
 GL_L2_BUDGET_BYTES = 40 << 20
 
 
-def gl_route(ndim: int, n_fft: int, hop: int, T: int, length: int, on_card: bool) -> str:
+def reference_gl_max_batch(T: int, n_fft: int, hop: int, momentum: float = 0.0,
+                           staged: bool = False) -> int:
+    """The JAX package's cap on the rows of one Griffin-Lim kernel call
+    (``stft_matmul._pallas_gl_max_batch``, a model of a TPU's 16 MB
+    scoped-VMEM stack calibrated on a v5e), copied: its dispatch launches a
+    kernel only where this is at least min(B, 8), and so does
+    :func:`gl_route`. It says nothing of the H100: the port chunks by
+    :func:`gl_max_batch`."""
+    Fp = ((n_fft // 2 + 127) // 128) * 128 + 128
+    scale = (T * Fp) / (1000.0 * 640.0)
+    if staged:
+        base_mb = (14.35 if momentum > 0.0 else 12.2) * scale
+    else:
+        base_mb = 14.92 * scale
+        if momentum > 0.0:
+            base_mb *= 1.6
+    return int((16.0 - 0.5 - base_mb) / 0.0306)
+
+
+def gl_route(ndim: int, n_fft: int, hop: int, T: int, length: int, on_card: bool,
+             B: int, momentum: float) -> str:
     """The JAX package's Griffin-Lim dispatch (``stft_matmul.griffin_lim_auto``)
-    as a pure function: ``"staged"`` or ``"dense"`` for a tensor on the
-    card that a kernel takes (batched 3-D magnitudes, hop | n_fft with an
-    even n_fft / hop, a 128-multiple hop, the default length hop * (T - 1));
-    the staged kernel at n_fft = 1024 unless ``GL_DENSE_KERNEL`` is set, the
-    dense kernel otherwise (which raises for an n_fft wider than it takes);
-    ``"gemm"`` (:func:`griffin_lim_matmul`) for everything else."""
+    as a pure function of a call over B rows: ``"staged"`` or ``"dense"``
+    for a tensor on the card that a kernel takes (batched 3-D magnitudes,
+    hop | n_fft with an even n_fft / hop, a 128-multiple hop, the default
+    length hop * (T - 1)) and whose kernel's cap
+    (:func:`reference_gl_max_batch`) is at least min(B, 8) rows: at
+    n_fft = 1024 the staged kernel unless ``GL_DENSE_KERNEL`` is set (or
+    its cap is no higher than the dense one's), the dense kernel otherwise
+    (which raises for an n_fft wider than it takes); ``"gemm"``
+    (:func:`griffin_lim_matmul`) for everything else, e.g. at n_fft 1024 /
+    hop 256 two rows or more from T 1266 and every B from T 1268, at
+    4096 / 512 three rows or more from T 304 and every B from T 305."""
     eligible = (
         on_card
         and ndim == 3
@@ -173,9 +200,12 @@ def gl_route(ndim: int, n_fft: int, hop: int, T: int, length: int, on_card: bool
     )
     if not eligible:
         return "gemm"
+    kind, cap = "dense", reference_gl_max_batch(T, n_fft, hop, momentum)
     if n_fft == 1024 and not os.environ.get("GL_DENSE_KERNEL"):
-        return "staged"
-    return "dense"
+        staged_cap = reference_gl_max_batch(T, n_fft, hop, momentum, staged=True)
+        if staged_cap > cap:
+            kind, cap = "staged", staged_cap
+    return kind if cap >= min(B, 8) else "gemm"
 
 
 def gl_max_batch(T: int, n_fft: int = 1024, momentum: float = 0.0,
@@ -213,7 +243,8 @@ def griffin_lim_auto(magnitude: torch.Tensor, n_fft: int, hop: int,
     route on the card prints one ``[dispatch]`` line, as the JAX package
     does on a TPU."""
     T = magnitude.shape[-2]
-    route = gl_route(magnitude.ndim, n_fft, hop, T, length, magnitude.is_cuda)
+    route = gl_route(magnitude.ndim, n_fft, hop, T, length, magnitude.is_cuda,
+                     magnitude.shape[0], momentum)
     if route == "gemm":
         if magnitude.is_cuda:
             log_dispatch("griffin_lim", "gemm", f"T={T}, n_fft={n_fft}, hop={hop}, "

@@ -55,6 +55,7 @@ import numpy as np
 
 from multi_speaker_tts_tpu_torch import text as text_frontend
 from multi_speaker_tts_tpu_torch.audio import wav_io
+from multi_speaker_tts_tpu_torch.hparams import load_hyper_parameters
 from multi_speaker_tts_tpu_torch.inference import Synthesizer, _decode_bucket
 
 
@@ -714,6 +715,9 @@ def main(argv=None) -> None:
     parser.add_argument("-checkpoint", required=True,
                         help=".msgpack compact checkpoint (export_compact) or a "
                              "training checkpoint directory")
+    parser.add_argument("-hp", "--hyper_parameters", default=None,
+                        help="hyper-parameters (YAML, needs pyyaml, or JSON) in place "
+                             "of the checkpoint's own")
     parser.add_argument("-host", default="127.0.0.1")
     parser.add_argument("-port", type=int, default=8000)
     parser.add_argument("-max_batch", type=int, default=32)
@@ -732,9 +736,11 @@ def main(argv=None) -> None:
     parser.add_argument("-device", default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
     args = parser.parse_args(argv)
+    hp = load_hyper_parameters(args.hyper_parameters) if args.hyper_parameters else None
 
     try:
-        synth = Synthesizer.from_path(args.checkpoint, quantize=args.quantize, device=args.device)
+        synth = Synthesizer.from_path(args.checkpoint, hp=hp, quantize=args.quantize,
+                                      device=args.device)
     except FileNotFoundError as e:  # no such file, or a directory without a checkpoint
         parser.error(f"-checkpoint {args.checkpoint!r}: {e}")
     server = TTSServer(

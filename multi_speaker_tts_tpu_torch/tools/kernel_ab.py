@@ -21,9 +21,10 @@ JSON line:
   ``synth_ms_all`` the ten;
 - ``seeded_ms``: the production-width kernels on seeded inputs at the shapes
   of ``chip_smoke.py``'s rows (the card's work alone, the median of three
-  timings): the mel front-end's two routes, the GE2E layer's residual
-  forward and backward, the BiLSTM and BiGRU backwards, the BiGRU forward in
-  both modes, and a K 10 decode chunk in both modes.
+  timings): the mel front-end's two routes, the GE2E layer's forward in
+  both modes and its backward, the BiLSTM's forward and backward, the BiGRU
+  backward, the BiGRU forward in both modes, and a K 10 decode chunk in
+  both modes.
 
 ``--repo DIR`` measures another checkout's package and kernel sources (for
 example the parent commit's, unpacked with ``git archive``); run the file by
@@ -192,6 +193,9 @@ def seeded_ms() -> dict:
         bundle = dk.prepare_bundle(dp, prenet, quantize=q)
         out[f"decode_{mode}"] = ms(lambda: dk.decode_segment_kernel(
             bundle, keys, memory, ones, carry, prev, *masks, K, mel, rr))
+    out["lstm_fwd"] = ms(lambda: lstm_kernel.lstm_seq_layer_kernel(p, x))
+    out["bilstm_fwd"] = ms(lambda: birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh,
+                                                                         pb.w_hh))
     return out
 
 

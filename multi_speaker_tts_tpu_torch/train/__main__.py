@@ -5,8 +5,10 @@
     python -m multi_speaker_tts_tpu_torch.train -mode tts -train_pattern DIR \
         -ge2e_checkpoint GE2E_DIR -checkpoint TTS_DIR [-eval_pattern DIR] [-max_step N]
 
-``-hp`` reads a YAML file (needs pyyaml); without it the shipped defaults
-apply. Runs on the card unless ``-device cpu``. Data-parallel training runs
+``-hp`` reads a YAML file (needs pyyaml) or the same tree as JSON; without
+it the shipped defaults apply. ``-debug_nans`` raises at the first module
+whose output, forward or backward, holds a NaN or an infinity
+(:mod:`.debug_nans`). Runs on the card unless ``-device cpu``. Data-parallel training runs
 one process a device, each started with the same arguments plus its id::
 
     python -m multi_speaker_tts_tpu_torch.train ... -distributed \
@@ -22,6 +24,7 @@ from __future__ import annotations
 import argparse
 
 from multi_speaker_tts_tpu_torch.parallel import multihost
+from multi_speaker_tts_tpu_torch.train import debug_nans
 
 
 def main(argv=None) -> None:
@@ -38,6 +41,9 @@ def main(argv=None) -> None:
     parser.add_argument("-freeze_ge2e", action="store_true")
     parser.add_argument("-profile", action="store_true",
                         help="capture a torch.profiler trace of steps 10-20")
+    parser.add_argument("-debug_nans", action="store_true",
+                        help="raise at the first non-finite output of a module, forward or "
+                             "backward, naming it")
     parser.add_argument("-device", default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
     parser.add_argument("-distributed", action="store_true",
@@ -77,12 +83,16 @@ def _train(args, hp, device) -> None:
 
         trainer = GE2ETrainer(hp, checkpoint_dir=args.checkpoint, log_dir=args.log,
                               device=device)
+        if args.debug_nans:
+            debug_nans.install(debug_nans.trainer_models(trainer))
         trainer.train(train_dir, max_steps=args.max_step or hp.Train.Max_Step)
         return
 
     from multi_speaker_tts_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(hp, checkpoint_dir=args.checkpoint, log_dir=args.log, device=device)
+    if args.debug_nans:
+        debug_nans.install(debug_nans.trainer_models(trainer))
     if args.profile:
         trainer.profile_steps = (10, 20)
     trainer.train(train_dir, eval_pattern_dir=args.eval_pattern or hp.Train.Eval_Pattern.get("Path"),

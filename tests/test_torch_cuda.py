@@ -82,8 +82,9 @@ def test_mel_kernel(dev, n_fft, hop_div, T):
 # in n-tiles of 8, K in k-steps of 16 or chunks of 32): B not a multiple of
 # 16 (3, 17, 40), D = 72 (D + H not a multiple of 16), H = 776 (on 132 SMs
 # the last of 130 blocks owns 2 of U = 6 units; BiLSTM: H = 136, 1 of 3),
-# T = 1, and B = 100, four launches of up to 32 rows (lstm_run's row split;
-# B = 40 takes two).
+# T = 1, and B = 100, four launches of up to 32 rows (the wrapper's row
+# groups, ops/lstm_kernel.fwd_row_groups: one entry call a group; B = 40
+# takes two).
 LSTM_EDGES = [(17, 72, 64, 20), (40, 64, 776, 20), (3, 80, 768, 1), (100, 768, 768, 20)]
 
 
@@ -1797,3 +1798,249 @@ def test_mel_kernel_at_any_n_fft(dev, n_fft, hop):
         assert kernel.launches == before + 2 and torch.equal(got, again)
         want = mel_kernel.melspectrogram_plain(y_pad, T, cfg)
         assert (got - want).abs().max().item() <= 1e-4
+
+
+# -- the LSTM family at every width the JAX gate admits --------------------------
+
+
+def test_lstm_layouts_are_the_kernels(dev):
+    """``fwd_layout`` and ``bwd_layout`` (the Python copies of lstm_layout and
+    lstm_bwd_layout) against the kernels' own on this card: route, resident
+    tiles, bytes and fit over widths 64-4096, both layer kinds and the
+    BiLSTM, several batches and row counts."""
+    import ctypes
+
+    from multi_speaker_tts_tpu_torch.ops import _build, lstm_kernel
+
+    card = _build.card_limits(dev)
+    out = (ctypes.c_int * 6)()
+    fwd, bwd = lstm_kernel.KERNEL.lib(), lstm_kernel.BWD_KERNEL.lib()
+    keys = ("U", "nblk", "wide", "ntr", "bytes", "fits")
+    for H in [*range(64, 4097, 64), 776, 904, 1000, 1208, 1328, 1064, 1680, 8448, 8456]:
+        for ndir, D in ((1, H), (1, 80), (2, 0)):
+            for B, rows in ((32, 32), (32, 16), (8, 8), (640, 32), (1, 1), (40, 33)):
+                assert fwd.mstts_lstm_fwd_layout(ndir, D, H, B, rows, ctypes.addressof(out)) == 0
+                want = lstm_kernel.fwd_layout(ndir, D, H, B, rows, card)
+                assert list(out) == [int(want[k]) for k in keys], (ndir, D, H, B, rows)
+        for ndir in (1, 2):
+            for B, rows in ((32, 32), (8, 8), (640, 210), (640, 352), (1, 1)):
+                assert bwd.mstts_lstm_bwd_layout(ndir, H, B, rows, ctypes.addressof(out)) == 0
+                want = lstm_kernel.bwd_layout(ndir, H, B, rows, card)
+                assert list(out) == [int(want[k]) for k in keys], (ndir, H, B, rows)
+
+
+@pytest.mark.parametrize("B, D, H, T", [(32, 1152, 1152, 24), (32, 80, 1664, 24),
+                                        (32, 80, 1792, 24), (40, 1792, 1792, 24),
+                                        (3, 1160, 1160, 7), (16, 80, 4096, 5)])
+def test_lstm_wide_route_and_backward(dev, B, D, H, T):
+    """#2 / #2r past the resident weights (W_ih from L2; past H 1328 W_hh
+    tiles streamed) and #8 past one row, against the plain versions: ys,
+    h_T and c_T within 5e-3, or within the plain bf16 version's own distance
+    from its f32 version where that is larger (at these widths a few bf16
+    rounding flips of h grow through the recurrence, and the kernel's sums
+    run in another order: both are bf16 trajectories of one f32 recurrence);
+    every output and dG within 1e-2 of the peak (the residual mode's and the
+    backward's production gate). The residual mode's ys equal the inference
+    mode's, a repeat is bit-equal, one launch a row group of each."""
+    from multi_speaker_tts_tpu_torch.ops import _build, lstm_kernel
+
+    card = _build.card_limits(dev)
+    rng = np.random.default_rng(B + D + H)
+    p = _lstm(rng, D, H, dev, scale=0.1 * (768 / H) ** 0.5)
+    x = torch.from_numpy(rng.normal(size=(T, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    rows = lstm_kernel.fwd_rows(1, D, H, B, card)
+    assert lstm_kernel.fwd_layout(1, D, H, B, rows, card)["wide"]
+    n_fwd = len(lstm_kernel.fwd_row_groups(1, D, H, B, card))
+    before = (lstm_kernel.KERNEL.launches, lstm_kernel.RES_KERNEL.launches)
+    inf = lstm_kernel.lstm_seq_layer_kernel(p, x)
+    got = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
+    again = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
+    torch.cuda.synchronize()
+    assert (lstm_kernel.KERNEL.launches - before[0],
+            lstm_kernel.RES_KERNEL.launches - before[1]) == (n_fwd, 2 * n_fwd)
+    want = lstm_kernel.lstm_seq_layer_plain(p, x, torch.bfloat16, save_residuals=True)
+    f32 = lstm_kernel.lstm_seq_layer_plain(p, x, torch.float32)
+    drift = max((u.float() - v.float()).abs().max().item() for u, v in zip(want[:3], f32))
+    tol = max(5e-3, drift)
+    assert torch.equal(inf[0], got[0])
+    for i, (a, b, c) in enumerate(zip(got, again, want)):  # ys, h_T, c_T, gates, c_prev
+        assert torch.equal(a, b) and a.shape == c.shape
+        if i < 3:
+            assert (a.float() - c.float()).abs().max().item() <= tol, (i, drift)
+        assert _rel_peak(a, c) <= 1e-2, i
+    gates, c_prev = got[3], got[4]
+    d_hT = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(dev)
+    d_ys = torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
+    n_bwd = len(lstm_kernel.bwd_row_groups(1, H, B, card))
+    before = lstm_kernel.BWD_KERNEL.launches
+    dG = lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates, c_prev, d_hT, d_ys)
+    torch.cuda.synchronize()
+    assert lstm_kernel.BWD_KERNEL.launches == before + n_bwd
+    ref = lstm_kernel.lstm_seq_layer_bwd_plain(p.w_hh, gates, c_prev, d_hT, d_ys)
+    assert _rel_peak(dG, ref) <= 1e-2
+    assert torch.equal(dG, lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates, c_prev, d_hT, d_ys))
+
+
+@pytest.mark.parametrize("D, H, B", [(768, 768, 64), (1792, 1792, 40), (80, 1792, 40)])
+def test_lstm_forward_group_equals_its_rows_alone(dev, D, H, B):
+    """Rows are independent: a row group of a call (production and wide
+    layouts) is bit-equal to a call on its rows alone; the entry point takes
+    the plan's group and refuses 33 rows."""
+    from multi_speaker_tts_tpu_torch.ops import _build, lstm_kernel
+
+    card = _build.card_limits(dev)
+    rng = np.random.default_rng(D + H)
+    p = _lstm(rng, D, H, dev, scale=0.1 * (768 / H) ** 0.5)
+    x = torch.from_numpy(rng.normal(size=(16, B, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    groups = lstm_kernel.fwd_row_groups(1, D, H, B, card)
+    assert len(groups) == 2
+    whole = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
+    for g in groups:
+        alone = lstm_kernel.lstm_seq_layer_kernel(p, x[:, g].contiguous(), save_residuals=True)
+        for i, (a, b) in enumerate(zip(whole, alone)):
+            assert torch.equal(a[g] if i in (1, 2) else a[:, g], b), (g, i)
+    w, b = _build.packed(lstm_kernel._kernel_layout, p.w_ih, p.w_hh, p.b)
+    xg = torch.empty(16, B, 4 * H, device=dev)
+    ys = torch.empty(16, B, H, device=dev, dtype=torch.bfloat16)
+    for rows, ok in ((groups[0].stop, True), (33, False)):
+        bar = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = lstm_kernel.KERNEL.lib().mstts_lstm_layer_fwd(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), xg.data_ptr(), ys.data_ptr(), None, None,
+            None, None, bar.data_ptr(), 16, B, D, H, 0, rows, _build.stream_ptr(x))
+        assert (err == 0) == ok, (rows, err)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B, S, H", [(8, 24, 1152), (32, 24, 1152), (3, 9, 1160), (2, 5, 4096)])
+def test_bilstm_wide_route_and_backward(dev, B, S, H):
+    """#3 / #3r past the resident W_hh (1152 a direction: Encoder.LSTM_Size
+    2304; its streamed tiles at 32 rows) and #9 past 16 units a block (the
+    wide build): the production tolerances, bit-equal on a repeat, one
+    launch a row group."""
+    from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel, lstm_kernel
+
+    card = _build.card_limits(dev)
+    rng = np.random.default_rng(S + H)
+    sc = 0.1 * (256 / H) ** 0.5
+    pf, pb = _lstm(rng, 64, H, dev, sc), _lstm(rng, 64, H, dev, sc)
+    x = torch.from_numpy(rng.normal(size=(B, S, 64)).astype(np.float32)).to(dev)
+    gxf, gxb = birnn_kernel.bilstm_hoist(pf, pb, x, torch.bfloat16)
+    rows = lstm_kernel.fwd_rows(2, 0, H, B, card)
+    assert lstm_kernel.fwd_layout(2, 0, H, B, rows, card)["wide"]
+    n_fwd = len(lstm_kernel.fwd_row_groups(2, 0, H, B, card))
+    before = (birnn_kernel.KERNEL.launches, birnn_kernel.RES_KERNEL.launches)
+    ysf, ysb = birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh, pb.w_hh)
+    got = birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh, pb.w_hh, save_residuals=True)
+    torch.cuda.synchronize()
+    assert (birnn_kernel.KERNEL.launches - before[0],
+            birnn_kernel.RES_KERNEL.launches - before[1]) == (n_fwd, n_fwd)
+    want = birnn_kernel.bilstm_recurrence_plain(gxf, gxb, pf.w_hh, pb.w_hh, torch.bfloat16,
+                                                save_residuals=True)
+    assert torch.equal(ysf, got[0]) and torch.equal(ysb, got[1])
+    for i, (a, b) in enumerate(zip(got, want)):  # ysf, ysb, gf, cf, gb, cb
+        assert a.shape == b.shape and _rel_peak(a, b) <= 1e-2, i
+        if i < 2:
+            assert (a.float() - b.float()).abs().max().item() <= 5e-3, i
+    dyf, dyb = (torch.from_numpy(rng.normal(size=(S, B, H)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    args = (*got[2:], pf.w_hh, pb.w_hh, dyf, dyb)
+    assert lstm_kernel.bwd_layout(2, H, B, lstm_kernel.bwd_rows(2, H, B, card), card)["wide"]
+    before = birnn_kernel.BWD_KERNEL.launches
+    dG = birnn_kernel.bilstm_bwd(*args)
+    torch.cuda.synchronize()
+    assert birnn_kernel.BWD_KERNEL.launches == before + len(
+        lstm_kernel.bwd_row_groups(2, H, B, card))
+    for a, b, c in zip(dG, birnn_kernel.bilstm_bwd(*args), birnn_kernel.bilstm_bwd_plain(*args)):
+        assert torch.equal(a, b) and _rel_peak(a, c) <= 1e-2
+
+
+def test_lstm_bwd_wide_in_row_groups(dev):
+    """#8 at H 1792 over 640 rows: the wide build in groups of the plan's
+    rows (every W_hh tile from L2), within 1e-2 of the plain reverse pass;
+    the first group bit-equal to a call on its rows alone; one row more
+    than the plan's group refused."""
+    from multi_speaker_tts_tpu_torch.ops import _build, lstm_kernel
+
+    B, H, T = 640, 1792, 12
+    card = _build.card_limits(dev)
+    groups = lstm_kernel.bwd_row_groups(1, H, B, card)
+    assert len(groups) >= 2 and lstm_kernel.bwd_layout(1, H, B, groups[0].stop, card)["wide"]
+    rng = np.random.default_rng(1792)
+    p = _lstm(rng, 80, H, dev, scale=0.1 * (768 / H) ** 0.5)
+    x = torch.from_numpy(rng.normal(size=(T, B, 80)).astype(np.float32)).to(dev, torch.bfloat16)
+    _, _, _, gates, c_prev = lstm_kernel.lstm_seq_layer_kernel(p, x, save_residuals=True)
+    d_ys = torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32) * 0.1).to(dev)
+    before = lstm_kernel.BWD_KERNEL.launches
+    dG = lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates, c_prev, None, d_ys)
+    torch.cuda.synchronize()
+    assert lstm_kernel.BWD_KERNEL.launches == before + len(groups)
+    ref = lstm_kernel.lstm_seq_layer_bwd_plain(p.w_hh, gates, c_prev, None, d_ys)
+    assert _rel_peak(dG, ref) <= 1e-2
+    g = groups[0]
+    alone = lstm_kernel.lstm_seq_layer_bwd(p.w_hh, gates[:, g].contiguous(),
+                                           c_prev[:, g].contiguous(), None,
+                                           d_ys[:, g].contiguous())
+    assert torch.equal(alone, dG[:, g])
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    w = _build.packed(lstm_kernel._bf16, p.w_hh)
+    assert lstm_kernel.BWD_KERNEL.lib().mstts_lstm_layer_bwd(
+        gates.data_ptr(), c_prev.data_ptr(), w.data_ptr(), None, None, dG.data_ptr(),
+        bar.data_ptr(), T, B, H, 0, g.stop + 1, _build.stream_ptr(gates)) != 0
+
+
+# -- the reference's routes where both gates refuse ------------------------------
+
+
+@pytest.mark.parametrize("n_fft, hop, T", [(1024, 256, 1300), (4096, 512, 400)])
+def test_griffin_lim_routes_to_gemm_where_jax_does(dev, monkeypatch, capsys, n_fft, hop, T):
+    """Faults 3.7 and 3.6: past the JAX package's cap for its kernel the
+    vocoder runs ``griffin_lim_matmul`` on the card, with its dispatch line
+    and no Griffin-Lim launch."""
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_staged as gl
+    from multi_speaker_tts_tpu_torch.ops import stft_matmul
+
+    monkeypatch.delenv("GL_DENSE_KERNEL", raising=False)
+    monkeypatch.setattr(dsp, "_DISPATCH_LOGGED", set())
+    mag = torch.from_numpy(np.random.default_rng(T).random((1, T, n_fft // 2 + 1))
+                           .astype(np.float32)).to(dev)
+    before = (gl.KERNEL.launches, gl.MOM_KERNEL.launches, gk.KERNEL.launches)
+    wav = stft_matmul.griffin_lim_auto(mag, n_fft, hop, 4, hop * (T - 1))
+    torch.cuda.synchronize()
+    assert (gl.KERNEL.launches, gl.MOM_KERNEL.launches, gk.KERNEL.launches) == before
+    want = stft_matmul.griffin_lim_matmul(mag, n_fft, hop, 4, hop * (T - 1))
+    assert torch.equal(wav, want)
+    assert "[dispatch] griffin_lim -> gemm" in capsys.readouterr().out
+
+
+def test_decode_and_bigru_route_plain_where_jax_does(dev, capsys, tmp_path):
+    """A synthesizer with a bf16 decode past H 2048 (fused weights past the
+    JAX gate's 80 MB) and a CBHG BiGRU of 1264 a direction (past the wide
+    route, not a multiple of 128): both run their plain versions on the
+    card with one dispatch line each and no launch of the refused kernel."""
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.hparams import default_hparams
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import birnn_kernel
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.train.trainer import Trainer
+
+    hp = default_hparams(Decoder={"LSTM": {"Sizes": 2176}},
+                         Linear_Head={"CBHG": {"GRU_Size": 2528}})
+    tr = Trainer(hp, checkpoint_dir=str(tmp_path / "ck"), log_dir=str(tmp_path / "log"),
+                 device="cuda", seed=0)
+    tr.initialize()
+    synth = Synthesizer.from_state(hp, tr.checkpoint_state(), quantize="bf16_pallas", seed=0)
+    kernels = [*dk.KERNELS.values(), birnn_kernel.GRU_KERNEL, birnn_kernel.WIDE_GRU_KERNEL]
+    before = [k.launches for k in kernels]
+    dsp._DISPATCH_LOGGED.clear()
+    capsys.readouterr()
+    out = synth.synthesize(["a routed decode."], np.ones(hp.Speaker_Embedding.Embedding_Size,
+                                                         np.float32) / 16.0,
+                           max_steps=4, vocode=False)[0]
+    assert [k.launches for k in kernels] == before
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("[dispatch]")]
+    assert any(x.startswith("[dispatch] decode -> plain") and "2048" in x for x in lines), lines
+    assert any(x.startswith("[dispatch] bigru -> plain") and "1248" in x for x in lines), lines
+    assert np.isfinite(out["mel"]).all() and out["mel_length"] > 0

@@ -217,15 +217,15 @@ def test_griffin_lim_matmul_warm_start_matches_jax(mag, gate):
 ])
 def test_gl_route_follows_the_jax_rule(monkeypatch, args, want):
     monkeypatch.delenv("GL_DENSE_KERNEL", raising=False)
-    assert stft_matmul.gl_route(*args) == want
+    assert stft_matmul.gl_route(*args, 1, 0.0) == want
 
 
 def test_gl_dense_kernel_switch(monkeypatch):
     monkeypatch.setenv("GL_DENSE_KERNEL", "1")
-    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, True) == "dense"
-    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, False) == "gemm"
+    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, True, 1, 0.0) == "dense"
+    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, False, 1, 0.0) == "gemm"
     monkeypatch.setenv("GL_DENSE_KERNEL", "")
-    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, True) == "staged"
+    assert stft_matmul.gl_route(3, 1024, 256, 47, 256 * 46, True, 1, 0.0) == "staged"
 
 
 def test_griffin_lim_auto_momentum_on_cpu_is_the_matmul_path(mag):

@@ -55,16 +55,23 @@ def test_lstm_bwd_row_plan_at_h100(ndir, H, B, rows):
 
 
 def test_lstm_bwd_refuses_past_its_n_tiles():
-    """Where not one row's launch fits beside the resident W_hh rows (a
-    GE2E layer past H 1664 on an H100), or past 16 units a block (the
-    BiLSTM past H 1056), the kernel has no launch: the plan says so and the
-    wrapper raises. Both are the next slice's widths."""
+    """Where one row no longer fits beside the resident W_hh rows (a GE2E
+    layer from H 1680 on an H100), or a block owns more than 16 units (the
+    BiLSTM from H 1064 a direction), the launch takes the wide layout and
+    build (W_hh tiles read from L2, up to 64 units a block); past 64 units
+    a block (H 8456 for one direction, 4232 a direction for two) the
+    kernel still has no launch: the plan says so and the wrapper raises."""
     assert lstm_kernel.bwd_rows(1, 1664, 8) >= 1
-    assert lstm_kernel.bwd_rows(1, 1680, 8) == 0
+    assert lstm_kernel.bwd_rows(1, 1680, 8) == 8
     assert lstm_kernel.bwd_rows(2, 1056, 8) >= 1
-    assert lstm_kernel.bwd_rows(2, 1072, 8) == -1
-    for ndir, H in ((1, 1680), (2, 1072)):
-        with pytest.raises(ValueError, match="16 units a block"):
+    assert lstm_kernel.bwd_rows(2, 1072, 8) == 8
+    assert not lstm_kernel.bwd_layout(2, 1056, 8, 8)["wide"]
+    for ndir, H in ((1, 1680), (2, 1064), (2, 1072)):
+        assert lstm_kernel.bwd_layout(ndir, H, 8, 8)["wide"]
+    assert lstm_kernel.bwd_rows(1, 8448, 8) == 8 and lstm_kernel.bwd_rows(2, 4224, 8) == 8
+    for ndir, H in ((1, 8456), (2, 4232)):
+        assert lstm_kernel.bwd_rows(ndir, H, 8) == 0
+        with pytest.raises(ValueError, match="64 units a block"):
             lstm_kernel.bwd_row_groups(ndir, H, 8)
 
 
