@@ -150,9 +150,26 @@
    Griffin-Lim, then one train step of 8 rows (#2, #2r, #3, #3r, #8, #9 on
    their wide routes, no ``[dispatch] ... -> plain`` line); (q3) the routed
    cases: Griffin-Lim at n_fft 1024 / T 1300 and 4096 / 512 / T 400 (GEMM,
-   as the JAX package), a bf16 decode at H 2176 and a BiGRU of 1264 a
+   as the JAX package), a bf16 decode at H 2176 and a BiGRU of 1260 a
    direction (the plain versions), each with its ``[dispatch]`` line and no
-   launch of the refused kernel.
+   launch of the refused kernel. The last shapes the reference's gates
+   launch, and data parallelism across hosts (r): (r1) a fresh ``Trainer``
+   with a decoder LSTM of 3072 x 2 at N(0, 0.02) through
+   ``Synthesizer.from_state`` under ``int8_pallas``: enroll and 32
+   fixed-length decoder steps (64 frames), twice (#6 in passes of four m-tiles, launched on
+   every chunk, no plain decode step, no ``[dispatch]`` line, every chunk
+   and the output bit-equal); (r2) a fresh ``Trainer`` with a CBHG BiGRU of
+   1280 a direction: a synthesis under ``bf16_pallas`` and a train step of
+   8 rows (#5, #5r, #10 on the wide route's streamed build, no plain
+   route), the step's gradients again with the plain reverse pass (p1's
+   gates); (r3) ``griffin_lim_auto`` at 4096 / 512 / T 304 and 16384 /
+   2048 / T 79, one row, 8 iterations (the dense kernel once a chunk, its
+   dense ``[dispatch]`` line, no GEMM line); (r4) two spawned ranks each
+   presenting a host of its own (``LOCAL_RANK`` 0, ``LOCAL_WORLD_SIZE`` 1,
+   gloo on the one card): step 1's losses within 1e-4 of (k1)'s ranks' and
+   its gradient norm within (k1)'s 2e-2 (two processes of one step may take
+   other kernel choices on the card: bit-equal in two runs, 4e-7 and 3.5e-4
+   apart in a third).
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -185,7 +202,12 @@
    rows: #2 at (q2)'s enrollment (GE2E 1792) and seeded 1152 (D = H) and
    1664 (D 80), #2r and #8 at (q1)'s 160 rows, #3 / #3r at (q2)'s encoder
    and seeded 32 rows (1152 a direction), #9 at (q2)'s train step, each with
-   cuDNN's ``nn.LSTM`` at the same shapes.
+   cuDNN's ``nn.LSTM`` at the same shapes. Pass (r)'s rows: #6 int8 at
+   (r1)'s first chunk cut to K 4 (H 3072) and seeded H 2176, 3072 and 4096;
+   #5, #5r and #10 at (r2)'s calls (1280 a direction) and seeded H 2048 and
+   4096, with cuDNN's GRU; #7 at (r3)'s 16384 / 2048 call, its 4096 / 512
+   call and seeded 2304 / 1152, 8192 / 4096 and 32768 / 4096, by the dense
+   rows' probe rule with the probes on the card.
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -700,12 +722,14 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _dp_rank(rank: int, world: int, init: str, backend: str, out: str) -> None:
+def _dp_rank(rank: int, world: int, init: str, backend: str, out: str,
+             steps: int = DP_STEPS) -> None:
     """One rank of (k1), in a spawned process: the checkpoint as it is with
     GE2E trainable, this rank's rows of the 8-row batch, the state synced
-    from rank 0 (a broadcast), DP_STEPS steps, launches and plain backward
-    calls counted a step; rank 0 saves the params after step 1. Exits non-zero
-    on any error (the parent joins on exit codes)."""
+    from rank 0 (a broadcast), ``steps`` steps, launches and plain backward
+    calls counted a step; rank 0 saves the params after step 1. Its card is
+    its local rank's (``LOCAL_RANK`` where set: pass (r4) presents two
+    hosts). Exits non-zero on any error (the parent joins on exit codes)."""
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -738,8 +762,8 @@ def _dp_rank(rank: int, world: int, init: str, backend: str, out: str) -> None:
     trainer = Trainer.from_params(hp, params, batch_stats, device=device, seed=0)
     trainer.sync_state()
     res = {"rank": rank, "world": multihost.process_count(), "backend": backend,
-           "device": str(device), "steps": []}
-    for i in range(DP_STEPS):
+           "device": str(device), "local": multihost.local_rank(), "steps": []}
+    for i in range(steps):
         counts = {n: k.launches for n, k in kernels.items()}
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -759,10 +783,45 @@ def _dp_rank(rank: int, world: int, init: str, backend: str, out: str) -> None:
     multihost.shutdown()
 
 
+# (k1)'s step-1 metrics on each rank, for pass (r4).
+K1_STEP1: dict = {}
+
+
+def _spawn_ranks(world: int, backend: str, out: str, steps: int, env=None) -> list:
+    """Start ``world`` processes of :func:`_dp_rank` (``env``: variables set
+    for the spawn), join them on their exit codes within DP_TIMEOUT_S."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        procs = [ctx.Process(target=_dp_rank, args=(r, world, f"file://{out}/rendezvous",
+                                                    backend, out, steps))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    deadline = time.time() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.time(), 1))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+        codes.append(p.exitcode)
+    return codes
+
+
 def dp_train(params, batch_stats, hp) -> list[str]:
     """(k1): two ranks (spawned processes) of data-parallel training against
     the single-process step on the same 8 rows on the card."""
-    import multiprocessing as mp
     import tempfile
 
     import torch
@@ -782,20 +841,7 @@ def dp_train(params, batch_stats, hp) -> list[str]:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, f"file://{out}/rendezvous",
-                                                    backend, out)) for r in range(DP_WORLD)]
-        for p in procs:
-            p.start()
-        deadline = time.time() + DP_TIMEOUT_S
-        for p in procs:
-            p.join(max(deadline - time.time(), 1))
-        codes = []
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-            codes.append(p.exitcode)
+        codes = _spawn_ranks(DP_WORLD, backend, out, DP_STEPS)
         wall = time.perf_counter() - t0
         if codes != [0] * DP_WORLD:
             return [f"[k1 data-parallel] rank exit codes {codes} (backend {backend})"]
@@ -806,6 +852,7 @@ def dp_train(params, batch_stats, hp) -> list[str]:
           f"{DP_WORLD} ranks x {DP_ROWS // DP_WORLD} rows, devices {[r['device'] for r in ranks]}; "
           f"spawn to join {wall:.1f} s")
     m0 = ranks[0]["steps"][0]["metrics"]
+    K1_STEP1.update(backend=backend, metrics=[r["steps"][0]["metrics"] for r in ranks])
     loss_err = {k: abs(m0[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12)
                 for k in m_ref if k not in ("skipped_nonfinite", "grad_norm")}
     norm_err = abs(m0["grad_norm"] - m_ref["grad_norm"]) / max(abs(m_ref["grad_norm"]), 1e-12)
@@ -1840,7 +1887,7 @@ Q1_N, Q1_M, Q1_FRAMES, Q1_H = 16, 10, 160, 1792
 Q2_HP = {"Encoder": {"LSTM_Size": 2304},
          "Speaker_Embedding": {"GE2E": {"LSTM": {"Sizes": 1792}}}}
 Q2_STEPS = 32
-Q3_HP = {"Decoder": {"LSTM": {"Sizes": 2176}}, "Linear_Head": {"CBHG": {"GRU_Size": 2528}}}
+Q3_HP = {"Decoder": {"LSTM": {"Sizes": 2176}}, "Linear_Head": {"CBHG": {"GRU_Size": 2520}}}
 # (n_fft, hop, T) of the Griffin-Lim routed to GEMM past the JAX package's cap
 # for the staged kernel (n_fft 1024) and for the dense one (4096).
 Q3_GL = [(1024, 256, 1300), (4096, 512, 400)]
@@ -1855,7 +1902,7 @@ def lstm_family_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
     Griffin-Lim, then one train step of 8 rows (#2, #2r, #3, #3r, #8, #9 on
     their wide routes; no ``[dispatch] ... -> plain`` line); (q3) the routed
     cases: Griffin-Lim at each of Q3_GL, and a synthesizer at Q3_HP (bf16
-    decode past H 2048, BiGRU at H 1264 a direction), each with its
+    decode past H 2048, BiGRU at H 1260 a direction), each with its
     ``[dispatch]`` line and no launch of the refused kernel. Counts zeroed
     just before each and read just after. Returns the failures and what the
     kernel phase's rows of this pass read."""
@@ -2051,6 +2098,269 @@ def lstm_family_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
     dsp._DISPATCH_LOGGED.update(saved_logged)
     del tr, state, synth
     print(f"[q3 routes] took {time.perf_counter() - t0:.1f} s")
+    return fails, data
+
+
+# -- Pass (r): the last shapes the reference's gates launch, and data --------
+# -- parallelism across hosts ------------------------------------------------
+
+# (r1) a decoder LSTM of 3072 x 2 in int8 (U 24 units a gate block: six
+# m-tiles in two passes); (r2) a CBHG BiGRU of 1280 a direction (the wide
+# route's streamed build); (r3) the dense Griffin-Lim past n_fft 2048 at the
+# JAX cap's largest T for one row; (r4) two ranks presenting two hosts.
+R1_HP = {"Decoder": {"LSTM": {"Sizes": 3072}}}
+R1_STEPS = 64  # frames: 32 decoder steps at r 2, two chunks of 16
+R2_HP = {"Linear_Head": {"CBHG": {"GRU_Size": 2560}}}
+R3_GL = [(4096, 512, 304), (16384, 2048, 79)]
+R3_ITERS = 8
+
+
+def reference_shapes_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict]:
+    """Pass (r). (r1) a fresh ``Trainer`` at R1_HP (N(0, 0.02)) through
+    ``Synthesizer.from_state`` under ``int8_pallas``: enroll, R1_STEPS
+    fixed-length frames (32 decoder steps), twice: #6 launched on every chunk (one launch a row
+    group), no plain decode step, no decode or plain ``[dispatch]`` line,
+    every chunk and the output bit-equal on repeat. (r2) a fresh ``Trainer`` at R2_HP:
+    synthesize under ``bf16_pallas`` (#5 on the wide route's streamed
+    build), one train step of 8 rows (#5r, #10 there), and the step's
+    gradients again with the plain reverse pass in place of #10 under the
+    same dropout draws (loss 1e-2, gradient norm 2e-2, dG of the first 8
+    rows 1e-2 of the peak: pass (p1)'s gates); no plain route. (r3) ``griffin_lim_auto`` at each of
+    R3_GL, one row: the dense kernel launched once a chunk, its dense
+    ``[dispatch]`` line and no GEMM line. (r4) two ranks of (k1)'s step,
+    each presenting a host of its own (``LOCAL_RANK`` 0,
+    ``LOCAL_WORLD_SIZE`` 1, gloo on the one card): step 1's losses within
+    1e-4 of (k1)'s ranks' and its gradient norm within DP_NORM_TOL. Counts zeroed just before each and read just after.
+    Returns the failures and what the kernel phase's rows of this pass
+    read."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.hparams import default_hparams
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.ops import (
+        birnn_kernel, decode_kernel, decoder_scan, griffin_lim_kernel, griffin_lim_staged,
+        stft_matmul,
+    )
+
+    fails, data = [], {"launches": {}}
+    card = decode_kernel.card_limits("cuda")
+
+    def counts(ks):
+        return {name: k.launches for name, k in ks.items()}
+
+    def moved(ks, before):
+        return {n: ks[n].launches - before[n] for n in ks if ks[n].launches != before[n]}
+
+    saved_logged = set(dsp._DISPATCH_LOGGED)
+
+    # (r1) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    hp1 = default_hparams(**R1_HP)
+    tr, state = _fresh_state(hp1, work, "r1_int8", seed=3072)
+    del tr
+    synth = Synthesizer.from_state(hp1, state, quantize="int8_pallas", seed=0)
+    del state
+    emb = synth.enroll([str(p) for p in ENROLL])
+    synth.synthesize(TEXTS[:1], emb, max_steps=16, early_exit=False, pcm16=True)  # packs
+    torch.cuda.synchronize()
+    dsp._DISPATCH_LOGGED.clear()
+    log = io.StringIO()
+    before = counts(kernels)
+    dec, plain_steps, plain_segments = [], [], []
+    with contextlib.redirect_stdout(log), _recorded(
+            (decode_kernel, "decode_segment_kernel", dec, 1 << 30),
+            (decoder_scan, "decoder_cell_step", plain_steps, 1 << 30),
+            (decode_kernel, "decode_segment_plain", plain_segments, 1 << 30)):
+        emb = synth.enroll([str(p) for p in ENROLL])
+        runs = [synth.synthesize(TEXTS, emb, max_steps=R1_STEPS, early_exit=False, pcm16=True,
+                                 split_vocode=False, return_device=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = moved(kernels, before)
+    H1 = hp1.Decoder.LSTM.Sizes
+    rows1, S1 = dec[0][0][1].shape[:2] if dec else (0, 0)
+    groups1 = len(decode_kernel.kernel_row_groups(dec[0][0][0], rows1, S1, "cuda")) if dec else 0
+    n = len(dec) // 2
+    chunks_equal = n > 0 and len(dec) == 2 * n and all(
+        torch.equal(x, y) for (_, _, a1), (_, _, a2) in zip(dec[:n], dec[n:])
+        for x, y in zip(_tensors(a1), _tensors(a2)))
+    out, again = runs
+    outputs_equal = out.keys() == again.keys() and all(torch.equal(out[k], again[k]) for k in out)
+    wav = out["wav"]
+    wav_ok = wav.dtype == torch.int16 and bool(torch.isfinite(out["mel_post"]).all())
+    lay = decode_kernel.decode_layout(H1, card[0])
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[dispatch] decode")
+             or "-> plain" in ln]
+    plain_ran = {"decoder_cell_step": len(plain_steps),
+                 "decode_segment_plain": len(plain_segments)}
+    data["launches"]["decode_segment_int8_past_2048"] = launched.get("decode_segment_int8", 0)
+    data["r1"] = dec[0][0] if dec else None
+    print(f"[r1 int8] decoder LSTM {H1} x 2, int8_pallas: {lay['U']} units a gate block, "
+          f"{lay['mt']} m-tiles ({-(-lay['mt'] // decode_kernel.MAX_M_TILES)} passes); {n} "
+          f"chunk(s) a run, {groups1} row group(s) a chunk; launches {launched}; bit-equal on "
+          f"repeat: chunks {chunks_equal}, outputs {outputs_equal}; wavs {tuple(wav.shape)} "
+          f"{wav_ok}; plain decode calls {plain_ran}; decode or plain [dispatch] lines {lines}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if (launched.get("decode_segment_int8") != 2 * n * groups1 or any(plain_ran.values())
+            or lines or not chunks_equal or not outputs_equal or not wav_ok
+            or lay["mt"] <= decode_kernel.MAX_M_TILES):
+        fails.append(f"[r1 int8] launches {launched} ({n} chunks x {groups1} groups x 2 runs), "
+                     f"plain {plain_ran}, lines {lines}, bit-equal {chunks_equal} / "
+                     f"{outputs_equal}, wavs {wav_ok}")
+    del synth, runs, out, again, dec
+    torch.cuda.empty_cache()
+
+    # (r2) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    hp2 = default_hparams(**R2_HP)
+    tr, state = _fresh_state(hp2, work, "r2_bigru", seed=1280)
+    H2 = hp2.Linear_Head.CBHG.GRU_Size // 2
+    gru_objs = {k: kernels[k] for k in ("cbhg_bigru_wide", "cbhg_bigru_wide_residuals",
+                                        "cbhg_bigru_wide_bwd", "cbhg_bigru", "cbhg_bigru_bwd",
+                                        "cbhg_bigru_residuals")}
+    synth = Synthesizer.from_state(hp2, state, quantize="bf16_pallas", seed=0)
+    emb = synth.enroll([str(p) for p in ENROLL[:1]])
+    synth.synthesize(TEXTS[:1], emb, max_steps=8, early_exit=False, pcm16=True)  # warm-up
+    torch.cuda.synchronize()
+    dsp._DISPATCH_LOGGED.clear()
+    log = io.StringIO()
+    before = counts(gru_objs)
+    fwd_calls = []
+    with contextlib.redirect_stdout(log), _recorded(
+            (birnn_kernel, "bigru_recurrence_kernel", fwd_calls, 1)):
+        out = synth.synthesize(TEXTS, emb, max_steps=16, early_exit=False, pcm16=True,
+                               split_vocode=False, return_device=True)
+    torch.cuda.synchronize()
+    launched_s = moved(gru_objs, before)
+    del synth
+    batch = _train_batch(hp2, 8, seed=0)
+    before = counts(gru_objs)
+    res_calls, bwd_calls = [], []
+    with contextlib.redirect_stdout(log), _recorded(
+            (birnn_kernel, "bigru_recurrence_kernel", res_calls, 1 << 30),
+            (birnn_kernel, "bigru_bwd_kernel", bwd_calls, 1)):
+        m = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launched_t = moved(gru_objs, before)
+    # The same dropout draws for both: the trainer's generator from one state.
+    dGs, grads = {"kernel": [], "plain": []}, {}
+    gen_state = tr.generator.get_state()
+    for label, instead in (("kernel", None), ("plain", birnn_kernel.bigru_bwd_plain)):
+        tr.generator.set_state(gen_state)
+        with contextlib.redirect_stdout(log), _recorded(
+                (birnn_kernel, "bigru_bwd_kernel", dGs[label], 1, instead)):
+            losses, g = tr.gradients(batch)
+        grads[label] = (losses["total"], g)
+        dGs[label] = [o[:, :8].float().clone() for o in dGs[label][0][2]] if dGs[label] else []
+    torch.cuda.synchronize()
+    (lk, gk_), (lp, gp_) = grads["kernel"], grads["plain"]
+    norm_k = float(np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in gk_.values())))
+    norm_p = float(np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in gp_.values())))
+    dg8 = max((float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+               for a, b in zip(dGs["kernel"], dGs["plain"])), default=float("inf"))
+    lay_f = birnn_kernel.wide_layout(False, H2, 8, card)
+    lay_b = birnn_kernel.wide_layout(True, H2, 8, card)
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[dispatch]")]
+    for row, name in (("cbhg_bigru_streamed", "cbhg_bigru_wide"),
+                      ("cbhg_bigru_streamed_residuals", "cbhg_bigru_wide_residuals"),
+                      ("cbhg_bigru_streamed_bwd", "cbhg_bigru_wide_bwd")):
+        data["launches"][row] = launched_s.get(name, 0) + launched_t.get(name, 0)
+    data["r2"] = {"fwd": [a for a, _, _ in fwd_calls],
+                  "res": [a for a, _, _ in res_calls if len(a) > 4 and a[4]][:1],
+                  "bwd": [a for a, _, _ in bwd_calls], "loss": [lk, lp],
+                  "grad_norm": [norm_k, norm_p], "dG8": dg8,
+                  "layout": {"fwd": lay_f, "bwd": lay_b}}
+    print(f"[r2 bigru] CBHG GRU_Size {2 * H2} ({H2} a direction): synthesize launches "
+          f"{launched_s}, train step launches {launched_t} (total {m.get('total')}); layouts "
+          f"at 8 rows: forward {json.dumps(lay_f)}, backward {json.dumps(lay_b)}; kernel vs "
+          f"plain reverse pass: loss {lk:.7f} / {lp:.7f}, grad norm {norm_k:.6g} / {norm_p:.6g} "
+          f"(rel {abs(norm_k - norm_p) / max(norm_p, 1e-12):.2e}), dG of the first 8 rows "
+          f"{dg8:.2e} of the peak; [dispatch] lines {lines}; {time.perf_counter() - t0:.1f} s")
+    if (not launched_s.get("cbhg_bigru_wide") or not launched_t.get("cbhg_bigru_wide_residuals")
+            or not launched_t.get("cbhg_bigru_wide_bwd")
+            or any(k in launched_s or k in launched_t
+                   for k in ("cbhg_bigru", "cbhg_bigru_bwd", "cbhg_bigru_residuals"))
+            or not lay_f["stream"] or not lay_b["stream"] or lay_f["ntr"] >= lay_f["nt"]
+            or any("-> plain" in ln for ln in lines) or m.get("skipped_nonfinite")
+            or not bool(torch.isfinite(out["mel_post"]).all())):
+        fails.append(f"[r2 bigru] launches {launched_s} / {launched_t}, layouts {lay_f} / "
+                     f"{lay_b}, lines {lines}, metrics {m}")
+    if (abs(lk - lp) > 1e-2 * max(1.0, abs(lp)) or abs(norm_k - norm_p) > 2e-2 * norm_p
+            or dg8 > 1e-2):
+        fails.append(f"[r2 bigru] kernel vs plain backward: loss {lk} / {lp}, norm {norm_k} / "
+                     f"{norm_p}, dG8 {dg8}")
+    del tr, state, batch, grads, gk_, gp_, out
+    torch.cuda.empty_cache()
+
+    # (r3) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4096)
+    gl_objs = {"griffin_lim_staged": griffin_lim_staged.KERNEL,
+               "griffin_lim_staged_momentum": griffin_lim_staged.MOM_KERNEL,
+               "griffin_lim_dense": griffin_lim_kernel.KERNEL}
+    data["r3"], data["launches"]["griffin_lim_dense_wide"] = [], 0
+    for n_fft, hop, T in R3_GL:
+        mag = torch.from_numpy((rng.random((1, T, n_fft // 2 + 1)) ** 2)
+                               .astype(np.float32)).cuda()
+        dsp._DISPATCH_LOGGED.clear()
+        log = io.StringIO()
+        dense_calls = []
+        before = counts(gl_objs)
+        with contextlib.redirect_stdout(log), _recorded(
+                (griffin_lim_kernel, "griffin_lim_dense_kernel", dense_calls, 1 << 30)):
+            wav = stft_matmul.griffin_lim_auto(mag, n_fft, hop, R3_ITERS, hop * (T - 1))
+        torch.cuda.synchronize()
+        lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[dispatch]")]
+        launched = moved(gl_objs, before)
+        chunks = -(-1 // stft_matmul.gl_max_batch(T, n_fft, 0.0, "dense"))
+        ok = (launched == {"griffin_lim_dense": chunks} and len(lines) == 1
+              and lines[0].startswith("[dispatch] griffin_lim -> dense")
+              and bool(torch.isfinite(wav).all()) and tuple(wav.shape) == (1, hop * (T - 1)))
+        plan = griffin_lim_kernel.kernel_plan(1, T, n_fft, hop)
+        data["launches"]["griffin_lim_dense_wide"] += launched.get("griffin_lim_dense", 0)
+        data["r3"].append(dense_calls[0][0] if dense_calls else None)
+        print(f"[r3 griffin-lim] griffin_lim_auto at n_fft {n_fft}, hop {hop}, T {T}, B 1, "
+              f"{R3_ITERS} iterations: {lines}; launches {launched}; plan {json.dumps(plan)}; "
+              f"wav {tuple(wav.shape)}")
+        if not ok:
+            fails.append(f"[r3 griffin-lim] {n_fft} / {hop}, T {T}: {lines}, launches {launched}")
+    print(f"[r3 griffin-lim] took {time.perf_counter() - t0:.1f} s")
+
+    # (r4) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    env = {"LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    with tempfile.TemporaryDirectory() as tmp:
+        codes = _spawn_ranks(DP_WORLD, "gloo", tmp, 1, env)
+        ranks = ([json.loads(pathlib.Path(f"{tmp}/rank{r}.json").read_text())
+                  for r in range(DP_WORLD)] if codes == [0] * DP_WORLD else [])
+    got = [r["steps"][0]["metrics"] for r in ranks]
+    want = K1_STEP1.get("metrics") or []
+    # The same step as (k1)'s in another pair of processes: the card's
+    # kernels choices may differ between processes (H100 runs read the step
+    # bit-equal twice and once 4e-7 apart in a loss, 3.5e-4 in the gradient
+    # norm). Each loss within 1e-4 of (k1)'s, the gradient norm within (k1)'s
+    # own gate against the single-process step (DP_NORM_TOL); bit-equality
+    # printed.
+    loss_rel = max((abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for g, w in zip(got, want)
+                    for k in w if k not in ("grad_norm", "skipped_nonfinite")),
+                   default=float("inf")) if len(got) == len(want) else float("inf")
+    norm_rel = max((abs(g["grad_norm"] - w["grad_norm"]) / max(abs(w["grad_norm"]), 1e-12)
+                    for g, w in zip(got, want)), default=float("inf"))
+    print(f"[r4 two hosts] {DP_WORLD} ranks, each a host of its own (LOCAL_RANK 0, "
+          f"LOCAL_WORLD_SIZE 1, gloo): exit codes {codes}; devices "
+          f"{[r['device'] for r in ranks]}, local {[r['local'] for r in ranks]}; step 1 "
+          f"{json.dumps(got[0] if got else None)}; against (k1)'s ranks' step 1: largest "
+          f"relative loss difference {loss_rel:.2e} (tolerance 1e-4), grad norm {norm_rel:.2e} "
+          f"(tolerance {DP_NORM_TOL}), metrics bit-equal {got == want}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if codes != [0] * DP_WORLD or loss_rel > 1e-4 or norm_rel > DP_NORM_TOL or any(
+            r["local"] != [0, 1] or r["world"] != DP_WORLD for r in ranks):
+        fails.append(f"[r4 two hosts] exit codes {codes}, step 1 {got} vs (k1) {want}")
+    dsp._DISPATCH_LOGGED.update(saved_logged)
     return fails, data
 
 
@@ -3060,10 +3370,18 @@ def main() -> int:
         _RECORDING[0] = True
         failures.extend(fails_q)
         print(f"[q] pass (q) took {time.perf_counter() - t_p:.1f} s")
+        # (r) the last shapes the reference's gates launch, and two hosts:
+        # its own captures keep what its rows read.
+        t_p = time.perf_counter()
+        _RECORDING[0] = False
+        fails_r, refs = reference_shapes_pass(kernels, work)
+        _RECORDING[0] = True
+        failures.extend(fails_r)
+        print(f"[r] pass (r) took {time.perf_counter() - t_p:.1f} s")
 
     # 3. Kernel phase --------------------------------------------------------
     t_kernels = time.perf_counter()
-    print(f"[time] the main path and passes (a)-(q) took {t_kernels - t_build:.1f} s")
+    print(f"[time] the main path and passes (a)-(r) took {t_kernels - t_build:.1f} s")
     rows, row_end = [], [t_kernels]
     launches = dict(pa["launches"],
                     decode_segment_bf16=pb["launches"]["decode_segment_bf16"],
@@ -4553,6 +4871,203 @@ def main() -> int:
                "library": "cuDNN bidirectional LSTM backward (identity input weights; data "
                           "and weight gradients), the faster of bf16 and fp16"},
     )
+
+    # Pass (r)'s rows: the shapes past the kernels' old limits, on what the
+    # pass gave them, with ``launches`` from its main-path runs, and seeded
+    # shapes beside them (in ``also_times``). Each held with its production
+    # row's tolerance.
+    launches.update(refs["launches"])
+
+    # #6 int8 past H 2048: (r1)'s first chunk (H 3072, six m-tiles in two
+    # passes) from the zero state cut to K 4, and seeded decoders at H 2176
+    # (B 16, S 208), 3072 (B 1, S 256, attention 640) and 4096 (B 4, S 64).
+    def seeded_decode_cuda(H, B, S, A, seed=17, K=4):
+        """:func:`seeded_decode`'s decoder, drawn on the card (a seeded
+        torch generator): at these widths numpy's draws take seconds."""
+        from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+        from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
+
+        g_ = torch.Generator(device="cuda").manual_seed(seed + H + S)
+        D, P, mel_, r_ = 512, 256, 80, 2
+
+        def w(*shape, s=0.02):
+            return torch.randn(shape, generator=g_, device="cuda") * s
+
+        p_ = dscan.DecoderParams(
+            lstm=(LSTMParams(w(P + D, 4 * H), w(H, 4 * H), w(4 * H)),
+                  LSTMParams(w(H + D, 4 * H), w(H, 4 * H), w(4 * H))),
+            attention=dscan.AttentionParams(w(H, A), w(31, 2, 32, s=0.3), w(32, A, s=0.3),
+                                            w(A, 1, s=0.3)),
+            frame_proj=(w(H + D, mel_ * r_), w(mel_ * r_)), stop_proj=(w(H + D, 1), w(1)))
+        bundle = decode_kernel.prepare_bundle(p_, [(w(mel_, P, s=0.2), w(P)),
+                                                   (w(P, P, s=0.2), w(P))], quantize=True)
+        keys_, memory_ = w(B, S, A, s=0.3), w(B, S, D, s=0.3)
+        lens = torch.tensor(([S, S - 5, 7, S] * 16)[:B], device="cuda")
+        mask_ = (torch.arange(S, device="cuda")[None] < lens[:, None]).float()
+        keep = [(torch.rand((K, B, P), generator=g_, device="cuda") < 0.5).float() / 0.5
+                for _ in range(2)]
+        return (bundle, keys_, memory_, mask_, dscan.initial_carry(B, memory_, 2, H),
+                torch.zeros(B, mel_, device="cuda"), *keep, K, mel_, r_)
+
+    rec_r1 = refs["r1"]
+    K4 = min(4, rec_r1[8])
+    r1_4 = (*rec_r1[:6], *(None if m_ is None else m_[:K4] for m_ in rec_r1[6:8]), K4,
+            *rec_r1[9:])
+    seeded_r1 = [(2176, 16, 208, 128), (3072, 1, 256, 640), (4096, 4, 64, 128)]
+    seeded_r1_args = [seeded_decode_cuda(*c) for c in seeded_r1]
+    pairs_r1 = [(lambda a=a: orig(decode_kernel.decode_segment_kernel)(*a),
+                 lambda a=a: orig(decode_kernel.decode_segment_plain)(*a))
+                for a in seeded_r1_args]
+    B_r1, S_r1, A_r1 = rec_r1[1].shape
+    H_r1 = rec_r1[4].h[0].shape[-1]
+    check(
+        "decode_segment_int8_past_2048", "multi_speaker_tts_tpu/ops/decode_pallas.py:337",
+        "multi_speaker_tts_tpu_torch/csrc/decode.cu",
+        lambda a=r1_4: orig(decode_kernel.decode_segment_kernel)(*a),
+        lambda a=r1_4: orig(decode_kernel.decode_segment_plain)(*a),
+        decode_err, {"aligns": 1e-3, "frames": 1e-2, "stops": 1e-2},
+        decode_bound(r1_4, True), also=pairs_r1, reps=10,
+        extra={"shape": {"B": B_r1, "S": S_r1, "A": A_r1, "H": H_r1, "K": K4},
+               "also": [{"H": h, "B": b, "S": s_, "A": a_, "K": 4} for h, b, s_, a_ in seeded_r1],
+               "also_times": also_times(pairs_r1, [decode_bound(a, True)
+                                                   for a in seeded_r1_args]),
+               "grid": decode_kernel.decode_layout(H_r1, _build.card_limits("cuda")[0]),
+               "layout": decode_kernel.layout_bytes(
+                   B_r1, S_r1, decode_kernel.widths_of(rec_r1[0]), True,
+                   *decode_kernel.card_limits("cuda")),
+               "ms_chunk": _time_ms(lambda a=rec_r1: orig(
+                   decode_kernel.decode_segment_kernel)(*a), 1, 3),
+               "K_chunk": rec_r1[8],
+               "bound_note": "int8 gate weights (past L2), projection, prenet and attention "
+                             "weights, keys and memory read once; the gate products' operations"},
+    )
+    del seeded_r1_args, pairs_r1
+
+    # #5 / #5r / #10 past H 1,248: (r2)'s CBHG calls (1280 a direction) on
+    # the streamed build, and seeded H 2048 and 4096 (B 4, T 37).
+    r2 = refs["r2"]
+    stream_cases = {H: gru_case(H) for H in (2048, 4096)}
+    stream_libs = [cudnn_calls(gru_lib_of(c[2], c[3]), torch.cat(c[:2], dim=-1))
+                   for c in stream_cases.values()]
+    for name, res in (("cbhg_bigru_streamed", False), ("cbhg_bigru_streamed_residuals", True)):
+        a_ = (r2["fwd"] if not res else r2["res"])[0]
+        gf_, gb_, pf_, pb_ = a_[:4]
+        T_, B_, H3_ = gf_.shape
+        pairs = [(lambda c=c: orig(birnn_kernel.bigru_recurrence_kernel)(*c, res),
+                  lambda c=c: birnn_kernel.bigru_recurrence_plain(*c, torch.bfloat16, res))
+                 for c in stream_cases.values()]
+        check(
+            name, "multi_speaker_tts_tpu/ops/birnn_pallas.py:450",
+            "multi_speaker_tts_tpu_torch/csrc/bigru_wide.cu",
+            lambda a=(gf_, gb_, pf_, pb_, res): orig(birnn_kernel.bigru_recurrence_kernel)(*a),
+            lambda a=(gf_, gb_, pf_, pb_): birnn_kernel.bigru_recurrence_plain(
+                *a, torch.bfloat16, res),
+            rel_peak if res else max_abs, 1e-2 if res else 5e-3,
+            gru_bound(gf_, res),
+            library_fn=cudnn_calls(gru_lib_of(pf_, pb_), torch.cat([gf_, gb_], dim=-1)),
+            also=pairs, reps=5,
+            extra={"shape": [T_, B_, H3_], "also_H": list(stream_cases),
+                   "also_times": also_times(pairs, [gru_bound(c[0], res)
+                                                    for c in stream_cases.values()],
+                                            stream_libs),
+                   "layout": birnn_kernel.wide_layout(False, H3_ // 3, B_,
+                                                      _build.card_limits("cuda")),
+                   "also_layouts": [birnn_kernel.wide_layout(False, H, 4,
+                                                             _build.card_limits("cuda"))
+                                    for H in stream_cases],
+                   "mode": "save_residuals=True (r2's train step)" if res else "inference",
+                   "library": "cuDNN bidirectional GRU (identity input weights), the faster "
+                              "of bf16 and fp16"},
+        )
+    bs_ = r2["bwd"][0]
+    T_, B_, H3_ = bs_[0].shape
+    sbwd_also, sbwd_bounds, sbwd_libs = [], [], []
+    for c in stream_cases.values():
+        ysf_, ysb_, ghf_, hpf_, ghb_, hpb_ = birnn_kernel.bigru_recurrence_kernel(*c, True)
+        Hc = c[0].shape[-1] // 3
+        dyc = [torch.randn((37, 4, Hc), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(Hc + i))
+               for i in range(2)]
+        argc = (c[0], ghf_, hpf_, c[1], ghb_, hpb_, c[2].w_hh, c[3].w_hh, *dyc)
+        sbwd_also.append((lambda a=argc: orig(birnn_kernel.bigru_bwd_kernel)(*a),
+                          lambda a=argc: orig(birnn_kernel.bigru_bwd_plain)(*a)))
+        sbwd_bounds.append(gru_bwd_bound(argc))
+        sbwd_libs.append(cudnn_backward(gru_lib_of(c[2], c[3]), torch.cat(c[:2], dim=-1),
+                                        torch.cat(dyc, dim=-1)))
+    check(
+        "cbhg_bigru_streamed_bwd", "multi_speaker_tts_tpu/ops/birnn_pallas.py:529",
+        "multi_speaker_tts_tpu_torch/csrc/bigru_wide.cu",
+        lambda: orig(birnn_kernel.bigru_bwd_kernel)(*bs_),
+        lambda: orig(birnn_kernel.bigru_bwd_plain)(*bs_),
+        rel_peak, 1e-2, gru_bwd_bound(bs_),
+        library_fn=cudnn_backward(gru_lib_of(*r2["res"][0][2:4]),
+                                  torch.cat([bs_[0], bs_[3]], dim=-1),
+                                  torch.cat([bs_[8], bs_[9]], dim=-1)),
+        also=sbwd_also, reps=5,
+        extra={"shape": [T_, B_, H3_], "also_H": list(stream_cases),
+               "also_times": also_times(sbwd_also, sbwd_bounds, sbwd_libs),
+               "layout": birnn_kernel.wide_layout(True, H3_ // 3, B_,
+                                                  _build.card_limits("cuda")),
+               "step_vs_plain_backward": {k: r2[k] for k in ("loss", "grad_norm", "dG8")},
+               "error_metric": "max |dGx, dGh - plain| / max |plain|, both directions",
+               "library": "cuDNN bidirectional GRU backward (identity input weights; data "
+                          "and weight gradients), the faster of bf16 and fp16"},
+    )
+    del stream_cases, stream_libs, sbwd_also, sbwd_libs
+
+    # #7 past n_fft 2048: (r3)'s 16384 / 2048 call (T 79) timed, its 4096 /
+    # 512 call (T 304) and seeded magnitudes at 2304 / 1152 (T 128), 8192 /
+    # 4096 (T 157: a frame's columns in two pieces) and 32768 / 4096 (T 40:
+    # 512 column slices over 132 blocks) beside it, B 1, R3_ITERS iterations,
+    # the probe rule of the dense rows with the probes on the card only (the
+    # CPU's plain version would build its float64 matrices, gigabytes past
+    # n_fft 8192).
+    def dense_case_wide(args):
+        def pair(n, mags=args[:2]):
+            a = (*mags, *args[2:4], n, args[5])
+            return (lambda: griffin_lim_kernel.griffin_lim_dense_kernel.original(*a),
+                    lambda: griffin_lim_kernel.griffin_lim_dense_plain(*a[:5], torch.bfloat16,
+                                                                       a[5]))
+
+        probes = [pair(args[4], [nudged(m) for m in args[:2]])[1]
+                  for _ in range(GL_PROBE_DRAWS)]
+        return (*pair(args[4]), gl_err(full_mag(args[0], args[1], args[2]), args[2], args[3],
+                                       *pair(4), probes))
+
+    def dense_bound(args):
+        mp_, _, n_, h_, it_, _ = args
+        B_g, T_g, Fp_g = mp_.shape
+        return _bound_ms(4 * B_g * T_g * (Fp_g + 1) + 2 * 2 * 2 * n_ * Fp_g
+                         + 4 * B_g * (T_g - 1) * h_,
+                         (2 * it_ + 1) * B_g * T_g * 2 * (2 * Fp_g) * n_, BF16_FLOPS)
+
+    g_wide = torch.Generator("cuda").manual_seed(2304)
+    r3_16k, r3_4k = refs["r3"][1], refs["r3"][0]
+    seeded_gl = []
+    for n_fft_x, hop_x, T_x in ((2304, 1152, 128), (8192, 4096, 157), (32768, 4096, 40)):
+        mag_x = torch.rand((1, T_x, n_fft_x // 2 + 1), generator=g_wide, device="cuda") ** 2
+        seeded_gl.append((*griffin_lim_kernel.split_magnitude(mag_x, n_fft_x), n_fft_x, hop_x,
+                          R3_ITERS, 0.0))
+    also_gl = [dense_case_wide(a) for a in (r3_4k, *seeded_gl)]
+    check(
+        "griffin_lim_dense_wide", "multi_speaker_tts_tpu/ops/griffin_lim_kernel.py:210",
+        "multi_speaker_tts_tpu_torch/csrc/griffin_lim_dense.cu",
+        *dense_case_wide(r3_16k), gl_tol, dense_bound(r3_16k),
+        warmup=1, reps=5, also=also_gl,
+        extra=dict(gl_extra, shape=[1, r3_16k[0].shape[1], 16384, 2048, R3_ITERS],
+                   also=[[a[2], a[3], a[0].shape[1]] for a in (r3_4k, *seeded_gl)],
+                   also_times=also_times([c[:2] for c in also_gl],
+                                         [dense_bound(a) for a in (r3_4k, *seeded_gl)]),
+                   plans=[griffin_lim_kernel.kernel_plan(1, a[0].shape[1], a[2], a[3])
+                          for a in (r3_16k, r3_4k, *seeded_gl)],
+                   probes="on the card only", matrix_bytes_16384=4 * 16384 * 8192 * 2,
+                   bound_note="inputs, matrices and output read or written once a call; "
+                              "the kernel reads the matrices every iteration"),
+    )
+    del also_gl, seeded_gl
+    griffin_lim_kernel._operands.cache_clear()
+    griffin_lim_kernel._packed.cache_clear()
+    torch.cuda.empty_cache()
 
     # 4. Report --------------------------------------------------------------
     print(f"[time] the kernel phase took {time.perf_counter() - t_kernels:.1f} s")

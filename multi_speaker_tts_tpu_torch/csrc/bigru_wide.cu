@@ -44,8 +44,17 @@
 // Rows: a block's partial tiles, carries and staged inputs grow with the
 // rows it carries, so a launch takes a group of the batch's rows and the
 // wrapper runs as many rows a group as fit (ops/birnn_kernel.py::wide_rows).
-// Widths: H % 16 == 0 (the wrapper's bigru_shape_reason) up to what one
-// row's launch fits (1,248 a direction on an H100).
+// Widths: H % 16 == 0 (the wrapper's bigru_shape_reason). Where a block's
+// whole W_hh slice holds a launch of 32 rows (up to H 1,184 forward, 1,248
+// backward on an H100) it stays resident (the build <false>). Past it
+// (wide_layout) the streamed build <true> keeps
+// resident the first ntr n-tiles of 8 columns (forward: gate columns of
+// depth H; backward: W_hh rows of depth 3H) that fit beside the partial
+// tiles and the rows' state, and reads every other tile's B fragments
+// from L2 (device memory where W_hh outgrows L2: 25 MB of bf16 a direction
+// at H 2048) in the same register ring as the A rows, one k-step pair
+// ahead of their MMAs; up to what the partial tiles leave room for (4,880
+// a direction on an H100).
 #include "common.cuh"
 
 namespace {
@@ -54,6 +63,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kNG = 4;      // n-tiles of 8 columns a pass of the product holds
 constexpr int kChunks = 2;  // 32-wide k chunks a warp loads ahead
+constexpr int kFullRows = 32;  // rows the resident layout must hold, else the streamed build
 
 // part[warp][BP][NP] = this warp's k share of A[B, K] . W[NP, K]^T: A rows
 // a + b * lda (bf16, read through L2: other blocks wrote them this launch),
@@ -63,9 +73,13 @@ constexpr int kChunks = 2;  // 32-wide k chunks a warp loads ahead
 // that need not fill its last 32-wide chunk and more n-tiles than fit one
 // pass; the LSTM kernel keeps its own copy (sharing this one made it 3-4%
 // slower on an H100).
+// kStream: the n-tiles from ntr on are not resident; wrow(n) is column n's
+// row in device memory (null for a pad column), its B fragments loaded
+// beside the A rows' in the ring.
+template <bool kStream, class WRow>
 __device__ __forceinline__ void rows_product(const __nv_bfloat16* a, size_t lda, int B, int K,
                                              const __nv_bfloat16* w_s, int WS, int NT,
-                                             float* part_s, int BP, int NP) {
+                                             float* part_s, int BP, int NP, int ntr, WRow wrow) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g8 = lane >> 2, tq = lane & 3;
   const int nchunk = (K + 31) / 32;
@@ -88,20 +102,43 @@ __device__ __forceinline__ void rows_product(const __nv_bfloat16* a, size_t lda,
                           : make_uint4(0u, 0u, 0u, 0u);
     };
     for (int ng = 0; ng < NT; ng += kNG) {
+      // Streamed layout: this lane's row of each streamed n-tile of the group.
+      const __nv_bfloat16* wr[kNG];
+#pragma unroll
+      for (int j = 0; j < kNG; ++j)
+        wr[j] = kStream && ng + j < NT && ng + j >= ntr ? wrow((ng + j) * 8 + g8) : nullptr;
+      auto loadw = [&](uint4 (&buf)[kChunks][kNG], int c) {
+#pragma unroll
+        for (int q = 0; q < kChunks; ++q)
+#pragma unroll
+          for (int j = 0; j < kNG; ++j)
+            buf[q][j] = (wr[j] != nullptr && c + q < ce && (c + q) * 32 + tq * 8 < K)
+                            ? __ldg(reinterpret_cast<const uint4*>(wr[j] + (c + q) * 32 + tq * 8))
+                            : make_uint4(0u, 0u, 0u, 0u);
+      };
       float acc[2][kNG][4] = {};
       uint4 cur[kChunks][4], nxt[kChunks][4];
+      uint4 wcur[kChunks][kNG], wnxt[kChunks][kNG];
       load(cur, cb);
+      if constexpr (kStream) loadw(wcur, cb);
       for (int c = cb; c < ce; c += kChunks) {
         const bool more = c + kChunks < ce;
         if (more) load(nxt, c + kChunks);
+        if constexpr (kStream) {
+          if (more) loadw(wnxt, c + kChunks);
+        }
 #pragma unroll
         for (int q = 0; q < kChunks; ++q) {
           if (c + q < ce) {
 #pragma unroll
             for (int j = 0; j < kNG; ++j) {
               if (ng + j < NT) {
-                const uint4 bw = *reinterpret_cast<const uint4*>(
-                    w_s + (size_t)((ng + j) * 8 + g8) * WS + (c + q) * 32 + tq * 8);
+                uint4 bw;
+                if (kStream && ng + j >= ntr)
+                  bw = wcur[q][j];
+                else
+                  bw = *reinterpret_cast<const uint4*>(
+                      w_s + (size_t)((ng + j) * 8 + g8) * WS + (c + q) * 32 + tq * 8);
                 mstts_mma_bf16_k32(acc[0][j], cur[q][0], cur[q][1], bw);
                 mstts_mma_bf16_k32(acc[1][j], cur[q][2], cur[q][3], bw);
               }
@@ -113,6 +150,12 @@ __device__ __forceinline__ void rows_product(const __nv_bfloat16* a, size_t lda,
           for (int q = 0; q < kChunks; ++q)
 #pragma unroll
             for (int r = 0; r < 4; ++r) cur[q][r] = nxt[q][r];
+          if constexpr (kStream) {
+#pragma unroll
+            for (int q = 0; q < kChunks; ++q)
+#pragma unroll
+              for (int j = 0; j < kNG; ++j) wcur[q][j] = wnxt[q][j];
+          }
         }
       }
 #pragma unroll
@@ -141,6 +184,7 @@ __device__ __forceinline__ float warp_partials(const float* part_s, int BP, int 
 
 struct WideArgs {
   int T, B, Bs, H, U, nblk;     // B rows in this launch, Bs the row stride (full batch)
+  int ntr;                      // n-tiles of the W_hh slice resident (the streamed build)
   const __nv_bfloat16* gx[2];   // (T, Bs, 3H) input gates
   const __nv_bfloat16* w[2];    // forward: W_hh^T (3H, H); backward: W_hh (H, 3H)
   const float* bh[2];           // (3H) b_hh (forward)
@@ -153,18 +197,47 @@ struct WideArgs {
   unsigned int* bar;            // the grid barrier's counter, zeroed by the wrapper
 };
 
-__host__ __device__ inline size_t fwd_smem_bytes(int U, int H, int B) {
-  const int NP = mstts_round_up(3 * U, 8), BP = mstts_round_up(B, 32);
-  return 2 * (size_t)NP * mstts_k32_stride(H) +
-         4 * ((size_t)kWarps * BP * NP + 4 * (size_t)B * U + 3 * (size_t)U);
+// A block's shared memory over B rows with NR rows of its W_hh slice
+// resident (the forward's 3U gate columns of depth H, the backward's U rows
+// of depth 3H): the resident rows, the warps' partial tiles, and per row
+// the carries and the step's own inputs.
+__host__ __device__ inline size_t wide_smem_bytes(bool bwd, int U, int H, int B, int NR) {
+  const int NP = mstts_round_up(bwd ? U : 3 * U, 8), BP = mstts_round_up(B, 32);
+  const size_t rest = bwd ? 10 * (size_t)B * U : 4 * (size_t)B * U + 3 * (size_t)U;
+  return 2 * (size_t)NR * mstts_k32_stride(bwd ? 3 * H : H) +
+         4 * ((size_t)kWarps * BP * NP + rest);
 }
 
-__host__ __device__ inline size_t bwd_smem_bytes(int U, int H, int B) {
-  const int NP = mstts_round_up(U, 8), BP = mstts_round_up(B, 32);
-  return 2 * (size_t)NP * mstts_k32_stride(3 * H) +
-         4 * ((size_t)kWarps * BP * NP + 10 * (size_t)B * U);
+struct WideLayout {
+  int stream;    // 0: the whole slice resident; 1: the streamed build
+  int ntr, nt;   // n-tiles resident, n-tiles of the slice
+  size_t bytes;  // shared memory a block
+};
+
+// The layout of a launch over `rows` rows: the whole slice resident
+// wherever it holds a launch of kFullRows rows, else the streamed build
+// with as many n-tiles as fit beside the rest. The launch fits if bytes <=
+// max_smem.
+__host__ __device__ inline WideLayout wide_layout(bool bwd, int U, int H, int rows,
+                                                  size_t max_smem) {
+  WideLayout L = {};
+  const int NP = mstts_round_up(bwd ? U : 3 * U, 8);
+  L.nt = NP / 8;
+  L.stream = wide_smem_bytes(bwd, U, H, kFullRows, NP) > max_smem;
+  if (!L.stream) {
+    L.ntr = L.nt;
+    L.bytes = wide_smem_bytes(bwd, U, H, rows, NP);
+    return L;
+  }
+  const size_t base = wide_smem_bytes(bwd, U, H, rows, 0);
+  const size_t tile = 2 * 8 * (size_t)mstts_k32_stride(bwd ? 3 * H : H);
+  const size_t fit = base > max_smem ? 0 : (max_smem - base) / tile;
+  L.ntr = fit < (size_t)L.nt ? (int)fit : L.nt;
+  L.bytes = base + (size_t)L.ntr * tile;
+  return L;
 }
 
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads, 1) bigru_wide_fwd_kernel(WideArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = a.H, H3 = 3 * a.H, B = a.B, T = a.T;
@@ -172,9 +245,10 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_wide_fwd_kernel(WideArgs a)
   const int u0 = (blockIdx.x % a.nblk) * a.U;
   const int U = min(a.U, H - u0), UA = a.U;  // units owned; the layout's stride
   const int NP = mstts_round_up(3 * UA, 8), NT = (3 * UA + 7) / 8;
+  const int NR = kStream ? 8 * a.ntr : NP;  // resident columns
   const int BP = mstts_round_up(B, 32), WS = mstts_k32_stride(H);
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NP][WS]: col q UA + u
-  float* part_s = reinterpret_cast<float*>(w_s + (size_t)NP * WS);  // [warp][BP][NP]
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NR][WS]: col q UA + u
+  float* part_s = reinterpret_cast<float*>(w_s + (size_t)NR * WS);  // [warp][BP][NP]
   float* h_s = part_s + (size_t)kWarps * BP * NP;                    // [B][UA] f32 carry
   float* gx_s = h_s + (size_t)B * UA;                                // [B][3 UA] this step's gx
   float* bias_s = gx_s + (size_t)3 * B * UA;                         // [3 UA]
@@ -186,16 +260,23 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_wide_fwd_kernel(WideArgs a)
   __nv_bfloat16* gh_res = dir == 0 ? a.gh[0] : a.gh[1];  // null outside the residual mode
   __nv_bfloat16* hp_res = dir == 0 ? a.hp[0] : a.hp[1];
 
-  for (size_t i = threadIdx.x; i < (size_t)NP * WS / 8; i += kThreads)
+  for (size_t i = threadIdx.x; i < (size_t)NR * WS / 8; i += kThreads)
     reinterpret_cast<uint4*>(w_s)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
-  // Resident W_hh^T rows: local column q UA + u <- gate column q H + u0 + u.
+  // Resident W_hh^T rows: local column q UA + u <- gate column q H + u0 + u
+  // (the streamed build: the first NR local columns).
   const int K8 = H / 8;
   for (int i = threadIdx.x; i < 3 * U * K8; i += kThreads) {
     const int n = i / K8, k8 = i - n * K8, q = n / U, u = n - q * U;
-    reinterpret_cast<uint4*>(w_s + (size_t)(q * UA + u) * WS)[k8] =
-        __ldg(reinterpret_cast<const uint4*>(w + (size_t)(q * H + u0 + u) * H) + k8);
+    if (q * UA + u < NR)
+      reinterpret_cast<uint4*>(w_s + (size_t)(q * UA + u) * WS)[k8] =
+          __ldg(reinterpret_cast<const uint4*>(w + (size_t)(q * H + u0 + u) * H) + k8);
   }
+  // A streamed column's row of W_hh^T in device memory, or null for a pad.
+  auto wrow = [&](int n) -> const __nv_bfloat16* {
+    const int q = n / UA, u = n - q * UA;
+    return q < 3 && u < U ? w + (size_t)(q * H + u0 + u) * H : nullptr;
+  };
   for (int i = threadIdx.x; i < B * UA; i += kThreads) h_s[i] = 0.0f;
   for (int i = threadIdx.x; i < 3 * U; i += kThreads) {
     const int q = i / U, u = i - q * U;
@@ -220,7 +301,8 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_wide_fwd_kernel(WideArgs a)
     // gh's product: bf16(h_{t-1}) of every row, the outputs of the last
     // step (zero at s = 0: gh = b_hh).
     if (s > 0) {
-      rows_product(ys + (size_t)tp * a.Bs * H, H, B, H, w_s, WS, NT, part_s, BP, NP);
+      rows_product<kStream>(ys + (size_t)tp * a.Bs * H, H, B, H, w_s, WS, NT, part_s, BP, NP,
+                            a.ntr, wrow);
       __syncthreads();
     }
     for (int i = threadIdx.x; i < B * U; i += kThreads) {
@@ -252,6 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_wide_fwd_kernel(WideArgs a)
   }
 }
 
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads, 1) bigru_wide_bwd_kernel(WideArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = a.H, H3 = 3 * a.H, B = a.B, T = a.T;
@@ -259,10 +342,11 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_wide_bwd_kernel(WideArgs a)
   const int u0 = (blockIdx.x % a.nblk) * a.U;
   const int U = min(a.U, H - u0), UA = a.U;
   const int NP = mstts_round_up(UA, 8), NT = (UA + 7) / 8;
+  const int NR = kStream ? 8 * a.ntr : NP;  // resident rows
   const int BP = mstts_round_up(B, 32), WS = mstts_k32_stride(H3);
   const int BU = B * UA;
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NP][WS]: W_hh rows
-  float* part_s = reinterpret_cast<float*>(w_s + (size_t)NP * WS);  // [warp][BP][NP]
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NR][WS]: W_hh rows
+  float* part_s = reinterpret_cast<float*>(w_s + (size_t)NR * WS);  // [warp][BP][NP]
   float* dh_s = part_s + (size_t)kWarps * BP * NP;  // [B][UA] bf16(dGh) . W_hh^T of the last step
   float* dhz_s = dh_s + BU;                          // [B][UA] dh * z of the last step
   float* res_s = dhz_s + BU;  // [7][B][UA]: gx r, z, n; gh r, z, n; h_{t-1}; then dy below
@@ -275,15 +359,18 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_wide_bwd_kernel(WideArgs a)
   __nv_bfloat16* dgx = dir == 0 ? a.dgx[0] : a.dgx[1];
   __nv_bfloat16* dgh = dir == 0 ? a.dgh[0] : a.dgh[1];
 
-  for (size_t i = threadIdx.x; i < (size_t)NP * WS / 8; i += kThreads)
+  for (size_t i = threadIdx.x; i < (size_t)NR * WS / 8; i += kThreads)
     reinterpret_cast<uint4*>(w_s)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   const int K8 = H3 / 8;
-  for (int i = threadIdx.x; i < U * K8; i += kThreads) {
+  for (int i = threadIdx.x; i < min(U, NR) * K8; i += kThreads) {
     const int u = i / K8, k8 = i - u * K8;
     reinterpret_cast<uint4*>(w_s + (size_t)u * WS)[k8] =
         __ldg(reinterpret_cast<const uint4*>(w + (size_t)(u0 + u) * H3) + k8);
   }
+  auto wrow = [&](int n) -> const __nv_bfloat16* {
+    return n < U ? w + (size_t)(u0 + n) * H3 : nullptr;
+  };
   for (int i = threadIdx.x; i < BU; i += kThreads) dh_s[i] = dhz_s[i] = 0.0f;
   // The residuals and cotangents of step s for the owned units.
   auto load_res = [&](int s) {
@@ -333,7 +420,8 @@ __global__ void __launch_bounds__(kThreads, 1) bigru_wide_bwd_kernel(WideArgs a)
     load_res(s + 1);
     mstts_grid_wait(a.bar, epoch);
     // 3. bf16(dGh_t) . W_hh^T of the owned units, for the next step.
-    rows_product(dgh + (size_t)t * a.Bs * H3, H3, B, H3, w_s, WS, NT, part_s, BP, NP);
+    rows_product<kStream>(dgh + (size_t)t * a.Bs * H3, H3, B, H3, w_s, WS, NT, part_s, BP, NP,
+                          a.ntr, wrow);
     __syncthreads();
     for (int i = threadIdx.x; i < B * U; i += kThreads) {
       const int b = i / U, u = i - b * U;
@@ -355,9 +443,15 @@ int wide_run(WideArgs a, bool bwd, int b0, int rows, cudaStream_t stream) {
   if (a.H % 16 != 0 || a.H < 16 || a.T < 1 || b0 < 0 || rows < 1 || b0 + rows > a.Bs)
     return (int)cudaErrorInvalidValue;
   MSTTS_CHECK(mstts_recurrence_grid(2, a.H, &a.U, &a.nblk));
-  const size_t smem = bwd ? bwd_smem_bytes(a.U, a.H, rows) : fwd_smem_bytes(a.U, a.H, rows);
+  const WideLayout L = wide_layout(bwd, a.U, a.H, rows, (size_t)max_smem);
+  const size_t smem = L.bytes;
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  const void* kernel = bwd ? (const void*)bigru_wide_bwd_kernel : (const void*)bigru_wide_fwd_kernel;
+  a.ntr = L.ntr;
+  const void* kernel =
+      bwd ? (L.stream ? (const void*)bigru_wide_bwd_kernel<true>
+                      : (const void*)bigru_wide_bwd_kernel<false>)
+          : (L.stream ? (const void*)bigru_wide_fwd_kernel<true>
+                      : (const void*)bigru_wide_fwd_kernel<false>);
   MSTTS_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem));
   a.B = rows;
@@ -378,6 +472,21 @@ int wide_run(WideArgs a, bool bwd, int b0, int rows, cudaStream_t stream) {
 }
 
 }  // namespace
+
+// The layout of a launch over `rows` rows at H a direction on this card,
+// for the wrapper's mirror (ops/birnn_kernel.wide_layout): out = U, blocks
+// a direction, streamed build, n-tiles resident, n-tiles, bytes, fits.
+MSTTS_EXPORT int mstts_bigru_wide_layout(int bwd, int H, int rows, void* out) {
+  int dev = 0, max_smem = 0, U = 0, nblk = 0;
+  MSTTS_CHECK(cudaGetDevice(&dev));
+  MSTTS_CHECK(cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  MSTTS_CHECK(mstts_recurrence_grid(2, H, &U, &nblk));
+  const WideLayout L = wide_layout(bwd != 0, U, H, rows, (size_t)max_smem);
+  int* o = static_cast<int*>(out);
+  o[0] = U; o[1] = nblk; o[2] = L.stream; o[3] = L.ntr; o[4] = L.nt; o[5] = (int)L.bytes;
+  o[6] = L.bytes <= (size_t)max_smem;
+  return 0;
+}
 
 // whf / whb: W_hh transposed, (3H, H) bf16; bhf / bhb: b_hh f32. ghf, hpf,
 // ghb, hpb: all null or all set (the residual mode).

@@ -66,6 +66,15 @@
 // kMaxK, in int8 after a first pass for the row's scale. The attention
 // phase loops over the attention units (a lane a float4 of them), so it
 // takes any width.
+// Past H 2048 (int8; the bf16 mode's weights are past what the reference
+// admits there) a gate block owns U = ceil(H / (SMs - 4)) > 16 units, more
+// than four m-tiles of gate rows: a third build (decode_kernel<true, 4,
+// true>) covers them in passes of up to four m-tiles over the same staged
+// activation rows, each pass's partial sums in a region of their own
+// beside the staged rows, so the registers of a pass are the MT = 4
+// build's. Its weights outgrow L2 too (129 MB at H 3072): the windows that
+// fit stay resident, the rest stream from device memory every step; where
+// wq does not fit beside the rest, the query's share reads it from L2.
 #include <algorithm>
 
 #include "common.cuh"
@@ -77,7 +86,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 16;      // batch rows: two n-tiles of 8
 // m-tiles of a block's 4U gate rows: the kernel is built for MT = 2 (U <= 8,
 // H <= 1024 on an H100) and MT = 4 (U <= 16, H <= 2048), each launch taking
-// the smaller that holds its rows.
+// the smaller that holds its rows; int8 past kMaxMt m-tiles takes the
+// multi-pass build (passes of kMaxMt).
 constexpr int kMaxMt = 4;
 constexpr int kGroup = 8;      // blocks that share a batch row's attention
 constexpr int kPre = 4;        // prenet blocks
@@ -105,6 +115,7 @@ struct Layout {
   int r0, r1;                        // resident windows of each layer (of nw0, nw1)
   int xstride;                       // bytes of a staged activation row
   int loc_res, pre_res;              // wloc + ck / the prenet weights in shared memory
+  int wq_res;                        // the block's wq rows in shared memory
   size_t w, misc, att, scr, total;   // byte offsets of the regions and the size
 };
 
@@ -148,17 +159,18 @@ __host__ __device__ inline void place(const DecArgs& a, Layout& L, int r0, int r
   L.r1 = r1;
   L.w = 0;
   L.misc = L.w + (size_t)1024 * L.mt * (r0 + r1);
-  const size_t misc = (size_t)L.U * a.A + 4 * 16 * (size_t)L.mt + 2 * (size_t)a.B * L.U;
-  L.att = L.misc + align16(sizeof(float) * misc);
   const size_t pad = (size_t)a.S + a.conv_k - 1;
   const size_t loc = (size_t)a.conv_c * a.A + (size_t)a.conv_k * 2 * a.conv_c;
   const size_t att = (size_t)mstts_round_up(a.A + 2 * (int)pad + a.S, 4);
   // Scratch: gates (staged rows, or over them the warps' partial sums; gate
   // values, row scales, a reduction); attention (location features, query,
   // context partials, energies); prenet (layer 1 and the fed-back frame).
-  const size_t part = sizeof(float) * (size_t)kWarps * 16 * L.mt * 8 * L.nt;
+  // Past kMaxMt m-tiles the passes' partial sums take a region of their own
+  // beside the staged rows, which every pass reads.
+  const bool mp = L.mt > kMaxMt;
+  const size_t part = sizeof(float) * (size_t)kWarps * 16 * (mp ? kMaxMt : L.mt) * 8 * L.nt;
   const size_t xs = (size_t)a.B * L.xstride;
-  const size_t gate = align16(xs > part ? xs : part) +
+  const size_t gate = (mp ? align16(xs) + align16(part) : align16(xs > part ? xs : part)) +
                       sizeof(float) * ((size_t)16 * L.mt * kMaxB + kMaxB + kRows * kWarps);
   const size_t attn = sizeof(float) * ((size_t)kWarps * a.conv_c * kPos + a.A + kThreads + a.S);
   // prenet: layer 1, the inputs [n_in][4], the partial sums
@@ -167,9 +179,15 @@ __host__ __device__ inline void place(const DecArgs& a, Layout& L, int r0, int r
                                       4 * (size_t)(a.mel > a.P1 ? a.mel : a.P1) + (size_t)kThreads * kRows * 2);
   size_t scr = gate > attn ? gate : attn;
   scr = scr > pre ? scr : pre;
-  for (int res = 1; res >= 0; --res) {
-    L.loc_res = res;
-    L.scr = L.att + align16(sizeof(float) * (att + (res ? loc : 0)));
+  // The location weights leave shared memory first; past kMaxMt m-tiles
+  // then wq.
+  for (int drop = 0; drop < (mp ? 3 : 2); ++drop) {
+    L.loc_res = drop == 0;
+    L.wq_res = drop < 2;
+    const size_t misc = (L.wq_res ? (size_t)L.U * a.A : 0) + 4 * 16 * (size_t)L.mt +
+                        2 * (size_t)a.B * L.U;
+    L.att = L.misc + align16(sizeof(float) * misc);
+    L.scr = L.att + align16(sizeof(float) * (att + (L.loc_res ? loc : 0)));
     L.total = L.scr + scr;
     if (L.total <= (size_t)max_smem) break;
   }
@@ -267,7 +285,8 @@ extern __shared__ __align__(16) unsigned char smem[];
 
 // The arguments stay in the launch's parameter space (__grid_constant__):
 // the decoder holds a reference, so that no copy lands in local memory.
-template <bool Q, int MT>  // MT: m-tiles the launch's gate rows take (L.mt <= MT)
+// MT: m-tiles a pass of the gate product holds (L.mt <= MT, or MP: passes of MT).
+template <bool Q, int MT, bool MP>
 struct Decoder {
   const DecArgs& a;
   int tid, warp, lane, u0, Uown, role;  // role: 0 gate block, 1 prenet block
@@ -288,8 +307,10 @@ struct Decoder {
   // -- shared memory ----------------------------------------------------------
   __device__ unsigned char* wts() const { return smem + a.L.w; }
   __device__ float* misc() const { return reinterpret_cast<float*>(smem + a.L.misc); }
-  __device__ float* wq_s() const { return misc(); }                          // [U][A]
-  __device__ float* bias_s(int l) const { return misc() + a.L.U * a.A + l * 16 * a.L.mt; }
+  __device__ float* wq_s() const { return misc(); }  // [U][A] where wq_res
+  __device__ float* bias_s(int l) const {
+    return misc() + (a.L.wq_res ? a.L.U * a.A : 0) + l * 16 * a.L.mt;
+  }
   __device__ float* scale_s(int l) const { return bias_s(2) + l * 16 * a.L.mt; }
   __device__ float* c_s(int l) const { return scale_s(2) + l * a.B * a.L.U; }  // [B][U]
   // Attention region: [v (A)] [(w, cum) (S + conv_k - 1)] [mask (S)], then,
@@ -328,8 +349,9 @@ struct Decoder {
         }
         dst += n;
       }
-      for (int i = tid; i < L.U * a.A; i += kThreads)
-        wq_s()[i] = i < Uown * a.A ? a.wq[(size_t)u0 * a.A + i] : 0.0f;
+      if (L.wq_res)
+        for (int i = tid; i < L.U * a.A; i += kThreads)
+          wq_s()[i] = i < Uown * a.A ? a.wq[(size_t)u0 * a.A + i] : 0.0f;
       for (int i = tid; i < 2 * 16 * L.mt; i += kThreads) {
         const int l = i / (16 * L.mt), r = i % (16 * L.mt), g = r / L.U, u = r % L.U;
         const bool ok = g < 4 && u < Uown;
@@ -605,17 +627,18 @@ struct Decoder {
     __syncthreads();
   }
 
-  // This warp's windows of the product into acc (m-tile, n-tile). The
-  // layer's first nres windows of each m-tile from shared memory (w_s), the
-  // rest streamed from device memory: bf16 layer 1 (nres 0) kW1Batch windows
-  // at a time, of which `pre` holds the first batch, requested before the
+  // This warp's windows of the product into acc (m-tile, n-tile) for the
+  // mtp m-tiles from m0 (a pass; all of them but past kMaxMt). The layer's
+  // first nres windows of each m-tile from shared memory (w_s), the rest
+  // streamed from device memory: bf16 layer 1 (nres 0) kW1Batch windows at
+  // a time, of which `pre` holds the first batch, requested before the
   // phase's barrier wait; any other partly resident layer (past H 1024)
   // window by window.
   __device__ void product(int layer, int nw, int nres, const unsigned char* w_s,
                           const unsigned char* xs, float (&accf)[MT][2][4], int (&acci)[MT][2][4],
-                          uint4 (&pre)[kW1Batch][MT][2]) const {
+                          uint4 (&pre)[kW1Batch][MT][2], int m0, int mtp) const {
     const int B_ = a.B;
-    const int L_mt = a.L.mt;
+    const int L_mt = mtp;
     const int L_nt = a.L.nt;
     const int L_xstride = a.L.xstride;
     const int g = lane >> 2, t = lane & 3;
@@ -630,7 +653,7 @@ struct Decoder {
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           if (m >= L_mt) break;
-          const unsigned char* p = w_s + ((size_t)m * nw + w) * 1024 + 16 * lane;
+          const unsigned char* p = w_s + ((size_t)(m0 + m) * nw + w) * 1024 + 16 * lane;
           const uint4 lo = *reinterpret_cast<const uint4*>(p);
           const uint4 hi = *reinterpret_cast<const uint4*>(p + 512);
 #pragma unroll
@@ -640,7 +663,7 @@ struct Decoder {
       }
       return;
     }
-    const unsigned char* base = a.w[layer] + (size_t)blockIdx.x * 1024 * L_mt * nw;
+    const unsigned char* base = a.w[layer] + (size_t)blockIdx.x * 1024 * a.L.mt * nw;
     if (Q || layer == 0 || nres > 0) {
       for (int w = warp; w < nw; w += kWarps) {
         const uint4 x[2] = {xfrag(w, 0), xfrag(w, 1)};
@@ -649,11 +672,11 @@ struct Decoder {
           if (m >= L_mt) break;
           uint4 lo, hi;
           if (w < nres) {
-            const unsigned char* p = w_s + ((size_t)m * nres + w) * 1024 + 16 * lane;
+            const unsigned char* p = w_s + ((size_t)(m0 + m) * nres + w) * 1024 + 16 * lane;
             lo = *reinterpret_cast<const uint4*>(p);
             hi = *reinterpret_cast<const uint4*>(p + 512);
           } else {
-            const unsigned char* p = base + ((size_t)m * nw + w) * 1024 + 16 * lane;
+            const unsigned char* p = base + ((size_t)(m0 + m) * nw + w) * 1024 + 16 * lane;
             lo = __ldg(reinterpret_cast<const uint4*>(p));
             hi = __ldg(reinterpret_cast<const uint4*>(p + 512));
           }
@@ -738,54 +761,61 @@ struct Decoder {
     if (role != 0) return;
     const int Kdim = layer == 0 ? K0_ : K1_, Kp = layer == 0 ? L_K0p : L_K1p;
     const int nw = layer == 0 ? L_nw0 : L_nw1;
-    const int ncol = 8 * L_nt, rows16 = 16 * L_mt;
+    const int ncol = 8 * L_nt, mt_pass = MP ? MT : L_mt;
     // Scratch: the staged rows, and over them (after the product) the
-    // warps' partial sums [warp][row][col]; then the gate values
+    // warps' partial sums [warp][row][col] (past kMaxMt m-tiles beside
+    // them: every pass reads the staged rows); then the gate values
     // [row][kMaxB], the row scales and a reduction buffer.
     unsigned char* xs = scr();
-    float* red = reinterpret_cast<float*>(scr());
     const size_t xs_bytes = (size_t)B_ * L_xstride;
-    const size_t part_bytes = sizeof(float) * (size_t)kWarps * rows16 * ncol;
-    float* gv = reinterpret_cast<float*>(scr() + align16(xs_bytes > part_bytes ? xs_bytes : part_bytes));
-    float* amax_s = gv + rows16 * kMaxB;
+    const size_t part_bytes = sizeof(float) * (size_t)kWarps * 16 * mt_pass * ncol;
+    float* red = reinterpret_cast<float*>(scr() + (MP ? align16(xs_bytes) : 0));
+    float* gv = reinterpret_cast<float*>(
+        scr() + (MP ? align16(xs_bytes) + align16(part_bytes)
+                    : align16(xs_bytes > part_bytes ? xs_bytes : part_bytes)));
+    float* amax_s = gv + 16 * L_mt * kMaxB;
     float* mred = amax_s + kMaxB;
     stage(x0, n0, x1, h_prev, Kdim, Kp, xs, amax_s, mred);
-    float accf[MT][2][4] = {};
-    int acci[MT][2][4] = {};
     const unsigned char* w_s = layer == 0 ? wts() : wts() + (size_t)1024 * L_mt * a.L.r0;
-    product(layer, nw, layer == 0 ? a.L.r0 : a.L.r1, w_s, xs, accf, acci, pre);
-    __syncthreads();  // the staged rows are consumed: their space takes the partial sums
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m >= L_mt) break;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        if (nt >= L_nt) break;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 16 * m + g + 8 * (e >> 1), c = 8 * nt + 2 * t + (e & 1);
-          red[(warp * rows16 + r) * ncol + c] = Q ? __int_as_float(acci[m][nt][e]) : accf[m][nt][e];
-        }
-      }
-    }
-    __syncthreads();
     const float* sc = scale_s(layer);
     const float* bi = bias_s(layer);
-    for (int i = tid; i < rows16 * B_; i += kThreads) {
-      const int r = i / B_, c = i % B_;
-      float v;
-      if (Q) {
-        int sum = 0;
-        for (int w = 0; w < kWarps; ++w) sum += __float_as_int(red[(w * rows16 + r) * ncol + c]);
-        v = __int2float_rn(sum) * (amax_s[c] * sc[r]);
-      } else {
-        v = 0.0f;
-        for (int w = 0; w < kWarps; ++w) v += red[(w * rows16 + r) * ncol + c];
+    const int g = lane >> 2, t = lane & 3;
+    const int passes = MP ? (L_mt + MT - 1) / MT : 1;
+    for (int ps = 0; ps < passes; ++ps) {
+      const int m0 = MT * ps, mtp = MP ? min(MT, L_mt - m0) : L_mt, rows16 = 16 * mtp;
+      float accf[MT][2][4] = {};
+      int acci[MT][2][4] = {};
+      product(layer, nw, layer == 0 ? a.L.r0 : a.L.r1, w_s, xs, accf, acci, pre, m0, mtp);
+      if (!MP) __syncthreads();  // the staged rows are consumed: their space takes the partial sums
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m >= mtp) break;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          if (nt >= L_nt) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * m + g + 8 * (e >> 1), c = 8 * nt + 2 * t + (e & 1);
+            red[(warp * rows16 + r) * ncol + c] = Q ? __int_as_float(acci[m][nt][e]) : accf[m][nt][e];
+          }
+        }
       }
-      gv[r * kMaxB + c] = v + bi[r];
+      __syncthreads();
+      for (int i = tid; i < rows16 * B_; i += kThreads) {
+        const int r = i / B_, c = i % B_, rg = 16 * m0 + r;
+        float v;
+        if (Q) {
+          int sum = 0;
+          for (int w = 0; w < kWarps; ++w) sum += __float_as_int(red[(w * rows16 + r) * ncol + c]);
+          v = __int2float_rn(sum) * (amax_s[c] * sc[rg]);
+        } else {
+          v = 0.0f;
+          for (int w = 0; w < kWarps; ++w) v += red[(w * rows16 + r) * ncol + c];
+        }
+        gv[rg * kMaxB + c] = v + bi[rg];
+      }
+      __syncthreads();
     }
-    __syncthreads();
     float* cs = c_s(layer);
     float* hown = red;  // [B][U]: the partial sums are consumed
     for (int i = tid; i < B_ * Uown; i += kThreads) {
@@ -802,7 +832,7 @@ struct Decoder {
     }
     if (qacc != nullptr) {
       __syncthreads();
-      const float* wq = wq_s();
+      const float* wq = a.L.wq_res ? wq_s() : a.wq + (size_t)u0 * A_;
       for (int i = tid; i < B_ * A_; i += kThreads) {
         const int b = i / A_, ai = i % A_;
         float acc = 0.0f;
@@ -1041,9 +1071,9 @@ struct Decoder {
   }
 };
 
-template <bool Q, int MT>
+template <bool Q, int MT, bool MP>
 __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const __grid_constant__ DecArgs a) {
-  Decoder<Q, MT> d(a);
+  Decoder<Q, MT, MP> d(a);
   // The query sums start at zero (both parities).
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < 2 * a.B * a.A; i += gridDim.x * kThreads)
     a.qacc[i] = 0ull;
@@ -1105,7 +1135,8 @@ MSTTS_EXPORT int mstts_decode_layout(const int* d, void* out) {
   int* o = static_cast<int*>(out);
   o[0] = L.U; o[1] = L.nblk; o[2] = L.grid; o[3] = L.group; o[4] = L.mt; o[5] = L.win;
   o[6] = (int)L.total;
-  o[7] = L.total <= (size_t)max_smem && L.grid <= nsm && L.mt <= kMaxMt && a.B <= L.nblk;
+  o[7] = L.total <= (size_t)max_smem && L.grid <= nsm && (L.mt <= kMaxMt || a.quant) &&
+         a.B <= L.nblk;
   o[8] = L.r0;
   o[9] = L.r1;
   return 0;
@@ -1160,14 +1191,17 @@ MSTTS_EXPORT int mstts_decode_segment(const void* const* p, const int* d, void* 
     if (reinterpret_cast<uintptr_t>(p[i]) % 16) return (int)cudaErrorMisalignedAddress;
   if (reinterpret_cast<uintptr_t>(a.qacc) % 8) return (int)cudaErrorMisalignedAddress;
   a.L = make_layout(a, nsm, max_smem);
-  if (a.B > a.L.nblk || a.L.total > (size_t)max_smem || a.L.grid > nsm || a.L.mt > kMaxMt)
+  if (a.B > a.L.nblk || a.L.total > (size_t)max_smem || a.L.grid > nsm ||
+      (a.L.mt > kMaxMt && !quantized))
     return (int)cudaErrorInvalidValue;
-  // The production widths (two m-tiles) keep their own build of the kernel.
-  const bool wide = a.L.mt > 2;
-  const void* kernel = quantized ? (wide ? (const void*)decode_kernel<true, 4>
-                                         : (const void*)decode_kernel<true, 2>)
-                                 : (wide ? (const void*)decode_kernel<false, 4>
-                                         : (const void*)decode_kernel<false, 2>);
+  // The production widths (two m-tiles) keep their own build of the kernel,
+  // up to four m-tiles a second, past them (int8) the multi-pass third.
+  const bool wide = a.L.mt > 2, passes = a.L.mt > kMaxMt;
+  const void* kernel = quantized ? (passes ? (const void*)decode_kernel<true, 4, true>
+                                    : wide ? (const void*)decode_kernel<true, 4, false>
+                                           : (const void*)decode_kernel<true, 2, false>)
+                                 : (wide ? (const void*)decode_kernel<false, 4, false>
+                                         : (const void*)decode_kernel<false, 2, false>);
   MSTTS_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)a.L.total));
   void* params[] = {&a};

@@ -1,5 +1,5 @@
-// Dense Griffin-Lim for any n_fft up to 2048 with a 128-multiple hop and an
-// even n_fft / hop: one persistent launch a call.
+// Dense Griffin-Lim for any n_fft with a 128-multiple hop and an even
+// n_fft / hop: one persistent launch a call.
 //
 // Replaces multi_speaker_tts_tpu/ops/griffin_lim_kernel.py::griffin_lim_pallas
 // (kernel body _gl_kernel). Same fixed-point map: zero-phase start (re = mag,
@@ -65,9 +65,10 @@
 //     inverse. Each unit also computes the f32 Nyquist analysis of every
 //     n_bs-th frame of its tile from the f32 rows, one warp a frame.
 //
-// A block keeps one column slice for the whole launch. Where it fits (n_fft
-// <= 1024; 128 KB at 1024) that slice of [Vr; Vi] stays in shared memory,
-// loaded once; otherwise it streams through the ring with the spectra.
+// Where the slices are no more than the SMs a block keeps one column slice
+// for the whole launch. Where it fits (n_fft <= 1024; 128 KB at 1024) that
+// slice of [Vr; Vi] stays in shared memory, loaded once; otherwise it
+// streams through the ring with the spectra.
 // L2 bytes a block moves a phase (B 4, T 128, n_fft 1024, hop 256, 128
 // blocks: 16 slices x 8 blocks; inverse units of 66 rows, boxes of 72
 // frames; forward units of 64 frames):
@@ -78,6 +79,30 @@
 //     frames x 32 bins x 2 bf16 = 8 KB.
 // make_plan picks the tiles (ops/griffin_lim_kernel.py::dense_plan mirrors
 // it and the tests hold the two equal).
+//
+// Past n_fft 2048 (what the reference's gate admits up to n_fft 65536, T
+// 20): the n_fft / 64 column slices outnumber the SMs from 8704, so a block
+// takes units of slices j, j + blocks, ... in turn within the one launch
+// (every inverse unit names its slice). Past k = 64 frame offsets (hop 128
+// past n_fft 8192) a slice is one hop-column whose k offsets come in groups
+// of 64: a unit multiplies the frames under its rows for each group in turn
+// (a box of rows + 63 frames; a group none of whose frames lie in the
+// utterance adds nothing and is skipped) and sums the groups' overlap-adds
+// in a register, offsets in the plain version's order. With fewer than 4
+// hop-columns a slice (k >= 32) the epilogue runs a thread a (row,
+// column). Where a forward tile's slab of rows (mf + k - 1 rows of hop
+// bf16) no longer fits beside the ring (hop 4096, or 2048 at k 32), each frame's
+// hop columns are taken in pieces of pw (a divisor of hop, a multiple of
+// 128): the slab holds one piece's panels, the ring runs over that piece's
+// k-slices, and the accumulators carry over the pieces, the same products
+// summed in another order. Slabs past 256 rows (k > 241) arrive in several
+// tensor boxes. The matrices (4 n_fft^2 bytes: 1 GiB at 16384) stream from
+// device memory every iteration; that and the grid barriers bound it. These
+// shapes run a second instantiation (kWide, Plan::wide). A shape with one
+// slice a block, one group, whole frames and four hop-columns a slice or
+// more (every one up to n_fft 2048, and 4096 / 512) keeps the first, which
+// does not carry the second's code (with it the production build spilled
+// and ran 9% slower on an H100).
 #include <cuda.h>
 
 #include <algorithm>
@@ -100,7 +125,7 @@ constexpr int kMaxM = 128;     // rows of an inverse tile: two 64-row tiles
 constexpr int kMaxF = 64;      // frames of a forward tile: one 64-row tile
 constexpr int kLdF = kN + 4;   // f32 frame tile row of the inverse epilogue
 constexpr int kBins = kN / 2;  // bins of a forward unit
-constexpr int kMaxN = 2048;
+constexpr int kMaxBox = 256;   // rows of a tensor copy's box
 // The rings' barriers: the inverse stages, the forward stages, the slab.
 constexpr int kBarF = kStagesI, kBarSlab = kStagesI + kStages, kBars = kBarSlab + 1;
 // The Nyquist values of a tile's frames, the block's slice of the Nyquist
@@ -110,8 +135,12 @@ constexpr size_t kSmall = sizeof(float) * (kMaxM + kN) + 8 * kBars;
 // The launch's tiling; make_plan fills it.
 struct Plan {
   int k, cs, n_cs, n_bs, nr;  // frame offsets, hop-columns a slice, slices, bin groups, rows
+  int qg, ng;                 // frame offsets a group of a slice, groups (k > 64: 64, k / 64)
+  int pw;                     // forward: columns of a frame's piece (hop, or a divisor of it)
+  int wide;                   // any of the above past one slice a block, one group, whole
+                              // frames, cs >= 4 or one slab box: the kWide instantiation
   int resident;               // the inverse slice stays in shared memory
-  int blocks;                 // a multiple of n_cs: block j serves slice j % n_cs
+  int blocks;                 // a multiple of n_cs where n_cs <= SMs: block j serves slice j % n_cs
   int rt, m_out;              // inverse: row tiles an utterance, rows a tile
   int ft, mf;                 // forward: frame tiles an utterance, frames a tile
   int smem;
@@ -145,10 +174,17 @@ __host__ __device__ size_t inverse_bytes(int rows, bool resident, int cs) {
 // row count rounded up to 8: a panel stays 1024-byte aligned).
 __host__ __device__ size_t ring_f_bytes() { return kStages * kStageB; }
 
-__host__ __device__ int slab_rows(int mf, int k) { return mstts_round_up(mf + k - 1, 8); }
+// Past kMaxBox rows the slab arrives in boxes of equal rows (multiples of 8).
+__host__ __device__ int slab_boxes(int rows) { return ceil_div(rows, kMaxBox); }
 
-size_t forward_bytes(int mf, int k, int hop) {
-  return ring_f_bytes() + sizeof(bf16) * (size_t)slab_rows(mf, k) * hop;
+__host__ __device__ int slab_rows(int mf, int k) {
+  const int r = mstts_round_up(mf + k - 1, 8);
+  return mstts_round_up(r, 8 * slab_boxes(r));
+}
+
+// pw: the columns of a frame's piece the slab holds.
+size_t forward_bytes(int mf, int k, int pw) {
+  return ring_f_bytes() + sizeof(bf16) * (size_t)slab_rows(mf, k) * pw;
 }
 
 // Scratch: spectra y (B, T, n_fft) bf16, signal rows (B, nr, hop) f32 and
@@ -165,35 +201,45 @@ bool make_plan(int B, int T, int n_fft, int hop, bool momentum, int nsm, int max
                Plan* p) {
   p->k = n_fft / hop;
   int cs = 32;
-  while (p->k * cs > kN) cs /= 2;
+  while (cs > 1 && p->k * cs > kN) cs /= 2;
   p->cs = cs;
+  p->qg = std::min(p->k, kN / cs);
+  p->ng = ceil_div(p->k, p->qg);
   p->n_cs = hop / cs;
   p->n_bs = n_fft / 2 / kBins;
   p->nr = T + p->k - 1;
   // The largest inverse and forward tiles that fit beside the resident
-  // slice (preferred) or beside the streaming ring.
+  // slice (preferred, where a block keeps one slice) or beside the
+  // streaming ring, a frame's hop columns whole; else in the widest
+  // pieces with which they fit beside the ring.
   int m_cap = 0, mf_cap = 0;
   size_t base = 0;
-  for (int resident = 1; resident >= 0; --resident) {
-    base = resident ? resident_bytes(n_fft) : 0;
-    const long long avail = (long long)max_smem - (long long)(base + kSmall);
-    m_cap = mf_cap = 0;
-    for (int m = kMaxM; m >= 16 && m_cap == 0; m -= 16)
-      if ((long long)inverse_bytes(m, resident, cs) <= avail) m_cap = m;
-    for (int mf = kMaxF; mf >= 16 && mf_cap == 0; mf -= 16)
-      if ((long long)forward_bytes(mf, p->k, hop) <= avail) mf_cap = mf;
-    p->resident = resident;
-    if (m_cap >= p->k + 1 && mf_cap > 0) break;
+  const bool one_slice = p->n_cs <= nsm && p->ng == 1;
+  bool found = false;
+  for (int d = 1; d <= hop / kK && !found; ++d) {
+    if (hop % d || (hop / d) % kK) continue;
+    p->pw = hop / d;
+    for (int resident = one_slice && d == 1 ? 1 : 0; resident >= 0 && !found; --resident) {
+      base = resident ? resident_bytes(n_fft) : 0;
+      const long long avail = (long long)max_smem - (long long)(base + kSmall);
+      m_cap = mf_cap = 0;
+      for (int m = kMaxM; m >= 16 && m_cap == 0; m -= 16)
+        if ((long long)inverse_bytes(m, resident, cs) <= avail) m_cap = m;
+      for (int mf = kMaxF; mf >= 16 && mf_cap == 0; mf -= 16)
+        if ((long long)forward_bytes(mf, p->k, p->pw) <= avail) mf_cap = mf;
+      p->resident = resident;
+      found = m_cap >= p->qg + 1 && mf_cap > 0;
+    }
   }
-  if (m_cap < p->k + 1 || mf_cap == 0 || nsm < p->n_cs) return false;
-  p->blocks = nsm / p->n_cs * p->n_cs;
+  if (!found) return false;
+  p->blocks = p->n_cs <= nsm ? nsm / p->n_cs * p->n_cs : nsm;
   // Inverse: the fewest block rounds x m-tiles a unit, then the fewest tiles.
-  const int bpc = p->blocks / p->n_cs;
   long long best = LLONG_MAX;
-  for (int rt = ceil_div(p->nr, m_cap - p->k + 1); rt <= p->nr; ++rt) {
+  for (int rt = ceil_div(p->nr, m_cap - p->qg + 1); rt <= p->nr; ++rt) {
     const int m_out = ceil_div(p->nr, rt);
     if (ceil_div(p->nr, m_out) != rt) continue;  // the same tiles as a smaller rt
-    const long long cost = (long long)ceil_div(B * rt, bpc) * ceil_div(m_out + p->k - 1, 16);
+    const long long cost = (long long)ceil_div(B * rt * p->n_cs, p->blocks) *
+                           ceil_div(m_out + p->qg - 1, 16) * p->ng;
     if (cost < best) {
       best = cost;
       p->rt = rt;
@@ -214,11 +260,13 @@ bool make_plan(int B, int T, int n_fft, int hop, bool momentum, int nsm, int max
     }
   }
   // No more blocks than units: idle blocks only slow the barrier.
+  p->wide = p->n_cs > nsm || p->ng > 1 || p->pw != hop || p->cs < 4 ||
+            slab_boxes(slab_rows(p->mf, p->k)) > 1;
   const int units = std::max(B * p->rt * p->n_cs, B * p->ft * p->n_bs);
   p->blocks = std::min(p->blocks, mstts_round_up(units, p->n_cs));
-  p->smem = (int)(base + std::max(inverse_bytes(mstts_round_up(p->m_out + p->k - 1, 16),
+  p->smem = (int)(base + std::max(inverse_bytes(mstts_round_up(p->m_out + p->qg - 1, 16),
                                                 p->resident, cs),
-                                  forward_bytes(mstts_round_up(p->mf, 16), p->k, hop)) +
+                                  forward_bytes(mstts_round_up(p->mf, 16), p->k, p->pw)) +
                   kSmall);
   p->scratch = scratch_bytes(B, T, n_fft, hop, p->nr, momentum);
   return true;
@@ -232,7 +280,8 @@ struct GlArgs {
   CUtensorMap tm_y, tm_r16, tm_w, tm_v;
   const float* mag;     // (B, T, Fp) target magnitudes, bins 0 .. Fp - 1
   const float* mag_ny;  // (B, T) Nyquist magnitudes
-  const bf16* vpack;    // (n_cs, 64, n_fft): slice s, column q cs + c = [Vr; Vi][:, q hop + s cs + c]
+  const bf16* vpack;    // (n_cs ng, 64, n_fft): slice s, group g, column q cs + c =
+                        //   [Vr; Vi][:, (g qg + q) hop + s cs + c]
   const bf16* wpack;    // (n_bs, 64, n_fft): group g, pair p: [Wr | Wi] columns of bins 32 g + 8 p + j
   const float* wny;     // (n_fft) Nyquist analysis
   const float* vny;     // (n_fft) Nyquist synthesis
@@ -355,7 +404,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4
 // array, so that the compiler uses shared-memory loads and stores.
 extern __shared__ __align__(128) unsigned char smem[];
 
-template <bool kMom>
+template <bool kMom, bool kWide>
 struct Dense {
   const GlArgs& a;  // the launch's __grid_constant__ arguments (the tensor maps live there)
   int tid, lane, warp, g8, tq;
@@ -371,7 +420,7 @@ struct Dense {
     tq = lane & 3;
     Fp = a.n_fft / 2;
     slice = blockIdx.x % a.p.n_cs;
-    a_rows = mstts_round_up(a.p.m_out + a.p.k - 1, 16);
+    a_rows = mstts_round_up(a.p.m_out + a.p.qg - 1, 16);
     s_rows = slab_rows(a.p.mf, a.p.k);
     issuer = tid == 0;
   }
@@ -527,10 +576,11 @@ struct Dense {
       a.rny[i] = a.mag_ny[i];
       if constexpr (kMom) a.prny[i] = 0.0f;
     }
-    for (int i = tid; i < a.p.k * a.p.cs; i += kThreads) {
-      const int q = i / a.p.cs, c = i - q * a.p.cs;
-      vny_s()[i] = a.vny[q * a.hop + slice * a.p.cs + c];
-    }
+    if constexpr (!kWide)  // the block's one slice (the wide build loads them a unit)
+      for (int i = tid; i < a.p.k * a.p.cs; i += kThreads) {
+        const int q = i / a.p.cs, c = i - q * a.p.cs;
+        vny_s()[i] = a.vny[q * a.hop + slice * a.p.cs + c];
+      }
     if (tid < kBars) mstts_mbar_init(bars() + tid);
     if (tid == 0) {
       if (mstts_smem_addr(smem) & 1023u) __trap();  // the swizzled panels need 1024-byte alignment
@@ -542,92 +592,141 @@ struct Dense {
   }
 
   // -- inverse phase: spectra -> frames -> overlap-add -> signal rows -------
+  // The block's units: its slice's (utterance, row tile) pairs; in the wide
+  // build unit u is slice u % n_cs, pair u / n_cs, a block taking units
+  // blockIdx.x, + gridDim.x, ..., and a unit runs its slice's ng groups of
+  // frame offsets in turn.
   __device__ void inverse(bool last) const {
     const Plan& p = a.p;
-    const int k = p.k, cs = p.cs, hop = a.hop, n_fft = a.n_fft;
-    const int sub = blockIdx.x / p.n_cs, bpc = gridDim.x / p.n_cs;
-    const int nks = n_fft / kK;
+    const int k = p.k, cs = p.cs, qg = kWide ? p.qg : p.k, hop = a.hop, n_fft = a.n_fft;
+    const int nks = n_fft / kK, ng = kWide ? p.ng : 1;
+    // Fewer than 4 hop-columns a slice, or groups: a thread a (row, column).
+    const bool scalar = kWide && (cs < 4 || p.ng > 1);
     fence_proxy_async_global();  // y, written by every block's forward phase
     float* rn = rn_s();
     float* ws = wsum_tile();
-    const float* vn = vny_s();
-    for (int v = sub; v < a.B * p.rt; v += bpc) {
+    float* vn = vny_s();
+    const int n_units = kWide ? p.n_cs * a.B * p.rt : a.B * p.rt;
+    const int first = kWide ? (int)blockIdx.x : (int)blockIdx.x / p.n_cs;
+    const int step = kWide ? (int)gridDim.x : (int)gridDim.x / p.n_cs;
+    for (int u = first; u < n_units; u += step) {
+      const int sl = kWide ? u % p.n_cs : slice, v = kWide ? u / p.n_cs : u;
       const int b = v / p.rt, r0 = (v % p.rt) * p.m_out;
       const int rows = min(p.m_out, p.nr - r0);
-      const int f0 = r0 - (k - 1), M = rows + k - 1, mt = ceil_div(M, 16);
-      // A stage: frames f0 .. of utterance b in a box of m_out + k - 1 rows
-      // rounded up to 8 (rows up to a_rows are multiplied, unused), columns
-      // 128 ks .. + 127, as two panels; frames outside the utterance arrive
-      // as zeros (the box leaves the tensor).
-      const uint32_t bytes = (uint32_t)(mstts_round_up(p.m_out + k - 1, 8) * kK * 2) +
-                             (p.resident ? 0u : (uint32_t)kStageB);
-      auto issue = [&](int st, int ks) {
-        mbar_expect(bars() + st, bytes, issuer);
-        for (int h = 0; h < kK / kPanel; ++h)
-          tma_3d(ring_a(st) + h * a_rows * kPanel, &a.tm_y, ks * kK + h * kPanel, f0, b, bars() + st,
-                 issuer);
-        if (!p.resident) tma_3d(ring_b_inv(st), &a.tm_v, 0, 16 * ks, 8 * slice, bars() + st, issuer);
-      };
-      float acc[32] = {};
-      const Part part_i = part(mt);
-      auto mma = [&](int ks, uint32_t (&af)[8][4]) {
-        const bf16* As = ring_a(ks % kStagesI);
-        const int pe = a_rows * kPanel;
-        auto at = [&](int row, int step, int half) {
-          return panel_at(As + (step >> 2) * pe, row, 2 * (step & 3) + half);
+      float accv = 0.0f;  // scalar: this thread's (row, column), over the groups
+      for (int g = 0; g < ng; ++g) {
+        const int q0 = g * qg, nq = min(qg, k - q0);
+        const int f0 = r0 - q0 - (qg - 1), M = rows + qg - 1, mt = ceil_div(M, 16);
+        if (kWide && (f0 + M <= 0 || f0 >= a.T)) continue;  // no frame of the utterance
+        // A stage: frames f0 .. of utterance b in a box of m_out + qg - 1
+        // rows rounded up to 8 (rows up to a_rows are multiplied, unused),
+        // columns 128 ks .. + 127, as two panels; frames outside the
+        // utterance arrive as zeros (the box leaves the tensor).
+        const uint32_t bytes = (uint32_t)(mstts_round_up(p.m_out + qg - 1, 8) * kK * 2) +
+                               (p.resident ? 0u : (uint32_t)kStageB);
+        const int vslice = kWide ? sl * p.ng + g : sl;
+        auto issue = [&](int st, int ks) {
+          mbar_expect(bars() + st, bytes, issuer);
+          for (int h = 0; h < kK / kPanel; ++h)
+            tma_3d(ring_a(st) + h * a_rows * kPanel, &a.tm_y, ks * kK + h * kPanel, f0, b,
+                   bars() + st, issuer);
+          if (!p.resident)
+            tma_3d(ring_b_inv(st), &a.tm_v, 0, 16 * ks, 8 * vslice, bars() + st, issuer);
         };
-        if (p.resident)  // core column 16 ks of every block
-          mma_slice(acc, af, at, resident() + ks * kK * 8, 16u * n_fft, part_i);
-        else
-          mma_slice(acc, af, at, ring_b_inv(ks % kStagesI), 16u * kK, part_i);
-      };
-      // The normaliser of the tile's rows at the slice's columns.
-      for (int i = tid; i < rows * (cs / 4); i += kThreads) {
-        const int j = i / (cs / 4), c = i - j * (cs / 4);
-        mstts_cp_async16(ws + j * cs + 4 * c, a.wsum + (size_t)(r0 + j) * hop + slice * cs + 4 * c);
-      }
-      cp_async_commit();
-      ring_prologue<kStagesI>(nks, issue);
-      for (int i = tid; i < M; i += kThreads) {
-        const int f = f0 + i;
-        rn[i] = f >= 0 && f < a.T ? __ldcg(a.rny + (size_t)b * a.T + f) : 0.0f;
-      }
-      ring<kStagesI>(nks, 0, false, issue, mma);
-      acc_fence(acc);
-      cp_async_wait<0>();
-      __syncthreads();  // every warp is done with the ring
-      float* S = frame_tile();
-      store_tile(acc, S, part_i, mt);
-      // Row r0 + j, columns slice cs + c, c + 1: the k frames under it in
-      // the plain version's order (offset q = 0 first), each with its
-      // Nyquist term, times the normaliser.
-      const int half = cs / 2;
-      for (int i = tid; i < rows * half; i += kThreads) {
-        const int j = i / half, c = 2 * (i - j * half), r = r0 + j, col = slice * cs + c;
-        float v0 = 0.0f, v1 = 0.0f;
-        for (int q = 0; q < k; ++q) {
-          const int fi = j + k - 1 - q;
-          const float2 sv = *reinterpret_cast<const float2*>(S + fi * kLdF + q * cs + c);
-          const float2 v = *reinterpret_cast<const float2*>(vn + q * cs + c);
-          v0 += sv.x + rn[fi] * v.x;
-          v1 += sv.y + rn[fi] * v.y;
+        float acc[32] = {};
+        const Part part_i = part(mt);
+        auto mma = [&](int ks, uint32_t (&af)[8][4]) {
+          const bf16* As = ring_a(ks % kStagesI);
+          const int pe = a_rows * kPanel;
+          auto at = [&](int row, int step, int half) {
+            return panel_at(As + (step >> 2) * pe, row, 2 * (step & 3) + half);
+          };
+          if (p.resident)  // core column 16 ks of every block
+            mma_slice(acc, af, at, resident() + ks * kK * 8, 16u * n_fft, part_i);
+          else
+            mma_slice(acc, af, at, ring_b_inv(ks % kStagesI), 16u * kK, part_i);
+        };
+        // The normaliser of the tile's rows at the slice's columns.
+        if (!scalar)
+          for (int i = tid; i < rows * (cs / 4); i += kThreads) {
+            const int j = i / (cs / 4), c = i - j * (cs / 4);
+            mstts_cp_async16(ws + j * cs + 4 * c, a.wsum + (size_t)(r0 + j) * hop + sl * cs + 4 * c);
+          }
+        cp_async_commit();
+        ring_prologue<kStagesI>(nks, issue);
+        for (int i = tid; i < M; i += kThreads) {
+          const int f = f0 + i;
+          rn[i] = f >= 0 && f < a.T ? __ldcg(a.rny + (size_t)b * a.T + f) : 0.0f;
         }
-        const float2 w = *reinterpret_cast<const float2*>(ws + j * cs + c);
-        v0 *= w.x;
-        v1 *= w.y;
+        // The group's Nyquist synthesis values at the slice's columns.
+        if constexpr (kWide)
+          for (int i = tid; i < nq * cs; i += kThreads) {
+            const int q = i / cs, c = i - q * cs;
+            vn[i] = a.vny[(size_t)(q0 + q) * hop + sl * cs + c];
+          }
+        ring<kStagesI>(nks, 0, false, issue, mma);
+        acc_fence(acc);
+        cp_async_wait<0>();
+        __syncthreads();  // every warp is done with the ring
+        float* S = frame_tile();
+        store_tile(acc, S, part_i, mt);
+        if (scalar) {
+          // Row r0 + j, column sl cs + c: the group's frames under it, offset
+          // q0 first, each with its Nyquist term.
+          if (tid < rows * cs) {
+            const int j = tid / cs, c = tid - j * cs;
+            for (int q = 0; q < nq; ++q) {
+              const int fi = j + qg - 1 - q;
+              accv += S[fi * kLdF + q * cs + c] + rn[fi] * vn[q * cs + c];
+            }
+          }
+          mstts_fence_proxy_async();
+          __syncthreads();  // the frame tile, rn and vn are free for the next group
+          continue;
+        }
+        // Row r0 + j, columns sl cs + c, c + 1: the k frames under it in the
+        // plain version's order (offset q = 0 first), each with its Nyquist
+        // term, times the normaliser.
+        const int half = cs / 2;
+        for (int i = tid; i < rows * half; i += kThreads) {
+          const int j = i / half, c = 2 * (i - j * half), r = r0 + j, col = sl * cs + c;
+          float v0 = 0.0f, v1 = 0.0f;
+          for (int q = 0; q < k; ++q) {
+            const int fi = j + k - 1 - q;
+            const float2 sv = *reinterpret_cast<const float2*>(S + fi * kLdF + q * cs + c);
+            const float2 vv = *reinterpret_cast<const float2*>(vn + q * cs + c);
+            v0 += sv.x + rn[fi] * vv.x;
+            v1 += sv.y + rn[fi] * vv.y;
+          }
+          const float2 w = *reinterpret_cast<const float2*>(ws + j * cs + c);
+          v0 *= w.x;
+          v1 *= w.y;
+          if (last) {
+            const int ro = r - k / 2;
+            if (ro >= 0 && ro < a.T - 1)
+              *reinterpret_cast<float2*>(a.out + ((size_t)b * (a.T - 1) + ro) * hop + col) =
+                  make_float2(v0, v1);
+          } else {
+            const size_t o = ((size_t)b * p.nr + r) * hop + col;
+            *reinterpret_cast<float2*>(a.r32 + o) = make_float2(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(a.r16 + o) = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+      }
+      if (scalar && tid < rows * cs) {
+        const int j = tid / cs, c = tid - j * cs, r = r0 + j, col = sl * cs + c;
+        const float v0 = accv * __ldg(a.wsum + (size_t)r * hop + col);
         if (last) {
           const int ro = r - k / 2;
-          if (ro >= 0 && ro < a.T - 1)
-            *reinterpret_cast<float2*>(a.out + ((size_t)b * (a.T - 1) + ro) * hop + col) =
-                make_float2(v0, v1);
+          if (ro >= 0 && ro < a.T - 1) a.out[((size_t)b * (a.T - 1) + ro) * hop + col] = v0;
         } else {
           const size_t o = ((size_t)b * p.nr + r) * hop + col;
-          *reinterpret_cast<float2*>(a.r32 + o) = make_float2(v0, v1);
-          *reinterpret_cast<__nv_bfloat162*>(a.r16 + o) = __floats2bfloat162_rn(v0, v1);
+          a.r32[o] = v0;
+          a.r16[o] = __float2bfloat16(v0);
         }
       }
       mstts_fence_proxy_async();
-      __syncthreads();  // the frame tile, rn and ws are free for the next unit
+      __syncthreads();  // the frame tile, rn, vn and ws are free for the next unit
     }
   }
 
@@ -639,30 +738,45 @@ struct Dense {
     tma_3d(ring_b_fwd(st), &a.tm_w, 0, 16 * ks, 8 * bs, bars() + kBarF + st, issuer);
   }
 
+  // The k-slice of ring step i of piece pc: frame row q = i / spr of the
+  // piece's spr slices a row (every slice in order with one piece).
+  __device__ int piece_ks(int i, int pc) const {
+    if constexpr (!kWide) return i;
+    const int spr = a.p.pw / kK;
+    return (i / spr) * (a.hop / kK) + pc * spr + i % spr;
+  }
+
   // The block's first forward unit's matrix slices depend on no other
   // block: they are issued between the barrier's arrival and its wait.
   __device__ void forward_prefetch() const {
     if ((int)blockIdx.x < a.B * a.p.ft * a.p.n_bs)
-      ring_prologue<kStages>(a.n_fft / kK, [&](int st, int ks) {
-        forward_issue(st, ks, blockIdx.x % a.p.n_bs);
+      ring_prologue<kStages>((kWide ? a.p.k * a.p.pw : a.n_fft) / kK, [&](int st, int i) {
+        forward_issue(st, piece_ks(i, 0), blockIdx.x % a.p.n_bs);
       });
   }
 
   __device__ void forward() const {
     const Plan& p = a.p;
-    const int hop = a.hop, n_fft = a.n_fft, nks = n_fft / kK;
+    const int hop = a.hop, n_fft = a.n_fft, pw = kWide ? p.pw : hop;
+    const int npiece = kWide ? hop / pw : 1, nks = kWide ? p.k * pw / kK : n_fft / kK;
+    const int nbox = kWide ? slab_boxes(s_rows) : 1, sbox = s_rows / nbox;
     const int n_units = a.B * p.ft * p.n_bs;
     fence_proxy_async_global();  // the rows, written by every block's inverse phase
     for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
       const int bs = u % p.n_bs, rest = u / p.n_bs, tt = rest % p.ft, b = rest / p.ft;
       const int t0 = tt * p.mf, nf = min(p.mf, a.T - t0), mt = ceil_div(nf, 16);
-      auto issue = [&](int st, int ks) { forward_issue(st, ks, bs); };
-      if (u != (int)blockIdx.x) ring_prologue<kStages>(nks, issue);
-      // The slab: rows t0 .. t0 + s_rows - 1 (rows t0 .. t0 + nf + k - 2
-      // are used), hop / 64 panels.
-      mbar_expect(bars() + kBarSlab, (uint32_t)(s_rows * hop * 2), issuer);
-      for (int g = 0; g < hop / kPanel; ++g)
-        tma_3d(slab() + g * s_rows * kPanel, &a.tm_r16, g * kPanel, t0, b, bars() + kBarSlab, issuer);
+      // The slab of piece pc: rows t0 .. t0 + s_rows - 1 (rows t0 .. t0 + nf
+      // + k - 2 are used), columns pc pw .. + pw - 1 as pw / 64 panels.
+      auto slab_issue = [&](int pc) {
+        mbar_expect(bars() + kBarSlab, (uint32_t)(s_rows * pw * 2), issuer);
+        for (int g = 0; g < pw / kPanel; ++g)
+          for (int x = 0; x < nbox; ++x)
+            tma_3d(slab() + (g * s_rows + x * sbox) * kPanel, &a.tm_r16, pc * pw + g * kPanel,
+                   t0 + x * sbox, b, bars() + kBarSlab, issuer);
+      };
+      if (u != (int)blockIdx.x)
+        ring_prologue<kStages>(nks, [&](int st, int i) { forward_issue(st, piece_ks(i, 0), bs); });
+      slab_issue(0);
       // This thread's projections, from its accumulators: both warpgroups
       // hold rows 16 wr + g8 and + 8 of the tile (each its k-share); warp
       // group wg projects row 16 wr + g8 + 8 wg, n-tiles 2p (re) and 2p + 1
@@ -721,17 +835,30 @@ struct Dense {
       }
       float acc[32] = {};
       // Frame t's operand at k = kg is row t + kg / hop, column kg % hop; a
-      // slice of 128 lies in one row (hop % 128 == 0), in two panels.
+      // slice of 128 lies in one row (hop % 128 == 0), in two panels of the
+      // piece holding it.
       const bf16* sl = slab();
-      ring<kStages>(nks, kBarF, true, issue, [&](int ks, uint32_t (&af)[8][4]) {
-        const int q = ks * kK / hop;
-        const bf16* P = sl + (ks * kK - q * hop) / kPanel * s_rows * kPanel;
-        const int pe = s_rows * kPanel;
-        auto at = [&](int row, int step, int half) {
-          return panel_at(P + (step >> 2) * pe, row + q, 2 * (step & 3) + half);
-        };
-        mma_half(acc, af, at, ring_b_fwd(ks % kStages), 16u * kK, mt);
-      });
+      for (int pc = 0; pc < npiece; ++pc) {
+        auto issue = [&](int st, int i) { forward_issue(st, piece_ks(i, pc), bs); };
+        if (pc > 0) {
+          // Every warp is past the last piece's products: its stages and
+          // slab are free.
+          mstts_fence_proxy_async();
+          __syncthreads();
+          ring_prologue<kStages>(nks, issue);
+          slab_issue(pc);
+        }
+        ring<kStages>(nks, kBarF, true, issue, [&](int i, uint32_t (&af)[8][4]) {
+          const int ks = piece_ks(i, pc), q = ks * kK / hop;
+          const int col = ks * kK - q * hop - (kWide ? pc * pw : 0);  // within the piece
+          const bf16* P = sl + col / kPanel * s_rows * kPanel;
+          const int pe = s_rows * kPanel;
+          auto at = [&](int row, int step, int half) {
+            return panel_at(P + (step >> 2) * pe, row + q, 2 * (step & 3) + half);
+          };
+          mma_half(acc, af, at, ring_b_fwd(i % kStages), 16u * kK, mt);
+        });
+      }
       acc_fence(acc);
       {
         // Each warpgroup hands the other its k-share of the other's row
@@ -787,9 +914,9 @@ struct Dense {
   }
 };
 
-template <bool kMom>
+template <bool kMom, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) gl_dense_kernel(const __grid_constant__ GlArgs a) {
-  Dense<kMom> d(a);
+  Dense<kMom, kWide> d(a);
   d.prologue();
   fence_proxy_async_global();  // y, written by the prologue
   unsigned int epoch = 0;
@@ -851,7 +978,7 @@ cudaError_t map_3d(EncodeTiled enc, CUtensorMap* m, const void* base, uint64_t d
 
 bool valid(int B, int T, int n_fft, int hop, int n_iter) {
   return hop > 0 && hop % 128 == 0 && n_fft % hop == 0 && (n_fft / hop) % 2 == 0 &&
-         n_fft <= kMaxN && n_fft % 256 == 0 && T >= 2 && n_iter >= 0 && B >= 1;
+         n_fft % 256 == 0 && T >= 2 && n_iter >= 0 && B >= 1;
 }
 
 cudaError_t plan_for(int B, int T, int n_fft, int hop, bool momentum, Plan* p) {
@@ -867,8 +994,8 @@ cudaError_t plan_for(int B, int T, int n_fft, int hop, bool momentum, Plan* p) {
 
 }  // namespace
 
-// The launch's plan for these shapes, as 13 int64: k, cs, n_cs, n_bs, nr,
-// resident, blocks, rt, m_out, ft, mf, smem, scratch bytes.
+// The launch's plan for these shapes, as 17 int64: k, cs, n_cs, n_bs, nr,
+// resident, blocks, rt, m_out, ft, mf, smem, scratch bytes, qg, ng, pw, wide.
 MSTTS_EXPORT int mstts_gl_dense_plan(int B, int T, int n_fft, int hop, int momentum,
                                      void* plan_out) {
   if (!valid(B, T, n_fft, hop, 0)) return (int)cudaErrorInvalidValue;
@@ -879,6 +1006,10 @@ MSTTS_EXPORT int mstts_gl_dense_plan(int B, int T, int n_fft, int hop, int momen
                      p.rt, p.m_out, p.ft, p.mf, p.smem};
   for (int i = 0; i < 12; ++i) o[i] = v[i];
   o[12] = p.scratch;
+  o[13] = p.qg;
+  o[14] = p.ng;
+  o[15] = p.pw;
+  o[16] = p.wide;
   return 0;
 }
 
@@ -932,17 +1063,21 @@ MSTTS_EXPORT int mstts_gl_dense(const void* mag, const void* mag_ny, const void*
   a.beta = beta;
   EncodeTiled enc;
   MSTTS_CHECK(encode_tiled(&enc));
-  const int y_rows = mstts_round_up(a.p.m_out + a.p.k - 1, 8), cols = n_fft / 8;
+  const int y_rows = mstts_round_up(a.p.m_out + a.p.qg - 1, 8), cols = n_fft / 8;
+  const int s_rows = slab_rows(a.p.mf, a.p.k);
   MSTTS_CHECK(map_3d(enc, &a.tm_y, a.y, n_fft, T, B, n_fft, (uint64_t)T * n_fft, kPanel, y_rows, 1,
                      true));
   MSTTS_CHECK(map_3d(enc, &a.tm_r16, a.r16, hop, a.p.nr, B, hop, (uint64_t)a.p.nr * hop, kPanel,
-                     slab_rows(a.p.mf, a.p.k), 1, true));
+                     s_rows / slab_boxes(s_rows), 1, true));
   MSTTS_CHECK(map_3d(enc, &a.tm_w, wpack, 64, cols, 8 * a.p.n_bs, 64, (uint64_t)cols * 64, 64,
                      kK / 8, 8, false));
-  MSTTS_CHECK(map_3d(enc, &a.tm_v, vpack, 64, cols, 8 * a.p.n_cs, 64, (uint64_t)cols * 64, 64,
-                     kK / 8, 8, false));
-  const void* kernel = momentum ? (const void*)gl_dense_kernel<true>
-                                : (const void*)gl_dense_kernel<false>;
+  MSTTS_CHECK(map_3d(enc, &a.tm_v, vpack, 64, cols, 8 * a.p.n_cs * a.p.ng, 64,
+                     (uint64_t)cols * 64, 64, kK / 8, 8, false));
+  const void* kernel =
+      momentum ? (a.p.wide ? (const void*)gl_dense_kernel<true, true>
+                           : (const void*)gl_dense_kernel<true, false>)
+               : (a.p.wide ? (const void*)gl_dense_kernel<false, true>
+                           : (const void*)gl_dense_kernel<false, false>);
   MSTTS_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    a.p.smem));
   void* params[] = {&a};

@@ -37,7 +37,9 @@ longer fits one SM, and both go to ``csrc/bigru_wide.cu``
 :data:`WIDE_GRU_BWD_KERNEL`): persistent cooperative launches in which a
 block owns U units of a direction and their W_hh slice, h_{t-1} or dGh
 passing through L2 under a grid barrier, in row groups sized by shared
-memory (:func:`wide_rows`), up to H 1,248 on an H100
+memory (:func:`wide_rows`); where the slice does not hold 32 rows (from
+H 1,200 forward, 1,264 backward on an H100) the n-tiles that do not fit
+are read from L2 every step (:func:`wide_layout`), up to H 4,880
 (:func:`bigru_shape_reason`, :func:`bigru_bwd_shape_reason`).
 
 Under autograd the layers run through :class:`_BiLSTM` and :class:`_BiGRU`
@@ -89,7 +91,8 @@ GRU_BWD_KERNEL = _build.Kernel("bigru_bwd", "bigru_bwd.cu", {
 })
 # The route past H = 192 (csrc/bigru_wide.cu): units split across blocks.
 _WIDE = {"mstts_bigru_wide_fwd": [_build.P] * 13 + [_build.I] * 5 + [_build.P],
-         "mstts_bigru_wide_bwd": [_build.P] * 15 + [_build.I] * 5 + [_build.P]}
+         "mstts_bigru_wide_bwd": [_build.P] * 15 + [_build.I] * 5 + [_build.P],
+         "mstts_bigru_wide_layout": [_build.I] * 3 + [_build.P]}
 WIDE_GRU_KERNEL = _build.Kernel("bigru_wide", "bigru_wide.cu", _WIDE)
 WIDE_GRU_RES_KERNEL = _build.Kernel("bigru_wide_residuals", "bigru_wide.cu", _WIDE)
 WIDE_GRU_BWD_KERNEL = _build.Kernel("bigru_wide_bwd", "bigru_wide.cu", _WIDE)
@@ -327,30 +330,50 @@ def _f32(b: torch.Tensor) -> torch.Tensor:
 # The narrow kernels' widest H: one direction's W_hh in one block.
 NARROW_MAX_H = 192
 _WIDE_WARPS = 8  # csrc/bigru_wide.cu's kWarps
+_WIDE_FULL_ROWS = 32  # its kFullRows: rows the resident layout must hold
 
 
-def wide_smem_bytes(bwd: bool, U: int, H: int, B: int) -> int:
-    """``fwd_smem_bytes`` / ``bwd_smem_bytes`` (csrc/bigru_wide.cu): a
-    block's shared memory on the wide route, U units of H over B rows: the
-    resident W_hh slice (forward: 3U columns of depth H; backward: U rows of
-    depth 3H), the warps' partial tiles, and per row the carries and the
-    step's own inputs."""
+def wide_smem_bytes(bwd: bool, U: int, H: int, B: int, NR: int | None = None) -> int:
+    """``wide_smem_bytes`` (csrc/bigru_wide.cu): a block's shared memory on
+    the wide route, U units of H over B rows with NR rows of its W_hh slice
+    resident (forward: of 3U columns of depth H; backward: of U rows of
+    depth 3H; None: all of them), the warps' partial tiles, and per row the
+    carries and the step's own inputs."""
     NP = _build.round_up(U if bwd else 3 * U, 8)
     BP = _build.round_up(B, 32)
-    w = 2 * NP * _build.k32_stride(3 * H if bwd else H)
+    w = 2 * (NP if NR is None else NR) * _build.k32_stride(3 * H if bwd else H)
     if bwd:
         return w + 4 * (_WIDE_WARPS * BP * NP + 10 * B * U)
     return w + 4 * (_WIDE_WARPS * BP * NP + 4 * B * U + 3 * U)
 
 
+def wide_layout(bwd: bool, H: int, rows: int, card: tuple[int, int] = _build.H100) -> dict:
+    """``wide_layout`` (csrc/bigru_wide.cu) for a launch over ``rows`` rows
+    on ``card``: the whole W_hh slice resident (``stream`` False) wherever
+    it holds a launch of 32 rows (up to H 1,184 forward, 1,248 backward on
+    an H100), else the streamed build with the ``ntr`` n-tiles of 8 (of
+    ``nt``) that fit beside the rest resident and the others read from L2
+    every step; ``bytes`` a block, ``fits``."""
+    n_sm, max_smem = card
+    U, nblk = _build.recurrence_grid(2, H, n_sm)
+    nt = _build.round_up(U if bwd else 3 * U, 8) // 8
+    lay = {"U": U, "nblk": nblk, "nt": nt}
+    if wide_smem_bytes(bwd, U, H, _WIDE_FULL_ROWS) <= max_smem:
+        nbytes = wide_smem_bytes(bwd, U, H, rows)
+        return dict(lay, stream=False, ntr=nt, bytes=nbytes, fits=nbytes <= max_smem)
+    base = wide_smem_bytes(bwd, U, H, rows, 0)
+    tile = 2 * 8 * _build.k32_stride(3 * H if bwd else H)
+    ntr = min(nt, max(0, (max_smem - base) // tile))
+    nbytes = base + ntr * tile
+    return dict(lay, stream=True, ntr=ntr, bytes=nbytes, fits=nbytes <= max_smem)
+
+
 @functools.lru_cache(maxsize=1024)
 def wide_rows(bwd: bool, H: int, B: int, card: tuple[int, int] = _build.H100) -> int:
     """Rows a launch of the wide route takes: as many of the B as a block's
-    shared memory holds on ``card``; 0 if not one."""
-    n_sm, max_smem = card
-    U, _ = _build.recurrence_grid(2, H, n_sm)
+    shared memory holds on ``card`` (:func:`wide_layout`); 0 if not one."""
     rows = B
-    while rows > 0 and wide_smem_bytes(bwd, U, H, rows) > max_smem:
+    while rows > 0 and not wide_layout(bwd, H, rows, card)["fits"]:
         rows -= 1
     return rows
 
@@ -358,7 +381,8 @@ def wide_rows(bwd: bool, H: int, B: int, card: tuple[int, int] = _build.H100) ->
 @functools.lru_cache(maxsize=None)
 def wide_max_h(card: tuple[int, int] = _build.H100) -> int:
     """The widest H (a multiple of 16) whose forward and backward take one
-    row a launch on ``card``."""
+    row a launch on ``card`` (4,880 on an H100: past it the warps' partial
+    tiles alone outgrow a block)."""
     H = NARROW_MAX_H
     while all(wide_rows(bwd, H + 16, 1, card) for bwd in (False, True)):
         H += 16
@@ -383,9 +407,9 @@ def bigru_shape_reason(gx_shape, w_hh_shapes,
     does: (T, B, 3H) gates, equal for both directions, and (H, 3H) weights
     with H % 16 == 0 (16-deep MMA k-steps); up to H 192 the narrow kernel
     (one direction's W_hh in a block), above it the wide route up to what
-    one row's launch fits on ``card`` (:func:`wide_max_h`: 1,248 on an
-    H100). The JAX gate (``birnn_pallas.supported``) takes H % 128 == 0:
-    256 .. 1,152 here."""
+    one row's launch fits on ``card`` (:func:`wide_max_h`: 4,880 on an
+    H100, the W_hh slice partly streamed from H 1,200). The JAX gate
+    (``birnn_pallas.supported``) takes H % 128 == 0."""
     T, B, H3 = gx_shape
     H = H3 // 3
     if T < 1 or B < 1 or H3 % 3 or any(tuple(s) != (H, H3) for s in w_hh_shapes):

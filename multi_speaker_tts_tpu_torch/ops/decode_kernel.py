@@ -22,7 +22,8 @@ products on tensor cores, int8 weights resident in shared memory for the
 segment, in bf16 mode layer 0's too and layer 1's streamed every step;
 past H 1024 on an H100 up to four m-tiles of gate rows a block, the
 windows that fit resident and the rest streamed, gate products deeper than
-4,096 staged in pieces; see the source's header) or raises; on a CPU tensor it runs
+4,096 staged in pieces; int8 past H 2048 in passes of four m-tiles; see
+the source's header) or raises; on a CPU tensor it runs
 :func:`decode_segment_plain`, the same arithmetic in plain torch.
 :func:`pack_gate_weights` lays each block's gate rows out in the order its
 lanes read them, for the grid :func:`decode_layout` mirrors. The kernel
@@ -58,7 +59,9 @@ KERNELS = {
 }
 MAX_B = 16  # batch rows a launch: two n-tiles of 8 in the gate products
 PRENET_BLOCKS = 4  # blocks of csrc/decode.cu that run the prenet (kPre)
-MAX_UNITS = 16  # hidden units a gate block owns: 4U gate rows in four m-tiles (kMaxMt)
+# Hidden units a gate block owns in one pass of the gate product: 4U gate
+# rows in four m-tiles (kMaxMt); int8 takes more in passes, bf16 does not.
+MAX_UNITS = 16
 MAX_M_TILES = 4
 # The limits of csrc/decode.cu, whose own check is the last guard.
 _WIDTH = 16  # H, memory width and last prenet width in 16-element pieces
@@ -106,22 +109,27 @@ def _place(B: int, S: int, w: Widths, quantized: bool, lay: dict, r0: int, r1: i
     leave shared memory where they would not fit)."""
     U, mt = lay["U"], lay["mt"]
     nt = -(-B // 8)
+    mp = mt > MAX_M_TILES  # passes of MAX_M_TILES, their partial sums beside the staged rows
     misc_at = 1024 * mt * (r0 + r1)
-    att_at = misc_at + _align16(4 * (U * w.A + 4 * 16 * mt + 2 * B * U))
     pad = S + w.conv_k - 1
     loc = w.conv_c * w.A + w.conv_k * 2 * w.conv_c
     att = -(-(w.A + 2 * pad + S) // 4) * 4
-    part = 4 * _WARPS * 16 * mt * 8 * nt
-    gate = (_align16(max(B * lay["xstride"], part))
+    part = 4 * _WARPS * 16 * min(mt, MAX_M_TILES) * 8 * nt
+    xs = B * lay["xstride"]
+    gate = ((_align16(xs) + _align16(part) if mp else _align16(max(xs, part)))
             + 4 * (16 * mt * MAX_B + MAX_B + _ROWS_A_PASS * _WARPS))
     attn = 4 * (_WARPS * w.conv_c * 4 + w.A + _THREADS + S)
     per = -(-w.P2 // PRENET_BLOCKS)
     pre = 4 * (2 * B * w.P1 + w.P1 + per + B * per + B * w.mel + 24
                + 4 * max(w.mel, w.P1) + _THREADS * _ROWS_A_PASS * 2)
     scr = max(gate, attn, pre)
-    total = att_at + _align16(4 * (att + loc)) + scr
-    if total > max_smem:  # the location weights leave shared memory first
-        total -= _align16(4 * (att + loc)) - _align16(4 * att)
+    # The location weights leave shared memory first; past four m-tiles then wq.
+    for loc_res, wq_res in ((True, True), (False, True), (False, False))[:3 if mp else 2]:
+        misc = (U * w.A if wq_res else 0) + 4 * 16 * mt + 2 * B * U
+        total = (misc_at + _align16(4 * misc) + _align16(4 * (att + (loc if loc_res else 0)))
+                 + scr)
+        if total <= max_smem:
+            break
     return total
 
 
@@ -158,8 +166,8 @@ def layout_bytes(B: int, S: int, w: Widths, quantized: bool, n_sm: int,
             total = _place(B, S, w, quantized, lay, r0, r1, max_smem)
         else:
             r0 = r1 = 0
-    fits = (total <= max_smem and lay["grid"] <= n_sm and lay["mt"] <= MAX_M_TILES
-            and B <= lay["nblk"])
+    fits = (total <= max_smem and lay["grid"] <= n_sm
+            and (lay["mt"] <= MAX_M_TILES or quantized) and B <= lay["nblk"])
     return {"total": total, "fits": fits, "r0": r0, "r1": r1}
 
 
@@ -194,8 +202,11 @@ def _shape_reason(H: int, D: int, prenet_sizes, S: int | None, A: int, mel_dim: 
     """The one shape gate of the kernel: why it does not take these widths,
     or None. Any batch is taken (:func:`row_groups`); memory positions up to
     the largest S at which a launch over one row fits the card's shared
-    memory (:func:`max_positions`; ``card``: SMs and opt-in bytes a block).
-    ``S=None`` checks the widths alone."""
+    memory (:func:`max_positions`; ``card``: SMs and opt-in bytes a block);
+    in int8 any H (past 16 units a gate block the multi-pass build), in
+    bf16 up to 16 units a gate block (H 2048 on an H100; past it the
+    reference's 80 MB rule refuses too). ``S=None`` checks the widths
+    alone."""
     P1, P2 = prenet_sizes
     if H % _WIDTH or D % _WIDTH or P2 % _WIDTH:
         return (f"needs H, memory and prenet widths in multiples of {_WIDTH}: "
@@ -203,10 +214,10 @@ def _shape_reason(H: int, D: int, prenet_sizes, S: int | None, A: int, mel_dim: 
     if P1 % 4 or mel_dim % 4 or A % 4 or conv_c % 4:
         return ("needs the first prenet, mel, attention and location-conv widths in "
                 f"multiples of 4: {P1}, {mel_dim}, {A}, {conv_c}")
-    if decode_layout(H, card[0])["mt"] > MAX_M_TILES:
-        return (f"needs at most {4 * MAX_UNITS} gate rows a block: H <= {MAX_UNITS} x (SMs - "
-                f"{PRENET_BLOCKS}) = {MAX_UNITS * (card[0] - PRENET_BLOCKS)} on this card, "
-                f"got H={H}")
+    if not quantized and decode_layout(H, card[0])["mt"] > MAX_M_TILES:
+        return (f"needs at most {4 * MAX_UNITS} gate rows a block in bf16 mode: H <= "
+                f"{MAX_UNITS} x (SMs - {PRENET_BLOCKS}) = "
+                f"{MAX_UNITS * (card[0] - PRENET_BLOCKS)} on this card, got H={H}")
     if S is not None:
         limit = max_positions(Widths(H, D, P1, P2, A, mel_dim, conv_k, conv_c), quantized, *card)
         if S > limit:

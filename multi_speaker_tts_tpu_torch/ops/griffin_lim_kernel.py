@@ -26,8 +26,12 @@ cooperative launch of two phases an iteration: an inverse phase whose units
 own a column slice of [Vr; Vi] (resident in shared memory where it fits)
 and overlap-add their frames into signal rows, and a forward phase whose
 units read a slab of those rows in place against 32 bins of [Wr | Wi] (see
-the source). :func:`pack_inverse` / :func:`pack_forward` lay the matrices
-out for it, :func:`dense_plan` mirrors its tiling.
+the source). Past n_fft 2048 the same launch takes more column slices
+than SMs (a block takes several in turn), frame offsets in groups of 64
+past k = 64, and each frame's hop columns in pieces where a slab of them no
+longer fits; the matrices, 4 n_fft^2 bytes, stream from device memory.
+:func:`pack_inverse` / :func:`pack_forward` lay the matrices out for it,
+:func:`dense_plan` mirrors its tiling.
 :func:`griffin_lim_dense_plain` is the same iteration in plain torch.
 """
 
@@ -44,8 +48,6 @@ from multi_speaker_tts_tpu_torch.ops.numerics import rounded
 from multi_speaker_tts_tpu_torch.ops.stft_matmul import _dft_matrices, _hann, _idft_matrices
 
 LANE = 128
-# The widest transform the kernel takes: its ring and slab sizes assume it.
-DENSE_MAX_N_FFT = 2048
 KERNEL = _build.Kernel("griffin_lim_dense", "griffin_lim_dense.cu", {
     "mstts_gl_dense": [_build.P] * 10 + [_build.I] * 6 + [_build.F, _build.P],
     "mstts_gl_dense_plan": [_build.I] * 5 + [_build.P],
@@ -59,10 +61,11 @@ RING_STAGES_INV = 4  # inverse ring
 MAX_M = 128  # rows of an inverse tile
 MAX_F = 64  # frames of a forward tile
 BINS = TILE_N // 2  # bins of a forward unit
+MAX_BOX = 256  # rows of a tensor copy's box
 H100_SMS = 132
 H100_SMEM = 232448  # bytes a block can opt in to
 PLAN_KEYS = ("k", "cs", "n_cs", "n_bs", "nr", "resident", "blocks", "rt", "m_out", "ft", "mf",
-             "smem", "scratch")
+             "smem", "scratch", "qg", "ng", "pw", "wide")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -109,17 +112,62 @@ def _wsum_rows(n_fft: int, hop: int, T: int, rows_pad: int) -> np.ndarray:
     return (1.0 / np.maximum(acc, 1e-11)).astype(np.float32)
 
 
+# From this n_fft on, a card's operands are computed on the card: the host's
+# float64 copies of the four matrices would take tens of GB at 32768.
+DEVICE_OPERANDS_N_FFT = 8192
+
+
+def _gl_matrices_on(device: torch.device, n_fft: int):
+    """:func:`_gl_operands`' four matrices computed on ``device``, step for
+    step in float64 as numpy does there (the angles, the f32 DFT values,
+    the windowed products), then f32."""
+    f64 = torch.float64
+    F = n_fft // 2 + 1
+    Fm = F - 1
+    Fp = _round_up(Fm, LANE)
+    win = torch.from_numpy(_hann(n_fft)).to(device, f64)
+    n = torch.arange(n_fft, device=device, dtype=f64)
+    b = torch.arange(Fm, device=device, dtype=f64)
+    w = torch.full((Fm, 1), 2.0, device=device, dtype=f64)
+    w[0] = 1.0
+    W = [torch.zeros((n_fft, Fp), device=device) for _ in range(2)]
+    V = [torch.zeros((Fp, n_fft), device=device) for _ in range(2)]
+    step = 2048  # rows of float64 temporaries at a time
+    for i in range(0, n_fft, step):
+        nn, ww = n[i:i + step], win[i:i + step]
+        ang = -2.0 * torch.pi * nn[:, None] * b[None, :] / n_fft
+        for out, fn in zip(W, (torch.cos, torch.sin)):
+            out[i:i + step, :Fm] = (ww[:, None] * fn(ang).float().to(f64)).float()
+    for i in range(0, Fm, step):
+        bb, wi = b[i:i + step], w[i:i + step]
+        ang = 2.0 * torch.pi * bb[:, None] * n[None, :] / n_fft
+        for out, fn, sign in zip(V, (torch.cos, torch.sin), (1.0, -1.0)):
+            out[i:i + step] = ((sign * wi * fn(ang) / n_fft).float().to(f64) * win[None, :]).float()
+    return (*W, *V)
+
+
 @functools.lru_cache(maxsize=8)
 def _operands(n_fft: int, hop: int, device: torch.device, compute_dtype: torch.dtype):
     """Device tensors: the matrices rounded to the compute dtype (held f32,
     for the plain version), the Nyquist vectors (k, hop) f32, and the
-    kernel's bf16 [Wr | Wi] (n_fft, 2 Fp) and [Vr; Vi] (2 Fp, n_fft)."""
-    Wr, Wi, Vr, Vi, wny, vny, Fp = _gl_operands(n_fft, hop)
+    kernel's bf16 [Wr | Wi] (n_fft, 2 Fp) and [Vr; Vi] (2 Fp, n_fft). On a
+    card from n_fft :data:`DEVICE_OPERANDS_N_FFT` on, the matrices are
+    computed there (:func:`_gl_matrices_on`)."""
     k = n_fft // hop
-    t = {name: rounded(torch.from_numpy(a).to(device), compute_dtype)
-         for name, a in (("Wr", Wr), ("Wi", Wi), ("Vr", Vr), ("Vi", Vi))}
-    t["wny"] = torch.from_numpy(wny[:k]).to(device)
-    t["vny"] = torch.from_numpy(vny[:k]).to(device)
+    if device.type == "cuda" and n_fft >= DEVICE_OPERANDS_N_FFT:
+        Fp = _round_up(n_fft // 2, LANE)
+        win = _hann(n_fft).astype(np.float64)
+        sign = (-1.0) ** np.arange(n_fft)
+        wny = (win * sign).reshape(k, hop).astype(np.float32)
+        vny = (sign * win / n_fft).reshape(k, hop).astype(np.float32)
+        t = {name: rounded(m, compute_dtype)
+             for name, m in zip(("Wr", "Wi", "Vr", "Vi"), _gl_matrices_on(device, n_fft))}
+    else:
+        Wr, Wi, Vr, Vi, wny, vny, Fp = _gl_operands(n_fft, hop)
+        t = {name: rounded(torch.from_numpy(a).to(device), compute_dtype)
+             for name, a in (("Wr", Wr), ("Wi", Wi), ("Vr", Vr), ("Vi", Vi))}
+    t["wny"] = torch.from_numpy(np.ascontiguousarray(wny[:k])).to(device)
+    t["vny"] = torch.from_numpy(np.ascontiguousarray(vny[:k])).to(device)
     t["wcat"] = torch.cat([t["Wr"], t["Wi"]], dim=1).to(torch.bfloat16).contiguous()
     t["vcat"] = torch.cat([t["Vr"], t["Vi"]], dim=0).to(torch.bfloat16).contiguous()
     return t, Fp
@@ -131,21 +179,32 @@ def _wsum_tensor(n_fft: int, hop: int, T: int, device: torch.device) -> torch.Te
     return torch.from_numpy(_wsum_rows(n_fft, hop, T, rows_pad)).to(device)
 
 
-def inverse_columns(n_fft: int, hop: int) -> np.ndarray:
-    """The kernel's inverse column slices: (n_cs, 64) indices into the
-    n_fft synthesis columns of [Vr; Vi], -1 for a zero pad column. Slice s
-    takes hop-columns s cs .. s cs + cs - 1 at every frame offset q: local
-    column q cs + c is synthesis column q hop + s cs + c, all that the
-    overlap-add of a signal row needs. cs is the largest power of two up to
-    32 with k cs <= 64."""
+def slice_widths(n_fft: int, hop: int) -> tuple[int, int, int]:
+    """(cs, qg, ng): the hop-columns of an inverse column slice, the frame
+    offsets a group of it, and its groups. cs is the largest power of two
+    up to 32 with k cs <= 64 (1 past k = 64), qg = min(k, 64 / cs)."""
     k = n_fft // hop
     cs = 32
-    while k * cs > TILE_N:
+    while cs > 1 and k * cs > TILE_N:
         cs //= 2
-    cols = np.full((hop // cs, TILE_N), -1, np.int64)
+    qg = min(k, TILE_N // cs)
+    return cs, qg, _ceil_div(k, qg)
+
+
+def inverse_columns(n_fft: int, hop: int) -> np.ndarray:
+    """The kernel's inverse column slices: (n_cs ng, 64) indices into the
+    n_fft synthesis columns of [Vr; Vi], -1 for a zero pad column. Slice s
+    takes hop-columns s cs .. s cs + cs - 1 at every frame offset q, in ng
+    groups of qg offsets (:func:`slice_widths`): local column q cs + c of
+    group g (row s ng + g) is synthesis column (g qg + q) hop + s cs + c,
+    all that the overlap-add of a signal row needs."""
+    k = n_fft // hop
+    cs, qg, ng = slice_widths(n_fft, hop)
+    cols = np.full((hop // cs * ng, TILE_N), -1, np.int64)
     for s in range(hop // cs):
         for q in range(k):
-            cols[s, q * cs:(q + 1) * cs] = q * hop + s * cs + np.arange(cs)
+            g, qq = divmod(q, qg)
+            cols[s * ng + g, qq * cs:(qq + 1) * cs] = q * hop + s * cs + np.arange(cs)
     return cols
 
 
@@ -170,7 +229,7 @@ def core_matrices(cols: torch.Tensor) -> torch.Tensor:
 
 
 def pack_inverse(vcat: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """[Vr; Vi] (2 Fp, n_fft) -> (n_cs, 8, 2 Fp / 8, 8, 8): each slice's 64
+    """[Vr; Vi] (2 Fp, n_fft) -> (n_cs ng, 8, 2 Fp / 8, 8, 8): each slice's 64
     columns (:func:`inverse_columns`, pad columns zero) as core matrices."""
     cols = torch.from_numpy(inverse_columns(n_fft, hop)).to(vcat.device)
     packed = vcat.t()[cols.clamp(min=0)]
@@ -211,17 +270,28 @@ def dense_scratch_bytes(B: int, T: int, n_fft: int, hop: int, momentum: bool) ->
     return s
 
 
+def slab_rows(mf: int, k: int) -> int:
+    """``slab_rows`` in csrc/griffin_lim_dense.cu: a forward tile's rows of
+    the signal, a multiple of 8, and past MAX_BOX of as many equal boxes."""
+    r = _round_up(mf + k - 1, 8)
+    return _round_up(r, 8 * _ceil_div(r, MAX_BOX))
+
+
 def dense_plan(B: int, T: int, n_fft: int, hop: int, momentum: bool = False,
                n_sm: int = H100_SMS, max_smem: int = H100_SMEM) -> dict:
     """The kernel's tiling (``make_plan`` in ``csrc/griffin_lim_dense.cu``,
     step for step): the column slices, whether the inverse slice stays in
     shared memory, the block count, the inverse row tiles and the forward
-    frame tiles, the shared memory and the scratch a call takes."""
+    frame tiles, the shared memory and the scratch a call takes; the
+    offsets a group of a slice and its groups (``qg``, ``ng``), the
+    columns of a forward piece (``pw``), and whether the launch takes the
+    kernel's wide instantiation (``wide``: more slices than SMs, groups,
+    pieces, fewer than 4 hop-columns a slice or a slab in several boxes;
+    every shape up to n_fft 2048 takes the other)."""
     k = n_fft // hop
-    cs = 32
-    while k * cs > TILE_N:
-        cs //= 2
-    p = {"k": k, "cs": cs, "n_cs": hop // cs, "n_bs": n_fft // 2 // BINS, "nr": T + k - 1}
+    cs, qg, ng = slice_widths(n_fft, hop)
+    p = {"k": k, "cs": cs, "n_cs": hop // cs, "n_bs": n_fft // 2 // BINS, "nr": T + k - 1,
+         "qg": qg, "ng": ng}
     small = 4 * (MAX_M + TILE_N) + 8 * 8  # + the rings' eight mbarriers
 
     stage_b = 2 * TILE_N * TILE_K  # a ring stage of a matrix slice, core matrices
@@ -230,27 +300,36 @@ def dense_plan(B: int, T: int, n_fft: int, hop: int, momentum: bool = False,
         ring = 2 * RING_STAGES_INV * rows * TILE_K + (0 if resident else RING_STAGES_INV * stage_b)
         return max(ring, 4 * rows * (TILE_N + 4)) + 4 * rows * cs
 
-    def forward_bytes(mf):
-        return RING_STAGES * stage_b + 2 * _round_up(mf + k - 1, 8) * hop
+    def forward_bytes(mf, pw):
+        return RING_STAGES * stage_b + 2 * slab_rows(mf, k) * pw
 
-    for resident in (1, 0):
-        base = 2 * TILE_N * n_fft if resident else 0
-        avail = max_smem - base - small
-        m_cap = next((m for m in range(MAX_M, 15, -16) if inverse_bytes(m, resident) <= avail), 0)
-        mf_cap = next((m for m in range(MAX_F, 15, -16) if forward_bytes(m) <= avail), 0)
-        p["resident"] = resident
-        if m_cap >= k + 1 and mf_cap:
-            break
-    if m_cap < k + 1 or mf_cap == 0 or n_sm < p["n_cs"]:
+    one_slice = p["n_cs"] <= n_sm and ng == 1
+
+    def tiles():
+        """(resident, pw, m_cap, mf_cap) in the kernel's order of preference."""
+        for d in range(1, hop // TILE_K + 1):
+            if hop % d or (hop // d) % TILE_K:
+                continue
+            for resident in ((1, 0) if one_slice and d == 1 else (0,)):
+                avail = max_smem - (2 * TILE_N * n_fft if resident else 0) - small
+                yield (resident, hop // d,
+                       next((m for m in range(MAX_M, 15, -16)
+                             if inverse_bytes(m, resident) <= avail), 0),
+                       next((m for m in range(MAX_F, 15, -16)
+                             if forward_bytes(m, hop // d) <= avail), 0))
+
+    fit = next((t for t in tiles() if t[2] >= qg + 1 and t[3]), None)
+    if fit is None:
         raise ValueError(f"no tiling of the dense kernel fits n_fft={n_fft}, hop={hop}")
-    blocks = n_sm // p["n_cs"] * p["n_cs"]
-    bpc = blocks // p["n_cs"]
+    p["resident"], p["pw"], m_cap, mf_cap = fit
+    base = 2 * TILE_N * n_fft if p["resident"] else 0
+    blocks = n_sm // p["n_cs"] * p["n_cs"] if p["n_cs"] <= n_sm else n_sm
     best = None
-    for rt in range(_ceil_div(p["nr"], m_cap - k + 1), p["nr"] + 1):
+    for rt in range(_ceil_div(p["nr"], m_cap - qg + 1), p["nr"] + 1):
         m_out = _ceil_div(p["nr"], rt)
         if _ceil_div(p["nr"], m_out) != rt:
             continue
-        cost = _ceil_div(B * rt, bpc) * _ceil_div(m_out + k - 1, 16)
+        cost = _ceil_div(B * rt * p["n_cs"], blocks) * _ceil_div(m_out + qg - 1, 16) * ng
         if best is None or cost < best:
             best, p["rt"], p["m_out"] = cost, rt, m_out
     best = None
@@ -262,10 +341,12 @@ def dense_plan(B: int, T: int, n_fft: int, hop: int, momentum: bool = False,
                 * (TILE_N * n_fft * 2 + (mf + k - 1) * hop * 2))
         if best is None or cost < best:
             best, p["ft"], p["mf"] = cost, ft, mf
+    p["wide"] = int(p["n_cs"] > n_sm or ng > 1 or p["pw"] != hop or cs < 4
+                    or slab_rows(p["mf"], k) > MAX_BOX)
     units = max(B * p["rt"] * p["n_cs"], B * p["ft"] * p["n_bs"])
     p["blocks"] = min(blocks, _round_up(units, p["n_cs"]))
-    p["smem"] = base + max(inverse_bytes(_round_up(p["m_out"] + k - 1, 16), p["resident"]),
-                           forward_bytes(_round_up(p["mf"], 16))) + small
+    p["smem"] = base + max(inverse_bytes(_round_up(p["m_out"] + qg - 1, 16), p["resident"]),
+                           forward_bytes(_round_up(p["mf"], 16), p["pw"])) + small
     p["scratch"] = dense_scratch_bytes(B, T, n_fft, hop, momentum)
     return {key: p[key] for key in PLAN_KEYS}
 
@@ -348,11 +429,10 @@ def griffin_lim_dense_kernel(mag_p: torch.Tensor, mag_ny: torch.Tensor, n_fft: i
     _build.require_cuda(mag_p, torch.float32, "mag_p")
     _build.require_cuda(mag_ny, torch.float32, "mag_ny")
     B, T, Fp = mag_p.shape
-    if (hop % 128 or n_fft > DENSE_MAX_N_FFT or n_fft % 256 or Fp != n_fft // 2 or T < 2
+    if (hop % 128 or n_fft % 256 or Fp != n_fft // 2 or T < 2
             or mag_ny.numel() != B * T):
-        raise ValueError(f"the dense Griffin-Lim kernel takes a 128-multiple hop, n_fft <= "
-                         f"{DENSE_MAX_N_FFT} in multiples of 256 and T >= 2 (got n_fft={n_fft}, "
-                         f"hop={hop}, T={T})")
+        raise ValueError(f"the dense Griffin-Lim kernel takes a 128-multiple hop, n_fft in "
+                         f"multiples of 256 and T >= 2 (got n_fft={n_fft}, hop={hop}, T={T})")
     dev = mag_p.device
     vpack, wpack, wny, vny = _packed(n_fft, hop, dev)
     wsum = _wsum_tensor(n_fft, hop, T, dev)
@@ -373,8 +453,7 @@ def griffin_lim_dense(magnitude: torch.Tensor, n_fft: int, hop: int, n_iter: int
                       compute_dtype=torch.bfloat16, momentum: float = 0.0) -> torch.Tensor:
     """Batched dense Griffin-Lim: (B, T, n_fft/2 + 1) -> (B, hop (T - 1)).
     The kernel for a CUDA tensor (bf16 products; it raises for a hop that
-    is not a 128-multiple or n_fft > 2048), the plain version for a CPU
-    tensor."""
+    is not a 128-multiple), the plain version for a CPU tensor."""
     if n_fft % hop or (n_fft // hop) % 2:
         raise ValueError(f"the centred crop needs an even n_fft/hop ratio "
                          f"(got n_fft={n_fft}, hop={hop})")

@@ -155,6 +155,10 @@ def griffin_lim_matmul(magnitude: torch.Tensor, n_fft: int, hop: int,
 
 # Bytes of one kernel call's working set: inside the H100's 50 MB L2.
 GL_L2_BUDGET_BYTES = 40 << 20
+# Where not one row fits that budget beside the dense kernel's matrices (from
+# n_fft 3328; at 3072 past T 136), they stream from device memory at any chunk: its
+# calls are then sized by the scratch they take on the card instead.
+GL_SCRATCH_BUDGET_BYTES = 1 << 30
 
 
 def reference_gl_max_batch(T: int, n_fft: int, hop: int, momentum: float = 0.0,
@@ -186,7 +190,7 @@ def gl_route(ndim: int, n_fft: int, hop: int, T: int, length: int, on_card: bool
     (:func:`reference_gl_max_batch`) is at least min(B, 8) rows: at
     n_fft = 1024 the staged kernel unless ``GL_DENSE_KERNEL`` is set (or
     its cap is no higher than the dense one's), the dense kernel otherwise
-    (which raises for an n_fft wider than it takes); ``"gemm"``
+    (at any n_fft); ``"gemm"``
     (:func:`griffin_lim_matmul`) for everything else, e.g. at n_fft 1024 /
     hop 256 two rows or more from T 1266 and every B from T 1268, at
     4096 / 512 three rows or more from T 304 and every B from T 305."""
@@ -220,7 +224,11 @@ def gl_max_batch(T: int, n_fft: int = 1024, momentum: float = 0.0,
       frames of n_fft, f32 magnitudes of Fp + 1; under momentum three f32
       carries (re, im, Nyquist). Its bf16 DFT matrices (8 n_fft Fp bytes,
       4 MB at n_fft 1024)
-      come off the budget first."""
+      come off the budget first. Where not one row fits beside them (from
+      n_fft 3328; at 3072 past T 136), every call streams them from device memory
+      whatever its rows, and the rows a call are those whose working set
+      fits :data:`GL_SCRATCH_BUDGET_BYTES` instead: one call for any batch
+      the reference's cap admits."""
     if kernel == "staged":
         per_frame = 8 * 128 * 4 + 8 * 128 * 2 + 640 * 2
         if momentum > 0.0:
@@ -232,6 +240,8 @@ def gl_max_batch(T: int, n_fft: int = 1024, momentum: float = 0.0,
         if momentum > 0.0:
             per_frame += 2 * Fp * 4 + 4
         budget = GL_L2_BUDGET_BYTES - 2 * 2 * n_fft * Fp * 2
+        if budget < T * per_frame:
+            budget = GL_SCRATCH_BUDGET_BYTES
     return max(1, budget // (T * per_frame))
 
 

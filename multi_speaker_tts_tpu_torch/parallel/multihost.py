@@ -1,9 +1,13 @@
 """The process group of a data-parallel run (port of
 ``multi_speaker_tts_tpu.parallel.multihost``).
 
-The port trains data-parallel the PyTorch way: one process a device, all
-on one host, joined by ``torch.distributed`` (NCCL between cards, gloo on
-the CPU or, named explicitly, between processes that share a card). Each
+The port trains data-parallel the PyTorch way: one process a device, on
+one host or across hosts, joined by ``torch.distributed`` (NCCL between
+cards, gloo on the CPU or, named explicitly, between processes that share a
+card). Across hosts each process takes its card from its rank on its host
+(the launcher's ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``, or the training
+CLI's ``-local_rank`` / ``-local_processes``), as the JAX package's TPU
+pods take a coordinator and a process id. Each
 process holds a full replica and its contiguous share of every global
 batch's rows. The JAX package gets global-batch semantics from GSPMD; here
 they are made by hand, so that one step of W processes equals the
@@ -25,25 +29,76 @@ here is the identity, so the single-device code path is the W = 1 case.
 from __future__ import annotations
 
 import datetime
+import os
 
 import torch
 import torch.distributed as dist
+
+# This process's rank on its host and the processes on its host, once the
+# group is joined: (0, 1) alone.
+_LOCAL = (0, 1)
+
+
+def local_placement(process_id: int, num_processes: int, local_rank: int | None = None,
+                    local_processes: int | None = None) -> tuple[int, int]:
+    """(rank on this host, processes on this host) of process ``process_id``
+    of ``num_processes``: the arguments where given, else the launcher's
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` (``torchrun`` sets both); without
+    a local rank the run is taken to be on one host, as before multi-host
+    runs (rank ``process_id`` of ``num_processes``). A local rank without a
+    host's process count counts local_rank + 1 processes here."""
+    if local_rank is None and "LOCAL_RANK" in os.environ:
+        local_rank = int(os.environ["LOCAL_RANK"])
+    if local_processes is None and "LOCAL_WORLD_SIZE" in os.environ:
+        local_processes = int(os.environ["LOCAL_WORLD_SIZE"])
+    if local_rank is None:
+        return process_id, num_processes
+    if local_processes is None:
+        local_processes = local_rank + 1
+    if not 0 <= local_rank < local_processes <= num_processes:
+        raise ValueError(f"local rank {local_rank} of {local_processes} process(es) on this "
+                         f"host does not fit a world of {num_processes}")
+    return local_rank, local_processes
+
+
+def local_card(process_id: int, num_processes: int, backend: str,
+               local_rank: int | None = None, local_processes: int | None = None) -> int:
+    """The card of this process on its host: its local rank
+    (:func:`local_placement`). The processes on this host are checked
+    against this host's card count: NCCL takes one card a process, so more
+    processes than cards raise unless ``backend="gloo"`` is named, which
+    shares the cards round-robin (gloo takes CUDA tensors)."""
+    rank, here = local_placement(process_id, num_processes, local_rank, local_processes)
+    cards = torch.cuda.device_count()
+    if here > cards and backend != "gloo":
+        raise ValueError(f"{here} processes on this host over {cards} CUDA card(s): {backend} "
+                         f"takes one card a process (name backend='gloo' to share cards)")
+    return rank % cards
+
+
+def local_rank() -> tuple[int, int]:
+    """(rank on this host, processes on this host) of the joined group;
+    (0, 1) without one."""
+    return _LOCAL if process_count() > 1 else (0, 1)
 
 
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None, backend: str | None = None,
-                           device="cuda") -> torch.device:
+                           device="cuda", local_rank: int | None = None,
+                           local_processes: int | None = None) -> torch.device:
     """Join the process group; returns this process's device.
 
     A no-op returning ``device`` when ``num_processes`` is None or at most
     1, as in the JAX package. Otherwise ``coordinator_address`` is the
-    rendezvous: ``host:port`` (TCP, the address of process 0) or a full
-    ``file://`` / ``tcp://`` URL. ``device`` ``"cuda"`` gives process i the
-    card ``cuda:i`` and the NCCL backend; ``"cpu"`` gives gloo. NCCL takes
-    one card a process: a world larger than the host's card count raises
-    unless ``backend="gloo"`` is named, which shares the cards round-robin
-    (gloo takes CUDA tensors). There is no quiet fall-back to the CPU."""
+    rendezvous: ``host:port`` (TCP, the address of process 0, reachable
+    from every host) or a full ``file://`` / ``tcp://`` URL, and
+    ``process_id`` the global rank. ``device`` ``"cuda"`` gives the process
+    the card of its local rank (:func:`local_card`: ``local_rank`` /
+    ``local_processes``, else ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``, else
+    one host: card ``process_id``) and the NCCL backend; ``"cpu"`` gives
+    gloo. There is no quiet fall-back to the CPU."""
+    global _LOCAL
     device = torch.device(device)
     if num_processes is None or num_processes <= 1:
         return device
@@ -52,15 +107,12 @@ def initialize_distributed(coordinator_address: str | None = None,
                          "process id of every process")
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process_id {process_id} outside [0, {num_processes})")
+    placement = local_placement(process_id, num_processes, local_rank, local_processes)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         backend = backend or "nccl"
-        cards = torch.cuda.device_count()
-        if num_processes > cards and backend != "gloo":
-            raise ValueError(f"{num_processes} processes over {cards} CUDA card(s): {backend} "
-                             f"takes one card a process (name backend='gloo' to share cards)")
-        device = torch.device("cuda", process_id % cards)
+        device = torch.device("cuda", local_card(process_id, num_processes, backend, *placement))
         torch.cuda.set_device(device)
     else:
         backend = backend or "gloo"
@@ -68,6 +120,7 @@ def initialize_distributed(coordinator_address: str | None = None,
             else f"tcp://{coordinator_address}")
     dist.init_process_group(backend, init_method=init, world_size=num_processes,
                             rank=process_id, timeout=datetime.timedelta(minutes=10))
+    _LOCAL = placement
     return device
 
 

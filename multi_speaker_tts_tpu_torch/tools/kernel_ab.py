@@ -23,8 +23,9 @@ JSON line:
   of ``chip_smoke.py``'s rows (the card's work alone, the median of three
   timings): the mel front-end's two routes, the GE2E layer's forward in
   both modes and its backward, the BiLSTM's forward and backward, the BiGRU
-  backward, the BiGRU forward in both modes, and a K 10 decode chunk in
-  both modes.
+  backward, the BiGRU forward in both modes, a K 10 decode chunk in both
+  modes, the dense Griffin-Lim at n_fft 1024 (B 4, T 128, 60 iterations)
+  and 2048, and the wide BiGRU at H 256 in its three modes.
 
 ``--repo DIR`` measures another checkout's package and kernel sources (for
 example the parent commit's, unpacked with ``git archive``); run the file by
@@ -196,6 +197,24 @@ def seeded_ms() -> dict:
     out["lstm_fwd"] = ms(lambda: lstm_kernel.lstm_seq_layer_kernel(p, x))
     out["bilstm_fwd"] = ms(lambda: birnn_kernel.bilstm_recurrence_kernel(gxf, gxb, pf.w_hh,
                                                                          pb.w_hh))
+    # The dense Griffin-Lim at pass (f)'s production size and at 2048 / 256,
+    # and the wide BiGRU at H 256 (its resident build), all three modes.
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
+
+    for n_fft, hop, B, T, n_iter in ((1024, 256, 4, 128, 60), (2048, 256, 2, 100, 8)):
+        mag = t(B, T, n_fft // 2 + 1).abs()
+        mp, mny = gk.split_magnitude(mag, n_fft)
+        out[f"gl_dense_{n_fft}"] = ms(lambda: gk.griffin_lim_dense_kernel(mp, mny, n_fft, hop,
+                                                                         n_iter))
+    wf, wb = (GRUParams(t(128, 768, s=0.1), t(256, 768, s=0.0625), t(768, s=0.1),
+                        t(768, s=0.1)) for _ in range(2))
+    hf, hb = birnn_kernel.bigru_hoist(wf, wb, t(8, 200, 128), torch.bfloat16)
+    out["bigru_wide_256"] = ms(lambda: birnn_kernel.bigru_recurrence_kernel(hf, hb, wf, wb))
+    out["bigru_wide_256_residuals"] = ms(lambda: birnn_kernel.bigru_recurrence_kernel(
+        hf, hb, wf, wb, True))
+    r = birnn_kernel.bigru_recurrence_kernel(hf, hb, wf, wb, True)
+    args = (hf, r[2], r[3], hb, r[4], r[5], wf.w_hh, wb.w_hh, t(200, 8, 256), t(200, 8, 256))
+    out["bigru_wide_256_bwd"] = ms(lambda: birnn_kernel.bigru_bwd_kernel(*args))
     return out
 
 

@@ -15,8 +15,17 @@ one process a device, each started with the same arguments plus its id::
         -coordinator 127.0.0.1:PORT -num_processes 2 -process_id {0,1}
 
 (process i on ``cuda:i`` over NCCL, or on the CPU over gloo with ``-device
-cpu``; ``-coordinator`` also takes a ``file://`` URL). Process 0 writes the
-checkpoints and logs.
+cpu``; ``-coordinator`` also takes a ``file://`` URL). Across hosts
+``-process_id`` is the global rank and each process takes the card of its
+rank on its host: ``-local_rank`` (and ``-local_processes``, the processes
+on that host), or a launcher's ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``; two
+hosts of 8 cards::
+
+    python -m multi_speaker_tts_tpu_torch.train ... -distributed \
+        -coordinator HOST0:PORT -num_processes 16 -process_id {8 h + i} \
+        -local_rank {i} -local_processes 8
+
+Process 0 of the world writes the checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -51,14 +60,22 @@ def main(argv=None) -> None:
     parser.add_argument("-coordinator", default=None,
                         help="process 0's host:port (or a file:// URL)")
     parser.add_argument("-num_processes", type=int, default=None)
-    parser.add_argument("-process_id", type=int, default=None)
+    parser.add_argument("-process_id", type=int, default=None,
+                        help="this process's global rank")
+    parser.add_argument("-local_rank", type=int, default=None,
+                        help="this process's rank on its host: its card (default: LOCAL_RANK, "
+                             "else one host)")
+    parser.add_argument("-local_processes", type=int, default=None,
+                        help="processes on this host (default: LOCAL_WORLD_SIZE)")
     args = parser.parse_args(argv)
     device = args.device
     if args.distributed:
-        device = multihost.initialize_distributed(args.coordinator, args.num_processes,
-                                                  args.process_id, device=args.device)
+        device = multihost.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id, device=args.device,
+            local_rank=args.local_rank, local_processes=args.local_processes)
+        rank, here = multihost.local_rank()
         print(f"distributed: process {multihost.process_index()}/{multihost.process_count()} "
-              f"on {device}", flush=True)
+              f"on {device} (local rank {rank} of {here} on this host)", flush=True)
 
     from multi_speaker_tts_tpu_torch.hparams import load_hyper_parameters
 

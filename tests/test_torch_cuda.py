@@ -264,7 +264,12 @@ def test_griffin_lim_dense_kernel(dev, n_fft, hop, B, T, momentum):
 
 @pytest.mark.parametrize("B, T, n_fft, hop", [(4, 128, 1024, 256), (4, 128, 512, 128),
                                               (4, 128, 2048, 256), (32, 128, 1024, 256),
-                                              (1, 1000, 1024, 256), (2, 2, 768, 128)])
+                                              (1, 1000, 1024, 256), (2, 2, 768, 128),
+                                              # past 2048: pieces, slices past the SMs,
+                                              # groups of offsets
+                                              (2, 304, 4096, 512), (1, 157, 8192, 4096),
+                                              (1, 79, 16384, 2048), (1, 40, 32768, 4096),
+                                              (1, 5, 16384, 128), (1, 20, 65536, 128)])
 def test_griffin_lim_dense_kernel_plan_is_the_mirrored_one(dev, B, T, n_fft, hop):
     """The tiling the kernel computes on this card is dense_plan's."""
     from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
@@ -274,6 +279,38 @@ def test_griffin_lim_dense_kernel_plan_is_the_mirrored_one(dev, B, T, n_fft, hop
     for momentum in (False, True):
         assert gk.kernel_plan(B, T, n_fft, hop, momentum) == gk.dense_plan(
             B, T, n_fft, hop, momentum, props.multi_processor_count, smem)
+
+
+# Past n_fft 2048 (B, T, n_fft, hop): whole frames (2304, 4096), a frame's
+# columns in two pieces (8192 / 4096), one hop-column a slice (8192 / 128,
+# k 64), more slices than SMs (16384 / 2048), offsets in groups of 64
+# (16384 / 128, k 128).
+DENSE_WIDE = [(2, 6, 2304, 1152), (2, 47, 4096, 512), (1, 12, 8192, 4096), (1, 9, 8192, 128),
+              (1, 10, 16384, 2048), (1, 5, 16384, 128)]
+
+
+@pytest.mark.parametrize("B, T, n_fft, hop", DENSE_WIDE)
+def test_griffin_lim_dense_kernel_past_2048(dev, B, T, n_fft, hop):
+    """The dense kernel where the JAX gate launches its own past n_fft 2048:
+    one launch a call, bit-equal on a repeat, and at 2 iterations (the
+    iteration has not spread the operand roundings yet) within 2e-2 of the
+    plain version's peak and relative L2."""
+    from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
+
+    rng = np.random.default_rng(n_fft + hop)
+    mag = torch.from_numpy(rng.random((B, T, n_fft // 2 + 1)).astype(np.float32) ** 2).to(dev)
+    before = gk.KERNEL.launches
+    got = gk.griffin_lim_dense(mag, n_fft, hop, 2)
+    again = gk.griffin_lim_dense(mag, n_fft, hop, 2)
+    torch.cuda.synchronize()
+    assert gk.KERNEL.launches == before + 2 and torch.equal(got, again)
+    want = gk.griffin_lim_dense_plain(*gk.split_magnitude(mag, n_fft), n_fft, hop, 2,
+                                      torch.bfloat16)
+    assert got.shape == want.shape == (B, hop * (T - 1))
+    assert (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item() <= 2e-2
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    gk._operands.cache_clear()
+    gk._packed.cache_clear()
 
 
 def test_griffin_lim_dense_kernel_is_one_launch_a_call(dev):
@@ -310,11 +347,13 @@ def test_griffin_lim_auto_routes_on_the_card(dev, monkeypatch):
     wav = stft_matmul.griffin_lim_auto(mag[..., :401], 800, 200, 2, 200 * 19)
     assert wav.is_cuda and (gl.KERNEL.launches, gk.KERNEL.launches) == (counts[0] + 1,
                                                                        counts[1] + 1)
-    # Eligible but wider than the dense kernel takes: it raises, no GEMM route.
+    # Eligible at n_fft 4096 (past the kernel's old 2048): the dense kernel,
+    # one launch, no GEMM route.
     wide = torch.from_numpy(rng.random((2, 20, 2049)).astype(np.float32)).to(dev)
-    with pytest.raises(ValueError, match="n_fft <= 2048"):
-        stft_matmul.griffin_lim_auto(wide, 4096, 256, 2, 256 * 19)
-    assert gk.KERNEL.launches == counts[1] + 1
+    wav = stft_matmul.griffin_lim_auto(wide, 4096, 256, 2, 256 * 19)
+    torch.cuda.synchronize()
+    assert gk.KERNEL.launches == counts[1] + 2
+    assert wav.shape == (2, 256 * 19) and bool(torch.isfinite(wav).all())
 
 
 def test_bigru_kernel(dev):
@@ -626,11 +665,12 @@ def test_decode_kernel_raises_on_unsupported_shapes(dev):
         dk.decode_segment(bundle, torch.zeros(2, 24, 64, device=dev), memory,
                           torch.ones(2, 24, device=dev), dscan.initial_carry(2, memory, 2, 128),
                           torch.zeros(2, 16, device=dev), None, None, 4, 16, 2)
-    # More units a block than its two m-tiles of gate rows hold.
+    # In bf16, more units a block than its four m-tiles of gate rows hold
+    # (int8 takes them in passes).
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     H = 16 * (-(-(dk.MAX_UNITS * (n_sm - dk.PRENET_BLOCKS) + 1) // 16))
     p, prenet = _decoder(rng, dev, H, 128, 128, 64, 16, 2)
-    bundle = dk.prepare_bundle(p, prenet)
+    bundle = dk.prepare_bundle(p, prenet, quantize=False)
     memory = torch.zeros(2, 24, 128, device=dev)
     with pytest.raises(ValueError, match="gate rows a block"):
         dk.decode_segment(bundle, torch.zeros(2, 24, 64, device=dev), memory,
@@ -638,7 +678,7 @@ def test_decode_kernel_raises_on_unsupported_shapes(dev):
                           torch.zeros(2, 16, device=dev), None, None, 4, 16, 2)
 
 
-@pytest.mark.parametrize("H", [128, 256, 1024, 1152, 2048])
+@pytest.mark.parametrize("H", [128, 256, 1024, 1152, 2048, 3072, 8192])
 def test_decode_kernel_layout_is_the_mirrored_one(dev, H):
     """The grid the kernel computes on this card is decode_layout's."""
     import ctypes
@@ -659,7 +699,9 @@ LAYOUT_WIDTHS = [(1024, 768, 256, 256, 128, 80, 31, 32), (256, 320, 64, 64, 64, 
                  (256, 256, 128, 128, 512, 80, 31, 32), (512, 512, 256, 256, 128, 80, 15, 16),
                  # past H 1024: the weights partly streamed, up to four m-tiles
                  (1152, 512, 256, 256, 128, 80, 31, 32), (1536, 512, 256, 256, 640, 80, 31, 32),
-                 (2048, 512, 256, 256, 1024, 80, 31, 32)]
+                 (2048, 512, 256, 256, 1024, 80, 31, 32),
+                 # int8 past H 2048: passes of four m-tiles, wq out of shared memory
+                 (2176, 512, 256, 256, 128, 80, 31, 32), (4096, 512, 256, 256, 1024, 80, 31, 32)]
 
 
 @pytest.mark.parametrize("widths", LAYOUT_WIDTHS, ids=lambda w: f"H{w[0]}_D{w[1]}_A{w[4]}")
@@ -1638,12 +1680,12 @@ def test_bilstm_bwd_in_row_groups(dev):
 
 
 @pytest.mark.parametrize("B", [1, 4, 33])
-@pytest.mark.parametrize("H", [208, 256, 384, 512, 1024, 1248])
+@pytest.mark.parametrize("H", [208, 256, 384, 512, 1024, 1248, 1280, 2048, 4096])
 def test_bigru_wide_route(dev, H, B):
-    """Past H 192 both directions run csrc/bigru_wide.cu: forward, residual
-    mode and backward within the narrow kernels' tolerances of the plain
-    versions (h 5e-3, gh and dG 1e-2 of the peak), bit-equal on a repeat;
-    launches counted a row group."""
+    """Past H 192 both directions run csrc/bigru_wide.cu (past H 1,184 the
+    streamed build): forward, residual mode and backward within the narrow
+    kernels' tolerances of the plain versions (h 5e-3, gh and dG 1e-2 of
+    the peak), bit-equal on a repeat; launches counted a row group."""
     from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel
     from multi_speaker_tts_tpu_torch.ops.gru import GRUParams
 
@@ -1689,7 +1731,7 @@ def test_bigru_wide_route(dev, H, B):
         assert _rel_peak(a, c) <= 1e-2
 
 
-@pytest.mark.parametrize("H", [208, 512, 1248])
+@pytest.mark.parametrize("H", [208, 512, 1248, 2048, 4096])
 def test_bigru_wide_takes_the_plans_group_and_refuses_one_row_more(dev, H):
     """The wide route's entry points launch the most rows the Python plan
     gives a group (wide_rows, on zero inputs: one step) and refuse one row
@@ -1710,6 +1752,26 @@ def test_bigru_wide_takes_the_plans_group_and_refuses_one_row_more(dev, H):
         torch.cuda.synchronize()
 
 
+def test_bigru_wide_layout_is_the_mirrored_one(dev):
+    """``wide_layout`` (Python) against ``mstts_bigru_wide_layout`` on this
+    card: the grid, the build, the resident n-tiles, the bytes and the fit
+    at every H % 16 from 208 to 4896 and 1-64 rows, both directions."""
+    import ctypes
+
+    from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel
+
+    lib = birnn_kernel.WIDE_GRU_KERNEL.lib()
+    card = _build.card_limits(dev)
+    out = (ctypes.c_int * 7)()
+    for H in range(208, 4897, 16):
+        for rows in (1, 8, 32, 33, 64):
+            for bwd in (False, True):
+                assert lib.mstts_bigru_wide_layout(int(bwd), H, rows, ctypes.addressof(out)) == 0
+                got = birnn_kernel.wide_layout(bwd, H, rows, card)
+                assert list(out) == [got["U"], got["nblk"], int(got["stream"]), got["ntr"],
+                                     got["nt"], got["bytes"], int(got["fits"])], (H, rows, bwd)
+
+
 # B, S, A, D, H, P, mel, r, K and the mode past H 1024: the weights partly
 # streamed, three or four m-tiles of gate rows, gate products deeper than a
 # staging piece (H 2048: layer 1's 4,608, in both modes), attention 1024 wide.
@@ -1725,6 +1787,10 @@ WIDE_DECODE = {
     "a1024_bf16": (16, 64, 1024, 512, 1152, 256, 80, 2, 4, False),
     "a1024_int8_b1": (1, 208, 1024, 512, 1024, 256, 80, 2, 4, True),
 }
+# B, S, A, D, H in int8 past H 2048: more than four m-tiles of gate rows, in
+# passes (five to eight), P 256, mel 80, r 2, K 4.
+INT8_PAST_2048 = {"h2176": (16, 208, 128, 512, 2176), "h3072_b1": (1, 256, 640, 512, 3072),
+                  "h4096": (4, 64, 128, 512, 4096), "h4096_a1024_b1": (1, 256, 1024, 512, 4096)}
 
 
 @pytest.mark.parametrize("shape", list(WIDE_DECODE))
@@ -1765,6 +1831,75 @@ def test_decode_segment_kernel_past_h1024(dev, shape):
         for a, b in zip((*got[0].h, *got[0].c, got[0].context),
                         (*want[0].h, *want[0].c, want[0].context)):
             assert a.shape == b.shape and (a - b).abs().max().item() <= 1e-2
+        carry, prev = got[0], got[1]
+
+
+@pytest.mark.parametrize("shape", list(INT8_PAST_2048))
+def test_decode_segment_kernel_int8_past_h2048(dev, shape):
+    """The int8 decode in passes of four m-tiles, one chunk from the zero
+    state and one from the kernel's own carry: bit-equal on a repeat, one
+    launch a row group, frames, stops and state within the production gate
+    (1e-2) of the plain version, and the alignments held as the K 16 chunk's
+    are in chip_smoke.py: every step one at a time from the plain version's
+    carry within 1e-3, and the chunk within max(1e-3, 4x the median) of the
+    plain version or of one of its 8 probes (its f32 inputs moved by 1e-6):
+    an int8 rounding that a summation order flips moves the next steps'
+    alignments by ~1e-3 (H 3072, S 256: the plain version's own probes read
+    1.2e-3, H100)."""
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    B, S, A, D, H = INT8_PAST_2048[shape]
+    P, mel, r, K = 256, 80, 2, 4
+    rng = np.random.default_rng(11)
+    p, prenet = _decoder(rng, dev, H, D, P, A, mel, r)
+    bundle = dk.prepare_bundle(p, prenet, quantize=True)
+    t = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).to(dev)  # noqa: E731
+    keys, memory = t(B, S, A), t(B, S, D)
+    lens = torch.tensor(([S, S - 5, 7, S] * 16)[:B], device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).float()
+    keep = [torch.from_numpy(rng.random((K, B, P)) < 0.5).to(dev).float() / 0.5 for _ in range(2)]
+    carry = dscan.initial_carry(B, memory, 2, H)
+    prev = torch.zeros(B, mel, device=dev)
+    assert dk.decode_layout(H, dk.card_limits(dev)[0])["mt"] > dk.MAX_M_TILES
+    assert dk._shape_reason(H, D, (P, P), S, A, mel, 32, 31, True, dk.card_limits(dev)) is None
+    g = torch.Generator(dev).manual_seed(H)
+
+    def nudged(x):
+        return x * (1.0 + 1e-6 * torch.randn(x.shape, generator=g, device=dev))
+
+    for _ in range(2):
+        before = dk.KERNELS["int8"].launches
+        got = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        again = dk.decode_segment(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        torch.cuda.synchronize()
+        assert dk.KERNELS["int8"].launches == before + 2 * len(
+            dk.kernel_row_groups(bundle, B, S, dev))
+        assert all(torch.equal(x, y) for x, y in zip(got[1:], again[1:]))
+        want = dk.decode_segment_plain(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        for i in (1, 2, 3):
+            assert (got[i] - want[i]).abs().max().item() <= 1e-2
+        for a, b in zip((*got[0].h, *got[0].c, got[0].context),
+                        (*want[0].h, *want[0].c, want[0].context)):
+            assert a.shape == b.shape and (a - b).abs().max().item() <= 1e-2
+        c_, p_ = carry, prev
+        for k in range(K):
+            m1, m2 = keep[0][k:k + 1], keep[1][k:k + 1]
+            one = dk.decode_segment(bundle, keys, memory, mask, c_, p_, m1, m2, 1, mel, r)
+            ref = dk.decode_segment_plain(bundle, keys, memory, mask, c_, p_, m1, m2, 1, mel, r)
+            assert (one[4] - ref[4]).abs().max().item() <= 1e-3, k
+            c_, p_ = ref[0], ref[1]
+        probes = []
+        for _ in range(8):
+            cn = dscan.DecoderCarry(tuple(nudged(x) for x in carry.h),
+                                    tuple(nudged(x) for x in carry.c), nudged(carry.weights),
+                                    nudged(carry.cum_weights), nudged(carry.context))
+            probes.append(dk.decode_segment_plain(bundle, nudged(keys), nudged(memory), mask, cn,
+                                                  nudged(prev), *keep, K, mel, r)[4])
+        limit = max(1e-3, 4 * float(np.median([(q - want[4]).abs().max().item()
+                                                for q in probes])))
+        nearest = min((got[4] - q).abs().max().item() for q in (want[4], *probes))
+        assert nearest <= limit, (nearest, limit)
         carry, prev = got[0], got[1]
 
 
@@ -2016,9 +2151,9 @@ def test_griffin_lim_routes_to_gemm_where_jax_does(dev, monkeypatch, capsys, n_f
 
 def test_decode_and_bigru_route_plain_where_jax_does(dev, capsys, tmp_path):
     """A synthesizer with a bf16 decode past H 2048 (fused weights past the
-    JAX gate's 80 MB) and a CBHG BiGRU of 1264 a direction (past the wide
-    route, not a multiple of 128): both run their plain versions on the
-    card with one dispatch line each and no launch of the refused kernel."""
+    JAX gate's 80 MB) and a CBHG BiGRU of 1260 a direction (not a multiple
+    of 16, nor of 128): both run their plain versions on the card with one
+    dispatch line each and no launch of the refused kernel."""
     from multi_speaker_tts_tpu_torch.audio import dsp
     from multi_speaker_tts_tpu_torch.hparams import default_hparams
     from multi_speaker_tts_tpu_torch.inference import Synthesizer
@@ -2027,7 +2162,7 @@ def test_decode_and_bigru_route_plain_where_jax_does(dev, capsys, tmp_path):
     from multi_speaker_tts_tpu_torch.train.trainer import Trainer
 
     hp = default_hparams(Decoder={"LSTM": {"Sizes": 2176}},
-                         Linear_Head={"CBHG": {"GRU_Size": 2528}})
+                         Linear_Head={"CBHG": {"GRU_Size": 2520}})
     tr = Trainer(hp, checkpoint_dir=str(tmp_path / "ck"), log_dir=str(tmp_path / "log"),
                  device="cuda", seed=0)
     tr.initialize()
@@ -2042,5 +2177,5 @@ def test_decode_and_bigru_route_plain_where_jax_does(dev, capsys, tmp_path):
     assert [k.launches for k in kernels] == before
     lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("[dispatch]")]
     assert any(x.startswith("[dispatch] decode -> plain") and "2048" in x for x in lines), lines
-    assert any(x.startswith("[dispatch] bigru -> plain") and "1248" in x for x in lines), lines
+    assert any(x.startswith("[dispatch] bigru -> plain") and "4880" in x for x in lines), lines
     assert np.isfinite(out["mel"]).all() and out["mel_length"] > 0

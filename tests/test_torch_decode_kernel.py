@@ -459,7 +459,10 @@ def test_shape_rule_accepts_the_served_decoders_and_names_what_it_refuses():
     assert dk._shape_reason(1024, 768, (256, 256), 257, 128, 80, 32) is None
     assert "3788 memory positions" in dk._shape_reason(1024, 768, (256, 256), 3789, 128, 80, 32)
     # Wide attention and gate products deeper than a staging piece (4,096)
-    # are taken; past 16 units a gate block (H 2048 on an H100) is not.
+    # are taken; past 16 units a gate block (H 2048 on an H100) int8 in
+    # passes, bf16 not.
     assert dk._shape_reason(1024, 768, (256, 256), 48, 516, 80, 32) is None
     assert dk._shape_reason(1664, 784, (256, 256), 48, 128, 80, 32) is None
-    assert "64 gate rows a block" in dk._shape_reason(2064, 512, (256, 256), 48, 128, 80, 32)
+    assert dk._shape_reason(2064, 512, (256, 256), 48, 128, 80, 32) is None
+    assert "64 gate rows a block" in dk._shape_reason(2064, 512, (256, 256), 48, 128, 80, 32,
+                                                      quantized=False)

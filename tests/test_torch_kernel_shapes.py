@@ -28,7 +28,7 @@ def test_bigru_bwd_shape_reason_accepts_the_forwards_widths(H):
 @pytest.mark.parametrize("H", [8, 72, 200])
 def test_bigru_bwd_shape_reason_refuses_other_widths(H):
     reason = birnn_kernel.bigru_bwd_shape_reason(*_gru_shapes(5, 2, H))
-    assert reason == f"needs H % 16 == 0 and 16 <= H <= 1248 on this card, got H = {H}"
+    assert reason == f"needs H % 16 == 0 and 16 <= H <= 4880 on this card, got H = {H}"
     assert reason == birnn_kernel.bigru_shape_reason(*_gru_shapes(5, 2, H))
 
 
@@ -64,7 +64,7 @@ def test_bigru_bwd_kernel_checks_shapes_before_any_launch(monkeypatch):
     args = (bf(T, B, 3 * H), bf(T, B, 3 * H), bf(T, B, H)) * 2 + (
         w, w, torch.zeros(T, B, H), torch.zeros(T, B, H))
     before = birnn_kernel.GRU_BWD_KERNEL.launches
-    with pytest.raises(ValueError, match="H % 16 == 0 and 16 <= H <= 1248"):
+    with pytest.raises(ValueError, match="H % 16 == 0 and 16 <= H <= 4880"):
         birnn_kernel.bigru_bwd(*args)
     with pytest.raises(NotImplementedError, match="bf16"):
         birnn_kernel.bigru_bwd(*args, torch.float32)

@@ -8,7 +8,9 @@ JAX gate admits, on the CPU.
   own decision over a grid: the Griffin-Lim route against
   ``_pallas_gl_max_batch`` and ``griffin_lim_auto``'s rule, the decode
   route against ``decode_pallas.supported``, the recurrence routes against
-  ``lstm_pallas.supported`` / ``birnn_pallas.supported``.
+  ``lstm_pallas.supported`` / ``birnn_pallas.supported``; and wherever the
+  JAX gate launches, the port's kernel takes the shape: the int8 decode to
+  H 8192, the BiGRU to 4096, the dense Griffin-Lim to n_fft 65536.
 - The LSTM forward's and backward's launch plans at H100 constants take at
   least one row at every H % 128 up to 4096, keep the production layouts,
   and the forward's wrapper calls its entry point once a row group.
@@ -36,6 +38,7 @@ from multi_speaker_tts_tpu_torch.audio import dsp
 from multi_speaker_tts_tpu_torch.data.pattern_generator import generate_synthetic_dataset
 from multi_speaker_tts_tpu_torch.hparams import tiny_test_hparams
 from multi_speaker_tts_tpu_torch.ops import _build, birnn_kernel, gru, lstm_kernel, stft_matmul
+from multi_speaker_tts_tpu_torch.ops import griffin_lim_kernel as gk
 from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
 from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
 from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams, bilstm_fused, lstm_stack
@@ -287,9 +290,9 @@ def _jax_params(H, D, P=256, A=128):
 @pytest.mark.parametrize("D", [512, 768])
 def test_decode_route_is_the_jax_decision(mode, H, D):
     """On the card the decode runs the plain loop exactly where the port's
-    kernel and ``decode_pallas.supported`` both refuse; where only the port
-    refuses it keeps raising (int8 past H 2048 at S <= 256); off the card
-    nothing changes but the positions rule."""
+    kernel and ``decode_pallas.supported`` both refuse (bf16 past the 80 MB
+    rule and H 2048); int8 past H 2048 the kernel takes what the JAX gate
+    takes; off the card nothing changes but the positions rule."""
     q = mode == "int8"
     p, jp = _params(H, D), _jax_params(H, D)
     for S in (64, 208, 256, 272, 1008):
@@ -304,9 +307,75 @@ def test_decode_route_is_the_jax_decision(mode, H, D):
         assert off is None or "memory positions" in off
     if mode == "bf16" and H >= 2176:
         assert dk.plain_reason(p, (256, 256), D, 64, 80, q, dk.H100, True) is not None
-    if mode == "int8" and H >= 2176:  # the JAX gate launches: the port raises (next slice)
+    if mode == "int8" and H >= 2176:  # the JAX gate launches, and so does the port
         assert dk.plain_reason(p, (256, 256), D, 64, 80, q, dk.H100, True) is None
-        assert not dk.supported(p, (256, 256), D, 64, 80, q)
+        assert dk.supported(p, (256, 256), D, 64, 80, q)
+
+
+@pytest.mark.parametrize("H_lo, H_hi", [(128, 2048), (2048, 4096), (4096, 6144), (6144, 8193)])
+def test_decode_int8_launches_wherever_jax_does(H_lo, H_hi):
+    """Over H 128-8192 (multiples of 128), memory 256-768, attention 128-1024
+    and S 1-256: wherever ``decode_pallas.supported(..., mode="int8")`` is
+    true the port's kernel takes the shape (``_shape_reason`` None), so
+    the decode runs the kernel on the card and no plain loop."""
+    launched = 0
+    for H in range(H_lo, H_hi, 128):
+        for D in (256, 512, 768):
+            for A in (128, 640, 1024):
+                jp = _jax_params(H, D, A=A)
+                p = _params(H, D, A=A)
+                for S in (1, 64, 208, 256):
+                    if not jdk.supported(jp, 256, D, S, mode="int8"):
+                        continue
+                    launched += 1
+                    assert dk._shape_reason(H, D, (256, 256), S, A, 80, 32, 31, True) is None, \
+                        (H, D, A, S)
+                    assert dk.plain_reason(p, (256, 256), D, S, 80, True, dk.H100, True) is None
+    assert launched == 3 * 3 * 4 * len(range(H_lo, H_hi, 128))
+
+
+@pytest.mark.parametrize("H", range(128, 4097, 128))
+def test_bigru_launches_wherever_jax_does(H):
+    """Every width ``birnn_pallas.supported`` takes up to 4096 (bf16, H %
+    128) the port takes on its wide route (past 1,248 a direction, with
+    streamed tiles where the slice does not hold 32 rows), forward and
+    backward, with no plain route."""
+    assert birnn_pallas.supported(H, jnp.bfloat16)
+    shapes = ((7, 8, 3 * H), ((H, 3 * H), (H, 3 * H)))
+    assert birnn_kernel.bigru_shape_reason(*shapes) is None
+    assert birnn_kernel.bigru_bwd_shape_reason(*shapes) is None
+    assert not _build.plain_route("bigru", torch.zeros(1), torch.bfloat16,
+                                  lambda: birnn_kernel.bigru_shape_reason(*shapes),
+                                  _build.reference_widths_ok(H))
+    if H > 192:
+        assert all(birnn_kernel.wide_rows(bwd, H, 8) >= 1 for bwd in (False, True))
+
+
+@pytest.mark.parametrize("n_lo, n_hi", [(256, 8192), (8192, 24576), (24576, 65537)])
+def test_gl_dense_launches_wherever_jax_does(n_lo, n_hi):
+    """Every 256-multiple n_fft up to 65536, every hop the JAX dispatch
+    admits, T up to and past its cap, B 1 and 8: wherever
+    ``_pallas_gl_max_batch(T, n_fft, hop) >= min(B, 8)`` the port routes to
+    the dense kernel (n_fft 1024 aside, where the staged one may win) and
+    the kernel has a tiling; elsewhere the GEMM route."""
+    dense = 0
+    for n_fft in range(n_lo, n_hi, 256):
+        for k in range(2, n_fft // 128 + 1, 2):
+            hop = n_fft // k
+            if n_fft % k or hop % 128:
+                continue
+            for T in (2, 20, 40, 79, 157, 304, 305, 600):
+                for B in (1, 8):
+                    admitted = _pallas_gl_max_batch(T, n_fft, hop) >= min(B, 8)
+                    got = stft_matmul.gl_route(3, n_fft, hop, T, hop * (T - 1), True, B, 0.0)
+                    if n_fft == 1024:
+                        assert (got != "gemm") == admitted
+                        continue
+                    assert got == ("dense" if admitted else "gemm"), (n_fft, hop, T, B)
+                    if admitted and B == 1:
+                        gk.dense_plan(B, T, n_fft, hop)  # raises if no tiling fits
+                        dense += 1
+    assert dense > 0
 
 
 # -- the recurrence routes -----------------------------------------------------
@@ -315,7 +384,7 @@ def test_decode_route_is_the_jax_decision(mode, H, D):
 @pytest.mark.parametrize("H", [128, 256, 768, 1152, 1160, 1164, 1248, 1264, 1280, 1792, 4096])
 def test_recurrence_routes_are_the_jax_decision(H):
     """The width half of the JAX gates is the port's copy, and the port's
-    refusals: every H % 8 for the LSTM family, H % 16 up to 1,248 for the
+    refusals: every H % 8 for the LSTM family, H % 16 up to 4,880 for the
     BiGRU."""
     jl = [JaxLSTMParams(np.zeros((80, 4 * H)), np.zeros((H, 4 * H)), np.zeros(4 * H))]
     assert _build.reference_widths_ok(H) == lstm_pallas.supported(jl, jnp.bfloat16)
@@ -325,7 +394,7 @@ def test_recurrence_routes_are_the_jax_decision(H):
         assert (lstm_kernel.stack_refusal([p], 32, grad) is None) == (H % 8 == 0)
         assert (birnn_kernel.bilstm_refusal(H, 32, grad) is None) == (H % 8 == 0)
     gru_refuses = birnn_kernel.bigru_shape_reason((4, 2, 3 * H), [(H, 3 * H)] * 2) is not None
-    assert gru_refuses == (H % 16 != 0 or H > 1248)
+    assert gru_refuses == (H % 16 != 0 or H > 4880)
 
 
 def _gru(H, D, rng):
@@ -347,11 +416,12 @@ def _recurrence_kernels():
 
 
 def test_bigru_past_the_kernels_where_jax_refuses_runs_plain(monkeypatch, capsys):
-    """On a pretended card the BiGRU at H 1264 (past the wide route, not a
-    multiple of 128) runs ``bigru_fused`` with one dispatch line and no
-    launch; at H 1280 (the JAX gate launches) the wrapper raises."""
+    """On a pretended card the BiGRU at H 1260 (not a multiple of 16, nor
+    of 128) runs ``bigru_fused`` with one dispatch line and no launch; at
+    H 1280 (the JAX gate launches) the wrapper launches the wide route, in
+    its streamed build."""
     rng = np.random.default_rng(1264)
-    fwd, bwd = _gru(1264, 16, rng), _gru(1264, 16, rng)
+    fwd, bwd = _gru(1260, 16, rng), _gru(1260, 16, rng)
     x = torch.from_numpy(rng.standard_normal((2, 3, 16)).astype(np.float32))
     want = gru.bigru_fused(fwd, bwd, x, torch.bfloat16)
     calls = []
@@ -360,10 +430,12 @@ def test_bigru_past_the_kernels_where_jax_refuses_runs_plain(monkeypatch, capsys
     got = birnn_kernel.bigru(fwd, bwd, x, torch.bfloat16)
     assert calls == [] and torch.equal(got, want)
     out = capsys.readouterr().out
-    assert "[dispatch] bigru -> plain" in out and "1248" in out
+    assert "[dispatch] bigru -> plain" in out and "4880" in out
     f2, b2 = _gru(1280, 16, rng), _gru(1280, 16, rng)
-    with pytest.raises(ValueError, match="1248"):
-        birnn_kernel.bigru(f2, b2, x, torch.bfloat16)
+    birnn_kernel.bigru(f2, b2, x, torch.bfloat16)
+    assert [c[:2] for c in calls] == [("bigru_wide", "mstts_bigru_wide_fwd")]
+    assert birnn_kernel.wide_layout(False, 1280, 3)["stream"]
+    assert "[dispatch]" not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("grad", [False, True])

@@ -1,13 +1,16 @@
 """One process of the port's data-parallel CPU tests (gloo), started by
 ``tests/test_torch_parallel.py``; not a test module itself.
 
-    python tests/torch_dp_worker.py INIT_URL RANK WORLD OUT_DIR
+    python tests/torch_dp_worker.py INIT_URL RANK WORLD OUT_DIR [one_step]
 
 Joins the process group, then on this rank's rows of seeded global
 batches: the Tacotron trainer's gradients and three steps, and the GE2E
-trainer's gradients and one step. Writes what it saw to
-``OUT_DIR/rank<RANK>.pt``. The same functions build the single-process
-references in the test.
+trainer's gradients and one step (``one_step``: the Tacotron trainer's
+gradients and one step only). Writes what it saw, with its rank on its
+host (``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` where the caller presents
+several hosts), to ``OUT_DIR/rank<RANK>.pt``. The same functions build the
+single-process references in the tests (``tests/test_torch_parallel.py``,
+``tests/test_torch_multihost.py``).
 """
 
 from __future__ import annotations
@@ -61,14 +64,14 @@ def ge2e_mels(hp, seed: int = 1) -> np.ndarray:
     return mels.reshape(GE2E_N * GE2E_M, GE2E_L, D).astype(np.float32)
 
 
-def run_tacotron(trainer: Trainer, batch: dict) -> dict:
-    """gradients() then three train_step()s on ``batch`` (this process's
-    rows): losses, gradients, metrics, the params after step 1 and 3, the
-    BatchNorm statistics after step 3."""
+def run_tacotron(trainer: Trainer, batch: dict, steps: int = 3) -> dict:
+    """gradients() then ``steps`` train_step()s on ``batch`` (this
+    process's rows): losses, gradients, metrics, the params after step 1
+    and after the last, the BatchNorm statistics after the last."""
     losses, grads = trainer.gradients(batch)
     metrics = [trainer.train_step(batch)]
     params_1 = trainer.state()
-    metrics += [trainer.train_step(batch) for _ in range(2)]
+    metrics += [trainer.train_step(batch) for _ in range(steps - 1)]
     return {"losses": losses, "grads": grads, "metrics": metrics, "params_1": params_1,
             "params_3": trainer.state(), "bn_3": [b.clone() for b in trainer.bn_stats()]}
 
@@ -81,7 +84,7 @@ def run_ge2e(trainer: GE2ETrainer, mels: np.ndarray) -> dict:
             "params": {k: p.detach().clone() for k, p in trainer.params.items()}}
 
 
-def main(init: str, rank: int, world: int, out_dir: str) -> None:
+def main(init: str, rank: int, world: int, out_dir: str, one_step: bool = False) -> None:
     torch.set_num_threads(1)
     multihost.initialize_distributed(init, world, rank, device="cpu")
     hp = tacotron_hp()
@@ -89,8 +92,14 @@ def main(init: str, rank: int, world: int, out_dir: str) -> None:
     trainer.initialize()
     rows = multihost.local_rows(GLOBAL_BATCH)
     local = {k: v[rows] for k, v in tacotron_batch(hp).items()}
-    result = {"rank": rank, "world": multihost.process_count(),
-              "tacotron": run_tacotron(trainer, local)}
+    result = {"rank": rank, "world": multihost.process_count(), "local": multihost.local_rank(),
+              "shard": multihost.host_shard_info(), "rows": (rows.start, rows.stop),
+              "is_main": trainer.is_main,
+              "tacotron": run_tacotron(trainer, local, 1 if one_step else 3)}
+    if one_step:
+        torch.save(result, f"{out_dir}/rank{rank}.pt")
+        multihost.shutdown()
+        return
     hp_g = ge2e_hp()
     ge2e = GE2ETrainer(hp_g, f"{out_dir}/ge2e{rank}", f"{out_dir}/glog{rank}", device="cpu")
     result["ge2e"] = run_ge2e(ge2e, ge2e_mels(hp_g)[multihost.local_rows(GE2E_N * GE2E_M)])
@@ -99,4 +108,5 @@ def main(init: str, rank: int, world: int, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+         sys.argv[5:] == ["one_step"])
