@@ -25,12 +25,16 @@ embedding)`` -> waveforms, on a CUDA device by default:
   window's tail: constant time to the first chunk.
 
 The buckets are part of the result (Griffin-Lim phase couples into the
-padding), so they follow the JAX package exactly. The stages carry
-``torch.profiler.record_function`` spans (``enroll.mel``, ``enroll.ge2e``,
-``synth.encoder``, ``synth.decode``, ``synth.postnet``, ``synth.linear``,
-``synth.vocode``; ``stream.decode``, ``stream.emit``, ``stream.vocode``)
-that a profiler run reads; without a profiler they cost about a microsecond
-each.
+padding), so they follow the JAX package exactly. ``synthesize`` carries
+profiler spans (:mod:`.telemetry`): ``synth.call`` around the whole call;
+inside it ``synth.prepare`` (tokens, buckets, host-to-device copies, the
+prenet mask sampler), ``synth.encoder``, ``synth.decode``, ``synth.postnet``,
+``synth.linear``, ``synth.vocode`` and ``synth.return`` (the copies to the
+host, the joins, the per-row results). The decode counts
+``decode.row_steps`` a chunk and the vocoder ``vocode.row_frames`` a call.
+Without a profiler a count is one check of the profiler's flag and a span
+that check and a shared no-op context: on an H100 machine's host a span
+took 0.41-0.45 us and a count 0.16-0.25 us, ``record_function`` 10-12 us.
 
 CLI (the card by default; ``-device cpu`` runs the plain versions)::
 
@@ -47,8 +51,8 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from multi_speaker_tts_tpu_torch import telemetry
 from multi_speaker_tts_tpu_torch import text as text_frontend
 from multi_speaker_tts_tpu_torch.audio import dsp, wav_io
 from multi_speaker_tts_tpu_torch.checkpoints import load_compact
@@ -285,13 +289,11 @@ class Synthesizer:
             L = 1 << max(int(np.ceil(np.log2(max(len(wav), 2)))), floor_pow)
             wav = np.pad(wav, (0, L - len(wav)), mode="wrap")
             w = torch.from_numpy(wav).to(self.device)[None]
-            with record_function("enroll.mel"):
-                mel = dsp.melspectrogram_auto(w, self.dsp_cfg)
-            with record_function("enroll.ge2e"):
-                embs.append(self.ge2e.embed_utterance(
-                    mel, win_len, win_shift,
-                    torch.tensor([true_frames], device=self.device),
-                )[0])
+            mel = dsp.melspectrogram_auto(w, self.dsp_cfg)
+            embs.append(self.ge2e.embed_utterance(
+                mel, win_len, win_shift,
+                torch.tensor([true_frames], device=self.device),
+            )[0])
         mean = torch.stack(embs).mean(dim=0)
         mean = mean / torch.clamp(torch.linalg.vector_norm(mean), min=1e-6)
         return mean.cpu().numpy()
@@ -389,70 +391,74 @@ class Synthesizer:
         ``mel_lengths``, ``linear``; with ``split_vocode=False`` and
         ``vocode`` also ``wav``), untrimmed, PAD rows included, on the
         synthesizer's device."""
-        shards = self.mesh if sharded and self.mesh is not None else [self.device]
-        n = len(shards)
-        B, max_steps, tokens, lengths, spk, active = self._prepare(
-            texts, speaker_embedding, speaker_ids, max_steps, n, pad_batch)
-        Bp = tokens.shape[0]
-        self.last_decode_bucket = max_steps
-        split = vocode and split_vocode
-        self.compile_counts.setdefault(
-            ("infer", tokens.shape[1], Bp, max_steps, vocode and not split, sharded,
-             early_exit, True if split else return_linear, False if split else pcm16), 1)
-        masks = _StepMasks(self._prenet_masks(Bp))
-        threshold = float(self.hp.Decoder.Stop_Threshold)
-        outs = []
-        for i, dev in enumerate(shards):
-            rows = slice(i * (Bp // n), (i + 1) * (Bp // n))
-            outs.append(self._replicas[dev].infer(
-                tokens[rows].to(dev), lengths[rows].to(dev),
-                None if spk is None else spk[rows].to(dev), max_steps, threshold,
-                active[rows].to(dev), masks.rows(rows, dev), early_exit))
-        if return_device:
-            keys = ["mel_post", "alignments", "mel_lengths"]
-            if "linear" in outs[0] and (split or return_linear):
-                keys.append("linear")
-            out = {k: torch.cat([o[k].to(self.device) for o in outs]) for k in keys}
-            if vocode and not split:
-                out["wav"] = torch.cat([_gl_vocode(o.get("linear"), o["mel_post"], self.dsp_cfg,
-                                                   pcm16).to(self.device) for o in outs])
-            return out
-        mel_lengths = torch.cat([o["mel_lengths"].cpu() for o in outs]).numpy()
-        r = int(self.hp.Decoder.get("N_Frames_Per_Step", 1))
-        Tb = _decode_bucket(max(int(mel_lengths.max()), r), max_steps)
-        if split:
-            self.compile_counts.setdefault(
-                ("vocode", tokens.shape[1], Bp, Tb, return_linear, pcm16, sharded), 1)
-        steps = max(-(-Tb // r), 1)
-        parts = {"mel": [], "linear": [], "wav": [], "alignment": []}
-        for o in outs:
-            mel_post = o["mel_post"][:, :Tb]
-            linear = o["linear"][:, :Tb] if "linear" in o else None
-            if vocode:
-                lin_v, mel_v = ((linear, mel_post) if split_vocode
-                                else (o.get("linear"), o["mel_post"]))
-                with record_function("synth.vocode"):
-                    parts["wav"].append(_gl_vocode(lin_v, mel_v, self.dsp_cfg, pcm16).cpu())
-            parts["mel"].append(mel_post.cpu())
-            if return_linear and linear is not None:
-                parts["linear"].append(linear.cpu())
-            parts["alignment"].append(o["alignments"][:, :steps].cpu())
-        joined = {k: torch.cat(v).numpy() for k, v in parts.items() if v}
-        hop = self.dsp_cfg.hop
-        results = []
-        for i in range(B):
-            T = int(mel_lengths[i])
-            item = {
-                "mel": joined["mel"][i, :T],
-                "alignment": joined["alignment"][i, :max(-(-T // r), 1)],
-                "mel_length": T,
-            }
-            if "wav" in joined:
-                item["wav"] = joined["wav"][i, :max(T - 1, 1) * hop]
-            if "linear" in joined:
-                item["linear"] = joined["linear"][i, :T]
-            results.append(item)
-        return results
+        with telemetry.span("synth.call"):
+            shards = self.mesh if sharded and self.mesh is not None else [self.device]
+            n = len(shards)
+            with telemetry.span("synth.prepare"):
+                B, max_steps, tokens, lengths, spk, active = self._prepare(
+                    texts, speaker_embedding, speaker_ids, max_steps, n, pad_batch)
+                Bp = tokens.shape[0]
+                self.last_decode_bucket = max_steps
+                split = vocode and split_vocode
+                self.compile_counts.setdefault(
+                    ("infer", tokens.shape[1], Bp, max_steps, vocode and not split, sharded,
+                     early_exit, True if split else return_linear, False if split else pcm16), 1)
+                masks = _StepMasks(self._prenet_masks(Bp))
+                threshold = float(self.hp.Decoder.Stop_Threshold)
+            outs = []
+            for i, dev in enumerate(shards):
+                rows = slice(i * (Bp // n), (i + 1) * (Bp // n))
+                outs.append(self._replicas[dev].infer(
+                    tokens[rows].to(dev), lengths[rows].to(dev),
+                    None if spk is None else spk[rows].to(dev), max_steps, threshold,
+                    active[rows].to(dev), masks.rows(rows, dev), early_exit))
+            if return_device:
+                keys = ["mel_post", "alignments", "mel_lengths"]
+                if "linear" in outs[0] and (split or return_linear):
+                    keys.append("linear")
+                out = {k: torch.cat([o[k].to(self.device) for o in outs]) for k in keys}
+                if vocode and not split:
+                    out["wav"] = torch.cat([_gl_vocode(o.get("linear"), o["mel_post"], self.dsp_cfg,
+                                                       pcm16).to(self.device) for o in outs])
+                return out
+            mel_lengths = torch.cat([o["mel_lengths"].cpu() for o in outs]).numpy()
+            r = int(self.hp.Decoder.get("N_Frames_Per_Step", 1))
+            Tb = _decode_bucket(max(int(mel_lengths.max()), r), max_steps)
+            if split:
+                self.compile_counts.setdefault(
+                    ("vocode", tokens.shape[1], Bp, Tb, return_linear, pcm16, sharded), 1)
+            steps = max(-(-Tb // r), 1)
+            parts = {"mel": [], "linear": [], "wav": [], "alignment": []}
+            for o in outs:
+                mel_post = o["mel_post"][:, :Tb]
+                linear = o["linear"][:, :Tb] if "linear" in o else None
+                if vocode:
+                    lin_v, mel_v = ((linear, mel_post) if split_vocode
+                                    else (o.get("linear"), o["mel_post"]))
+                    with telemetry.span("synth.vocode"):
+                        parts["wav"].append(_gl_vocode(lin_v, mel_v, self.dsp_cfg, pcm16).cpu())
+                with telemetry.span("synth.return"):
+                    parts["mel"].append(mel_post.cpu())
+                    if return_linear and linear is not None:
+                        parts["linear"].append(linear.cpu())
+                    parts["alignment"].append(o["alignments"][:, :steps].cpu())
+            with telemetry.span("synth.return"):
+                joined = {k: torch.cat(v).numpy() for k, v in parts.items() if v}
+                hop = self.dsp_cfg.hop
+                results = []
+                for i in range(B):
+                    T = int(mel_lengths[i])
+                    item = {
+                        "mel": joined["mel"][i, :T],
+                        "alignment": joined["alignment"][i, :max(-(-T // r), 1)],
+                        "mel_length": T,
+                    }
+                    if "wav" in joined:
+                        item["wav"] = joined["wav"][i, :max(T - 1, 1) * hop]
+                    if "linear" in joined:
+                        item["linear"] = joined["linear"][i, :T]
+                    results.append(item)
+            return results
 
     # -- streaming synthesis ----------------------------------------------------
     @torch.no_grad()
@@ -529,53 +535,50 @@ class Synthesizer:
 
         def decode_segment():
             nonlocal st
-            with record_function("stream.decode"):
-                t0 = st["t0"]
-                mel_seg, _, st = taco.infer_stream_segment(st, K, stop_threshold,
-                                                           prenet_masks, cap_steps)
-                buf[:, PAD_L + t0 * r:PAD_L + t0 * r + E] = mel_seg
+            t0 = st["t0"]
+            mel_seg, _, st = taco.infer_stream_segment(st, K, stop_threshold,
+                                                       prenet_masks, cap_steps)
+            buf[:, PAD_L + t0 * r:PAD_L + t0 * r + E] = mel_seg
 
         def emit(a: int) -> dict:
             """Frames [a, a + E): postnet and head on the exact-halo window
             (buffer index = frame + PAD_L), windowed Griffin-Lim, crossfade."""
-            with record_function("stream.emit"):
-                win = buf[:, a:a + Wmel]
-                widx = (a - PAD_L) + torch.arange(Wmel, device=dev)
-                bm = ((widx >= 0) & (widx < bucket_frames)).float()[None].expand(Bp, Wmel)
-                mel_post_w, lin_w = taco.stream_postnet_linear(win, bm)
-                mag = _gl_magnitude(lin_w, mel_post_w, cfg)[:, Q + P:Q + P + Wf]
-                fidx = (a - G) + torch.arange(Wf, device=dev)
-                valid = (fidx[None, :] >= 0) & (fidx[None, :] < (st["lengths"] * r)[:, None])
-                mag = torch.where(valid[..., None], mag, floor)
-            with record_function("stream.vocode"):
-                if gl_warm_start:
-                    gl_win = stft_matmul.griffin_lim_matmul(
-                        mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter,
-                        cfg.hop * (Wf - 1), momentum=cfg.griffin_lim_momentum,
-                        init_head=tails["w"], init_head_gate=a > 0)
-                    tails["w"] = gl_win[:, E * cfg.hop:E * cfg.hop + tails["w"].shape[-1]]
-                else:
-                    gl_win = stft_matmul.griffin_lim_auto(
-                        mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter,
-                        cfg.hop * (Wf - 1), momentum=cfg.griffin_lim_momentum)
-                wav_win = dsp.inv_preemphasis(gl_win, cfg.preemphasis)
-                chunk = wav_win[:, G * cfg.hop:(G + E) * cfg.hop]
-                if xf > 0:
-                    head = chunk[:, :xf]
-                    if a > 0:  # the first block has no predecessor
-                        head = (1.0 - ramp) * tails["x"] + ramp * head
-                    chunk = torch.cat([head, chunk[:, xf:]], dim=-1)
-                tails["x"] = wav_win[:, (G + E) * cfg.hop:(G + E) * cfg.hop + xf]
-                if pcm16:
-                    chunk = _pcm16(chunk)
-                item = {"wav_chunk": chunk[:B].cpu().numpy(),
-                        "mel_lengths": (st["lengths"][:B] * r).cpu().numpy()}
-                if return_mel:
-                    bidx = a + torch.arange(E, device=dev)
-                    bvalid = (bidx[None, :] < (st["lengths"] * r)[:, None]).float()
-                    block = mel_post_w[:, PAD_L:PAD_L + E] * bvalid[..., None]
-                    item["mel_chunk"] = block[:B].cpu().numpy()
-                return item
+            win = buf[:, a:a + Wmel]
+            widx = (a - PAD_L) + torch.arange(Wmel, device=dev)
+            bm = ((widx >= 0) & (widx < bucket_frames)).float()[None].expand(Bp, Wmel)
+            mel_post_w, lin_w = taco.stream_postnet_linear(win, bm)
+            mag = _gl_magnitude(lin_w, mel_post_w, cfg)[:, Q + P:Q + P + Wf]
+            fidx = (a - G) + torch.arange(Wf, device=dev)
+            valid = (fidx[None, :] >= 0) & (fidx[None, :] < (st["lengths"] * r)[:, None])
+            mag = torch.where(valid[..., None], mag, floor)
+            if gl_warm_start:
+                gl_win = stft_matmul.griffin_lim_matmul(
+                    mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter,
+                    cfg.hop * (Wf - 1), momentum=cfg.griffin_lim_momentum,
+                    init_head=tails["w"], init_head_gate=a > 0)
+                tails["w"] = gl_win[:, E * cfg.hop:E * cfg.hop + tails["w"].shape[-1]]
+            else:
+                gl_win = stft_matmul.griffin_lim_auto(
+                    mag ** cfg.power, cfg.n_fft, cfg.hop, cfg.griffin_lim_iter,
+                    cfg.hop * (Wf - 1), momentum=cfg.griffin_lim_momentum)
+            wav_win = dsp.inv_preemphasis(gl_win, cfg.preemphasis)
+            chunk = wav_win[:, G * cfg.hop:(G + E) * cfg.hop]
+            if xf > 0:
+                head = chunk[:, :xf]
+                if a > 0:  # the first block has no predecessor
+                    head = (1.0 - ramp) * tails["x"] + ramp * head
+                chunk = torch.cat([head, chunk[:, xf:]], dim=-1)
+            tails["x"] = wav_win[:, (G + E) * cfg.hop:(G + E) * cfg.hop + xf]
+            if pcm16:
+                chunk = _pcm16(chunk)
+            item = {"wav_chunk": chunk[:B].cpu().numpy(),
+                    "mel_lengths": (st["lengths"][:B] * r).cpu().numpy()}
+            if return_mel:
+                bidx = a + torch.arange(E, device=dev)
+                bvalid = (bidx[None, :] < (st["lengths"] * r)[:, None]).float()
+                block = mel_post_w[:, PAD_L:PAD_L + E] * bvalid[..., None]
+                item["mel_chunk"] = block[:B].cpu().numpy()
+            return item
 
         decode_segment()
         for i in range(1, n_segs):

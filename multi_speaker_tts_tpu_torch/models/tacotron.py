@@ -29,8 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
+from multi_speaker_tts_tpu_torch import telemetry
 from multi_speaker_tts_tpu_torch.audio.dsp import log_dispatch
 from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.layers import (
@@ -403,10 +403,10 @@ class Tacotron(nn.Module):
         length are zeroed before the postnet. The linear head sees the
         postnet's output over the whole decode bucket (not re-masked) and
         its result is masked afterwards."""
-        with record_function("synth.encoder"):
+        with telemetry.span("synth.encoder"):
             memory, mask = self.build_memory(tokens, token_lengths, speaker_embedding)
         stopped_init = None if active_rows is None else ~active_rows.to(torch.bool)
-        with record_function("synth.decode"):
+        with telemetry.span("synth.decode"):
             mel_pre, stops, aligns, lengths_steps = self.decoder.infer(
                 memory, mask, max_steps, stop_threshold, stopped_init, prenet_masks,
                 self.compute_dtype, early_exit,
@@ -420,7 +420,7 @@ class Tacotron(nn.Module):
         frame_idx = torch.arange(mel_pre.shape[1], device=mel_pre.device)
         frame_mask = (frame_idx[None, :] < mel_lengths[:, None]).float()[..., None]
         mel_pre = mel_pre * frame_mask
-        with record_function("synth.postnet"):
+        with telemetry.span("synth.postnet"):
             mel_post = mel_pre + self.postnet(mel_pre, self.compute_dtype)
         out = {
             "mel_pre": mel_pre,
@@ -430,7 +430,7 @@ class Tacotron(nn.Module):
             "mel_lengths": mel_lengths,
         }
         if self.linear_head is not None:
-            with record_function("synth.linear"):
+            with telemetry.span("synth.linear"):
                 out["linear"] = self.linear_head(mel_post, self.compute_dtype) * frame_mask
         return out
 

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from multi_speaker_tts_tpu_torch import telemetry
 from multi_speaker_tts_tpu_torch.ops import _build
 from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams, cell
 from multi_speaker_tts_tpu_torch.ops.numerics import needs_grad, rounded, seq_gemm
@@ -450,8 +451,9 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
     (:func:`..decode_kernel.decoder_ar_segment_kernel` is one).
 
     Rows in ``stopped_init`` start stopped (batch-bucket PAD rows) and
-    decode length 0. The stop check is one host read per chunk. Steps
-    never run keep zero frames/aligns and stop logits of -1e4. Returns
+    decode length 0. The stop check is one host read per chunk; each chunk
+    counts its B x K row steps as ``decode.row_steps`` (:mod:`..telemetry`).
+    Steps never run keep zero frames/aligns and stop logits of -1e4. Returns
     (frames (n_steps, B, mel*r), stops (n_steps, B), aligns (n_steps, B,
     S), lengths_steps (B,))."""
     B, S = mask.shape
@@ -479,6 +481,7 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
                 stop_threshold, prenet_fn, mel_dim, compute_dtype,
             )
         frames[t:t + K], stops[t:t + K], aligns[t:t + K] = f_k, s_k, w_k
+        telemetry.count("decode.row_steps", B * K)  # every row runs the chunk
         t += K
     return frames, stops, aligns, lengths
 

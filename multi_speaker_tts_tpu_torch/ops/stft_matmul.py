@@ -24,6 +24,7 @@ import os
 import numpy as np
 import torch
 
+from multi_speaker_tts_tpu_torch import telemetry
 from multi_speaker_tts_tpu_torch.audio.dsp import log_dispatch, reflect_pad
 
 
@@ -251,8 +252,10 @@ def griffin_lim_auto(magnitude: torch.Tensor, n_fft: int, hop: int,
     """The vocoder: (..., T, F) -> (..., length), routed by :func:`gl_route`.
     A kernel route runs in chunks of :func:`gl_max_batch` rows; the GEMM
     route on the card prints one ``[dispatch]`` line, as the JAX package
-    does on a TPU."""
+    does on a TPU. Each call counts its rows x frames as
+    ``vocode.row_frames`` (:mod:`..telemetry`)."""
     T = magnitude.shape[-2]
+    telemetry.count("vocode.row_frames", magnitude.numel() // magnitude.shape[-1])
     route = gl_route(magnitude.ndim, n_fft, hop, T, length, magnitude.is_cuda,
                      magnitude.shape[0], momentum)
     if route == "gemm":

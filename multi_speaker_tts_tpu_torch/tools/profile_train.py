@@ -39,6 +39,8 @@ import time
 import numpy as np
 import torch
 
+from multi_speaker_tts_tpu_torch import telemetry
+
 WARMUP = 2  # steps before the measured ones: library loads, packed weights, cuBLAS choices
 
 # Kernel name substrings -> category; the first match wins.
@@ -82,8 +84,6 @@ def scan_host_timer():
     """Time each forward and backward of the decoder scan's autograd
     Function on the host (and mark them as profiler spans); yields the
     {"forward": [ms...], "backward": [ms...]} lists."""
-    from torch.autograd import profiler
-
     from multi_speaker_tts_tpu_torch.ops import decoder_scan
 
     cls = decoder_scan._TFScan
@@ -94,7 +94,7 @@ def scan_host_timer():
         fn = original[kind].__func__
 
         def run(ctx, *args):
-            with profiler.record_function(f"decoder_scan.{kind}"):
+            with telemetry.span(f"decoder_scan.{kind}"):
                 t0 = time.perf_counter()
                 out = fn(ctx, *args)
                 times[kind].append((time.perf_counter() - t0) * 1e3)
@@ -121,15 +121,13 @@ class _CallSites(torch.overrides.TorchFunctionMode):
     backward, which the autograd engine runs, passes through no span."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        from torch.autograd import profiler
-
         frames, f = [], sys._getframe(1)
         while f is not None and len(frames) < 2:
             path = f.f_code.co_filename.replace("\\", "/")
             if _PORT in path:
                 frames.append(f"{path.split(_PORT)[-1]}({f.f_lineno}): {f.f_code.co_name}")
             f = f.f_back
-        with profiler.record_function(_SITE + " <- ".join(frames)):
+        with telemetry.span(_SITE + " <- ".join(frames)):
             return func(*args, **(kwargs or {}))
 
 

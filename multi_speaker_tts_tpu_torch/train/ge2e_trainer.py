@@ -17,12 +17,17 @@ N M rows; the embeddings are gathered in rank order with autograd
 the loss of the global N x M batch once, and scales it by 1 / W: the
 gather's backward sums the processes' cotangents, so the shares' gradients,
 summed over the processes, are the global loss's.
+
+A step carries profiler spans (:mod:`..telemetry`): ``train.forward`` (the
+embeddings and the loss), ``train.backward`` (the gradients) and
+``train.update`` (the optimizer and the clamp of w).
 """
 
 from __future__ import annotations
 
 import torch
 
+from multi_speaker_tts_tpu_torch import telemetry
 from multi_speaker_tts_tpu_torch.data.datasets import GE2EBatchSampler, PatternDataset
 from multi_speaker_tts_tpu_torch.inference import resolve_device
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E, ge2e_loss
@@ -129,12 +134,14 @@ class GE2ETrainer:
     def gradients(self, mels) -> tuple[torch.Tensor, dict]:
         """(the global batch's loss, its gradients by parameter name) from
         this process's rows of the (N M, L, mel) crops grouped by speaker."""
-        mels = torch.as_tensor(mels).to(self.device).float()
-        emb = multihost.all_gather_rows(self.model(mels)).reshape(self.N, self.M, -1)
-        loss = ge2e_loss(emb, self.params["w"], self.params["b"])
+        with telemetry.span("train.forward"):
+            mels = torch.as_tensor(mels).to(self.device).float()
+            emb = multihost.all_gather_rows(self.model(mels)).reshape(self.N, self.M, -1)
+            loss = ge2e_loss(emb, self.params["w"], self.params["b"])
         names = list(self.params)
-        grads = multihost.all_reduce_sum(list(torch.autograd.grad(
-            loss / self.process_count, [self.params[k] for k in names])))
+        with telemetry.span("train.backward"):
+            grads = multihost.all_reduce_sum(list(torch.autograd.grad(
+                loss / self.process_count, [self.params[k] for k in names])))
         return loss.detach(), dict(zip(names, grads))
 
     def train_step(self, mels) -> dict:
@@ -142,8 +149,8 @@ class GE2ETrainer:
         grouped by speaker -> loss, w, b."""
         loss, grads = self.gradients(mels)
         names = list(self.params)
-        updates, self.opt_state = self.optimizer.update(grads, self.opt_state)
-        with torch.no_grad():
+        with telemetry.span("train.update"), torch.no_grad():
+            updates, self.opt_state = self.optimizer.update(grads, self.opt_state)
             for k in names:
                 self.params[k].add_(updates[k])
             self.params["w"].clamp_(min=1e-6)
