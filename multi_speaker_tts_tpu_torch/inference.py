@@ -390,7 +390,9 @@ class Synthesizer:
         raw output dict instead (``mel_post``, ``alignments``,
         ``mel_lengths``, ``linear``; with ``split_vocode=False`` and
         ``vocode`` also ``wav``), untrimmed, PAD rows included, on the
-        synthesizer's device."""
+        synthesizer's device. Under ``early_exit`` the decode runs only the
+        rows still decoding: a row's ``alignments`` past the chunk of steps
+        it stopped in, and a PAD row's throughout, are zeros."""
         with telemetry.span("synth.call"):
             shards = self.mesh if sharded and self.mesh is not None else [self.device]
             n = len(shards)

@@ -137,8 +137,12 @@ class Decoder(nn.Module):
         rate = self.prenet_dropout
         p = self.params()
 
-        def prenet_fn(frame, t):
-            return prenet_apply(ws, frame, rate, prenet_masks(t) if rate > 0.0 else None)
+        def prenet_fn(frame, t, rows=None):
+            masks = None
+            if rate > 0.0:
+                masks = prenet_masks(t)
+                masks = masks if rows is None else [m[rows] for m in masks]
+            return prenet_apply(ws, frame, rate, masks)
 
         fused = dscan.quantize_fused(p) if self.quantize_int8 else None
         segment_fn = None
@@ -157,10 +161,11 @@ class Decoder(nn.Module):
             # raises at the launch on the card: no quiet fall-back.
             bundle = decode_kernel.prepare_bundle(p, ws, quantize=quantized)
 
-            def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K, th):
+            def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K, th,
+                           rows=None):
                 return decode_kernel.decoder_ar_segment_kernel(
                     bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K,
-                    th, prenet_masks, self.mel_dim, self.r, rate)
+                    th, prenet_masks, self.mel_dim, self.r, rate, rows=rows)
         if segment_fn is None and fused is None:
             fused = dscan.fused_weights(p.lstm, compute_dtype)
         return p, keys, prenet_fn, fused, segment_fn
@@ -400,7 +405,9 @@ class Tacotron(nn.Module):
         the stop-aware chunked loop; False the fixed-length scan, with each
         row's length taken from its first stop logit over the threshold. PAD
         rows (``active_rows`` False) start stopped; frames past each decoded
-        length are zeroed before the postnet. The linear head sees the
+        length are zeroed before the postnet. The early-exit loop decodes a
+        row no further than the chunk it stopped in: past it the row's stop
+        logits are -1e4 and its alignments zeros. The linear head sees the
         postnet's output over the whole decode bucket (not re-masked) and
         its result is masked afterwards."""
         with telemetry.span("synth.encoder"):

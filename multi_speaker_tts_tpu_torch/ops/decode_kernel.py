@@ -411,7 +411,14 @@ def decode_segment_plain(bundle: dict, keys, memory, mask, carry: DecoderCarry,
                          prev, m1, m2, K: int, mel_dim: int, r: int):
     """The kernel's arithmetic in plain torch. ``m1`` / ``m2``: (K, B, P)
     dropout scale masks (keep / keep_prob) or None. Returns (carry', prev',
-    frames (K, B, mel*r), stops (K, B), aligns (K, B, S))."""
+    frames (K, B, mel*r), stops (K, B), aligns (K, B, S)). One row runs as
+    two, as in :func:`..decoder_scan.decoder_ar_segment`."""
+    if prev.shape[0] == 1:
+        twice = torch.zeros(2, dtype=torch.long, device=prev.device)
+        *state, f, s, w = decode_segment_plain(
+            bundle, *(dscan.take_rows(x, twice) for x in (keys, memory, mask, carry, prev)),
+            *(None if m is None else m[:, twice] for m in (m1, m2)), K, mel_dim, r)
+        return (*(dscan.take_rows(x, twice[:1]) for x in state), *(x[:, :1] for x in (f, s, w)))
     ap = dscan.AttentionParams(bundle["wq"], bundle["ck"], bundle["wloc"],
                                bundle["v"][:, None])
     (h0, h1), (c0, c1) = carry.h, carry.c
@@ -569,15 +576,20 @@ def decode_segment(bundle: dict, keys, memory, mask, carry: DecoderCarry, prev,
     return fn(bundle, keys, memory, mask, carry, prev, m1, m2, K, mel_dim, r)
 
 
-def scale_masks(prenet_masks: Callable, t0: int, K: int, keep_prob: float):
+def scale_masks(prenet_masks: Callable, t0: int, K: int, keep_prob: float,
+                rows: torch.Tensor | None = None):
     """The keep masks of steps t0 .. t0+K-1, drawn from ``prenet_masks(t)``
     in the plain loop's order (per step: layer 1, then layer 2), as two
-    (K, B, P) f32 scale masks keep / keep_prob. (For keep_prob = 0.5 the
-    scaled product equals the plain loop's x / keep_prob bit for bit.)"""
+    (K, B, P) f32 scale masks keep / keep_prob, of the batch rows ``rows``
+    alone where given. (For keep_prob = 0.5 the scaled product equals the
+    plain loop's x / keep_prob bit for bit.)"""
     drawn = [prenet_masks(t0 + i) for i in range(K)]
-    m1, m2 = (torch.stack([d[layer] for d in drawn]).float() / keep_prob
-              for layer in range(2))
-    return m1, m2
+
+    def scaled(layer):
+        m = torch.stack([d[layer] for d in drawn])
+        return (m if rows is None else m[:, rows]).float() / keep_prob
+
+    return scaled(0), scaled(1)
 
 
 def advance_stops(stop_logits, stopped, lengths, stop_threshold: float):
@@ -594,13 +606,16 @@ def advance_stops(stop_logits, stopped, lengths, stop_threshold: float):
 def decoder_ar_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCarry,
                               prev, t0: int, stopped, lengths, n_steps_seg: int,
                               stop_threshold: float, prenet_masks: Callable | None,
-                              mel_dim: int, r: int, prenet_dropout: float):
+                              mel_dim: int, r: int, prenet_dropout: float,
+                              rows: torch.Tensor | None = None):
     """Drop-in chunk body for ``decoder_scan.decoder_ar_early_exit``: the
     same return tuple as ``decoder_ar_segment``, with the stopped / lengths
-    bookkeeping applied, vectorised, to the segment's per-step stop logits."""
+    bookkeeping applied, vectorised, to the segment's per-step stop logits.
+    The state holds the batch rows ``rows`` (None: every row of
+    ``prenet_masks``' draws), whose keep masks the chunk reads."""
     m1 = m2 = None
     if prenet_dropout > 0.0:
-        m1, m2 = scale_masks(prenet_masks, t0, n_steps_seg, 1.0 - prenet_dropout)
+        m1, m2 = scale_masks(prenet_masks, t0, n_steps_seg, 1.0 - prenet_dropout, rows)
     carry, prev, f_k, s_k, w_k = decode_segment(
         bundle, keys, memory, mask, carry, prev, m1, m2, n_steps_seg, mel_dim, r)
     stopped, lengths = advance_stops(s_k, stopped, lengths, stop_threshold)

@@ -11,10 +11,11 @@ K-step kernel of the ``*_pallas`` serving modes lives in
 :mod:`.decode_kernel` and enters :func:`decoder_ar_early_exit` as its
 ``segment_fn``.
 
-The prenet runs through the caller's ``prenet_fn(frame, t)`` (t = global
-step), as the JAX module takes ``prenet_apply_fn``: its always-on dropout
-draws its keep masks per step, so tests can feed the JAX package's own
-draws and production draws from a ``torch.Generator``.
+The prenet runs through the caller's ``prenet_fn(frame, t, rows)`` (t =
+global step; ``rows`` the batch rows the frame holds, None for every row),
+as the JAX module takes ``prenet_apply_fn``: its always-on dropout draws
+its keep masks per step for the whole batch, so tests can feed the JAX
+package's own draws and production draws from a ``torch.Generator``.
 
 The teacher-forced scan of training (:func:`decoder_tf_scan`) runs the same
 cell over prenet-ed teacher frames as a ``torch.autograd.Function`` with the
@@ -372,17 +373,43 @@ def _project(p: DecoderParams, x: torch.Tensor):
     return frames, stop
 
 
+def take_rows(x, pos: torch.Tensor):
+    """The rows at ``pos`` of a tensor, or of each tensor of a tuple (a
+    :class:`DecoderCarry` as well)."""
+    if isinstance(x, tuple):
+        taken = (take_rows(v, pos) for v in x)
+        return DecoderCarry(*taken) if isinstance(x, DecoderCarry) else tuple(taken)
+    return x.index_select(0, pos)
+
+
 def decoder_ar_segment(p: DecoderParams, fused: tuple, keys, memory, mask,
                        carry: DecoderCarry, prev, t0: int, stopped, lengths,
                        n_steps_seg: int, stop_threshold: float,
-                       prenet_fn: Callable, mel_dim: int, compute_dtype):
+                       prenet_fn: Callable, mel_dim: int, compute_dtype,
+                       rows: torch.Tensor | None = None):
     """``n_steps_seg`` AR steps from explicit state. Per step the decoded
     length grows for rows not yet stopped, THEN the stop flag updates (the
-    JAX order). Returns (carry, prev, stopped, lengths, frames (K, B,
-    mel*r), stop_logits (K, B), aligns (K, B, S))."""
+    JAX order). The state holds the batch rows ``rows`` (None: every row),
+    which ``prenet_fn(frame, t, rows)`` takes its keep masks for. Returns
+    (carry, prev, stopped, lengths, frames (K, B, mel*r), stop_logits (K,
+    B), aligns (K, B, S)).
+
+    A state of one row runs as two equal rows: a product of one row takes
+    BLAS's matrix-vector path, whose sums run in another order than a
+    batch's, so alone the row would decode other last bits than beside
+    other rows."""
+    if prev.shape[0] == 1:
+        twice = torch.zeros(2, dtype=torch.long, device=prev.device)
+        *state, f_k, s_k, w_k = decoder_ar_segment(
+            p, fused, *(take_rows(x, twice) for x in (keys, memory, mask, carry, prev)), t0,
+            take_rows(stopped, twice), take_rows(lengths, twice), n_steps_seg,
+            stop_threshold, prenet_fn, mel_dim, compute_dtype,
+            twice if rows is None else rows[twice])
+        return (*(take_rows(x, twice[:1]) for x in state),
+                *(x[:, :1] for x in (f_k, s_k, w_k)))
     f_k, s_k, w_k = [], [], []
     for i in range(n_steps_seg):
-        pre_t = prenet_fn(prev, t0 + i)
+        pre_t = prenet_fn(prev, t0 + i, rows)
         carry, x, w = decoder_cell_step(p, fused, carry, pre_t, keys, memory,
                                         mask, compute_dtype)
         frames, stop_logit = _project(p, x)
@@ -441,21 +468,29 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
                           stopped_init: torch.Tensor | None = None,
                           chunk: int = 16, fused: tuple | None = None,
                           segment_fn: Callable | None = None):
-    """AR decode in chunks of K steps until every row stopped (or n_steps).
+    """AR decode in chunks of K steps until every row stopped (or n_steps),
+    each chunk over the rows still decoding and no others.
 
     ``fused`` replaces the compute-dtype fused weights (e.g.
     :func:`quantize_fused` for the int8 decode). ``segment_fn``, when given,
     replaces :func:`decoder_ar_segment` as the chunk body: ``(keys, memory,
-    mask, carry, prev, t0, stopped, lengths, K, stop_threshold) -> (carry,
-    prev, stopped, lengths, frames, stops, aligns)``
-    (:func:`..decode_kernel.decoder_ar_segment_kernel` is one).
+    mask, carry, prev, t0, stopped, lengths, K, stop_threshold, rows=rows)
+    -> (carry, prev, stopped, lengths, frames, stops, aligns)``
+    (:func:`..decode_kernel.decoder_ar_segment_kernel` is one). ``rows`` is
+    the batch indices of the rows the state holds (None while it holds
+    every row): the chunk body takes their prenet keep masks, as the plain
+    body hands it to ``prenet_fn(frame, t, rows)``.
 
-    Rows in ``stopped_init`` start stopped (batch-bucket PAD rows) and
-    decode length 0. The stop check is one host read per chunk; each chunk
-    counts its B x K row steps as ``decode.row_steps`` (:mod:`..telemetry`).
-    Steps never run keep zero frames/aligns and stop logits of -1e4. Returns
-    (frames (n_steps, B, mel*r), stops (n_steps, B), aligns (n_steps, B,
-    S), lengths_steps (B,))."""
+    Rows in ``stopped_init`` start stopped (batch-bucket PAD rows), decode
+    length 0 and never run. The stop check is one host read per chunk; at
+    that read, where rows have stopped, the state is cut to the rows still
+    decoding (a stopped row's state is dropped, never read again). Each
+    chunk counts its rows launched x K as ``decode.row_steps``
+    (:mod:`..telemetry`). A row's frames, stop logits and alignments up to
+    the end of the chunk it stopped in are the decoder's; past it, as for
+    steps never run, zero frames and alignments and stop logits of -1e4.
+    Returns (frames (n_steps, B, mel*r), stops (n_steps, B), aligns
+    (n_steps, B, S), lengths_steps (B,))."""
     B, S = mask.shape
     H = p.lstm[0].hidden_size
     carry = initial_carry(B, memory, len(p.lstm), H)
@@ -467,21 +502,36 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
     stopped = (torch.zeros(B, dtype=torch.bool, device=memory.device)
                if stopped_init is None else stopped_init.to(torch.bool).clone())
     lengths = torch.zeros(B, dtype=torch.int32, device=memory.device)
+    out_lengths = torch.zeros_like(lengths)
     if fused is None and segment_fn is None:
         fused = fused_weights(p.lstm, compute_dtype)
     K = chunk_size(n_steps, chunk)
+    rows = torch.arange(B, device=memory.device)  # the batch rows the state holds
     t = 0
-    while t < n_steps and not bool(stopped.all()):
+    while t < n_steps:
+        flags = stopped.tolist()  # the chunk's one host read
+        live = [i for i, f in enumerate(flags) if not f]
+        if not live:
+            break
+        if len(live) < len(flags):  # compact the state to the rows still decoding
+            out_lengths.index_copy_(0, rows, lengths)
+            pos = torch.tensor(live, device=memory.device)
+            rows, carry, keys, memory, mask, prev, stopped, lengths = (
+                take_rows(x, pos) for x in (rows, carry, keys, memory, mask, prev, stopped,
+                                            lengths))
+        sub = None if len(rows) == B else rows
         if segment_fn is not None:
             carry, prev, stopped, lengths, f_k, s_k, w_k = segment_fn(
-                keys, memory, mask, carry, prev, t, stopped, lengths, K, stop_threshold)
+                keys, memory, mask, carry, prev, t, stopped, lengths, K, stop_threshold,
+                rows=sub)
         else:
             carry, prev, stopped, lengths, f_k, s_k, w_k = decoder_ar_segment(
                 p, fused, keys, memory, mask, carry, prev, t, stopped, lengths, K,
-                stop_threshold, prenet_fn, mel_dim, compute_dtype,
+                stop_threshold, prenet_fn, mel_dim, compute_dtype, sub,
             )
-        frames[t:t + K], stops[t:t + K], aligns[t:t + K] = f_k, s_k, w_k
-        telemetry.count("decode.row_steps", B * K)  # every row runs the chunk
+        for out, x in zip((frames, stops, aligns), (f_k, s_k, w_k)):
+            out[t:t + K].index_copy_(1, rows, x)
+        telemetry.count("decode.row_steps", len(rows) * K)  # the rows launched
         t += K
-    return frames, stops, aligns, lengths
-
+    out_lengths.index_copy_(0, rows, lengths)
+    return frames, stops, aligns, out_lengths

@@ -79,13 +79,16 @@ def main(argv=None) -> dict:
             masks = prenet_mask_sampler(hp, dev, 7, B)  # the same draws every run
             segment_fn = None
             if bundle is not None:
-                def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K_, th):
+                def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K_, th,
+                               rows=None):
                     return dk.decoder_ar_segment_kernel(
                         bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K_, th,
-                        masks, MEL, R, DROP)
+                        masks, MEL, R, DROP, rows=rows)
             frames, *_ = dscan.decoder_ar_early_exit(
                 p, keys, memory, mask, T, 1.5,
-                lambda frame, t: prenet_apply(prenet_ws, frame, DROP, masks(t)), MEL,
+                lambda frame, t, rows: prenet_apply(
+                    prenet_ws, frame, DROP,
+                    [m if rows is None else m[rows] for m in masks(t)]), MEL,
                 torch.bfloat16, chunk=K, fused=fused, segment_fn=segment_fn)
             return frames.mean()
 

@@ -468,8 +468,9 @@ class Trainer:
     @torch.no_grad()
     def inference_step(self, pattern_dir: str, step: int) -> None:
         """AR-synthesize one eval batch with the current weights and log the
-        first row's alignment and audio (process 0 of a data-parallel run
-        alone: the AR decode has no collective)."""
+        first row's alignment (zeros past the decode chunk the row stopped
+        in) and audio (process 0 of a data-parallel run alone: the AR decode
+        has no collective)."""
         hp, cfg = self.hp, self.dsp_cfg
         try:
             _, batch = next(iter(self.make_batcher(pattern_dir, shuffle=False)))

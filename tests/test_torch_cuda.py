@@ -653,6 +653,45 @@ def test_decode_segment_kernel(dev, quantize, shape, monkeypatch):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
+def test_decode_segment_kernel_rows_are_independent(dev, quantize):
+    """What the early-exit loop's compaction to the rows still decoding
+    relies on: a row's outputs do not depend on the rows that share its
+    launch or on its place in it. 16 rows at the production widths in one
+    launch, against rows 9-15 and then rows 0-8 launched apart: bit-equal
+    row by row, from the zero state and from the kernel's own carry."""
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+    from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
+
+    B, S, A, D, H, P, mel, r, K = 16, 48, 128, 768, 1024, 256, 80, 2, 10
+    rng = np.random.default_rng(8)
+    p, prenet = _decoder(rng, dev, H, D, P, A, mel, r)
+    bundle = dk.prepare_bundle(p, prenet, quantize=quantize)
+    assert len(dk.kernel_row_groups(bundle, B, S, dev)) == 1
+    t = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).to(dev)  # noqa: E731
+    keys, memory = t(B, S, A), t(B, S, D)
+    lens = torch.tensor(([S, S - 5, 7, S] * 4), device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).float()
+    keep = [torch.from_numpy(rng.random((K, B, P)) < 0.5).to(dev).float() / 0.5 for _ in range(2)]
+    carry = dscan.initial_carry(B, memory, 2, H)
+    prev = torch.zeros(B, mel, device=dev)
+
+    def flat(out):  # every output with its rows on dim 0
+        carry_, prev_, f, s_, w = out
+        return [*carry_.h, *carry_.c, carry_.weights, carry_.cum_weights, carry_.context, prev_,
+                f.transpose(0, 1), s_.transpose(0, 1), w.transpose(0, 1)]
+
+    for _ in range(2):
+        whole = dk.decode_segment_kernel(bundle, keys, memory, mask, carry, prev, *keep, K, mel, r)
+        for rows in (torch.arange(9, 16, device=dev), torch.arange(0, 9, device=dev)):
+            part = dk.decode_segment_kernel(
+                bundle, keys[rows], memory[rows], mask[rows], dscan.take_rows(carry, rows),
+                prev[rows], *(m[:, rows] for m in keep), K, mel, r)
+            gaps = [(a[rows] - b).abs().max().item() for a, b in zip(flat(whole), flat(part))]
+            assert max(gaps) == 0.0, gaps
+        carry, prev = whole[0], whole[1]
+
+
 def test_decode_kernel_raises_on_unsupported_shapes(dev):
     from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
     from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
@@ -759,13 +798,16 @@ def test_sixteen_texts_with_a_long_one_on_the_card(dev, quantize, monkeypatch):
     emb = synth.enroll([str(ROOT / "demo" / "enroll_spk0_utt0.wav")])
     before = kernel.launches
     out = synth.synthesize(texts, emb, vocode=False)
-    assert chunks and all(c[:2] == (16, 208) for c in chunks)
+    # The first chunk runs every row; later ones the rows still decoding.
+    assert chunks and chunks[0][:2] == (16, 208) and all(c[1] == 208 for c in chunks)
+    assert all(a[0] >= b[0] for a, b in zip(chunks, chunks[1:]))
     bundle = dk.prepare_bundle(synth.tacotron.decoder.params(),
                                [(d.kernel, d.bias) for d in synth.tacotron.decoder.prenet],
                                quantize=quantize == "int8_pallas")
     groups = dk.kernel_row_groups(bundle, 16, 208, dev)
     assert len(groups) == (1 if quantize == "int8_pallas" else 2)
-    assert kernel.launches - before == len(chunks) * len(groups)
+    assert kernel.launches - before == sum(len(dk.kernel_row_groups(bundle, c[0], 208, dev))
+                                           for c in chunks)
     assert all(np.isfinite(o["mel"]).all() and o["mel_length"] > 0 for o in out)
     again = synth.synthesize(texts, emb, vocode=False)
     assert [o["mel_length"] for o in again] == [o["mel_length"] for o in out]

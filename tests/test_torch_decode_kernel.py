@@ -270,8 +270,14 @@ def test_bookkeeping_equals_the_step_loop_on_random_logits():
 
 def _prenet_fn(t, dropout):
     masks = _jax_masks(0, 0, dropout)
-    return lambda frame, step: prenet_apply(t["prenet"], frame, dropout,
-                                            masks(step) if dropout else None)
+
+    def prenet_fn(frame, step, rows=None):
+        keep = None
+        if dropout:
+            keep = [m if rows is None else m[rows] for m in masks(step)]
+        return prenet_apply(t["prenet"], frame, dropout, keep)
+
+    return prenet_fn
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.5])
@@ -293,10 +299,11 @@ def test_early_exit_with_the_segment_hook_equals_the_plain_loop(setup, dropout):
     bundle = dk.prepare_bundle(p, t["prenet"])
     masks = _jax_masks(0, 0, dropout)
 
-    def segment_fn(keys, memory, mask, carry, prev, t0, stopped, lengths, k, threshold):
+    def segment_fn(keys, memory, mask, carry, prev, t0, stopped, lengths, k, threshold,
+                   rows=None):
         return dk.decoder_ar_segment_kernel(bundle, keys, memory, mask, carry, prev, t0,
                                             stopped, lengths, k, threshold, masks, MEL, R,
-                                            dropout)
+                                            dropout, rows=rows)
 
     hooked = dscan.decoder_ar_early_exit(p, t["keys"], t["memory"], t["mask"], n_steps,
                                          segment_fn=segment_fn, **common)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from multi_speaker_tts_tpu.models.layers import prenet_apply as jax_prenet_apply
+from multi_speaker_tts_tpu.ops import decode_pallas as jdk
 from multi_speaker_tts_tpu.ops import decoder_scan as jdscan
 from multi_speaker_tts_tpu.ops.lstm import LSTMParams as JaxLSTMParams
 from multi_speaker_tts_tpu.train.checkpoints import load_compact
@@ -102,8 +103,9 @@ def test_ar_decode_matches_with_jax_drawn_masks(setup, stopped_row1):
     masks = _jax_keep_masks(rng, 2, [64, 64], rate, N_STEPS)
     pws = [(d.kernel, d.bias) for d in taco.decoder.prenet]
 
-    def prenet_fn(frame, t):
-        return prenet_apply(pws, frame, rate, [torch.from_numpy(m) for m in masks[t]])
+    def prenet_fn(frame, t, rows=None):
+        keep = [torch.from_numpy(m) for m in masks[t]]
+        return prenet_apply(pws, frame, rate, keep if rows is None else [m[rows] for m in keep])
 
     with torch.no_grad():
         frames_t, stops_t, aligns_t, len_t = dscan.decoder_ar_early_exit(
@@ -114,12 +116,29 @@ def test_ar_decode_matches_with_jax_drawn_masks(setup, stopped_row1):
     assert 0 < int(len_t[0]) < N_STEPS, "the stop token should fire inside the bucket"
     if stopped_row1:
         assert int(len_t[1]) == 0
-    n = int(np.asarray(len_j).max())
-    assert np.abs(frames_t.numpy()[:n] - np.asarray(frames_j)[:n]).max() <= FRAME_TOL
-    assert np.abs(aligns_t.numpy()[:n] - np.asarray(aligns_j)[:n]).max() <= FRAME_TOL
-    # Steps never run keep the filler stop logit on both sides.
-    ran = int(np.ceil(n / 16) * 16)
+    # Each row over its own decoded steps; past the chunk it stopped in, the
+    # port decodes the row no further and keeps the filler there.
+    assert_rows_match_then_filler((frames_t, stops_t, aligns_t), len_t, 16,
+                                  (frames_j, None, aligns_j))
+    # Steps no row ran keep the filler stop logit on both sides.
+    ran = int(np.ceil(int(np.asarray(len_j).max()) / 16) * 16)
     np.testing.assert_array_equal(stops_t.numpy()[ran:], np.asarray(stops_j)[ran:])
+
+
+def assert_rows_match_then_filler(got, lengths, K, want, tol=FRAME_TOL):
+    """``got`` = (frames, stops, aligns) (n_steps, B, ...) of the early-exit
+    loop: each row's first ``lengths[b]`` steps within ``tol`` of ``want``'s
+    (a None entry is not compared), and from the end of the chunk of K
+    steps that row stopped in, zero frames and alignments and stop logits
+    of exactly -1e4."""
+    n_steps = got[0].shape[0]
+    for b, n in enumerate(int(x) for x in lengths):
+        for g, w in zip(got, want):
+            if w is not None:
+                assert np.abs(g.numpy()[:n, b] - np.asarray(w)[:n, b]).max(initial=0) <= tol, b
+        end = min(-(-n // K) * K, n_steps)
+        assert not got[0][end:, b].any() and not got[2][end:, b].any(), b
+        assert bool((got[1][end:, b] == -1e4).all()), b
 
 
 def test_chunk_is_the_largest_divisor():
@@ -137,3 +156,143 @@ def test_location_conv_matches_lax_conv():
         want = np.asarray(jdscan._location_conv(jnp.asarray(x), jnp.asarray(k)))
         got = dscan.location_conv(torch.from_numpy(x), torch.from_numpy(k)).numpy()
         np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# Texts whose stops fall in different chunks of ROW_K steps (10 to 38 steps
+# on the demo checkpoint), then one PAD row.
+ROW_TEXTS = ["hello world.", "a b c", "she sells sea shells by the sea shore.", "pack my box.",
+             "the quick brown fox jumps over the lazy dog."]
+ROW_K = 4
+BF16_TOL = 5e-3  # the bf16 Pallas kernel's bound in the JAX package's tests
+
+
+@pytest.fixture(scope="module")
+def rows_setup(setup):
+    from multi_speaker_tts_tpu_torch.text import encode_text
+
+    _, taco, *_ = setup
+    hp = Recursive_Parse(load_compact(ROOT / "demo" / "serving_ckpt.msgpack")[2]["hp"])
+    seqs = [encode_text(t, hp) for t in ROW_TEXTS] + [[1]]
+    tokens = torch.zeros(len(seqs), max(len(s) for s in seqs), dtype=torch.long)
+    for i, s in enumerate(seqs):
+        tokens[i, :len(s)] = torch.tensor(s)
+    lengths = torch.tensor([len(s) for s in seqs])
+    g = torch.Generator().manual_seed(7)
+    spk = torch.nn.functional.normalize(torch.randn(len(seqs), 64, generator=g), dim=-1)
+    with torch.no_grad():
+        memory, mask = taco.build_memory(tokens, lengths, spk)
+        keys = taco.decoder.memory_layer(memory)
+    masks = [[torch.rand(len(seqs), 64, generator=g) < 0.5 for _ in range(2)]
+             for _ in range(N_STEPS)]
+    pad = torch.zeros(len(seqs), dtype=torch.bool)
+    pad[-1] = True
+    return taco, keys, memory, mask, masks, pad
+
+
+def _decode_rows(taco, keys, memory, mask, masks, stopped, route, rate, fixed=False):
+    """The early-exit loop over the given rows (``masks``: their keep masks
+    a step) through the plain chunk body or the kernel's on CPU tensors;
+    ``fixed``: the fixed-length scan through the chunk body instead, every
+    row in every chunk."""
+    from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
+
+    pws = [(d.kernel, d.bias) for d in taco.decoder.prenet]
+    p = taco.decoder.params()
+
+    def prenet_fn(frame, t, rows=None):
+        keep = masks[t] if rows is None else [m[rows] for m in masks[t]]
+        return prenet_apply(pws, frame, rate, keep if rate else None)
+
+    segment_fn = None
+    if route == "kernel_body":
+        bundle = dk.prepare_bundle(p, pws, quantize=False)
+
+        def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped_, lengths, k, th,
+                       rows=None):
+            return dk.decoder_ar_segment_kernel(bundle, keys_, mem_, mask_, carry, prev, t0,
+                                                stopped_, lengths, k, th, lambda t: masks[t],
+                                                MEL, R, rate, rows=rows)
+    with torch.no_grad():
+        if fixed:
+            return dscan.decoder_ar_scan(p, keys, memory, mask, N_STEPS, prenet_fn, MEL,
+                                         segment_fn=segment_fn, chunk=ROW_K)
+        return dscan.decoder_ar_early_exit(p, keys, memory, mask, N_STEPS, 0.5, prenet_fn, MEL,
+                                           torch.float32, stopped_init=stopped, chunk=ROW_K,
+                                           segment_fn=segment_fn)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("route", ["plain", "kernel_body"])
+def test_compacted_rows_decode_as_each_row_alone(rows_setup, route, rate):
+    """The loop drops rows as they stop (the longest row's last chunks run
+    it alone): each row of a batch whose stops fall in different chunks
+    (and a PAD row) decodes as it does alone under its own mask rows, to
+    the same length; past the chunk it stopped in its outputs are the
+    filler."""
+    taco, keys, memory, mask, masks, pad = rows_setup
+    got = _decode_rows(taco, keys, memory, mask, masks, pad, route, rate)
+    lengths = got[3]
+    assert int(lengths[-1]) == 0
+    chunks = {-(-int(n) // ROW_K) for n in lengths[:-1]}
+    assert len(chunks) >= 4 and max(chunks) * ROW_K < N_STEPS, lengths
+    for b in range(len(ROW_TEXTS)):
+        alone = _decode_rows(taco, keys[b:b + 1], memory[b:b + 1], mask[b:b + 1],
+                             [[m[b:b + 1] for m in step] for step in masks], None, route, rate)
+        assert int(alone[3][0]) == int(lengths[b]), b
+        n = int(lengths[b])
+        for g, w in zip(got[:3], alone[:3]):
+            gap = (g[:n, b] - w[:n, 0]).abs().max().item()
+            assert gap <= FRAME_TOL, (b, gap)
+    assert_rows_match_then_filler(got[:3], lengths, ROW_K, (None, None, None))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("route", ["plain", "kernel_body"])
+def test_compacted_rows_match_jax(setup, rows_setup, route, rate):
+    """The compaction held against the JAX package, which runs every row of
+    the batch in every chunk: the batch of ``rows_setup`` (stops in
+    different chunks, one PAD row) under the JAX package's own keep masks,
+    through the XLA loop against the plain body and through the Pallas
+    kernel (interpret mode, bf16) against the kernel body. Equal lengths;
+    each row's frames and alignments over its own decoded steps; past the
+    chunk it stopped in, the filler. The bf16 operands round apart on the
+    two sides now and then, and the feedback carries that on (the same
+    gaps with every row run in every chunk), so the kernel body is held to
+    the JAX package's own bf16 bound, and to its own run of every row in
+    every chunk within FRAME_TOL."""
+    dec = setup[0]
+    taco, keys, memory, mask, _, pad = rows_setup
+    B = len(pad)
+    ws = [(jnp.asarray(dec["prenet"][f"dense_{i}"]["kernel"]),
+           jnp.asarray(dec["prenet"][f"dense_{i}"]["bias"])) for i in range(2)]
+    fw, sw = dec["frame_proj"], dec["stop_proj"]
+
+    def project_fn(x):
+        frames = jnp.dot(x, fw["kernel"]) + fw["bias"]
+        return frames, (jnp.dot(x, sw["kernel"]) + sw["bias"])[..., 0]
+
+    segment_fn = None
+    if route == "kernel_body":
+        bundle = jdk.prepare_bundle(_jax_params(dec), ws, (fw["kernel"], fw["bias"]),
+                                    (sw["kernel"], sw["bias"]), MEL, R, quantize=False)
+
+        def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, k, th, rng_):
+            return jdk.decoder_ar_segment_pallas(
+                bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, k, th, rng_,
+                MEL, R, prenet_dropout=rate, interpret=True)
+
+    rng = jax.random.PRNGKey(11)
+    want = jdscan.decoder_ar_early_exit(
+        _jax_params(dec), lambda f, k: jax_prenet_apply(ws, f, rate, k), project_fn,
+        *(jnp.asarray(x.numpy()) for x in (keys, memory, mask)), N_STEPS, 0.5, rng, MEL,
+        stopped_init=jnp.asarray(pad.numpy()), chunk=ROW_K, segment_fn=segment_fn)
+    masks = [[torch.from_numpy(m) for m in step]
+             for step in _jax_keep_masks(rng, B, [64, 64], rate, N_STEPS)]
+    got = _decode_rows(taco, keys, memory, mask, masks, pad, route, rate)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert len({-(-int(n) // ROW_K) for n in got[3][:-1]}) >= 4, got[3]
+    tol = FRAME_TOL if route == "plain" else BF16_TOL
+    assert_rows_match_then_filler(got[:3], got[3], ROW_K, (want[0], None, want[2]), tol)
+    if route == "kernel_body":
+        every = _decode_rows(taco, keys, memory, mask, masks, pad, route, rate, fixed=True)
+        assert_rows_match_then_filler(got[:3], got[3], ROW_K, every)
