@@ -116,6 +116,22 @@ def Recursive_Parse(data: Mapping[str, Any]) -> HParams:
     return HParams(data)
 
 
+VOCODERS = ("Griffin_Lim", "HiFiGAN")
+
+
+def vocoder_type(hp: HParams) -> str:
+    """``Vocoder.Type``: ``Griffin_Lim`` (the default, also where the hp has
+    no ``Vocoder`` section, as every checkpoint before the HiFi-GAN
+    generator and :data:`DEFAULTS`, which mirror the JAX package's YAML) or
+    ``HiFiGAN`` (``Vocoder.HiFiGAN``: the generator's widths and the
+    ``Weights`` file, ``models/hifigan.py``)."""
+    voc = hp.get("Vocoder")
+    kind = "Griffin_Lim" if voc is None else voc.get("Type", "Griffin_Lim")
+    if kind not in VOCODERS:
+        raise NotImplementedError(f"unknown Vocoder.Type {kind!r}; known: {VOCODERS}")
+    return kind
+
+
 def load_hyper_parameters(path: str | pathlib.Path | None = None) -> HParams:
     """Read a reference-format Hyper_Parameters.yaml (needs ``pyyaml``), or
     the same tree as JSON (a ``.json`` path); no path gives

@@ -14,7 +14,11 @@ embedding)`` -> waveforms, on a CUDA device by default:
   of the longest decoded length (or the whole decode bucket with
   ``split_vocode=False``) -> Griffin-Lim (the staged or the dense kernel by
   the JAX package's route; the FFT route when the hop does not divide
-  n_fft) -> inverse preemphasis -> optional 16-bit PCM;
+  n_fft) -> inverse preemphasis -> optional 16-bit PCM; under
+  ``Vocoder.Type: HiFiGAN`` the HiFi-GAN V1 generator
+  (:mod:`.models.hifigan`, weights given as ``vocoder_params``) reads the
+  postnet's mel at the same bucket in place of magnitudes, Griffin-Lim
+  and inverse preemphasis;
 - sharded synthesis (``Synthesizer(mesh=...)``, ``synthesize(sharded=True)``):
   the padded batch in contiguous row shards, one a device of the mesh,
   each decoded by that device's replica of the weights under its rows of
@@ -29,9 +33,10 @@ padding), so they follow the JAX package exactly. ``synthesize`` carries
 profiler spans (:mod:`.telemetry`): ``synth.call`` around the whole call;
 inside it ``synth.prepare`` (tokens, buckets, host-to-device copies, the
 prenet mask sampler), ``synth.encoder``, ``synth.decode``, ``synth.postnet``,
-``synth.linear``, ``synth.vocode`` and ``synth.return`` (the copies to the
-host, the joins, the per-row results). The decode counts
-``decode.row_steps`` a chunk and the vocoder ``vocode.row_frames`` a call.
+``synth.linear``, ``synth.vocode`` (the generator's stages inside it as
+``vocode.up0`` ..) and ``synth.return`` (the copies to the host, the
+joins, the per-row results). The decode counts ``decode.row_steps`` a
+chunk and the vocoder ``vocode.row_frames`` a call.
 Without a profiler a count is one check of the profiler's flag and a span
 that check and a shared no-op context: on an H100 machine's host a span
 took 0.41-0.45 us and a count 0.16-0.25 us, ``record_function`` 10-12 us.
@@ -40,6 +45,9 @@ CLI (the card by default; ``-device cpu`` runs the plain versions)::
 
     python -m multi_speaker_tts_tpu_torch.inference -checkpoint demo/serving_ckpt_full.msgpack \
         -text "..." [-ref enroll1.wav -ref enroll2.wav | -speaker_id N] [-stream] -out <dir>
+
+With ``-hp`` naming ``Vocoder.Type: HiFiGAN`` the generator's weights are
+read from the ``.npz`` that ``Vocoder.HiFiGAN.Weights`` names.
 """
 
 from __future__ import annotations
@@ -60,9 +68,11 @@ from multi_speaker_tts_tpu_torch.hparams import (
     Recursive_Parse,
     default_hparams,
     load_hyper_parameters,
+    vocoder_type,
 )
 from multi_speaker_tts_tpu_torch.models.cbhg import CBHGHead
 from multi_speaker_tts_tpu_torch.models.ge2e import GE2E
+from multi_speaker_tts_tpu_torch.models.hifigan import HiFiGAN, read_weights
 from multi_speaker_tts_tpu_torch.models.speaker import SpeakerLUT
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import stft_matmul
@@ -179,10 +189,12 @@ class Synthesizer:
     ``"bf16_pallas"``. ``mesh`` (:func:`..parallel.mesh.create_mesh`, a
     list of devices, which may repeat) holds one replica of the synthesizer
     a device for ``synthesize(sharded=True)``; ``device`` defaults to its
-    first."""
+    first. ``vocoder_params``: the HiFi-GAN generator's folded f32 weights
+    by the public module names, required where ``Vocoder.Type`` is
+    ``HiFiGAN`` and refused otherwise; the generator runs on ``device``."""
 
     def __init__(self, hp, params, batch_stats, seed: int = 0, device=None,
-                 quantize: str | None = None, mesh=None):
+                 quantize: str | None = None, mesh=None, vocoder_params=None):
         if quantize is not None:
             if quantize not in _QUANTIZE_MODES:
                 raise ValueError(f"unknown quantize mode {quantize!r}")
@@ -210,6 +222,15 @@ class Synthesizer:
         self.tacotron = Tacotron(hp, self.compute_dtype)
         load_into(self.tacotron, state, "tacotron.")
         self.tacotron.to(self.device)
+        self.vocoder = None
+        if vocoder_type(hp) == "HiFiGAN":
+            if vocoder_params is None:
+                raise ValueError("Vocoder.Type HiFiGAN: pass vocoder_params, the generator's "
+                                 "weights (the CLIs read Vocoder.HiFiGAN.Weights)")
+            self.vocoder = HiFiGAN.from_hp(hp, self.compute_dtype).load(vocoder_params)
+            self.vocoder.to(self.device)
+        elif vocoder_params is not None:
+            raise ValueError("vocoder_params given, but Vocoder.Type is Griffin_Lim")
         self.mesh = mesh
         self._replicas = {} if mesh is None else mesh_lib.replicate(self.tacotron, mesh)
         self._replicas.setdefault(self.device, self.tacotron)
@@ -420,8 +441,8 @@ class Synthesizer:
                     keys.append("linear")
                 out = {k: torch.cat([o[k].to(self.device) for o in outs]) for k in keys}
                 if vocode and not split:
-                    out["wav"] = torch.cat([_gl_vocode(o.get("linear"), o["mel_post"], self.dsp_cfg,
-                                                       pcm16).to(self.device) for o in outs])
+                    out["wav"] = torch.cat([self._vocode(o.get("linear"), o["mel_post"],
+                                                         pcm16).to(self.device) for o in outs])
                 return out
             mel_lengths = torch.cat([o["mel_lengths"].cpu() for o in outs]).numpy()
             r = int(self.hp.Decoder.get("N_Frames_Per_Step", 1))
@@ -438,7 +459,7 @@ class Synthesizer:
                     lin_v, mel_v = ((linear, mel_post) if split_vocode
                                     else (o.get("linear"), o["mel_post"]))
                     with telemetry.span("synth.vocode"):
-                        parts["wav"].append(_gl_vocode(lin_v, mel_v, self.dsp_cfg, pcm16).cpu())
+                        parts["wav"].append(self._vocode(lin_v, mel_v, pcm16).cpu())
                 with telemetry.span("synth.return"):
                     parts["mel"].append(mel_post.cpu())
                     if return_linear and linear is not None:
@@ -461,6 +482,17 @@ class Synthesizer:
                         item["linear"] = joined["linear"][i, :T]
                     results.append(item)
             return results
+
+    def _vocode(self, linear, mel_post: torch.Tensor, as_pcm16: bool) -> torch.Tensor:
+        """A shard's vocoder stage: Griffin-Lim (:func:`_gl_vocode`, ``hop``
+        x (frames - 1) samples a row, on the shard's device) or the HiFi-GAN
+        generator on the postnet's mel (``hop`` x frames samples a row, on
+        ``self.device``; no inverse preemphasis: its output is the
+        waveform)."""
+        if self.vocoder is None:
+            return _gl_vocode(linear, mel_post, self.dsp_cfg, as_pcm16)
+        wav = self.vocoder(mel_post.to(self.device))
+        return pcm16(wav) if as_pcm16 else wav
 
     # -- streaming synthesis ----------------------------------------------------
     @torch.no_grad()
@@ -499,6 +531,10 @@ class Synthesizer:
                 "streaming requires a causal-window linear head: the CBHG head's "
                 "bidirectional GRU needs the full sequence (use Linear_Head.Type: Conv, "
                 "or a mel-only model)")
+        if self.vocoder is not None:
+            raise NotImplementedError(
+                "streaming vocodes windows with Griffin-Lim: the HiFi-GAN generator has no "
+                "windowed route (use synthesize, or Vocoder.Type: Griffin_Lim)")
         cfg = self.dsp_cfg
         K, G = segment_steps, gl_context
         E = K * r
@@ -634,7 +670,7 @@ def main(argv=None) -> None:
         parser.error("pass -text and/or -text_file")
     try:
         synth = Synthesizer.from_path(args.checkpoint, hp=hp, quantize=args.quantize,
-                                      device=args.device)
+                                      device=args.device, vocoder_params=read_weights(hp))
     except FileNotFoundError as e:  # no such file, or a directory without a checkpoint
         parser.error(f"-checkpoint {args.checkpoint!r}: {e}")
     hp = synth.hp

@@ -32,8 +32,10 @@ CLI (the card by default; ``-device cpu`` runs the plain versions)::
         -enroll spk0=demo/enroll_spk0_utt0.wav -quantize bf16_pallas [-port 8000] [-warmup]
 
 ``/stream`` answers 501 for a checkpoint with the CBHG linear head (its
-bidirectional GRU needs the whole sequence); the mel-only and Conv-head
-configurations stream.
+bidirectional GRU needs the whole sequence) and for the HiFi-GAN vocoder
+(``-hp`` with ``Vocoder.Type: HiFiGAN``, its weights read from the ``.npz``
+that ``Vocoder.HiFiGAN.Weights`` names); the mel-only and Conv-head
+configurations stream under Griffin-Lim.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from multi_speaker_tts_tpu_torch import text as text_frontend
 from multi_speaker_tts_tpu_torch.audio import wav_io
 from multi_speaker_tts_tpu_torch.hparams import load_hyper_parameters
 from multi_speaker_tts_tpu_torch.inference import Synthesizer, _decode_bucket
+from multi_speaker_tts_tpu_torch.models.hifigan import read_weights
 
 
 # ---------------------------------------------------------------------------
@@ -740,7 +743,7 @@ def main(argv=None) -> None:
 
     try:
         synth = Synthesizer.from_path(args.checkpoint, hp=hp, quantize=args.quantize,
-                                      device=args.device)
+                                      device=args.device, vocoder_params=read_weights(hp))
     except FileNotFoundError as e:  # no such file, or a directory without a checkpoint
         parser.error(f"-checkpoint {args.checkpoint!r}: {e}")
     server = TTSServer(

@@ -4,7 +4,9 @@ nothing; under a ``torch.profiler`` session one small ``synthesize`` call on
 the committed small checkpoint and one tiny ``GE2ETrainer.train_step`` give
 their spans, the decode and the vocoder count the padded batch's work, and a
 count's stamp lies inside the host interval of the span it was counted in
-(the profiler and the counts share the Unix-epoch clock)."""
+(the profiler and the counts share the Unix-epoch clock). The HiFi-GAN
+generator's route records its four stages inside ``synth.vocode`` and the
+same count; Griffin-Lim's records no stage of it."""
 
 import pathlib
 
@@ -17,6 +19,7 @@ from multi_speaker_tts_tpu_torch import telemetry
 from multi_speaker_tts_tpu_torch.checkpoints import load_compact
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse, tiny_test_hparams
 from multi_speaker_tts_tpu_torch.inference import Synthesizer, _decode_bucket
+from multi_speaker_tts_tpu_torch.models.hifigan import V1
 from multi_speaker_tts_tpu_torch.ops.decoder_scan import chunk_size
 from multi_speaker_tts_tpu_torch.train.ge2e_trainer import GE2ETrainer
 
@@ -126,6 +129,50 @@ def test_removed_spans_are_gone(synth, call):
         else:
             list(synth.stream(TEXTS[:1], emb, segment_steps=16))
     assert not set(REMOVED[call]) & set(_host_spans(prof))
+
+
+HIFIGAN_SPANS = ("synth.vocode", "vocode.up0", "vocode.up1", "vocode.up2", "vocode.up3")
+HIFIGAN = dict(V1, Upsample_Initial_Channel=32)  # the published rates and kernels
+
+
+@pytest.fixture(scope="module")
+def traced_hifigan():
+    """One profiled ``synthesize`` call vocoded by the HiFi-GAN generator
+    (mel-only, seeded weights at 32 channels): (host spans, outputs, its
+    ``vocode.row_frames`` counts, the synthesizer)."""
+    from reference_hifigan import seeded_weights
+
+    params, batch_stats, meta = load_compact(CKPT)
+    hp = Recursive_Parse(meta["hp"]).replace(Linear_Head={"Use": False},
+                                             Vocoder={"Type": "HiFiGAN", "HiFiGAN": HIFIGAN})
+    weights = {k: v.numpy() for k, v in seeded_weights(HIFIGAN, hp.Sound.Mel_Dim, 0).items()}
+    synth = Synthesizer(hp, params, batch_stats, device="cpu", vocoder_params=weights)
+    emb = synth.enroll(WAVS)
+    n = len(_counts("vocode.row_frames"))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = synth.synthesize(TEXTS, emb)
+    return _host_spans(prof), out, _counts("vocode.row_frames")[n:], synth
+
+
+@pytest.mark.parametrize("name", HIFIGAN_SPANS)
+def test_the_generator_runs_its_stages_inside_the_vocode_span(traced_hifigan, name):
+    spans, *_ = traced_hifigan
+    (lo, hi), = spans["synth.vocode"]
+    assert len(spans.get(name, [])) == 1
+    assert all(lo <= a and b <= hi for a, b in spans[name])
+
+
+def test_the_generator_counts_every_row_at_the_bucket(traced_hifigan):
+    spans, out, counts, synth = traced_hifigan
+    Tb = _decode_bucket(max(o["mel_length"] for o in out), synth.last_decode_bucket)
+    assert [n for _, n in counts] == [4 * Tb]  # 3 rows padded to 4, once a call
+    (lo, hi), = spans["synth.vocode"]
+    assert all(lo - SLACK_NS <= stamp <= hi + SLACK_NS for stamp, _ in counts)
+
+
+def test_griffin_lim_runs_no_generator_stage(traced):
+    spans, *_ = traced
+    assert not set(HIFIGAN_SPANS[1:]) & set(spans)
 
 
 def test_events_refuse_a_range_with_dropped_events():
