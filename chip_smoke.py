@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the twelve hand-written kernel sources of
+1. Builds the thirteen hand-written kernel sources of
    ``multi_speaker_tts_tpu_torch`` from ``csrc/`` and the barrier-only
    ``barrier_floor.cu`` (one ``nvcc`` per source, all started together).
 2. Main path: ``demo/serving_ckpt_full.msgpack`` as it is (CBHG linear head
@@ -169,7 +169,15 @@
    gloo on the one card): step 1's losses within 1e-4 of (k1)'s ranks' and
    its gradient norm within (k1)'s 2e-2 (two processes of one step may take
    other kernel choices on the card: bit-equal in two runs, 4e-7 and 3.5e-4
-   apart in a third).
+   apart in a third). The HiFi-GAN vocoder (s): the checkpoint with
+   ``Vocoder.Type: HiFiGAN`` (V1, seeded weights, bf16) synthesizes the
+   four texts with the launch counts zeroed just before: each generator
+   call launches the MRF kernel 72 times and its pointwise kernel 13 times,
+   counts 36 ``vocode.mrf_kernel_steps`` a row, prints no ``[dispatch]
+   hifigan_mrf`` line; then the generator on a seeded 32 x 400-frame mel
+   (the ``synth_hifigan.b32-short`` cell's largest bucket), ``mrf_in`` and
+   the activation pass bit-equal to their plain forms at each stage, whose
+   MRF inputs row #12 reads.
 3. Kernel phase: each kernel's wrapper is called again on the exact
    inputs the main path gave it (recorded during step 2), held against its
    plain PyTorch version on the card with a stated tolerance, and timed
@@ -207,7 +215,13 @@
    #5, #5r and #10 at (r2)'s calls (1280 a direction) and seeded H 2048 and
    4096, with cuDNN's GRU; #7 at (r3)'s 16384 / 2048 call, its 4096 / 512
    call and seeded 2304 / 1152, 8192 / 4096 and 32768 / 4096, by the dense
-   rows' probe rule with the probes on the card.
+   rows' probe rule with the probes on the card. Row #12 (``hifigan_mrf``):
+   pass (s)'s four MRFs (18 launches each) against the same launches
+   through the plain convolution (max gap over the plain output's peak,
+   within HIFIGAN_MRF_TOL), stage 3's timed and stages 0-2 in
+   ``also_times``, each beside its bound and cuDNN's bf16 MRF of the plain
+   route; ``activation_ms`` (the activation pass at stage 3's shape) and
+   ``forward_ms`` (the generator at 32 x 400 frames).
 4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit
    from nvidia-smi, and as the last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -2364,6 +2378,128 @@ def reference_shapes_pass(kernels: dict, work: pathlib.Path) -> tuple[list, dict
     return fails, data
 
 
+# -- Pass (s): the HiFi-GAN generator's MRF kernels ----------------------------
+# The synth_hifigan.b32-short cell's largest bucket: rows x decoder frames.
+HIFIGAN_ROWS, HIFIGAN_FRAMES = 32, 400
+# Row #12's gate: the MRF's mean against the same launches through the
+# plain convolution, max |gap| / max |plain| at each stage. The kernel read
+# 0.92-1.03e-3 on an H100 (its f32 sums in another order tip a few bf16
+# roundings of the intermediates); one launch's bias dropped, a tap zeroed,
+# its dilation off by one or its residual left out read 0.066-0.35.
+HIFIGAN_MRF_TOL = 3e-3
+
+
+def _hifigan_weights(gen, seed: int) -> dict:
+    """Seeded folded f32 weights for every module of ``gen``
+    (``tests/reference_hifigan.py``'s draw): biases uniform in +-1/16,
+    weights normal over the root of their fan-in."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, p in gen.state_dict().items():
+        if name.endswith(".bias"):
+            out[name] = ((torch.rand(p.shape, generator=g) * 2 - 1) / 16.0).numpy()
+        else:
+            fan_in = p.shape[0] * p.shape[2] if name.startswith("ups.") else p.shape[1] * p.shape[2]
+            out[name] = (torch.randn(p.shape, generator=g) / fan_in ** 0.5).numpy()
+    return out
+
+
+def hifigan_pass(params, batch_stats, hp, wavs) -> tuple[list, dict]:
+    """Pass (s). (s1) the checkpoint with ``Vocoder.Type: HiFiGAN`` (V1,
+    seeded weights, bf16, ``bf16_pallas``, mel-only head) synthesizes the
+    four texts, warmed up, then again with the launch counts zeroed just
+    before and a profiler recording the program's counts: every generator
+    call must launch the MRF kernel 72 times (4 stages x 3 blocks x 3
+    dilations x 2) and the pointwise kernel 13 times (each stage's input
+    activation, ``mrf_in``, the MRF's activation; post's), count rows x 36
+    ``vocode.mrf_kernel_steps``, print no ``[dispatch] hifigan_mrf`` line,
+    and give finite int16 wavs. (s2) the same generator on a seeded mel of
+    HIFIGAN_ROWS x HIFIGAN_FRAMES: each stage's MRF input kept for row #12,
+    ``mrf_in`` and the activation pass bit-equal to their plain forms at
+    each stage's shape. Returns the failures and what row #12 reads."""
+    import numpy as np
+    import torch
+
+    from multi_speaker_tts_tpu_torch import telemetry
+    from multi_speaker_tts_tpu_torch.audio import dsp
+    from multi_speaker_tts_tpu_torch.inference import Synthesizer
+    from multi_speaker_tts_tpu_torch.models import hifigan
+    from multi_speaker_tts_tpu_torch.ops import hifigan_mrf
+    from torch.profiler import ProfilerActivity, profile
+
+    fails, t0 = [], time.perf_counter()
+    hp_h = hp.replace(Linear_Head={"Use": False},
+                      Vocoder={"Type": "HiFiGAN", "HiFiGAN": hifigan.V1})
+    W = _hifigan_weights(hifigan.HiFiGAN.from_hp(hp_h), 23)
+    synth = Synthesizer(hp_h, params, batch_stats, seed=0, device="cuda",
+                        quantize="bf16_pallas", vocoder_params=W)
+    gen = synth.vocoder
+    emb = synth.enroll(wavs)
+    synth.synthesize(TEXTS, emb, pcm16=True)
+    calls = []
+    forward = gen.forward
+
+    def counted(mel):
+        calls.append(mel.shape[0])
+        return forward(mel)
+
+    gen.forward = counted
+    hifigan_mrf.KERNEL.launches = hifigan_mrf.IN_KERNEL.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]):
+        lo = time.time_ns()
+        out = synth.synthesize(TEXTS, emb, pcm16=True)
+        torch.cuda.synchronize()
+        hi = time.time_ns()
+    del gen.forward
+    steps = sum(n for _, n in telemetry.events("vocode.mrf_kernel_steps", lo, hi) or [])
+    launches = {"conv": hifigan_mrf.KERNEL.launches, "pointwise": hifigan_mrf.IN_KERNEL.launches}
+    wav_ok = all(o["wav"].dtype == np.int16 and o["wav"].size > 0
+                 and np.abs(o["wav"].astype(np.int64)).max() > 0 for o in out)
+    plain = [k for k in dsp._DISPATCH_LOGGED if k[0] == "hifigan_mrf"]
+    print(f"[s1 hifigan] {len(TEXTS)} texts, generator calls of {calls} rows, compute dtype "
+          f"{gen.compute_dtype}: launches {launches} (72 and 13 a call), "
+          f"vocode.mrf_kernel_steps {steps} (36 a row), plain routes {plain}, wavs int16 "
+          f"and audible {wav_ok}")
+    if (gen.compute_dtype != torch.bfloat16 or not calls or plain or not wav_ok
+            or launches != {"conv": 72 * len(calls), "pointwise": 13 * len(calls)}
+            or steps != 36 * sum(calls)):
+        fails.append(f"[s1 hifigan] calls {calls}, launches {launches}, steps {steps}, plain "
+                     f"routes {plain}, wavs {wav_ok}")
+    del synth, out
+
+    # (s2) the cell's largest bucket, stage by stage.
+    mel = torch.rand((HIFIGAN_ROWS, HIFIGAN_FRAMES, hp.Sound.Mel_Dim),
+                     generator=torch.Generator().manual_seed(5)).cuda()
+    n = gen.n_kernels
+    stages, exact = [], []
+    with torch.no_grad():
+        x = gen.pre(mel)
+        for i in range(len(gen.ups)):
+            u, k = gen.rates[i], gen.kernel_sizes[i]
+            a = hifigan._activation(x, hifigan.SLOPE, torch.bfloat16)
+            y = hifigan._conv_cl(a, gen.ups[i].weight, transposed=True, stride=u,
+                                 padding=(k - u) // 2)
+            xs = hifigan_mrf.mrf_in(y, gen.ups[i].bias)
+            exact.append(torch.equal(xs, y.float() + gen.ups[i].bias.float()))
+            exact.append(torch.equal(hifigan_mrf.activation(xs, hifigan.SLOPE),
+                                     torch.nn.functional.leaky_relu(xs, hifigan.SLOPE)
+                                     .to(torch.bfloat16)))
+            stages.append({"blocks": gen.resblocks[i * n:(i + 1) * n], "x": xs})
+            x = gen.stage(i, x)
+            del a, y
+        torch.cuda.synchronize()
+    shapes = [list(s["x"].shape) for s in stages]
+    print(f"[s2 hifigan] MRF inputs {shapes}: mrf_in and the activation pass bit-equal to "
+          f"their plain forms at each: {exact}; {time.perf_counter() - t0:.1f} s")
+    if not all(exact):
+        fails.append(f"[s2 hifigan] mrf_in / activation not bit-equal: {exact} at {shapes}")
+    return fails, {"gen": gen, "mel": mel, "stages": stages, "launches": launches,
+                   "calls": calls}
+
+
 def main() -> int:
     import numpy as np
 
@@ -2386,8 +2522,8 @@ def main() -> int:
     from multi_speaker_tts_tpu_torch.audio import dsp
     from multi_speaker_tts_tpu_torch.ops import (
         _build, attention_step_kernel, birnn_kernel, decode_kernel, decoder_scan,
-        griffin_lim_kernel, griffin_lim_staged, lstm_kernel, mel_kernel, recurrence_floor,
-        stft_matmul,
+        griffin_lim_kernel, griffin_lim_staged, hifigan_mrf, lstm_kernel, mel_kernel,
+        recurrence_floor, stft_matmul,
     )
     from multi_speaker_tts_tpu_torch.tools import attention_probe
 
@@ -2426,7 +2562,7 @@ def main() -> int:
     # 1. Build ---------------------------------------------------------------
     t0 = time.perf_counter()
     reports = _build.build([*dict.fromkeys(k.source for k in kernels.values()),
-                            recurrence_floor.KERNEL.source])
+                            recurrence_floor.KERNEL.source, hifigan_mrf.KERNEL.source])
     t_build = time.perf_counter()
     print(f"build: {len(reports)} sources compiled in {t_build - t0:.1f} s")
     # Registers and spills of each source's kernels, as -Xptxas -v reports them.
@@ -3378,10 +3514,16 @@ def main() -> int:
         _RECORDING[0] = True
         failures.extend(fails_r)
         print(f"[r] pass (r) took {time.perf_counter() - t_p:.1f} s")
+    # (s) the HiFi-GAN generator's MRF kernels on the synthesis path, and
+    # its MRF inputs at the cell's largest bucket for row #12.
+    t_p = time.perf_counter()
+    fails_s, hifi = hifigan_pass(params, batch_stats, hp, wavs)
+    failures.extend(fails_s)
+    print(f"[s] pass (s) took {time.perf_counter() - t_p:.1f} s")
 
     # 3. Kernel phase --------------------------------------------------------
     t_kernels = time.perf_counter()
-    print(f"[time] the main path and passes (a)-(r) took {t_kernels - t_build:.1f} s")
+    print(f"[time] the main path and passes (a)-(s) took {t_kernels - t_build:.1f} s")
     rows, row_end = [], [t_kernels]
     launches = dict(pa["launches"],
                     decode_segment_bf16=pb["launches"]["decode_segment_bf16"],
@@ -5067,6 +5209,66 @@ def main() -> int:
     del also_gl, seeded_gl
     griffin_lim_kernel._operands.cache_clear()
     griffin_lim_kernel._packed.cache_clear()
+    torch.cuda.empty_cache()
+
+    # #12: the HiFi-GAN MRF (no TPU counterpart: the JAX package has no
+    # generator), pass (s)'s inputs at the 32 x 400-frame bucket: stage 3's
+    # MRF timed (C 32, L 102400: the largest), stages 0-2 beside it. Each
+    # against the same 18 launches through the plain convolution (f32 sums of
+    # the rounded operands, the same epilogue), with cuDNN's bf16 MRF of the
+    # plain route as the library yardstick. A launch differs from its plain
+    # version only in the order of its f32 sums; a wrong tap, bias, residual
+    # or mean moves the output by a share of its peak.
+    from multi_speaker_tts_tpu_torch.models import hifigan
+    from multi_speaker_tts_tpu_torch.ops import hifigan_mrf
+
+    def mrf_plain_launches(blocks, x):
+        saved = hifigan_mrf.conv
+        hifigan_mrf.conv = hifigan_mrf.conv_plain
+        try:
+            return hifigan_mrf.mrf(blocks, x)
+        finally:
+            hifigan_mrf.conv = saved
+
+    def mrf_case(st):
+        return (lambda: hifigan_mrf.mrf(st["blocks"], st["x"]),
+                lambda: mrf_plain_launches(st["blocks"], st["x"]))
+
+    def mrf_bound(st):
+        """The MRF's f32 input read and its mean written once, the weights
+        once; 2 operations a MAC over every tap of both convolutions."""
+        B_, L_, C_ = st["x"].shape
+        taps = sum(b.kernel_size * len(b.dilations) for b in st["blocks"])
+        n_params = sum(p.numel() for b in st["blocks"] for p in b.parameters())
+        return _bound_ms(8 * B_ * L_ * C_ + 2 * n_params, 2 * 2 * B_ * L_ * C_ * C_ * taps,
+                         BF16_FLOPS)
+
+    def mrf_library(st):
+        xb = st["x"].transpose(1, 2).contiguous()  # the plain route's (B, C, L)
+        return {"cudnn_bf16": lambda: hifigan.plain_mrf(st["blocks"], xb, torch.bfloat16)}
+
+    launches["hifigan_mrf"] = hifi["launches"]["conv"]
+    timed, others = hifi["stages"][-1], hifi["stages"][:-1]
+    with torch.no_grad():
+        also_mrf = [mrf_case(st) for st in others]
+        x3 = timed["x"]
+        check(
+            "hifigan_mrf", "none (the JAX package has no generator)",
+            "multi_speaker_tts_tpu_torch/csrc/hifigan_mrf.cu",
+            *mrf_case(timed), rel_peak, HIFIGAN_MRF_TOL, mrf_bound(timed),
+            library_fn=mrf_library(timed), warmup=2, reps=10, also=also_mrf,
+            extra={"shape": list(x3.shape), "also_shapes": [list(st["x"].shape) for st in others],
+                   "also_times": also_times(also_mrf, [mrf_bound(st) for st in others],
+                                            [mrf_library(st) for st in others]),
+                   "launches_a_call": 18, "main_path_calls": hifi["calls"],
+                   "pointwise_launches": hifi["launches"]["pointwise"],
+                   "activation_ms": _time_ms(lambda: hifigan_mrf.activation(x3, 0.1), 3, 20),
+                   "forward_ms": _time_ms(lambda: hifi["gen"](hifi["mel"]), 1, 3),
+                   "error_metric": "max |MRF mean - plain| / max |plain|, each stage",
+                   "library": "cuDNN's bf16 convolutions of the generator's plain MRF, with "
+                              "their bias, cast, activation and residual passes"},
+        )
+    del hifi, timed, others, also_mrf, x3
     torch.cuda.empty_cache()
 
     # 4. Report --------------------------------------------------------------

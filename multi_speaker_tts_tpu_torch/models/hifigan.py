@@ -15,14 +15,26 @@ Weights: the public generator's module names (``conv_pre.weight``,
 ``ups.{i}.weight``, ``resblocks.{j}.convs1.{k}.weight``, ...,
 ``conv_post.bias``) with weight norm folded into each weight, as f32
 arrays (:meth:`HiFiGAN.load`, :func:`read_weights`). Arithmetic: every
-convolution's operands and output in the compute dtype (bf16 under
-``Use_Mixed_Precision``: cuDNN sums in f32), the activations fed to them
+convolution's operands in the compute dtype (bf16 under
+``Use_Mixed_Precision``) with f32 sums, the activations fed to them
 rounded from f32, the residual stream and the MRF's mean in f32.
+
+Two routes (:func:`..ops.hifigan_mrf.use_kernel`). bf16 on the card: the
+MRFs run as the channels-last kernels of :mod:`..ops.hifigan_mrf` (bias,
+LeakyReLU, rounding, residual and mean in their epilogues), the transposed
+convolutions and ``conv_post`` as cuDNN's on (B, C, 1, L) channels-last
+views of the kernels' (B, L, C) buffers, without a layout pass, each fed
+by one activation pass; stage outputs are (B, C, L) views of those
+buffers. A width the kernels were not built for raises there. A CPU tensor
+or an f32 compute dtype runs the plain path (:func:`plain_mrf`), cuDNN's
+(B, C, L) convolutions whose bf16 outputs are rounded before the bias and
+activation.
 
 The forward is :meth:`HiFiGAN.pre`, :meth:`HiFiGAN.stage` for each stage
 and :meth:`HiFiGAN.post`. Spans (:mod:`..telemetry`): ``vocode.up{i}``
 around stage i; the count ``vocode.row_frames``, rows x frames, once a
-call.
+call; ``vocode.mrf_kernel_steps``, rows x dilation steps the kernels ran,
+once a step.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from torch import nn
 
 from multi_speaker_tts_tpu_torch import telemetry
 from multi_speaker_tts_tpu_torch.hparams import vocoder_type
+from multi_speaker_tts_tpu_torch.ops import _build, hifigan_mrf
 
 V1 = {  # config_v1.json of github.com/jik876/hifi-gan
     "Upsample_Rates": [8, 8, 2, 2],
@@ -61,6 +74,46 @@ def _apply(conv: nn.Module, x: torch.Tensor, dtype, **kw) -> torch.Tensor:
     return F.conv1d(x.to(dtype), conv.weight, conv.bias, **kw).float()
 
 
+def _activation(x: torch.Tensor, slope: float, dtype) -> torch.Tensor:
+    """``lrelu(x, slope)`` of an f32 (B, C, L) ``x`` in ``dtype`` as a
+    (B, L, C)-contiguous tensor (one copy first where ``x`` is not a view of
+    one)."""
+    return hifigan_mrf.activation(_channels_last(x), slope, dtype)
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, L) -> a (B, L, C)-contiguous tensor: a view where ``x`` is one."""
+    xl = x.transpose(1, 2)
+    return xl if xl.is_contiguous() else xl.contiguous()
+
+
+def _w4(w: torch.Tensor) -> torch.Tensor:
+    return w.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+
+
+def _conv_cl(a: torch.Tensor, weight, bias=None, transposed: bool = False, stride: int = 1,
+             padding: int = 0) -> torch.Tensor:
+    """A 1-D convolution of the (B, L, C) ``a`` -> (B, L', C') in a's dtype,
+    through the 2-D one on the (B, C, 1, L) channels-last view (``conv1d``
+    would copy a channels-last input to (B, C, L) first)."""
+    a4 = a.unsqueeze(1).permute(0, 3, 1, 2)
+    w4 = _build.packed(_w4, weight)
+    if transposed:
+        y = F.conv_transpose2d(a4, w4, bias, stride=(1, stride), padding=(0, padding))
+    else:
+        y = F.conv2d(a4, w4, bias, padding=(0, padding))
+    return y[:, :, 0].transpose(1, 2).contiguous()
+
+
+def plain_mrf(blocks, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The MRF's plain path: the mean of ``blocks`` on the f32 (B, C, L)
+    ``x``, each convolution's operands in ``dtype``."""
+    xs = blocks[0](x, dtype)
+    for block in blocks[1:]:
+        xs = xs + block(x, dtype)
+    return xs / len(blocks)
+
+
 class ResBlock1(nn.Module):
     """(B, C, L) f32 -> (B, C, L) f32: for each dilation d,
     ``x = x + conv2(lrelu(conv1_d(lrelu(x))))``."""
@@ -70,6 +123,11 @@ class ResBlock1(nn.Module):
         self.kernel_size, self.dilations = kernel_size, tuple(dilations)
         self.convs1 = nn.ModuleList(_conv(channels, channels, kernel_size) for _ in dilations)
         self.convs2 = nn.ModuleList(_conv(channels, channels, kernel_size) for _ in dilations)
+
+    def shapes(self) -> tuple[tuple[int, int, int], ...]:
+        """(C, k, d) of its convolutions: conv 1 at each dilation, conv 2 at 1."""
+        C = self.convs1[0].weight.shape[0]
+        return tuple((C, self.kernel_size, d) for d in (*self.dilations, 1))
 
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
         k = self.kernel_size
@@ -106,6 +164,7 @@ class HiFiGAN(nn.Module):
             for i in range(len(rates))
             for k, d in zip(resblock_kernel_sizes, resblock_dilations))
         self.conv_post = _conv(initial_channel >> len(rates), 1, 7)
+        self._shapes = tuple(sorted({s for b in self.resblocks for s in b.shapes()}))
 
     @classmethod
     def from_hp(cls, hp, compute_dtype=torch.float32) -> "HiFiGAN":
@@ -136,14 +195,17 @@ class HiFiGAN(nn.Module):
                               for k, v in weights.items()})
         return self.to(self.compute_dtype)
 
+    def _kernels(self, x: torch.Tensor) -> bool:
+        """Whether the stages run the MRF kernels on ``x``."""
+        return hifigan_mrf.use_kernel(x, self.compute_dtype, self._shapes)
+
     def mrf(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Stage ``i``'s multi-receptive-field fusion: the mean of its
         ResBlock1s on ``x``."""
         blocks = self.resblocks[i * self.n_kernels:(i + 1) * self.n_kernels]
-        xs = blocks[0](x, self.compute_dtype)
-        for block in blocks[1:]:
-            xs = xs + block(x, self.compute_dtype)
-        return xs / len(blocks)
+        if self._kernels(x):
+            return hifigan_mrf.mrf(blocks, _channels_last(x)).transpose(1, 2)
+        return plain_mrf(blocks, x, self.compute_dtype)
 
     def pre(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, mels) -> conv_pre's (B, C, T), f32."""
@@ -153,13 +215,22 @@ class HiFiGAN(nn.Module):
         """Stage ``i``: LeakyReLU(0.1), the transposed convolution, the MRF."""
         u, k = self.rates[i], self.kernel_sizes[i]
         with telemetry.span(f"vocode.up{i}"):
-            x = F.conv_transpose1d(F.leaky_relu(x, SLOPE).to(self.compute_dtype),
-                                   self.ups[i].weight, self.ups[i].bias, stride=u,
-                                   padding=(k - u) // 2).float()
+            if self._kernels(x):
+                y = _conv_cl(_activation(x, SLOPE, self.compute_dtype), self.ups[i].weight,
+                             transposed=True, stride=u, padding=(k - u) // 2)
+                x = hifigan_mrf.mrf_in(y, self.ups[i].bias).transpose(1, 2)
+            else:
+                x = F.conv_transpose1d(F.leaky_relu(x, SLOPE).to(self.compute_dtype),
+                                       self.ups[i].weight, self.ups[i].bias, stride=u,
+                                       padding=(k - u) // 2).float()
             return self.mrf(i, x)
 
     def post(self, x: torch.Tensor) -> torch.Tensor:
         """LeakyReLU(``final_slope``), conv_post, tanh -> (B, L)."""
+        if self._kernels(x):
+            y = _conv_cl(_activation(x, self.final_slope, self.compute_dtype),
+                         self.conv_post.weight, self.conv_post.bias, padding=3)
+            return torch.tanh(y[..., 0].float())
         x = _apply(self.conv_post, F.leaky_relu(x, self.final_slope), self.compute_dtype,
                    padding=3)
         return torch.tanh(x[:, 0])
