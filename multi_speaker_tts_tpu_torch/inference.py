@@ -149,35 +149,22 @@ _QUANTIZE_MODES = {
 
 
 def prenet_mask_sampler(hp, device: torch.device, seed: int, batch: int):
-    """``t -> [(batch, size) bool keep mask per prenet layer]`` drawn in step
-    order from a generator seeded with ``seed``."""
+    """``t -> [(batch, size) bool keep mask per prenet layer]``: step t's
+    masks, drawn once, in step order, from a generator seeded with ``seed``
+    and kept for the call, so that a repeated or out-of-order call (a row
+    shard that decodes further than another) reads the same draws."""
     keep = 1.0 - float(hp.Decoder.Prenet.Dropout_Rate)
     sizes = list(hp.Decoder.Prenet.Sizes)
     generator = torch.Generator(device).manual_seed(seed)
+    steps = []
 
-    def draw(t: int):
-        return [torch.rand((batch, s), generator=generator, device=device) < keep
-                for s in sizes]
+    def masks(t: int):
+        while len(steps) <= t:
+            steps.append([torch.rand((batch, s), generator=generator, device=device) < keep
+                          for s in sizes])
+        return steps[t]
 
-    return draw
-
-
-class _StepMasks:
-    """One draw of prenet keep masks a step for a whole padded batch, in step
-    order, kept for the call, so that every row shard reads its rows of the
-    same draws however far each shard decodes."""
-
-    def __init__(self, draw):
-        self.draw, self.steps = draw, []
-
-    def rows(self, rows: slice, device: torch.device):
-        """``t -> [mask[rows] on device per prenet layer]``."""
-        def masks(t: int):
-            while len(self.steps) <= t:
-                self.steps.append(self.draw(len(self.steps)))
-            return [m[rows].to(device) for m in self.steps[t]]
-
-        return masks
+    return masks
 
 
 class Synthesizer:
@@ -426,7 +413,7 @@ class Synthesizer:
                 self.compile_counts.setdefault(
                     ("infer", tokens.shape[1], Bp, max_steps, vocode and not split, sharded,
                      early_exit, True if split else return_linear, False if split else pcm16), 1)
-                masks = _StepMasks(self._prenet_masks(Bp))
+                masks = self._prenet_masks(Bp)
                 threshold = float(self.hp.Decoder.Stop_Threshold)
             outs = []
             for i, dev in enumerate(shards):
@@ -434,7 +421,9 @@ class Synthesizer:
                 outs.append(self._replicas[dev].infer(
                     tokens[rows].to(dev), lengths[rows].to(dev),
                     None if spk is None else spk[rows].to(dev), max_steps, threshold,
-                    active[rows].to(dev), masks.rows(rows, dev), early_exit))
+                    active[rows].to(dev),
+                    lambda t, rows=rows, dev=dev: [m[rows].to(dev) for m in masks(t)],
+                    early_exit))
             if return_device:
                 keys = ["mel_post", "alignments", "mel_lengths"]
                 if "linear" in outs[0] and (split or return_linear):

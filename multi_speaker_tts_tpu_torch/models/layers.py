@@ -201,3 +201,17 @@ def prenet_apply(ws, x: torch.Tensor, dropout_rate: float, keep_masks=None):
         if dropout_rate > 0.0:
             x = torch.where(keep_masks[i], x / keep_prob, torch.zeros_like(x))
     return x
+
+
+def prenet_step(ws, dropout_rate: float, prenet_masks):
+    """The AR decode's prenet ``(frame, t, rows=None) -> prenet(frame)``
+    under step t's keep masks from ``prenet_masks(t)``, of the batch rows
+    ``rows`` alone where given."""
+    def prenet_fn(frame: torch.Tensor, t: int, rows: torch.Tensor | None = None):
+        masks = None
+        if dropout_rate > 0.0:
+            masks = prenet_masks(t)
+            masks = masks if rows is None else [m[rows] for m in masks]
+        return prenet_apply(ws, frame, dropout_rate, masks)
+
+    return prenet_fn

@@ -39,6 +39,7 @@ from multi_speaker_tts_tpu_torch.models.layers import (
     Dense,
     LSTMWeights,
     prenet_apply,
+    prenet_step,
     weight,
 )
 from multi_speaker_tts_tpu_torch.ops import decode_kernel
@@ -123,52 +124,38 @@ class Decoder(nn.Module):
         )
 
     def _ar_setup(self, memory, prenet_masks, compute_dtype):
-        """What every AR mode shares: the parameters, the memory keys, the
-        prenet at global step t (its keep masks from ``prenet_masks(t)``),
-        the int8 weights of ``Quantize_Int8`` and, under ``Pallas_Decode``,
-        the decode kernel's K-step chunk body. Where the kernel's gate and
-        the reference's both refuse (``decode_kernel.plain_reason``: past the
+        """The memory keys and the AR decode's chunk body, the one place the
+        route is chosen: under ``Pallas_Decode`` the decode kernel's
+        (:func:`..ops.decode_kernel.kernel_body`), else the plain loop's
+        (:func:`..ops.decoder_scan.plain_body`, int8 gates under
+        ``Quantize_Int8``), the prenet at global step t taking its keep
+        masks from ``prenet_masks(t)``. Where the kernel's gate and the
+        reference's both refuse (``decode_kernel.plain_reason``: past the
         kernel's limit on memory positions; on the card, bf16 past H 2048 on
         an H100, whose fused weights pass the reference's 80 MB), the plain
         loop's weights on the tensors' device instead, printing one
         ``[dispatch] decode -> plain`` line a process on the card."""
         keys = self.memory_layer(memory.float())
         ws = [(d.kernel, d.bias) for d in self.prenet]
-        rate = self.prenet_dropout
         p = self.params()
-
-        def prenet_fn(frame, t, rows=None):
-            masks = None
-            if rate > 0.0:
-                masks = prenet_masks(t)
-                masks = masks if rows is None else [m[rows] for m in masks]
-            return prenet_apply(ws, frame, rate, masks)
-
-        fused = dscan.quantize_fused(p) if self.quantize_int8 else None
-        segment_fn = None
         quantized = self.pallas_decode != "bf16"
-        S = memory.shape[1]
-        plain = (decode_kernel.plain_reason(p, [w.shape[1] for w, _ in ws], memory.shape[-1], S,
-                                            self.mel_dim, quantized,
+        plain = (decode_kernel.plain_reason(p, [w.shape[1] for w, _ in ws], memory.shape[-1],
+                                            memory.shape[1], self.mel_dim, quantized,
                                             decode_kernel.card_limits(memory.device),
                                             memory.is_cuda)
                  if self.pallas_decode else None)  # why the plain loop runs instead
-        if plain is not None:
-            if memory.is_cuda:
-                log_dispatch("decode", "plain", plain)
-        elif self.pallas_decode:
+        if self.pallas_decode and plain is None:
             # Every other refusal (where the reference launches its kernel)
             # raises at the launch on the card: no quiet fall-back.
             bundle = decode_kernel.prepare_bundle(p, ws, quantize=quantized)
-
-            def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K, th,
-                           rows=None):
-                return decode_kernel.decoder_ar_segment_kernel(
-                    bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K,
-                    th, prenet_masks, self.mel_dim, self.r, rate, rows=rows)
-        if segment_fn is None and fused is None:
-            fused = dscan.fused_weights(p.lstm, compute_dtype)
-        return p, keys, prenet_fn, fused, segment_fn
+            return keys, decode_kernel.kernel_body(bundle, prenet_masks, self.mel_dim, self.r,
+                                                   self.prenet_dropout)
+        if plain is not None and memory.is_cuda:
+            log_dispatch("decode", "plain", plain)
+        fused = (dscan.quantize_fused(p) if self.quantize_int8
+                 else dscan.fused_weights(p.lstm, compute_dtype))
+        return keys, dscan.plain_body(p, fused, prenet_step(ws, self.prenet_dropout, prenet_masks),
+                                      self.mel_dim, compute_dtype)
 
     def infer(self, memory, mask, max_steps: int, stop_threshold: float,
               stopped_init, prenet_masks, compute_dtype, early_exit: bool = True):
@@ -179,21 +166,16 @@ class Decoder(nn.Module):
         the stop logits."""
         B = memory.shape[0]
         n_steps = max_steps // self.r
-        p, keys, prenet_fn, fused, segment_fn = self._ar_setup(memory, prenet_masks,
-                                                               compute_dtype)
+        keys, body = self._ar_setup(memory, prenet_masks, compute_dtype)
+        args = (self.params(), keys, memory.float(), mask, n_steps)
         if early_exit:
             frames, stops, aligns, lengths = dscan.decoder_ar_early_exit(
-                p, keys, memory.float(), mask, n_steps, stop_threshold,
-                prenet_fn, self.mel_dim, compute_dtype, stopped_init=stopped_init,
-                chunk=self.early_exit_chunk, fused=fused, segment_fn=segment_fn,
-            )
+                *args, stop_threshold, body, self.mel_dim, stopped_init=stopped_init,
+                chunk=self.early_exit_chunk)
         else:
             lengths = None
-            frames, stops, aligns = dscan.decoder_ar_scan(
-                p, keys, memory.float(), mask, n_steps, prenet_fn, self.mel_dim,
-                compute_dtype, fused=fused, segment_fn=segment_fn,
-                chunk=self.early_exit_chunk,
-            )
+            frames, stops, aligns = dscan.decoder_ar_scan(*args, body, self.mel_dim,
+                                                          chunk=self.early_exit_chunk)
         mel = frames.transpose(0, 1).reshape(B, n_steps * self.r, self.mel_dim)
         return mel, stops.transpose(0, 1), aligns.transpose(0, 1), lengths
 
@@ -201,11 +183,10 @@ class Decoder(nn.Module):
                 prenet_masks, compute_dtype):
         """The streaming mode. ``state == "init"`` -> the zero decode state
         (carry, prev frame). A state dict {carry, prev, t0, stopped,
-        lengths} -> ``n_steps`` AR steps from it (the decode kernel's chunk
-        under ``Pallas_Decode``, else :func:`..ops.decoder_scan.decoder_ar_segment`),
-        the prenet masks drawn at the global step t0 + i: (mel (B,
-        n_steps*r, mel), stop logits (B, n_steps), aligns (B, n_steps, S),
-        {carry, prev, stopped, lengths})."""
+        lengths} -> ``n_steps`` AR steps from it through the chunk body of
+        :meth:`_ar_setup`, the prenet masks drawn at the global step t0 + i:
+        (mel (B, n_steps*r, mel), stop logits (B, n_steps), aligns (B,
+        n_steps, S), {carry, prev, stopped, lengths})."""
         B = memory.shape[0]
         if isinstance(state, str):
             if state != "init":
@@ -213,16 +194,10 @@ class Decoder(nn.Module):
             carry = dscan.initial_carry(B, memory.float(), len(self.lstm),
                                         self.lstm[0].w_hh.shape[0])
             return carry, memory.new_zeros((B, self.mel_dim), dtype=torch.float32)
-        p, keys, prenet_fn, fused, segment_fn = self._ar_setup(memory, prenet_masks,
-                                                               compute_dtype)
-        args = (keys, memory.float(), mask, state["carry"], state["prev"], state["t0"],
-                state["stopped"], state["lengths"])
-        if segment_fn is not None:
-            out = segment_fn(*args, n_steps, stop_threshold)
-        else:
-            out = dscan.decoder_ar_segment(p, fused, *args, n_steps, stop_threshold,
-                                           prenet_fn, self.mel_dim, compute_dtype)
-        carry, prev, stopped, lengths, f_k, s_k, w_k = out
+        keys, body = self._ar_setup(memory, prenet_masks, compute_dtype)
+        carry, prev, stopped, lengths, f_k, s_k, w_k = body(
+            keys, memory.float(), mask, state["carry"], state["prev"], state["t0"],
+            state["stopped"], state["lengths"], n_steps, stop_threshold)
         mel = f_k.transpose(0, 1).reshape(B, n_steps * self.r, self.mel_dim)
         return mel, s_k.transpose(0, 1), w_k.transpose(0, 1), {
             "carry": carry, "prev": prev, "stopped": stopped, "lengths": lengths}

@@ -33,7 +33,8 @@ width on an H100); past it the AR decode runs the plain loop
 (``models/tacotron.py`` ``Decoder._ar_setup``). The dropout masks are drawn by the wrapper from
 the caller's ``prenet_masks(t)`` in the plain loop's order, so the plain
 decode, the int8 plain decode and the kernel decode follow one trajectory
-under one seed.
+under one seed. :func:`kernel_body` hands the AR loops the kernel as their
+chunk body.
 """
 
 from __future__ import annotations
@@ -412,13 +413,11 @@ def decode_segment_plain(bundle: dict, keys, memory, mask, carry: DecoderCarry,
     """The kernel's arithmetic in plain torch. ``m1`` / ``m2``: (K, B, P)
     dropout scale masks (keep / keep_prob) or None. Returns (carry', prev',
     frames (K, B, mel*r), stops (K, B), aligns (K, B, S)). One row runs as
-    two, as in :func:`..decoder_scan.decoder_ar_segment`."""
+    two (:func:`..decoder_scan.one_row_as_two`)."""
     if prev.shape[0] == 1:
-        twice = torch.zeros(2, dtype=torch.long, device=prev.device)
-        *state, f, s, w = decode_segment_plain(
-            bundle, *(dscan.take_rows(x, twice) for x in (keys, memory, mask, carry, prev)),
-            *(None if m is None else m[:, twice] for m in (m1, m2)), K, mel_dim, r)
-        return (*(dscan.take_rows(x, twice[:1]) for x in state), *(x[:, :1] for x in (f, s, w)))
+        return dscan.one_row_as_two(lambda two: decode_segment_plain(
+            bundle, *(dscan.take_rows(x, two) for x in (keys, memory, mask, carry, prev)),
+            *(None if m is None else m[:, two] for m in (m1, m2)), K, mel_dim, r), prev.device)
     ap = dscan.AttentionParams(bundle["wq"], bundle["ck"], bundle["wloc"],
                                bundle["v"][:, None])
     (h0, h1), (c0, c1) = carry.h, carry.c
@@ -608,8 +607,8 @@ def decoder_ar_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCa
                               stop_threshold: float, prenet_masks: Callable | None,
                               mel_dim: int, r: int, prenet_dropout: float,
                               rows: torch.Tensor | None = None):
-    """Drop-in chunk body for ``decoder_scan.decoder_ar_early_exit``: the
-    same return tuple as ``decoder_ar_segment``, with the stopped / lengths
+    """The kernel's chunk of ``n_steps_seg`` steps: the same return tuple as
+    ``decoder_scan.decoder_ar_segment``, with the stopped / lengths
     bookkeeping applied, vectorised, to the segment's per-step stop logits.
     The state holds the batch rows ``rows`` (None: every row of
     ``prenet_masks``' draws), whose keep masks the chunk reads."""
@@ -620,3 +619,17 @@ def decoder_ar_segment_kernel(bundle: dict, keys, memory, mask, carry: DecoderCa
         bundle, keys, memory, mask, carry, prev, m1, m2, n_steps_seg, mel_dim, r)
     stopped, lengths = advance_stops(s_k, stopped, lengths, stop_threshold)
     return carry, prev, stopped, lengths, f_k, s_k, w_k
+
+
+def kernel_body(bundle: dict, prenet_masks: Callable | None, mel_dim: int, r: int,
+                prenet_dropout: float) -> Callable:
+    """The kernel's chunk body for the AR loops of ``decoder_scan``: each
+    call runs :func:`decoder_ar_segment_kernel`, looked up in this module
+    when it is called."""
+    def body(keys, memory, mask, carry, prev, t0, stopped, lengths, K, stop_threshold,
+             rows=None):
+        return decoder_ar_segment_kernel(bundle, keys, memory, mask, carry, prev, t0, stopped,
+                                         lengths, K, stop_threshold, prenet_masks, mel_dim, r,
+                                         prenet_dropout, rows=rows)
+
+    return body

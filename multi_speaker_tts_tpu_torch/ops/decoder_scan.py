@@ -6,16 +6,22 @@ One decoder frame (:func:`decoder_cell_step`): attention LSTM over
 attention (SAME 31-tap conv over [w_prev, cum_prev], f32 energies, -1e9
 mask), context, decoder LSTM stack, then the frame / stop projections. The
 loop here is a Python loop: the default decode and the weight-only int8
-reference (:func:`quantize_fused`, the int8 arm of :func:`_gates`). The
-K-step kernel of the ``*_pallas`` serving modes lives in
-:mod:`.decode_kernel` and enters :func:`decoder_ar_early_exit` as its
-``segment_fn``.
+reference (:func:`quantize_fused`, the int8 arm of :func:`_gates`).
 
-The prenet runs through the caller's ``prenet_fn(frame, t, rows)`` (t =
-global step; ``rows`` the batch rows the frame holds, None for every row),
-as the JAX module takes ``prenet_apply_fn``: its always-on dropout draws
-its keep masks per step for the whole batch, so tests can feed the JAX
-package's own draws and production draws from a ``torch.Generator``.
+The AR loops (:func:`decoder_ar_early_exit`, :func:`decoder_ar_scan`) run
+K steps at a time through a chunk body, whatever the route: ``(keys,
+memory, mask, carry, prev, t0, stopped, lengths, K, stop_threshold,
+rows=None) -> (carry, prev, stopped, lengths, frames (K, B, mel*r), stops
+(K, B), aligns (K, B, S))``, ``rows`` the batch rows the state holds (None
+for every row). :func:`plain_body` makes the plain loop's;
+:func:`..decode_kernel.kernel_body` the K-step kernel's of the ``*_pallas``
+serving modes; ``models/tacotron.py`` ``Decoder._ar_setup`` picks one.
+
+The plain body's prenet runs through the caller's ``prenet_fn(frame, t,
+rows)`` (t = global step; ``models.layers.prenet_step``), as the JAX module
+takes ``prenet_apply_fn``: its always-on dropout draws its keep masks per
+step for the whole batch, so tests can feed the JAX package's own draws and
+production draws from a ``torch.Generator``.
 
 The teacher-forced scan of training (:func:`decoder_tf_scan`) runs the same
 cell over prenet-ed teacher frames as a ``torch.autograd.Function`` with the
@@ -32,6 +38,7 @@ under autograd, is the tests' oracle.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -382,31 +389,34 @@ def take_rows(x, pos: torch.Tensor):
     return x.index_select(0, pos)
 
 
-def decoder_ar_segment(p: DecoderParams, fused: tuple, keys, memory, mask,
-                       carry: DecoderCarry, prev, t0: int, stopped, lengths,
-                       n_steps_seg: int, stop_threshold: float,
-                       prenet_fn: Callable, mel_dim: int, compute_dtype,
+def one_row_as_two(run, device):
+    """A chunk over a state of one row, run as over two equal rows, of
+    which the first is kept: a product of one row takes BLAS's
+    matrix-vector path, whose sums run in another order than a batch's, so
+    alone the row would decode other last bits than beside other rows.
+    ``run(two)`` runs the chunk on its batch-row inputs indexed by ``two``
+    (row 0 twice) and returns (*state, frames (K, 2, ...), stops, aligns)."""
+    two = torch.zeros(2, dtype=torch.long, device=device)
+    *state, f_k, s_k, w_k = run(two)
+    return (*(take_rows(x, two[:1]) for x in state), *(x[:, :1] for x in (f_k, s_k, w_k)))
+
+
+def decoder_ar_segment(p: DecoderParams, fused: tuple, prenet_fn: Callable, mel_dim: int,
+                       compute_dtype, keys, memory, mask, carry: DecoderCarry, prev, t0: int,
+                       stopped, lengths, n_steps_seg: int, stop_threshold: float,
                        rows: torch.Tensor | None = None):
     """``n_steps_seg`` AR steps from explicit state. Per step the decoded
     length grows for rows not yet stopped, THEN the stop flag updates (the
     JAX order). The state holds the batch rows ``rows`` (None: every row),
-    which ``prenet_fn(frame, t, rows)`` takes its keep masks for. Returns
-    (carry, prev, stopped, lengths, frames (K, B, mel*r), stop_logits (K,
-    B), aligns (K, B, S)).
-
-    A state of one row runs as two equal rows: a product of one row takes
-    BLAS's matrix-vector path, whose sums run in another order than a
-    batch's, so alone the row would decode other last bits than beside
-    other rows."""
+    which ``prenet_fn(frame, t, rows)`` takes its keep masks for; one row
+    runs as two (:func:`one_row_as_two`). Returns (carry, prev, stopped,
+    lengths, frames (K, B, mel*r), stop_logits (K, B), aligns (K, B, S))."""
     if prev.shape[0] == 1:
-        twice = torch.zeros(2, dtype=torch.long, device=prev.device)
-        *state, f_k, s_k, w_k = decoder_ar_segment(
-            p, fused, *(take_rows(x, twice) for x in (keys, memory, mask, carry, prev)), t0,
-            take_rows(stopped, twice), take_rows(lengths, twice), n_steps_seg,
-            stop_threshold, prenet_fn, mel_dim, compute_dtype,
-            twice if rows is None else rows[twice])
-        return (*(take_rows(x, twice[:1]) for x in state),
-                *(x[:, :1] for x in (f_k, s_k, w_k)))
+        return one_row_as_two(lambda two: decoder_ar_segment(
+            p, fused, prenet_fn, mel_dim, compute_dtype,
+            *(take_rows(x, two) for x in (keys, memory, mask, carry, prev)), t0,
+            take_rows(stopped, two), take_rows(lengths, two), n_steps_seg, stop_threshold,
+            two if rows is None else rows[two]), prev.device)
     f_k, s_k, w_k = [], [], []
     for i in range(n_steps_seg):
         pre_t = prenet_fn(prev, t0 + i, rows)
@@ -423,35 +433,32 @@ def decoder_ar_segment(p: DecoderParams, fused: tuple, keys, memory, mask,
             torch.stack(f_k), torch.stack(s_k), torch.stack(w_k))
 
 
-def decoder_ar_scan(p: DecoderParams, keys, memory, mask, n_steps: int,
-                    prenet_fn: Callable, mel_dim: int,
-                    compute_dtype=torch.float32, fused: tuple | None = None,
-                    segment_fn: Callable | None = None, chunk: int = 16):
+def plain_body(p: DecoderParams, fused: tuple, prenet_fn: Callable, mel_dim: int,
+               compute_dtype) -> Callable:
+    """The plain loop's chunk body: :func:`decoder_ar_segment` under
+    ``fused`` (:func:`fused_weights`, or :func:`quantize_fused` for the
+    weight-only int8 gates)."""
+    return functools.partial(decoder_ar_segment, p, fused, prenet_fn, mel_dim, compute_dtype)
+
+
+def decoder_ar_scan(p: DecoderParams, keys, memory, mask, n_steps: int, body: Callable,
+                    mel_dim: int, chunk: int = 16):
     """Fixed-length AR decode (constant work; the caller derives lengths
-    from the stop logits). ``segment_fn`` (see :func:`decoder_ar_early_exit`)
-    runs the steps in chunks of K through that chunk body, with no stop
-    check between them. Returns (frames (n_steps, B, mel*r), stops
-    (n_steps, B), aligns (n_steps, B, S))."""
+    from the stop logits): every row through the chunk ``body`` in chunks
+    of K, with no stop check between them. Returns (frames (n_steps, B,
+    mel*r), stops (n_steps, B), aligns (n_steps, B, S))."""
     B = mask.shape[0]
     carry = initial_carry(B, memory, len(p.lstm), p.lstm[0].hidden_size)
     prev = memory.new_zeros((B, mel_dim), dtype=torch.float32)
     stopped = torch.zeros(B, dtype=torch.bool, device=memory.device)
     lengths = torch.zeros(B, dtype=torch.int32, device=memory.device)
-    if segment_fn is not None:
-        K = chunk_size(n_steps, chunk)
-        parts = []
-        for t in range(0, n_steps, K):
-            carry, prev, stopped, lengths, *fsw = segment_fn(
-                keys, memory, mask, carry, prev, t, stopped, lengths, K, 0.5)
-            parts.append(fsw)
-        frames, stops, aligns = (torch.cat(x) for x in zip(*parts))
-        return frames, stops, aligns
-    if fused is None:
-        fused = fused_weights(p.lstm, compute_dtype)
-    *_, frames, stops, aligns = decoder_ar_segment(
-        p, fused, keys, memory, mask, carry, prev, 0, stopped, lengths, n_steps,
-        0.5, prenet_fn, mel_dim, compute_dtype,
-    )
+    K = chunk_size(n_steps, chunk)
+    parts = []
+    for t in range(0, n_steps, K):
+        carry, prev, stopped, lengths, *fsw = body(
+            keys, memory, mask, carry, prev, t, stopped, lengths, K, 0.5)
+        parts.append(fsw)
+    frames, stops, aligns = (torch.cat(x) for x in zip(*parts))
     return frames, stops, aligns
 
 
@@ -462,24 +469,12 @@ def chunk_size(n_steps: int, chunk: int) -> int:
 
 
 def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
-                          stop_threshold: float, prenet_fn: Callable,
-                          mel_dim: int,
-                          compute_dtype=torch.float32,
-                          stopped_init: torch.Tensor | None = None,
-                          chunk: int = 16, fused: tuple | None = None,
-                          segment_fn: Callable | None = None):
-    """AR decode in chunks of K steps until every row stopped (or n_steps),
-    each chunk over the rows still decoding and no others.
-
-    ``fused`` replaces the compute-dtype fused weights (e.g.
-    :func:`quantize_fused` for the int8 decode). ``segment_fn``, when given,
-    replaces :func:`decoder_ar_segment` as the chunk body: ``(keys, memory,
-    mask, carry, prev, t0, stopped, lengths, K, stop_threshold, rows=rows)
-    -> (carry, prev, stopped, lengths, frames, stops, aligns)``
-    (:func:`..decode_kernel.decoder_ar_segment_kernel` is one). ``rows`` is
-    the batch indices of the rows the state holds (None while it holds
-    every row): the chunk body takes their prenet keep masks, as the plain
-    body hands it to ``prenet_fn(frame, t, rows)``.
+                          stop_threshold: float, body: Callable, mel_dim: int,
+                          stopped_init: torch.Tensor | None = None, chunk: int = 16):
+    """AR decode in chunks of K steps through the chunk ``body`` until every
+    row stopped (or n_steps), each chunk over the rows still decoding and no
+    others: ``rows`` is then the batch indices of the rows the state holds
+    (None while it holds every row), whose prenet keep masks the body takes.
 
     Rows in ``stopped_init`` start stopped (batch-bucket PAD rows), decode
     length 0 and never run. The stop check is one host read per chunk; at
@@ -503,8 +498,6 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
                if stopped_init is None else stopped_init.to(torch.bool).clone())
     lengths = torch.zeros(B, dtype=torch.int32, device=memory.device)
     out_lengths = torch.zeros_like(lengths)
-    if fused is None and segment_fn is None:
-        fused = fused_weights(p.lstm, compute_dtype)
     K = chunk_size(n_steps, chunk)
     rows = torch.arange(B, device=memory.device)  # the batch rows the state holds
     t = 0
@@ -519,16 +512,9 @@ def decoder_ar_early_exit(p: DecoderParams, keys, memory, mask, n_steps: int,
             rows, carry, keys, memory, mask, prev, stopped, lengths = (
                 take_rows(x, pos) for x in (rows, carry, keys, memory, mask, prev, stopped,
                                             lengths))
-        sub = None if len(rows) == B else rows
-        if segment_fn is not None:
-            carry, prev, stopped, lengths, f_k, s_k, w_k = segment_fn(
-                keys, memory, mask, carry, prev, t, stopped, lengths, K, stop_threshold,
-                rows=sub)
-        else:
-            carry, prev, stopped, lengths, f_k, s_k, w_k = decoder_ar_segment(
-                p, fused, keys, memory, mask, carry, prev, t, stopped, lengths, K,
-                stop_threshold, prenet_fn, mel_dim, compute_dtype, sub,
-            )
+        carry, prev, stopped, lengths, f_k, s_k, w_k = body(
+            keys, memory, mask, carry, prev, t, stopped, lengths, K, stop_threshold,
+            rows=None if len(rows) == B else rows)
         for out, x in zip((frames, stops, aligns), (f_k, s_k, w_k)):
             out[t:t + K].index_copy_(1, rows, x)
         telemetry.count("decode.row_steps", len(rows) * K)  # the rows launched

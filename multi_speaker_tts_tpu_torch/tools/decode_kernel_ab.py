@@ -50,7 +50,7 @@ def main(argv=None) -> dict:
 
     from multi_speaker_tts_tpu_torch.inference import prenet_mask_sampler, resolve_device
     from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
-    from multi_speaker_tts_tpu_torch.models.layers import prenet_apply
+    from multi_speaker_tts_tpu_torch.models.layers import prenet_step
     from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
     from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
     from multi_speaker_tts_tpu_torch.ops.lstm import LSTMParams
@@ -74,32 +74,29 @@ def main(argv=None) -> dict:
 
     report = {"batch": B, "steps": T, "chunk": K, "S": S}
 
-    def early_exit_run(fused, bundle):
+    def early_exit_run(body_of):
         def run():
             masks = prenet_mask_sampler(hp, dev, 7, B)  # the same draws every run
-            segment_fn = None
-            if bundle is not None:
-                def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K_, th,
-                               rows=None):
-                    return dk.decoder_ar_segment_kernel(
-                        bundle, keys_, mem_, mask_, carry, prev, t0, stopped, lengths, K_, th,
-                        masks, MEL, R, DROP, rows=rows)
-            frames, *_ = dscan.decoder_ar_early_exit(
-                p, keys, memory, mask, T, 1.5,
-                lambda frame, t, rows: prenet_apply(
-                    prenet_ws, frame, DROP,
-                    [m if rows is None else m[rows] for m in masks(t)]), MEL,
-                torch.bfloat16, chunk=K, fused=fused, segment_fn=segment_fn)
+            frames, *_ = dscan.decoder_ar_early_exit(p, keys, memory, mask, T, 1.5,
+                                                     body_of(masks), MEL, chunk=K)
             return frames.mean()
 
         return run
 
+    def plain(fuse):  # the weights fused a run, as a synthesis call fuses them
+        return lambda masks: dscan.plain_body(p, fuse(), prenet_step(prenet_ws, DROP, masks),
+                                              MEL, torch.bfloat16)
+
+    def kernel(bundle):
+        return lambda masks: dk.kernel_body(bundle, masks, MEL, R, DROP)
+
     bundles = {q: dk.prepare_bundle(p, prenet_ws, quantize=q) for q in (True, False)}
     variants = {
-        "xla_bf16": (early_exit_run(None, None), None),
-        "xla_int8": (early_exit_run(dscan.quantize_fused(p), None), None),
-        "pallas_int8": (early_exit_run(None, bundles[True]), "int8"),
-        "pallas_bf16": (early_exit_run(None, bundles[False]), "bf16"),
+        "xla_bf16": (early_exit_run(plain(lambda: dscan.fused_weights(lstm, torch.bfloat16))),
+                     None),
+        "xla_int8": (early_exit_run(plain(lambda: dscan.quantize_fused(p))), None),
+        "pallas_int8": (early_exit_run(kernel(bundles[True])), "int8"),
+        "pallas_bf16": (early_exit_run(kernel(bundles[False])), "bf16"),
     }
     with torch.no_grad():
         for name, (run, mode) in variants.items():

@@ -15,7 +15,7 @@ from multi_speaker_tts_tpu.ops import decode_pallas as jdk
 from multi_speaker_tts_tpu.ops import decoder_scan as jdscan
 from multi_speaker_tts_tpu.ops.lstm import LSTMParams as JaxLSTMParams
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
-from multi_speaker_tts_tpu_torch.models.layers import prenet_apply
+from multi_speaker_tts_tpu_torch.models.layers import prenet_step
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
 from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
@@ -268,45 +268,30 @@ def test_bookkeeping_equals_the_step_loop_on_random_logits():
     assert torch.equal(got_s, want_s) and torch.equal(got_l, want_l)
 
 
-def _prenet_fn(t, dropout):
-    masks = _jax_masks(0, 0, dropout)
-
-    def prenet_fn(frame, step, rows=None):
-        keep = None
-        if dropout:
-            keep = [m if rows is None else m[rows] for m in masks(step)]
-        return prenet_apply(t["prenet"], frame, dropout, keep)
-
-    return prenet_fn
-
-
 @pytest.mark.parametrize("dropout", [0.0, 0.5])
 def test_early_exit_with_the_segment_hook_equals_the_plain_loop(setup, dropout):
-    """``decoder_ar_early_exit(segment_fn=...)`` (int8 decode segment)
-    against the plain loop with int8 gates, same masks: equal lengths, and
-    frames within the K-step bound over the steps both ran."""
+    """``decoder_ar_early_exit`` through the kernel's chunk body
+    (``kernel_body``, int8 decode segment) against it through the plain
+    loop's with int8 gates (``plain_body`` over ``quantize_fused``), same
+    masks: equal lengths, and frames within the K-step bound over the steps
+    both ran."""
     _, t = setup
     p, n_steps = t["p"], 24
+    masks = _jax_masks(0, 0, dropout)
+    plain_body = dscan.plain_body(p, dscan.quantize_fused(p),
+                                  prenet_step(t["prenet"], dropout, masks), MEL, torch.float32)
     # A threshold every row's stop logit crosses before step 20 of the bucket.
-    probe = dscan.decoder_ar_scan(p, t["keys"], t["memory"], t["mask"], n_steps,
-                                  _prenet_fn(t, dropout), MEL, fused=dscan.quantize_fused(p))
+    probe = dscan.decoder_ar_scan(p, t["keys"], t["memory"], t["mask"], n_steps, plain_body,
+                                  MEL)
     probs = torch.sigmoid(probe[1])
     th = float(probs[:20].max(dim=0).values.min()) * 0.999
-    common = dict(stop_threshold=th, prenet_fn=_prenet_fn(t, dropout), mel_dim=MEL,
-                  stopped_init=torch.tensor([False, False, True]), chunk=K)
+    common = dict(stop_threshold=th, mel_dim=MEL, stopped_init=torch.tensor([False, False, True]),
+                  chunk=K)
     plain = dscan.decoder_ar_early_exit(p, t["keys"], t["memory"], t["mask"], n_steps,
-                                        fused=dscan.quantize_fused(p), **common)
-    bundle = dk.prepare_bundle(p, t["prenet"])
-    masks = _jax_masks(0, 0, dropout)
-
-    def segment_fn(keys, memory, mask, carry, prev, t0, stopped, lengths, k, threshold,
-                   rows=None):
-        return dk.decoder_ar_segment_kernel(bundle, keys, memory, mask, carry, prev, t0,
-                                            stopped, lengths, k, threshold, masks, MEL, R,
-                                            dropout, rows=rows)
-
+                                        body=plain_body, **common)
+    kernel_body = dk.kernel_body(dk.prepare_bundle(p, t["prenet"]), masks, MEL, R, dropout)
     hooked = dscan.decoder_ar_early_exit(p, t["keys"], t["memory"], t["mask"], n_steps,
-                                         segment_fn=segment_fn, **common)
+                                         body=kernel_body, **common)
     assert torch.equal(hooked[3], plain[3])
     assert int(plain[3][2]) == 0 and 0 < int(plain[3][:2].max()) < n_steps
     for a, b in zip(hooked[:3], plain[:3]):

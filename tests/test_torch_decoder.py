@@ -18,7 +18,7 @@ from multi_speaker_tts_tpu.ops import decoder_scan as jdscan
 from multi_speaker_tts_tpu.ops.lstm import LSTMParams as JaxLSTMParams
 from multi_speaker_tts_tpu.train.checkpoints import load_compact
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
-from multi_speaker_tts_tpu_torch.models.layers import prenet_apply
+from multi_speaker_tts_tpu_torch.models.layers import prenet_step
 from multi_speaker_tts_tpu_torch.models.tacotron import Tacotron
 from multi_speaker_tts_tpu_torch.ops import decoder_scan as dscan
 from multi_speaker_tts_tpu_torch.weights import load_into, params_from_jax
@@ -100,17 +100,13 @@ def test_ar_decode_matches_with_jax_drawn_masks(setup, stopped_row1):
         jnp.asarray(keys.numpy()), jnp.asarray(memory.numpy()), jnp.asarray(mask.numpy()),
         N_STEPS, 0.5, rng, MEL, stopped_init=jnp.asarray(stopped_init), chunk=16,
     )
-    masks = _jax_keep_masks(rng, 2, [64, 64], rate, N_STEPS)
-    pws = [(d.kernel, d.bias) for d in taco.decoder.prenet]
-
-    def prenet_fn(frame, t, rows=None):
-        keep = [torch.from_numpy(m) for m in masks[t]]
-        return prenet_apply(pws, frame, rate, keep if rows is None else [m[rows] for m in keep])
-
+    masks = [[torch.from_numpy(m) for m in step]
+             for step in _jax_keep_masks(rng, 2, [64, 64], rate, N_STEPS)]
     with torch.no_grad():
         frames_t, stops_t, aligns_t, len_t = dscan.decoder_ar_early_exit(
-            taco.decoder.params(), keys, memory, mask, N_STEPS, 0.5, prenet_fn, MEL,
-            torch.float32, stopped_init=torch.from_numpy(stopped_init), chunk=16,
+            taco.decoder.params(), keys, memory, mask, N_STEPS, 0.5,
+            _body(taco, masks, "plain", rate), MEL, stopped_init=torch.from_numpy(stopped_init),
+            chunk=16,
         )
     np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
     assert 0 < int(len_t[0]) < N_STEPS, "the stop token should fire inside the bucket"
@@ -189,40 +185,59 @@ def rows_setup(setup):
     return taco, keys, memory, mask, masks, pad
 
 
-def _decode_rows(taco, keys, memory, mask, masks, stopped, route, rate, fixed=False):
-    """The early-exit loop over the given rows (``masks``: their keep masks
-    a step) through the plain chunk body or the kernel's on CPU tensors;
-    ``fixed``: the fixed-length scan through the chunk body instead, every
-    row in every chunk."""
+def _body(taco, masks, route, rate):
+    """The chunk body of ``route`` over ``masks`` (their keep masks a step):
+    the plain loop in f32 (``plain``) or with weight-only int8 gates
+    (``int8``), or the kernel's, bf16, on CPU tensors its plain version
+    (``kernel_body``)."""
     from multi_speaker_tts_tpu_torch.ops import decode_kernel as dk
 
     pws = [(d.kernel, d.bias) for d in taco.decoder.prenet]
     p = taco.decoder.params()
-
-    def prenet_fn(frame, t, rows=None):
-        keep = masks[t] if rows is None else [m[rows] for m in masks[t]]
-        return prenet_apply(pws, frame, rate, keep if rate else None)
-
-    segment_fn = None
     if route == "kernel_body":
-        bundle = dk.prepare_bundle(p, pws, quantize=False)
+        return dk.kernel_body(dk.prepare_bundle(p, pws, quantize=False), masks.__getitem__,
+                              MEL, R, rate)
+    fused = (dscan.quantize_fused(p) if route == "int8"
+             else dscan.fused_weights(p.lstm, torch.float32))
+    return dscan.plain_body(p, fused, prenet_step(pws, rate, masks.__getitem__), MEL,
+                            torch.float32)
 
-        def segment_fn(keys_, mem_, mask_, carry, prev, t0, stopped_, lengths, k, th,
-                       rows=None):
-            return dk.decoder_ar_segment_kernel(bundle, keys_, mem_, mask_, carry, prev, t0,
-                                                stopped_, lengths, k, th, lambda t: masks[t],
-                                                MEL, R, rate, rows=rows)
+
+def _decode_rows(taco, keys, memory, mask, masks, stopped, route, rate, fixed=False):
+    """The early-exit loop over the given rows (``masks``: their keep masks
+    a step) through the chunk body of ``route`` (:func:`_body`); ``fixed``:
+    the fixed-length scan through it instead, every row in every chunk."""
+    body = _body(taco, masks, route, rate)
+    p = taco.decoder.params()
     with torch.no_grad():
         if fixed:
-            return dscan.decoder_ar_scan(p, keys, memory, mask, N_STEPS, prenet_fn, MEL,
-                                         segment_fn=segment_fn, chunk=ROW_K)
-        return dscan.decoder_ar_early_exit(p, keys, memory, mask, N_STEPS, 0.5, prenet_fn, MEL,
-                                           torch.float32, stopped_init=stopped, chunk=ROW_K,
-                                           segment_fn=segment_fn)
+            return dscan.decoder_ar_scan(p, keys, memory, mask, N_STEPS, body, MEL, chunk=ROW_K)
+        return dscan.decoder_ar_early_exit(p, keys, memory, mask, N_STEPS, 0.5, body, MEL,
+                                           stopped_init=stopped, chunk=ROW_K)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+@pytest.mark.parametrize("route", ["plain", "int8"])
+def test_plain_scan_in_chunks_equals_one_segment(rows_setup, route, chunk):
+    """The fixed-length scan runs the plain body in chunks of K: its frames,
+    stop logits and alignments are bit-equal to ``decoder_ar_segment`` over
+    every step at once (the same state passes from step to step)."""
+    taco, keys, memory, mask, masks, _ = rows_setup
+    B, p = mask.shape[0], taco.decoder.params()
+    body = _body(taco, masks, route, 0.5)
+    with torch.no_grad():
+        got = dscan.decoder_ar_scan(p, keys, memory, mask, N_STEPS, body, MEL, chunk=chunk)
+        carry = dscan.initial_carry(B, memory, len(p.lstm), p.lstm[0].hidden_size)
+        *_, frames, stops, aligns = body(
+            keys, memory, mask, carry, memory.new_zeros((B, MEL)), 0,
+            torch.zeros(B, dtype=torch.bool), torch.zeros(B, dtype=torch.int32), N_STEPS, 0.5)
+    assert got[0].shape == (N_STEPS, B, MEL * R)
+    for g, w in zip(got, (frames, stops, aligns)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
-@pytest.mark.parametrize("route", ["plain", "kernel_body"])
+@pytest.mark.parametrize("route", ["plain", "int8", "kernel_body"])
 def test_compacted_rows_decode_as_each_row_alone(rows_setup, route, rate):
     """The loop drops rows as they stop (the longest row's last chunks run
     it alone): each row of a batch whose stops fall in different chunks
@@ -247,7 +262,7 @@ def test_compacted_rows_decode_as_each_row_alone(rows_setup, route, rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
-@pytest.mark.parametrize("route", ["plain", "kernel_body"])
+@pytest.mark.parametrize("route", ["plain", "int8", "kernel_body"])
 def test_compacted_rows_match_jax(setup, rows_setup, route, rate):
     """The compaction held against the JAX package, which runs every row of
     the batch in every chunk: the batch of ``rows_setup`` (stops in
@@ -285,7 +300,8 @@ def test_compacted_rows_match_jax(setup, rows_setup, route, rate):
     want = jdscan.decoder_ar_early_exit(
         _jax_params(dec), lambda f, k: jax_prenet_apply(ws, f, rate, k), project_fn,
         *(jnp.asarray(x.numpy()) for x in (keys, memory, mask)), N_STEPS, 0.5, rng, MEL,
-        stopped_init=jnp.asarray(pad.numpy()), chunk=ROW_K, segment_fn=segment_fn)
+        stopped_init=jnp.asarray(pad.numpy()), chunk=ROW_K, segment_fn=segment_fn,
+        fused=jdscan.quantize_fused(_jax_params(dec)) if route == "int8" else None)
     masks = [[torch.from_numpy(m) for m in step]
              for step in _jax_keep_masks(rng, B, [64, 64], rate, N_STEPS)]
     got = _decode_rows(taco, keys, memory, mask, masks, pad, route, rate)

@@ -16,7 +16,7 @@ from multi_speaker_tts_tpu.hparams import Recursive_Parse as JaxRecursiveParse
 from multi_speaker_tts_tpu.inference import Synthesizer as JaxSynthesizer
 from multi_speaker_tts_tpu.train.checkpoints import load_compact
 from multi_speaker_tts_tpu_torch.hparams import Recursive_Parse
-from multi_speaker_tts_tpu_torch.inference import Synthesizer
+from multi_speaker_tts_tpu_torch.inference import Synthesizer, prenet_mask_sampler
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and torch would otherwise start a thread per core in each of them.
@@ -88,3 +88,21 @@ def test_jax_synthesize_repeats(ckpt):
     assert first[1] == second[1]
     for a, b in zip(first[0], second[0]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_sampler_keeps_each_step_for_the_call():
+    """``prenet_mask_sampler(...)(t)`` is step t's draw whatever the order of
+    the calls: a repeated call and an out-of-order call return the same
+    tensors, equal to in-order draws from a fresh generator of the seed."""
+    hp = Recursive_Parse({"Decoder": {"Prenet": {"Dropout_Rate": 0.5, "Sizes": [8, 4]}}})
+    masks = prenet_mask_sampler(hp, torch.device("cpu"), 3, 2)
+    third = masks(2)  # out of order: steps 0 and 1 are drawn first
+    first = masks(0)
+    assert all(a is b for a, b in zip(masks(2), third))
+    assert all(a is b for a, b in zip(masks(0), first))
+    g = torch.Generator().manual_seed(3)
+    for t in range(4):
+        want = [torch.rand((2, s), generator=g) < 0.5 for s in (8, 4)]
+        got = masks(t)
+        assert [m.shape for m in got] == [(2, 8), (2, 4)]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), t
